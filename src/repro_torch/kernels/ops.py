@@ -1,0 +1,216 @@
+"""Wrappers of the port's CUDA kernels.
+
+Each wrapper checks device, dtype, shape and contiguity, then:
+
+* for tensors on the CPU, runs the plain version from ``kernels.ref``;
+* for CUDA tensors, launches its kernel on the current stream (built at
+  first use, see ``kernels.build``) or raises — there is no fallback;
+
+and counts its launches in ``LAUNCHES`` (one per kernel launch, nowhere
+else), so a run can show that the main path went through the kernels.
+
+The ragged FFN's two kernels read the per-tile maps ``tile_eid`` /
+``tile_slot`` directly: the Pallas version's DMA hold maps (``_hold_last``)
+have no counterpart here.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import ref
+
+#: Launch counts per kernel (plain integers; ``reset_launches`` zeroes them).
+LAUNCHES: Dict[str, int] = {"ragged_gateup": 0, "ragged_down": 0,
+                            "flash_decode_paged": 0}
+
+#: Row tile of the ragged kernels (compiled in).
+KERNEL_BM = 8
+#: Output columns per CTA of the ragged kernels (N must be a multiple).
+KERNEL_BN = 64
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _need(t: torch.Tensor, name: str, dtype, device, ndim: int) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_ragged(x, tile_eid, tile_slot, n_tiles, packed, scales, hi,
+                  bits, group, bm, names):
+    dev = x.device
+    _need(x, names[0], torch.bfloat16, dev, 2)
+    _need(tile_eid, "tile_eid", torch.int32, dev, 1)
+    _need(tile_slot, "tile_slot", torch.int32, dev, 1)
+    _need(n_tiles, "n_tiles", torch.int32, dev, 1)
+    if n_tiles.numel() != 1:
+        raise ValueError("n_tiles must hold one element")
+    Tt = tile_eid.shape[0]
+    if tile_slot.shape != (Tt,):
+        raise ValueError("tile_slot must match tile_eid")
+    R, K = x.shape
+    if R != Tt * bm:
+        raise ValueError(f"{names[0]} rows {R} != tiles {Tt} × bm {bm}")
+    if bits not in (2, 4, 8) or group % (8 // bits) or K % group:
+        raise ValueError(f"K={K} not tileable by group {group} at "
+                         f"{bits} bits")
+    N = None
+    for p, s in zip(packed, scales):
+        _need(p, "packed", torch.uint8, dev, 3)
+        _need(s, "scales", torch.bfloat16, dev, 3)
+        E = p.shape[0]
+        if p.shape[1] * (8 // bits) != K or s.shape != (E, K // group,
+                                                        p.shape[2]):
+            raise ValueError(f"lo weights {tuple(p.shape)}/{tuple(s.shape)} "
+                             f"do not match K={K}, bits={bits}, g={group}")
+        N = p.shape[2] if N is None else N
+        if p.shape[2] != N:
+            raise ValueError("lo weights disagree on N")
+    for h in hi:
+        if h is None:
+            continue
+        _need(h, "hi", torch.bfloat16, dev, 3)
+        if h.shape[1:] != (K, N):
+            raise ValueError(f"hi weights {tuple(h.shape)} != (n_hi, {K}, "
+                             f"{N})")
+    return Tt, K, N
+
+
+def _cuda_shape_rules(bm: int, N: int) -> None:
+    if bm != KERNEL_BM:
+        raise ValueError(f"the CUDA kernels are built for bm={KERNEL_BM}, "
+                         f"got {bm}")
+    if N % KERNEL_BN:
+        raise ValueError(f"N={N} not a multiple of {KERNEL_BN}")
+
+
+def ragged_gateup(xs, tile_eid, tile_slot, n_tiles, gate_packed, gate_scales,
+                  up_packed, up_scales, hi_gate=None, hi_up=None, *,
+                  bits: int, group: int, bm: int) -> torch.Tensor:
+    """h (R, F) = bf16(silu(xs·W_gate)) · bf16(xs·W_up) per row tile on its
+    tier (hi slot when ``tile_slot >= 0`` and a hi pool is given, else the
+    packed lo codes). Rows of tiles ``t >= n_tiles`` are not written on the
+    card."""
+    n_hi = 0 if hi_gate is None else hi_gate.shape[0]
+    if n_hi == 0:
+        hi_gate = hi_up = None
+    Tt, K, F = _check_ragged(xs, tile_eid, tile_slot, n_tiles,
+                             (gate_packed, up_packed),
+                             (gate_scales, up_scales), (hi_gate, hi_up),
+                             bits, group, bm, ("xs",))
+    if xs.device.type == "cpu":
+        return ref.ragged_gateup_ref(xs, tile_eid, tile_slot, gate_packed,
+                                     gate_scales, up_packed, up_scales,
+                                     hi_gate, hi_up, bits=bits, group=group,
+                                     bm=bm)
+    _cuda_shape_rules(bm, F)
+    from repro_torch.kernels import build
+    h = torch.empty((Tt * bm, F), dtype=torch.bfloat16, device=xs.device)
+    err = build.library("ragged_ffn").ragged_gateup(
+        xs.data_ptr(), tile_eid.data_ptr(), tile_slot.data_ptr(),
+        n_tiles.data_ptr(), gate_packed.data_ptr(), gate_scales.data_ptr(),
+        up_packed.data_ptr(), up_scales.data_ptr(), _ptr(hi_gate),
+        _ptr(hi_up), h.data_ptr(), Tt, K, F, n_hi, bits, group, _stream())
+    build.check(err, "ragged_gateup")
+    LAUNCHES["ragged_gateup"] += 1
+    return h
+
+
+def ragged_down(h, tile_eid, tile_slot, n_tiles, down_packed, down_scales,
+                hi_down=None, *, bits: int, group: int,
+                bm: int) -> torch.Tensor:
+    """y (R, D) = h · W_down per row tile on its tier."""
+    n_hi = 0 if hi_down is None else hi_down.shape[0]
+    if n_hi == 0:
+        hi_down = None
+    Tt, F, D = _check_ragged(h, tile_eid, tile_slot, n_tiles,
+                             (down_packed,), (down_scales,), (hi_down,),
+                             bits, group, bm, ("h",))
+    if h.device.type == "cpu":
+        return ref.ragged_down_ref(h, tile_eid, tile_slot, down_packed,
+                                   down_scales, hi_down, bits=bits,
+                                   group=group, bm=bm)
+    _cuda_shape_rules(bm, D)
+    from repro_torch.kernels import build
+    y = torch.empty((Tt * bm, D), dtype=torch.bfloat16, device=h.device)
+    err = build.library("ragged_ffn").ragged_down(
+        h.data_ptr(), tile_eid.data_ptr(), tile_slot.data_ptr(),
+        n_tiles.data_ptr(), down_packed.data_ptr(), down_scales.data_ptr(),
+        _ptr(hi_down), y.data_ptr(), Tt, F, D, n_hi, bits, group, _stream())
+    build.check(err, "ragged_down")
+    LAUNCHES["ragged_down"] += 1
+    return y
+
+
+def ragged_quant_ffn(xs, tile_eid, tile_slot, n_tiles, lo: dict,
+                     hi: Optional[dict], *, bits: int, group: int,
+                     bm: int) -> torch.Tensor:
+    """The ragged mixed-precision SwiGLU FFN (the two kernels in turn).
+    ``lo``: name → object with ``.packed``/``.scales`` (E, ...); ``hi``:
+    name → (n_hi, K, N) bf16, or None for an all-lo bank. Returns (R, D)."""
+    hg = hu = hd = None
+    if hi is not None and hi["w_gate"].shape[0] > 0:
+        hg, hu, hd = hi["w_gate"], hi["w_up"], hi["w_down"]
+    h = ragged_gateup(xs, tile_eid, tile_slot, n_tiles,
+                      lo["w_gate"].packed, lo["w_gate"].scales,
+                      lo["w_up"].packed, lo["w_up"].scales, hg, hu,
+                      bits=bits, group=group, bm=bm)
+    return ragged_down(h, tile_eid, tile_slot, n_tiles,
+                       lo["w_down"].packed, lo["w_down"].scales, hd,
+                       bits=bits, group=group, bm=bm)
+
+
+def flash_decode_paged(q, k, v, table, valid) -> torch.Tensor:
+    """q (B, H, hd); k/v (N, Hkv, bt, hd) block pools; table (B, nb) int32
+    (-1 = unallocated, masked by ``valid``); valid (B, nb·bt) bool →
+    (B, H, hd) bf16."""
+    dev = q.device
+    _need(q, "q", torch.bfloat16, dev, 3)
+    _need(k, "k", torch.bfloat16, dev, 4)
+    _need(v, "v", torch.bfloat16, dev, 4)
+    _need(table, "table", torch.int32, dev, 2)
+    _need(valid, "valid", torch.bool, dev, 2)
+    B, H, hd = q.shape
+    N, Hkv, bt, hd_k = k.shape
+    nb = table.shape[1]
+    if v.shape != k.shape or hd_k != hd or H % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not form a GQA attention")
+    if table.shape[0] != B or valid.shape != (B, nb * bt):
+        raise ValueError(f"table {tuple(table.shape)} / valid "
+                         f"{tuple(valid.shape)} != (B, nb) / (B, nb·bt)")
+    if dev.type == "cpu":
+        return ref.flash_decode_paged_ref(q, k, v, table, valid)
+    if hd % 32 or hd > 1024 or H // Hkv > 16:
+        raise ValueError(f"the CUDA kernel takes hd a multiple of 32 up to "
+                         f"1024 and at most 16 query heads per KV head")
+    from repro_torch.kernels import build
+    out = torch.empty_like(q)
+    err = build.library("flash_decode_paged").flash_decode_paged(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+        valid.data_ptr(), out.data_ptr(), B, H, Hkv, bt, hd, nb,
+        hd ** -0.5, _stream())
+    build.check(err, "flash_decode_paged")
+    LAUNCHES["flash_decode_paged"] += 1
+    return out

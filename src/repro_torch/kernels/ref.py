@@ -1,0 +1,159 @@
+"""Plain PyTorch versions of the port's kernels.
+
+They compute what the CUDA kernels compute, in the reference's arithmetic:
+the CPU tests hold them against the JAX oracles, and ``chip_smoke.py``
+holds the kernels against them on the card.
+
+* ``grouped_lo_gemm`` — the group-blocked quantized GEMM: per scale group
+  a partial dot with float32 results, the group's scale applied after.
+* ``ragged_gateup_ref`` / ``ragged_down_ref`` / ``ragged_quant_ffn_ref`` —
+  the ragged mixed-precision SwiGLU FFN over bm-row tiles, each tile on its
+  expert's hi bf16 slot (``tile_slot >= 0``) or its packed lo codes.
+* ``flash_decode_paged_ref`` — one-query GQA attention through a block
+  table: gather, float32 softmax with -inf masking.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.quant.qtensor import unpack_codes_int8
+
+# The plain versions run float32 products on the card as the oracle of the
+# kernels. TF32 keeps ~10 mantissa bits and a reduced-precision bf16 GEMM
+# reduction rounds partial sums to bf16; either would make the oracle less
+# exact than the kernels it judges, so both stay off wherever this module
+# is imported.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+torch.backends.cudnn.allow_tf32 = False
+
+#: Tiles dequantized at once by the plain GEMM (bounds its scratch memory at
+#: full model width: one tile of a 2048×768 expert is 6 MB in float32).
+_TILE_CHUNK = 32
+
+
+def grouped_lo_gemm(xg: torch.Tensor, packed: torch.Tensor,
+                    scales: torch.Tensor, bits: int, group: int,
+                    index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """xg (B, C, K) × codes (B, K//epb, N) / scales (B, K//g, N) → (B, C, N)
+    in xg's dtype: Σ_g scale_g · (x_g @ q_g) with float32 partial dots.
+    Products of bf16 activations and small integer codes are exact in
+    float32, so only the summation order differs from the reference.
+    ``index`` ((B,) long) gathers the weight rows per batch entry (tile →
+    expert) chunk by chunk instead of materializing the gather."""
+    B, C, K = xg.shape
+    N = packed.shape[-1]
+    G = K // group
+    out = torch.empty((B, C, N), dtype=xg.dtype, device=xg.device)
+    for b0 in range(0, B, _TILE_CHUNK):
+        b1 = min(B, b0 + _TILE_CHUNK)
+        sel = slice(b0, b1) if index is None else index[b0:b1]
+        codes = unpack_codes_int8(packed[sel], bits).to(torch.float32)
+        q = codes.reshape(b1 - b0, G, group, N)
+        x = xg[b0:b1].to(torch.float32).reshape(b1 - b0, C, G, group) \
+            .permute(0, 2, 1, 3)                          # (b, G, C, g)
+        part = torch.matmul(x, q)                         # (b, G, C, N)
+        acc = (part * scales[sel].to(torch.float32)[:, :, None, :]).sum(1)
+        out[b0:b1] = acc.to(xg.dtype)
+    return out
+
+
+def _dense_tiles(xt: torch.Tensor, w: torch.Tensor,
+                 index: torch.Tensor) -> torch.Tensor:
+    """bf16 (T, bm, K) × bf16 w[index] (T, K, N) with float32 accumulation,
+    rounded to bf16 once (the reference's bf16 einsum)."""
+    out = torch.empty((xt.shape[0], xt.shape[1], w.shape[-1]),
+                      dtype=xt.dtype, device=xt.device)
+    for b0 in range(0, xt.shape[0], _TILE_CHUNK):
+        b1 = min(xt.shape[0], b0 + _TILE_CHUNK)
+        out[b0:b1] = torch.matmul(xt[b0:b1].float(),
+                                  w[index[b0:b1]].float()).to(xt.dtype)
+    return out
+
+
+def _silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """bf16(silu(f32(g))) · u in bf16 — the reference epilogue."""
+    return torch.nn.functional.silu(g.float()).to(g.dtype) * u
+
+
+def _tiles(xs: torch.Tensor, bm: int) -> torch.Tensor:
+    R, K = xs.shape
+    if R % bm:
+        raise ValueError(f"rows {R} not a multiple of bm={bm}")
+    return xs.reshape(R // bm, bm, K)
+
+
+def _hi_rows(tile_slot: torch.Tensor, hi: Optional[torch.Tensor]):
+    if hi is None or hi.shape[0] == 0:
+        return None
+    return tile_slot >= 0
+
+
+def ragged_gateup_ref(xs, tile_eid, tile_slot, gate_packed, gate_scales,
+                      up_packed, up_scales, hi_gate=None, hi_up=None, *,
+                      bits: int, group: int, bm: int) -> torch.Tensor:
+    """h = bf16(silu(g)) · u over every tile: (R, K) → (R, F) bf16."""
+    xt = _tiles(xs, bm)
+    eid = tile_eid.long()
+    g = grouped_lo_gemm(xt, gate_packed, gate_scales, bits, group, eid)
+    u = grouped_lo_gemm(xt, up_packed, up_scales, bits, group, eid)
+    h = _silu_mul(g, u)
+    is_hi = _hi_rows(tile_slot, hi_gate)
+    if is_hi is not None:
+        safe = torch.clamp(tile_slot, 0, hi_gate.shape[0] - 1).long()
+        hh = _silu_mul(_dense_tiles(xt, hi_gate, safe),
+                       _dense_tiles(xt, hi_up, safe))
+        h = torch.where(is_hi[:, None, None], hh, h)
+    return h.reshape(xs.shape[0], h.shape[-1])
+
+
+def ragged_down_ref(h, tile_eid, tile_slot, down_packed, down_scales,
+                    hi_down=None, *, bits: int, group: int,
+                    bm: int) -> torch.Tensor:
+    """y = h · W_down per tile on its tier: (R, F) → (R, D) bf16."""
+    ht = _tiles(h, bm)
+    y = grouped_lo_gemm(ht, down_packed, down_scales, bits, group,
+                        tile_eid.long())
+    is_hi = _hi_rows(tile_slot, hi_down)
+    if is_hi is not None:
+        safe = torch.clamp(tile_slot, 0, hi_down.shape[0] - 1).long()
+        y = torch.where(is_hi[:, None, None],
+                        _dense_tiles(ht, hi_down, safe), y)
+    return y.reshape(h.shape[0], y.shape[-1])
+
+
+def ragged_quant_ffn_ref(xs, tile_eid, tile_slot, gate_packed, gate_scales,
+                         up_packed, up_scales, down_packed, down_scales,
+                         hi_gate=None, hi_up=None, hi_down=None, *,
+                         bits: int, group: int, bm: int) -> torch.Tensor:
+    """The whole ragged FFN: ``ragged_down_ref ∘ ragged_gateup_ref``."""
+    h = ragged_gateup_ref(xs, tile_eid, tile_slot, gate_packed, gate_scales,
+                          up_packed, up_scales, hi_gate, hi_up,
+                          bits=bits, group=group, bm=bm)
+    return ragged_down_ref(h, tile_eid, tile_slot, down_packed, down_scales,
+                           hi_down, bits=bits, group=group, bm=bm)
+
+
+def flash_decode_paged_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           table: torch.Tensor,
+                           valid: torch.Tensor) -> torch.Tensor:
+    """q (B, H, hd); k/v (N, Hkv, bt, hd) block pools; table (B, nb) int32
+    (-1 = unallocated, read as block 0 and masked by ``valid``); valid
+    (B, nb·bt) bool → (B, H, hd) in q's dtype. A row with no valid slot
+    returns zeros (the kernel's guarded online softmax does the same)."""
+    B, H, hd = q.shape
+    Hkv, bt = k.shape[1], k.shape[2]
+    nb = table.shape[1]
+    rep = H // Hkv
+    idx = torch.clamp(table.long(), min=0)
+    kl = k[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, nb * bt, hd).float()
+    vl = v[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, nb * bt, hd).float()
+    qg = q.float().reshape(B, Hkv, rep, hd)
+    logits = torch.matmul(qg, kl.transpose(-1, -2)) * hd ** -0.5
+    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)          # all-masked rows → 0
+    out = torch.matmul(p, vl)                  # (B, Hkv, rep, hd)
+    return out.reshape(B, H, hd).to(q.dtype)

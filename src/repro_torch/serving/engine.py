@@ -1,0 +1,384 @@
+"""Request-level continuous-batching engine of the port (paged KV, greedy).
+
+``submit(request)`` queues a request; ``step()`` admits queued requests
+into free slots with bucketed, masked prefills and advances every running
+request by one greedy token; ``drain()`` runs until the queue empties.
+
+* **Admission** is FIFO: the queue head picks a length bucket
+  (``bucket_base``·2^i, capped at ``max_len``); same-bucket requests behind
+  it join, up to ``prefill_rows`` rows and the free slots, each reserving
+  its worst-case KV blocks from the shared budget first.
+* **KV** lives in one block pool per attention position (see
+  ``serving.kvpool``): rows lease blocks through block tables; decode
+  appends lazily; block 0 takes vacant rows' writes.
+* **Decode** runs one step for all slots; vacant rows ride along masked out
+  of MoE dispatch and every count. Greedy argmax stays on the device and
+  one transfer per step brings the (B,) tokens and the per-row router
+  counts to the host, which go to ``backend.observe`` with the row mask.
+
+Not ported yet: prefix sharing, speculation, sampling, the QoS scheduler,
+chunked prefill, preemption and the watchdog.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import itertools
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.budget import UNBOUNDED, BudgetTracker
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.model import (decode_step_paged, init_paged_caches,
+                                      prefill_paged)
+from repro_torch.models.moe import RAGGED_BM
+from repro_torch.serving.kvpool import KVBlockPool, KVLease
+from repro_torch.serving.requests import Request
+
+#: Engine keys ``stats()`` adds to the backend's (the reference's schema;
+#: counters of features not ported stay 0).
+ENGINE_STAT_KEYS = (
+    "steps", "prefills", "admitted", "finished", "prefill_tokens",
+    "prefix_hit_tokens", "kv_cow_copies", "preemptions", "resumes",
+    "shed_requests", "downgraded", "chunk_prefills",
+    "prefill_compiles", "kv_blocks_in_use", "kv_bytes_in_use",
+    "prefix_trie_nodes", "spec_row_rounds", "watchdog_cancels")
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """The reference's field names, the subset this engine implements (its
+    paged, ragged, no-prefix-sharing configuration)."""
+    max_slots: int = 4
+    max_len: int = 512
+    capacity_factor: float = 2.0
+    bucket_base: int = 32
+    prefill_rows: Optional[int] = None       # None → min(4, max_slots)
+    block_tokens: int = 16
+    # Envelope shared by KV block reservations and the expert hi tier
+    # (None = unbounded).
+    hbm_budget_bytes: Optional[int] = None
+
+
+class RequestState(enum.Enum):
+    QUEUED = "queued"
+    RUNNING = "running"
+    FINISHED = "finished"
+
+
+class RequestHandle:
+    def __init__(self, rid: int, request: Request):
+        self.id = rid
+        self.request = request
+        self.state = RequestState.QUEUED
+        self.slot: Optional[int] = None
+        self.tokens: List[int] = []
+        self.submit_s = 0.0
+        self.ttft_s = 0.0
+        self.finish_s = 0.0
+        self.lease: Optional[KVLease] = None
+        self.expert_counts: Optional[Dict[str, np.ndarray]] = None
+
+    def token_array(self) -> np.ndarray:
+        return np.asarray(self.tokens, np.int32)
+
+
+class InferenceEngine:
+    """Continuous-batching serving loop over a residency backend, on
+    ``device`` (``cuda`` unless ``device="cpu"`` is passed)."""
+
+    def __init__(self, cfg: ArchConfig, params: Dict, backend,
+                 ecfg: Optional[EngineConfig] = None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.backend = backend
+        self.ecfg = ecfg if ecfg is not None else EngineConfig()
+        e = self.ecfg
+        if backend.device != self.device:
+            raise ValueError(f"backend on {backend.device}, engine on "
+                             f"{self.device}")
+        n = e.max_slots
+        self._bt = e.block_tokens
+        self._C_pad = -(-e.max_len // self._bt) * self._bt
+        self._nb = self._C_pad // self._bt
+        n_blocks = 1 + n * self._nb        # trash block + every slot full
+        a = cfg.attn
+        block_bytes = 2 * self._bt * a.n_kv_heads * a.head_dim * 2 * \
+            cfg.n_superblocks()
+        self.budget = BudgetTracker(UNBOUNDED if e.hbm_budget_bytes is None
+                                    else e.hbm_budget_bytes)
+        self.pool = KVBlockPool(n_blocks, self._bt, block_bytes,
+                                budget=self.budget.view("kv"))
+        self.banks = backend.materialize_banks(
+            cfg, params, self.pool.capacity_bytes, budget=self.budget)
+        self.caches = init_paged_caches(cfg, n_blocks, self._bt, self.device)
+        self.slots: List[Optional[RequestHandle]] = [None] * n
+        self.pos = np.zeros(n, np.int64)
+        self.tokens = np.zeros(n, np.int64)     # vacant rows replay token 0
+        self.queue: deque = deque()
+        self._ids = itertools.count()
+        ladder, v = [], e.bucket_base
+        while v < e.max_len:
+            ladder.append(v)
+            v *= 2
+        ladder.append(e.max_len)
+        self.buckets = tuple(ladder)
+        self._prefill_rows = e.prefill_rows if e.prefill_rows is not None \
+            else min(4, n)
+        self.prefill_shapes: set = set()
+        self.last_row_counts: Dict[str, np.ndarray] = {}  # last forward
+        self.ttfts: List[float] = []
+        self.decode_times: List[float] = []
+        self._tpot_sum = 0.0
+        self._tpot_tokens = 0
+        self._disp_active_sum = 0.0
+        self._disp_pad_sum = 0.0
+        self._disp_layers = 0
+        self.counters = {k: 0 for k in ("steps", "prefills", "admitted",
+                                        "finished", "prefill_tokens")}
+
+    # ------------------------------------------------------------------
+    def submit(self, request: Request) -> RequestHandle:
+        plen = int(np.asarray(request.tokens).shape[-1])
+        if plen > self.buckets[-1]:
+            raise ValueError(f"prompt of {plen} tokens exceeds the largest "
+                             f"prefill bucket {self.buckets[-1]}")
+        worst = (1 + self._quota_blocks(plen, request.max_new_tokens)) * \
+            self.pool.block_bytes
+        if worst > self.budget.cap:
+            raise ValueError(f"request needs {worst} bytes of KV worst-case "
+                             f"but the envelope caps at {self.budget.cap}")
+        h = RequestHandle(next(self._ids), request)
+        h.submit_s = time.perf_counter()
+        self.queue.append(h)
+        return h
+
+    def _quota_blocks(self, plen: int, max_new: int) -> int:
+        return -(-min(self.ecfg.max_len, plen + max_new) // self._bt)
+
+    def _bucket_len(self, plen: int) -> int:
+        for b in self.buckets:
+            if b >= plen:
+                return b
+        raise ValueError(f"prompt of {plen} tokens exceeds every bucket")
+
+    def _dev(self, a, dtype=torch.int64) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def _fetch(self, amax: torch.Tensor, counts: Dict[str, torch.Tensor]):
+        """ONE device→host transfer: the (B,) greedy tokens and the
+        per-row router counts of every MoE position."""
+        keys = sorted(counts)
+        flat = torch.cat([amax.to(torch.int32).reshape(-1)] +
+                         [counts[k].to(torch.int32).reshape(-1)
+                          for k in keys]).cpu().numpy()
+        B = amax.shape[0]
+        out, off = {}, B
+        for k in keys:
+            n = counts[k].numel()
+            out[k] = flat[off:off + n].reshape(tuple(counts[k].shape))
+            off += n
+        return flat[:B], out
+
+    # ------------------------------------------------------------------
+    def _admit(self, finished: List[RequestHandle]) -> None:
+        while self.queue:
+            free = [i for i, h in enumerate(self.slots) if h is None]
+            if not free:
+                return
+            R = self._prefill_rows
+            limit = min(len(free), R)
+            group, skipped, bucket = [], [], None
+            while self.queue and len(group) < limit:
+                h = self.queue.popleft()
+                plen = int(np.asarray(h.request.tokens).reshape(-1).shape[0])
+                b = self._bucket_len(plen)
+                if bucket is None:
+                    bucket = b
+                elif b != bucket:
+                    skipped.append(h)
+                    continue
+                quota = self._quota_blocks(plen, h.request.max_new_tokens)
+                if not self.pool.try_reserve_quota(quota):
+                    skipped.append(h)
+                    if not group:
+                        break
+                    continue
+                h.lease = KVLease(self.pool, self._nb, quota)
+                group.append(h)
+            self.queue.extendleft(reversed(skipped))
+            if not group:
+                return
+            self._prefill_group(group, free, bucket, finished)
+
+    def _prefill_group(self, group, free, bucket, finished) -> None:
+        R, G = self._prefill_rows, len(group)
+        lengths = np.zeros(R, np.int64)
+        tables = np.full((R, self._nb), -1, np.int32)
+        toks = np.zeros((R, bucket), np.int64)
+        for r, h in enumerate(group):
+            p = np.asarray(h.request.tokens).reshape(-1)
+            lengths[r] = p.shape[0]
+            toks[r, :p.shape[0]] = p
+            for j in range(-(-p.shape[0] // self._bt)):
+                h.lease.ensure(j)
+            tables[r] = h.lease.table
+        t0 = time.perf_counter()
+        logits, counts = prefill_paged(
+            self.params, self.cfg, self._dev(toks), self.caches,
+            self._dev(tables, torch.int32), self._dev(np.zeros(R)),
+            self._dev(lengths), bank=self.banks,
+            capacity_factor=self.ecfg.capacity_factor, per_row_counts=True)
+        amax, counts_np = self._fetch(torch.argmax(logits, -1), counts)
+        dt = time.perf_counter() - t0
+        self.prefill_shapes.add((R, bucket))
+        self.last_row_counts = counts_np
+        row_valid = np.zeros(R, bool)
+        row_valid[:G] = True
+        self.backend.observe(counts_np, dt, prefill=True, row_valid=row_valid)
+        now = time.perf_counter()
+        for r, h in enumerate(group):
+            slot = free[r]
+            tok = int(amax[r])
+            h.tokens.append(tok)
+            h.ttft_s = now - h.submit_s
+            self.ttfts.append(h.ttft_s)
+            h.state = RequestState.RUNNING
+            h.slot = slot
+            h.expert_counts = {k: v[:, r].astype(np.int64)
+                               for k, v in counts_np.items()}
+            self.slots[slot] = h
+            self.pos[slot] = lengths[r]
+            self.tokens[slot] = tok
+            self.counters["admitted"] += 1
+            self.counters["prefill_tokens"] += int(lengths[r])
+            if self._done(h):
+                self._finish(h, finished)
+        self.counters["prefills"] += 1
+
+    def _done(self, h: RequestHandle) -> bool:
+        req = h.request
+        if req.eos_token_id is not None and h.tokens and \
+                h.tokens[-1] == req.eos_token_id:
+            return True
+        if len(h.tokens) >= req.max_new_tokens:
+            return True
+        return int(self.pos[h.slot]) >= self.ecfg.max_len
+
+    def _finish(self, h: RequestHandle, finished) -> None:
+        h.state = RequestState.FINISHED
+        h.finish_s = time.perf_counter()
+        self.slots[h.slot] = None
+        h.lease.close()
+        self.counters["finished"] += 1
+        finished.append(h)
+
+    # ------------------------------------------------------------------
+    def step(self) -> List[RequestHandle]:
+        finished: List[RequestHandle] = []
+        self._admit(finished)
+        active = [(i, h) for i, h in enumerate(self.slots) if h is not None]
+        if active:
+            self._decode(active, finished)
+        self.backend.tick()
+        return finished
+
+    def _decode(self, active, finished) -> None:
+        n = self.ecfg.max_slots
+        row_valid = np.zeros(n, bool)
+        wblk = np.zeros(n, np.int64)       # vacant rows → trash block
+        woff = np.zeros(n, np.int64)
+        for i, h in active:
+            row_valid[i] = True
+            s = int(self.pos[i]) % self._C_pad
+            phys, cow = h.lease.ensure(s // self._bt)
+            assert cow < 0, "copy-on-write needs prefix sharing"
+            wblk[i], woff[i] = phys, s % self._bt
+        tables = np.full((n, self._nb), -1, np.int32)
+        for i, h in active:
+            tables[i] = h.lease.table
+        t0 = time.perf_counter()
+        logits, counts = decode_step_paged(
+            self.params, self.cfg, self._dev(self.tokens),
+            self._dev(self.pos), self.caches, self._dev(tables, torch.int32),
+            self._dev(wblk), self._dev(woff), bank=self.banks,
+            capacity_factor=self.ecfg.capacity_factor,
+            row_valid=self._dev(row_valid, torch.bool), per_row_counts=True)
+        amax, counts_np = self._fetch(torch.argmax(logits, -1), counts)
+        dt = time.perf_counter() - t0
+        self.last_row_counts = counts_np
+        self._note_dispatch(counts_np)
+        self.backend.observe(counts_np, dt, prefill=False, row_valid=row_valid)
+        self.decode_times.append(dt)
+        self._tpot_sum += dt * len(active)
+        self._tpot_tokens += len(active)
+        for i, h in active:
+            tok = int(amax[i])
+            h.tokens.append(tok)
+            for k, v in counts_np.items():
+                h.expert_counts[k] += v[:, i]
+            self.tokens[i] = tok
+            self.pos[i] += 1
+            if self._done(h):
+                self._finish(h, finished)
+        self.counters["steps"] += 1
+
+    def _note_dispatch(self, counts_np: Dict[str, np.ndarray]) -> None:
+        """Host mirror of the dispatch gauges: active experts per layer and
+        the ragged layout's intra-tile padding."""
+        E = self.cfg.moe.num_experts
+        for v in counts_np.values():
+            per = v.sum(axis=1).reshape(-1, E).astype(np.float64)
+            routed = per.sum(axis=1)
+            live = routed > 0
+            if not live.any():
+                continue
+            per, routed = per[live], routed[live]
+            tiles = np.ceil(per / RAGGED_BM).sum(axis=1)
+            self._disp_active_sum += float((per > 0).sum())
+            self._disp_pad_sum += float(
+                (1.0 - routed / np.maximum(tiles * RAGGED_BM, 1.0)).sum())
+            self._disp_layers += int(per.shape[0])
+
+    def drain(self) -> List[RequestHandle]:
+        done: List[RequestHandle] = []
+        idle = 0
+        while self.queue or any(h is not None for h in self.slots):
+            before = len(self.queue)
+            done.extend(self.step())
+            running = any(h is not None for h in self.slots)
+            idle = idle + 1 if (not running and
+                                len(self.queue) == before) else 0
+            if idle > 256:
+                raise RuntimeError("admission stalled: queued requests "
+                                   "cannot reserve KV under the envelope")
+        return done
+
+    def flush(self) -> None:
+        self.backend.flush()
+
+    def stats(self) -> Dict[str, float]:
+        out = dict(self.backend.stats())
+        out.update({k: 0.0 for k in ENGINE_STAT_KEYS})
+        if self.ttfts:
+            out["ttft_s"] = float(np.mean(self.ttfts))
+        if self._tpot_tokens:
+            out["tpot_s"] = self._tpot_sum / self._tpot_tokens
+        out.update({k: float(v) for k, v in self.counters.items()})
+        out["prefill_compiles"] = float(len(self.prefill_shapes))
+        if self._disp_layers:
+            out["active_experts"] = self._disp_active_sum / self._disp_layers
+            out["dispatch_pad_ratio"] = self._disp_pad_sum / \
+                self._disp_layers
+        out["kv_blocks_in_use"] = float(self.pool.blocks_in_use)
+        out["kv_bytes_in_use"] = float(self.pool.bytes_in_use)
+        return out
+
+    def device_bytes(self) -> int:
+        return self.backend.device_bytes()
