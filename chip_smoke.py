@@ -7,14 +7,18 @@ Phases (each prints one line; any failure exits non-zero):
 
 1. card     — name and power limit (nvidia-smi), torch and CUDA versions;
 2. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels  — each kernel against its plain PyTorch version on the card at
-              the main path's shapes (Qwen3-30B-A3B width), with times, the
-              bound and the library yardstick;
+3. kernels  — each of the six kernels against its plain PyTorch version on
+              the card at the paths' shapes (Qwen3-30B-A3B width), with
+              times, the bound and the library yardstick;
 4. model    — a 2-layer full-width model, same seeded weights on the CPU
               (plain versions) and on the card (kernels): one 32-token
-              prefill and 4 teacher-forced decode steps, logits compared;
+              prefill and 4 teacher-forced decode steps, logits compared,
+              for the paged/ragged and the dense/padded path; then padded
+              against ragged dispatch on the card;
 5. serving  — the 8-layer full-width model served by ``static`` and
-              ``dynaexq`` (8 requests, 64–256-token prompts, 32 new tokens).
+              ``dynaexq`` (8 requests, 64–256-token prompts, 32 new tokens)
+              on each path: paged KV with ragged dispatch, and dense KV rows
+              with padded dispatch.
 
 The last two lines are a JSON object with one entry per kernel and the
 contract line ``{"ok": true, "device": {...}}``. The script imports nothing
@@ -43,6 +47,16 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor rate
 ARCH = "qwen3-moe-30b-a3b"
 SERVE_LAYERS = 8               # of 48: bf16 host masters 9.7 GB, not 58 GB
 CHECK_LAYERS = 2
+#: The two served paths: (KV layout paged?, MoE dispatch) → the kernels
+#: each must launch, and the kernels it must not.
+PATHS = {
+    "paged/ragged": (True, "ragged",
+                     ("ragged_gateup", "ragged_down", "flash_decode_paged"),
+                     ("grouped_lo_matmul", "flash_decode")),
+    "dense/padded": (False, "padded",
+                     ("grouped_lo_matmul", "flash_decode"),
+                     ("ragged_gateup", "ragged_down", "flash_decode_paged")),
+}
 
 RESULTS = {}                   # kernel name → JSON entry
 
@@ -215,6 +229,153 @@ def _ffn_case(name, gen, dev, *, bits, T, lo_w, hi_w, slot_owner, tol_rel):
     return out
 
 
+def _gqmm_case(name, gen, dev, qt, C, tol_rel):
+    """The padded dispatch's grouped GEMM over all E experts of one lo
+    weight at capacity C against the plain version. Returns a dict of the
+    measurements."""
+    from repro_torch.kernels import ops, ref
+    E, KP, N = qt.packed.shape
+    bits, group = qt.bits, qt.group_size
+    K = KP * (8 // bits)
+    xg = torch.randn((E, C, K), generator=gen, device=dev).to(torch.bfloat16)
+
+    def run_k():
+        return ops.grouped_lo_matmul(xg, qt.packed, qt.scales, bits, group)
+
+    def run_p():
+        return ref.grouped_lo_gemm(xg, qt.packed, qt.scales, bits, group)
+
+    want, got = run_p(), run_k()
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = tol_rel * float(want.float().abs().max())
+    ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+    # Every expert's codes and scales (the padded layout reads them all),
+    # the activations once, the output once.
+    nbytes = xg.numel() * 2 + qt.packed.numel() + qt.scales.numel() * 2 + \
+        E * C * N * 2
+    out = {"ok": ok, "err": err, "tol": tol, "ms": time_ms(run_k),
+           "plain_ms": time_ms(run_p, iters=3, warmup=1),
+           "bound": bound(nbytes, 2 * E * C * K * N)}
+    log("kernels", f"grouped_lo_matmul {name} E={E} C={C} K={K} N={N}: err "
+                   f"{err:.3g} (tol {tol:.3g}) {out['ms']:.4f} ms plain "
+                   f"{out['plain_ms']:.3f} ms bound {out['bound'][0]:.4f} ms "
+                   f"({out['bound'][1]}) | {'ok' if ok else 'FAIL'}")
+    return out
+
+
+def _kernels_dense_decode(cfg, gen, dev) -> None:
+    """The dense flash decode over the cache's head-major rows, seen as
+    (B, S, Hkv, hd) without a copy, against the plain version and SDPA."""
+    from repro_torch.kernels import ops, ref
+    B, H, Hkv, hd = 8, cfg.attn.n_heads, cfg.attn.n_kv_heads, \
+        cfg.attn.head_dim
+    S = 288                      # the serving phase's max_len
+    ck = torch.randn((B, Hkv, S, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    cv = torch.randn((B, Hkv, S, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = ck.transpose(1, 2), cv.transpose(1, 2)
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+    lengths[0] = S                             # one full row
+    valid = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+
+    def fd_k():
+        return ops.flash_decode(q, k, v, valid)
+
+    def fd_p():
+        return ref.flash_decode_ref(q, k, v, valid)
+
+    o_k, o_p = fd_k(), fd_p()
+    masked = valid.clone()
+    masked[1] = False                          # an all-masked row gives 0
+    m_k = ops.flash_decode(q, k, v, masked)
+    m_p = ref.flash_decode_ref(q, k, v, masked)
+    torch.cuda.synchronize()
+    e_fd = max(float((o_k.float() - o_p.float()).abs().max()),
+               float((m_k.float() - m_p.float()).abs().max()))
+    # Tolerance: float32 online softmax against float32 softmax, output
+    # rounded to bf16 — within 2 bf16 ulps of the output magnitude.
+    tol_fd = 2.0 ** -7 * float(o_p.float().abs().max())
+    ok = bool(torch.isfinite(o_k.float()).all()) and e_fd <= tol_fd and \
+        bool((m_k[1] == 0).all())
+    kl = ck.repeat_interleave(H // Hkv, dim=1)
+    vl = cv.repeat_interleave(H // Hkv, dim=1)
+    mask = valid[:, None, None, :]
+
+    def fd_lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None, :], kl, vl, attn_mask=mask)
+
+    n_valid = int(valid.sum().item())
+    nbytes = q.numel() * 2 * 2 + n_valid * 2 * Hkv * hd * 2 + valid.numel()
+    b = bound(nbytes, 4 * n_valid * H * hd)
+    RESULTS["flash_decode"] = {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:31",
+        "launches": 0, "max_abs_err": e_fd, "ms": time_ms(fd_k),
+        "plain_ms": time_ms(fd_p), "bound_ms": b[0], "bound_by": b[1],
+        "library_ms": time_ms(fd_lib)}
+    r = RESULTS["flash_decode"]
+    log("kernels", f"flash_decode B={B} H={H} Hkv={Hkv} hd={hd} S={S} "
+                   f"(strided cache view, one all-masked row): err {e_fd:.3g}"
+                   f" (tol {tol_fd:.3g}) {r['ms']:.4f} ms plain "
+                   f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms sdpa "
+                   f"{r['library_ms']:.4f} ms | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_decode disagrees with its plain version")
+
+
+def _kernels_quant_matmul(gen, dev, tol_rel) -> None:
+    """The plain quantized GEMM at the reference's benchmark shape, bits
+    8/4/2, against the plain version (dequantize-then-dot)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant.qtensor import quantize
+    M, K, N = 128, 2048, 768
+    w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(
+        torch.bfloat16)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    res = {}
+    for bits in (8, 4, 2):
+        qt = quantize(w, bits, 64)
+
+        def run_k():
+            return ops.quant_matmul_op(x, qt)
+
+        def run_p():
+            return ref.quant_matmul_ref(x, qt.packed, qt.scales, bits, 64)
+
+        want, got = run_p(), run_k()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = tol_rel * float(want.float().abs().max())
+        nbytes = x.numel() * 2 + qt.packed.numel() + qt.scales.numel() * 2 + \
+            M * N * 2
+        res[bits] = {"ok": bool(torch.isfinite(got.float()).all())
+                     and err <= tol, "err": err, "ms": time_ms(run_k),
+                     "plain_ms": time_ms(run_p),
+                     "bound": bound(nbytes, 2 * M * K * N)}
+        r = res[bits]
+        log("kernels", f"quant_matmul int{bits} M={M} K={K} N={N}: err "
+                       f"{err:.3g} (tol {tol:.3g}) {r['ms']:.4f} ms plain "
+                       f"{r['plain_ms']:.4f} ms bound {r['bound'][0]:.4f} ms "
+                       f"({r['bound'][1]}) | {'ok' if r['ok'] else 'FAIL'}")
+    if not all(r["ok"] for r in res.values()):
+        raise AssertionError("quant_matmul disagrees with its plain version")
+    r = res[4]
+    RESULTS["quant_matmul"] = {
+        "name": "quant_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul.py:79",
+        "launches": 0, "max_abs_err": max(v["err"] for v in res.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+        "bound_by": r["bound"][1], "library_ms": None}
+    log("kernels", "quant_matmul yardstick: none, no single library call "
+                   "computes a dequantize-then-multiply")
+
+
 def phase_kernels() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
@@ -238,9 +399,18 @@ def phase_kernels() -> None:
     # differ only in summation order and in where a bf16 rounding flips —
     # a few bf16 ulps (2^-8 relative) at the largest magnitude.
     tol = 2.0 ** -6
-    cases = {}
+    cases, gq = {}, {}
     for bits in (4, 2, 8):
         lo = {n: quantize(w, bits, group) for n, w in dense.items()}
+        # The padded dispatch's capacities: 8 at an 8-slot decode, 136 at a
+        # 4-row × 256-token prefill.
+        gq[f"int{bits} gate C=8"] = _gqmm_case(
+            f"int{bits} gate/up decode", gen, dev, lo["w_gate"], 8, tol)
+        if bits == 4:
+            gq["int4 down C=8"] = _gqmm_case("int4 down decode", gen, dev,
+                                             lo["w_down"], 8, tol)
+            gq["int4 gate C=136"] = _gqmm_case("int4 gate/up prefill", gen,
+                                               dev, lo["w_gate"], 136, tol)
         if bits == 4:
             cases["decode"] = _ffn_case("int4 decode B=8 mixed", gen, dev,
                                         bits=4, T=8, lo_w=lo, hi_w=hi_w,
@@ -277,6 +447,21 @@ def phase_kernels() -> None:
             "bound_by": d[f"bound_{key}"][1], "library_ms": None}
     log("kernels", "ragged FFN yardstick: none, no single library call "
                    "computes the mixed-precision ragged FFN")
+    bad = [k for k, c in gq.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"grouped_lo_matmul disagrees: {bad}")
+    d = gq["int4 gate C=8"]
+    RESULTS["grouped_lo_matmul"] = {
+        "name": "grouped_lo_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grouped_quant_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul.py:131",
+        "launches": 0, "max_abs_err": max(c["err"] for c in gq.values()),
+        "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound"][0],
+        "bound_by": d["bound"][1], "library_ms": None}
+    log("kernels", "grouped_lo_matmul yardstick: none, no single library "
+                   "call computes a grouped quantized GEMM")
+    _kernels_dense_decode(cfg, gen, dev)
+    _kernels_quant_matmul(gen, dev, tol)
 
     # -- flash_decode_paged ------------------------------------------------
     B, H, Hkv, hd, bt, nb = 8, cfg.attn.n_heads, cfg.attn.n_kv_heads, \
@@ -381,13 +566,16 @@ def _bank_with_hi(experts, n_hi, gen, lo_bits=4):
 
 
 def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
-                    seed=7):
+                    seed=7, paged=True, dispatch="ragged", dispatch_ref=None):
     """Same seeded weights on ``dev_ref`` and ``dev``: one S-token prefill
-    and ``steps`` teacher-forced decode steps. Returns per forward
-    (max |Δlogit|, max |logit|, rows compared, rows whose routing
-    differed)."""
-    from repro_torch.models.model import (decode_step_paged,
-                                          init_paged_caches, init_params,
+    and ``steps`` teacher-forced decode steps, on the paged pool or dense
+    rows, with MoE dispatch ``dispatch`` (``dispatch_ref`` on ``dev_ref``,
+    default the same). Returns per forward (max |Δlogit| on identically
+    routed rows and on all rows, mean |Δlogit|, max |logit|, rows routed
+    identically)."""
+    from repro_torch.models.model import (decode_step, decode_step_paged,
+                                          init_caches, init_paged_caches,
+                                          init_params, prefill,
                                           prefill_paged)
     gen = torch.Generator().manual_seed(seed)
     params = init_params(cfg, device="cpu", generator=gen)
@@ -395,8 +583,9 @@ def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
     bank = _bank_with_hi(experts, 16 if cfg.moe.num_experts >= 64 else 2,
                          gen)
     del experts
-    runs = [(dev_ref, params, {"0": bank}),
-            (dev, _to(params, dev), {"0": bank.to(dev)})]
+    runs = [(d, _to(params, d), {"0": bank.to(d)}, disp)
+            for d, disp in ((dev_ref, dispatch_ref or dispatch),
+                            (dev, dispatch))]
     nb = (S + steps + bt - 1) // bt + 1
     N = 1 + B * nb
     table = torch.arange(1, N, dtype=torch.int32).reshape(B, nb)
@@ -405,20 +594,29 @@ def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
     feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=gen)
     out = []
-    for d, prm, bk in runs:
+    for d, prm, bk, disp in runs:
         t = lambda x, d=d: x.to(d)
-        caches = init_paged_caches(cfg, N, bt, device=d)
-        logits, counts = prefill_paged(
-            prm, cfg, t(toks), caches, t(table),
-            t(torch.zeros(B, dtype=torch.long)), t(lengths), bank=bk,
-            per_row_counts=True)
+        kw = dict(bank=bk, per_row_counts=True, moe_dispatch=disp)
+        if paged:
+            caches = init_paged_caches(cfg, N, bt, device=d)
+            logits, counts = prefill_paged(
+                prm, cfg, t(toks), caches, t(table),
+                t(torch.zeros(B, dtype=torch.long)), t(lengths), **kw)
+        else:
+            caches = init_caches(cfg, B, nb * bt, device=d)
+            logits, counts = prefill(prm, cfg, t(toks), caches, t(lengths),
+                                     **kw)
         seq = [(logits.float().cpu(), counts["0"].cpu())]
         pos = lengths.clone()
         for j in range(steps):
-            wb = table[torch.arange(B), pos // bt].long()
-            logits, counts = decode_step_paged(
-                prm, cfg, t(feed[j]), t(pos), caches, t(table), t(wb),
-                t(pos % bt), bank=bk, per_row_counts=True)
+            if paged:
+                wb = table[torch.arange(B), pos // bt].long()
+                logits, counts = decode_step_paged(
+                    prm, cfg, t(feed[j]), t(pos), caches, t(table), t(wb),
+                    t(pos % bt), **kw)
+            else:
+                logits, counts = decode_step(prm, cfg, t(feed[j]), t(pos),
+                                             caches, **kw)
             seq.append((logits.float().cpu(), counts["0"].cpu()))
             pos = pos + 1
         out.append(seq)
@@ -456,26 +654,35 @@ def phase_model() -> None:
     import dataclasses
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(ARCH), n_layers=CHECK_LAYERS)
-    t0 = time.perf_counter()
-    report = run_model_check(cfg, "cpu", torch.device("cuda"))
-    e_same = max(r["err_same"] for r in report)
-    e_all = max(r["err_all"] for r in report)
-    log("model", f"{cfg.name} at full width, {CHECK_LAYERS} of "
-                 f"{get_config(ARCH).n_layers} layers, CPU vs card: prefill "
-                 f"+ {len(report) - 1} decode steps of 12 rows (prompts 6-32 "
-                 f"tokens); max |dlogit| "
-                 f"{e_same:.4f} on identically routed rows (tol {MODEL_TOL}),"
-                 f" {e_all:.4f} on all rows (tol {MODEL_TOL_SWAP}); mean "
-                 f"|dlogit| {max(r['mean_err'] for r in report):.5f} on "
-                 f"identically routed rows; max "
-                 f"|logit| {max(r['mag'] for r in report):.3f}; identically "
-                 f"routed rows per forward "
-                 f"{[r['rows_same'] for r in report]} | "
-                 f"{time.perf_counter() - t0:.1f} s")
-    same = sum(r["rows_same"] for r in report)
-    if e_same > MODEL_TOL or e_all > MODEL_TOL_SWAP or \
-            same < 12 * len(report) // 2:
-        raise AssertionError("card and CPU logits disagree")
+    card = torch.device("cuda")
+    checks = [(f"{p}, CPU vs card", "cpu", dict(paged=pg, dispatch=disp))
+              for p, (pg, disp, _, _) in PATHS.items()]
+    # The two dispatch layouts against each other on the card, same
+    # weights, same fresh dense caches.
+    checks.append(("dense, padded vs ragged dispatch on the card", card,
+                   dict(paged=False, dispatch="padded",
+                        dispatch_ref="ragged")))
+    for what, dev_ref, kw in checks:
+        t0 = time.perf_counter()
+        report = run_model_check(cfg, dev_ref, card, **kw)
+        e_same = max(r["err_same"] for r in report)
+        e_all = max(r["err_all"] for r in report)
+        log("model", f"{cfg.name} at full width, {CHECK_LAYERS} of "
+                     f"{get_config(ARCH).n_layers} layers, {what}: prefill "
+                     f"+ {len(report) - 1} decode steps of 12 rows (prompts "
+                     f"6-32 tokens); max |dlogit| {e_same:.4f} on "
+                     f"identically routed rows (tol {MODEL_TOL}), "
+                     f"{e_all:.4f} on all rows (tol {MODEL_TOL_SWAP}); mean "
+                     f"|dlogit| {max(r['mean_err'] for r in report):.5f} on "
+                     f"identically routed rows; max |logit| "
+                     f"{max(r['mag'] for r in report):.3f}; identically "
+                     f"routed rows per forward "
+                     f"{[r['rows_same'] for r in report]} | "
+                     f"{time.perf_counter() - t0:.1f} s")
+        same = sum(r["rows_same"] for r in report)
+        if e_same > MODEL_TOL or e_all > MODEL_TOL_SWAP or \
+                same < 12 * len(report) // 2:
+            raise AssertionError(f"logits disagree: {what}")
 
 
 # ---------------------------------------------------------------------------
@@ -483,16 +690,13 @@ def phase_model() -> None:
 # ---------------------------------------------------------------------------
 
 def run_serving(cfg, device, *, n_requests, prompt_range, new_tokens,
-                max_slots, n_hi, seed=0):
+                max_slots, n_hi, seed=0, paged=True, dispatch="ragged"):
     """Serve ``n_requests`` greedy requests with ``static`` then
-    ``dynaexq`` on one seeded model. Returns {backend: summary}."""
-    from repro_torch.core.controller import ControllerConfig
-    from repro_torch.kernels import ops
+    ``dynaexq`` on one seeded model, on the paged pool or dense rows with
+    MoE dispatch ``dispatch``. Returns {backend: summary}."""
     from repro_torch.models.model import init_params
     import repro_torch.serving.engine as eng_mod
-    from repro_torch.serving.backends import make_backend
-    from repro_torch.serving.engine import EngineConfig, InferenceEngine
-    from repro_torch.serving.requests import Request, make_prompts
+    from repro_torch.serving.requests import make_prompts
 
     params = init_params(cfg, seed=seed, device=device)
     rng = np.random.default_rng(seed)
@@ -509,8 +713,29 @@ def run_serving(cfg, device, *, n_requests, prompt_range, new_tokens,
             return out
         return wrapped
 
-    eng_mod.prefill_paged = watch(eng_mod.prefill_paged)
-    eng_mod.decode_step_paged = watch(eng_mod.decode_step_paged)
+    # The entry points of the path being served, watched for this run only.
+    watched = ("prefill_paged", "decode_step_paged") if paged else \
+        ("prefill", "decode_step")
+    saved = {n: getattr(eng_mod, n) for n in watched}
+    for n, fn in saved.items():
+        setattr(eng_mod, n, watch(fn))
+    try:
+        return _serve_backends(cfg, device, params, prompts, finite,
+                               n_requests=n_requests, new_tokens=new_tokens,
+                               max_slots=max_slots, max_len=max_len,
+                               n_hi=n_hi, paged=paged, dispatch=dispatch)
+    finally:
+        for n, fn in saved.items():
+            setattr(eng_mod, n, fn)
+
+
+def _serve_backends(cfg, device, params, prompts, finite, *, n_requests,
+                    new_tokens, max_slots, max_len, n_hi, paged, dispatch):
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    from repro_torch.serving.requests import Request
     out = {}
     for name in ("static", "dynaexq"):
         kw = dict(lo_bits=4, group_size=64, device=device)
@@ -519,7 +744,8 @@ def run_serving(cfg, device, *, n_requests, prompt_range, new_tokens,
                       controller=ControllerConfig(update_interval_s=0.0))
         engine = InferenceEngine(
             cfg, _fresh(params), make_backend(name, **kw),
-            EngineConfig(max_slots=max_slots, max_len=max_len),
+            EngineConfig(max_slots=max_slots, max_len=max_len, paged=paged,
+                         moe_dispatch=dispatch),
             device=device)
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -567,29 +793,38 @@ def phase_serving(card: str) -> None:
                    f"{full.n_layers} layers (bf16 host masters {host_gb:.1f} "
                    f"GB instead of {host_gb * full.n_layers / SERVE_LAYERS:.0f}"
                    f" GB); random weights, seed 0")
-    res = run_serving(cfg, torch.device("cuda"), n_requests=8,
-                      prompt_range=(64, 256), new_tokens=32, max_slots=8,
-                      n_hi=16)
-    for name, s in res.items():
-        log("serving", f"{name}: 8 requests x 32 tokens | TTFT "
-                       f"{s['ttft_s'] * 1e3:.1f} ms TPOT "
-                       f"{s['tpot_s'] * 1e3:.2f} ms {s['tokens_per_s']:.1f} "
-                       f"tok/s | expert bytes {s['expert_bytes'] / 1e9:.3f} "
-                       f"GB | max allocated {s['max_mem'] / 1e9:.2f} GB | "
-                       f"promotions {s['promotions']:.0f} demotions "
-                       f"{s['demotions']:.0f} | launches {s['launches']} | "
-                       f"{card}")
-        if not all(v > 0 for v in s["launches"].values()):
-            raise AssertionError(f"{name}: a kernel of the path never ran")
-    dyn = res["dynaexq"]
-    if dyn["promotions"] < 1 or dyn["hi_routed"] < 1:
-        raise AssertionError("dynaexq published no promotion that a ragged "
-                             "launch then served from a hi tile")
-    log("serving", f"dynaexq: {dyn['promotions']:.0f} promotions published, "
-                   f"{dyn['hi_routed']} routed (layer, expert) cells served "
-                   f"from hi tiles; invariants hold after flush")
+    runs = []
+    for path, (paged, dispatch, used, unused) in PATHS.items():
+        res = run_serving(cfg, torch.device("cuda"), n_requests=8,
+                          prompt_range=(64, 256), new_tokens=32, max_slots=8,
+                          n_hi=16, paged=paged, dispatch=dispatch)
+        for name, s in res.items():
+            log("serving", f"{path} {name}: 8 requests x 32 tokens | TTFT "
+                           f"{s['ttft_s'] * 1e3:.1f} ms TPOT "
+                           f"{s['tpot_s'] * 1e3:.2f} ms "
+                           f"{s['tokens_per_s']:.1f} tok/s | expert bytes "
+                           f"{s['expert_bytes'] / 1e9:.3f} GB | max "
+                           f"allocated {s['max_mem'] / 1e9:.2f} GB | "
+                           f"promotions {s['promotions']:.0f} demotions "
+                           f"{s['demotions']:.0f} | launches "
+                           f"{s['launches']} | {card}")
+            if not all(s["launches"][k] > 0 for k in used):
+                raise AssertionError(f"{path} {name}: a kernel of the path "
+                                     f"never ran")
+            if any(s["launches"][k] for k in unused):
+                raise AssertionError(f"{path} {name}: a kernel of the other "
+                                     f"path ran")
+        dyn = res["dynaexq"]
+        if dyn["promotions"] < 1 or dyn["hi_routed"] < 1:
+            raise AssertionError(f"{path}: dynaexq published no promotion "
+                                 f"that a forward then served from hi")
+        log("serving", f"{path} dynaexq: {dyn['promotions']:.0f} promotions "
+                       f"published, {dyn['hi_routed']} routed (layer, "
+                       f"expert) cells served from hi slots; invariants hold "
+                       f"after flush")
+        runs.extend(res.values())
     for k in RESULTS:
-        RESULTS[k]["launches"] = sum(s["launches"][k] for s in res.values())
+        RESULTS[k]["launches"] = sum(s["launches"][k] for s in runs)
 
 
 PHASES = ("card", "build", "kernels", "model", "serving")

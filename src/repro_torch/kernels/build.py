@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), cached under ``build/kernels/`` at the repository root (or
-``$REPRO_TORCH_BUILD_DIR``) by a hash of the source and the flags. Sources
+``$REPRO_TORCH_BUILD_DIR``) by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags. Sources
 build in parallel, one ``nvcc`` each. Every entry point takes pointers and
 the stream as ``c_void_p`` and returns ``cudaGetLastError()``.
 """
@@ -20,11 +21,13 @@ import time
 from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ragged_ffn", "flash_decode_paged")
+SOURCES = ("ragged_ffn", "flash_decode_paged", "grouped_quant_matmul",
+           "flash_decode", "quant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: C signatures: library → entry → argument types (return type is int).
 SIGNATURES = {
     "ragged_ffn": {
@@ -33,6 +36,15 @@ SIGNATURES = {
     },
     "flash_decode_paged": {
         "flash_decode_paged": [_P] * 6 + [_I] * 6 + [_F, _P],
+    },
+    "grouped_quant_matmul": {
+        "grouped_quant_matmul": [_P] * 4 + [_I] * 6 + [_P],
+    },
+    "flash_decode": {
+        "flash_decode": [_P] * 5 + [_I] * 5 + [_L] * 3 + [_F, _P],
+    },
+    "quant_matmul": {
+        "quant_matmul": [_P] * 4 + [_I] * 5 + [_P],
     },
 }
 
@@ -56,7 +68,10 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library path, tagged by a hash of the source, every shared
+    header of ``csrc/`` and the flags (an edited header rebuilds)."""
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{tag}.so"
 

@@ -39,19 +39,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_codes.cuh"
+
 namespace {
 
 constexpr int BM = 8;          // rows per tile
 constexpr int BN = 64;         // columns per CTA
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
-
-template <int BITS>
-__device__ __forceinline__ float code_at(uint32_t byte, int j) {
-  if (BITS == 8) return float(int(byte) - 128);
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  return float(int((byte >> (j * BITS)) & MASK) - (1 << (BITS - 1)));
-}
 
 // acc[m][r][c] += x_tile[r] · W_m[:, n0 + 2·lane + c] over this warp's
 // groups of K, for NMAT matrices of the same tile.

@@ -9,9 +9,11 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 and counts its launches in ``LAUNCHES`` (one per kernel launch, nowhere
 else), so a run can show that the main path went through the kernels.
 
-The ragged FFN's two kernels read the per-tile maps ``tile_eid`` /
-``tile_slot`` directly: the Pallas version's DMA hold maps (``_hold_last``)
-have no counterpart here.
+The padded MoE dispatch's grouped GEMM (``grouped_lo_matmul``), the dense
+decode attention (``flash_decode``) and the plain quantized GEMM
+(``quant_matmul_op``) keep the reference's names. The ragged FFN's two
+kernels read the per-tile maps ``tile_eid`` / ``tile_slot`` directly: the
+Pallas version's DMA hold maps (``_hold_last``) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -23,11 +25,13 @@ from repro_torch.kernels import ref
 
 #: Launch counts per kernel (plain integers; ``reset_launches`` zeroes them).
 LAUNCHES: Dict[str, int] = {"ragged_gateup": 0, "ragged_down": 0,
-                            "flash_decode_paged": 0}
+                            "flash_decode_paged": 0, "grouped_lo_matmul": 0,
+                            "flash_decode": 0, "quant_matmul": 0}
 
 #: Row tile of the ragged kernels (compiled in).
 KERNEL_BM = 8
-#: Output columns per CTA of the ragged kernels (N must be a multiple).
+#: Output columns per CTA of the quantized GEMM kernels (N must be a
+#: multiple).
 KERNEL_BN = 64
 
 
@@ -44,7 +48,8 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _need(t: torch.Tensor, name: str, dtype, device, ndim: int) -> None:
+def _need(t: torch.Tensor, name: str, dtype, device, ndim: int,
+          contiguous: bool = True) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
     if t.dtype != dtype:
@@ -53,8 +58,25 @@ def _need(t: torch.Tensor, name: str, dtype, device, ndim: int) -> None:
         raise ValueError(f"{name} on {t.device}, expected {device}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_codes(packed, scales, K: int, bits: int, group: int, dev,
+                 ndim: int):
+    """The lo codes (..., K//epb, N) uint8 and scales (..., K//g, N) bf16
+    of one (ndim 2) or E (ndim 3) weights; returns N."""
+    if bits not in (2, 4, 8) or group % (8 // bits) or K % group:
+        raise ValueError(f"K={K} not tileable by group {group} at "
+                         f"{bits} bits")
+    _need(packed, "packed", torch.uint8, dev, ndim)
+    _need(scales, "scales", torch.bfloat16, dev, ndim)
+    if packed.shape[-2] * (8 // bits) != K or scales.shape != \
+            packed.shape[:-2] + (K // group, packed.shape[-1]):
+        raise ValueError(f"lo weights {tuple(packed.shape)}/"
+                         f"{tuple(scales.shape)} do not match K={K}, "
+                         f"bits={bits}, g={group}")
+    return packed.shape[-1]
 
 
 def _check_ragged(x, tile_eid, tile_slot, n_tiles, packed, scales, hi,
@@ -72,20 +94,11 @@ def _check_ragged(x, tile_eid, tile_slot, n_tiles, packed, scales, hi,
     R, K = x.shape
     if R != Tt * bm:
         raise ValueError(f"{names[0]} rows {R} != tiles {Tt} × bm {bm}")
-    if bits not in (2, 4, 8) or group % (8 // bits) or K % group:
-        raise ValueError(f"K={K} not tileable by group {group} at "
-                         f"{bits} bits")
     N = None
     for p, s in zip(packed, scales):
-        _need(p, "packed", torch.uint8, dev, 3)
-        _need(s, "scales", torch.bfloat16, dev, 3)
-        E = p.shape[0]
-        if p.shape[1] * (8 // bits) != K or s.shape != (E, K // group,
-                                                        p.shape[2]):
-            raise ValueError(f"lo weights {tuple(p.shape)}/{tuple(s.shape)} "
-                             f"do not match K={K}, bits={bits}, g={group}")
-        N = p.shape[2] if N is None else N
-        if p.shape[2] != N:
+        n = _check_codes(p, s, K, bits, group, dev, 3)
+        N = n if N is None else N
+        if n != N:
             raise ValueError("lo weights disagree on N")
     for h in hi:
         if h is None:
@@ -213,4 +226,92 @@ def flash_decode_paged(q, k, v, table, valid) -> torch.Tensor:
         hd ** -0.5, _stream())
     build.check(err, "flash_decode_paged")
     LAUNCHES["flash_decode_paged"] += 1
+    return out
+
+
+def grouped_lo_matmul(xg, packed, scales, bits: int,
+                      group: int) -> torch.Tensor:
+    """The grouped lo-tier GEMM of the padded MoE dispatch: xg (E, C, K)
+    bf16 × codes (E, K//epb, N) / scales (E, K//g, N) → (E, C, N) bf16, by
+    the group-blocked rule (float32 partial dot per scale group, the scale
+    applied after). Any C."""
+    dev = xg.device
+    _need(xg, "xg", torch.bfloat16, dev, 3)
+    E, C, K = xg.shape
+    N = _check_codes(packed, scales, K, bits, group, dev, 3)
+    if packed.shape[0] != E:
+        raise ValueError(f"packed {tuple(packed.shape)} holds another "
+                         f"number of experts than xg (E={E})")
+    if dev.type == "cpu":
+        return ref.grouped_lo_gemm(xg, packed, scales, bits, group)
+    if N % KERNEL_BN:
+        raise ValueError(f"N={N} not a multiple of {KERNEL_BN}")
+    from repro_torch.kernels import build
+    out = torch.empty((E, C, N), dtype=torch.bfloat16, device=dev)
+    err = build.library("grouped_quant_matmul").grouped_quant_matmul(
+        xg.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        E, C, K, N, bits, group, _stream())
+    build.check(err, "grouped_quant_matmul")
+    LAUNCHES["grouped_lo_matmul"] += 1
+    return out
+
+
+def quant_matmul_op(x, qt) -> torch.Tensor:
+    """x (M, K) bf16 × one quantized weight ``qt`` (``QuantizedTensor``,
+    codes (K//epb, N)) → (M, N) bf16, with the weight dequantized to
+    float32 before a float32 product (the reference's ``quant_matmul``
+    rule, not the group-blocked one). Any M."""
+    dev = x.device
+    _need(x, "x", torch.bfloat16, dev, 2)
+    M, K = x.shape
+    bits, group = qt.bits, qt.group_size
+    N = _check_codes(qt.packed, qt.scales, K, bits, group, dev, 2)
+    if dev.type == "cpu":
+        return ref.quant_matmul_ref(x, qt.packed, qt.scales, bits, group)
+    if N % KERNEL_BN:
+        raise ValueError(f"N={N} not a multiple of {KERNEL_BN}")
+    from repro_torch.kernels import build
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    err = build.library("quant_matmul").quant_matmul(
+        x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
+        out.data_ptr(), M, K, N, bits, group, _stream())
+    build.check(err, "quant_matmul")
+    LAUNCHES["quant_matmul"] += 1
+    return out
+
+
+def flash_decode(q, k, v, valid) -> torch.Tensor:
+    """q (B, H, hd) contiguous; k/v (B, S, Hkv, hd) views with a contiguous
+    last axis and equal strides (the dense cache's ``k.transpose(1, 2)``:
+    no copy); valid (B, S) bool → (B, H, hd) bf16. Any S."""
+    dev = q.device
+    _need(q, "q", torch.bfloat16, dev, 3)
+    _need(k, "k", torch.bfloat16, dev, 4, contiguous=False)
+    _need(v, "v", torch.bfloat16, dev, 4, contiguous=False)
+    _need(valid, "valid", torch.bool, dev, 2)
+    B, H, hd = q.shape
+    _, S, Hkv, hd_k = k.shape
+    if v.shape != k.shape or k.shape[0] != B or hd_k != hd or H % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not form a GQA attention")
+    if valid.shape != (B, S):
+        raise ValueError(f"valid {tuple(valid.shape)} != (B, S) = "
+                         f"({B}, {S})")
+    if k.stride(-1) != 1 or v.stride() != k.stride():
+        raise ValueError(f"k/v strides {k.stride()}/{v.stride()}: the last "
+                         f"axis must be contiguous and both views alike")
+    if dev.type == "cpu":
+        return ref.flash_decode_ref(q, k, v, valid)
+    if hd % 32 or hd > 1024 or H // Hkv > 16:
+        raise ValueError(f"the CUDA kernel takes hd a multiple of 32 up to "
+                         f"1024 and at most 16 query heads per KV head")
+    from repro_torch.kernels import build
+    out = torch.empty_like(q)
+    st_b, st_s, st_h, _ = k.stride()
+    err = build.library("flash_decode").flash_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        out.data_ptr(), B, H, Hkv, S, hd, st_b, st_s, st_h, hd ** -0.5,
+        _stream())
+    build.check(err, "flash_decode")
+    LAUNCHES["flash_decode"] += 1
     return out

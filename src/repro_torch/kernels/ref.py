@@ -9,8 +9,12 @@ holds the kernels against them on the card.
 * ``ragged_gateup_ref`` / ``ragged_down_ref`` / ``ragged_quant_ffn_ref`` —
   the ragged mixed-precision SwiGLU FFN over bm-row tiles, each tile on its
   expert's hi bf16 slot (``tile_slot >= 0``) or its packed lo codes.
-* ``flash_decode_paged_ref`` — one-query GQA attention through a block
-  table: gather, float32 softmax with -inf masking.
+* ``flash_decode_ref`` / ``flash_decode_paged_ref`` — one-query GQA
+  attention over a dense (B, S, Hkv, hd) cache view or through a block
+  table: float32 softmax with -inf masking, all-masked rows give zeros.
+* ``quant_matmul_ref`` — the plain quantized GEMM: weights dequantized to
+  float32 (code · scale), then a float32 product (not the group-blocked
+  rule).
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.quant.qtensor import unpack_codes_int8
+from repro_torch.quant.qtensor import dequant_arrays, unpack_codes_int8
 
 # The plain versions run float32 products on the card as the oracle of the
 # kernels. TF32 keeps ~10 mantissa bits and a reduced-precision bf16 GEMM
@@ -136,24 +140,47 @@ def ragged_quant_ffn_ref(xs, tile_eid, tile_slot, gate_packed, gate_scales,
                            hi_down, bits=bits, group=group, bm=bm)
 
 
+def quant_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
+                     scales: torch.Tensor, bits: int,
+                     group: int) -> torch.Tensor:
+    """x (M, K) × codes (K//epb, N) / scales (K//g, N) → (M, N) in x's
+    dtype: the weight dequantized to float32 (code · scale), a float32
+    product, one rounding."""
+    w = dequant_arrays(packed, scales, bits, group, dtype=torch.float32)
+    return torch.matmul(x.float(), w).to(x.dtype)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            valid: torch.Tensor) -> torch.Tensor:
+    """q (B, H, hd); k/v (B, Hkv, S, hd) views; valid (B, S) → (B, H, hd)
+    in q's dtype. A row with no valid slot returns zeros (the kernels'
+    guarded online softmax does the same)."""
+    B, H, hd = q.shape
+    Hkv = k.shape[1]
+    qg = q.float().reshape(B, Hkv, H // Hkv, hd)
+    logits = torch.matmul(qg, k.float().transpose(-1, -2)) * hd ** -0.5
+    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
+    out = torch.matmul(p, v.float())              # (B, Hkv, rep, hd)
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """q (B, H, hd); k/v (B, S, Hkv, hd), strided views allowed; valid
+    (B, S) bool → (B, H, hd)."""
+    return _attend(q, k.transpose(1, 2), v.transpose(1, 2), valid)
+
+
 def flash_decode_paged_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            table: torch.Tensor,
                            valid: torch.Tensor) -> torch.Tensor:
     """q (B, H, hd); k/v (N, Hkv, bt, hd) block pools; table (B, nb) int32
     (-1 = unallocated, read as block 0 and masked by ``valid``); valid
-    (B, nb·bt) bool → (B, H, hd) in q's dtype. A row with no valid slot
-    returns zeros (the kernel's guarded online softmax does the same)."""
-    B, H, hd = q.shape
-    Hkv, bt = k.shape[1], k.shape[2]
-    nb = table.shape[1]
-    rep = H // Hkv
+    (B, nb·bt) bool → (B, H, hd) in q's dtype."""
+    B, nb = table.shape
+    Hkv, bt, hd = k.shape[1], k.shape[2], k.shape[3]
     idx = torch.clamp(table.long(), min=0)
-    kl = k[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, nb * bt, hd).float()
-    vl = v[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, nb * bt, hd).float()
-    qg = q.float().reshape(B, Hkv, rep, hd)
-    logits = torch.matmul(qg, kl.transpose(-1, -2)) * hd ** -0.5
-    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
-    p = torch.softmax(logits, dim=-1)
-    p = torch.nan_to_num(p, nan=0.0)          # all-masked rows → 0
-    out = torch.matmul(p, vl)                  # (B, Hkv, rep, hd)
-    return out.reshape(B, H, hd).to(q.dtype)
+    kl = k[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, nb * bt, hd)
+    vl = v[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, nb * bt, hd)
+    return _attend(q, kl, vl, valid)

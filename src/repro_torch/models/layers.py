@@ -1,4 +1,4 @@
-"""Norms, RoPE and GQA attention over the paged KV pool.
+"""Norms, RoPE and GQA attention over the paged KV pool or dense KV rows.
 
 Parameters are plain dicts of tensors in the reference's layout (weights
 (in, out), bf16). Compute dtype is bf16 with float32 norm and softmax
@@ -35,6 +35,27 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+class KVCache(NamedTuple):
+    """Dense KV rows of one layer, head-major (B, Hkv, C, hd) as the
+    reference lays them out: row b's slot i holds position i (full cache,
+    ``C`` = the engine's ``max_len``)."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[2]
+
+
+def init_kv_cache(lead: tuple, capacity: int, cfg: AttnConfig,
+                  device) -> KVCache:
+    """Zeroed rows (*lead, Hkv, capacity, hd) bf16, e.g. ``lead`` = (B,)
+    for one layer or (nsb, B) for a stack."""
+    shape = tuple(lead) + (cfg.n_kv_heads, capacity, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                   torch.zeros(shape, dtype=torch.bfloat16, device=device))
 
 
 class PagedKVCache(NamedTuple):
@@ -92,6 +113,46 @@ def _sdpa(q, k, v, mask, n_heads: int) -> torch.Tensor:
     vg = v.permute(0, 2, 1, 3)[:, :, None]                       # b g 1 k d
     out = torch.matmul(probs, vg)                                # b g r q d
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H * hd)
+
+
+#: Longest prefill the plain attention takes: the reference switches to a
+#: q-chunked scan above it (``_sdpa_chunked``), which is not ported.
+PREFILL_CHUNK_THRESHOLD = 2048
+
+
+def attention_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
+                      cache: KVCache, lengths: torch.Tensor) -> torch.Tensor:
+    """Causal prefill from position 0 into dense rows (full cache only).
+
+    x (B, S, d); ``lengths`` (B,) true prompt lengths of a right-padded
+    batch (0 = inert pad row). Slot i of row b takes the row's
+    largest real position p < length with p % C == i; slots no real
+    position maps to keep their contents (the reference's masked write, in
+    place). Outputs at padded positions are garbage."""
+    B, S, _ = x.shape
+    if cfg.sliding_window is not None:
+        raise NotImplementedError("sliding-window rings on dense rows are "
+                                  "not ported")
+    if S > PREFILL_CHUNK_THRESHOLD:
+        raise NotImplementedError(
+            f"prefill of {S} > {PREFILL_CHUNK_THRESHOLD} tokens needs the "
+            f"chunked attention, which the port does not have yet")
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    qpos, kpos = positions[:, :, None], positions[:, None, :]
+    out = _sdpa(q, k, v, (kpos <= qpos).expand(B, S, S), cfg.n_heads)
+
+    C = cache.capacity
+    idx = torch.arange(C, device=x.device)[None, :]
+    last = lengths[:, None] - 1 - torch.remainder(lengths[:, None] - 1 - idx,
+                                                  C)                 # (B, C)
+    keep = ((last >= 0) & (lengths[:, None] > 0))[:, None, :, None]
+    src = torch.clamp(last, 0, S - 1)[:, None, :, None]
+    for dst, new in ((cache.k, k), (cache.v, v)):
+        hm = new.transpose(1, 2)                              # (B, Hkv, S, hd)
+        g = torch.gather(hm, 2, src.expand(-1, hm.shape[1], -1, hm.shape[3]))
+        dst.copy_(torch.where(keep, g, dst))
+    return out @ p["wo"]
 
 
 def attention_prefill_paged(p: dict, cfg: AttnConfig, x: torch.Tensor,
@@ -162,4 +223,25 @@ def attention_decode_paged(p: dict, cfg: AttnConfig, x: torch.Tensor,
     valid = decode_valid(pos_b, table.shape[1] * cache.block_tokens, cfg)
     out = kops.flash_decode_paged(q[:, 0].contiguous(), cache.k, cache.v,
                                   table, valid)
+    return out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+
+def attention_decode(p: dict, cfg: AttnConfig, x: torch.Tensor,
+                     pos: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    """One-token decode against dense rows. ``pos`` scalar or (B,). Writes
+    each row's new K/V in place at slot ``pos % C`` (where the reference
+    builds a new cache with a full-cache ``where``), then attends through
+    the ``flash_decode`` kernel over the cache seen as (B, C, Hkv, hd)
+    without a copy."""
+    B = x.shape[0]
+    pos_b = pos.expand(B) if pos.dim() == 0 else pos
+    q, k, v = _project_qkv(p, cfg, x, pos_b[:, None])
+    C = cache.capacity
+    rows = torch.arange(B, device=x.device)
+    slot = torch.remainder(pos_b, C).long()
+    cache.k[rows, :, slot] = k[:, 0]
+    cache.v[rows, :, slot] = v[:, 0]
+    valid = decode_valid(pos_b, C, cfg)
+    out = kops.flash_decode(q[:, 0].contiguous(), cache.k.transpose(1, 2),
+                            cache.v.transpose(1, 2), valid)
     return out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]

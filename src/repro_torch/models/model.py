@@ -1,4 +1,5 @@
-"""Decoder-only attention + MoE model over the paged KV pool.
+"""Decoder-only attention + MoE model over the paged KV pool or dense KV
+rows.
 
 Parameters keep the reference's tree: per super-block position a dict of
 leaves stacked over layers (leading ``nsb`` axis). The reference's
@@ -9,11 +10,14 @@ Entry points:
 * ``init_params``        — random weights from a seeded ``torch.Generator``;
 * ``init_paged_caches``  — the shared (nsb, N, Hkv, bt, hd) block pools;
 * ``prefill_paged``      — masked, bucketed prefill of whole prompts;
-* ``decode_step_paged``  — one token per row (the serving hot path).
+* ``decode_step_paged``  — one token per row (the serving hot path);
+* ``init_caches``        — dense (nsb, B, Hkv, C, hd) KV rows;
+* ``prefill`` / ``decode_step`` — the same over dense rows.
 
-Every MoE layer runs through the ragged dispatch and its mixed-precision
-bank (``bank``: MoE position → stacked ``ExpertBankQ``) and returns its
-router counts — the hotness signal.
+Every MoE layer runs through its mixed-precision bank (``bank``: MoE
+position → stacked ``ExpertBankQ``) with the token layout ``moe_dispatch``
+names ("ragged", the default, or "padded"; either KV layout takes either)
+and returns its router counts — the hotness signal.
 """
 from __future__ import annotations
 
@@ -100,6 +104,16 @@ def init_paged_caches(cfg: ArchConfig, n_blocks: int, block_tokens: int,
         torch.zeros(shape, dtype=torch.bfloat16, device=dev))}
 
 
+def init_caches(cfg: ArchConfig, batch: int, max_len: int,
+                device=None) -> Dict[str, L.KVCache]:
+    """Dense KV rows per attention position, (nsb, B, Hkv, max_len, hd)
+    bf16 K and V (full attention: slot = position)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    return {"0": L.init_kv_cache((cfg.n_superblocks(), batch), max_len,
+                                 cfg.attn, dev)}
+
+
 def _layer(tree, l: int):
     """Per-layer views of a stacked parameter subtree."""
     if isinstance(tree, dict):
@@ -107,32 +121,43 @@ def _layer(tree, l: int):
     return tree[l]
 
 
-def _block_step(bp: Dict, cfg: ArchConfig, x: torch.Tensor,
-                cache: L.PagedKVCache, pos_idx, capacity: int, bank,
-                prefill: bool, paged: Dict, token_valid=None, n_rows=None):
-    """One attention + MoE layer. x (B, S, d). Returns (x, counts) with
-    counts (E,) or (n_rows, E)."""
+def _block_step(bp: Dict, cfg: ArchConfig, x: torch.Tensor, cache,
+                pos_idx, capacity: int, bank, prefill: bool,
+                paged: Optional[Dict] = None, lengths=None, token_valid=None,
+                n_rows=None, moe_dispatch=None):
+    """One attention + MoE layer. x (B, S, d); ``cache`` a ``PagedKVCache``
+    with ``paged`` holding the block tables and write targets, or dense
+    ``KVCache`` rows with ``paged`` None. Returns (x, counts) with counts
+    (E,) or (n_rows, E)."""
     B, S, d = x.shape
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    if prefill:
+    if paged is not None and prefill:
         attn_out = L.attention_prefill_paged(
             bp["attn"], cfg.attn, h, cache, paged["table"], paged["start"],
             paged["lengths"])
-    else:
+    elif paged is not None:
         attn_out = L.attention_decode_paged(
             bp["attn"], cfg.attn, h, pos_idx, cache, paged["table"],
             paged["write_blk"], paged["write_off"])
+    elif prefill:
+        attn_out = L.attention_prefill(bp["attn"], cfg.attn, h, cache,
+                                       lengths)
+    else:
+        attn_out = L.attention_decode(bp["attn"], cfg.attn, h, pos_idx,
+                                      cache)
     x = x + attn_out
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
     y, aux = X.moe_apply(bp["moe"], bank, h.reshape(B * S, d), cfg.moe,
-                         capacity, token_valid=token_valid, n_rows=n_rows)
+                         capacity, token_valid=token_valid, n_rows=n_rows,
+                         dispatch=moe_dispatch)
     counts = aux.row_counts if n_rows is not None else aux.counts
     return x + y.reshape(B, S, d), counts
 
 
 def _run_layers(params, cfg, x, caches, bank, **kw):
     """The layer loop (the reference's scan): per-layer views of the
-    stacked parameters, pools and bank. Returns (x, {pos: stacked counts})."""
+    stacked parameters, caches and bank. Returns (x, {pos: stacked
+    counts})."""
     if bank is None:
         raise ValueError("the port serves through a quantized expert bank: "
                          "pass bank={position: ExpertBankQ}")
@@ -140,7 +165,7 @@ def _run_layers(params, cfg, x, caches, bank, **kw):
     bp_all, cache, bank0 = params["blocks"]["0"], caches["0"], bank["0"]
     for l in range(cfg.n_superblocks()):
         x, c = _block_step(_layer(bp_all, l), cfg, x,
-                           L.PagedKVCache(cache.k[l], cache.v[l]),
+                           type(cache)(cache.k[l], cache.v[l]),
                            bank=bank0.layer(l), **kw)
         counts.append(c)
     return x, {"0": torch.stack(counts)}
@@ -156,7 +181,8 @@ def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                   caches: Dict, block_table: torch.Tensor,
                   start: torch.Tensor, lengths: torch.Tensor, bank=None,
                   capacity_factor: Optional[float] = None,
-                  per_row_counts: bool = False):
+                  per_row_counts: bool = False,
+                  moe_dispatch: Optional[str] = None):
     """Masked prefill of whole prompts into the paged pool (updated in
     place). ``tokens`` (R, S) right-padded to the bucket S; ``lengths``
     (R,) prompt lengths (0 = inert pad row); ``start`` (R,) zeros.
@@ -175,7 +201,8 @@ def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     x, counts = _run_layers(params, cfg, x, caches, bank, capacity=cap,
                             pos_idx=None, prefill=True, paged=paged,
                             token_valid=token_valid,
-                            n_rows=R if per_row_counts else None)
+                            n_rows=R if per_row_counts else None,
+                            moe_dispatch=moe_dispatch)
     last = torch.clamp(suffix - 1, 0, S - 1)
     x_last = x[torch.arange(R, device=x.device), last][:, None, :]
     return _lm_logits(params, cfg, x_last)[:, 0], counts
@@ -187,7 +214,8 @@ def decode_step_paged(params: Dict, cfg: ArchConfig, token: torch.Tensor,
                       write_off: torch.Tensor, bank=None,
                       capacity_factor: float = 2.0,
                       row_valid: Optional[torch.Tensor] = None,
-                      per_row_counts: bool = False):
+                      per_row_counts: bool = False,
+                      moe_dispatch: Optional[str] = None):
     """One token per row against the paged pool. ``token``/``pos_idx``
     (B,); ``write_blk``/``write_off`` (B,) pre-resolved write targets;
     ``row_valid`` (B,) masks vacant rows out of dispatch and counts.
@@ -201,5 +229,54 @@ def decode_step_paged(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     x, counts = _run_layers(params, cfg, x, caches, bank, capacity=cap,
                             pos_idx=pos_idx, prefill=False, paged=paged,
                             token_valid=row_valid,
-                            n_rows=B if per_row_counts else None)
+                            n_rows=B if per_row_counts else None,
+                            moe_dispatch=moe_dispatch)
+    return _lm_logits(params, cfg, x)[:, 0], counts
+
+
+def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+            caches: Dict, lengths: torch.Tensor, bank=None,
+            capacity_factor: Optional[float] = None,
+            per_row_counts: bool = False,
+            moe_dispatch: Optional[str] = None):
+    """Masked prefill from position 0 into dense rows (updated in place).
+    ``tokens`` (B, S) right-padded; ``lengths`` (B,) prompt lengths (0 =
+    inert pad row). Returns (last-token logits (B, V) float32, counts
+    {pos: (nsb, B, E) or (nsb, E)})."""
+    _check_family(cfg)
+    x = params["embed"][tokens]
+    B, S, _ = x.shape
+    lengths = lengths.to(torch.int64)
+    token_valid = (torch.arange(S, device=x.device)[None, :] <
+                   lengths[:, None]).reshape(-1)
+    cap = X.moe_capacity(B * S, cfg.moe, capacity_factor)
+    x, counts = _run_layers(params, cfg, x, caches, bank, capacity=cap,
+                            pos_idx=None, prefill=True, lengths=lengths,
+                            token_valid=token_valid,
+                            n_rows=B if per_row_counts else None,
+                            moe_dispatch=moe_dispatch)
+    last = torch.clamp(lengths - 1, 0, S - 1)
+    x_last = x[torch.arange(B, device=x.device), last][:, None, :]
+    return _lm_logits(params, cfg, x_last)[:, 0], counts
+
+
+def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
+                pos_idx: torch.Tensor, caches: Dict, bank=None,
+                capacity_factor: float = 2.0,
+                row_valid: Optional[torch.Tensor] = None,
+                per_row_counts: bool = False,
+                moe_dispatch: Optional[str] = None):
+    """One token per row against dense rows, written in place at slot
+    ``pos % C``. ``token``/``pos_idx`` (B,); ``row_valid`` (B,) masks
+    vacant rows out of dispatch and counts. Returns (logits (B, V)
+    float32, counts)."""
+    _check_family(cfg)
+    x = params["embed"][token][:, None, :]
+    B = x.shape[0]
+    cap = X.moe_capacity(B, cfg.moe, capacity_factor)
+    x, counts = _run_layers(params, cfg, x, caches, bank, capacity=cap,
+                            pos_idx=pos_idx, prefill=False,
+                            token_valid=row_valid,
+                            n_rows=B if per_row_counts else None,
+                            moe_dispatch=moe_dispatch)
     return _lm_logits(params, cfg, x)[:, 0], counts

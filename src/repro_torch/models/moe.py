@@ -1,13 +1,19 @@
-"""Mixture-of-Experts layer, single-device ragged dispatch (the port of the
-reference's ``models/moe.py`` ragged half).
+"""Mixture-of-Experts layer, single device, two dispatch layouts (the port
+of the reference's ``models/moe.py``), chosen per call by ``moe_apply(...,
+dispatch=)``. Both share the stable sort-by-expert of the flattened top-k
+assignments, the drop rule and the combine, so they agree per token.
 
-Tokens route top-k, the flattened assignments sort stably by expert, and
-the kept ones compact into a (Tt·bm, d) buffer whose per-expert segments
-are aligned to the row tile ``RAGGED_BM``. Per-tile expert and hi-slot maps
-drive ONE mixed-precision FFN (``kernels.ops.ragged_quant_ffn``): only the
-experts that received tokens stream their weights, each from its resident
-tier. The tile budget ``Tt`` is static and the live tile count stays on the
-device — the host never waits on the routing.
+* **ragged** (the default): the kept assignments compact into a (Tt·bm, d)
+  buffer whose per-expert segments are aligned to the row tile
+  ``RAGGED_BM``. Per-tile expert and hi-slot maps drive ONE mixed-precision
+  FFN (``kernels.ops.ragged_quant_ffn``): only the experts that received
+  tokens stream their weights, each from its resident tier. The tile budget
+  ``Tt`` is static and the live tile count stays on the device — the host
+  never waits on the routing.
+* **padded** (the reference's oracle layout): the kept assignments scatter
+  into a fixed-capacity (E, C, d) buffer and three grouped lo GEMMs
+  (``kernels.ops.grouped_lo_matmul``) run over ALL experts; the published
+  hi experts recompute in bf16 and replace their owners' outputs.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ from repro_torch.models.config import MoEConfig
 
 #: Row-tile height of the ragged layout (the kernels are built for 8).
 RAGGED_BM = 8
+#: Token layouts ``moe_apply`` takes (None means ragged).
+DISPATCHES = ("ragged", "padded")
 
 
 class MoEAux(NamedTuple):
@@ -186,14 +194,97 @@ def _dispatch_ragged(bank: ExpertBankQ, x: torch.Tensor, idx: torch.Tensor,
     return y, counts.to(torch.int32), dropped, pad_ratio
 
 
+def _bf16_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 (S, C, K) × (S, K, N) with float32 accumulation and one
+    rounding to bf16 (the reference's bf16 einsum). cuBLAS does that in
+    bf16; the CPU's bf16 GEMM rounds partial sums, so there the product
+    runs in float32."""
+    if a.is_cuda:
+        return torch.bmm(a, b)
+    return torch.bmm(a.float(), b.float()).to(a.dtype)
+
+
+def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor) -> torch.Tensor:
+    """SwiGLU over the padded (E, C, d) buffer: three grouped lo GEMMs for
+    every expert, then the published hi experts (``slot_owner``) recompute
+    in bf16 and replace their owners' outputs — the same result as swapping
+    the weights, without dense per-expert weights."""
+    E, C, d = xg.shape
+    lo = bank.lo
+    bits, group = lo["w_gate"].bits, lo["w_gate"].group_size
+
+    def gemm(x, name):
+        return kops.grouped_lo_matmul(x, lo[name].packed, lo[name].scales,
+                                      bits, group)
+
+    g = gemm(xg, "w_gate")
+    h = torch.nn.functional.silu(g.float()).to(xg.dtype) * gemm(xg, "w_up")
+    y = gemm(h, "w_down")
+    owner = bank.slot_owner.long()
+    if owner.shape[0] == 0:
+        return y
+    hi = bank.hi
+    valid = (owner >= 0) & (owner < E)
+    xh = xg[torch.where(valid, owner, torch.zeros_like(owner))]
+    hh = torch.nn.functional.silu(_bf16_bmm(xh, hi["w_gate"]).float()) \
+        .to(xg.dtype) * _bf16_bmm(xh, hi["w_up"])
+    yh = _bf16_bmm(hh, hi["w_down"])
+    # Free and stale slots write to a spare expert row that is cut off.
+    out = torch.cat([y, y.new_empty((1, C, y.shape[-1]))])
+    out[torch.where(valid, owner, torch.full_like(owner, E))] = yh
+    return out[:E]
+
+
+def dispatch_compute(bank: ExpertBankQ, x: torch.Tensor, idx: torch.Tensor,
+                     gates: torch.Tensor, e_local: int, capacity: int,
+                     row_capacity: Optional[int] = None):
+    """Padded sort-scatter dispatch + the grouped expert FFN + the gated
+    combine. x (T, d); idx (T, k) expert ids with ``e_local`` as the
+    out-of-range sentinel; gates (T, k), zero on sentinel entries. Returns
+    (y (T, d), counts (E,) int32, dropped)."""
+    if not isinstance(bank, ExpertBankQ):
+        raise TypeError("the port serves quantized expert banks only")
+    if row_capacity is not None:
+        raise NotImplementedError("the per-row capacity rule of the padded "
+                                  "layout is not ported")
+    T, d = x.shape
+    k = idx.shape[1]
+    order, sorted_eid, counts, pos_in_e, tok = _sort_routing(idx, e_local)
+    kept = _keep_mask(sorted_eid, pos_in_e, tok, e_local, capacity, None,
+                      None, T)
+    # The reference scatters with mode="drop"; here dropped and sentinel
+    # assignments write to one spare row past the (E·C, d) buffer, which
+    # is cut off (a view: the buffer stays contiguous for the kernel).
+    EC = e_local * capacity
+    eid_safe = torch.clamp(sorted_eid, max=e_local - 1)
+    flat = torch.where(kept, eid_safe * capacity + pos_in_e,
+                       torch.full_like(pos_in_e, EC))
+    xg = torch.zeros((EC + 1, d), dtype=x.dtype, device=x.device)
+    xg[flat] = x[tok]
+    yg = _quant_expert_ffn(bank, xg[:EC].view(e_local, capacity, d))
+    y_sorted = yg.reshape(EC, -1)[torch.clamp(flat, max=EC - 1)]
+    gate_sorted = gates.reshape(-1)[order].to(x.dtype)
+    contrib = torch.where(kept[:, None], y_sorted * gate_sorted[:, None],
+                          torch.zeros((), dtype=x.dtype, device=x.device))
+    y = _combine(contrib, order, T, k)
+    routed = (sorted_eid < e_local).float().sum()
+    dropped = 1.0 - kept.float().sum() / torch.clamp(routed, min=1.0)
+    return y, counts.to(torch.int32), dropped
+
+
 def moe_apply(params, bank: ExpertBankQ, x: torch.Tensor, cfg: MoEConfig,
               capacity: int, token_valid: Optional[torch.Tensor] = None,
-              n_rows: Optional[int] = None):
-    """Single-device ragged MoE. ``params``: {'router'}; x (T, d).
+              n_rows: Optional[int] = None, dispatch: Optional[str] = None):
+    """Single-device MoE. ``params``: {'router'}; x (T, d).
     ``token_valid`` masks tokens out of dispatch and every count;
-    ``n_rows`` adds per-row (R, E) counts. Returns (y (T, d), MoEAux)."""
+    ``n_rows`` adds per-row (R, E) counts; ``dispatch`` ∈ {"ragged",
+    "padded"} picks the token layout (None = ragged). Returns (y (T, d),
+    MoEAux)."""
     if cfg.n_shared_experts:
         raise NotImplementedError("shared experts are not ported")
+    dispatch = "ragged" if dispatch is None else dispatch
+    if dispatch not in DISPATCHES:
+        raise ValueError(f"dispatch={dispatch!r}; one of {DISPATCHES}")
     E, k = cfg.num_experts, cfg.top_k
     T = x.shape[0]
     gates, idx, probs = route(params["router"], x, cfg)
@@ -202,8 +293,14 @@ def moe_apply(params, bank: ExpertBankQ, x: torch.Tensor, cfg: MoEConfig,
         sel = sel & token_valid[:, None]
     idx_l = torch.where(sel, idx, torch.full_like(idx, E))
     gates_l = torch.where(sel, gates, torch.zeros_like(gates))
-    y, counts, dropped, pad_ratio = _dispatch_ragged(bank, x, idx_l, gates_l,
-                                                     E, capacity)
+    if dispatch == "ragged":
+        y, counts, dropped, pad_ratio = _dispatch_ragged(
+            bank, x, idx_l, gates_l, E, capacity)
+    else:
+        y, counts, dropped = dispatch_compute(bank, x, idx_l, gates_l, E,
+                                              capacity)
+        kept_rows = torch.clamp(counts, 0, capacity).sum().float()
+        pad_ratio = 1.0 - kept_rows / max(E * capacity, 1)
     active = (counts > 0).sum().to(torch.int32)
 
     if token_valid is None:

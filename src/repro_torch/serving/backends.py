@@ -162,7 +162,8 @@ class DynaExqBackend(_BackendBase):
         self._lo_b: Dict[str, int] = {}
         self._hi_b: Dict[str, int] = {}
         # (layer, expert) cells routed while published hi: every such cell
-        # was computed by a hi tile of the ragged kernels.
+        # was computed from its hi slot (a hi tile of the ragged kernels,
+        # or the bf16 overlay of the padded dispatch).
         self.hi_routed = 0
 
     def _materialize(self, cfg, params, kv_bytes):

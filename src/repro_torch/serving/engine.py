@@ -1,4 +1,4 @@
-"""Request-level continuous-batching engine of the port (paged KV, greedy).
+"""Request-level continuous-batching engine of the port (greedy).
 
 ``submit(request)`` queues a request; ``step()`` admits queued requests
 into free slots with bucketed, masked prefills and advances every running
@@ -8,16 +8,22 @@ request by one greedy token; ``drain()`` runs until the queue empties.
   (``bucket_base``·2^i, capped at ``max_len``); same-bucket requests behind
   it join, up to ``prefill_rows`` rows and the free slots, each reserving
   its worst-case KV blocks from the shared budget first.
-* **KV** lives in one block pool per attention position (see
-  ``serving.kvpool``): rows lease blocks through block tables; decode
-  appends lazily; block 0 takes vacant rows' writes.
+* **KV** (``EngineConfig.paged``, default True) lives in one block pool
+  per attention position (see ``serving.kvpool``): rows lease blocks
+  through block tables; decode appends lazily; block 0 takes vacant rows'
+  writes. With ``paged=False`` every slot owns a dense (Hkv, max_len, hd)
+  row: an admission prefills fresh row caches and copies them into the
+  slots' rows, and decode writes each row at ``pos % max_len``.
+* **MoE dispatch** (``EngineConfig.moe_dispatch``): "ragged" (None, the
+  default) or "padded", on either KV layout.
 * **Decode** runs one step for all slots; vacant rows ride along masked out
   of MoE dispatch and every count. Greedy argmax stays on the device and
   one transfer per step brings the (B,) tokens and the per-row router
   counts to the host, which go to ``backend.observe`` with the row mask.
 
 Not ported yet: prefix sharing, speculation, sampling, the QoS scheduler,
-chunked prefill, preemption and the watchdog.
+chunked prefill, preemption, the watchdog, per-row MoE capacity
+(``row_capacity_norm``) and the dense path's sliding-window rings.
 """
 from __future__ import annotations
 
@@ -34,9 +40,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.budget import UNBOUNDED, BudgetTracker
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import (decode_step_paged, init_paged_caches,
-                                      prefill_paged)
-from repro_torch.models.moe import RAGGED_BM
+from repro_torch.models.model import (decode_step, decode_step_paged,
+                                      init_caches, init_paged_caches,
+                                      prefill, prefill_paged)
+from repro_torch.models.moe import DISPATCHES, RAGGED_BM, moe_capacity
 from repro_torch.serving.kvpool import KVBlockPool, KVLease
 from repro_torch.serving.requests import Request
 
@@ -52,17 +59,20 @@ ENGINE_STAT_KEYS = (
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The reference's field names, the subset this engine implements (its
-    paged, ragged, no-prefix-sharing configuration)."""
+    """The reference's field names, the subset this engine implements (no
+    prefix sharing, speculation or scheduler)."""
     max_slots: int = 4
     max_len: int = 512
     capacity_factor: float = 2.0
     bucket_base: int = 32
     prefill_rows: Optional[int] = None       # None → min(4, max_slots)
+    paged: bool = True                       # False: dense KV rows
     block_tokens: int = 16
     # Envelope shared by KV block reservations and the expert hi tier
     # (None = unbounded).
     hbm_budget_bytes: Optional[int] = None
+    # MoE token layout: "ragged", "padded", or None (ragged).
+    moe_dispatch: Optional[str] = None
 
 
 class RequestState(enum.Enum):
@@ -104,20 +114,32 @@ class InferenceEngine:
             raise ValueError(f"backend on {backend.device}, engine on "
                              f"{self.device}")
         n = e.max_slots
+        self.moe_dispatch = "ragged" if e.moe_dispatch is None \
+            else e.moe_dispatch
+        if self.moe_dispatch not in DISPATCHES:
+            raise ValueError(f"moe_dispatch={e.moe_dispatch!r}; one of "
+                             f"{DISPATCHES}")
         self._bt = e.block_tokens
         self._C_pad = -(-e.max_len // self._bt) * self._bt
         self._nb = self._C_pad // self._bt
-        n_blocks = 1 + n * self._nb        # trash block + every slot full
         a = cfg.attn
-        block_bytes = 2 * self._bt * a.n_kv_heads * a.head_dim * 2 * \
-            cfg.n_superblocks()
+        # KV bytes of one cache position across every layer (K and V).
+        pos_bytes = 2 * a.n_kv_heads * a.head_dim * 2 * cfg.n_superblocks()
         self.budget = BudgetTracker(UNBOUNDED if e.hbm_budget_bytes is None
                                     else e.hbm_budget_bytes)
-        self.pool = KVBlockPool(n_blocks, self._bt, block_bytes,
-                                budget=self.budget.view("kv"))
-        self.banks = backend.materialize_banks(
-            cfg, params, self.pool.capacity_bytes, budget=self.budget)
-        self.caches = init_paged_caches(cfg, n_blocks, self._bt, self.device)
+        self.pool: Optional[KVBlockPool] = None
+        if e.paged:
+            n_blocks = 1 + n * self._nb    # trash block + every slot full
+            self.pool = KVBlockPool(n_blocks, self._bt, self._bt * pos_bytes,
+                                    budget=self.budget.view("kv"))
+            self.banks = backend.materialize_banks(
+                cfg, params, self.pool.capacity_bytes, budget=self.budget)
+            self.caches = init_paged_caches(cfg, n_blocks, self._bt,
+                                            self.device)
+        else:
+            self.banks = backend.materialize_banks(
+                cfg, params, pos_bytes * n * e.max_len, budget=self.budget)
+            self.caches = init_caches(cfg, n, e.max_len, self.device)
         self.slots: List[Optional[RequestHandle]] = [None] * n
         self.pos = np.zeros(n, np.int64)
         self.tokens = np.zeros(n, np.int64)     # vacant rows replay token 0
@@ -149,8 +171,8 @@ class InferenceEngine:
         if plen > self.buckets[-1]:
             raise ValueError(f"prompt of {plen} tokens exceeds the largest "
                              f"prefill bucket {self.buckets[-1]}")
-        worst = (1 + self._quota_blocks(plen, request.max_new_tokens)) * \
-            self.pool.block_bytes
+        worst = 0 if self.pool is None else self.pool.block_bytes * \
+            (1 + self._quota_blocks(plen, request.max_new_tokens))
         if worst > self.budget.cap:
             raise ValueError(f"request needs {worst} bytes of KV worst-case "
                              f"but the envelope caps at {self.budget.cap}")
@@ -204,13 +226,15 @@ class InferenceEngine:
                 elif b != bucket:
                     skipped.append(h)
                     continue
-                quota = self._quota_blocks(plen, h.request.max_new_tokens)
-                if not self.pool.try_reserve_quota(quota):
-                    skipped.append(h)
-                    if not group:
-                        break
-                    continue
-                h.lease = KVLease(self.pool, self._nb, quota)
+                if self.pool is not None:
+                    quota = self._quota_blocks(plen,
+                                               h.request.max_new_tokens)
+                    if not self.pool.try_reserve_quota(quota):
+                        skipped.append(h)
+                        if not group:
+                            break
+                        continue
+                    h.lease = KVLease(self.pool, self._nb, quota)
                 group.append(h)
             self.queue.extendleft(reversed(skipped))
             if not group:
@@ -220,21 +244,33 @@ class InferenceEngine:
     def _prefill_group(self, group, free, bucket, finished) -> None:
         R, G = self._prefill_rows, len(group)
         lengths = np.zeros(R, np.int64)
-        tables = np.full((R, self._nb), -1, np.int32)
         toks = np.zeros((R, bucket), np.int64)
         for r, h in enumerate(group):
             p = np.asarray(h.request.tokens).reshape(-1)
             lengths[r] = p.shape[0]
             toks[r, :p.shape[0]] = p
-            for j in range(-(-p.shape[0] // self._bt)):
-                h.lease.ensure(j)
-            tables[r] = h.lease.table
+        kw = dict(bank=self.banks, capacity_factor=self.ecfg.capacity_factor,
+                  per_row_counts=True, moe_dispatch=self.moe_dispatch)
         t0 = time.perf_counter()
-        logits, counts = prefill_paged(
-            self.params, self.cfg, self._dev(toks), self.caches,
-            self._dev(tables, torch.int32), self._dev(np.zeros(R)),
-            self._dev(lengths), bank=self.banks,
-            capacity_factor=self.ecfg.capacity_factor, per_row_counts=True)
+        if self.pool is not None:
+            tables = np.full((R, self._nb), -1, np.int32)
+            for r, h in enumerate(group):
+                for j in range(-(-int(lengths[r]) // self._bt)):
+                    h.lease.ensure(j)
+                tables[r] = h.lease.table
+            logits, counts = prefill_paged(
+                self.params, self.cfg, self._dev(toks), self.caches,
+                self._dev(tables, torch.int32), self._dev(np.zeros(R)),
+                self._dev(lengths), **kw)
+        else:
+            # Fresh row caches, then a copy into the slots' rows.
+            rows = init_caches(self.cfg, R, self.ecfg.max_len, self.device)
+            logits, counts = prefill(self.params, self.cfg, self._dev(toks),
+                                     rows, self._dev(lengths), **kw)
+            slots = self._dev(free[:G])
+            for pos, c in rows.items():
+                self.caches[pos].k[:, slots] = c.k[:, :G]
+                self.caches[pos].v[:, slots] = c.v[:, :G]
         amax, counts_np = self._fetch(torch.argmax(logits, -1), counts)
         dt = time.perf_counter() - t0
         self.prefill_shapes.add((R, bucket))
@@ -275,7 +311,8 @@ class InferenceEngine:
         h.state = RequestState.FINISHED
         h.finish_s = time.perf_counter()
         self.slots[h.slot] = None
-        h.lease.close()
+        if h.lease is not None:
+            h.lease.close()
         self.counters["finished"] += 1
         finished.append(h)
 
@@ -292,24 +329,32 @@ class InferenceEngine:
     def _decode(self, active, finished) -> None:
         n = self.ecfg.max_slots
         row_valid = np.zeros(n, bool)
-        wblk = np.zeros(n, np.int64)       # vacant rows → trash block
-        woff = np.zeros(n, np.int64)
-        for i, h in active:
+        for i, _ in active:
             row_valid[i] = True
-            s = int(self.pos[i]) % self._C_pad
-            phys, cow = h.lease.ensure(s // self._bt)
-            assert cow < 0, "copy-on-write needs prefix sharing"
-            wblk[i], woff[i] = phys, s % self._bt
-        tables = np.full((n, self._nb), -1, np.int32)
-        for i, h in active:
-            tables[i] = h.lease.table
+        kw = dict(bank=self.banks, capacity_factor=self.ecfg.capacity_factor,
+                  row_valid=self._dev(row_valid, torch.bool),
+                  per_row_counts=True, moe_dispatch=self.moe_dispatch)
         t0 = time.perf_counter()
-        logits, counts = decode_step_paged(
-            self.params, self.cfg, self._dev(self.tokens),
-            self._dev(self.pos), self.caches, self._dev(tables, torch.int32),
-            self._dev(wblk), self._dev(woff), bank=self.banks,
-            capacity_factor=self.ecfg.capacity_factor,
-            row_valid=self._dev(row_valid, torch.bool), per_row_counts=True)
+        if self.pool is None:
+            # Vacant rows write their own (unused) row at pos % max_len.
+            logits, counts = decode_step(
+                self.params, self.cfg, self._dev(self.tokens),
+                self._dev(self.pos), self.caches, **kw)
+        else:
+            wblk = np.zeros(n, np.int64)   # vacant rows → trash block
+            woff = np.zeros(n, np.int64)
+            tables = np.full((n, self._nb), -1, np.int32)
+            for i, h in active:
+                s = int(self.pos[i]) % self._C_pad
+                phys, cow = h.lease.ensure(s // self._bt)
+                assert cow < 0, "copy-on-write needs prefix sharing"
+                wblk[i], woff[i] = phys, s % self._bt
+                tables[i] = h.lease.table
+            logits, counts = decode_step_paged(
+                self.params, self.cfg, self._dev(self.tokens),
+                self._dev(self.pos), self.caches,
+                self._dev(tables, torch.int32), self._dev(wblk),
+                self._dev(woff), **kw)
         amax, counts_np = self._fetch(torch.argmax(logits, -1), counts)
         dt = time.perf_counter() - t0
         self.last_row_counts = counts_np
@@ -331,8 +376,11 @@ class InferenceEngine:
 
     def _note_dispatch(self, counts_np: Dict[str, np.ndarray]) -> None:
         """Host mirror of the dispatch gauges: active experts per layer and
-        the ragged layout's intra-tile padding."""
+        the padding of the configured layout (intra-tile slack of the
+        ragged layout, or empty rows of the padded (E, C) buffer)."""
         E = self.cfg.moe.num_experts
+        C = moe_capacity(self.ecfg.max_slots, self.cfg.moe,
+                         self.ecfg.capacity_factor)
         for v in counts_np.values():
             per = v.sum(axis=1).reshape(-1, E).astype(np.float64)
             routed = per.sum(axis=1)
@@ -340,10 +388,13 @@ class InferenceEngine:
             if not live.any():
                 continue
             per, routed = per[live], routed[live]
-            tiles = np.ceil(per / RAGGED_BM).sum(axis=1)
+            if self.moe_dispatch == "ragged":
+                tiles = np.ceil(per / RAGGED_BM).sum(axis=1)
+                pad = 1.0 - routed / np.maximum(tiles * RAGGED_BM, 1.0)
+            else:
+                pad = 1.0 - np.minimum(per, C).sum(axis=1) / max(E * C, 1)
             self._disp_active_sum += float((per > 0).sum())
-            self._disp_pad_sum += float(
-                (1.0 - routed / np.maximum(tiles * RAGGED_BM, 1.0)).sum())
+            self._disp_pad_sum += float(pad.sum())
             self._disp_layers += int(per.shape[0])
 
     def drain(self) -> List[RequestHandle]:
@@ -376,8 +427,9 @@ class InferenceEngine:
             out["active_experts"] = self._disp_active_sum / self._disp_layers
             out["dispatch_pad_ratio"] = self._disp_pad_sum / \
                 self._disp_layers
-        out["kv_blocks_in_use"] = float(self.pool.blocks_in_use)
-        out["kv_bytes_in_use"] = float(self.pool.bytes_in_use)
+        if self.pool is not None:
+            out["kv_blocks_in_use"] = float(self.pool.blocks_in_use)
+            out["kv_bytes_in_use"] = float(self.pool.bytes_in_use)
         return out
 
     def device_bytes(self) -> int:

@@ -94,8 +94,71 @@ def test_flash_decode_paged_matches_plain(cuda, rep):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["static", "dynaexq"])
-def test_engine_serves_on_the_card(cuda, name):
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("C", [1, 8, 13, 136])
+def test_grouped_lo_matmul_matches_plain(cuda, bits, C):
+    gen = torch.Generator().manual_seed(C)
+    E, K, N = 3, 256, 192
+    qt = quantize((torch.randn((E, K, N), generator=gen) * K ** -0.5)
+                  .to(torch.bfloat16), bits, 64)
+    xg = torch.randn((E, C, K), generator=gen).to(torch.bfloat16)
+    want = ops.grouped_lo_matmul(xg, qt.packed, qt.scales, bits, 64)
+    before = ops.LAUNCHES["grouped_lo_matmul"]
+    got = ops.grouped_lo_matmul(xg.to(cuda), qt.packed.to(cuda),
+                                qt.scales.to(cuda), bits, 64).cpu()
+    # Float32 sums in another order, one bf16 rounding: a few bf16 ulps
+    # at the largest magnitude.
+    tol = 2 ** -6 * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert ops.LAUNCHES["grouped_lo_matmul"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 8, 16])
+@pytest.mark.parametrize("S", [5, 48, 300])
+def test_flash_decode_matches_plain(cuda, rep, S):
+    rng = np.random.default_rng(rep * 1000 + S)
+    B, Hkv, hd = 3, 2, 128
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * rep, hd))) \
+        .to(torch.bfloat16)
+    # Head-major caches, attended through (B, S, Hkv, hd) views.
+    ck = torch.from_numpy(rng.standard_normal((B, Hkv, S, hd))) \
+        .to(torch.bfloat16)
+    cv = torch.from_numpy(rng.standard_normal((B, Hkv, S, hd))) \
+        .to(torch.bfloat16)
+    valid = torch.arange(S)[None, :] < torch.tensor([S, S // 2 + 1, S])[
+        :, None]
+    valid[2] = False                                  # an all-masked row
+    want = ops.flash_decode(q, ck.transpose(1, 2), cv.transpose(1, 2),
+                            valid)
+    ckd, cvd = ck.to(cuda), cv.to(cuda)
+    got = ops.flash_decode(q.to(cuda), ckd.transpose(1, 2),
+                           cvd.transpose(1, 2), valid.to(cuda)).cpu()
+    # Online vs one-pass float32 softmax, one bf16 rounding of the output.
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -8)
+    assert (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [1, 13, 128])
+def test_quant_matmul_matches_plain(cuda, bits, M):
+    gen = torch.Generator().manual_seed(M)
+    K, N = 512, 128
+    qt = quantize((torch.randn((K, N), generator=gen) * K ** -0.5)
+                  .to(torch.bfloat16), bits, 64)
+    x = torch.randn((M, K), generator=gen).to(torch.bfloat16)
+    want = ops.quant_matmul_op(x, qt)
+    got = ops.quant_matmul_op(x.to(cuda), qt.to(cuda)).cpu()
+    # Float32 sums in another order, one bf16 rounding.
+    tol = 2 ** -6 * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _serve(cuda, name, **ecfg):
+    """Serve three requests on a reduced model through the card; returns
+    the launch counts of the run."""
     from repro_torch.configs import get_config
     from repro_torch.core.controller import ControllerConfig
     from repro_torch.models.model import init_params
@@ -109,16 +172,37 @@ def test_engine_serves_on_the_card(cuda, name):
                   controller=ControllerConfig(update_interval_s=0.0))
     eng = InferenceEngine(cfg, init_params(cfg, device=cuda),
                           make_backend(name, **kw),
-                          EngineConfig(max_slots=2, max_len=64), device=cuda)
+                          EngineConfig(max_slots=2, max_len=64, **ecfg),
+                          device=cuda)
     ops.reset_launches()
     hs = [eng.submit(Request(tokens=make_prompts("text", cfg.vocab_size, 1,
                                                  n, seed=n)[0],
                              max_new_tokens=6)) for n in (20, 13, 37)]
     eng.drain()
+    launches = dict(ops.LAUNCHES)
     assert all(len(h.tokens) == 6 for h in hs)
-    assert all(v > 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
     if name == "dynaexq":
         eng.flush()
         for ctl in eng.backend.controllers.values():
             ctl.tm.check_invariants()
         assert eng.stats()["promotions"] > 0
+    return launches
+
+
+PAGED_KERNELS = ("ragged_gateup", "ragged_down", "flash_decode_paged")
+DENSE_KERNELS = ("grouped_lo_matmul", "flash_decode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["static", "dynaexq"])
+def test_engine_serves_on_the_card(cuda, name):
+    launches = _serve(cuda, name)
+    assert all(launches[k] > 0 for k in PAGED_KERNELS), launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["static", "dynaexq"])
+def test_dense_padded_engine_serves_on_the_card(cuda, name):
+    launches = _serve(cuda, name, paged=False, moe_dispatch="padded")
+    assert all(launches[k] > 0 for k in DENSE_KERNELS), launches
+    assert not any(launches[k] for k in PAGED_KERNELS), launches

@@ -34,7 +34,9 @@ PROMPT_LENS = (20, 13, 37)
 NEW_TOKENS = 8
 
 
-def _engines(name):
+def _engines(name, paged=True):
+    """Both engines on one set of weights: the paged pool with ragged
+    dispatch, or (``paged=False``) dense rows with padded dispatch."""
     jcfg = jget_config(ARCH, reduced=True)
     cfg = get_config(ARCH, reduced=True)
     jp = jinit_params(jax.random.PRNGKey(0), jcfg)
@@ -51,9 +53,11 @@ def _engines(name):
     else:
         jbe = jmake_backend("static", lo_bits=4)
         tbe = make_backend("static", lo_bits=4, device="cpu")
+    dispatch = "ragged" if paged else "padded"
     je = JInferenceEngine(jcfg, jp, jbe, JEngineConfig(
-        moe_dispatch="ragged", prefix_sharing=False, **ecfg))
-    te = InferenceEngine(cfg, tp, tbe, EngineConfig(**ecfg), device="cpu")
+        paged=paged, moe_dispatch=dispatch, prefix_sharing=False, **ecfg))
+    te = InferenceEngine(cfg, tp, tbe, EngineConfig(
+        paged=paged, moe_dispatch=dispatch, **ecfg), device="cpu")
     return cfg, je, te
 
 
@@ -80,7 +84,7 @@ def _margin(row):
     return float(top[1] - top[0])
 
 
-def _serve_lockstep(cfg, je, te, monkeypatch):
+def _serve_lockstep(cfg, je, te, monkeypatch, paged=True):
     """Serve the same requests through both engines one step at a time and
     compare every emitted token and its logits row. A request is compared
     until its tokens first differ (which must be at a small-margin step) or
@@ -100,14 +104,15 @@ def _serve_lockstep(cfg, je, te, monkeypatch):
 
     je._post_prefill = post_prefill
     last = {}
-    decode = je._jit_decode_paged
+    jdecode = "_jit_decode_paged" if paged else "_jit_decode"
+    decode = getattr(je, jdecode)
 
     def decode_capture(*a, **kw):
         out = decode(*a, **kw)
         last["logits"] = np.asarray(out[0])
         return out
 
-    je._jit_decode_paged = decode_capture
+    setattr(je, jdecode, decode_capture)
 
     import repro_torch.serving.engine as tengine
 
@@ -118,10 +123,10 @@ def _serve_lockstep(cfg, je, te, monkeypatch):
             return out
         return wrapped
 
-    monkeypatch.setattr(tengine, "prefill_paged",
-                        capture(tengine.prefill_paged, "prefill"))
-    monkeypatch.setattr(tengine, "decode_step_paged",
-                        capture(tengine.decode_step_paged, "decode"))
+    suffix = "_paged" if paged else ""
+    for fn, key in (("prefill", "prefill"), ("decode_step", "decode")):
+        monkeypatch.setattr(tengine, fn + suffix,
+                            capture(getattr(tengine, fn + suffix), key))
     prompts = [make_prompts("code", cfg.vocab_size, 1, n, seed=7 + i)[0]
                for i, n in enumerate(PROMPT_LENS)]
     jh = [je.submit(JRequest(tokens=p, max_new_tokens=NEW_TOKENS))
@@ -162,12 +167,7 @@ def _serve_lockstep(cfg, je, te, monkeypatch):
             for i, (a, b) in enumerate(zip(jh, th))]
 
 
-@pytest.mark.parametrize("name", ["static", "dynaexq"])
-def test_engine_tokens_match_reference(name, monkeypatch):
-    cfg, je, te = _engines(name)
-    if name == "dynaexq":
-        _warm_and_freeze(cfg, je, te)
-    results = _serve_lockstep(cfg, je, te, monkeypatch)
+def _check_served(name, te, results):
     held = 0
     for i, (ref_toks, port_toks, stop, small) in enumerate(results):
         assert len(port_toks) == NEW_TOKENS
@@ -190,3 +190,23 @@ def test_engine_tokens_match_reference(name, monkeypatch):
             ctl.tm.check_invariants()
         assert st["promotions"] > 0
         assert te.backend.hi_routed > 0
+
+
+@pytest.mark.parametrize("name", ["static", "dynaexq"])
+def test_engine_tokens_match_reference(name, monkeypatch):
+    cfg, je, te = _engines(name)
+    if name == "dynaexq":
+        _warm_and_freeze(cfg, je, te)
+    _check_served(name, te, _serve_lockstep(cfg, je, te, monkeypatch))
+
+
+@pytest.mark.parametrize("name", ["static", "dynaexq"])
+def test_dense_padded_engine_tokens_match_reference(name, monkeypatch):
+    """The reference engine's ``paged=False, moe_dispatch="padded"`` path
+    against the port's, under the same margin rule."""
+    cfg, je, te = _engines(name, paged=False)
+    if name == "dynaexq":
+        _warm_and_freeze(cfg, je, te)
+    _check_served(name, te, _serve_lockstep(cfg, je, te, monkeypatch,
+                                            paged=False))
+    assert te.pool is None

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no reference package, and entry points
 that run on the card unless asked for the CPU."""
 import ast
+import functools
 import os
 import pathlib
 import subprocess
@@ -35,7 +36,7 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.serving.engine, "
             "repro_torch.serving.backends, repro_torch.convert, "
-            "repro_torch.kernels.build; "
+            "repro_torch.kernels.build, repro_torch.models.model; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -47,33 +48,39 @@ def test_import_leaves_jax_and_reference_out():
 def _entry_points():
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.models.model import init_paged_caches, init_params
+    from repro_torch.models.model import (init_caches, init_paged_caches,
+                                          init_params)
     from repro_torch.serving.backends import make_backend
-    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
     cfg = get_config("granite-moe-1b-a400m", reduced=True)
 
-    def engine(device):
+    def engine(device, **kw):
         params = init_params(cfg, device="cpu")
         return InferenceEngine(cfg, params,
                                make_backend("static", device="cpu"),
-                               device=device)
+                               EngineConfig(**kw), device=device)
 
     return {
         "resolve_device": lambda device: resolve_device(device),
         "init_params": lambda device: init_params(cfg, device=device),
         "init_paged_caches":
             lambda device: init_paged_caches(cfg, 4, 16, device=device),
+        "init_caches": lambda device: init_caches(cfg, 2, 32, device=device),
         "make_backend_static":
             lambda device: make_backend("static", device=device),
         "make_backend_dynaexq":
             lambda device: make_backend("dynaexq", device=device),
         "InferenceEngine": engine,
+        "InferenceEngine_dense_padded": functools.partial(
+            engine, paged=False, moe_dispatch="padded"),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "init_params",
                                   "init_paged_caches", "make_backend_static",
-                                  "make_backend_dynaexq", "InferenceEngine"])
+                                  "make_backend_dynaexq", "InferenceEngine",
+                                  "init_caches",
+                                  "InferenceEngine_dense_padded"])
 def test_entry_points_need_cuda_unless_cpu_is_asked(name):
     fn = _entry_points()[name]
     fn("cpu")                                  # the CPU on request works
