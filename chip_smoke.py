@@ -9,7 +9,14 @@ Phases (each prints one line; any failure exits non-zero):
 2. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels  — each of the six kernels against its plain PyTorch version on
               the card at the paths' shapes (Qwen3-30B-A3B width), with
-              times, the bound and the library yardstick;
+              times, the bound and the library yardstick; the two
+              decode-attention kernels over several cases each (batch 8 and
+              1, long rows, masked holes), timed both by an event loop
+              (``ms``) and by CUDA-graph replay (``graph_ms``) in turns with
+              SDPA (``library_graph_ms``);
+   splits   — both decode-attention kernels at their main shapes under
+              forced split counts, each held against its plain version,
+              with device (graph) and host time per call;
 4. model    — a 2-layer full-width model, same seeded weights on the CPU
               (plain versions) and on the card (kernels): one 32-token
               prefill and 4 teacher-forced decode steps, logits compared,
@@ -79,6 +86,140 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds of one ``fn`` with the host out of the
+    timed loop: ``iters`` calls captured in one CUDA graph, whose replays
+    (``replays`` of them, after one untimed) are timed with CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def profiler_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds of one ``fn`` by ``torch.profiler``: the
+    sum of the device time of every kernel it ran, over ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages())
+    if us <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return us / iters / 1e3
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn`` when nothing waits for the
+    device: the time to enqueue ``calls`` calls, synchronised after."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def host_steps(name, q, k, v, *rest) -> dict:
+    """Host microseconds per call of each step of a decode-attention
+    wrapper on the card, each step timed alone (the median of 5
+    ``host_us`` loops) with the wrapper's own calls: the argument checks,
+    the launch-plan lookup, the pointer reads with the alignment check,
+    the allocations, the stream handle, the ctypes call (its one or two
+    kernel launches included); then the whole wrapper call, and what it
+    costs beyond the sum of the steps (Python frames, shape compares)."""
+    from repro_torch.kernels import ops
+    dev = q.device
+    bf, contig = torch.bfloat16, name == "flash_decode_paged"
+    needs = [(q, "q", bf, 3, True), (k, "k", bf, 4, contig),
+             (v, "v", bf, 4, contig)]
+    if contig:
+        table, valid = rest
+        needs += [(table, "table", torch.int32, 2, True)]
+        key = lambda: (name, q.shape, k.shape, table.shape[1], dev.index)
+    else:
+        valid, = rest
+        key = lambda: (name, q.shape, k.shape, k.stride(), dev.index)
+    needs += [(valid, "valid", torch.bool, 2, True)]
+    call = getattr(ops, name)
+    whole = lambda: call(q, k, v, *rest)
+    whole()
+    plan = ops._PLANS[key()]
+    out = torch.empty(plan.shape, dtype=bf, device=dev)
+    scratch = None if not plan.scratch else torch.empty(
+        plan.scratch, dtype=torch.float32, device=dev)
+    ptrs = [t.data_ptr() for t in (q, k, v, *rest)]
+    stream = ops._stream(dev.index)
+
+    def checks():
+        for t, n, dt, nd, c in needs:
+            ops._need(t, n, dt, dev, nd, c)
+
+    def pointers():
+        pk, pv = k.data_ptr(), v.data_ptr()
+        _ = [t.data_ptr() for t in rest]
+        return pk % 16 or pv % 16 or q.data_ptr() % 4
+
+    def alloc():
+        torch.empty(plan.shape, dtype=bf, device=dev)
+        if plan.scratch:
+            torch.empty(plan.scratch, dtype=torch.float32, device=dev)
+
+    def launch():
+        plan.fn(*ptrs, out.data_ptr(), ops._ptr(scratch), plan.dims_ptr,
+                plan.scale, stream)
+
+    steps = {}
+    for step, fn in (("checks", checks), ("plan", lambda: ops._PLANS.get(
+            key())), ("pointers", pointers), ("alloc", alloc),
+                     ("stream", lambda: ops._stream(dev.index)),
+                     ("launch", launch), ("whole", whole)):
+        steps[step] = float(np.median([host_us(fn) for _ in range(5)]))
+    steps["rest"] = steps["whole"] - sum(
+        t for s, t in steps.items() if s != "whole")
+    return steps
+
+
+def interleaved(kernel, library) -> dict:
+    """Device times of a kernel and its library yardstick in turns
+    (kernel, library, library, kernel), each by graph replay; where the
+    library call cannot be captured, by ``torch.profiler`` device time."""
+    k1 = graph_ms(kernel)
+    try:
+        l1, l2, how = graph_ms(library), graph_ms(library), "graph"
+    except RuntimeError:
+        torch.cuda.synchronize()
+        l1, l2, how = profiler_ms(library), profiler_ms(library), "profiler"
+    k2 = graph_ms(kernel)
+    return {"graph_ms": (k1 + k2) / 2, "library_graph_ms": (l1 + l2) / 2,
+            "library_graph_method": how, "graph_runs": [k1, l1, l2, k2]}
 
 
 def bound(nbytes: float, ops: float):
@@ -264,68 +405,229 @@ def _gqmm_case(name, gen, dev, qt, C, tol_rel):
     return out
 
 
-def _kernels_dense_decode(cfg, gen, dev) -> None:
-    """The dense flash decode over the cache's head-major rows, seen as
-    (B, S, Hkv, hd) without a copy, against the plain version and SDPA."""
-    from repro_torch.kernels import ops, ref
-    B, H, Hkv, hd = 8, cfg.attn.n_heads, cfg.attn.n_kv_heads, \
-        cfg.attn.head_dim
-    S = 288                      # the serving phase's max_len
+# Tolerance of both attention kernels: float32 online softmax against
+# float32 softmax, output rounded to bf16 — within 2 bf16 ulps of the
+# output magnitude.
+ATTN_TOL = 2.0 ** -7
+
+
+def _attn_case(kind, case, run_k, run_p, run_lib, nbytes, ops_, zero_rows,
+               n_split):
+    """Hold one attention case against its plain version; time it (event
+    loop and graph replay, interleaved with its SDPA yardstick); returns
+    the case's entry."""
+    o_k, o_p = run_k(), run_p()
+    torch.cuda.synchronize()
+    err = float((o_k.float() - o_p.float()).abs().max())
+    tol = ATTN_TOL * float(o_p.float().abs().max())
+    ok = bool(torch.isfinite(o_k.float()).all()) and err <= tol and \
+        all(bool((o_k[r] == 0).all()) for r in zero_rows)
+    b = bound(nbytes, ops_)
+    out = {"case": case, "ok": ok, "err": err, "tol": tol, "n_split": n_split,
+           "ms": time_ms(run_k), "plain_ms": time_ms(run_p),
+           "library_ms": time_ms(run_lib), "bound_ms": b[0],
+           "bound_by": b[1], "host_us": host_us(run_k)}
+    out.update(interleaved(run_k, run_lib))
+    log("kernels", f"{kind} {case}: {n_split} split(s) | err {err:.3g} (tol "
+                   f"{tol:.3g}) | {out['ms']:.4f} ms, graph "
+                   f"{out['graph_ms']:.4f} ms, host {out['host_us']:.1f} "
+                   f"us/call | plain {out['plain_ms']:.4f} "
+                   f"ms | sdpa {out['library_ms']:.4f} ms, "
+                   f"{out['library_graph_method']} "
+                   f"{out['library_graph_ms']:.4f} ms | bound "
+                   f"{b[0]:.4f} ms ({b[1]}) | turns kernel/sdpa/sdpa/kernel "
+                   f"{[round(x, 5) for x in out['graph_runs']]} | "
+                   f"{'ok' if ok else 'FAIL'}")
+    return out
+
+
+def _log_host_steps(kind, case, steps):
+    log("kernels", f"{kind} {case}: wrapper host us/call by step "
+                   + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    return steps
+
+
+def _attn_result(name, source, replaces, cases):
+    """The kernel's JSON entry: the first (main) case's numbers, every
+    case beside them."""
+    bad = [c["case"] for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{bad}")
+    m = cases[0]
+    RESULTS[name] = {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": 0,
+        "max_abs_err": max(c["err"] for c in cases), "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        "graph_ms": m["graph_ms"], "library_graph_ms": m["library_graph_ms"],
+        "library_graph_method": m["library_graph_method"],
+        "host_steps_us": m["host_steps_us"],
+        "cases": [{k: c[k] for k in ("case", "n_split", "err", "tol", "ms",
+                                     "graph_ms", "host_us", "plain_ms",
+                                     "library_ms", "library_graph_ms",
+                                     "bound_ms", "bound_by")}
+                  for c in cases]}
+
+
+def _n_split(B, Hkv, n_tiles):
+    from repro_torch.kernels import ops
+    return ops.decode_splits(B, Hkv, n_tiles, ops._sm_count(0))[0]
+
+
+def _dense_decode_inputs(cfg, gen, dev, B, S, holes=False):
+    """q, the (B, S, Hkv, hd) views of head-major caches and valid, plus the
+    rows that must come out as zeros and SDPA's yardstick call. B=8:
+    ragged rows, one full (the inputs of earlier runs); else full rows, or
+    with ``holes`` row 0 valid only in [0, 100) ∪ [S-196, S), row 1 at
+    valid[0] alone and row 2 all-masked."""
+    H, Hkv, hd = cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.attn.head_dim
     ck = torch.randn((B, Hkv, S, hd), generator=gen, device=dev).to(
         torch.bfloat16)
     cv = torch.randn((B, Hkv, S, hd), generator=gen, device=dev).to(
         torch.bfloat16)
-    k, v = ck.transpose(1, 2), cv.transpose(1, 2)
     q = torch.randn((B, H, hd), generator=gen, device=dev).to(torch.bfloat16)
-    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
-    lengths[0] = S                             # one full row
-    valid = torch.arange(S, device=dev)[None, :] < lengths[:, None]
-
-    def fd_k():
-        return ops.flash_decode(q, k, v, valid)
-
-    def fd_p():
-        return ref.flash_decode_ref(q, k, v, valid)
-
-    o_k, o_p = fd_k(), fd_p()
-    masked = valid.clone()
-    masked[1] = False                          # an all-masked row gives 0
-    m_k = ops.flash_decode(q, k, v, masked)
-    m_p = ref.flash_decode_ref(q, k, v, masked)
-    torch.cuda.synchronize()
-    e_fd = max(float((o_k.float() - o_p.float()).abs().max()),
-               float((m_k.float() - m_p.float()).abs().max()))
-    # Tolerance: float32 online softmax against float32 softmax, output
-    # rounded to bf16 — within 2 bf16 ulps of the output magnitude.
-    tol_fd = 2.0 ** -7 * float(o_p.float().abs().max())
-    ok = bool(torch.isfinite(o_k.float()).all()) and e_fd <= tol_fd and \
-        bool((m_k[1] == 0).all())
+    zero_rows = []
+    if B == 8:
+        lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        lengths[0] = S                         # one full row
+        valid = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+    else:
+        valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+        if holes:
+            valid[0, 100:S - 196] = False
+            valid[1, 1:] = False
+            valid[2] = False                   # an all-masked row gives 0
+            zero_rows = [2]
     kl = ck.repeat_interleave(H // Hkv, dim=1)
     vl = cv.repeat_interleave(H // Hkv, dim=1)
-    mask = valid[:, None, None, :]
 
-    def fd_lib():
+    def lib():
         return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None, :], kl, vl, attn_mask=mask)
+            q[:, :, None, :], kl, vl, attn_mask=valid[:, None, None, :])
 
-    n_valid = int(valid.sum().item())
-    nbytes = q.numel() * 2 * 2 + n_valid * 2 * Hkv * hd * 2 + valid.numel()
-    b = bound(nbytes, 4 * n_valid * H * hd)
-    RESULTS["flash_decode"] = {
-        "name": "flash_decode", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-        "replaces": "src/repro/kernels/flash_decode.py:31",
-        "launches": 0, "max_abs_err": e_fd, "ms": time_ms(fd_k),
-        "plain_ms": time_ms(fd_p), "bound_ms": b[0], "bound_by": b[1],
-        "library_ms": time_ms(fd_lib)}
-    r = RESULTS["flash_decode"]
-    log("kernels", f"flash_decode B={B} H={H} Hkv={Hkv} hd={hd} S={S} "
-                   f"(strided cache view, one all-masked row): err {e_fd:.3g}"
-                   f" (tol {tol_fd:.3g}) {r['ms']:.4f} ms plain "
-                   f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms sdpa "
-                   f"{r['library_ms']:.4f} ms | {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("flash_decode disagrees with its plain version")
+    return q, ck.transpose(1, 2), cv.transpose(1, 2), valid, zero_rows, lib
+
+
+def _kernels_dense_decode(cfg, gen, dev) -> None:
+    """The dense flash decode over the cache's head-major rows, seen as
+    (B, S, Hkv, hd) without a copy, against the plain version and SDPA:
+    the dense path's shape (B=8, S=288, ragged rows), one row alone, one
+    long row, and a long row with holes (whole splits masked) beside a row
+    with valid[0] alone and an all-masked row."""
+    from repro_torch.kernels import ops, ref
+    H, Hkv, hd = cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.attn.head_dim
+    cases = []
+    # The main case draws from ``gen`` in the same order as earlier
+    # versions of this script (the same inputs); the others from a
+    # generator of their own.
+    extra = torch.Generator(device=dev).manual_seed(31)
+    for case, B, S in (("B=8 S=288", 8, 288), ("B=1 S=288", 1, 288),
+                       ("B=1 S=4096", 1, 4096),
+                       ("B=3 S=4096 holes", 3, 4096)):
+        q, k, v, valid, zero_rows, lib = _dense_decode_inputs(
+            cfg, gen if B == 8 else extra, dev, B, S, holes="holes" in case)
+        n_valid = int(valid.sum().item())
+        nbytes = q.numel() * 2 * 2 + n_valid * 2 * Hkv * hd * 2 + \
+            valid.numel()
+        cases.append(_attn_case(
+            "flash_decode", case,
+            lambda q=q, k=k, v=v, m=valid: ops.flash_decode(q, k, v, m),
+            lambda q=q, k=k, v=v, m=valid: ref.flash_decode_ref(q, k, v, m),
+            lib, nbytes, 4 * n_valid * H * hd, zero_rows,
+            _n_split(B, Hkv, -(-S // ops.DECODE_TILE))))
+        if B == 8:
+            cases[-1]["host_steps_us"] = _log_host_steps(
+                "flash_decode", case, host_steps("flash_decode", q, k, v,
+                                                 valid))
+    _attn_result("flash_decode",
+                 "src/repro_torch/kernels/csrc/flash_decode.cu",
+                 "src/repro/kernels/flash_decode.py:31", cases)
+
+
+def _paged_decode_inputs(cfg, gen, dev, B, nb, holes=False, bt=16):
+    """q, block pools, table and valid, plus the rows that must come out
+    as zeros and SDPA's yardstick call over the gathered view: random
+    lengths (row 0 full), -1 entries past each row's blocks; with
+    ``holes`` row 0 valid only in its first 2 and last 56 blocks, row 1
+    vacant (table -1, valid[0]: reads block 0), row 2 all-masked."""
+    from repro_torch.models.layers import PagedKVCache, paged_view
+    H, Hkv, hd = cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.attn.head_dim
+    N = 1 + B * nb
+    k = torch.randn((N, Hkv, bt, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn((N, Hkv, bt, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+    perm = (1 + torch.randperm(N - 1, generator=gen, device=dev)).to(
+        torch.int32)
+    table = perm[:B * nb].reshape(B, nb).clone()
+    lengths = torch.randint(1, nb * bt + 1, (B,), generator=gen, device=dev)
+    lengths[0] = nb * bt                       # one full row
+    zero_rows = []
+    if holes:
+        lengths[1] = 0                         # vacant: table -1, valid[0]
+        lengths[2] = nb * bt                   # all-masked below
+        zero_rows = [2]
+    used = (lengths + bt - 1) // bt
+    blk_idx = torch.arange(nb, device=dev)[None, :]
+    table = torch.where(blk_idx < used[:, None], table,
+                        torch.full_like(table, -1))
+    valid = torch.arange(nb * bt, device=dev)[None, :] < lengths[:, None]
+    if holes:
+        valid[0, 2 * bt:(nb - 56) * bt] = False
+        valid[1, 0] = True
+        valid[2] = False
+    kl, vl = paged_view(PagedKVCache(k, v), table)
+    kl = kl.repeat_interleave(H // Hkv, dim=1)
+    vl = vl.repeat_interleave(H // Hkv, dim=1)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None, :], kl, vl, attn_mask=valid[:, None, None, :])
+
+    return q, k, v, table, valid, zero_rows, lib
+
+
+def _kernels_paged_decode(cfg, gen, dev) -> None:
+    """The paged flash decode through a block table, against the plain
+    version and SDPA over the gathered view: the main shape (B=8, nb=32,
+    -1 entries past each row's length; the inputs of earlier runs), the serving phase's 288-slot
+    tables (nb=18), one row alone, and 256-block rows with holes (whole
+    splits masked), a vacant row (table -1, valid[0]: reads block 0) and
+    an all-masked row."""
+    from repro_torch.kernels import ops, ref
+    H, Hkv, hd, bt = cfg.attn.n_heads, cfg.attn.n_kv_heads, \
+        cfg.attn.head_dim, 16
+    cases = []
+    extra = torch.Generator(device=dev).manual_seed(37)
+    for case, B, nb in (("B=8 nb=32", 8, 32), ("B=8 nb=18", 8, 18),
+                        ("B=1 nb=32", 1, 32), ("B=4 nb=256 holes", 4, 256)):
+        q, k, v, table, valid, zero_rows, lib = _paged_decode_inputs(
+            cfg, gen if case == "B=8 nb=32" else extra, dev, B, nb,
+            holes="holes" in case)
+        # Bytes: every block holding a valid slot (a -1 entry with a valid
+        # slot reads block 0), q, the output, the table and valid.
+        n_blocks = int(valid.reshape(B, nb, bt).any(-1).sum().item())
+        n_valid = int(valid.sum().item())
+        nbytes = q.numel() * 2 * 2 + n_blocks * 2 * Hkv * bt * hd * 2 + \
+            table.numel() * 4 + valid.numel()
+        cases.append(_attn_case(
+            "flash_decode_paged", case,
+            lambda q=q, k=k, v=v, t=table, m=valid:
+                ops.flash_decode_paged(q, k, v, t, m),
+            lambda q=q, k=k, v=v, t=table, m=valid:
+                ref.flash_decode_paged_ref(q, k, v, t, m),
+            lib, nbytes, 4 * n_valid * H * hd, zero_rows,
+            _n_split(B, Hkv, nb)))
+        if case == "B=8 nb=32":
+            cases[-1]["host_steps_us"] = _log_host_steps(
+                "flash_decode_paged", case, host_steps(
+                    "flash_decode_paged", q, k, v, table, valid))
+    _attn_result("flash_decode_paged",
+                 "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
+                 "src/repro/kernels/flash_decode.py:92", cases)
 
 
 def _kernels_quant_matmul(gen, dev, tol_rel) -> None:
@@ -378,7 +680,6 @@ def _kernels_quant_matmul(gen, dev, tol_rel) -> None:
 
 def phase_kernels() -> None:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops, ref
     from repro_torch.quant.qtensor import quantize
     cfg = get_config(ARCH)
     dev = torch.device("cuda")
@@ -462,74 +763,63 @@ def phase_kernels() -> None:
                    "call computes a grouped quantized GEMM")
     _kernels_dense_decode(cfg, gen, dev)
     _kernels_quant_matmul(gen, dev, tol)
+    _kernels_paged_decode(cfg, gen, dev)
 
-    # -- flash_decode_paged ------------------------------------------------
-    B, H, Hkv, hd, bt, nb = 8, cfg.attn.n_heads, cfg.attn.n_kv_heads, \
-        cfg.attn.head_dim, 16, 32
-    N = 1 + B * nb
-    k = torch.randn((N, Hkv, bt, hd), generator=gen, device=dev).to(
-        torch.bfloat16)
-    v = torch.randn((N, Hkv, bt, hd), generator=gen, device=dev).to(
-        torch.bfloat16)
-    q = torch.randn((B, H, hd), generator=gen, device=dev).to(torch.bfloat16)
-    perm = (1 + torch.randperm(N - 1, generator=gen, device=dev)).to(
-        torch.int32)
-    table = perm[:B * nb].reshape(B, nb).clone()
-    lengths = torch.randint(1, nb * bt + 1, (B,), generator=gen,
-                            device=dev)
-    lengths[0] = nb * bt                       # one full row
-    used = (lengths + bt - 1) // bt
-    blk_idx = torch.arange(nb, device=dev)[None, :]
-    table = torch.where(blk_idx < used[:, None], table,
-                        torch.full_like(table, -1))
-    valid = torch.arange(nb * bt, device=dev)[None, :] < lengths[:, None]
 
-    def fd_k():
-        return ops.flash_decode_paged(q, k, v, table, valid)
-
-    def fd_p():
-        return ref.flash_decode_paged_ref(q, k, v, table, valid)
-
-    o_k, o_p = fd_k(), fd_p()
-    torch.cuda.synchronize()
-    e_fd = float((o_k.float() - o_p.float()).abs().max())
-    # Tolerance: float32 online softmax against float32 softmax, output
-    # rounded to bf16 — within 2 bf16 ulps of the output magnitude.
-    tol_fd = 2.0 ** -7 * float(o_p.float().abs().max())
-    ok_fd = bool(torch.isfinite(o_k.float()).all()) and e_fd <= tol_fd
-    # Yardstick: SDPA over the gathered view (timed here only).
-    from repro_torch.models.layers import PagedKVCache, paged_view
-    kl, vl = paged_view(PagedKVCache(k, v), table)
-    kl = kl.repeat_interleave(H // Hkv, dim=1)
-    vl = vl.repeat_interleave(H // Hkv, dim=1)
-    mask = valid[:, None, None, :]
-
-    def fd_lib():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None, :], kl, vl, attn_mask=mask)
-
-    n_blocks = int((table >= 0).sum().item())
-    n_valid = int(valid.sum().item())
-    fd_bytes = q.numel() * 2 * 2 + n_blocks * 2 * Hkv * bt * hd * 2 + \
-        table.numel() * 4 + valid.numel()
-    fd_ops = 4 * n_valid * H * hd
-    b_fd = bound(fd_bytes, fd_ops)
-    RESULTS["flash_decode_paged"] = {
-        "name": "flash_decode_paged", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
-        "replaces": "src/repro/kernels/flash_decode.py:92",
-        "launches": 0, "max_abs_err": e_fd, "ms": time_ms(fd_k),
-        "plain_ms": time_ms(fd_p), "bound_ms": b_fd[0],
-        "bound_by": b_fd[1], "library_ms": time_ms(fd_lib)}
-    r = RESULTS["flash_decode_paged"]
-    log("kernels", f"flash_decode_paged B={B} H={H} Hkv={Hkv} hd={hd} "
-                   f"bt={bt} nb={nb}: err {e_fd:.3g} (tol {tol_fd:.3g}) "
-                   f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
-                   f"{r['bound_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms | "
-                   f"{'ok' if ok_fd else 'FAIL'}")
-    if not ok_fd:
-        raise AssertionError("flash_decode_paged disagrees with its plain "
-                             "version")
+def phase_splits() -> None:
+    """Each decode-attention kernel at its main shapes under forced split
+    counts, held against its plain version at every count and timed by
+    graph replay (device) and by the host time of one wrapper call: the
+    data behind the split rule ``ops.decode_splits``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    cfg = get_config(ARCH)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    Hkv = cfg.attn.n_kv_heads
+    rule = ops.decode_splits
+    for kind, B, n in (("flash_decode", 8, 288), ("flash_decode", 1, 4096),
+                       ("flash_decode_paged", 8, 32),
+                       ("flash_decode_paged", 8, 18),
+                       ("flash_decode_paged", 1, 32),
+                       ("flash_decode_paged", 1, 256)):
+        if kind == "flash_decode":
+            q, k, v, valid, _, _ = _dense_decode_inputs(cfg, gen, dev, B, n)
+            n_tiles = -(-n // ops.DECODE_TILE)
+            run = lambda q=q, k=k, v=v, m=valid: ops.flash_decode(q, k, v, m)
+            want = ref.flash_decode_ref(q, k, v, valid)
+            case = f"B={B} S={n}"
+        else:
+            q, k, v, table, valid, _, _ = _paged_decode_inputs(cfg, gen, dev,
+                                                               B, n)
+            n_tiles = n
+            run = lambda q=q, k=k, v=v, t=table, m=valid: \
+                ops.flash_decode_paged(q, k, v, t, m)
+            want = ref.flash_decode_paged_ref(q, k, v, table, valid)
+            case = f"B={B} nb={n}"
+        tol = ATTN_TOL * float(want.float().abs().max())
+        chosen = rule(B, Hkv, n_tiles, ops._sm_count(0))[0]
+        seen = {}
+        try:
+            for forced in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 64, 128):
+                tps = -(-n_tiles // min(forced, n_tiles))
+                split = (-(-n_tiles // tps), tps)
+                if split in seen:
+                    continue
+                ops.decode_splits = lambda *a, _s=split, **kw: _s
+                ops._PLANS.clear()
+                err = float((run().float() - want.float()).abs().max())
+                if err > tol:
+                    raise AssertionError(f"{kind} {case} at {split[0]} "
+                                         f"splits: err {err} > tol {tol}")
+                seen[split] = (graph_ms(run), host_us(run))
+        finally:
+            ops.decode_splits = rule
+            ops._PLANS.clear()
+        log("splits", f"{kind} {case} ({n_tiles} tiles; the rule picks "
+                      f"{chosen}): n_split -> graph ms, host us/call "
+                      + ", ".join(f"{ns}: {g:.4f}, {h:.1f}"
+                                  for (ns, _), (g, h) in seen.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -827,7 +1117,7 @@ def phase_serving(card: str) -> None:
         RESULTS[k]["launches"] = sum(s["launches"][k] for s in runs)
 
 
-PHASES = ("card", "build", "kernels", "model", "serving")
+PHASES = ("card", "build", "kernels", "splits", "model", "serving")
 
 
 def main() -> int:
@@ -844,6 +1134,8 @@ def main() -> int:
     phase_build()
     if "kernels" in only:
         phase_kernels()
+    if "splits" in only:
+        phase_splits()
     if "model" in only:
         phase_model()
     if "serving" in only:

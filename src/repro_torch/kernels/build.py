@@ -35,13 +35,13 @@ SIGNATURES = {
         "ragged_down": [_P] * 8 + [_I] * 6 + [_P],
     },
     "flash_decode_paged": {
-        "flash_decode_paged": [_P] * 6 + [_I] * 6 + [_F, _P],
+        "flash_decode_paged": [_P] * 8 + [_F, _P],
     },
     "grouped_quant_matmul": {
         "grouped_quant_matmul": [_P] * 4 + [_I] * 6 + [_P],
     },
     "flash_decode": {
-        "flash_decode": [_P] * 5 + [_I] * 5 + [_L] * 3 + [_F, _P],
+        "flash_decode": [_P] * 7 + [_F, _P],
     },
     "quant_matmul": {
         "quant_matmul": [_P] * 4 + [_I] * 5 + [_P],

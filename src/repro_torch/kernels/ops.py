@@ -6,8 +6,12 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 * for CUDA tensors, launches its kernel on the current stream (built at
   first use, see ``kernels.build``) or raises — there is no fallback;
 
-and counts its launches in ``LAUNCHES`` (one per kernel launch, nowhere
-else), so a run can show that the main path went through the kernels.
+and counts its launches in ``LAUNCHES`` (one per call that launched,
+nowhere else), so a run can show that the main path went through the
+kernels. The two decode-attention wrappers count one per call whether one
+or two device launches ran: they are split-KV (``decode_splits`` cuts each
+row's tiles across CTAs, and a second small kernel merges the splits when
+there is more than one).
 
 The padded MoE dispatch's grouped GEMM (``grouped_lo_matmul``), the dense
 decode attention (``flash_decode``) and the plain quantized GEMM
@@ -17,7 +21,9 @@ Pallas version's DMA hold maps (``_hold_last``) have no counterpart here.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,6 +39,19 @@ KERNEL_BM = 8
 #: Output columns per CTA of the quantized GEMM kernels (N must be a
 #: multiple).
 KERNEL_BN = 64
+#: Head widths the decode-attention kernels are compiled for (their
+#: register tiles are sized at compile time; the repo's attention configs
+#: use 64, 128 and 256).
+DECODE_HEAD_DIMS = (64, 128, 256)
+#: Sequence positions per tile of the dense decode kernel (compiled in).
+DECODE_TILE = 32
+#: Warps per CTA of the decode-attention kernels (compiled in); each warp
+#: takes every 4th tile of its CTA's split.
+DECODE_WARPS = 4
+#: The decode-attention split rule aims at this many CTAs per SM, over
+#: splits of at least ``DECODE_MIN_TILES`` tiles each.
+DECODE_WAVES = 1
+DECODE_MIN_TILES = 2
 
 
 def reset_launches() -> None:
@@ -40,12 +59,101 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def decode_splits(B: int, Hkv: int, n_tiles: int,
+                  n_sm: int) -> Tuple[int, int]:
+    """How the decode-attention kernels cut each (row, KV head)'s
+    ``n_tiles`` tiles across CTAs: returns ``(n_split, tiles_per_split)``.
+    Split ``s`` takes tiles ``[s·tps, min(n_tiles, (s+1)·tps))``; every
+    split is non-empty and together they cover each tile once. Enough
+    splits for about ``DECODE_WAVES`` CTAs per SM over the B·Hkv groups, at
+    least ``DECODE_MIN_TILES`` tiles each; 1 when B·Hkv alone gives that
+    many CTAs. A split of more tiles than a CTA has warps takes a whole
+    number per warp, so its warps end together. On the H100 more splits
+    than one CTA per SM cost more in the merge than they gain, and uneven
+    warps cost ~10% (``chip_smoke.py --only card,build,splits``). A
+    function of shapes only, so a result never depends on data or
+    timing."""
+    rows = max(1, B * Hkv)
+    want = -(-DECODE_WAVES * n_sm // rows)
+    n = max(1, min(want, n_tiles // DECODE_MIN_TILES))
+    tps = max(1, -(-n_tiles // n))
+    if DECODE_WARPS < tps < n_tiles:
+        tps = min(n_tiles, -(-tps // DECODE_WARPS) * DECODE_WARPS)
+    return max(1, -(-n_tiles // tps)), tps
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class _DecodePlan:
+    """The shape-only part of a decode-attention launch, built once per
+    shape: the split, the size of the float32 partials (none with one
+    split) and the kernel's integer arguments as a C array."""
+
+    def __init__(self, library: str, B: int, H: int, Hkv: int, hd: int,
+                 n_tiles: int, index: int, dims) -> None:
+        from repro_torch.kernels import build
+        self.n_split, self.tps = decode_splits(B, Hkv, n_tiles,
+                                               _sm_count(index))
+        # acc (B·Hkv, n_split, rep, hd), then (m, l) (B·Hkv, n_split, rep, 2).
+        self.scratch = 0 if self.n_split == 1 else \
+            B * Hkv * self.n_split * (H // Hkv) * (hd + 2)
+        self.shape = (B, H, hd)
+        self.scale = hd ** -0.5
+        self.dims = (ctypes.c_longlong * (len(dims) + 2))(
+            *dims, self.n_split, self.tps)
+        self.dims_ptr = ctypes.addressof(self.dims)
+        self.fn = getattr(build.library(library), library)
+
+
+#: Launch plans by (library, shapes, strides, device): built on a shape's
+#: first call, after the checks that depend on shapes alone.
+_PLANS: Dict[tuple, _DecodePlan] = {}
+
+
+def _new_plan(key: tuple, q, Hkv: int, n_tiles: int, dims) -> _DecodePlan:
+    B, H, hd = q.shape
+    if hd not in DECODE_HEAD_DIMS or H // Hkv > 16:
+        raise ValueError(f"the CUDA kernel takes hd in {DECODE_HEAD_DIMS} "
+                         f"(register tiles sized at compile time) and at "
+                         f"most 16 query heads per KV head; got hd={hd}, "
+                         f"{H // Hkv} per KV head")
+    plan = _PLANS[key] = _DecodePlan(key[0], B, H, Hkv, hd, n_tiles,
+                                     q.device.index, dims)
+    return plan
+
+
+def _decode_launch(plan: _DecodePlan, name: str, q, k, v, *rest):
+    """Allocate the output (and the partials when there are several
+    splits), launch, count."""
+    pk, pv = k.data_ptr(), v.data_ptr()
+    if pk % 16 or pv % 16 or q.data_ptr() % 4:
+        raise ValueError("the CUDA kernel copies K/V in 16-byte chunks: k "
+                         "and v must start 16-byte aligned (q 4-byte)")
+    out = torch.empty(plan.shape, dtype=torch.bfloat16, device=q.device)
+    scratch = None if not plan.scratch else torch.empty(
+        plan.scratch, dtype=torch.float32, device=q.device)
+    err = plan.fn(q.data_ptr(), pk, pv, *[t.data_ptr() for t in rest],
+                  out.data_ptr(), _ptr(scratch), plan.dims_ptr, plan.scale,
+                  _stream(q.device.index))
+    if err:
+        from repro_torch.kernels import build
+        build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(index: Optional[int] = None) -> int:
+    """The current CUDA stream of device ``index`` (default: the current
+    device) as an integer handle, without building a ``Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def _need(t: torch.Tensor, name: str, dtype, device, ndim: int,
@@ -215,18 +323,17 @@ def flash_decode_paged(q, k, v, table, valid) -> torch.Tensor:
                          f"{tuple(valid.shape)} != (B, nb) / (B, nb·bt)")
     if dev.type == "cpu":
         return ref.flash_decode_paged_ref(q, k, v, table, valid)
-    if hd % 32 or hd > 1024 or H // Hkv > 16:
-        raise ValueError(f"the CUDA kernel takes hd a multiple of 32 up to "
-                         f"1024 and at most 16 query heads per KV head")
-    from repro_torch.kernels import build
-    out = torch.empty_like(q)
-    err = build.library("flash_decode_paged").flash_decode_paged(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), B, H, Hkv, bt, hd, nb,
-        hd ** -0.5, _stream())
-    build.check(err, "flash_decode_paged")
-    LAUNCHES["flash_decode_paged"] += 1
-    return out
+    key = ("flash_decode_paged", q.shape, k.shape, nb, dev.index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if bt % 16 or bt * hd > 8192:
+            raise ValueError(f"the CUDA kernel takes bt a multiple of 16 "
+                             f"with bt·hd <= 8192 (a block is 16-row MMA "
+                             f"chunks, and one block of K and V per warp "
+                             f"stage fits in shared memory); got bt={bt}, "
+                             f"hd={hd}")
+        plan = _new_plan(key, q, Hkv, nb, (B, H, Hkv, bt, hd, nb))
+    return _decode_launch(plan, "flash_decode_paged", q, k, v, table, valid)
 
 
 def grouped_lo_matmul(xg, packed, scales, bits: int,
@@ -297,21 +404,21 @@ def flash_decode(q, k, v, valid) -> torch.Tensor:
     if valid.shape != (B, S):
         raise ValueError(f"valid {tuple(valid.shape)} != (B, S) = "
                          f"({B}, {S})")
-    if k.stride(-1) != 1 or v.stride() != k.stride():
-        raise ValueError(f"k/v strides {k.stride()}/{v.stride()}: the last "
+    stride = k.stride()
+    if stride[-1] != 1 or v.stride() != stride:
+        raise ValueError(f"k/v strides {stride}/{v.stride()}: the last "
                          f"axis must be contiguous and both views alike")
     if dev.type == "cpu":
         return ref.flash_decode_ref(q, k, v, valid)
-    if hd % 32 or hd > 1024 or H // Hkv > 16:
-        raise ValueError(f"the CUDA kernel takes hd a multiple of 32 up to "
-                         f"1024 and at most 16 query heads per KV head")
-    from repro_torch.kernels import build
-    out = torch.empty_like(q)
-    st_b, st_s, st_h, _ = k.stride()
-    err = build.library("flash_decode").flash_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), B, H, Hkv, S, hd, st_b, st_s, st_h, hd ** -0.5,
-        _stream())
-    build.check(err, "flash_decode")
-    LAUNCHES["flash_decode"] += 1
-    return out
+    key = ("flash_decode", q.shape, k.shape, stride, dev.index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        st_b, st_s, st_h, _ = stride
+        if st_b % 8 or st_s % 8 or st_h % 8:
+            raise ValueError(f"k/v strides {stride}: the CUDA kernel copies "
+                             f"rows in 16-byte chunks, so the batch, "
+                             f"sequence and head strides must be multiples "
+                             f"of 8")
+        plan = _new_plan(key, q, Hkv, -(-S // DECODE_TILE),
+                         (B, H, Hkv, S, hd, st_b, st_s, st_h))
+    return _decode_launch(plan, "flash_decode", q, k, v, valid)

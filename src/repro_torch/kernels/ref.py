@@ -15,6 +15,11 @@ holds the kernels against them on the card.
 * ``quant_matmul_ref`` — the plain quantized GEMM: weights dequantized to
   float32 (code · scale), then a float32 product (not the group-blocked
   rule).
+* ``flash_decode_split_ref`` / ``flash_decode_paged_split_ref`` — the
+  split-KV arithmetic of the decode-attention kernels in plain form
+  (``split_partials`` then ``merge_splits``), for the tests: the kernels
+  themselves are held against ``flash_decode_ref`` /
+  ``flash_decode_paged_ref``.
 """
 from __future__ import annotations
 
@@ -165,6 +170,66 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: torch.Tensor, tile: int, n_split: int,
+                   tps: int):
+    """The first pass of the split-KV kernels: q (B, H, hd); k/v (B, Hkv,
+    S, hd) views; valid (B, S). Split ``s`` covers positions
+    ``[s·tps·tile, (s+1)·tps·tile) ∩ [0, S)``. Returns float32 (m, l, acc)
+    of shapes (B, H, n_split), (B, H, n_split), (B, H, n_split, hd): the
+    split's max logit, its sum of exp(logit − m) and its unnormalized
+    output; a split without a valid slot has m = -inf and l = acc = 0."""
+    B, H, hd = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Hkv, H // Hkv, hd)
+    logits = torch.matmul(qg, k.float().transpose(-1, -2)) * hd ** -0.5
+    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    ms, ls, accs = [], [], []
+    for s in range(n_split):
+        a, e = min(S, s * tps * tile), min(S, (s + 1) * tps * tile)
+        x = logits[..., a:e]
+        m = x.amax(-1) if e > a else torch.full(x.shape[:-1], float("-inf"))
+        p = torch.exp(x - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.matmul(p, v.float()[:, :, a:e]))
+    m, l = torch.stack(ms, -1), torch.stack(ls, -1)
+    acc = torch.stack(accs, -2)                   # (B, Hkv, rep, n, hd)
+    return (m.reshape(B, H, n_split), l.reshape(B, H, n_split),
+            acc.reshape(B, H, n_split, hd))
+
+
+def merge_splits(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """The merge pass: out = Σ e^{m_i−M} acc_i / max(Σ e^{m_i−M} l_i,
+    1e-30) with M = max_i m_i, a split with m = -inf weighing 0; (B, H, n),
+    (B, H, n), (B, H, n, hd) → (B, H, hd) in ``dtype``."""
+    M = m.amax(-1, keepdim=True)
+    w = torch.where(torch.isinf(m), 0.0,
+                    torch.exp(m - torch.where(torch.isinf(M), 0.0, M)))
+    num = (w[..., None] * acc).sum(-2)
+    den = (w * l).sum(-1).clamp(min=1e-30)
+    return (num / den[..., None]).to(dtype)
+
+
+def flash_decode_split_ref(q, k, v, valid, n_split: int, tps: int,
+                           tile: int) -> torch.Tensor:
+    """``flash_decode_ref`` computed split by split and merged: k/v
+    (B, S, Hkv, hd) views as the dense kernel takes them."""
+    m, l, acc = split_partials(q, k.transpose(1, 2), v.transpose(1, 2),
+                               valid, tile, n_split, tps)
+    return merge_splits(m, l, acc, q.dtype)
+
+
+def flash_decode_paged_split_ref(q, k, v, table, valid, n_split: int,
+                                 tps: int) -> torch.Tensor:
+    """``flash_decode_paged_ref`` computed split by split (a tile is one
+    block) and merged."""
+    kl, vl = _paged_rows(k, v, table)
+    m, l, acc = split_partials(q, kl, vl, valid, k.shape[2], n_split, tps)
+    return merge_splits(m, l, acc, q.dtype)
+
+
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
     """q (B, H, hd); k/v (B, S, Hkv, hd), strided views allowed; valid
@@ -178,9 +243,15 @@ def flash_decode_paged_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, H, hd); k/v (N, Hkv, bt, hd) block pools; table (B, nb) int32
     (-1 = unallocated, read as block 0 and masked by ``valid``); valid
     (B, nb·bt) bool → (B, H, hd) in q's dtype."""
+    return _attend(q, *_paged_rows(k, v, table), valid)
+
+
+def _paged_rows(k: torch.Tensor, v: torch.Tensor, table: torch.Tensor):
+    """The block pools gathered through the table as (B, Hkv, nb·bt, hd)
+    rows; -1 entries read block 0."""
     B, nb = table.shape
     Hkv, bt, hd = k.shape[1], k.shape[2], k.shape[3]
     idx = torch.clamp(table.long(), min=0)
     kl = k[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, nb * bt, hd)
     vl = v[idx].permute(0, 2, 1, 3, 4).reshape(B, Hkv, nb * bt, hd)
-    return _attend(q, kl, vl, valid)
+    return kl, vl

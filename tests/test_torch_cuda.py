@@ -66,11 +66,15 @@ def test_ragged_kernels_match_plain(cuda, bits, with_hi):
     assert ops.LAUNCHES["ragged_down"] == before["ragged_down"] + 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rep", [1, 2, 8, 16])
-def test_flash_decode_paged_matches_plain(cuda, rep):
-    rng = np.random.default_rng(rep)
-    B, Hkv, hd, bt, nb = 3, 2, 128, 16, 4
+def _paged_case(case, rep, hd, rng, Hkv=2, bt=16):
+    """q, k, v, table, valid of one paged decode case, and the rows that
+    must come out as zeros. ``short``: 3 rows over 4 blocks, one
+    all-masked; ``long``: one row over 256 blocks (several splits);
+    ``holes``: 256 blocks of which only the first 2 and the last 56 hold
+    valid slots (whole splits masked) and an all-masked row; ``vacant``: a
+    row with a table of -1 and ``valid[0]`` true, which reads block 0."""
+    B, nb = {"short": (3, 4), "long": (1, 256), "holes": (2, 256),
+             "vacant": (3, 18)}[case]
     N = 1 + B * nb
     q = torch.from_numpy(rng.standard_normal((B, Hkv * rep, hd))) \
         .to(torch.bfloat16)
@@ -80,17 +84,73 @@ def test_flash_decode_paged_matches_plain(cuda, rep):
         .to(torch.bfloat16)
     table = torch.from_numpy((1 + rng.permutation(N - 1)[:B * nb])
                              .reshape(B, nb).astype(np.int32))
-    lengths = torch.tensor([nb * bt, 21, 5])
+    lengths = {"short": [nb * bt, 21, 5], "long": [nb * bt],
+               "holes": [nb * bt, nb * bt], "vacant": [nb * bt, 0, 40]}[case]
+    lengths = torch.tensor(lengths)
     table[torch.arange(nb)[None, :] * bt >= lengths[:, None]] = -1
     valid = torch.arange(nb * bt)[None, :] < lengths[:, None]
-    valid[2] = False                                  # an all-masked row
+    zero_rows = []
+    if case == "short":
+        valid[2] = False
+        zero_rows = [2]
+    elif case == "holes":
+        valid[0, 2 * bt:200 * bt] = False
+        valid[1] = False
+        zero_rows = [1]
+    elif case == "vacant":
+        valid[1, 0] = True
+    return q, k, v, table, valid, zero_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["short", "long", "holes", "vacant"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("rep", [1, 2, 3, 8, 16])
+def test_flash_decode_paged_matches_plain(cuda, rep, hd, case):
+    rng = np.random.default_rng(rep * 100 + hd)
+    q, k, v, table, valid, zero_rows = _paged_case(case, rep, hd, rng)
+    want = ops.flash_decode_paged(q, k, v, table, valid)
+    before = ops.LAUNCHES["flash_decode_paged"]
+    got = ops.flash_decode_paged(q.to(cuda), k.to(cuda), v.to(cuda),
+                                 table.to(cuda), valid.to(cuda)).cpu()
+    # Online vs one-pass float32 softmax, one bf16 rounding of the output.
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -8)
+    for r in zero_rows:
+        assert (got[r] == 0).all()
+    # One count per call, whether the merge pass ran or not.
+    assert ops.LAUNCHES["flash_decode_paged"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt", [32, 48, 80, 128])
+@pytest.mark.parametrize("rep", [1, 8])
+def test_flash_decode_paged_wide_blocks(cuda, rep, bt):
+    """Blocks of more than 16 slots at hd=64 (bt·hd up to 8192): row 0
+    full, row 1 valid only in the last 16 slots of each block (past slot
+    64 when bt=128), row 2 valid only in the last slot of block 3."""
+    rng = np.random.default_rng(rep * 10 + bt)
+    B, nb, Hkv, hd = 3, 6, 2, 64
+    N = 1 + B * nb
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * rep, hd))) \
+        .to(torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal((N, Hkv, bt, hd))) \
+        .to(torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal((N, Hkv, bt, hd))) \
+        .to(torch.bfloat16)
+    table = torch.from_numpy((1 + rng.permutation(N - 1)[:B * nb])
+                             .reshape(B, nb).astype(np.int32))
+    valid = torch.zeros((B, nb, bt), dtype=torch.bool)
+    valid[0] = True
+    valid[1, :, bt - 16:] = True
+    valid[2, 3, bt - 1] = True
+    valid = valid.reshape(B, nb * bt)
     want = ops.flash_decode_paged(q, k, v, table, valid)
     got = ops.flash_decode_paged(q.to(cuda), k.to(cuda), v.to(cuda),
                                  table.to(cuda), valid.to(cuda)).cpu()
     # Online vs one-pass float32 softmax, one bf16 rounding of the output.
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                atol=2 ** -8)
-    assert (got[2] == 0).all()
 
 
 @pytest.mark.cuda
@@ -113,31 +173,52 @@ def test_grouped_lo_matmul_matches_plain(cuda, bits, C):
     assert ops.LAUNCHES["grouped_lo_matmul"] == before + 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rep", [1, 8, 16])
-@pytest.mark.parametrize("S", [5, 48, 300])
-def test_flash_decode_matches_plain(cuda, rep, S):
-    rng = np.random.default_rng(rep * 1000 + S)
-    B, Hkv, hd = 3, 2, 128
+def _dense_case(case, rep, hd, rng, Hkv=2):
+    """q, head-major caches (B, Hkv, S, hd), valid and the rows that must
+    come out as zeros. ``S5``/``S48``/``S300``: 3 rows, ragged, one
+    all-masked; ``long``: one row of 4096 positions (several splits);
+    ``holes``: 4096 positions valid only in [0, 100) and [3900, 4096)
+    (whole splits masked), and a row with ``valid[0]`` alone."""
+    B, S = {"S5": (3, 5), "S48": (3, 48), "S300": (3, 300),
+            "long": (1, 4096), "holes": (2, 4096)}[case]
     q = torch.from_numpy(rng.standard_normal((B, Hkv * rep, hd))) \
         .to(torch.bfloat16)
-    # Head-major caches, attended through (B, S, Hkv, hd) views.
     ck = torch.from_numpy(rng.standard_normal((B, Hkv, S, hd))) \
         .to(torch.bfloat16)
     cv = torch.from_numpy(rng.standard_normal((B, Hkv, S, hd))) \
         .to(torch.bfloat16)
-    valid = torch.arange(S)[None, :] < torch.tensor([S, S // 2 + 1, S])[
-        :, None]
-    valid[2] = False                                  # an all-masked row
+    valid = torch.ones((B, S), dtype=torch.bool)
+    zero_rows = []
+    if B == 3:
+        valid[1, S // 2 + 1:] = False
+        valid[2] = False
+        zero_rows = [2]
+    elif case == "holes":
+        valid[0, 100:3900] = False
+        valid[1, 1:] = False
+    return q, ck, cv, valid, zero_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["S5", "S48", "S300", "long", "holes"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("rep", [1, 3, 8, 16])
+def test_flash_decode_matches_plain(cuda, rep, hd, case):
+    rng = np.random.default_rng(rep * 1000 + hd)
+    q, ck, cv, valid, zero_rows = _dense_case(case, rep, hd, rng)
+    # Head-major caches, attended through (B, S, Hkv, hd) views.
     want = ops.flash_decode(q, ck.transpose(1, 2), cv.transpose(1, 2),
                             valid)
     ckd, cvd = ck.to(cuda), cv.to(cuda)
+    before = ops.LAUNCHES["flash_decode"]
     got = ops.flash_decode(q.to(cuda), ckd.transpose(1, 2),
                            cvd.transpose(1, 2), valid.to(cuda)).cpu()
     # Online vs one-pass float32 softmax, one bf16 rounding of the output.
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                atol=2 ** -8)
-    assert (got[2] == 0).all()
+    for r in zero_rows:
+        assert (got[r] == 0).all()
+    assert ops.LAUNCHES["flash_decode"] == before + 1
 
 
 @pytest.mark.cuda
