@@ -13,7 +13,9 @@ Phases (each prints one line; any failure exits non-zero):
               decode-attention kernels over several cases each (batch 8 and
               1, long rows, masked holes), timed both by an event loop
               (``ms``) and by CUDA-graph replay (``graph_ms``) in turns with
-              SDPA (``library_graph_ms``);
+              SDPA (``library_graph_ms``); the quantized GEMMs (ragged
+              FFN over five cases, grouped, plain) by both as well, with
+              the wrapper's host time per call at their main case;
    splits   — both decode-attention kernels at their main shapes under
               forced split counts, each held against its plain version,
               with device (graph) and host time per call;
@@ -261,10 +263,13 @@ def phase_build() -> None:
 # 3. kernels
 # ---------------------------------------------------------------------------
 
-def _ffn_case(name, gen, dev, *, bits, T, lo_w, hi_w, slot_owner, tol_rel):
+def _ffn_case(name, gen, dev, *, bits, T, lo_w, hi_w, slot_owner, tol_rel,
+              host=False):
     """Route T tokens top-8 over 128 experts, build the ragged tile map with
     the port's own dispatch helpers, and hold both FFN kernels against the
-    plain versions. Returns a dict of the measurements."""
+    plain versions; time each kernel by event loop and by graph replay
+    (with ``host``, also the wrapper's host time per call). Returns a dict
+    of the measurements."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models.moe import (RAGGED_BM, _sort_routing,
                                         _tile_slots, ragged_tile_map)
@@ -348,29 +353,33 @@ def _ffn_case(name, gen, dev, *, bits, T, lo_w, hi_w, slot_owner, tol_rel):
         rows * F * 2 + maps
     dn_bytes = rows * F * 2 + lo_e * lo_dn + hi_s * F * D * 2 + \
         rows * D * 2 + maps
-    out = {"ok": ok, "tiles": n_live, "hi_tiles": n_hi_tiles,
-           "err_gateup": e_h, "tol_gateup": tol_rel * m_h,
-           "err_down": e_y, "tol_down": tol_rel * m_y,
-           "err_ffn": e_f, "tol_ffn": tol_rel * m_f,
-           "ms_gateup": time_ms(gateup_k), "plain_ms_gateup": time_ms(
-               gateup_p, iters=3, warmup=1),
-           "ms_down": time_ms(down_k), "plain_ms_down": time_ms(
-               down_p, iters=3, warmup=1),
-           "bound_gateup": bound(gu_bytes, 2 * rows * K * F * 2),
-           "bound_down": bound(dn_bytes, 2 * rows * F * D)}
+    out = {"case": name, "ok": ok, "tiles": n_live, "hi_tiles": n_hi_tiles,
+           "err_ffn": e_f, "tol_ffn": tol_rel * m_f}
+    for key, run_k, run_p, e, m, b in (
+            ("gateup", gateup_k, gateup_p, e_h, m_h,
+             bound(gu_bytes, 2 * rows * K * F * 2)),
+            ("down", down_k, down_p, e_y, m_y,
+             bound(dn_bytes, 2 * rows * F * D))):
+        out[key] = {"err": e, "tol": tol_rel * m, "ms": time_ms(run_k),
+                    "graph_ms": graph_ms(run_k),
+                    "host_us": host_us(run_k) if host else None,
+                    "plain_ms": time_ms(run_p, iters=3, warmup=1),
+                    "bound_ms": b[0], "bound_by": b[1]}
     log("kernels", f"ragged FFN {name}: {n_live}/{Tt} live tiles "
-                   f"({n_hi_tiles} hi) | gateup err {e_h:.3g} "
-                   f"(tol {tol_rel * m_h:.3g}) {out['ms_gateup']:.4f} ms "
-                   f"plain {out['plain_ms_gateup']:.3f} ms bound "
-                   f"{out['bound_gateup'][0]:.4f} ms | down err {e_y:.3g} "
-                   f"(tol {tol_rel * m_y:.3g}) {out['ms_down']:.4f} ms plain "
-                   f"{out['plain_ms_down']:.3f} ms bound "
-                   f"{out['bound_down'][0]:.4f} ms | ffn err {e_f:.3g} | "
-                   f"{'ok' if ok else 'FAIL'}")
+                   f"({n_hi_tiles} hi) | " + " | ".join(
+                       f"{key} err {c['err']:.3g} (tol {c['tol']:.3g}) "
+                       f"{c['ms']:.4f} ms, graph {c['graph_ms']:.4f} ms"
+                       + (f", host {c['host_us']:.1f} us/call" if host
+                          else "")
+                       + f", plain {c['plain_ms']:.3f} ms, bound "
+                       f"{c['bound_ms']:.4f} ms ({c['bound_by']})"
+                       for key, c in (("gateup", out["gateup"]),
+                                      ("down", out["down"])))
+                   + f" | ffn err {e_f:.3g} | {'ok' if ok else 'FAIL'}")
     return out
 
 
-def _gqmm_case(name, gen, dev, qt, C, tol_rel):
+def _gqmm_case(name, gen, dev, qt, C, tol_rel, host=False):
     """The padded dispatch's grouped GEMM over all E experts of one lo
     weight at capacity C against the plain version. Returns a dict of the
     measurements."""
@@ -395,13 +404,18 @@ def _gqmm_case(name, gen, dev, qt, C, tol_rel):
     # the activations once, the output once.
     nbytes = xg.numel() * 2 + qt.packed.numel() + qt.scales.numel() * 2 + \
         E * C * N * 2
-    out = {"ok": ok, "err": err, "tol": tol, "ms": time_ms(run_k),
+    out = {"case": name, "ok": ok, "err": err, "tol": tol,
+           "ms": time_ms(run_k), "graph_ms": graph_ms(run_k),
+           "host_us": host_us(run_k) if host else None,
            "plain_ms": time_ms(run_p, iters=3, warmup=1),
            "bound": bound(nbytes, 2 * E * C * K * N)}
     log("kernels", f"grouped_lo_matmul {name} E={E} C={C} K={K} N={N}: err "
-                   f"{err:.3g} (tol {tol:.3g}) {out['ms']:.4f} ms plain "
-                   f"{out['plain_ms']:.3f} ms bound {out['bound'][0]:.4f} ms "
-                   f"({out['bound'][1]}) | {'ok' if ok else 'FAIL'}")
+                   f"{err:.3g} (tol {tol:.3g}) {out['ms']:.4f} ms, graph "
+                   f"{out['graph_ms']:.4f} ms"
+                   + (f", host {out['host_us']:.1f} us/call" if host else "")
+                   + f", plain {out['plain_ms']:.3f} ms, bound "
+                   f"{out['bound'][0]:.4f} ms ({out['bound'][1]}) | "
+                   f"{'ok' if ok else 'FAIL'}")
     return out
 
 
@@ -657,13 +671,19 @@ def _kernels_quant_matmul(gen, dev, tol_rel) -> None:
             M * N * 2
         res[bits] = {"ok": bool(torch.isfinite(got.float()).all())
                      and err <= tol, "err": err, "ms": time_ms(run_k),
+                     "graph_ms": graph_ms(run_k),
+                     "host_us": host_us(run_k) if bits == 4 else None,
                      "plain_ms": time_ms(run_p),
                      "bound": bound(nbytes, 2 * M * K * N)}
         r = res[bits]
         log("kernels", f"quant_matmul int{bits} M={M} K={K} N={N}: err "
-                       f"{err:.3g} (tol {tol:.3g}) {r['ms']:.4f} ms plain "
-                       f"{r['plain_ms']:.4f} ms bound {r['bound'][0]:.4f} ms "
-                       f"({r['bound'][1]}) | {'ok' if r['ok'] else 'FAIL'}")
+                       f"{err:.3g} (tol {tol:.3g}) {r['ms']:.4f} ms, graph "
+                       f"{r['graph_ms']:.4f} ms"
+                       + (f", host {r['host_us']:.1f} us/call" if bits == 4
+                          else "")
+                       + f", plain {r['plain_ms']:.4f} ms, bound "
+                       f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) | "
+                       f"{'ok' if r['ok'] else 'FAIL'}")
     if not all(r["ok"] for r in res.values()):
         raise AssertionError("quant_matmul disagrees with its plain version")
     r = res[4]
@@ -673,7 +693,12 @@ def _kernels_quant_matmul(gen, dev, tol_rel) -> None:
         "replaces": "src/repro/kernels/quant_matmul.py:79",
         "launches": 0, "max_abs_err": max(v["err"] for v in res.values()),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-        "bound_by": r["bound"][1], "library_ms": None}
+        "bound_by": r["bound"][1], "library_ms": None,
+        "graph_ms": r["graph_ms"], "host_us": r["host_us"],
+        "cases": [{"case": f"int{b} M={M}", "err": v["err"], "ms": v["ms"],
+                   "graph_ms": v["graph_ms"], "plain_ms": v["plain_ms"],
+                   "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+                  for b, v in res.items()]}
     log("kernels", "quant_matmul yardstick: none, no single library call "
                    "computes a dequantize-then-multiply")
 
@@ -706,7 +731,8 @@ def phase_kernels() -> None:
         # The padded dispatch's capacities: 8 at an 8-slot decode, 136 at a
         # 4-row × 256-token prefill.
         gq[f"int{bits} gate C=8"] = _gqmm_case(
-            f"int{bits} gate/up decode", gen, dev, lo["w_gate"], 8, tol)
+            f"int{bits} gate/up decode", gen, dev, lo["w_gate"], 8, tol,
+            host=bits == 4)
         if bits == 4:
             gq["int4 down C=8"] = _gqmm_case("int4 down decode", gen, dev,
                                              lo["w_down"], 8, tol)
@@ -715,7 +741,8 @@ def phase_kernels() -> None:
         if bits == 4:
             cases["decode"] = _ffn_case("int4 decode B=8 mixed", gen, dev,
                                         bits=4, T=8, lo_w=lo, hi_w=hi_w,
-                                        slot_owner=owner, tol_rel=tol)
+                                        slot_owner=owner, tol_rel=tol,
+                                        host=True)
             cases["prefill"] = _ffn_case("int4 prefill 512 mixed", gen, dev,
                                          bits=4, T=512, lo_w=lo, hi_w=hi_w,
                                          slot_owner=owner, tol_rel=tol)
@@ -742,10 +769,14 @@ def phase_kernels() -> None:
                          if key == "gateup" else
                          "src/repro/kernels/quant_matmul.py:236"),
             "launches": 0,
-            "max_abs_err": max(c[f"err_{key}"] for c in cases.values()),
-            "ms": d[f"ms_{key}"], "plain_ms": d[f"plain_ms_{key}"],
-            "bound_ms": d[f"bound_{key}"][0],
-            "bound_by": d[f"bound_{key}"][1], "library_ms": None}
+            "max_abs_err": max(c[key]["err"] for c in cases.values()),
+            "ms": d[key]["ms"], "plain_ms": d[key]["plain_ms"],
+            "bound_ms": d[key]["bound_ms"], "bound_by": d[key]["bound_by"],
+            "library_ms": None, "graph_ms": d[key]["graph_ms"],
+            "host_us": d[key]["host_us"],
+            "cases": [dict(case=c["case"], tiles=c["tiles"],
+                           hi_tiles=c["hi_tiles"], **c[key])
+                      for c in cases.values()]}
     log("kernels", "ragged FFN yardstick: none, no single library call "
                    "computes the mixed-precision ragged FFN")
     bad = [k for k, c in gq.items() if not c["ok"]]
@@ -758,7 +789,12 @@ def phase_kernels() -> None:
         "replaces": "src/repro/kernels/quant_matmul.py:131",
         "launches": 0, "max_abs_err": max(c["err"] for c in gq.values()),
         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound"][0],
-        "bound_by": d["bound"][1], "library_ms": None}
+        "bound_by": d["bound"][1], "library_ms": None,
+        "graph_ms": d["graph_ms"], "host_us": d["host_us"],
+        "cases": [{"case": c["case"], "err": c["err"], "ms": c["ms"],
+                   "graph_ms": c["graph_ms"], "plain_ms": c["plain_ms"],
+                   "bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
+                  for c in gq.values()]}
     log("kernels", "grouped_lo_matmul yardstick: none, no single library "
                    "call computes a grouped quantized GEMM")
     _kernels_dense_decode(cfg, gen, dev)

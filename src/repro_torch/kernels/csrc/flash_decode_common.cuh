@@ -40,7 +40,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace fd {
+
+using namespace sm90;
 
 constexpr int WARPS = 4;                  // warps per CTA
 constexpr int THREADS = WARPS * 32;
@@ -48,28 +52,6 @@ constexpr int MAX_STAGES = 3;             // ring depth per warp
 constexpr int PAD = 8;                    // bf16 padding per shared row
 constexpr size_t SMEM_MAX = 227 * 1024;   // dynamic shared memory per CTA
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, asynchronously; src_bytes = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Wait until at most `pending` of this thread's copy groups are in flight.
 __device__ __forceinline__ void cp_async_wait_pending(int pending) {
@@ -81,10 +63,6 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
     cp_async_wait<2>();
 }
 
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // Two floats as a bf16 pair (x0 in the low half), and the bf16 pair of
 // what that rounding left over.
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
@@ -93,34 +71,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   hi = as_u32(h);
   lo = as_u32(__floats2bfloat162_rn(x0 - __low2float(h),
                                     x1 - __high2float(h)));
-}
-
-// d += A(16×16, row) · B(16×8, col), bf16 in, float32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Four 8×8 bf16 matrices from shared memory, transposed: lane l gives the
-// row address of matrix l/8, row l%8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t lds_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // Bit i set when slot j0 + i of tile t is valid (32 slots per word).

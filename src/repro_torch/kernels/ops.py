@@ -218,12 +218,23 @@ def _check_ragged(x, tile_eid, tile_slot, n_tiles, packed, scales, hi,
     return Tt, K, N
 
 
-def _cuda_shape_rules(bm: int, N: int) -> None:
+def _cuda_shape_rules(bm: int, N: int, group: int, *tensors) -> None:
+    """What the ragged CUDA kernels take beyond the plain versions: bm = 8
+    token rows (the mma's N), N a multiple of the 64-column CTA block, a
+    scale group of whole k16 mma steps, and 16-byte aligned activations,
+    weights and scales (copied in 16-byte chunks)."""
     if bm != KERNEL_BM:
         raise ValueError(f"the CUDA kernels are built for bm={KERNEL_BM}, "
                          f"got {bm}")
     if N % KERNEL_BN:
         raise ValueError(f"N={N} not a multiple of {KERNEL_BN}")
+    if group % 16:
+        raise ValueError(f"group={group}: the CUDA kernels take a multiple "
+                         f"of 16 (a scale group is whole k16 mma steps)")
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the CUDA kernels copy activations, weights and "
+                         "scales in 16-byte chunks: they must start 16-byte "
+                         "aligned")
 
 
 def ragged_gateup(xs, tile_eid, tile_slot, n_tiles, gate_packed, gate_scales,
@@ -245,7 +256,8 @@ def ragged_gateup(xs, tile_eid, tile_slot, n_tiles, gate_packed, gate_scales,
                                      gate_scales, up_packed, up_scales,
                                      hi_gate, hi_up, bits=bits, group=group,
                                      bm=bm)
-    _cuda_shape_rules(bm, F)
+    _cuda_shape_rules(bm, F, group, xs, gate_packed, gate_scales, up_packed,
+                      up_scales, hi_gate, hi_up)
     from repro_torch.kernels import build
     h = torch.empty((Tt * bm, F), dtype=torch.bfloat16, device=xs.device)
     err = build.library("ragged_ffn").ragged_gateup(
@@ -272,7 +284,7 @@ def ragged_down(h, tile_eid, tile_slot, n_tiles, down_packed, down_scales,
         return ref.ragged_down_ref(h, tile_eid, tile_slot, down_packed,
                                    down_scales, hi_down, bits=bits,
                                    group=group, bm=bm)
-    _cuda_shape_rules(bm, D)
+    _cuda_shape_rules(bm, D, group, h, down_packed, down_scales, hi_down)
     from repro_torch.kernels import build
     y = torch.empty((Tt * bm, D), dtype=torch.bfloat16, device=h.device)
     err = build.library("ragged_ffn").ragged_down(

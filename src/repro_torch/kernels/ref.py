@@ -12,6 +12,12 @@ holds the kernels against them on the card.
 * ``flash_decode_ref`` / ``flash_decode_paged_ref`` — one-query GQA
   attention over a dense (B, S, Hkv, hd) cache view or through a block
   table: float32 softmax with -inf masking, all-masked rows give zeros.
+* ``ragged_gateup_mma`` / ``ragged_down_mma`` — the ragged kernels'
+  arithmetic order in plain form, for the CPU tests (slow; small shapes):
+  yᵀ = Wᵀ·xᵀ as k16 block products summed in turn, each scale group's sum
+  scaled into the accumulator; ``decode_biased`` — their code decode by
+  an exponent bias; ``lo_fragment_map`` / ``hi_fragment_map`` — which
+  weights each lane's mma A fragment holds on each tier.
 * ``quant_matmul_ref`` — the plain quantized GEMM: weights dequantized to
   float32 (code · scale), then a float32 product (not the group-blocked
   rule).
@@ -143,6 +149,150 @@ def ragged_quant_ffn_ref(xs, tile_eid, tile_slot, gate_packed, gate_scales,
                           bits=bits, group=group, bm=bm)
     return ragged_down_ref(h, tile_eid, tile_slot, down_packed, down_scales,
                            hi_down, bits=bits, group=group, bm=bm)
+
+
+def _swap_ab(xt: torch.Tensor, w: torch.Tensor,
+             scales: Optional[torch.Tensor], group: int) -> torch.Tensor:
+    """The tensor-core order of one weight over tiles: xt (T, bm, K), w
+    (T, K, N) (codes or bf16 weights, any float dtype), scales (T, K//g,
+    N) or None (hi) → float32 (T, bm, N). Each k16 block's product Wᵀ·xᵀ
+    (an mma's float32 result) is added in turn: into a zeroed partial per
+    scale group, which is then scaled per column into the accumulator
+    (lo), or straight into the accumulator (hi)."""
+    T, bm, K = xt.shape
+    N = w.shape[-1]
+    wt = w.float().transpose(1, 2).reshape(T, N, K // 16, 16)
+    xtt = xt.float().transpose(1, 2).reshape(T, K // 16, 16, bm)
+    blocks = torch.matmul(wt.permute(0, 2, 1, 3), xtt)   # (T, K/16, N, bm)
+    acc = torch.zeros((T, N, bm), dtype=torch.float32)
+    spg = K // 16 if scales is None else group // 16
+    for g0 in range(0, K // 16, spg):
+        part = torch.zeros_like(acc)
+        for b in range(g0, g0 + spg):
+            part = part + blocks[:, b]
+        if scales is None:
+            acc = acc + part
+        else:
+            s = scales[:, g0 // spg].float()[:, :, None]
+            acc = torch.addcmul(acc, part, s)
+    return acc.transpose(1, 2)
+
+
+def _tiers_mma(xt, tile_eid, tile_slot, packed, scales, hi, bits, group):
+    """float32 (T, bm, N) of one weight per tile on its tier."""
+    eid = tile_eid.long()
+    codes = unpack_codes_int8(packed[eid], bits)
+    y = _swap_ab(xt, codes, scales[eid], group)
+    is_hi = _hi_rows(tile_slot, hi)
+    if is_hi is not None:
+        safe = torch.clamp(tile_slot, 0, hi.shape[0] - 1).long()
+        y = torch.where(is_hi[:, None, None], _swap_ab(xt, hi[safe], None,
+                                                       group), y)
+    return y
+
+
+def ragged_gateup_mma(xs, tile_eid, tile_slot, gate_packed, gate_scales,
+                      up_packed, up_scales, hi_gate=None, hi_up=None, *,
+                      bits: int, group: int, bm: int) -> torch.Tensor:
+    """``ragged_gateup_ref`` in the kernel's arithmetic order (group a
+    multiple of 16): the same epilogue on g and u."""
+    xt = _tiles(xs, bm)
+    g = _tiers_mma(xt, tile_eid, tile_slot, gate_packed, gate_scales,
+                   hi_gate, bits, group)
+    u = _tiers_mma(xt, tile_eid, tile_slot, up_packed, up_scales, hi_up,
+                   bits, group)
+    h = _silu_mul(g.to(xs.dtype), u.to(xs.dtype))
+    return h.reshape(xs.shape[0], h.shape[-1])
+
+
+def ragged_down_mma(h, tile_eid, tile_slot, down_packed, down_scales,
+                    hi_down=None, *, bits: int, group: int,
+                    bm: int) -> torch.Tensor:
+    """``ragged_down_ref`` in the kernel's arithmetic order."""
+    y = _tiers_mma(_tiles(h, bm), tile_eid, tile_slot, down_packed,
+                   down_scales, hi_down, bits, group)
+    return y.to(h.dtype).reshape(h.shape[0], y.shape[-1])
+
+
+def decode_biased(byte: torch.Tensor, bits: int) -> torch.Tensor:
+    """The kernels' code decode in plain form: uint8 bytes (...) → the
+    centred codes of each byte as bf16 (..., 8/bits), K rows in order. A
+    value u < 128 becomes bf16 bits 0x4300 | u (= 128 + u), minus the bias
+    128 + 2^(bits−1) in bf16; an int8 byte is split into nibbles,
+    (128 + hi − 136)·16 + (128 + lo − 128), the product and sum exact."""
+    def biased(u):
+        return (u.to(torch.int32) | 0x4300).to(torch.int16) \
+            .view(torch.bfloat16)
+
+    b = byte.to(torch.int32)
+    if bits == 8:
+        hi = biased(b >> 4) - torch.tensor(136.0, dtype=torch.bfloat16)
+        lo = biased(b & 15) - torch.tensor(128.0, dtype=torch.bfloat16)
+        return (hi.float() * 16 + lo.float()).to(torch.bfloat16)[..., None]
+    mask, bias = (1 << bits) - 1, 128.0 + (1 << (bits - 1))
+    return torch.stack([biased((b >> (bits * j)) & mask)
+                        - torch.tensor(bias, dtype=torch.bfloat16)
+                        for j in range(8 // bits)], -1)
+
+
+def lo_fragment_map(bits: int):
+    """The kernels' lo A fragment of one k16 chunk (16/epb packed rows of
+    a warp's 16 code bytes): ``{(lane, register, half): (k, column, byte
+    offset, shift)}``. Columns are permuted: the mma's M row gid is column
+    2·gid, M row gid + 8 is column 2·gid + 1. Lane 4·gid + tid loads 16-bit
+    pairs of columns (2·gid, 2·gid + 1) of the packed rows holding K rows
+    2·tid + 8·h and the next (h = 0, 1); the four codes of a row pair,
+    [k even column, k odd, k + 1 even, k + 1 odd], are paired by byte
+    selectors into registers 2h (even column) and 2h + 1 (odd)."""
+    out = {}
+    for lane in range(32):
+        gid, tid = lane >> 2, lane & 3
+        for h in range(2):
+            if bits == 4:
+                o = (tid + 4 * h) * 16 + 2 * gid
+                x = [(o, 0), (o + 1, 0), (o, 4), (o + 1, 4)]
+            elif bits == 2:
+                o, sh = ((tid >> 1) + 2 * h) * 16 + 2 * gid, 4 * (tid & 1)
+                x = [(o, sh), (o + 1, sh), (o, sh + 2), (o + 1, sh + 2)]
+            else:
+                o = (2 * tid + 8 * h) * 16 + 2 * gid
+                x = [(o, 0), (o + 1, 0), (o + 16, 0), (o + 17, 0)]
+            for p, sel in ((0, (0, 2)), (1, (1, 3))):
+                for half in range(2):
+                    off, shift = x[sel[half]]
+                    out[(lane, 2 * h + p, half)] = (
+                        2 * tid + 8 * h + half, 2 * gid + p, off, shift)
+    return out
+
+
+def hi_fragment_map():
+    """The kernels' hi A fragment of one stage (16 K rows of a warp's 16
+    bf16 columns, 32 bytes a row, the 16-byte halves of rows 4–7 and 12–15
+    swapped): ``{(lane, register, half): (k, column)}``, found by following
+    the bytes. Column half c of row r is stored at r·32 + 16·(c ^ ((r >> 2)
+    & 1)); lane l gives ``ldmatrix.x4.trans`` the address of row (l & 7) +
+    8·(l >> 4), logical half (l >> 3) & 1, swizzled the same way, for matrix
+    l >> 3; from each matrix i a lane receives the elements of rows
+    2·(l % 4) + half of that matrix's 8 addressed rows, at column l // 4 of
+    each 16-byte row."""
+    def address(r, half):
+        return r * 32 + 16 * (half ^ ((r >> 2) & 1))
+
+    def element(off):
+        r, half, e = off // 32, (off % 32) // 16, (off % 16) // 2
+        return r, 8 * (half ^ ((r >> 2) & 1)) + e
+
+    rows = {}
+    for lane in range(32):
+        r = (lane & 7) + ((lane >> 4) << 3)
+        rows.setdefault(lane >> 3, []).append(address(r, (lane >> 3) & 1))
+    out = {}
+    for lane in range(32):
+        for i in range(4):
+            for half in range(2):
+                out[(lane, i, half)] = element(
+                    rows[i][2 * (lane % 4) + half] + 2 * (lane // 4))
+    return out
 
 
 def quant_matmul_ref(x: torch.Tensor, packed: torch.Tensor,

@@ -66,6 +66,120 @@ def test_ragged_kernels_match_plain(cuda, bits, with_hi):
     assert ops.LAUNCHES["ragged_down"] == before["ragged_down"] + 1
 
 
+def _bank(bits, group, E, K, F, D, n_hi, seed):
+    gen = torch.Generator().manual_seed(seed)
+    lo = {n: quantize((torch.randn((E,) + s, generator=gen) * s[0] ** -0.5)
+                      .to(torch.bfloat16), bits, group)
+          for n, s in (("w_gate", (K, F)), ("w_up", (K, F)),
+                       ("w_down", (F, D)))}
+    hi = {n: (torch.randn((n_hi,) + tuple(q.shape[1:]), generator=gen)
+              * q.shape[1] ** -0.5).to(torch.bfloat16)
+          for n, q in lo.items()}
+    return lo, hi, gen
+
+
+# Hi and lo tiles interleaved; the last two tiles are tail tiles.
+TILE_EID = [0, 1, 1, 3, 2, 3, 0, 2, 2, 2]
+TILE_SLOT = [0, -1, -1, 1, -1, 1, 0, -1, -1, -1]
+
+
+def _ragged_pair(cuda, lo, hi, tile_eid, tile_slot, n_live, xs, bits,
+                 group):
+    """The whole FFN on the CPU (plain versions) and on the card, and the
+    rows to compare."""
+    n = torch.tensor([n_live], dtype=torch.int32)
+    te = torch.tensor(tile_eid, dtype=torch.int32)
+    ts = torch.tensor(tile_slot, dtype=torch.int32)
+    kw = dict(bits=bits, group=group, bm=BM)
+    want = ops.ragged_quant_ffn(xs, te, ts, n, lo, hi, **kw)
+    got = ops.ragged_quant_ffn(xs.to(cuda), te.to(cuda), ts.to(cuda),
+                               n.to(cuda), _to(lo, cuda), _to(hi, cuda),
+                               **kw).cpu()
+    return got, want, n_live * BM
+
+
+def _assert_ffn_close(got, want, rows):
+    # Float32 accumulation in another order; bf16 roundings may flip:
+    # a few bf16 ulps at the largest magnitude.
+    tol = 2 ** -6 * float(want[:rows].float().abs().max())
+    assert torch.isfinite(got[:rows].float()).all()
+    assert float((got[:rows].float() - want[:rows].float()).abs().max()) \
+        <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["small", "full"])
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_ragged_kernels_widths_and_groups(cuda, bits, group, width):
+    """Hi and lo tiles interleaved with tail tiles, at the small test
+    shape and at Qwen3-30B-A3B width (K = D = 2048, F = 768: many K
+    stages of every ring)."""
+    K, F, D = (256, 128, 256) if width == "small" else (2048, 768, 2048)
+    lo, hi, gen = _bank(bits, group, 4, K, F, D, 2, bits * 1000 + group)
+    xs = torch.randn((len(TILE_EID) * BM, K), generator=gen) \
+        .to(torch.bfloat16)
+    got, want, rows = _ragged_pair(cuda, lo, hi, TILE_EID, TILE_SLOT,
+                                   len(TILE_EID) - 2, xs, bits, group)
+    _assert_ffn_close(got, want, rows)
+
+
+@pytest.mark.cuda
+def test_ragged_kernels_without_live_tiles(cuda):
+    """n_tiles = 0: every tile is a tail tile; both kernels launch and
+    return without error."""
+    lo, hi, gen = _bank(4, 64, 4, 256, 128, 256, 2, 7)
+    xs = torch.randn((len(TILE_EID) * BM, 256), generator=gen) \
+        .to(torch.bfloat16)
+    before = dict(ops.LAUNCHES)
+    got, _, rows = _ragged_pair(cuda, lo, hi, TILE_EID, TILE_SLOT, 0, xs, 4,
+                                64)
+    torch.cuda.synchronize()
+    assert rows == 0 and got.shape == (len(TILE_EID) * BM, 256)
+    assert ops.LAUNCHES["ragged_gateup"] == before["ragged_gateup"] + 1
+    assert ops.LAUNCHES["ragged_down"] == before["ragged_down"] + 1
+
+
+@pytest.mark.cuda
+def test_ragged_ffn_replays_in_a_cuda_graph(cuda):
+    """Capture the ragged FFN once, rewrite the tile map, the hi slots,
+    n_tiles and the activations in place, replay: the output follows the
+    new inputs (the kernels read the maps and n_tiles on the device)."""
+    bits, group = 4, 64
+    lo, hi, gen = _bank(bits, group, 4, 256, 128, 256, 2, 11)
+    Tt = len(TILE_EID)
+    xs = torch.randn((Tt * BM, 256), generator=gen).to(torch.bfloat16)
+    te = torch.tensor(TILE_EID, dtype=torch.int32, device=cuda)
+    ts = torch.tensor(TILE_SLOT, dtype=torch.int32, device=cuda)
+    n = torch.tensor([Tt - 2], dtype=torch.int32, device=cuda)
+    x = xs.to(cuda)
+    lo_d, hi_d = _to(lo, cuda), _to(hi, cuda)
+    kw = dict(bits=bits, group=group, bm=BM)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.ragged_quant_ffn(x, te, ts, n, lo_d, hi_d, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = ops.ragged_quant_ffn(x, te, ts, n, lo_d, hi_d, **kw)
+    new_eid = [3, 3, 0, 1, 2, 2, 1, 1, 1, 1]
+    new_slot = [1, 1, -1, -1, 0, 0, -1, -1, -1, -1]
+    new_x = torch.randn((Tt * BM, 256), generator=gen).to(torch.bfloat16)
+    for live in (Tt - 4, Tt):
+        te.copy_(torch.tensor(new_eid, dtype=torch.int32))
+        ts.copy_(torch.tensor(new_slot, dtype=torch.int32))
+        n.fill_(live)
+        x.copy_(new_x)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ops.ragged_quant_ffn(
+            new_x, torch.tensor(new_eid, dtype=torch.int32),
+            torch.tensor(new_slot, dtype=torch.int32),
+            torch.tensor([live], dtype=torch.int32), lo, hi, **kw)
+        _assert_ffn_close(y.cpu(), want, live * BM)
+
+
 def _paged_case(case, rep, hd, rng, Hkv=2, bt=16):
     """q, k, v, table, valid of one paged decode case, and the rows that
     must come out as zeros. ``short``: 3 rows over 4 blocks, one
