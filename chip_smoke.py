@@ -14,11 +14,16 @@ Phases (each prints one line; any failure exits non-zero):
               1, long rows, masked holes), timed both by an event loop
               (``ms``) and by CUDA-graph replay (``graph_ms``) in turns with
               SDPA (``library_graph_ms``); the quantized GEMMs (ragged
-              FFN over five cases, grouped, plain) by both as well, with
-              the wrapper's host time per call at their main case;
+              FFN over five cases, grouped over six, plain at M = 1, 13
+              and 128 × bits 2/4/8) by both as well, with the wrapper's
+              host time per call at their main case;
    splits   — both decode-attention kernels at their main shapes under
               forced split counts, each held against its plain version,
               with device (graph) and host time per call;
+   gemms    — both quantized GEMMs at their main shapes under forced NT
+              (8-row chunks per warp pass), K splits across CTAs and pieces
+              per CTA, each held against its plain version, with device
+              (graph) time: the data behind ``ops.gemm_plan``;
 4. model    — a 2-layer full-width model, same seeded weights on the CPU
               (plain versions) and on the card (kernels): one 32-token
               prefill and 4 teacher-forced decode steps, logits compared,
@@ -645,48 +650,59 @@ def _kernels_paged_decode(cfg, gen, dev) -> None:
 
 
 def _kernels_quant_matmul(gen, dev, tol_rel) -> None:
-    """The plain quantized GEMM at the reference's benchmark shape, bits
-    8/4/2, against the plain version (dequantize-then-dot)."""
+    """The plain quantized GEMM at the reference's benchmark shape (M = 128)
+    and at M = 1 and 13, bits 8/4/2, against the plain version
+    (dequantize-then-dot)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.quant.qtensor import quantize
-    M, K, N = 128, 2048, 768
+    K, N = 2048, 768
     w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(
         torch.bfloat16)
-    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    xs = {128: torch.randn((128, K), generator=gen, device=dev).to(
+        torch.bfloat16)}
+    # The extra rows draw from a generator of their own, so the M = 128
+    # inputs stay those of earlier runs.
+    extra = torch.Generator(device=dev).manual_seed(41)
+    for M in (1, 13):
+        xs[M] = torch.randn((M, K), generator=extra, device=dev).to(
+            torch.bfloat16)
     res = {}
     for bits in (8, 4, 2):
         qt = quantize(w, bits, 64)
+        for M, x in xs.items():
+            def run_k(x=x, qt=qt):
+                return ops.quant_matmul_op(x, qt)
 
-        def run_k():
-            return ops.quant_matmul_op(x, qt)
+            def run_p(x=x, qt=qt, bits=bits):
+                return ref.quant_matmul_ref(x, qt.packed, qt.scales, bits,
+                                            64)
 
-        def run_p():
-            return ref.quant_matmul_ref(x, qt.packed, qt.scales, bits, 64)
-
-        want, got = run_p(), run_k()
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        tol = tol_rel * float(want.float().abs().max())
-        nbytes = x.numel() * 2 + qt.packed.numel() + qt.scales.numel() * 2 + \
-            M * N * 2
-        res[bits] = {"ok": bool(torch.isfinite(got.float()).all())
-                     and err <= tol, "err": err, "ms": time_ms(run_k),
-                     "graph_ms": graph_ms(run_k),
-                     "host_us": host_us(run_k) if bits == 4 else None,
-                     "plain_ms": time_ms(run_p),
-                     "bound": bound(nbytes, 2 * M * K * N)}
-        r = res[bits]
-        log("kernels", f"quant_matmul int{bits} M={M} K={K} N={N}: err "
-                       f"{err:.3g} (tol {tol:.3g}) {r['ms']:.4f} ms, graph "
-                       f"{r['graph_ms']:.4f} ms"
-                       + (f", host {r['host_us']:.1f} us/call" if bits == 4
-                          else "")
-                       + f", plain {r['plain_ms']:.4f} ms, bound "
-                       f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) | "
-                       f"{'ok' if r['ok'] else 'FAIL'}")
-    if not all(r["ok"] for r in res.values()):
-        raise AssertionError("quant_matmul disagrees with its plain version")
-    r = res[4]
+            want, got = run_p(), run_k()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = tol_rel * float(want.float().abs().max())
+            nbytes = x.numel() * 2 + qt.packed.numel() + \
+                qt.scales.numel() * 2 + M * N * 2
+            main = bits == 4 and M == 128
+            r = res[(bits, M)] = {
+                "ok": bool(torch.isfinite(got.float()).all()) and err <= tol,
+                "err": err, "ms": time_ms(run_k), "graph_ms": graph_ms(run_k),
+                "host_us": host_us(run_k) if main else None,
+                "plain_ms": time_ms(run_p),
+                "bound": bound(nbytes, 2 * M * K * N)}
+            log("kernels", f"quant_matmul int{bits} M={M} K={K} N={N}: err "
+                           f"{err:.3g} (tol {tol:.3g}) {r['ms']:.4f} ms, "
+                           f"graph {r['graph_ms']:.4f} ms"
+                           + (f", host {r['host_us']:.1f} us/call" if main
+                              else "")
+                           + f", plain {r['plain_ms']:.4f} ms, bound "
+                           f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) | "
+                           f"{'ok' if r['ok'] else 'FAIL'}")
+    bad = [k for k, r in res.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"quant_matmul disagrees with its plain "
+                             f"version: {bad}")
+    r = res[(4, 128)]
     RESULTS["quant_matmul"] = {
         "name": "quant_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -698,7 +714,7 @@ def _kernels_quant_matmul(gen, dev, tol_rel) -> None:
         "cases": [{"case": f"int{b} M={M}", "err": v["err"], "ms": v["ms"],
                    "graph_ms": v["graph_ms"], "plain_ms": v["plain_ms"],
                    "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
-                  for b, v in res.items()]}
+                  for (b, M), v in res.items()]}
     log("kernels", "quant_matmul yardstick: none, no single library call "
                    "computes a dequantize-then-multiply")
 
@@ -738,6 +754,10 @@ def phase_kernels() -> None:
                                              lo["w_down"], 8, tol)
             gq["int4 gate C=136"] = _gqmm_case("int4 gate/up prefill", gen,
                                                dev, lo["w_gate"], 136, tol)
+            # Its own generator: the later cases keep their inputs.
+            gq["int4 gate C=13"] = _gqmm_case(
+                "int4 gate/up odd C", torch.Generator(device=dev)
+                .manual_seed(43), dev, lo["w_gate"], 13, tol)
         if bits == 4:
             cases["decode"] = _ffn_case("int4 decode B=8 mixed", gen, dev,
                                         bits=4, T=8, lo_w=lo, hi_w=hi_w,
@@ -856,6 +876,81 @@ def phase_splits() -> None:
                       f"{chosen}): n_split -> graph ms, host us/call "
                       + ", ".join(f"{ns}: {g:.4f}, {h:.1f}"
                                   for (ns, _), (g, h) in seen.items()))
+
+
+def phase_gemms() -> None:
+    """Both quantized GEMMs at their main shapes under forced plans, held
+    against their plain versions at every setting and timed by graph
+    replay: the grouped GEMM (128 experts, int4, g = 64) at the padded
+    dispatch's decode (C = 8) and prefill (C = 136) capacities, gate/up
+    (K = 2048, N = 768) and down (K = 768, N = 2048), under NT = 1, 2, 4 ×
+    (K ranges, pieces per range) (1, 1), (1, 2), (1, 4), (1, 8), (2, rule),
+    (4, rule); the plain GEMM (K = 2048, N = 768) at M = 1, 13, 128 under
+    NT × K ranges 1 … 32 (pieces by the rule). The data behind
+    ``ops.gemm_plan``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant.qtensor import quantize
+    cfg = get_config(ARCH)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    E, d, F, group, tol = cfg.moe.num_experts, cfg.d_model, \
+        cfg.moe.d_ff_expert, 64, 2.0 ** -6
+    rule, n_sm = ops.gemm_plan, ops._sm_count(0)
+
+    def sweep(what, run, want, shape, settings):
+        chosen = rule(*shape, n_sm)
+        bound_tol = tol * float(want.float().abs().max())
+        G = shape[2] // group
+        seen = {}
+        try:
+            for nt, S, P in settings:
+                gps = -(-G // S)
+                gpc = ops.gemm_piece(nt, group, gps) if P is None else \
+                    -(-gps // P)
+                plan = ops.GemmPlan(nt, -(-G // gps), gps, gpc)
+                key = (plan.nt, plan.n_split, -(-gps // gpc))
+                if key in seen:
+                    continue
+                ops.gemm_plan = lambda *a, _p=plan: _p
+                err = float((run().float() - want.float()).abs().max())
+                if err > bound_tol:
+                    raise AssertionError(f"{what} at {plan}: err {err} > "
+                                         f"tol {bound_tol}")
+                seen[key] = graph_ms(run)
+        finally:
+            ops.gemm_plan = rule
+        log("gemms", f"{what} (the plan picks NT={chosen.nt}, "
+                     f"S={chosen.n_split}, {-(-chosen.gps // chosen.gpc)} "
+                     f"piece(s)): (NT, S, pieces) -> graph ms "
+                     + ", ".join(f"{k}: {g:.4f}" for k, g in seen.items()))
+
+    for name, (K, N) in (("gate/up", (d, F)), ("down", (F, d))):
+        qt = quantize((torch.randn((E, K, N), generator=gen, device=dev)
+                       * K ** -0.5).to(torch.bfloat16), 4, group)
+        for C in (8, 136):
+            xg = torch.randn((E, C, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            sweep(f"grouped_lo_matmul int4 {name} E={E} C={C}",
+                  lambda xg=xg, qt=qt: ops.grouped_lo_matmul(
+                      xg, qt.packed, qt.scales, 4, group),
+                  ref.grouped_lo_gemm(xg, qt.packed, qt.scales, 4, group),
+                  (E, C, K, N, group),
+                  [(nt, S, P) for nt in ops.GEMM_NT
+                   for S, P in ((1, 1), (1, 2), (1, 4), (1, 8), (2, None),
+                                (4, None))])
+        del qt
+    K, N = d, F
+    qt = quantize((torch.randn((K, N), generator=gen, device=dev)
+                   * K ** -0.5).to(torch.bfloat16), 4, group)
+    for M in (1, 13, 128):
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        sweep(f"quant_matmul int4 M={M} K={K} N={N}",
+              lambda x=x: ops.quant_matmul_op(x, qt),
+              ref.quant_matmul_ref(x, qt.packed, qt.scales, 4, group),
+              (1, M, K, N, group),
+              [(nt, S, None) for nt in ops.GEMM_NT
+               for S in (1, 2, 4, 8, 16, 32)])
 
 
 # ---------------------------------------------------------------------------
@@ -1153,7 +1248,8 @@ def phase_serving(card: str) -> None:
         RESULTS[k]["launches"] = sum(s["launches"][k] for s in runs)
 
 
-PHASES = ("card", "build", "kernels", "splits", "model", "serving")
+PHASES = ("card", "build", "kernels", "splits", "gemms", "model",
+          "serving")
 
 
 def main() -> int:
@@ -1172,6 +1268,8 @@ def main() -> int:
         phase_kernels()
     if "splits" in only:
         phase_splits()
+    if "gemms" in only:
+        phase_gemms()
     if "model" in only:
         phase_model()
     if "serving" in only:

@@ -38,13 +38,13 @@ SIGNATURES = {
         "flash_decode_paged": [_P] * 8 + [_F, _P],
     },
     "grouped_quant_matmul": {
-        "grouped_quant_matmul": [_P] * 4 + [_I] * 6 + [_P],
+        "grouped_quant_matmul": [_P] * 5 + [_I] * 10 + [_P],
     },
     "flash_decode": {
         "flash_decode": [_P] * 7 + [_F, _P],
     },
     "quant_matmul": {
-        "quant_matmul": [_P] * 4 + [_I] * 5 + [_P],
+        "quant_matmul": [_P] * 5 + [_I] * 9 + [_P],
     },
 }
 

@@ -15,15 +15,20 @@ there is more than one).
 
 The padded MoE dispatch's grouped GEMM (``grouped_lo_matmul``), the dense
 decode attention (``flash_decode``) and the plain quantized GEMM
-(``quant_matmul_op``) keep the reference's names. The ragged FFN's two
-kernels read the per-tile maps ``tile_eid`` / ``tile_slot`` directly: the
-Pallas version's DMA hold maps (``_hold_last``) have no counterpart here.
+(``quant_matmul_op``) keep the reference's names. The two GEMMs run one
+kernel (the ragged FFN's tensor-core main loop); ``gemm_plan`` picks, from
+shapes alone, how many 8-row chunks a warp pass multiplies, whether K is
+cut across CTAs (then a second small kernel adds the ranges in order; one
+``LAUNCHES`` count) and in how many pieces a CTA walks its range. The
+ragged FFN's two kernels read the per-tile maps ``tile_eid`` /
+``tile_slot`` directly: the Pallas version's DMA hold maps (``_hold_last``)
+have no counterpart here.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,6 +59,23 @@ DECODE_WAVES = 1
 DECODE_MIN_TILES = 2
 
 
+#: Chunks of 8 rows one warp pass of the GEMM kernels multiplies with each
+#: decoded weight fragment (compiled in).
+GEMM_NT = (1, 2, 4)
+#: Output columns per CTA of the GEMM kernels: 4 warps of two 16-column
+#: blocks (compiled in).
+GEMM_CTA_N = 128
+#: The GEMM plan's targets (from the sweep of ``chip_smoke.py --only
+#: card,build,gemms`` on the H100): about this many CTAs per SM before K
+#: is cut across CTAs, and at most this much shared memory per CTA (the
+#: activation tile is walked in pieces until it fits, so ~3 CTAs share an
+#: SM).
+GEMM_WAVES = 2
+GEMM_CTA_SMEM = 60 * 1024
+#: The per-warp ring bytes of the GEMM kernels' layout (``qmma::RING``).
+_GEMM_RING = 4 * 512
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -80,6 +102,54 @@ def decode_splits(B: int, Hkv: int, n_tiles: int,
     if DECODE_WARPS < tps < n_tiles:
         tps = min(n_tiles, -(-tps // DECODE_WARPS) * DECODE_WARPS)
     return max(1, -(-n_tiles // tps)), tps
+
+
+class GemmPlan(NamedTuple):
+    """How the GEMM kernels cut an (E, C, K) × (E, K, N) product: ``nt``
+    chunks of 8 rows per CTA (a CTA covers rows ``[8·nt·j, 8·nt·(j+1)) ∩
+    [0, C)`` and ``GEMM_CTA_N`` columns of one expert); ``n_split`` ranges
+    of ``gps`` scale groups across K (range ``z`` covers groups ``[z·gps,
+    min(G, (z+1)·gps))``, float32 partials added in order when there are
+    several); and pieces of ``gpc`` groups in which a CTA walks its range,
+    one activation tile of a piece's width in shared memory."""
+    nt: int
+    n_split: int
+    gps: int
+    gpc: int
+
+
+def gemm_smem_bytes(nt: int, group: int, gpc: int) -> int:
+    """Shared memory of one GEMM CTA (``qmma::gemm_smem_bytes``): the
+    activation tile (8·nt rows of gpc·group + 8 bf16), then for each of
+    the 4 warps' two 16-column blocks a ring and the columns' scales."""
+    return nt * 8 * (gpc * group + 8) * 2 + 8 * (_GEMM_RING + gpc * 16 * 2)
+
+
+def gemm_piece(nt: int, group: int, gps: int) -> int:
+    """Groups per piece: ``gps`` halved (rounded up) until a CTA's shared
+    memory is at most ``GEMM_CTA_SMEM``."""
+    gpc = gps
+    while gpc > 1 and gemm_smem_bytes(nt, group, gpc) > GEMM_CTA_SMEM:
+        gpc = -(-gpc // 2)
+    return gpc
+
+
+def gemm_plan(E: int, C: int, K: int, N: int, group: int,
+              n_sm: int) -> GemmPlan:
+    """The launch shape of the grouped and plain quantized GEMMs, from
+    shapes alone. NT = 1 while C fits one chunk (decode), else the largest
+    of ``GEMM_NT`` that C fills (more rows per decoded weight fragment);
+    then K is cut into enough ranges for about ``GEMM_WAVES`` CTAs per SM
+    (none when the (expert, rows, columns) CTAs alone are that many), and
+    each range into pieces by ``gemm_piece``. Every range and piece is
+    non-empty."""
+    chunks = max(1, -(-C // 8))
+    nt = max(n for n in GEMM_NT if n <= chunks)
+    ctas = max(1, E * -(-chunks // nt) * -(-N // GEMM_CTA_N))
+    G = max(1, K // group)
+    n = max(1, min(G, GEMM_WAVES * n_sm // ctas))
+    gps = -(-G // n)
+    return GemmPlan(nt, -(-G // gps), gps, gemm_piece(nt, group, gps))
 
 
 @functools.lru_cache(maxsize=None)
@@ -220,12 +290,19 @@ def _check_ragged(x, tile_eid, tile_slot, n_tiles, packed, scales, hi,
 
 def _cuda_shape_rules(bm: int, N: int, group: int, *tensors) -> None:
     """What the ragged CUDA kernels take beyond the plain versions: bm = 8
-    token rows (the mma's N), N a multiple of the 64-column CTA block, a
-    scale group of whole k16 mma steps, and 16-byte aligned activations,
-    weights and scales (copied in 16-byte chunks)."""
+    token rows (the mma's N), and the rules of ``_mma_shape_rules``."""
     if bm != KERNEL_BM:
         raise ValueError(f"the CUDA kernels are built for bm={KERNEL_BM}, "
                          f"got {bm}")
+    _mma_shape_rules(N, group, *tensors)
+
+
+def _mma_shape_rules(N: int, group: int, *tensors) -> None:
+    """What every kernel on the tensor-core main loop (``quant_mma.cuh``:
+    the ragged FFN and both quantized GEMMs) takes beyond the plain
+    versions: N a multiple of the 64-column CTA block, a scale group of
+    whole k16 mma steps, and 16-byte aligned activations, weights and
+    scales (copied in 16-byte chunks)."""
     if N % KERNEL_BN:
         raise ValueError(f"N={N} not a multiple of {KERNEL_BN}")
     if group % 16:
@@ -235,6 +312,15 @@ def _cuda_shape_rules(bm: int, N: int, group: int, *tensors) -> None:
         raise ValueError("the CUDA kernels copy activations, weights and "
                          "scales in 16-byte chunks: they must start 16-byte "
                          "aligned")
+
+
+def _gemm_shape_rules(K: int, N: int, group: int, *tensors) -> None:
+    """What the GEMM kernels take beyond the plain versions: K whole scale
+    groups (the CTAs cut K at group boundaries), and the rules of
+    ``_mma_shape_rules``."""
+    if K % group:
+        raise ValueError(f"K={K} not a multiple of group={group}")
+    _mma_shape_rules(N, group, *tensors)
 
 
 def ragged_gateup(xs, tile_eid, tile_slot, n_tiles, gate_packed, gate_scales,
@@ -348,12 +434,36 @@ def flash_decode_paged(q, k, v, table, valid) -> torch.Tensor:
     return _decode_launch(plan, "flash_decode_paged", q, k, v, table, valid)
 
 
+def _gemm_launch(library: str, name: str, x, packed, scales, E: int,
+                 C: int, K: int, N: int, bits: int,
+                 group: int) -> torch.Tensor:
+    """Plan, allocate (the output; float32 partials when K is split),
+    launch, count: the two GEMM wrappers' CUDA branch."""
+    from repro_torch.kernels import build
+    _gemm_shape_rules(K, N, group, x, packed, scales)
+    dev = x.device
+    plan = gemm_plan(E, C, K, N, group, _sm_count(dev.index))
+    out = torch.empty((E, C, N), dtype=torch.bfloat16, device=dev)
+    scratch = None if plan.n_split == 1 else torch.empty(
+        (plan.n_split, E, C, N), dtype=torch.float32, device=dev)
+    # The plain GEMM's entry takes M = C rows of one weight (no E).
+    rows = (E, C) if library == "grouped_quant_matmul" else (C,)
+    err = getattr(build.library(library), library)(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        _ptr(scratch), *rows, K, N, bits, group, plan.nt, plan.n_split,
+        plan.gps, plan.gpc, _stream(dev.index))
+    build.check(err, library)
+    LAUNCHES[name] += 1
+    return out
+
+
 def grouped_lo_matmul(xg, packed, scales, bits: int,
                       group: int) -> torch.Tensor:
     """The grouped lo-tier GEMM of the padded MoE dispatch: xg (E, C, K)
     bf16 × codes (E, K//epb, N) / scales (E, K//g, N) → (E, C, N) bf16, by
     the group-blocked rule (float32 partial dot per scale group, the scale
-    applied after). Any C."""
+    applied after). Any C. The CUDA branch takes group a multiple of 16,
+    N a multiple of 64 and 16-byte aligned tensors (``_gemm_shape_rules``)."""
     dev = xg.device
     _need(xg, "xg", torch.bfloat16, dev, 3)
     E, C, K = xg.shape
@@ -363,23 +473,18 @@ def grouped_lo_matmul(xg, packed, scales, bits: int,
                          f"number of experts than xg (E={E})")
     if dev.type == "cpu":
         return ref.grouped_lo_gemm(xg, packed, scales, bits, group)
-    if N % KERNEL_BN:
-        raise ValueError(f"N={N} not a multiple of {KERNEL_BN}")
-    from repro_torch.kernels import build
-    out = torch.empty((E, C, N), dtype=torch.bfloat16, device=dev)
-    err = build.library("grouped_quant_matmul").grouped_quant_matmul(
-        xg.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        E, C, K, N, bits, group, _stream())
-    build.check(err, "grouped_quant_matmul")
-    LAUNCHES["grouped_lo_matmul"] += 1
-    return out
+    return _gemm_launch("grouped_quant_matmul", "grouped_lo_matmul", xg,
+                        packed, scales, E, C, K, N, bits, group)
 
 
 def quant_matmul_op(x, qt) -> torch.Tensor:
     """x (M, K) bf16 × one quantized weight ``qt`` (``QuantizedTensor``,
-    codes (K//epb, N)) → (M, N) bf16, with the weight dequantized to
-    float32 before a float32 product (the reference's ``quant_matmul``
-    rule, not the group-blocked one). Any M."""
+    codes (K//epb, N)) → (M, N) bf16. Any M. On the CPU the reference's
+    ``quant_matmul`` rule (``ref.quant_matmul_ref``: the weight dequantized
+    to float32, then a float32 product). On the card the grouped GEMM's
+    kernel at E = 1 with the group-blocked rule (Σ_g s_g · (x_g · q_g),
+    exact products, float32 sums): the two differ only at float32
+    rounding. The CUDA branch has the grouped GEMM's limits."""
     dev = x.device
     _need(x, "x", torch.bfloat16, dev, 2)
     M, K = x.shape
@@ -387,16 +492,8 @@ def quant_matmul_op(x, qt) -> torch.Tensor:
     N = _check_codes(qt.packed, qt.scales, K, bits, group, dev, 2)
     if dev.type == "cpu":
         return ref.quant_matmul_ref(x, qt.packed, qt.scales, bits, group)
-    if N % KERNEL_BN:
-        raise ValueError(f"N={N} not a multiple of {KERNEL_BN}")
-    from repro_torch.kernels import build
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    err = build.library("quant_matmul").quant_matmul(
-        x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
-        out.data_ptr(), M, K, N, bits, group, _stream())
-    build.check(err, "quant_matmul")
-    LAUNCHES["quant_matmul"] += 1
-    return out
+    return _gemm_launch("quant_matmul", "quant_matmul", x, qt.packed,
+                        qt.scales, 1, M, K, N, bits, group).view(M, N)
 
 
 def flash_decode(q, k, v, valid) -> torch.Tensor:

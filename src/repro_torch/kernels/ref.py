@@ -18,6 +18,9 @@ holds the kernels against them on the card.
   scaled into the accumulator; ``decode_biased`` — their code decode by
   an exponent bias; ``lo_fragment_map`` / ``hi_fragment_map`` — which
   weights each lane's mma A fragment holds on each tier.
+* ``grouped_lo_mma`` — the GEMM kernels' arithmetic order in plain form
+  (the ragged kernels' swap-AB order per K range, the ranges added in
+  order), for the CPU tests.
 * ``quant_matmul_ref`` — the plain quantized GEMM: weights dequantized to
   float32 (code · scale), then a float32 product (not the group-blocked
   rule).
@@ -176,6 +179,30 @@ def _swap_ab(xt: torch.Tensor, w: torch.Tensor,
             s = scales[:, g0 // spg].float()[:, :, None]
             acc = torch.addcmul(acc, part, s)
     return acc.transpose(1, 2)
+
+
+def grouped_lo_mma(xg: torch.Tensor, packed: torch.Tensor,
+                   scales: torch.Tensor, bits: int, group: int,
+                   n_split: int = 1) -> torch.Tensor:
+    """``grouped_lo_gemm`` in the GEMM kernels' arithmetic order (group a
+    multiple of 16): K cut into ``n_split`` ranges of ``ceil(G / n_split)``
+    scale groups (the last may be shorter; ``ops.gemm_plan``'s ranges);
+    per range the swap-AB order of ``_swap_ab`` (k16 block products summed
+    in turn within each group, each group scaled into the range's float32
+    accumulator); then the ranges added in order, one rounding to xg's
+    dtype. (E, C, K) → (E, C, N)."""
+    K = xg.shape[-1]
+    G = K // group
+    gps = -(-G // n_split)
+    codes = unpack_codes_int8(packed, bits)
+    acc = None
+    for g0 in range(0, G, gps):
+        g1 = min(G, g0 + gps)
+        k0, k1 = g0 * group, g1 * group
+        part = _swap_ab(xg[..., k0:k1], codes[:, k0:k1], scales[:, g0:g1],
+                        group)
+        acc = part if acc is None else acc + part
+    return acc.to(xg.dtype)
 
 
 def _tiers_mma(xt, tile_eid, tile_slot, packed, scales, hi, bits, group):

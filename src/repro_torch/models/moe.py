@@ -41,10 +41,14 @@ class MoEAux(NamedTuple):
 
 
 def route(router_w: torch.Tensor, x: torch.Tensor, cfg: MoEConfig):
-    """x (T, d) → gates (T, k), idx (T, k), probs (T, E)."""
+    """x (T, d) → gates (T, k), idx (T, k), probs (T, E). Ties go to the
+    lower expert index, as in the reference's ``jax.lax.top_k``: the first
+    k of a stable descending sort (``torch.topk`` documents no tie order,
+    and picks other experts of a uniform row)."""
     logits = x.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[..., :cfg.top_k], idx[..., :cfg.top_k]
     if cfg.norm_topk_prob:
         gates = gates / gates.sum(dim=-1, keepdim=True)
     return gates, idx, probs

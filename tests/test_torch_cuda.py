@@ -287,6 +287,127 @@ def test_grouped_lo_matmul_matches_plain(cuda, bits, C):
     assert ops.LAUNCHES["grouped_lo_matmul"] == before + 1
 
 
+def _gqmm(bits, E, C, K, N, seed, group=64):
+    gen = torch.Generator().manual_seed(seed)
+    qt = quantize((torch.randn((E, K, N), generator=gen) * K ** -0.5)
+                  .to(torch.bfloat16), bits, group)
+    xg = torch.randn((E, C, K), generator=gen).to(torch.bfloat16)
+    return qt, xg
+
+
+def _forced(monkeypatch, nt=None, n_split=None, pieces=None):
+    """Make ``ops.gemm_plan`` return its plan with NT, the number of K
+    ranges and/or the pieces per range forced."""
+    rule = ops.gemm_plan
+
+    def plan(E, C, K, N, group, n_sm):
+        p = rule(E, C, K, N, group, n_sm)
+        G = K // group
+        t = p.nt if nt is None else nt
+        gps = p.gps if n_split is None else -(-G // n_split)
+        gpc = ops.gemm_piece(t, group, gps) if pieces is None else \
+            -(-gps // pieces)
+        return ops.GemmPlan(t, -(-G // gps), gps, gpc)
+
+    monkeypatch.setattr(ops, "gemm_plan", plan)
+
+
+def _assert_gemm_close(got, want):
+    # Float32 sums in another order, one bf16 rounding: a few bf16 ulps at
+    # the largest magnitude.
+    tol = 2 ** -6 * float(want.float().abs().max())
+    assert torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pieces", [1, 3])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("nt", [1, 2, 4])
+def test_grouped_lo_matmul_forced_nt(cuda, monkeypatch, nt, bits, pieces):
+    """Every NT the kernel is built for, at C = 37 (chunk groups of NT·8
+    rows, the last one partial) and at a decode C = 8, each CTA walking
+    K = 512 whole or in pieces of 3, 3 and 2 scale groups."""
+    _forced(monkeypatch, nt=nt, pieces=pieces)
+    for C in (37, 8):
+        qt, xg = _gqmm(bits, 3, C, 512, 192, seed=nt * 10 + bits + C)
+        want = ops.grouped_lo_matmul(xg, qt.packed, qt.scales, bits, 64)
+        got = ops.grouped_lo_matmul(xg.to(cuda), qt.packed.to(cuda),
+                                    qt.scales.to(cuda), bits, 64).cpu()
+        _assert_gemm_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [13, 128])
+@pytest.mark.parametrize("n_split", [1, 2, 8])
+def test_quant_matmul_forced_splits(cuda, monkeypatch, n_split, M):
+    """The plain GEMM with K cut into 1, 2 and 8 ranges (float32 partials
+    added in order by the second kernel), against the plain version."""
+    _forced(monkeypatch, n_split=n_split)
+    assert ops.gemm_plan(1, M, 512, 128, 64, 132).n_split == n_split
+    gen = torch.Generator().manual_seed(n_split * 100 + M)
+    qt = quantize((torch.randn((512, 128), generator=gen) * 512 ** -0.5)
+                  .to(torch.bfloat16), 4, 64)
+    x = torch.randn((M, 512), generator=gen).to(torch.bfloat16)
+    before = ops.LAUNCHES["quant_matmul"]
+    got = ops.quant_matmul_op(x.to(cuda), qt.to(cuda)).cpu()
+    assert ops.LAUNCHES["quant_matmul"] == before + 1
+    _assert_gemm_close(got, ops.quant_matmul_op(x, qt))
+
+
+@pytest.mark.cuda
+def test_grouped_lo_matmul_replays_in_a_cuda_graph(cuda):
+    """Capture the grouped GEMM once (with a split of K, so both kernels
+    are in the graph), rewrite the activations in place, replay: the
+    output follows the new input."""
+    qt, xg = _gqmm(4, 2, 13, 512, 128, seed=3)
+    n_split = ops.gemm_plan(2, 13, 512, 128, 64, 132).n_split
+    assert n_split > 1
+    x = xg.to(cuda)
+    p, sc = qt.packed.to(cuda), qt.scales.to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.grouped_lo_matmul(x, p, sc, 4, 64)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = ops.grouped_lo_matmul(x, p, sc, 4, 64)
+    for seed in (4, 5):
+        new_x = torch.randn(xg.shape, generator=torch.Generator()
+                            .manual_seed(seed)).to(torch.bfloat16)
+        x.copy_(new_x)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_gemm_close(y.cpu(), ops.grouped_lo_matmul(
+            new_x, qt.packed, qt.scales, 4, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 13, 21])
+def test_grouped_gemm_stores_only_rows_below_c(cuda, C):
+    """C not a multiple of 8: the kernel, called through its C entry on an
+    output buffer longer than (E, C, N) and filled with NaN, writes every
+    row of every expert (none is left NaN or takes a padding row's zeros
+    from the expert before it) and nothing past the last expert's rows."""
+    from repro_torch.kernels import build
+    E, K, N, bits = 4, 256, 128, 4
+    qt, xg = _gqmm(bits, E, C, K, N, seed=C)
+    want = ops.grouped_lo_matmul(xg, qt.packed, qt.scales, bits, 64)
+    x, p, sc = xg.to(cuda), qt.packed.to(cuda), qt.scales.to(cuda)
+    for nt in (1, 2, 4):
+        out = torch.full(((E * C + 24) * N,), float("nan"),
+                         dtype=torch.bfloat16, device=cuda)
+        err = build.library("grouped_quant_matmul").grouped_quant_matmul(
+            x.data_ptr(), p.data_ptr(), sc.data_ptr(), out.data_ptr(), None,
+            E, C, K, N, bits, 64, nt, 1, K // 64, K // 64, ops._stream())
+        build.check(err, "grouped_quant_matmul")
+        torch.cuda.synchronize()
+        got = out[:E * C * N].view(E, C, N).cpu()
+        _assert_gemm_close(got, want)
+        assert torch.isnan(out[E * C * N:].float()).all()
+
+
 def _dense_case(case, rep, hd, rng, Hkv=2):
     """q, head-major caches (B, Hkv, S, hd), valid and the rows that must
     come out as zeros. ``S5``/``S48``/``S300``: 3 rows, ragged, one
