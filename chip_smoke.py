@@ -32,7 +32,20 @@ Phases (each prints one line; any failure exits non-zero):
 5. serving  — the 8-layer full-width model served by ``static`` and
               ``dynaexq`` (8 requests, 64–256-token prompts, 32 new tokens)
               on each path: paged KV with ragged dispatch, and dense KV rows
-              with padded dispatch.
+              with padded dispatch; each backend four times on fresh
+              engines, in turns with the decode step as one CUDA graph and
+              op by op under ``engine.eager()`` (graph, eager, eager,
+              graph; ``dynaexq`` flushed after every step): tokens and
+              launch counts must agree; TTFT, TPOT, tok/s and the ms per
+              graph replay (CUDA events); then ``dynaexq`` graphed with no
+              flush until the end, its hi copies in flight while later
+              replays run (finite logits, promotions served from hi,
+              invariants after the flush);
+6. trace    — on each path, 10 decode steps of the static backend traced
+              by ``torch.profiler``, graphed and eager: device time per
+              step by kernel group, the port's kernels counted by the
+              profiler against ``ops.LAUNCHES``, and the share of a replay
+              the device idles, as issued and enqueued behind a spin.
 
 The last two lines are a JSON object with one entry per kernel and the
 contract line ``{"ok": true, "device": {...}}``. The script imports nothing
@@ -1110,13 +1123,24 @@ def phase_model() -> None:
 # 5. serving
 # ---------------------------------------------------------------------------
 
+#: Each backend is served once per entry, in this order: "graph" decodes
+#: through the engine's captured CUDA graph, "eager" op by op inside
+#: ``engine.eager()``. In turns, since TPOT moves between calls. In these
+#: runs ``dynaexq`` flushes after every step, so what it publishes, and so
+#: the tokens, are a function of the tokens alone.
+SERVE_MODES = ("graph", "eager", "eager", "graph")
+
+
 def run_serving(cfg, device, *, n_requests, prompt_range, new_tokens,
                 max_slots, n_hi, seed=0, paged=True, dispatch="ragged"):
     """Serve ``n_requests`` greedy requests with ``static`` then
     ``dynaexq`` on one seeded model, on the paged pool or dense rows with
-    MoE dispatch ``dispatch``. Returns {backend: summary}."""
+    MoE dispatch ``dispatch``, each backend once per entry of
+    ``SERVE_MODES`` on a fresh engine; then ``dynaexq`` once more graphed
+    as users run it ("dynaexq free": no flush until the end, so its hi
+    copies are in flight on the side stream while later replays run).
+    Returns {name: [summary per run]}."""
     from repro_torch.models.model import init_params
-    import repro_torch.serving.engine as eng_mod
     from repro_torch.serving.requests import make_prompts
 
     params = init_params(cfg, seed=seed, device=device)
@@ -1125,82 +1149,112 @@ def run_serving(cfg, device, *, n_requests, prompt_range, new_tokens,
     prompts = [make_prompts("text", cfg.vocab_size, 1, int(n),
                             seed=seed + i)[0] for i, n in enumerate(lens)]
     max_len = -(-(int(prompt_range[1]) + new_tokens) // 16) * 16
-    finite = []
-
-    def watch(fn):
-        def wrapped(*a, **kw):
-            out = fn(*a, **kw)
-            finite.append(torch.isfinite(out[0]).all())
-            return out
-        return wrapped
-
-    # The entry points of the path being served, watched for this run only.
-    watched = ("prefill_paged", "decode_step_paged") if paged else \
-        ("prefill", "decode_step")
-    saved = {n: getattr(eng_mod, n) for n in watched}
-    for n, fn in saved.items():
-        setattr(eng_mod, n, watch(fn))
-    try:
-        return _serve_backends(cfg, device, params, prompts, finite,
-                               n_requests=n_requests, new_tokens=new_tokens,
-                               max_slots=max_slots, max_len=max_len,
-                               n_hi=n_hi, paged=paged, dispatch=dispatch)
-    finally:
-        for n, fn in saved.items():
-            setattr(eng_mod, n, fn)
+    kw = dict(new_tokens=new_tokens, max_slots=max_slots, max_len=max_len,
+              n_hi=n_hi, paged=paged, dispatch=dispatch)
+    runs = {name: [_serve_once(cfg, device, params, prompts, name, mode, **kw)
+                   for mode in SERVE_MODES]
+            for name in ("static", "dynaexq")}
+    runs["dynaexq free"] = [_serve_once(cfg, device, params, prompts,
+                                        "dynaexq", "free", **kw)]
+    return runs
 
 
-def _serve_backends(cfg, device, params, prompts, finite, *, n_requests,
-                    new_tokens, max_slots, max_len, n_hi, paged, dispatch):
+def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
+                max_slots, max_len, n_hi, paged, dispatch):
+    """One served run on a fresh engine, ``mode`` "graph", "eager" or
+    "free" (graphed; ``dynaexq`` flushes only at the end instead of after
+    every step). Every step's logits must be finite: the prefill's through
+    its entry point (watched for this run), the decode step's as the
+    engine left them (``last_logits``: the graph's static output when
+    graphed). ``pending_steps`` counts the steps that began with hi copies
+    still in flight or unpublished."""
+    import contextlib
+    import repro_torch.serving.engine as eng_mod
     from repro_torch.core.controller import ControllerConfig
     from repro_torch.kernels import ops
     from repro_torch.serving.backends import make_backend
-    from repro_torch.serving.engine import EngineConfig, InferenceEngine
     from repro_torch.serving.requests import Request
-    out = {}
-    for name in ("static", "dynaexq"):
-        kw = dict(lo_bits=4, group_size=64, device=device)
-        if name == "dynaexq":
-            kw.update(n_hi_per_layer=n_hi,
-                      controller=ControllerConfig(update_interval_s=0.0))
-        engine = InferenceEngine(
-            cfg, _fresh(params), make_backend(name, **kw),
-            EngineConfig(max_slots=max_slots, max_len=max_len, paged=paged,
-                         moe_dispatch=dispatch),
-            device=device)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        finite.clear()
+    t_build = time.perf_counter()
+    kw = dict(lo_bits=4, group_size=64, device=device)
+    if name == "dynaexq":
+        kw.update(n_hi_per_layer=n_hi,
+                  controller=ControllerConfig(update_interval_s=0.0))
+    engine = eng_mod.InferenceEngine(
+        cfg, _fresh(params), make_backend(name, **kw),
+        eng_mod.EngineConfig(max_slots=max_slots, max_len=max_len,
+                             paged=paged, moe_dispatch=dispatch),
+        device=device)
+    t_build = time.perf_counter() - t_build
+    graphed = mode != "eager" and device.type == "cuda"
+    if graphed:
+        engine.decode_graph.events = []
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    tms = [c.tm for c in getattr(engine.backend, "controllers", {}).values()]
+    finite, pending_steps = [], 0
+    pre = "prefill_paged" if paged else "prefill"
+    entry = getattr(eng_mod, pre)
+
+    def watched(*a, **k):
+        out = entry(*a, **k)
+        finite.append(torch.isfinite(out[0]).all())
+        return out
+
+    setattr(eng_mod, pre, watched)
+    try:
         ops.reset_launches()                 # the main path starts here
         t0 = time.perf_counter()
         handles = [engine.submit(Request(tokens=p, max_new_tokens=new_tokens))
                    for p in prompts]
-        engine.drain()
+        with eng_mod.eager() if mode == "eager" else contextlib.nullcontext():
+            while engine.queue or any(h is not None for h in engine.slots):
+                steps = engine.counters["steps"]
+                pending_steps += any(tm.inflight_bytes for tm in tms)
+                engine.step()
+                if engine.counters["steps"] > steps:
+                    finite.append(torch.isfinite(engine.last_logits).all())
+                if name == "dynaexq" and mode != "free":
+                    engine.flush()
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)        # ... and ends here
-        st = engine.stats()
-        assert all(len(h.tokens) == new_tokens for h in handles), \
-            [len(h.tokens) for h in handles]
-        assert bool(torch.stack(finite).all()), f"{name}: NaN logits"
-        summary = {
-            "launches": launches, "wall_s": wall,
-            "tokens_per_s": n_requests * new_tokens / wall,
-            "ttft_s": st["ttft_s"], "tpot_s": st["tpot_s"],
-            "expert_bytes": engine.device_bytes(),
-            "max_mem": torch.cuda.max_memory_allocated()
-            if device.type == "cuda" else 0,
-            "promotions": st["promotions"], "demotions": st["demotions"]}
-        if name == "dynaexq":
-            summary["hi_routed"] = engine.backend.hi_routed
-            engine.flush()
-            for ctl in engine.backend.controllers.values():
-                ctl.tm.check_invariants()
-        out[name] = summary
-        del engine
-    return out
+    finally:
+        setattr(eng_mod, pre, entry)
+    st = engine.stats()
+    assert all(len(h.tokens) == new_tokens for h in handles), \
+        [len(h.tokens) for h in handles]
+    assert bool(torch.stack(finite).all()), f"{name} {mode}: NaN logits"
+    replay = [a.elapsed_time(b) for a, b in engine.decode_graph.events] \
+        if graphed else []
+    summary = {
+        "mode": mode, "tokens": [list(h.tokens) for h in handles],
+        "launches": launches, "wall_s": wall,
+        "tokens_per_s": len(prompts) * new_tokens / wall,
+        "ttft_s": st["ttft_s"], "tpot_s": st["tpot_s"],
+        "replay_ms": float(np.mean(replay)) if replay else None,
+        "replays": len(replay), "capture_s": engine.capture_s,
+        "build_s": t_build, "steps": int(st["steps"]),
+        "pending_steps": pending_steps,
+        "expert_bytes": engine.device_bytes(),
+        "max_mem": torch.cuda.max_memory_allocated()
+        if device.type == "cuda" else 0,
+        "promotions": st["promotions"], "demotions": st["demotions"]}
+    if graphed and summary["replays"] != summary["steps"]:
+        raise AssertionError(f"{name}: {summary['steps']} decode steps but "
+                             f"{summary['replays']} graph replays")
+    if name == "dynaexq":
+        summary["hi_routed"] = engine.backend.hi_routed
+        engine.flush()
+        for tm in tms:
+            tm.check_invariants()
+    del engine
+    return summary
+
+
+def _ms(x):
+    return "n/a" if x is None else f"{x:.3f}"
 
 
 def phase_serving(card: str) -> None:
@@ -1213,43 +1267,313 @@ def phase_serving(card: str) -> None:
     log("serving", f"{cfg.name}: full width, depth cut to {SERVE_LAYERS} of "
                    f"{full.n_layers} layers (bf16 host masters {host_gb:.1f} "
                    f"GB instead of {host_gb * full.n_layers / SERVE_LAYERS:.0f}"
-                   f" GB); random weights, seed 0")
-    runs = []
+                   f" GB); random weights, seed 0; each backend served "
+                   f"{len(SERVE_MODES)} times in turns {SERVE_MODES}")
+    main_runs = []
     for path, (paged, dispatch, used, unused) in PATHS.items():
+        t_path = time.perf_counter()
         res = run_serving(cfg, torch.device("cuda"), n_requests=8,
                           prompt_range=(64, 256), new_tokens=32, max_slots=8,
                           n_hi=16, paged=paged, dispatch=dispatch)
-        for name, s in res.items():
-            log("serving", f"{path} {name}: 8 requests x 32 tokens | TTFT "
-                           f"{s['ttft_s'] * 1e3:.1f} ms TPOT "
-                           f"{s['tpot_s'] * 1e3:.2f} ms "
-                           f"{s['tokens_per_s']:.1f} tok/s | expert bytes "
-                           f"{s['expert_bytes'] / 1e9:.3f} GB | max "
-                           f"allocated {s['max_mem'] / 1e9:.2f} GB | "
-                           f"promotions {s['promotions']:.0f} demotions "
-                           f"{s['demotions']:.0f} | launches "
-                           f"{s['launches']} | {card}")
-            if not all(s["launches"][k] > 0 for k in used):
-                raise AssertionError(f"{path} {name}: a kernel of the path "
-                                     f"never ran")
-            if any(s["launches"][k] for k in unused):
-                raise AssertionError(f"{path} {name}: a kernel of the other "
-                                     f"path ran")
-        dyn = res["dynaexq"]
-        if dyn["promotions"] < 1 or dyn["hi_routed"] < 1:
-            raise AssertionError(f"{path}: dynaexq published no promotion "
-                                 f"that a forward then served from hi")
-        log("serving", f"{path} dynaexq: {dyn['promotions']:.0f} promotions "
-                       f"published, {dyn['hi_routed']} routed (layer, "
-                       f"expert) cells served from hi slots; invariants hold "
-                       f"after flush")
-        runs.extend(res.values())
+        for name, runs in res.items():
+            for s in runs:
+                log("serving", f"{path} {name} {s['mode']}: 8 requests x 32 "
+                               f"tokens | TTFT {s['ttft_s'] * 1e3:.1f} ms "
+                               f"TPOT {s['tpot_s'] * 1e3:.2f} ms "
+                               f"{s['tokens_per_s']:.1f} tok/s | replay "
+                               f"ms by events {_ms(s['replay_ms'])} over "
+                               f"{s['replays']} replays (capture "
+                               f"{s['capture_s']:.2f} s) | expert bytes "
+                               f"{s['expert_bytes'] / 1e9:.3f} GB | max "
+                               f"allocated {s['max_mem'] / 1e9:.2f} GB | "
+                               f"promotions {s['promotions']:.0f} demotions "
+                               f"{s['demotions']:.0f} | steps begun with hi "
+                               f"copies pending {s['pending_steps']} of "
+                               f"{s['steps']} | launches "
+                               f"{s['launches']} | engine built in "
+                               f"{s['build_s']:.1f} s, served in "
+                               f"{s['wall_s']:.1f} s | {card}")
+                if not all(s["launches"][k] > 0 for k in used):
+                    raise AssertionError(f"{path} {name} {s['mode']}: a "
+                                         f"kernel of the path never ran")
+                if any(s["launches"][k] for k in unused):
+                    raise AssertionError(f"{path} {name} {s['mode']}: a "
+                                         f"kernel of the other path ran")
+                if name != "static" and (s["promotions"] < 1 or
+                                         s["hi_routed"] < 1):
+                    raise AssertionError(f"{path} {name} {s['mode']}: "
+                                         f"dynaexq published no promotion "
+                                         f"that a forward then served from "
+                                         f"hi")
+                if s["mode"] == "free" and s["pending_steps"] < 1:
+                    raise AssertionError(f"{path} {name}: no replay ran "
+                                         f"while hi copies were pending")
+            first = runs[0]
+            for s in runs[1:]:
+                if s["tokens"] != first["tokens"]:
+                    bad = [i for i, (a, b) in enumerate(zip(
+                        s["tokens"], first["tokens"])) if a != b]
+                    raise AssertionError(f"{path} {name}: {s['mode']} and "
+                                         f"{first['mode']} disagree on the "
+                                         f"tokens of requests {bad}")
+                if s["launches"] != first["launches"]:
+                    raise AssertionError(f"{path} {name}: launches "
+                                         f"{s['launches']} ({s['mode']}) != "
+                                         f"{first['launches']} "
+                                         f"({first['mode']})")
+            if first["mode"] == "free":
+                pairs = list(zip(first["tokens"], res["dynaexq"][0]["tokens"]))
+                same = sum(a == b for a, b in pairs)
+                split = min((next((i for i, (x, y) in enumerate(zip(a, b))
+                                   if x != y), len(a)) for a, b in pairs))
+                log("serving", f"{path} {name}: graphed with copies in "
+                               f"flight across {first['pending_steps']} of "
+                               f"{first['steps']} steps, finite logits every "
+                               f"step, {first['hi_routed']} routed (layer, "
+                               f"expert) cells served from hi slots, "
+                               f"invariants hold after flush; {same} of 8 "
+                               f"requests' tokens equal the flushed runs' "
+                               f"(publication timing differs; the first "
+                               f"difference at token {split}) | {card}")
+                main_runs.append(first)
+                continue
+            tpot = {m: [f"{s['tpot_s'] * 1e3:.2f}" for s in runs
+                        if s["mode"] == m] for m in ("graph", "eager")}
+            log("serving", f"{path} {name}: graph and eager in turns give "
+                           f"identical tokens for all 8 requests and "
+                           f"identical launches; TPOT ms graph "
+                           f"{tpot['graph']} eager {tpot['eager']}; replay "
+                           f"ms by events "
+                           f"{[_ms(s['replay_ms']) for s in runs]}"
+                           + (f"; {first['hi_routed']} routed (layer, "
+                              f"expert) cells served from hi slots, "
+                              f"invariants hold after flush"
+                              if name == "dynaexq" else "") + f" | {card}")
+            if name == "static":
+                main_runs.append(first)
+        log("serving", f"{path}: {time.perf_counter() - t_path:.1f} s")
     for k in RESULTS:
-        RESULTS[k]["launches"] = sum(s["launches"][k] for s in runs)
+        RESULTS[k]["launches"] = sum(s["launches"][k] for s in main_runs)
+
+
+# ---------------------------------------------------------------------------
+# 6. trace: where a decode step's device time goes
+# ---------------------------------------------------------------------------
+
+#: Kernel groups of the trace, matched on the kernel's name in this order
+#: (the port's kernels first: cuBLAS names also hold "gemm"); the rest is
+#: PyTorch's own elementwise, indexing, sort and scan kernels.
+TRACE_GROUPS = (
+    ("ragged FFN", ("ragged_ffn_kernel",)),
+    ("decode attention", ("fd_paged_split_kernel", "fd_split_kernel",
+                          "merge_splits_kernel")),
+    ("grouped GEMM", ("gemm_kernel<", "sum_splits")),
+    ("cuBLAS GEMM", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
+    ("sort and scan", ("sort", "radix", "scan", "Scan")),
+    ("index, scatter, gather", ("index", "scatter", "gather", "Index")),
+    ("reductions", ("reduce", "Reduce")),
+    ("copies", ("Memcpy", "memcpy", "Memset", "copy")),
+)
+TRACE_STEPS = 10
+
+#: The port's kernels on the decode paths, by the wrappers that count them
+#: in ``ops.LAUNCHES`` and the device kernel each launch starts (a split
+#: attention or GEMM also starts a merge or sum, not counted here).
+TRACE_COUNTED = (
+    (("ragged_gateup", "ragged_down"), "ragged_ffn_kernel"),
+    (("flash_decode_paged",), "fd_paged_split_kernel"),
+    (("flash_decode",), "fd_split_kernel"),
+    (("grouped_lo_matmul", "quant_matmul"), "gemm_kernel<"),
+)
+
+#: Clock cycles of the spin that holds the stream while a replay is
+#: enqueued behind it (~50 ms at the H100's 1.98 GHz boost clock).
+SPIN_CYCLES = 100_000_000
+
+#: Noise allowed when the traced kernels' sum is held against the steps
+#: that ran them.
+TRACE_NOISE = 0.03
+
+
+def _group(name: str) -> str:
+    for group, keys in TRACE_GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "elementwise and other"
+
+
+def _queued_replays(graph, n: int = TRACE_STEPS):
+    """Device ms of ``n`` replays, each enqueued behind a spin so that its
+    whole launch is submitted before the device reaches its start event
+    (the replays rerun the last step's inputs: its K/V rewritten with the
+    same values), and the host ms each ``replay()`` call took. Fails if a
+    launch call outlasted the spin that should hide it."""
+    device_ms, host_ms = [], []
+    for _ in range(n):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        e1.record()
+        t = time.perf_counter()
+        graph.replay()
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        e2.record()
+        torch.cuda.synchronize()
+        if host_ms[-1] >= e0.elapsed_time(e1):
+            raise AssertionError(f"a replay's launch took {host_ms[-1]:.3f} "
+                                 f"host ms, longer than the "
+                                 f"{e0.elapsed_time(e1):.3f} ms spin")
+        device_ms.append(e1.elapsed_time(e2))
+    return float(np.mean(device_ms)), float(np.mean(host_ms))
+
+
+def _traced_steps(engine, mode):
+    """``TRACE_STEPS`` decode-only steps of a running engine timed on the
+    host, then one traced step whose trace is dropped (the tracer's start
+    lags: it missed a few kernels of the first traced step in one run),
+    then ``TRACE_STEPS`` traced (device activity only; the profiler slows
+    the host, so the host time is read from the first set), with the
+    replays' CUDA events in both sets when graphed. Returns (kernel name →
+    (device ms, launches) summed over the traced steps, ``ops.LAUNCHES``
+    over the traced steps, host ms per step, replay ms by events untraced
+    and traced, or None)."""
+    import contextlib
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.kernels import ops
+    from torch.profiler import ProfilerActivity, profile, schedule
+    graphed = mode == "graph"
+    ctx = contextlib.nullcontext() if graphed else eng_mod.eager()
+    events = [[], []]                     # untraced, traced
+    with ctx:
+        torch.cuda.synchronize()
+        if graphed:
+            engine.decode_graph.events = events[0]
+        t0 = time.perf_counter()
+        for _ in range(TRACE_STEPS):
+            engine.step()
+        wall = (time.perf_counter() - t0) / TRACE_STEPS * 1e3
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            engine.step()
+            torch.cuda.synchronize()
+            prof.step()
+            if graphed:
+                engine.decode_graph.events = events[1]
+            ops.reset_launches()
+            for _ in range(TRACE_STEPS):
+                engine.step()
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            prof.step()
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels[e.key] = (us / 1e3, e.count)
+    engine.decode_graph.events = None
+    replay = [float(np.mean([a.elapsed_time(b) for a, b in ev]))
+              for ev in events] if graphed else None
+    return kernels, launches, wall, replay
+
+
+def phase_trace(card: str) -> None:
+    """On each path, the static backend: serve the serving phase's
+    requests until every one is admitted and decoding, then time and
+    trace decode steps graphed and under ``eager()`` (each on a fresh
+    engine): device ms per step by kernel group and the busiest kernels;
+    the port's kernels counted by the profiler against ``ops.LAUNCHES``
+    (under the graph: the counts its capture recorded, added per replay);
+    graphed, the kernels' sum against a replay by CUDA events as the engine
+    issues it, enqueued behind a spin (device time alone) and traced, with
+    the device's idle share in each, and the host ms of the launch call.
+    Fails if the kernels' sum exceeds the steps that ran them (double
+    counting) or a count disagrees."""
+    import dataclasses
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.requests import Request, make_prompts
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=SERVE_LAYERS)
+    dev = torch.device("cuda")
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [make_prompts("text", cfg.vocab_size, 1, int(n), seed=i)[0]
+               for i, n in enumerate(rng.integers(64, 257, 8))]
+    for path, (paged, dispatch, _, _) in PATHS.items():
+        for mode in ("graph", "eager"):
+            engine = eng_mod.InferenceEngine(
+                cfg, _fresh(params), make_backend("static", device=dev),
+                eng_mod.EngineConfig(max_slots=8, max_len=288, paged=paged,
+                                     moe_dispatch=dispatch), device=dev)
+            for p in prompts:
+                engine.submit(Request(tokens=p, max_new_tokens=32))
+            while engine.queue or engine.counters["steps"] < 3:
+                engine.step()
+            kernels, launches, wall, replay = _traced_steps(engine, mode)
+            queued = _queued_replays(engine.decode_graph.graph) \
+                if mode == "graph" else None
+            del engine
+            total = sum(ms for ms, _ in kernels.values()) / TRACE_STEPS
+            groups = {}
+            for name, (ms, n) in kernels.items():
+                g = groups.setdefault(_group(name), [0.0, 0])
+                g[0] += ms / TRACE_STEPS
+                g[1] += n / TRACE_STEPS
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+            if mode == "graph":
+                (untraced, traced), (alone, launch) = replay, queued
+                timing = (f"replay by events {untraced:.3f} ms as the "
+                          f"engine issues it (device idle "
+                          f"{(1 - total / untraced) * 100:.1f}%), "
+                          f"{alone:.3f} enqueued behind a spin (device "
+                          f"time alone; idle {(1 - total / alone) * 100:.1f}"
+                          f"%), {traced:.3f} traced (idle "
+                          f"{(1 - total / traced) * 100:.1f}%: the profiler "
+                          f"slows the launch); the replay() call takes "
+                          f"{launch:.3f} host ms")
+                within, what = traced, "the traced replays that ran them"
+            else:
+                timing = "no replay: op by op"
+                within, what = wall, "the host step"
+            log("trace", f"{path} static {mode}, {TRACE_STEPS} decode steps "
+                         f"of 8 rows: kernels {total:.3f} device ms per step "
+                         f"(traced); host ms per step {wall:.3f} (untraced; "
+                         f"{(1 - total / wall) * 100:.1f}% of it not covered "
+                         f"by kernels); {timing}; by group (ms, launches per "
+                         f"step) "
+                         + ", ".join(f"{g} {ms:.3f}/{n:.0f}" for g, (ms, n)
+                                     in sorted(groups.items(),
+                                               key=lambda kv: -kv[1][0]))
+                         + "; top kernels (ms per step) "
+                         + ", ".join(f"{k[:60]} {ms / TRACE_STEPS:.3f}"
+                                     for k, (ms, _) in top) + f" | {card}")
+            if total <= 0:
+                raise AssertionError(f"{path} {mode}: the trace saw no "
+                                     f"device time")
+            if total > within * (1 + TRACE_NOISE):
+                raise AssertionError(f"{path} {mode}: the kernels' "
+                                     f"{total:.3f} ms per step exceed "
+                                     f"{what} ({within:.3f} ms)")
+            seen = []
+            for keys, kname in TRACE_COUNTED:
+                counted = sum(launches.get(k, 0) for k in keys)
+                traced_n = sum(n for name, (_, n) in kernels.items()
+                               if kname in name)
+                if traced_n != counted:
+                    raise AssertionError(f"{path} {mode}: the profiler saw "
+                                         f"{traced_n} launches of {kname} "
+                                         f"but ops.LAUNCHES counts {counted} "
+                                         f"for {keys}")
+                seen.append(f"{kname} {traced_n}")
+            log("trace", f"{path} static {mode}: launches over the traced "
+                         f"steps, profiler = ops.LAUNCHES: {', '.join(seen)}")
 
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "model",
-          "serving")
+          "serving", "trace")
 
 
 def main() -> int:
@@ -1274,6 +1598,8 @@ def main() -> int:
         phase_model()
     if "serving" in only:
         phase_serving(card)
+    if "trace" in only:
+        phase_trace(card)
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [RESULTS[k] for k in sorted(RESULTS)]}))
     print(json.dumps({"ok": True, "device": {

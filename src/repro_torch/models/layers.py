@@ -27,8 +27,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     half = hd // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exps)
+    # A device-side fill, not ``torch.tensor``: no host→device copy, so
+    # the decode step can be captured in a CUDA graph.
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), exps)
     angles = positions.float()[..., None] * freqs          # (..., S, half)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]

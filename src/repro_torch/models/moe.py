@@ -54,6 +54,17 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: MoEConfig):
     return gates, idx, probs
 
 
+def count_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int64 occurrences of each value of ``ids`` (ints in [0, n)):
+    ``torch.bincount(ids, minlength=n)`` without its host read (on CUDA
+    bincount sizes its output from ``ids.max().item()``, which a captured
+    CUDA graph cannot do). Ones scatter-added into zeros of the static
+    size; integer adds are exact in any order."""
+    flat = ids.reshape(-1).long()
+    return torch.zeros(n, dtype=torch.int64, device=ids.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat))
+
+
 def _sort_routing(idx: torch.Tensor, e_local: int):
     """Stable sort-by-expert of the flattened assignments: ``(order,
     sorted_eid, counts (e_local,), pos_in_e, tok)`` (``e_local`` is the
@@ -62,7 +73,7 @@ def _sort_routing(idx: torch.Tensor, e_local: int):
     fidx = idx.reshape(-1).long()
     order = torch.argsort(fidx, stable=True)
     sorted_eid = fidx[order]
-    counts_all = torch.bincount(fidx, minlength=e_local + 1)
+    counts_all = count_ids(fidx, e_local + 1)
     counts = counts_all[:e_local]
     starts = torch.cumsum(counts_all, 0) - counts_all
     pos_in_e = torch.arange(fidx.shape[0], device=idx.device) - \
@@ -79,7 +90,7 @@ def _row_capacity_keep(sorted_eid, tok, e_local: int, n_rows: int,
     rid = tok // tpr
     key = torch.where(sorted_eid < e_local, sorted_eid * n_rows + rid,
                       torch.full_like(sorted_eid, e_local * n_rows))
-    cnt = torch.bincount(key, minlength=e_local * n_rows + 1)
+    cnt = count_ids(key, e_local * n_rows + 1)
     kstart = torch.cumsum(cnt, 0) - cnt
     pos_re = torch.arange(key.shape[0], device=key.device) - kstart[key]
     return pos_re < row_capacity
@@ -309,7 +320,7 @@ def moe_apply(params, bank: ExpertBankQ, x: torch.Tensor, cfg: MoEConfig,
 
     if token_valid is None:
         full_idx = torch.clamp(idx.reshape(-1), 0, E)
-        n_assign = torch.tensor(float(T * k), device=x.device)
+        n_assign = torch.full((), float(T * k), device=x.device)
         mean_prob = probs.mean(dim=0)
     else:
         full_idx = torch.where(token_valid[:, None], torch.clamp(idx, 0, E),
@@ -318,7 +329,7 @@ def moe_apply(params, bank: ExpertBankQ, x: torch.Tensor, cfg: MoEConfig,
         n_assign = torch.clamp(n_valid, min=1.0) * k
         tv = token_valid[:, None].float()
         mean_prob = (probs * tv).sum(dim=0) / torch.clamp(tv.sum(), min=1.0)
-    full_counts = torch.bincount(full_idx, minlength=E + 1)[:E]
+    full_counts = count_ids(full_idx, E + 1)[:E]
     frac = full_counts.float() / torch.clamp(n_assign, min=1.0)
     aux_loss = cfg.router_aux_coef * E * (frac * mean_prob).sum()
 
@@ -328,7 +339,7 @@ def moe_apply(params, bank: ExpertBankQ, x: torch.Tensor, cfg: MoEConfig,
         rid = (torch.arange(T, device=x.device) // tpr)[:, None].expand(T, k)
         eid = torch.where(sel, idx, torch.full_like(idx, E))
         flat = (rid * (E + 1) + eid).reshape(-1)
-        row_counts = torch.bincount(flat, minlength=n_rows * (E + 1)) \
+        row_counts = count_ids(flat, n_rows * (E + 1)) \
             .view(n_rows, E + 1)[:, :E].to(torch.int32)
     return y, MoEAux(counts=counts, aux_loss=aux_loss, dropped=dropped,
                      row_counts=row_counts, active_experts=active,

@@ -17,9 +17,14 @@ request by one greedy token; ``drain()`` runs until the queue empties.
 * **MoE dispatch** (``EngineConfig.moe_dispatch``): "ragged" (None, the
   default) or "padded", on either KV layout.
 * **Decode** runs one step for all slots; vacant rows ride along masked out
-  of MoE dispatch and every count. Greedy argmax stays on the device and
+  of MoE dispatch and every count. The step's inputs live in static
+  buffers (``serving.graphs.StaticInputs``) that one host→device copy
+  rewrites per step; on the card the step runs as one CUDA graph, captured
+  at the first decode (``serving.graphs.DecodeGraph``; op by op only inside
+  ``eager()``), on the CPU op by op. Greedy argmax stays on the device and
   one transfer per step brings the (B,) tokens and the per-row router
   counts to the host, which go to ``backend.observe`` with the row mask.
+  Prefill stays eager: its shapes vary by (rows, bucket).
 
 Not ported yet: prefix sharing, speculation, sampling, the QoS scheduler,
 chunked prefill, preemption, the watchdog, per-row MoE capacity
@@ -31,6 +36,7 @@ import dataclasses
 import enum
 import itertools
 import time
+import weakref
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -44,6 +50,7 @@ from repro_torch.models.model import (decode_step, decode_step_paged,
                                       init_caches, init_paged_caches,
                                       prefill, prefill_paged)
 from repro_torch.models.moe import DISPATCHES, RAGGED_BM, moe_capacity
+from repro_torch.serving.graphs import DecodeGraph, StaticInputs, eager
 from repro_torch.serving.kvpool import KVBlockPool, KVLease
 from repro_torch.serving.requests import Request
 
@@ -55,6 +62,9 @@ ENGINE_STAT_KEYS = (
     "shed_requests", "downgraded", "chunk_prefills",
     "prefill_compiles", "kv_blocks_in_use", "kv_bytes_in_use",
     "prefix_trie_nodes", "spec_row_rounds", "watchdog_cancels")
+
+__all__ = ["ENGINE_STAT_KEYS", "EngineConfig", "InferenceEngine",
+           "RequestHandle", "RequestState", "eager"]
 
 
 @dataclasses.dataclass
@@ -164,6 +174,24 @@ class InferenceEngine:
         self._disp_layers = 0
         self.counters = {k: 0 for k in ("steps", "prefills", "admitted",
                                         "finished", "prefill_tokens")}
+        # The decode step: static inputs, rewritten in place every step,
+        # and the step over them (one CUDA graph on the card).
+        fields = [("tokens", (n,), torch.int64), ("pos", (n,), torch.int64)]
+        if e.paged:
+            fields += [("wblk", (n,), torch.int64),
+                       ("woff", (n,), torch.int64),
+                       ("table", (n, self._nb), torch.int32)]
+        fields.append(("row_valid", (n,), torch.bool))
+        # The graph holds its engine weakly: a reference cycle would keep
+        # the engine's device memory until the collector ran.
+        engine = weakref.ref(self)
+        self.decode_graph = DecodeGraph(
+            lambda: engine()._decode_fn(), StaticInputs(fields, self.device),
+            self.device)
+        self._count_shapes: Dict[str, tuple] = {}
+        self._out_host: Optional[torch.Tensor] = None
+        self.capture_s = 0.0           # set-up: warm-up and capture
+        self.last_logits: Optional[torch.Tensor] = None   # last decode step
 
     # ------------------------------------------------------------------
     def submit(self, request: Request) -> RequestHandle:
@@ -196,17 +224,8 @@ class InferenceEngine:
     def _fetch(self, amax: torch.Tensor, counts: Dict[str, torch.Tensor]):
         """ONE device→host transfer: the (B,) greedy tokens and the
         per-row router counts of every MoE position."""
-        keys = sorted(counts)
-        flat = torch.cat([amax.to(torch.int32).reshape(-1)] +
-                         [counts[k].to(torch.int32).reshape(-1)
-                          for k in keys]).cpu().numpy()
-        B = amax.shape[0]
-        out, off = {}, B
-        for k in keys:
-            n = counts[k].numel()
-            out[k] = flat[off:off + n].reshape(tuple(counts[k].shape))
-            off += n
-        return flat[:B], out
+        return _unpack(_pack(amax, counts).cpu().numpy(), amax.shape[0],
+                       {k: tuple(v.shape) for k, v in counts.items()})
 
     # ------------------------------------------------------------------
     def _admit(self, finished: List[RequestHandle]) -> None:
@@ -326,37 +345,69 @@ class InferenceEngine:
         self.backend.tick()
         return finished
 
-    def _decode(self, active, finished) -> None:
-        n = self.ecfg.max_slots
-        row_valid = np.zeros(n, bool)
-        for i, _ in active:
-            row_valid[i] = True
+    def _decode_fn(self):
+        """The decode step over the static inputs: (logits (B, V) float32,
+        one int32 buffer of the greedy tokens and the per-row counts)."""
+        d = self.decode_graph.inputs.dev
         kw = dict(bank=self.banks, capacity_factor=self.ecfg.capacity_factor,
-                  row_valid=self._dev(row_valid, torch.bool),
-                  per_row_counts=True, moe_dispatch=self.moe_dispatch)
-        t0 = time.perf_counter()
+                  row_valid=d["row_valid"], per_row_counts=True,
+                  moe_dispatch=self.moe_dispatch)
         if self.pool is None:
-            # Vacant rows write their own (unused) row at pos % max_len.
-            logits, counts = decode_step(
-                self.params, self.cfg, self._dev(self.tokens),
-                self._dev(self.pos), self.caches, **kw)
+            logits, counts = decode_step(self.params, self.cfg, d["tokens"],
+                                         d["pos"], self.caches, **kw)
         else:
-            wblk = np.zeros(n, np.int64)   # vacant rows → trash block
-            woff = np.zeros(n, np.int64)
-            tables = np.full((n, self._nb), -1, np.int32)
-            for i, h in active:
-                s = int(self.pos[i]) % self._C_pad
-                phys, cow = h.lease.ensure(s // self._bt)
-                assert cow < 0, "copy-on-write needs prefix sharing"
-                wblk[i], woff[i] = phys, s % self._bt
-                tables[i] = h.lease.table
             logits, counts = decode_step_paged(
-                self.params, self.cfg, self._dev(self.tokens),
-                self._dev(self.pos), self.caches,
-                self._dev(tables, torch.int32), self._dev(wblk),
-                self._dev(woff), **kw)
-        amax, counts_np = self._fetch(torch.argmax(logits, -1), counts)
+                self.params, self.cfg, d["tokens"], d["pos"], self.caches,
+                d["table"], d["wblk"], d["woff"], **kw)
+        self._count_shapes = {k: tuple(v.shape) for k, v in counts.items()}
+        return logits, _pack(torch.argmax(logits, -1), counts)
+
+    def _fill_step(self, active) -> np.ndarray:
+        """Write the decode step's inputs into the host mirror of the
+        static buffers; returns the row mask. Rows not in ``active`` are
+        vacant: masked out of dispatch and counts, they replay their last
+        token at their position and write its K/V to the trash block (on
+        the pool) or to their own row at ``pos % max_len`` (dense): for a
+        row that is running, the slot its next step writes first."""
+        h = self.decode_graph.inputs.host
+        h["tokens"][:] = self.tokens
+        h["pos"][:] = self.pos
+        h["row_valid"][:] = False
+        if self.pool is not None:
+            h["wblk"][:] = 0
+            h["woff"][:] = 0
+            h["table"][:] = -1
+        for i, r in active:
+            h["row_valid"][i] = True
+            if self.pool is not None:
+                s = int(self.pos[i]) % self._C_pad
+                phys, cow = r.lease.ensure(s // self._bt)
+                assert cow < 0, "copy-on-write needs prefix sharing"
+                h["wblk"][i], h["woff"][i] = phys, s % self._bt
+                h["table"][i] = r.lease.table
+        return h["row_valid"].copy()
+
+    def _decode(self, active, finished) -> None:
+        if self.decode_graph.needs_capture:
+            # Warm-up and capture with every row vacant: no count, and
+            # K/V only where nothing reads them before the next real step
+            # writes (``_fill_step``).
+            t0 = time.perf_counter()
+            self._fill_step([])
+            self.decode_graph.capture()
+            self.capture_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        row_valid = self._fill_step(active)
+        logits, packed = self.decode_graph.run()
+        if self._out_host is None:
+            self._out_host = torch.empty(
+                packed.shape, dtype=torch.int32,
+                pin_memory=self.device.type == "cuda")
+        self._out_host.copy_(packed)
+        amax, counts_np = _unpack(self._out_host.numpy().copy(),
+                                  self.ecfg.max_slots, self._count_shapes)
         dt = time.perf_counter() - t0
+        self.last_logits = logits
         self.last_row_counts = counts_np
         self._note_dispatch(counts_np)
         self.backend.observe(counts_np, dt, prefill=False, row_valid=row_valid)
@@ -434,3 +485,21 @@ class InferenceEngine:
 
     def device_bytes(self) -> int:
         return self.backend.device_bytes()
+
+
+def _pack(amax: torch.Tensor, counts: Dict[str, torch.Tensor]):
+    """One int32 device buffer: the (B,) greedy tokens, then the per-row
+    router counts of every MoE position in key order."""
+    return torch.cat([amax.to(torch.int32).reshape(-1)] +
+                     [counts[k].to(torch.int32).reshape(-1)
+                      for k in sorted(counts)])
+
+
+def _unpack(flat: np.ndarray, B: int, shapes: Dict[str, tuple]):
+    """``_pack``'s buffer on the host → ((B,) tokens, {position: counts})."""
+    out, off = {}, B
+    for k in sorted(shapes):
+        n = int(np.prod(shapes[k]))
+        out[k] = flat[off:off + n].reshape(shapes[k])
+        off += n
+    return flat[:B], out

@@ -522,3 +522,177 @@ def test_dense_padded_engine_serves_on_the_card(cuda, name):
     launches = _serve(cuda, name, paged=False, moe_dispatch="padded")
     assert all(launches[k] > 0 for k in DENSE_KERNELS), launches
     assert not any(launches[k] for k in PAGED_KERNELS), launches
+
+
+# --------------------------------------------------------------------------
+# The decode step as one CUDA graph, against eager decode
+# --------------------------------------------------------------------------
+
+PATHS = {"paged-ragged": dict(paged=True, moe_dispatch="ragged"),
+         "dense-padded": dict(paged=False, moe_dispatch="padded")}
+
+
+def _engine(cuda, name, path, update_interval_s=0.0):
+    from repro_torch.configs import get_config
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = get_config("qwen3-moe-30b-a3b", reduced=True)
+    kw = {"device": cuda}
+    if name == "dynaexq":
+        kw.update(n_hi_per_layer=2, controller=ControllerConfig(
+            update_interval_s=update_interval_s))
+    return InferenceEngine(cfg, init_params(cfg, seed=0, device=cuda),
+                           make_backend(name, **kw),
+                           EngineConfig(max_slots=2, max_len=64,
+                                        **PATHS[path]), device=cuda)
+
+
+def _submit(eng):
+    from repro_torch.serving.requests import Request, make_prompts
+    return [eng.submit(Request(tokens=make_prompts(
+        "text", eng.cfg.vocab_size, 1, n, seed=n)[0], max_new_tokens=6))
+        for n in (20, 13, 37)]
+
+
+def _step(eng, graphed):
+    """One engine step, graphed or under ``eager()``; returns the decode
+    step's logits of the rows it decoded (None when it decoded nothing).
+    Vacant rows are left out: they attend to whatever the trash block or
+    their own unused row holds (the warm-up before capture writes there
+    too), and nothing reads their logits."""
+    import contextlib
+    from repro_torch.serving.engine import eager
+    steps = eng.counters["steps"]
+    with contextlib.nullcontext() if graphed else eager():
+        eng.step()
+    if eng.counters["steps"] == steps:
+        return None
+    valid = torch.from_numpy(eng.decode_graph.inputs.host["row_valid"]
+                             .copy()).to(eng.last_logits.device)
+    return eng.last_logits[valid]
+
+
+def _serve_steps(cuda, name, path, graphed):
+    """Serve three requests step by step; dynaexq flushes after every step,
+    so what it publishes is a function of the tokens alone. Returns
+    (tokens per request, logits per decode step, launches, engine)."""
+    eng = _engine(cuda, name, path)
+    ops.reset_launches()
+    hs = _submit(eng)
+    logits = []
+    while eng.queue or any(h is not None for h in eng.slots):
+        lg = _step(eng, graphed)
+        if lg is not None:
+            logits.append(lg)
+        if name == "dynaexq":
+            eng.flush()
+    torch.cuda.synchronize()
+    return [h.tokens for h in hs], logits, dict(ops.LAUNCHES), eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["static", "dynaexq"])
+@pytest.mark.parametrize("path", list(PATHS))
+def test_graph_matches_eager(cuda, path, name):
+    toks_g, lg_g, launches_g, eng_g = _serve_steps(cuda, name, path, True)
+    toks_e, lg_e, launches_e, eng_e = _serve_steps(cuda, name, path, False)
+    assert eng_g.decode_graph.graph is not None
+    assert eng_e.decode_graph.graph is None
+    assert toks_g == toks_e
+    assert launches_g == launches_e
+    assert len(lg_g) == len(lg_e) > 0
+    for step, (a, b) in enumerate(zip(lg_g, lg_e)):
+        assert torch.equal(a, b), (step, float((a - b).abs().max()))
+    if name == "dynaexq":
+        assert eng_g.backend.hi_routed == eng_e.backend.hi_routed > 0
+        for eng in (eng_g, eng_e):
+            for ctl in eng.backend.controllers.values():
+                ctl.tm.check_invariants()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+def test_promotion_published_between_replays_is_served(cuda, path):
+    """Capture with nothing published, publish between two replays: the
+    next replay reads the new hi slots (``hi_routed`` rises), with logits
+    equal to eager decode under the same published set."""
+    engines = [_engine(cuda, "dynaexq", path, update_interval_s=1e9)
+               for _ in range(2)]                  # graphed, eager
+    for eng in engines:
+        _submit(eng)
+    for _ in range(2):
+        for eng, graphed in zip(engines, (True, False)):
+            _step(eng, graphed)
+    assert engines[0].decode_graph.graph is not None
+    assert [e.backend.hi_routed for e in engines] == [0, 0]
+    for eng in engines:
+        eng.backend.force_update()
+        eng.flush()
+    sets = [e.backend.hi_sets() for e in engines]
+    assert sets[0] == sets[1]
+    assert any(s for layers in sets[0].values() for s in layers)
+    a, b = (_step(eng, graphed)
+            for eng, graphed in zip(engines, (True, False)))
+    assert engines[0].backend.hi_routed == engines[1].backend.hi_routed > 0
+    assert torch.equal(a, b), float((a - b).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+def test_replays_run_while_promotion_copies_are_pending(cuda, path):
+    """Hi copies held in flight on the side stream (queued behind a ~2 s
+    spin) while replays run on the compute stream: the replays read only
+    published slots, so their logits equal eager decode's under the same
+    (empty) published set; once the copies land and publish, the next
+    replay serves them from hi, again equal to eager."""
+    engines = [_engine(cuda, "dynaexq", path, update_interval_s=1e9)
+               for _ in range(2)]                  # graphed, eager
+    for eng in engines:
+        _submit(eng)
+    for _ in range(2):
+        for eng, graphed in zip(engines, (True, False)):
+            _step(eng, graphed)
+    assert engines[0].decode_graph.graph is not None
+    tms = [[c.tm for c in e.backend.controllers.values()] for e in engines]
+    for eng, managers in zip(engines, tms):
+        for tm in managers:
+            with torch.cuda.stream(tm._side):
+                torch.cuda._sleep(4_000_000_000)
+        eng.backend.force_update()               # copies queue behind it
+        assert any(tm.inflight_bytes for tm in managers)
+    for _ in range(2):
+        a, b = (_step(eng, graphed)
+                for eng, graphed in zip(engines, (True, False)))
+        assert torch.equal(a, b), float((a - b).abs().max())
+    # Still in flight after both replays: they ran while copies pended.
+    assert all(any(tm.inflight_bytes for tm in m) for m in tms)
+    assert [e.backend.hi_routed for e in engines] == [0, 0]
+    for eng in engines:
+        eng.flush()
+    assert engines[0].backend.hi_sets() == engines[1].backend.hi_sets()
+    a, b = (_step(eng, graphed)
+            for eng, graphed in zip(engines, (True, False)))
+    assert engines[0].backend.hi_routed == engines[1].backend.hi_routed > 0
+    assert torch.equal(a, b), float((a - b).abs().max())
+    for managers in tms:
+        for tm in managers:
+            tm.check_invariants()
+
+
+@pytest.mark.cuda
+def test_capture_refuses_a_host_read(cuda, monkeypatch):
+    """A host read in the step (``torch.bincount`` sizes its output from
+    ``ids.max().item()``) makes the capture raise; the step is not run
+    eagerly instead."""
+    from repro_torch.models import moe
+    monkeypatch.setattr(moe, "count_ids", lambda ids, n: torch.bincount(
+        ids.reshape(-1).long(), minlength=n))
+    eng = _engine(cuda, "static", "paged-ragged")
+    hs = _submit(eng)
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        while eng.counters["steps"] == 0:
+            eng.step()
+    assert eng.decode_graph.graph is None
+    assert all(len(h.tokens) <= 1 for h in hs)
