@@ -16,7 +16,10 @@ Phases (each prints one line; any failure exits non-zero):
               SDPA (``library_graph_ms``); the quantized GEMMs (ragged
               FFN over five cases, grouped over six, plain at M = 1, 13
               and 128 × bits 2/4/8) by both as well, with the wrapper's
-              host time per call at their main case;
+              host time per call at their main case; and the flagship
+              Qwen3-80B-A3B's shapes: the ragged FFN at 512 experts top-10,
+              int2, hi tiles from a 128-slot pool (decode B=8, prefill
+              512), paged attention at H 16, Hkv 2, hd 256;
    splits   — both decode-attention kernels at their main shapes under
               forced split counts, each held against its plain version,
               with device (graph) and host time per call;
@@ -28,7 +31,8 @@ Phases (each prints one line; any failure exits non-zero):
               (plain versions) and on the card (kernels): one 32-token
               prefill and 4 teacher-forced decode steps, logits compared,
               for the paged/ragged and the dense/padded path; then padded
-              against ragged dispatch on the card;
+              against ragged dispatch on the card; then 1 full-width layer
+              of the flagship (its shared expert, int2 lo) on paged/ragged;
 5. serving  — the 8-layer full-width model served by ``static`` and
               ``dynaexq`` (8 requests, 64–256-token prompts, 32 new tokens)
               on each path: paged KV with ragged dispatch, and dense KV rows
@@ -40,7 +44,12 @@ Phases (each prints one line; any failure exits non-zero):
               graph replay (CUDA events); then ``dynaexq`` graphed with no
               flush until the end, its hi copies in flight while later
               replays run (finite logits, promotions served from hi,
-              invariants after the flush);
+              invariants after the flush); then the flagship on 4 of 48
+              full-width layers, paged/ragged, ``static`` int2 and the
+              default ``dynaexq`` (global allocator, int2 lo, int4-priced
+              hi, an ``hbm_gb`` envelope for n_hi = 64), graphed then eager
+              (tokens and launches must agree; the shared expert ran; a
+              layer held more than n_hi hi experts);
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -74,6 +83,11 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor rate
 ARCH = "qwen3-moe-30b-a3b"
 SERVE_LAYERS = 8               # of 48: bf16 host masters 9.7 GB, not 58 GB
 CHECK_LAYERS = 2
+#: The paper's flagship (512 experts top-10, a shared expert, int2 lo and
+#: int4-priced hi), checked on 1 layer and served on 4 of 48.
+FLAGSHIP = "qwen3-moe-80b-a3b"
+FLAGSHIP_SERVE_LAYERS = 4      # bf16 host masters 12.9 GB, not 155 GB
+FLAGSHIP_CHECK_LAYERS = 1
 #: The two served paths: (KV layout paged?, MoE dispatch) → the kernels
 #: each must launch, and the kernels it must not.
 PATHS = {
@@ -282,8 +296,9 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 def _ffn_case(name, gen, dev, *, bits, T, lo_w, hi_w, slot_owner, tol_rel,
-              host=False):
-    """Route T tokens top-8 over 128 experts, build the ragged tile map with
+              host=False, top_k=8):
+    """Route T tokens top-``top_k`` over the bank's experts, build the ragged
+    tile map with
     the port's own dispatch helpers, and hold both FFN kernels against the
     plain versions; time each kernel by event loop and by graph replay
     (with ``host``, also the wrapper's host time per call). Returns a dict
@@ -299,9 +314,9 @@ def _ffn_case(name, gen, dev, *, bits, T, lo_w, hi_w, slot_owner, tol_rel,
     group = lo_w["w_gate"].group_size
     bm = RAGGED_BM
     logits = torch.randn((T, E), generator=gen, device=dev)
-    idx = torch.topk(logits, 8, dim=-1).indices
+    idx = torch.topk(logits, top_k, dim=-1).indices
     _, _, counts, _, _ = _sort_routing(idx, E)
-    _, tile_eid, n_tiles = ragged_tile_map(counts, bm, T * 8)
+    _, tile_eid, n_tiles = ragged_tile_map(counts, bm, T * top_k)
     Tt = tile_eid.shape[0]
     n_live = int(n_tiles.item())
     bank = ExpertBankQ(lo=lo_w, hi=hi_w or {}, slot_owner=slot_owner,
@@ -357,6 +372,7 @@ def _ffn_case(name, gen, dev, *, bits, T, lo_w, hi_w, slot_owner, tol_rel,
     ok = e_h <= tol_rel * m_h and e_y <= tol_rel * m_y and \
         e_f <= tol_rel * m_f
     n_hi_tiles = int(((tile_slot[:n_live] >= 0)).sum().item()) if hi_w else 0
+    top_slot = int(tile_slot[:n_live].max().item()) if hi_w else -1
 
     # Bytes each input is read once, each output written once; distinct
     # (expert, tier) weights of the live tiles.
@@ -372,7 +388,7 @@ def _ffn_case(name, gen, dev, *, bits, T, lo_w, hi_w, slot_owner, tol_rel,
     dn_bytes = rows * F * 2 + lo_e * lo_dn + hi_s * F * D * 2 + \
         rows * D * 2 + maps
     out = {"case": name, "ok": ok, "tiles": n_live, "hi_tiles": n_hi_tiles,
-           "err_ffn": e_f, "tol_ffn": tol_rel * m_f}
+           "top_slot": top_slot, "err_ffn": e_f, "tol_ffn": tol_rel * m_f}
     for key, run_k, run_p, e, m, b in (
             ("gateup", gateup_k, gateup_p, e_h, m_h,
              bound(gu_bytes, 2 * rows * K * F * 2)),
@@ -384,7 +400,8 @@ def _ffn_case(name, gen, dev, *, bits, T, lo_w, hi_w, slot_owner, tol_rel,
                     "plain_ms": time_ms(run_p, iters=3, warmup=1),
                     "bound_ms": b[0], "bound_by": b[1]}
     log("kernels", f"ragged FFN {name}: {n_live}/{Tt} live tiles "
-                   f"({n_hi_tiles} hi) | " + " | ".join(
+                   f"({n_hi_tiles} hi, highest slot {top_slot}) | "
+                   + " | ".join(
                        f"{key} err {c['err']:.3g} (tol {c['tol']:.3g}) "
                        f"{c['ms']:.4f} ms, graph {c['graph_ms']:.4f} ms"
                        + (f", host {c['host_us']:.1f} us/call" if host
@@ -657,6 +674,28 @@ def _kernels_paged_decode(cfg, gen, dev) -> None:
             cases[-1]["host_steps_us"] = _log_host_steps(
                 "flash_decode_paged", case, host_steps(
                     "flash_decode_paged", q, k, v, table, valid))
+    # The flagship's heads (H = 16, Hkv = 2, hd = 256: rep 8), at the main
+    # shape and at the flagship serving run's 288-slot tables.
+    from repro_torch.configs import get_config
+    cfg80 = get_config(FLAGSHIP)
+    H, Hkv, hd = cfg80.attn.n_heads, cfg80.attn.n_kv_heads, \
+        cfg80.attn.head_dim
+    extra80 = torch.Generator(device=dev).manual_seed(53)
+    for case, B, nb in (("80B B=8 nb=32", 8, 32), ("80B B=8 nb=18", 8, 18)):
+        q, k, v, table, valid, zero_rows, lib = _paged_decode_inputs(
+            cfg80, extra80, dev, B, nb)
+        n_blocks = int(valid.reshape(B, nb, bt).any(-1).sum().item())
+        n_valid = int(valid.sum().item())
+        nbytes = q.numel() * 2 * 2 + n_blocks * 2 * Hkv * bt * hd * 2 + \
+            table.numel() * 4 + valid.numel()
+        cases.append(_attn_case(
+            "flash_decode_paged", case,
+            lambda q=q, k=k, v=v, t=table, m=valid:
+                ops.flash_decode_paged(q, k, v, t, m),
+            lambda q=q, k=k, v=v, t=table, m=valid:
+                ref.flash_decode_paged_ref(q, k, v, t, m),
+            lib, nbytes, 4 * n_valid * H * hd, zero_rows,
+            _n_split(B, Hkv, nb)))
     _attn_result("flash_decode_paged",
                  "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
                  "src/repro/kernels/flash_decode.py:92", cases)
@@ -732,6 +771,41 @@ def _kernels_quant_matmul(gen, dev, tol_rel) -> None:
                    "computes a dequantize-then-multiply")
 
 
+def _flagship_ffn_cases(dev, tol) -> dict:
+    """Both ragged FFN kernels at the flagship's width (512 experts, K =
+    2048, F = 512, int2 lo, g = 64) with hi tiles from a pool of 2·n_hi =
+    128 slots (96 owned, so tiles read slots past n_hi = 64): decode B = 8
+    top-10 and a 512-token prefill. Inputs from a generator of their own,
+    so the 30B cases keep theirs."""
+    from repro_torch.configs import get_config
+    from repro_torch.quant.qtensor import quantize
+    cfg = get_config(FLAGSHIP)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    E, K, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    pool, owned = 2 * (E // 8), 96
+    lo = {}
+    for n, s in (("w_gate", (K, F)), ("w_up", (K, F)), ("w_down", (F, K))):
+        w = (torch.randn((E,) + s, generator=gen, device=dev)
+             * s[0] ** -0.5).to(torch.bfloat16)
+        lo[n] = quantize(w, 2, 64)
+        del w
+    hi_w = {n: (torch.randn((pool,) + tuple(q.shape[1:]), generator=gen,
+                            device=dev) * q.shape[1] ** -0.5
+                ).to(torch.bfloat16) for n, q in lo.items()}
+    owner = torch.full((pool,), -1, dtype=torch.int32, device=dev)
+    owner[:owned] = torch.randperm(E, generator=gen, device=dev)[:owned].to(
+        torch.int32)
+    out = {}
+    for key, T, what in (("80b_decode", 8, "decode B=8"),
+                         ("80b_prefill", 512, "prefill 512")):
+        out[key] = _ffn_case(f"80B int2 {what} top-10 of 512, pool {pool}",
+                             gen, dev, bits=2, T=T, lo_w=lo, hi_w=hi_w,
+                             slot_owner=owner, tol_rel=tol, top_k=10)
+    if not any(c["top_slot"] >= pool // 2 for c in out.values()):
+        raise AssertionError("no 80B case read a hi slot past n_hi")
+    return out
+
+
 def phase_kernels() -> None:
     from repro_torch.configs import get_config
     from repro_torch.quant.qtensor import quantize
@@ -788,6 +862,7 @@ def phase_kernels() -> None:
                 f"int{bits} decode B=8 mixed", gen, dev, bits=bits, T=8,
                 lo_w=lo, hi_w=hi_w, slot_owner=owner, tol_rel=tol)
         del lo
+    cases.update(_flagship_ffn_cases(dev, tol))
     bad = [k for k, c in cases.items() if not c["ok"]]
     if bad:
         raise AssertionError(f"ragged FFN kernels disagree: {bad}")
@@ -808,7 +883,8 @@ def phase_kernels() -> None:
             "library_ms": None, "graph_ms": d[key]["graph_ms"],
             "host_us": d[key]["host_us"],
             "cases": [dict(case=c["case"], tiles=c["tiles"],
-                           hi_tiles=c["hi_tiles"], **c[key])
+                           hi_tiles=c["hi_tiles"], top_slot=c["top_slot"],
+                           **c[key])
                       for c in cases.values()]}
     log("kernels", "ragged FFN yardstick: none, no single library call "
                    "computes the mixed-precision ragged FFN")
@@ -1000,11 +1076,14 @@ def _bank_with_hi(experts, n_hi, gen, lo_bits=4):
 
 
 def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
-                    seed=7, paged=True, dispatch="ragged", dispatch_ref=None):
+                    seed=7, paged=True, dispatch="ragged", dispatch_ref=None,
+                    lo_bits=4, n_hi=None, bank_device="cpu"):
     """Same seeded weights on ``dev_ref`` and ``dev``: one S-token prefill
     and ``steps`` teacher-forced decode steps, on the paged pool or dense
     rows, with MoE dispatch ``dispatch`` (``dispatch_ref`` on ``dev_ref``,
-    default the same). Returns per forward (max |Δlogit| on identically
+    default the same). One bank for both, int ``lo_bits`` with ``n_hi``
+    hi slots per layer, half of them published, quantized on
+    ``bank_device``. Returns per forward (max |Δlogit| on identically
     routed rows and on all rows, mean |Δlogit|, max |logit|, rows routed
     identically)."""
     from repro_torch.models.model import (decode_step, decode_step_paged,
@@ -1014,8 +1093,10 @@ def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
     gen = torch.Generator().manual_seed(seed)
     params = init_params(cfg, device="cpu", generator=gen)
     experts = params["blocks"]["0"]["moe"].pop("experts")
-    bank = _bank_with_hi(experts, 16 if cfg.moe.num_experts >= 64 else 2,
-                         gen)
+    if n_hi is None:
+        n_hi = 16 if cfg.moe.num_experts >= 64 else 2
+    bank = _bank_with_hi({k: v.to(bank_device) for k, v in experts.items()},
+                         n_hi, gen, lo_bits=lo_bits)
     del experts
     runs = [(d, _to(params, d), {"0": bank.to(d)}, disp)
             for d, disp in ((dev_ref, dispatch_ref or dispatch),
@@ -1087,23 +1168,33 @@ MODEL_TOL_SWAP = 4.0
 def phase_model() -> None:
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=CHECK_LAYERS)
     card = torch.device("cuda")
-    checks = [(f"{p}, CPU vs card", "cpu", dict(paged=pg, dispatch=disp))
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=CHECK_LAYERS)
+    checks = [(cfg, f"{p}, CPU vs card", "cpu", dict(paged=pg, dispatch=disp))
               for p, (pg, disp, _, _) in PATHS.items()]
     # The two dispatch layouts against each other on the card, same
     # weights, same fresh dense caches.
-    checks.append(("dense, padded vs ragged dispatch on the card", card,
+    checks.append((cfg, "dense, padded vs ragged dispatch on the card", card,
                    dict(paged=False, dispatch="padded",
                         dispatch_ref="ragged")))
-    for what, dev_ref, kw in checks:
+    # The flagship on its main path: the shared expert, 512 experts top-10,
+    # int2 lo with 64 of a 128-slot pool published (its bank quantized on
+    # the card: the CPU would take minutes), 8 rows.
+    cfg80 = dataclasses.replace(get_config(FLAGSHIP),
+                                n_layers=FLAGSHIP_CHECK_LAYERS)
+    checks.append((cfg80, "paged/ragged, CPU vs card", "cpu",
+                   dict(paged=True, dispatch="ragged", B=8, lo_bits=2,
+                        n_hi=128, bank_device=card)))
+    for cfg, what, dev_ref, kw in checks:
         t0 = time.perf_counter()
         report = run_model_check(cfg, dev_ref, card, **kw)
+        B = kw.get("B", 12)
         e_same = max(r["err_same"] for r in report)
         e_all = max(r["err_all"] for r in report)
-        log("model", f"{cfg.name} at full width, {CHECK_LAYERS} of "
-                     f"{get_config(ARCH).n_layers} layers, {what}: prefill "
-                     f"+ {len(report) - 1} decode steps of 12 rows (prompts "
+        full = get_config(cfg.name)
+        log("model", f"{cfg.name} at full width, {cfg.n_layers} of "
+                     f"{full.n_layers} layers, {what}: prefill "
+                     f"+ {len(report) - 1} decode steps of {B} rows (prompts "
                      f"6-32 tokens); max |dlogit| {e_same:.4f} on "
                      f"identically routed rows (tol {MODEL_TOL}), "
                      f"{e_all:.4f} on all rows (tol {MODEL_TOL_SWAP}); mean "
@@ -1115,8 +1206,8 @@ def phase_model() -> None:
                      f"{time.perf_counter() - t0:.1f} s")
         same = sum(r["rows_same"] for r in report)
         if e_same > MODEL_TOL or e_all > MODEL_TOL_SWAP or \
-                same < 12 * len(report) // 2:
-            raise AssertionError(f"logits disagree: {what}")
+                same < B * len(report) // 2:
+            raise AssertionError(f"logits disagree: {cfg.name} {what}")
 
 
 # ---------------------------------------------------------------------------
@@ -1150,35 +1241,45 @@ def run_serving(cfg, device, *, n_requests, prompt_range, new_tokens,
                             seed=seed + i)[0] for i, n in enumerate(lens)]
     max_len = -(-(int(prompt_range[1]) + new_tokens) // 16) * 16
     kw = dict(new_tokens=new_tokens, max_slots=max_slots, max_len=max_len,
-              n_hi=n_hi, paged=paged, dispatch=dispatch)
-    runs = {name: [_serve_once(cfg, device, params, prompts, name, mode, **kw)
+              paged=paged, dispatch=dispatch)
+    backend_kw = {"static": dict(lo_bits=4, group_size=64),
+                  "dynaexq": dict(lo_bits=4, group_size=64,
+                                  n_hi_per_layer=n_hi)}
+    runs = {name: [_serve_once(cfg, device, params, prompts, name, mode,
+                               backend_kw=backend_kw[name], **kw)
                    for mode in SERVE_MODES]
             for name in ("static", "dynaexq")}
     runs["dynaexq free"] = [_serve_once(cfg, device, params, prompts,
-                                        "dynaexq", "free", **kw)]
+                                        "dynaexq", "free",
+                                        backend_kw=backend_kw["dynaexq"],
+                                        **kw)]
     return runs
 
 
 def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
-                max_slots, max_len, n_hi, paged, dispatch):
-    """One served run on a fresh engine, ``mode`` "graph", "eager" or
-    "free" (graphed; ``dynaexq`` flushes only at the end instead of after
-    every step). Every step's logits must be finite: the prefill's through
-    its entry point (watched for this run), the decode step's as the
-    engine left them (``last_logits``: the graph's static output when
-    graphed). ``pending_steps`` counts the steps that began with hi copies
-    still in flight or unpublished."""
+                max_slots, max_len, backend_kw, paged, dispatch):
+    """One served run on a fresh engine with ``make_backend(name,
+    **backend_kw)`` (``dynaexq``: a policy window every step), ``mode``
+    "graph", "eager" or "free" (graphed; ``dynaexq`` flushes only at the
+    end instead of after every step). Every step's logits must be finite:
+    the prefill's through its entry point (watched for this run), the
+    decode step's as the engine left them (``last_logits``: the graph's
+    static output when graphed). ``pending_steps`` counts the steps that
+    began with hi copies still in flight or unpublished; ``shared_calls``
+    the shared-expert SwiGLUs the forwards ran op by op (prefill, eager
+    decode, and the graph's capture); ``max_layer_hi`` the most hi
+    residents one layer held after a flush."""
     import contextlib
+    import repro_torch.models.moe as moe_mod
     import repro_torch.serving.engine as eng_mod
     from repro_torch.core.controller import ControllerConfig
     from repro_torch.kernels import ops
     from repro_torch.serving.backends import make_backend
     from repro_torch.serving.requests import Request
     t_build = time.perf_counter()
-    kw = dict(lo_bits=4, group_size=64, device=device)
+    kw = dict(backend_kw, device=device)
     if name == "dynaexq":
-        kw.update(n_hi_per_layer=n_hi,
-                  controller=ControllerConfig(update_interval_s=0.0))
+        kw.update(controller=ControllerConfig(update_interval_s=0.0))
     engine = eng_mod.InferenceEngine(
         cfg, _fresh(params), make_backend(name, **kw),
         eng_mod.EngineConfig(max_slots=max_slots, max_len=max_len,
@@ -1192,16 +1293,22 @@ def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     tms = [c.tm for c in getattr(engine.backend, "controllers", {}).values()]
-    finite, pending_steps = [], 0
+    finite, pending_steps, max_layer_hi = [], 0, 0
     pre = "prefill_paged" if paged else "prefill"
     entry = getattr(eng_mod, pre)
+    swiglu, shared_calls = moe_mod.swiglu, [0]
 
     def watched(*a, **k):
         out = entry(*a, **k)
         finite.append(torch.isfinite(out[0]).all())
         return out
 
+    def counted(p, x):
+        shared_calls[0] += x.dim() == 2     # not the padded hi overlay
+        return swiglu(p, x)
+
     setattr(eng_mod, pre, watched)
+    moe_mod.swiglu = counted
     try:
         ops.reset_launches()                 # the main path starts here
         t0 = time.perf_counter()
@@ -1216,12 +1323,16 @@ def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
                     finite.append(torch.isfinite(engine.last_logits).all())
                 if name == "dynaexq" and mode != "free":
                     engine.flush()
+                    max_layer_hi = max(max_layer_hi, max(
+                        len(s) for sets in engine.backend.hi_sets().values()
+                        for s in sets))
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)        # ... and ends here
     finally:
         setattr(eng_mod, pre, entry)
+        moe_mod.swiglu = swiglu
     st = engine.stats()
     assert all(len(h.tokens) == new_tokens for h in handles), \
         [len(h.tokens) for h in handles]
@@ -1240,12 +1351,19 @@ def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
         "expert_bytes": engine.device_bytes(),
         "max_mem": torch.cuda.max_memory_allocated()
         if device.type == "cuda" else 0,
-        "promotions": st["promotions"], "demotions": st["demotions"]}
+        "promotions": st["promotions"], "demotions": st["demotions"],
+        "shared_calls": shared_calls[0], "max_layer_hi": max_layer_hi,
+        "kv_bytes": None if engine.pool is None
+        else engine.pool.capacity_bytes}
     if graphed and summary["replays"] != summary["steps"]:
         raise AssertionError(f"{name}: {summary['steps']} decode steps but "
                              f"{summary['replays']} graph replays")
     if name == "dynaexq":
         summary["hi_routed"] = engine.backend.hi_routed
+        summary["n_hi"] = next(iter(engine.backend.controllers.values())) \
+            .policy.n_hi
+        summary["slots"] = engine.backend.banks["0"].slot_owner.shape[1]
+        summary["global"] = engine.backend.allocator is not None
         engine.flush()
         for tm in tms:
             tm.check_invariants()
@@ -1352,8 +1470,125 @@ def phase_serving(card: str) -> None:
             if name == "static":
                 main_runs.append(first)
         log("serving", f"{path}: {time.perf_counter() - t_path:.1f} s")
+    main_runs += _serve_flagship(card)
     for k in RESULTS:
         RESULTS[k]["launches"] = sum(s["launches"][k] for s in main_runs)
+
+
+def _flagship_envelope(params, kv_bytes, n_hi) -> float:
+    """An ``hbm_gb`` envelope from which ``plan_budget`` leaves the hi tier
+    ``n_hi`` int4-priced slots per layer (and half a slot over): the fixed
+    bytes as the backend counts them (``envelope_fixed_bytes``, on the KV
+    pool of an engine of the same shape) plus the int2 lo tier."""
+    from repro_torch.core.ver import expert_hi_nbytes, expert_lo_nbytes
+    from repro_torch.serving.backends import GiB, envelope_fixed_bytes
+    shapes = {k: tuple(v.shape) for k, v in
+              params["blocks"]["0"]["moe"]["experts"].items()}
+    L, E = shapes["w_gate"][:2]
+    hi_b = expert_hi_nbytes(shapes, hi_bits=4)
+    lo = expert_lo_nbytes(shapes, 2) * L * E
+    return (envelope_fixed_bytes(params, kv_bytes) + lo
+            + (n_hi + 0.5) * hi_b * L) / GiB
+
+
+def _serve_flagship(card: str) -> list:
+    """The flagship on its main path (paged KV, ragged dispatch) at full
+    width, 4 of 48 layers: ``static`` int2, then ``dynaexq`` at its
+    defaults (the global allocator) with int2 lo, int4-priced hi and an
+    ``hbm_gb`` envelope that leaves n_hi = E/8 per layer; each graphed,
+    then eager, with ``dynaexq`` flushed after every step, so tokens and
+    launches must agree. Returns the graphed runs (their launches count
+    toward the kernels' line)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.requests import make_prompts
+    full = get_config(FLAGSHIP)
+    cfg = dataclasses.replace(full, n_layers=FLAGSHIP_SERVE_LAYERS)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    E, L = cfg.moe.num_experts, cfg.n_superblocks()
+    host_gb = L * E * 3 * cfg.d_model * cfg.moe.d_ff_expert * 2 / 1e9
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 257, 8)
+    prompts = [make_prompts("text", cfg.vocab_size, 1, int(n), seed=i)[0]
+               for i, n in enumerate(lens)]
+    max_len, n_hi = 288, E // 8
+    log("serving", f"{cfg.name}: full width, depth cut to {L} of "
+                   f"{full.n_layers} layers (bf16 host masters {host_gb:.1f} "
+                   f"GB instead of {host_gb * full.n_layers / L:.0f} GB); "
+                   f"random weights, seed 0; paged/ragged; static int2 and "
+                   f"dynaexq(lo_bits=2, hi_bits=4, hbm_gb) at its defaults, "
+                   f"each graphed then eager")
+    kw = dict(new_tokens=32, max_slots=8, max_len=max_len, paged=True,
+              dispatch="ragged")
+    backend_kw = {"static": dict(lo_bits=2),
+                  "dynaexq": dict(lo_bits=2, hi_bits=4)}
+    used, unused = PATHS["paged/ragged"][2:]
+    graphed = []
+    for name in ("static", "dynaexq"):
+        if name == "dynaexq":
+            # The envelope on the KV pool the static engine built.
+            hbm_gb = _flagship_envelope(params, graphed[0]["kv_bytes"], n_hi)
+            backend_kw[name]["hbm_gb"] = hbm_gb
+            log("serving", f"{FLAGSHIP} dynaexq: hbm_gb {hbm_gb:.4f} for "
+                           f"n_hi {n_hi} on a KV pool of "
+                           f"{graphed[0]['kv_bytes']} B")
+        runs = [_serve_once(cfg, dev, params, prompts, name, mode,
+                            backend_kw=backend_kw[name], **kw)
+                for mode in ("graph", "eager")]
+        for s in runs:
+            extra = ""
+            if name == "dynaexq":
+                extra = (f" | global allocator {s['global']}, derived n_hi "
+                         f"{s['n_hi']} of {s['slots']} slots per layer, at "
+                         f"most {s['max_layer_hi']} hi residents in one "
+                         f"layer; {s['hi_routed']} routed (layer, expert) "
+                         f"cells served from hi")
+            log("serving", f"{FLAGSHIP} paged/ragged {name} {s['mode']}: 8 "
+                           f"requests x 32 tokens | TTFT "
+                           f"{s['ttft_s'] * 1e3:.1f} ms TPOT "
+                           f"{s['tpot_s'] * 1e3:.2f} ms "
+                           f"{s['tokens_per_s']:.1f} tok/s | replay ms by "
+                           f"events {_ms(s['replay_ms'])} over "
+                           f"{s['replays']} replays (capture "
+                           f"{s['capture_s']:.2f} s) | expert bytes "
+                           f"(device_bytes) {s['expert_bytes']} | max "
+                           f"allocated {s['max_mem']} B | promotions "
+                           f"{s['promotions']:.0f} demotions "
+                           f"{s['demotions']:.0f} | shared-expert calls "
+                           f"{s['shared_calls']} | launches {s['launches']} "
+                           f"| engine built in {s['build_s']:.1f} s, served "
+                           f"in {s['wall_s']:.1f} s{extra} | {card}")
+            if not all(s["launches"][k] > 0 for k in used) or \
+                    any(s["launches"][k] for k in unused):
+                raise AssertionError(f"{FLAGSHIP} {name} {s['mode']}: "
+                                     f"launches {s['launches']}")
+            if s["shared_calls"] < L:
+                raise AssertionError(f"{FLAGSHIP} {name} {s['mode']}: the "
+                                     f"shared expert did not run")
+            if name == "dynaexq" and not (
+                    s["global"] and s["n_hi"] == n_hi
+                    and s["promotions"] >= 1 and s["hi_routed"] >= 1
+                    and s["max_layer_hi"] > n_hi):
+                raise AssertionError(f"{FLAGSHIP} dynaexq {s['mode']}: "
+                                     f"global {s['global']}, n_hi "
+                                     f"{s['n_hi']} (want {n_hi}), "
+                                     f"promotions {s['promotions']}, "
+                                     f"hi_routed {s['hi_routed']}, at most "
+                                     f"{s['max_layer_hi']} in one layer")
+        g, e = runs
+        if g["tokens"] != e["tokens"] or g["launches"] != e["launches"]:
+            raise AssertionError(f"{FLAGSHIP} {name}: graph and eager "
+                                 f"disagree on tokens or launches")
+        log("serving", f"{FLAGSHIP} {name}: graph and eager give identical "
+                       f"tokens for all 8 requests and identical launches | "
+                       f"{card}")
+        graphed.append(g)
+    log("serving", f"{FLAGSHIP}: {time.perf_counter() - t0:.1f} s")
+    del params
+    return graphed
 
 
 # ---------------------------------------------------------------------------
@@ -1488,88 +1723,104 @@ def phase_trace(card: str) -> None:
     graphed, the kernels' sum against a replay by CUDA events as the engine
     issues it, enqueued behind a spin (device time alone) and traced, with
     the device's idle share in each, and the host ms of the launch call.
-    Fails if the kernels' sum exceeds the steps that ran them (double
-    counting) or a count disagrees."""
+    Then the same for the flagship (4 layers, static int2) on its main
+    path. Fails if the kernels' sum exceeds the steps that ran them
+    (double counting) or a count disagrees."""
     import dataclasses
-    import repro_torch.serving.engine as eng_mod
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
-    from repro_torch.serving.backends import make_backend
-    from repro_torch.serving.requests import Request, make_prompts
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=SERVE_LAYERS)
+    from repro_torch.serving.requests import make_prompts
     dev = torch.device("cuda")
-    params = init_params(cfg, seed=0, device=dev)
-    rng = np.random.default_rng(0)
-    prompts = [make_prompts("text", cfg.vocab_size, 1, int(n), seed=i)[0]
-               for i, n in enumerate(rng.integers(64, 257, 8))]
-    for path, (paged, dispatch, _, _) in PATHS.items():
-        for mode in ("graph", "eager"):
-            engine = eng_mod.InferenceEngine(
-                cfg, _fresh(params), make_backend("static", device=dev),
-                eng_mod.EngineConfig(max_slots=8, max_len=288, paged=paged,
-                                     moe_dispatch=dispatch), device=dev)
-            for p in prompts:
-                engine.submit(Request(tokens=p, max_new_tokens=32))
-            while engine.queue or engine.counters["steps"] < 3:
-                engine.step()
-            kernels, launches, wall, replay = _traced_steps(engine, mode)
-            queued = _queued_replays(engine.decode_graph.graph) \
-                if mode == "graph" else None
-            del engine
-            total = sum(ms for ms, _ in kernels.values()) / TRACE_STEPS
-            groups = {}
-            for name, (ms, n) in kernels.items():
-                g = groups.setdefault(_group(name), [0.0, 0])
-                g[0] += ms / TRACE_STEPS
-                g[1] += n / TRACE_STEPS
-            top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-            if mode == "graph":
-                (untraced, traced), (alone, launch) = replay, queued
-                timing = (f"replay by events {untraced:.3f} ms as the "
-                          f"engine issues it (device idle "
-                          f"{(1 - total / untraced) * 100:.1f}%), "
-                          f"{alone:.3f} enqueued behind a spin (device "
-                          f"time alone; idle {(1 - total / alone) * 100:.1f}"
-                          f"%), {traced:.3f} traced (idle "
-                          f"{(1 - total / traced) * 100:.1f}%: the profiler "
-                          f"slows the launch); the replay() call takes "
-                          f"{launch:.3f} host ms")
-                within, what = traced, "the traced replays that ran them"
-            else:
-                timing = "no replay: op by op"
-                within, what = wall, "the host step"
-            log("trace", f"{path} static {mode}, {TRACE_STEPS} decode steps "
-                         f"of 8 rows: kernels {total:.3f} device ms per step "
-                         f"(traced); host ms per step {wall:.3f} (untraced; "
-                         f"{(1 - total / wall) * 100:.1f}% of it not covered "
-                         f"by kernels); {timing}; by group (ms, launches per "
-                         f"step) "
-                         + ", ".join(f"{g} {ms:.3f}/{n:.0f}" for g, (ms, n)
-                                     in sorted(groups.items(),
-                                               key=lambda kv: -kv[1][0]))
-                         + "; top kernels (ms per step) "
-                         + ", ".join(f"{k[:60]} {ms / TRACE_STEPS:.3f}"
-                                     for k, (ms, _) in top) + f" | {card}")
-            if total <= 0:
-                raise AssertionError(f"{path} {mode}: the trace saw no "
-                                     f"device time")
-            if total > within * (1 + TRACE_NOISE):
-                raise AssertionError(f"{path} {mode}: the kernels' "
-                                     f"{total:.3f} ms per step exceed "
-                                     f"{what} ({within:.3f} ms)")
-            seen = []
-            for keys, kname in TRACE_COUNTED:
-                counted = sum(launches.get(k, 0) for k in keys)
-                traced_n = sum(n for name, (_, n) in kernels.items()
-                               if kname in name)
-                if traced_n != counted:
-                    raise AssertionError(f"{path} {mode}: the profiler saw "
-                                         f"{traced_n} launches of {kname} "
-                                         f"but ops.LAUNCHES counts {counted} "
-                                         f"for {keys}")
-                seen.append(f"{kname} {traced_n}")
-            log("trace", f"{path} static {mode}: launches over the traced "
-                         f"steps, profiler = ops.LAUNCHES: {', '.join(seen)}")
+    for arch, layers, lo_bits, paths in (
+            (ARCH, SERVE_LAYERS, 4, PATHS),
+            (FLAGSHIP, FLAGSHIP_SERVE_LAYERS, 2,
+             {"paged/ragged": PATHS["paged/ragged"]})):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        params = init_params(cfg, seed=0, device=dev)
+        rng = np.random.default_rng(0)
+        prompts = [make_prompts("text", cfg.vocab_size, 1, int(n), seed=i)[0]
+                   for i, n in enumerate(rng.integers(64, 257, 8))]
+        for path, (paged, dispatch, _, _) in paths.items():
+            for mode in ("graph", "eager"):
+                _trace_one(cfg, params, prompts, f"{cfg.name} {path}", paged,
+                           dispatch, mode, lo_bits, card)
+        del params
+
+
+def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
+               card) -> None:
+    """One traced engine of ``phase_trace``: the static backend at int
+    ``lo_bits`` on one path, graphed or eager."""
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.requests import Request
+    dev = torch.device("cuda")
+    engine = eng_mod.InferenceEngine(
+        cfg, _fresh(params), make_backend("static", lo_bits=lo_bits,
+                                          device=dev),
+        eng_mod.EngineConfig(max_slots=8, max_len=288, paged=paged,
+                             moe_dispatch=dispatch), device=dev)
+    for p in prompts:
+        engine.submit(Request(tokens=p, max_new_tokens=32))
+    while engine.queue or engine.counters["steps"] < 3:
+        engine.step()
+    kernels, launches, wall, replay = _traced_steps(engine, mode)
+    queued = _queued_replays(engine.decode_graph.graph) \
+        if mode == "graph" else None
+    del engine
+    total = sum(ms for ms, _ in kernels.values()) / TRACE_STEPS
+    groups = {}
+    for name, (ms, n) in kernels.items():
+        g = groups.setdefault(_group(name), [0.0, 0])
+        g[0] += ms / TRACE_STEPS
+        g[1] += n / TRACE_STEPS
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    if mode == "graph":
+        (untraced, traced), (alone, launch) = replay, queued
+        timing = (f"replay by events {untraced:.3f} ms as the "
+                  f"engine issues it (device idle "
+                  f"{(1 - total / untraced) * 100:.1f}%), "
+                  f"{alone:.3f} enqueued behind a spin (device "
+                  f"time alone; idle {(1 - total / alone) * 100:.1f}"
+                  f"%), {traced:.3f} traced (idle "
+                  f"{(1 - total / traced) * 100:.1f}%: the profiler "
+                  f"slows the launch); the replay() call takes "
+                  f"{launch:.3f} host ms")
+        within, where = traced, "the traced replays that ran them"
+    else:
+        timing = "no replay: op by op"
+        within, where = wall, "the host step"
+    log("trace", f"{what} static {mode}, {TRACE_STEPS} decode steps "
+                 f"of 8 rows: kernels {total:.3f} device ms per step "
+                 f"(traced); host ms per step {wall:.3f} (untraced; "
+                 f"{(1 - total / wall) * 100:.1f}% of it not covered "
+                 f"by kernels); {timing}; by group (ms, launches per "
+                 f"step) "
+                 + ", ".join(f"{g} {ms:.3f}/{n:.0f}" for g, (ms, n)
+                             in sorted(groups.items(),
+                                       key=lambda kv: -kv[1][0]))
+                 + "; top kernels (ms per step) "
+                 + ", ".join(f"{k[:60]} {ms / TRACE_STEPS:.3f}"
+                             for k, (ms, _) in top) + f" | {card}")
+    if total <= 0:
+        raise AssertionError(f"{what} {mode}: the trace saw no device time")
+    if total > within * (1 + TRACE_NOISE):
+        raise AssertionError(f"{what} {mode}: the kernels' "
+                             f"{total:.3f} ms per step exceed "
+                             f"{where} ({within:.3f} ms)")
+    seen = []
+    for keys, kname in TRACE_COUNTED:
+        counted = sum(launches.get(k, 0) for k in keys)
+        traced_n = sum(n for name, (_, n) in kernels.items()
+                       if kname in name)
+        if traced_n != counted:
+            raise AssertionError(f"{what} {mode}: the profiler saw "
+                                 f"{traced_n} launches of {kname} "
+                                 f"but ops.LAUNCHES counts {counted} "
+                                 f"for {keys}")
+        seen.append(f"{kname} {traced_n}")
+    log("trace", f"{what} static {mode}: launches over the traced "
+                 f"steps, profiler = ops.LAUNCHES: {', '.join(seen)}")
 
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "model",

@@ -22,6 +22,26 @@ _CONFIGS = {
         max_seq_len=131072,
         source="hf:Qwen/Qwen3-30B-A3B; paper Table 3",
     ),
+    # Qwen3-Next-80B-A3B, the paper's flagship (Int4-hi / Int2-lo): 512
+    # experts top-10 and one shared expert. Noted deviation, as in the
+    # reference: the real model's gated-deltanet hybrid layers are
+    # approximated by full attention.
+    "qwen3-moe-80b-a3b": ArchConfig(
+        name="qwen3-moe-80b-a3b",
+        family="moe",
+        n_layers=48,
+        d_model=2048,
+        vocab_size=151936,
+        d_ff=0,
+        attn=AttnConfig(n_heads=16, n_kv_heads=2, head_dim=256,
+                        rope_theta=10_000_000.0, qk_norm=True),
+        moe=MoEConfig(num_experts=512, top_k=10, d_ff_expert=512,
+                      n_shared_experts=1, d_ff_shared=512,
+                      norm_topk_prob=True),
+        norm_eps=1e-6,
+        max_seq_len=262144,
+        source="paper Table 3; hf:Qwen/Qwen3-Next-80B-A3B",
+    ),
     # IBM Granite-3.0-1B-A400M: small MoE, 32 experts top-8.
     "granite-moe-1b-a400m": ArchConfig(
         name="granite-moe-1b-a400m",

@@ -1,5 +1,7 @@
 """HBM budget admission control (paper §3.3); the port's copy of the
-reference's numpy-only ledger (its one-shot planners are not needed yet).
+reference's numpy-only ledger and its one-shot envelope planner
+(``plan_budget``; the three-tier ``plan_hierarchy`` comes with the host
+tier).
 
 ``BudgetTracker`` is the runtime admission gate: every promotion must
 ``try_reserve`` its bytes before it may enter the transition pipeline, so the
@@ -14,6 +16,7 @@ cap for "no global envelope configured".
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 from typing import Dict, Optional
 
@@ -125,3 +128,44 @@ class BudgetView:
 
     def release(self, nbytes: int) -> None:
         self.parent.release(nbytes, account=self.account)
+
+
+@dataclasses.dataclass(frozen=True)
+class BudgetPlan:
+    m_total: int          # usable device bytes
+    m_fixed: int          # non-expert params + KV cache + activations
+    m_lo: int             # always-resident lo-pool bytes
+    m_hi_cap: int         # hi-pool envelope
+    n_hi_per_layer: int   # derived per-layer hi capacity (experts)
+
+    def check(self):
+        if self.m_fixed + self.m_lo + self.m_hi_cap > self.m_total:
+            raise BudgetExceeded(
+                f"infeasible: fixed {self.m_fixed} + lo {self.m_lo} + hi "
+                f"{self.m_hi_cap} > total {self.m_total}")
+
+
+def plan_budget(m_total: int, m_fixed: int, lo_bytes_total: int,
+                hi_bytes_per_expert_layer: int, n_layers: int,
+                num_experts: int, align: int = 1) -> BudgetPlan:
+    """Budget initialization: everything left after fixed + lo goes to the hi
+    pool, expressed as a per-layer expert count (the paper's n_hi,l).
+
+    ``align``: round n_hi down to a multiple (e.g. the model-parallel degree,
+    so each shard owns an integer number of hi slots).
+    """
+    if m_fixed + lo_bytes_total > m_total:
+        raise BudgetExceeded(
+            f"lo tier alone does not fit: fixed {m_fixed} + lo "
+            f"{lo_bytes_total} > total {m_total}")
+    remaining = m_total - m_fixed - lo_bytes_total
+    n_hi = remaining // (hi_bytes_per_expert_layer * n_layers)
+    n_hi = min(int(n_hi), num_experts)
+    if align > 1:
+        n_hi = n_hi // align * align
+    plan = BudgetPlan(
+        m_total=m_total, m_fixed=m_fixed, m_lo=lo_bytes_total,
+        m_hi_cap=n_hi * hi_bytes_per_expert_layer * n_layers,
+        n_hi_per_layer=int(n_hi))
+    plan.check()
+    return plan

@@ -1,12 +1,13 @@
 """DynaExq control loop (paper Fig. 4): hotness estimator → budget-feasible
-per-layer top-n policy → transition pipeline. Host-side and O(L·E), off the
-token critical path."""
+per-layer top-n policy (or the global allocator's plan, ``apply_plan``) →
+transition pipeline. Host-side and O(L·E), off the token critical path."""
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.budget import BudgetTracker
@@ -46,6 +47,15 @@ class DynaExqController:
             migration_bytes_per_window=cfg.migration_bytes_per_window)
         self._last_update = time.monotonic()
 
+    def folded_scores(self) -> np.ndarray:
+        """Fold the hotness EMA: what every policy path ranks on, the
+        per-layer ``update()`` and the global allocator alike. The
+        reference multiplies the fold by a failure-decay penalty that
+        only failed promotion copies move below 1; the port has no fault
+        plane yet, so the penalty is exactly 1 and the fold alone is
+        bit-equal to it."""
+        return self.hotness.fold()
+
     @property
     def bank(self) -> ExpertBankQ:
         return self.tm.bank
@@ -66,7 +76,7 @@ class DynaExqController:
     def update(self) -> None:
         """One policy window: fold EMA → per-layer top-n with hysteresis →
         enqueue transitions → drain → publish completed."""
-        scores = self.hotness.fold()
+        scores = self.folded_scores()
         for l in range(scores.shape[0]):
             current = self.tm.hi_set(l) | self.tm.pending_experts(l)
             _, promos, demos = select_hi_set(scores[l], current, self.policy)
@@ -74,6 +84,20 @@ class DynaExqController:
                 self.tm.request_demotion(l, int(e))
             for e in promos:
                 self.tm.request_promotion(l, int(e))
+        self.tm.drain()
+        self.tm.publish_ready()
+
+    def apply_plan(self, promotions, demotions) -> None:
+        """Enqueue an externally computed transition plan (the global
+        allocator's) and run one drain/publish window. The lists are
+        (layer, expert) pairs, promotions hottest-first and demotions
+        coldest-first: the admission order ``update()`` derives per layer,
+        through the same pipeline (budget gates, rate limit,
+        publish-then-switch)."""
+        for l, e in demotions:
+            self.tm.request_demotion(int(l), int(e))
+        for l, e in promotions:
+            self.tm.request_promotion(int(l), int(e))
         self.tm.drain()
         self.tm.publish_ready()
 

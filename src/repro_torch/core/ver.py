@@ -62,10 +62,16 @@ class ExpertBankQ:
 
 
 def build_bank(expert_weights: Dict[str, torch.Tensor], n_hi: int,
-               lo_bits: int, group_size: int = 64) -> ExpertBankQ:
+               lo_bits: int, group_size: int = 64,
+               hi_bits: int = 16) -> ExpertBankQ:
     """Both tiers from dense bf16 experts (name → (L, E, K, N)), on their
     device. The lo tier is quantized one layer at a time (bounded float32
-    scratch at full width); the hi pool starts empty."""
+    scratch at full width); the hi pool starts empty and bf16.
+
+    ``hi_bits`` < 16 (the paper's Int4-hi tier) changes nothing here, as in
+    the reference, whose int-hi values are computed and then dropped:
+    promotions copy the bf16 masters, and only the byte accounting
+    (``expert_hi_nbytes``) prices the hi tier at ``hi_bits``."""
     names = sorted(expert_weights)
     first = expert_weights[names[0]]
     L, E = first.shape[:2]
@@ -86,9 +92,14 @@ def build_bank(expert_weights: Dict[str, torch.Tensor], n_hi: int,
         slot_map=torch.full((L, E), -1, dtype=torch.int32, device=dev))
 
 
-def expert_hi_nbytes(expert_weights_shapes: Dict[str, tuple]) -> int:
-    """Device bytes of ONE expert's bf16 hi version (one layer)."""
-    return sum(int(np.prod(s[2:])) * 2
+def expert_hi_nbytes(expert_weights_shapes: Dict[str, tuple],
+                     hi_bits: int = 16, group_size: int = 64) -> int:
+    """Device bytes of ONE expert's hi version (one layer): bf16, or
+    packed int ``hi_bits`` codes with their scales below 16 bits."""
+    if hi_bits >= 16:
+        return sum(int(np.prod(s[2:])) * 2
+                   for s in expert_weights_shapes.values())
+    return sum(quantized_nbytes(s[2:], hi_bits, group_size)
                for s in expert_weights_shapes.values())
 
 

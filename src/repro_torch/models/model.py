@@ -76,15 +76,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     experts = {"w_gate": stacked((E, d, f), E ** -0.5),
                "w_up": stacked((E, d, f), E ** -0.5),
                "w_down": stacked((E, f, d), E ** -0.5)}
+    moe = {"router": stacked((d, E), d ** -0.5, torch.float32),
+           "experts": experts}
+    if m.n_shared_experts:
+        # The reference's init_swiglu: (d, F_sh), (d, F_sh), (F_sh, d) per
+        # layer, scaled by each matrix's fan_in^-1/2.
+        fs = m.d_ff_shared * m.n_shared_experts
+        moe["shared"] = {"w_gate": stacked((d, fs), d ** -0.5),
+                         "w_up": stacked((d, fs), d ** -0.5),
+                         "w_down": stacked((fs, d), fs ** -0.5)}
     params = {
         "embed": normal((cfg.vocab_size, d), 0.02),
         "final_norm": {"scale": torch.ones((d,), dtype=torch.bfloat16,
                                            device=dev)},
         "blocks": {"0": {
             "norm1": {"scale": ones(d)}, "norm2": {"scale": ones(d)},
-            "attn": attn,
-            "moe": {"router": stacked((d, E), d ** -0.5, torch.float32),
-                    "experts": experts}}},
+            "attn": attn, "moe": moe}},
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)

@@ -24,6 +24,7 @@ import torch
 from repro_torch.core.ver import ExpertBankQ
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import MoEConfig
+from repro_torch.models.mlp import swiglu
 
 #: Row-tile height of the ragged layout (the kernels are built for 8).
 RAGGED_BM = 8
@@ -209,21 +210,12 @@ def _dispatch_ragged(bank: ExpertBankQ, x: torch.Tensor, idx: torch.Tensor,
     return y, counts.to(torch.int32), dropped, pad_ratio
 
 
-def _bf16_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """bf16 (S, C, K) × (S, K, N) with float32 accumulation and one
-    rounding to bf16 (the reference's bf16 einsum). cuBLAS does that in
-    bf16; the CPU's bf16 GEMM rounds partial sums, so there the product
-    runs in float32."""
-    if a.is_cuda:
-        return torch.bmm(a, b)
-    return torch.bmm(a.float(), b.float()).to(a.dtype)
-
-
 def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor) -> torch.Tensor:
     """SwiGLU over the padded (E, C, d) buffer: three grouped lo GEMMs for
     every expert, then the published hi experts (``slot_owner``) recompute
     in bf16 and replace their owners' outputs — the same result as swapping
-    the weights, without dense per-expert weights."""
+    the weights, without dense per-expert weights (bf16 products with one
+    rounding each, as the reference's einsums)."""
     E, C, d = xg.shape
     lo = bank.lo
     bits, group = lo["w_gate"].bits, lo["w_gate"].group_size
@@ -241,9 +233,7 @@ def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor) -> torch.Tensor:
     hi = bank.hi
     valid = (owner >= 0) & (owner < E)
     xh = xg[torch.where(valid, owner, torch.zeros_like(owner))]
-    hh = torch.nn.functional.silu(_bf16_bmm(xh, hi["w_gate"]).float()) \
-        .to(xg.dtype) * _bf16_bmm(xh, hi["w_up"])
-    yh = _bf16_bmm(hh, hi["w_down"])
+    yh = swiglu(hi, xh)
     # Free and stale slots write to a spare expert row that is cut off.
     out = torch.cat([y, y.new_empty((1, C, y.shape[-1]))])
     out[torch.where(valid, owner, torch.full_like(owner, E))] = yh
@@ -290,13 +280,12 @@ def dispatch_compute(bank: ExpertBankQ, x: torch.Tensor, idx: torch.Tensor,
 def moe_apply(params, bank: ExpertBankQ, x: torch.Tensor, cfg: MoEConfig,
               capacity: int, token_valid: Optional[torch.Tensor] = None,
               n_rows: Optional[int] = None, dispatch: Optional[str] = None):
-    """Single-device MoE. ``params``: {'router'}; x (T, d).
+    """Single-device MoE. ``params``: {'router', ['shared']}; x (T, d).
     ``token_valid`` masks tokens out of dispatch and every count;
     ``n_rows`` adds per-row (R, E) counts; ``dispatch`` ∈ {"ragged",
-    "padded"} picks the token layout (None = ragged). Returns (y (T, d),
-    MoEAux)."""
-    if cfg.n_shared_experts:
-        raise NotImplementedError("shared experts are not ported")
+    "padded"} picks the token layout (None = ragged). A ``params["shared"]``
+    SwiGLU (the shared expert) is added to every row after the combine,
+    masked rows too, as the reference does. Returns (y (T, d), MoEAux)."""
     dispatch = "ragged" if dispatch is None else dispatch
     if dispatch not in DISPATCHES:
         raise ValueError(f"dispatch={dispatch!r}; one of {DISPATCHES}")
@@ -316,6 +305,8 @@ def moe_apply(params, bank: ExpertBankQ, x: torch.Tensor, cfg: MoEConfig,
                                               capacity)
         kept_rows = torch.clamp(counts, 0, capacity).sum().float()
         pad_ratio = 1.0 - kept_rows / max(E * capacity, 1)
+    if "shared" in params:
+        y = y + swiglu(params["shared"], x)
     active = (counts > 0).sum().to(torch.int32)
 
     if token_valid is None:

@@ -180,6 +180,58 @@ def test_ragged_ffn_replays_in_a_cuda_graph(cuda):
         _assert_ffn_close(y.cpu(), want, live * BM)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 40])
+def test_ragged_kernels_flagship_width(cuda, T):
+    """The flagship's experts: 512 of them, T tokens routed top-10, K =
+    2048, F = 512, int2 lo, g = 64; hi tiles from a pool of 2·n_hi = 128
+    slots whose owners sit in slots 0-95 (past n_hi = 64); the tile map
+    the port's dispatch builds, tail tiles included. Both kernels against
+    their plain versions on the card, on the same inputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.moe import (_sort_routing, _tile_slots,
+                                        ragged_tile_map)
+    from repro_torch.core.ver import ExpertBankQ
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    E, K, F, pool = 512, 2048, 512, 128
+    lo = {n: quantize((torch.randn((E,) + s, generator=gen, device=cuda)
+                       * s[0] ** -0.5).to(torch.bfloat16), 2, 64)
+          for n, s in (("w_gate", (K, F)), ("w_up", (K, F)),
+                       ("w_down", (F, K)))}
+    hi = {n: (torch.randn((pool,) + tuple(q.shape[1:]), generator=gen,
+                          device=cuda) * q.shape[1] ** -0.5)
+          .to(torch.bfloat16) for n, q in lo.items()}
+    owner = torch.full((pool,), -1, dtype=torch.int32, device=cuda)
+    owner[:96] = torch.randperm(E, generator=gen, device=cuda)[:96] \
+        .to(torch.int32)
+    idx = torch.topk(torch.randn((T, E), generator=gen, device=cuda), 10,
+                     dim=-1).indices
+    # Route some tokens to owners of the highest slots.
+    idx[0, :4] = owner[92:96].long()
+    _, _, counts, _, _ = _sort_routing(idx, E)
+    _, tile_eid, n_tiles = ragged_tile_map(counts, BM, T * 10)
+    bank = ExpertBankQ(lo=lo, hi=hi, slot_owner=owner,
+                       slot_map=torch.zeros((E,), dtype=torch.int32,
+                                            device=cuda))
+    tile_slot = _tile_slots(bank, tile_eid, E)
+    live = int(n_tiles.item())
+    assert live < tile_eid.shape[0]                      # tail tiles
+    assert int(tile_slot[:live].max()) >= pool // 2      # a slot past n_hi
+    xs = torch.randn((tile_eid.shape[0] * BM, K), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    kw = dict(bits=2, group=64, bm=BM)
+    args = (lo["w_gate"].packed, lo["w_gate"].scales, lo["w_up"].packed,
+            lo["w_up"].scales, hi["w_gate"], hi["w_up"])
+    h_want = ref.ragged_gateup_ref(xs, tile_eid, tile_slot, *args, **kw)
+    h_got = ops.ragged_gateup(xs, tile_eid, tile_slot, n_tiles, *args, **kw)
+    dn = (lo["w_down"].packed, lo["w_down"].scales, hi["w_down"])
+    y_want = ref.ragged_down_ref(h_want, tile_eid, tile_slot, *dn, **kw)
+    y_got = ops.ragged_down(h_want, tile_eid, tile_slot, n_tiles, *dn, **kw)
+    rows = live * BM
+    _assert_ffn_close(h_got.cpu(), h_want.cpu(), rows)
+    _assert_ffn_close(y_got.cpu(), y_want.cpu(), rows)
+
+
 def _paged_case(case, rep, hd, rng, Hkv=2, bt=16):
     """q, k, v, table, valid of one paged decode case, and the rows that
     must come out as zeros. ``short``: 3 rows over 4 blocks, one
@@ -234,6 +286,33 @@ def test_flash_decode_paged_matches_plain(cuda, rep, hd, case):
         assert (got[r] == 0).all()
     # One count per call, whether the merge pass ran or not.
     assert ops.LAUNCHES["flash_decode_paged"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [18, 32])
+def test_flash_decode_paged_flagship_heads(cuda, nb):
+    """The flagship's heads (H = 16, Hkv = 2, hd = 256: rep 8) at its
+    serving shape, 8 rows of random lengths (row 0 full), -1 entries past
+    each row's blocks."""
+    rng = np.random.default_rng(nb)
+    B, H, Hkv, hd, bt = 8, 16, 2, 256, 16
+    N = 1 + B * nb
+    q = torch.from_numpy(rng.standard_normal((B, H, hd))).to(torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal((N, Hkv, bt, hd))) \
+        .to(torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal((N, Hkv, bt, hd))) \
+        .to(torch.bfloat16)
+    table = torch.from_numpy((1 + rng.permutation(N - 1)[:B * nb])
+                             .reshape(B, nb).astype(np.int32))
+    lengths = torch.from_numpy(rng.integers(1, nb * bt + 1, B))
+    lengths[0] = nb * bt
+    table[torch.arange(nb)[None, :] * bt >= lengths[:, None]] = -1
+    valid = torch.arange(nb * bt)[None, :] < lengths[:, None]
+    want = ops.flash_decode_paged(q, k, v, table, valid)
+    got = ops.flash_decode_paged(q.to(cuda), k.to(cuda), v.to(cuda),
+                                 table.to(cuda), valid.to(cuda)).cpu()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -8)
 
 
 @pytest.mark.cuda
@@ -574,11 +653,29 @@ def _step(eng, graphed):
     return eng.last_logits[valid]
 
 
-def _serve_steps(cuda, name, path, graphed):
-    """Serve three requests step by step; dynaexq flushes after every step,
-    so what it publishes is a function of the tokens alone. Returns
-    (tokens per request, logits per decode step, launches, engine)."""
-    eng = _engine(cuda, name, path)
+def _flagship_engine(cuda, name, path):
+    """The reduced flagship (16 experts, a shared expert) with the
+    default ``dynaexq`` (the global allocator) at int2 lo and int4-priced
+    hi, a policy window every step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = get_config("qwen3-moe-80b-a3b").reduced(num_experts=16)
+    be = make_backend(name, lo_bits=2, hi_bits=4, device=cuda,
+                      controller=ControllerConfig(update_interval_s=0.0))
+    return InferenceEngine(cfg, init_params(cfg, seed=0, device=cuda), be,
+                           EngineConfig(max_slots=2, max_len=64,
+                                        **PATHS[path]), device=cuda)
+
+
+def _serve_steps(cuda, name, path, graphed, make=None):
+    """Serve three requests step by step on ``make(cuda, name, path)``
+    (default ``_engine``); dynaexq flushes after every step, so what it
+    publishes is a function of the tokens alone. Returns (tokens per
+    request, logits per decode step, launches, engine)."""
+    eng = (make or _engine)(cuda, name, path)
     ops.reset_launches()
     hs = _submit(eng)
     logits = []
@@ -610,6 +707,28 @@ def test_graph_matches_eager(cuda, path, name):
         for eng in (eng_g, eng_e):
             for ctl in eng.backend.controllers.values():
                 ctl.tm.check_invariants()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+def test_flagship_global_dynaexq_graph_matches_eager(cuda, path):
+    """The global allocator's bank (2·n_hi slots per layer, skewed across
+    layers) and the shared expert under the graph: tokens, launches and
+    decoded rows' logits as eager decode gives them."""
+    toks_g, lg_g, launches_g, eng_g = _serve_steps(
+        cuda, "dynaexq", path, True, make=_flagship_engine)
+    toks_e, lg_e, launches_e, eng_e = _serve_steps(
+        cuda, "dynaexq", path, False, make=_flagship_engine)
+    assert eng_g.backend.allocator is not None
+    assert eng_g.decode_graph.graph is not None
+    assert toks_g == toks_e
+    assert launches_g == launches_e
+    assert len(lg_g) == len(lg_e) > 0
+    for step, (a, b) in enumerate(zip(lg_g, lg_e)):
+        assert torch.equal(a, b), (step, float((a - b).abs().max()))
+    assert eng_g.backend.hi_routed == eng_e.backend.hi_routed > 0
+    assert eng_g.backend.hi_sets() == eng_e.backend.hi_sets()
+    assert eng_g.backend.device_bytes() == eng_e.backend.device_bytes()
 
 
 @pytest.mark.cuda

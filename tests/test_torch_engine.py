@@ -29,7 +29,6 @@ ARCH = "granite-moe-1b-a400m"
 # tokens must stay identical; they may first differ only at a step whose
 # reference top-1/top-2 margin is below 4x that tolerance.
 LOGIT_TOL = 0.05
-MARGIN = 4 * LOGIT_TOL
 PROMPT_LENS = (20, 13, 37)
 NEW_TOKENS = 8
 
@@ -61,6 +60,29 @@ def _engines(name, paged=True):
     return cfg, je, te
 
 
+def _default_engines(jcfg, cfg, name, paged=True, **kw):
+    """Both engines on one set of weights, on the paged/ragged path (or,
+    ``paged=False``, dense rows with padded dispatch), each with
+    ``make_backend(name, **kw)`` at otherwise default arguments
+    (``dynaexq``: the global allocator in both), but a policy window every
+    step, so the published sets depend on the tokens alone."""
+    jp = jinit_params(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_reference(jax.tree_util.tree_map(np.asarray, jp))
+    if name == "dynaexq":
+        jkw = dict(kw, controller=JControllerConfig(update_interval_s=0.0))
+        kw = dict(kw, controller=ControllerConfig(update_interval_s=0.0))
+    else:
+        jkw = kw
+    ecfg = dict(max_slots=2, max_len=96)
+    if not paged:
+        ecfg.update(paged=False, moe_dispatch="padded")
+    je = JInferenceEngine(jcfg, jp, jmake_backend(name, **jkw),
+                          JEngineConfig(prefix_sharing=False, **ecfg))
+    te = InferenceEngine(cfg, tp, make_backend(name, device="cpu", **kw),
+                         EngineConfig(**ecfg), device="cpu")
+    return cfg, je, te
+
+
 def _warm_and_freeze(cfg, je, te):
     """The reference suite's pattern: warm both engines on the same
     prompts, force a policy window, flush, then freeze the controllers, so
@@ -84,9 +106,10 @@ def _margin(row):
     return float(top[1] - top[0])
 
 
-def _serve_lockstep(cfg, je, te, monkeypatch, paged=True):
+def _serve_lockstep(cfg, je, te, monkeypatch, paged=True, tol=LOGIT_TOL):
     """Serve the same requests through both engines one step at a time and
-    compare every emitted token and its logits row. A request is compared
+    compare every emitted token and its logits row (to ``tol``, the margin
+    rule at ``4 * tol``). A request is compared
     until its tokens first differ (which must be at a small-margin step) or
     its router counts first differ (a top-k near tie, after which its
     hidden states legitimately diverge). Returns per request: (reference
@@ -151,7 +174,7 @@ def _serve_lockstep(cfg, je, te, monkeypatch, paged=True):
                 margins[a.id].append(_margin(ref_row))
             else:                                  # its prefill
                 port_row = None
-            small[i] += margins[a.id][-1] < MARGIN
+            small[i] += margins[a.id][-1] < 4 * tol
             if any(not np.array_equal(a.expert_counts[k],
                                       b.expert_counts[k])
                    for k in b.expert_counts):
@@ -159,21 +182,21 @@ def _serve_lockstep(cfg, je, te, monkeypatch, paged=True):
                 continue
             if port_row is not None:
                 np.testing.assert_allclose(port_row, ref_row, rtol=0,
-                                           atol=LOGIT_TOL)
+                                           atol=tol)
             if a.tokens[-1] != b.tokens[-1]:
-                assert margins[a.id][-1] < MARGIN, (i, n, margins[a.id])
+                assert margins[a.id][-1] < 4 * tol, (i, n, margins[a.id])
                 stop[i] = (n - 1, "tokens differ at a small margin")
     return [(a.tokens, b.tokens, stop[i], small[i])
             for i, (a, b) in enumerate(zip(jh, th))]
 
 
-def _check_served(name, te, results):
+def _check_served(name, te, results, tol=LOGIT_TOL):
     held = 0
     for i, (ref_toks, port_toks, stop, small) in enumerate(results):
         assert len(port_toks) == NEW_TOKENS
         upto = NEW_TOKENS if stop is None else stop[0]
         print(f"request {i}: {upto} tokens identical, {small} at a "
-              f"reference margin below {MARGIN}"
+              f"reference margin below {4 * tol}"
               + ("" if stop is None else f"; then {stop[1]}"))
         assert port_toks[:upto] == ref_toks[:upto]
         held += upto
@@ -210,3 +233,36 @@ def test_dense_padded_engine_tokens_match_reference(name, monkeypatch):
     _check_served(name, te, _serve_lockstep(cfg, je, te, monkeypatch,
                                             paged=False))
     assert te.pool is None
+
+
+def test_engine_default_dynaexq_tokens_match_reference(monkeypatch):
+    """``make_backend("dynaexq")`` at the defaults of both packages (the
+    global cross-layer allocator) publishes the same hi sets and serves
+    the same tokens under the margin rule."""
+    cfg, je, te = _default_engines(jget_config(ARCH, reduced=True),
+                                   get_config(ARCH, reduced=True), "dynaexq")
+    assert je.backend.allocator is not None
+    assert te.backend.allocator is not None
+    _warm_and_freeze(cfg, je, te)
+    _check_served("dynaexq", te, _serve_lockstep(cfg, je, te, monkeypatch))
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_per_layer_dynaexq_tokens_match_reference(paged, monkeypatch):
+    """``global_alloc=False`` in both packages, the paper's per-layer top-n
+    rule (the pinned tests above hold the port's global default against
+    the reference's per-layer rule): equal hi sets and ``device_bytes()``,
+    and the same tokens under the margin rule, on both paths."""
+    cfg, je, te = _default_engines(
+        jget_config(ARCH, reduced=True), get_config(ARCH, reduced=True),
+        "dynaexq", paged=paged, lo_bits=4, n_hi_per_layer=2,
+        global_alloc=False)
+    assert je.backend.allocator is None and te.backend.allocator is None
+    for pos, bank in te.backend.banks.items():
+        assert tuple(bank.slot_owner.shape) == \
+            tuple(je.backend.banks[pos].slot_owner.shape)
+    _warm_and_freeze(cfg, je, te)
+    assert te.backend.device_bytes() == je.backend.device_bytes()
+    _check_served("dynaexq", te, _serve_lockstep(cfg, je, te, monkeypatch,
+                                                 paged=paged))
+    assert (te.pool is None) == (not paged)

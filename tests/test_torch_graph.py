@@ -225,6 +225,53 @@ def test_decode_steps_read_nothing_on_the_host(monkeypatch, paged, dispatch,
     assert bool((c[:, :2].sum(-1) == cfg.moe.top_k).all())
 
 
+@pytest.mark.parametrize("paged,dispatch", [(True, "ragged"),
+                                            (False, "padded")],
+                         ids=["paged-ragged", "dense-padded"])
+def test_flagship_decode_step_reads_nothing_on_the_host(monkeypatch, paged,
+                                                        dispatch):
+    """The reduced flagship (a shared expert in every MoE layer) on the
+    bank of a default ``dynaexq`` backend: the global allocator's pool of
+    2·n_hi slots per layer, with one layer holding more than n_hi."""
+    cfg = get_config("qwen3-moe-80b-a3b").reduced(num_experts=16)
+    params = init_params(cfg, seed=5, device="cpu")
+    be = make_backend("dynaexq", lo_bits=2, hi_bits=4, device="cpu")
+    bank = be.materialize_banks(cfg, params, kv_bytes=0)
+    L, E, n_hi = cfg.n_superblocks(), cfg.moe.num_experts, 2
+    hot = np.zeros((L, E), np.int64)
+    hot[0, :2 * n_hi] = 50                 # layer 0 takes the slack
+    hot[1, 5] = 1
+    be.observe({"0": hot})
+    be.force_update()
+    be.flush()
+    sets = be.hi_sets()["0"]
+    assert bank["0"].slot_owner.shape == (L, 2 * n_hi)
+    assert len(sets[0]) == 2 * n_hi > n_hi and len(sets[1]) == 0
+    B, bt, nb = 3, 16, 4
+    gen = torch.Generator().manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (B,), generator=gen)
+    pos = torch.tensor([5, 17, 0])
+    kw = dict(bank=bank, row_valid=torch.tensor([True, True, False]),
+              per_row_counts=True, moe_dispatch=dispatch)
+    if paged:
+        caches = init_paged_caches(cfg, 1 + B * nb, bt, device="cpu")
+        table = torch.arange(1, 1 + B * nb, dtype=torch.int32).view(B, nb)
+        table[2] = -1
+        wblk, woff = torch.tensor([1, 6, 0]), torch.tensor([5, 1, 0])
+        with no_host_reads(monkeypatch):
+            logits, counts = decode_step_paged(params, cfg, tokens, pos,
+                                               caches, table, wblk, woff,
+                                               **kw)
+    else:
+        caches = init_caches(cfg, B, nb * bt, device="cpu")
+        with no_host_reads(monkeypatch):
+            logits, counts = decode_step(params, cfg, tokens, pos, caches,
+                                         **kw)
+    assert logits.shape == (B, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert int(counts["0"][:, 2].sum()) == 0
+
+
 # --------------------------------------------------------------------------
 # 4. the engine's static-buffer step
 # --------------------------------------------------------------------------

@@ -36,7 +36,8 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.serving.engine, "
             "repro_torch.serving.backends, repro_torch.convert, "
-            "repro_torch.kernels.build, repro_torch.models.model; "
+            "repro_torch.kernels.build, repro_torch.models.model, "
+            "repro_torch.core.allocator, repro_torch.models.mlp; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
