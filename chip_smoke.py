@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only card,build,kernels
+    python3 chip_smoke.py --only card,build,kernels,serving
 
 Phases (each prints one line; any failure exits non-zero):
 
 1. card     — name and power limit (nvidia-smi), torch and CUDA versions;
 2. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels  — each of the six kernels against its plain PyTorch version on
+3. kernels  — each of the eight kernels (the six TPU kernels' and the
+              ragged FFN's all-hi mode) against its plain PyTorch version on
               the card at the paths' shapes (Qwen3-30B-A3B width), with
               times, the bound and the library yardstick; the two
               decode-attention kernels over several cases each (batch 8 and
@@ -19,7 +21,10 @@ Phases (each prints one line; any failure exits non-zero):
               host time per call at their main case; and the flagship
               Qwen3-80B-A3B's shapes: the ragged FFN at 512 experts top-10,
               int2, hi tiles from a 128-slot pool (decode B=8, prefill
-              512), paged attention at H 16, Hkv 2, hd 256;
+              512), paged attention at H 16, Hkv 2, hd 256; the all-hi
+              (dense bf16) mode at the 30B's decode B=8 and prefill 512 and
+              the flagship's decode B=8, each beside one
+              ``torch._grouped_mm`` over the segments (its yardstick);
    splits   — both decode-attention kernels at their main shapes under
               forced split counts, each held against its plain version,
               with device (graph) and host time per call;
@@ -49,7 +54,17 @@ Phases (each prints one line; any failure exits non-zero):
               default ``dynaexq`` (global allocator, int2 lo, int4-priced
               hi, an ``hbm_gb`` envelope for n_hi = 64), graphed then eager
               (tokens and launches must agree; the shared expert ran; a
-              layer held more than n_hi hi experts);
+              layer held more than n_hi hi experts). The paper's baselines
+              ``fp16`` and ``offload`` (its pcie_gbps this card's measured
+              pinned copy rate) on both 30B paths, graph then eager
+              (identical tokens and launches, the all-hi kernels once per
+              layer of every forward on the ragged path, no quantized
+              kernel), ``fp16`` on the flagship graphed; and the paper's
+              comparison at batch 32 on the main path: ``static``,
+              ``dynaexq``, ``fp16`` and ``offload`` (its cache sized to
+              dynaexq's device bytes) in turns, graphed: tokens/s (the
+              modeled stall counted), TPOT, TTFT, stall, hits and misses,
+              ``device_bytes()``;
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -93,10 +108,26 @@ FLAGSHIP_CHECK_LAYERS = 1
 PATHS = {
     "paged/ragged": (True, "ragged",
                      ("ragged_gateup", "ragged_down", "flash_decode_paged"),
-                     ("grouped_lo_matmul", "flash_decode")),
+                     ("grouped_lo_matmul", "flash_decode",
+                      "ragged_dense_gateup", "ragged_dense_down")),
     "dense/padded": (False, "padded",
                      ("grouped_lo_matmul", "flash_decode"),
-                     ("ragged_gateup", "ragged_down", "flash_decode_paged")),
+                     ("ragged_gateup", "ragged_down", "flash_decode_paged",
+                      "ragged_dense_gateup", "ragged_dense_down")),
+}
+#: The ragged FFN's all-hi mode, which the paper's baselines (``fp16``,
+#: ``offload``: dense bf16 experts) run on the ragged path.
+DENSE_FFN_KERNELS = ("ragged_dense_gateup", "ragged_dense_down")
+#: The same for the baselines: the padded path runs their experts as a
+#: batched SwiGLU (cuBLAS), no kernel of the port.
+BASELINE_PATHS = {
+    "paged/ragged": (DENSE_FFN_KERNELS + ("flash_decode_paged",),
+                     ("ragged_gateup", "ragged_down", "grouped_lo_matmul",
+                      "flash_decode")),
+    "dense/padded": (("flash_decode",),
+                     DENSE_FFN_KERNELS + ("ragged_gateup", "ragged_down",
+                                          "grouped_lo_matmul",
+                                          "flash_decode_paged")),
 }
 
 RESULTS = {}                   # kernel name → JSON entry
@@ -806,6 +837,171 @@ def _flagship_ffn_cases(dev, tol) -> dict:
     return out
 
 
+def _grouped_mm_yardstick(xs, w, offs):
+    """One ``torch._grouped_mm`` over the ragged segments (``offs``: each
+    expert's segment end in ``xs``'s rows): the library call nearest to a
+    ragged dense expert GEMM. Returns (call, how) or (None, why not); the
+    port never calls it."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, f"torch {torch.__version__} has no torch._grouped_mm"
+    try:
+        fn(xs, w, offs=offs)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, f"torch._grouped_mm refused the (E, K, N) row-major " \
+            f"bank: {str(e).splitlines()[0][:160]}"
+    return (lambda: fn(xs, w, offs=offs)), "row-major weights"
+
+
+def _dense_ffn_case(name, gen, dev, bank, *, T, top_k, tol_rel):
+    """The ragged FFN's all-hi mode (``ragged_dense_gateup`` /
+    ``ragged_dense_down``): route T tokens top-``top_k`` over the dense
+    (E, K, N) bank, build the tile map with the port's dispatch helpers,
+    hold both kernels against the plain versions on the live tiles' rows,
+    and time each (event loop, graph replay, plain version) beside its
+    bound and the ``torch._grouped_mm`` yardstick (gate and up as one call
+    over the two banks side by side; in turns with the kernel)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.moe import (RAGGED_BM, _sort_routing,
+                                        ragged_tile_map)
+    E, K, F = bank["w_gate"].shape
+    D = bank["w_down"].shape[2]
+    bm = RAGGED_BM
+    logits = torch.randn((T, E), generator=gen, device=dev)
+    idx = torch.topk(logits, top_k, dim=-1).indices
+    _, _, counts, _, _ = _sort_routing(idx, E)
+    _, tile_eid, n_tiles = ragged_tile_map(counts, bm, T * top_k)
+    Tt, n_live = tile_eid.shape[0], int(n_tiles.item())
+    rows = n_live * bm
+    xs = torch.randn((Tt * bm, K), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    wg, wu, wd = bank["w_gate"], bank["w_up"], bank["w_down"]
+
+    def gateup_k():
+        return ops.ragged_dense_gateup(xs, tile_eid, n_tiles, wg, wu, bm=bm)
+
+    def gateup_p():
+        return ref.ragged_dense_gateup_ref(xs, tile_eid, wg, wu, bm=bm)
+
+    h_ref = gateup_p()
+
+    def down_k():
+        return ops.ragged_dense_down(h_ref, tile_eid, n_tiles, wd, bm=bm)
+
+    def down_p():
+        return ref.ragged_dense_down_ref(h_ref, tile_eid, wd, bm=bm)
+
+    h_k, y_ref, y_k = gateup_k(), down_p(), down_k()
+    y_full = ops.ragged_dense_ffn(xs, tile_eid, n_tiles, bank, bm=bm)
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        a, b = a[:rows].float(), b[:rows].float()
+        assert torch.isfinite(a).all(), f"{name}: non-finite kernel output"
+        return float((a - b).abs().max()), float(b.abs().max())
+
+    (e_h, m_h), (e_y, m_y), (e_f, m_f) = (err(h_k, h_ref), err(y_k, y_ref),
+                                          err(y_full, y_ref))
+    ok = e_h <= tol_rel * m_h and e_y <= tol_rel * m_y and \
+        e_f <= tol_rel * m_f
+    # Bytes: each input read once (the live tiles' rows, the weights of
+    # the distinct experts they route to, the maps), each output written
+    # once.
+    n_e = torch.unique(tile_eid[:n_live]).numel()
+    maps = Tt * 4 + 4
+    gu_bytes = rows * K * 2 + n_e * 2 * K * F * 2 + rows * F * 2 + maps
+    dn_bytes = rows * F * 2 + n_e * F * D * 2 + rows * D * 2 + maps
+    # The yardstick: each expert's segment of the compacted rows.
+    offs = torch.cumsum((counts + bm - 1) // bm * bm, 0).to(torch.int32)
+    w_gu = torch.cat([wg, wu], dim=-1)
+    libs = {"gateup": _grouped_mm_yardstick(xs, w_gu, offs),
+            "down": _grouped_mm_yardstick(h_ref, wd, offs)}
+    out = {"case": name, "ok": ok, "tiles": n_live, "experts": n_e,
+           "err_ffn": e_f, "tol_ffn": tol_rel * m_f}
+    for key, run_k, run_p, e, m, b in (
+            ("gateup", gateup_k, gateup_p, e_h, m_h,
+             bound(gu_bytes, 2 * rows * K * F * 2)),
+            ("down", down_k, down_p, e_y, m_y,
+             bound(dn_bytes, 2 * rows * F * D))):
+        lib, how = libs[key]
+        c = {"err": e, "tol": tol_rel * m, "ms": time_ms(run_k),
+             "plain_ms": time_ms(run_p, iters=3, warmup=1),
+             "bound_ms": b[0], "bound_by": b[1], "library": how,
+             "library_ms": None, "library_graph_ms": None}
+        if lib is None:
+            c["graph_ms"] = graph_ms(run_k)
+        else:
+            c["library_ms"] = time_ms(lib)
+            c.update(interleaved(run_k, lib))
+        out[key] = c
+    log("kernels", f"ragged dense FFN {name}: {n_live}/{Tt} live tiles of "
+                   f"{n_e} experts | " + " | ".join(
+                       f"{key} err {c['err']:.3g} (tol {c['tol']:.3g}) "
+                       f"{c['ms']:.4f} ms, graph {c['graph_ms']:.4f} ms, "
+                       f"plain {c['plain_ms']:.3f} ms, bound "
+                       f"{c['bound_ms']:.4f} ms ({c['bound_by']}), "
+                       f"_grouped_mm " + (
+                           f"{c['library_ms']:.4f} ms, "
+                           f"{c['library_graph_method']} "
+                           f"{c['library_graph_ms']:.4f} ms ({c['library']}"
+                           f"; turns kernel/lib/lib/kernel "
+                           f"{[round(x, 5) for x in c['graph_runs']]})"
+                           if c["library_ms"] is not None
+                           else f"none: {c['library']}")
+                       for key, c in (("gateup", out["gateup"]),
+                                      ("down", out["down"])))
+                   + f" | ffn err {e_f:.3g} | {'ok' if ok else 'FAIL'}")
+    return out
+
+
+def _kernels_dense_ffn(dev, tol) -> None:
+    """The all-hi mode at the baselines' shapes: Qwen3-30B-A3B decode B = 8
+    (top-8 of 128, K = 2048, F = 768) and prefill 512, and the flagship's
+    decode B = 8 (top-10 of 512, F = 512); random bf16 banks from a
+    generator of their own."""
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    cases = {}
+    for arch, what in ((ARCH, (("30b_decode", 8), ("30b_prefill", 512))),
+                       (FLAGSHIP, (("80b_decode", 8),))):
+        cfg = get_config(arch)
+        E, K, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+        bank = {n: (torch.randn((E,) + s, generator=gen, device=dev)
+                    * s[0] ** -0.5).to(torch.bfloat16)
+                for n, s in (("w_gate", (K, F)), ("w_up", (K, F)),
+                             ("w_down", (F, K)))}
+        for key, T in what:
+            cases[key] = _dense_ffn_case(
+                f"{arch} {'decode B=8' if T == 8 else f'prefill {T}'} "
+                f"top-{cfg.moe.top_k} of {E}, F={F}", gen, dev, bank, T=T,
+                top_k=cfg.moe.top_k, tol_rel=tol)
+        del bank
+    bad = [k for k, c in cases.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"ragged dense FFN kernels disagree: {bad}")
+    d = cases["30b_decode"]
+    for kname, key in (("ragged_dense_gateup", "gateup"),
+                       ("ragged_dense_down", "down")):
+        RESULTS[kname] = {
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ragged_ffn.cu",
+            "replaces": "src/repro/kernels/ops.py:131",
+            "launches": 0,
+            "max_abs_err": max(c[key]["err"] for c in cases.values()),
+            "ms": d[key]["ms"], "plain_ms": d[key]["plain_ms"],
+            "bound_ms": d[key]["bound_ms"], "bound_by": d[key]["bound_by"],
+            "library_ms": d[key]["library_ms"],
+            "graph_ms": d[key]["graph_ms"],
+            "library_graph_ms": d[key]["library_graph_ms"],
+            "library": d[key]["library"],
+            "cases": [dict(case=c["case"], tiles=c["tiles"],
+                           experts=c["experts"],
+                           **{k: v for k, v in c[key].items()
+                              if k != "graph_runs"})
+                      for c in cases.values()]}
+
+
 def phase_kernels() -> None:
     from repro_torch.configs import get_config
     from repro_torch.quant.qtensor import quantize
@@ -906,6 +1102,8 @@ def phase_kernels() -> None:
                   for c in gq.values()]}
     log("kernels", "grouped_lo_matmul yardstick: none, no single library "
                    "call computes a grouped quantized GEMM")
+    del dense, hi_w
+    _kernels_dense_ffn(dev, tol)
     _kernels_dense_decode(cfg, gen, dev)
     _kernels_quant_matmul(gen, dev, tol)
     _kernels_paged_decode(cfg, gen, dev)
@@ -1223,18 +1421,22 @@ SERVE_MODES = ("graph", "eager", "eager", "graph")
 
 
 def run_serving(cfg, device, *, n_requests, prompt_range, new_tokens,
-                max_slots, n_hi, seed=0, paged=True, dispatch="ragged"):
+                max_slots, n_hi, seed=0, paged=True, dispatch="ragged",
+                params=None, baselines=None):
     """Serve ``n_requests`` greedy requests with ``static`` then
-    ``dynaexq`` on one seeded model, on the paged pool or dense rows with
-    MoE dispatch ``dispatch``, each backend once per entry of
-    ``SERVE_MODES`` on a fresh engine; then ``dynaexq`` once more graphed
-    as users run it ("dynaexq free": no flush until the end, so its hi
-    copies are in flight on the side stream while later replays run).
+    ``dynaexq`` on one seeded model (``params``, else drawn from ``seed``),
+    on the paged pool or dense rows with MoE dispatch ``dispatch``, each
+    backend once per entry of ``SERVE_MODES`` on a fresh engine; then
+    ``dynaexq`` once more graphed as users run it ("dynaexq free": no flush
+    until the end, so its hi copies are in flight on the side stream while
+    later replays run); then each of ``baselines`` ({name: backend
+    arguments}: the paper's ``fp16`` and ``offload``) graphed, then eager.
     Returns {name: [summary per run]}."""
     from repro_torch.models.model import init_params
     from repro_torch.serving.requests import make_prompts
 
-    params = init_params(cfg, seed=seed, device=device)
+    if params is None:
+        params = init_params(cfg, seed=seed, device=device)
     rng = np.random.default_rng(seed)
     lens = rng.integers(prompt_range[0], prompt_range[1] + 1, n_requests)
     prompts = [make_prompts("text", cfg.vocab_size, 1, int(n),
@@ -1253,13 +1455,19 @@ def run_serving(cfg, device, *, n_requests, prompt_range, new_tokens,
                                         "dynaexq", "free",
                                         backend_kw=backend_kw["dynaexq"],
                                         **kw)]
+    for name, bkw in (baselines or {}).items():
+        runs[name] = [_serve_once(cfg, device, params, prompts, name, mode,
+                                  backend_kw=bkw, **kw)
+                      for mode in ("graph", "eager")]
     return runs
 
 
 def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
-                max_slots, max_len, backend_kw, paged, dispatch):
+                max_slots, max_len, backend_kw, paged, dispatch,
+                policy_every_step=True):
     """One served run on a fresh engine with ``make_backend(name,
-    **backend_kw)`` (``dynaexq``: a policy window every step), ``mode``
+    **backend_kw)`` (``dynaexq``: a policy window every step, unless
+    ``policy_every_step`` is False: then the controller's default), ``mode``
     "graph", "eager" or "free" (graphed; ``dynaexq`` flushes only at the
     end instead of after every step). Every step's logits must be finite:
     the prefill's through its entry point (watched for this run), the
@@ -1278,7 +1486,7 @@ def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
     from repro_torch.serving.requests import Request
     t_build = time.perf_counter()
     kw = dict(backend_kw, device=device)
-    if name == "dynaexq":
+    if name == "dynaexq" and policy_every_step:
         kw.update(controller=ControllerConfig(update_interval_s=0.0))
     engine = eng_mod.InferenceEngine(
         cfg, _fresh(params), make_backend(name, **kw),
@@ -1352,6 +1560,8 @@ def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
         "max_mem": torch.cuda.max_memory_allocated()
         if device.type == "cuda" else 0,
         "promotions": st["promotions"], "demotions": st["demotions"],
+        "stall_s": st["stall_s"], "hits": st.get("hits"),
+        "misses": st.get("misses"), "prefills": int(st["prefills"]),
         "shared_calls": shared_calls[0], "max_layer_hi": max_layer_hi,
         "kv_bytes": None if engine.pool is None
         else engine.pool.capacity_bytes}
@@ -1375,30 +1585,85 @@ def _ms(x):
     return "n/a" if x is None else f"{x:.3f}"
 
 
+def pinned_h2d_gbps(nbytes: int = 256 << 20, reps: int = 5) -> float:
+    """This card's pinned host→device copy rate in GB/s (10^9 bytes): one
+    ``nbytes`` pinned host tensor copied ``reps`` times, each copy timed
+    by CUDA events; the median."""
+    src = torch.ones(nbytes, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        dst.copy_(src, non_blocking=True)
+        e1.record()
+        torch.cuda.synchronize()
+        rates.append(nbytes / (e0.elapsed_time(e1) / 1e3) / 1e9)
+    return float(np.median(rates))
+
+
+def _check_baseline(path, name, s, layers):
+    """A baseline's run on ``path``: it launched the path's kernels for
+    dense experts and none of the quantized ones; on the ragged path the
+    all-hi kernels ran once per layer of every forward (prefills and
+    decode steps; a replay adds what its capture recorded)."""
+    used, unused = BASELINE_PATHS[path]
+    if not all(s["launches"][k] > 0 for k in used) or \
+            any(s["launches"][k] for k in unused):
+        raise AssertionError(f"{path} {name} {s['mode']}: launches "
+                             f"{s['launches']}")
+    if path == "paged/ragged":
+        want = layers * (s["steps"] + s["prefills"])
+        got = [s["launches"][k] for k in DENSE_FFN_KERNELS]
+        if got != [want] * len(got):
+            raise AssertionError(f"{path} {name} {s['mode']}: all-hi "
+                                 f"launches {got}, want {want} = {layers} "
+                                 f"layers x ({s['steps']} steps + "
+                                 f"{s['prefills']} prefills)")
+
+
 def phase_serving(card: str) -> None:
     import dataclasses
     from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.backends import OffloadConfig
     full = get_config(ARCH)
     cfg = dataclasses.replace(full, n_layers=SERVE_LAYERS)
     host_gb = SERVE_LAYERS * cfg.moe.num_experts * 3 * cfg.d_model * \
         cfg.moe.d_ff_expert * 2 / 1e9
+    pcie = pinned_h2d_gbps()
+    log("serving", f"pinned host->device copy rate {pcie:.2f} GB/s (256 MiB "
+                   f"copies, CUDA events, median of 5): offload's pcie_gbps "
+                   f"on this card | {card}")
     log("serving", f"{cfg.name}: full width, depth cut to {SERVE_LAYERS} of "
                    f"{full.n_layers} layers (bf16 host masters {host_gb:.1f} "
                    f"GB instead of {host_gb * full.n_layers / SERVE_LAYERS:.0f}"
-                   f" GB); random weights, seed 0; each backend served "
-                   f"{len(SERVE_MODES)} times in turns {SERVE_MODES}")
+                   f" GB); random weights, seed 0; static and dynaexq served "
+                   f"{len(SERVE_MODES)} times in turns {SERVE_MODES}, the "
+                   f"baselines fp16 and offload graph then eager")
+    dev = torch.device("cuda")
+    params = init_params(cfg, seed=0, device=dev)
+    baselines = {"fp16": {},
+                 "offload": {"ocfg": OffloadConfig(pcie_gbps=pcie)}}
     main_runs = []
     for path, (paged, dispatch, used, unused) in PATHS.items():
         t_path = time.perf_counter()
-        res = run_serving(cfg, torch.device("cuda"), n_requests=8,
-                          prompt_range=(64, 256), new_tokens=32, max_slots=8,
-                          n_hi=16, paged=paged, dispatch=dispatch)
+        res = run_serving(cfg, dev, n_requests=8, prompt_range=(64, 256),
+                          new_tokens=32, max_slots=8, n_hi=16, paged=paged,
+                          dispatch=dispatch, params=params,
+                          baselines=baselines)
         for name, runs in res.items():
             for s in runs:
                 log("serving", f"{path} {name} {s['mode']}: 8 requests x 32 "
                                f"tokens | TTFT {s['ttft_s'] * 1e3:.1f} ms "
                                f"TPOT {s['tpot_s'] * 1e3:.2f} ms "
-                               f"{s['tokens_per_s']:.1f} tok/s | replay "
+                               f"{s['tokens_per_s']:.1f} tok/s (wall) | "
+                               f"modeled stall {s['stall_s']:.4f} s"
+                               + (f", hits {s['hits']:.0f} misses "
+                                  f"{s['misses']:.0f}" if name == "offload"
+                                  else "") + f" | replay "
                                f"ms by events {_ms(s['replay_ms'])} over "
                                f"{s['replays']} replays (capture "
                                f"{s['capture_s']:.2f} s) | expert bytes "
@@ -1411,6 +1676,9 @@ def phase_serving(card: str) -> None:
                                f"{s['launches']} | engine built in "
                                f"{s['build_s']:.1f} s, served in "
                                f"{s['wall_s']:.1f} s | {card}")
+                if name in baselines:
+                    _check_baseline(path, name, s, SERVE_LAYERS)
+                    continue
                 if not all(s["launches"][k] > 0 for k in used):
                     raise AssertionError(f"{path} {name} {s['mode']}: a "
                                          f"kernel of the path never ran")
@@ -1467,12 +1735,99 @@ def phase_serving(card: str) -> None:
                               f"expert) cells served from hi slots, "
                               f"invariants hold after flush"
                               if name == "dynaexq" else "") + f" | {card}")
-            if name == "static":
+            if name == "static" or (name in baselines and
+                                    path == "paged/ragged"):
                 main_runs.append(first)
-        log("serving", f"{path}: {time.perf_counter() - t_path:.1f} s")
+        if res["fp16"][0]["tokens"] != res["offload"][0]["tokens"]:
+            raise AssertionError(f"{path}: fp16 and offload (the same dense "
+                                 f"compute, residency modeled) disagree on "
+                                 f"tokens")
+        log("serving", f"{path}: fp16 and offload give identical tokens | "
+                       f"{time.perf_counter() - t_path:.1f} s")
+    _serve_comparison(card, cfg, params, pcie)
+    del params
     main_runs += _serve_flagship(card)
     for k in RESULTS:
         RESULTS[k]["launches"] = sum(s["launches"][k] for s in main_runs)
+
+
+#: The paper's throughput comparison (up to 2.73x over offloading/prefetch
+#: at batch 32): the main path, this many slots and requests.
+COMPARE_BATCH = 32
+
+
+def _serve_comparison(card, cfg, params, pcie_gbps) -> None:
+    """``static``, ``dynaexq``, ``fp16`` and ``offload`` in turns on fresh
+    engines, graphed, on the main path with ``COMPARE_BATCH`` slots and
+    requests (prompts 64-256 tokens, 32 new tokens each), every backend at
+    its defaults as users run it (``dynaexq``: the controller's own policy
+    interval, no flush until the end). ``offload`` gets ``dynaexq``'s
+    device budget: ``cache_experts_per_layer = dynaexq.device_bytes() //
+    (MoE layers x bf16 expert bytes)``, at this card's pinned copy rate.
+    Tokens/s counts the modeled stall, which is never slept, as the
+    reference's serving benchmark does: tokens / (wall + stall_s)."""
+    from repro_torch.serving.backends import OffloadConfig
+    from repro_torch.serving.requests import make_prompts
+    dev = params["embed"].device
+    B, new = COMPARE_BATCH, 32
+    rng = np.random.default_rng(1)
+    prompts = [make_prompts("text", cfg.vocab_size, 1, int(n), seed=100 + i)
+               [0] for i, n in enumerate(rng.integers(64, 257, B))]
+    kw = dict(new_tokens=new, max_slots=B, max_len=288, paged=True,
+              dispatch="ragged", policy_every_step=False)
+    L = cfg.n_superblocks()
+    expert_bytes = 3 * cfg.d_model * cfg.moe.d_ff_expert * 2
+    backend_kw = {"static": dict(lo_bits=4, group_size=64),
+                  "dynaexq": dict(lo_bits=4, group_size=64,
+                                  n_hi_per_layer=16),
+                  "fp16": {}}
+    out = {}
+    t0 = time.perf_counter()
+    for name in ("static", "dynaexq", "fp16", "offload"):
+        if name == "offload":
+            cache = out["dynaexq"]["expert_bytes"] // (L * expert_bytes)
+            backend_kw[name] = dict(ocfg=OffloadConfig(
+                cache_experts_per_layer=int(cache), pcie_gbps=pcie_gbps))
+            log("serving", f"batch {B} offload: cache_experts_per_layer "
+                           f"{cache} = dynaexq device_bytes "
+                           f"{out['dynaexq']['expert_bytes']} // ({L} layers "
+                           f"x {expert_bytes} B), pcie_gbps {pcie_gbps:.2f} "
+                           f"(measured) | {card}")
+        s = _serve_once(cfg, dev, params, prompts, name,
+                        "free" if name == "dynaexq" else "graph",
+                        backend_kw=backend_kw[name], **kw)
+        s["tokens_per_s_e2e"] = B * new / (s["wall_s"] + s["stall_s"])
+        out[name] = s
+        log("serving", f"batch {B} {ARCH} {L} layers paged/ragged {name} "
+                       f"graphed: {s['tokens_per_s_e2e']:.1f} tok/s (tokens "
+                       f"/ (wall {s['wall_s']:.3f} s + modeled stall "
+                       f"{s['stall_s']:.4f} s)) | TPOT "
+                       f"{s['tpot_s'] * 1e3:.2f} ms TTFT "
+                       f"{s['ttft_s'] * 1e3:.1f} ms | stall_s "
+                       f"{s['stall_s']:.4f} over {s['steps']} steps + "
+                       f"{s['prefills']} prefills"
+                       + (f", hits {s['hits']:.0f} misses {s['misses']:.0f}"
+                          if name == "offload" else "")
+                       + f" | device_bytes {s['expert_bytes']} | replay ms "
+                       f"{_ms(s['replay_ms'])} | promotions "
+                       f"{s['promotions']:.0f} | launches {s['launches']} | "
+                       f"{card}")
+    if out["fp16"]["tokens"] != out["offload"]["tokens"]:
+        raise AssertionError("batch 32: fp16 and offload disagree on tokens")
+    if not out["offload"]["stall_s"] > 0 or \
+            out["offload"]["expert_bytes"] > out["dynaexq"]["expert_bytes"]:
+        raise AssertionError("batch 32: offload modeled no stall or got "
+                             "more device bytes than dynaexq")
+    off = out["offload"]["tokens_per_s_e2e"]
+    log("serving", f"batch {B} comparison: tok/s "
+                   + ", ".join(f"{n} {s['tokens_per_s_e2e']:.1f}"
+                               for n, s in out.items())
+                   + f"; dynaexq / offload "
+                   f"{out['dynaexq']['tokens_per_s_e2e'] / off:.2f}x, "
+                   f"static / offload "
+                   f"{out['static']['tokens_per_s_e2e'] / off:.2f}x, fp16 / "
+                   f"offload {out['fp16']['tokens_per_s_e2e'] / off:.2f}x | "
+                   f"{time.perf_counter() - t0:.1f} s | {card}")
 
 
 def _flagship_envelope(params, kv_bytes, n_hi) -> float:
@@ -1497,8 +1852,9 @@ def _serve_flagship(card: str) -> list:
     defaults (the global allocator) with int2 lo, int4-priced hi and an
     ``hbm_gb`` envelope that leaves n_hi = E/8 per layer; each graphed,
     then eager, with ``dynaexq`` flushed after every step, so tokens and
-    launches must agree. Returns the graphed runs (their launches count
-    toward the kernels' line)."""
+    launches must agree; then the ``fp16`` baseline graphed (its 12.9 GB of
+    dense experts on the card). Returns the graphed runs (their launches
+    count toward the kernels' line)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
@@ -1586,6 +1942,24 @@ def _serve_flagship(card: str) -> list:
                        f"tokens for all 8 requests and identical launches | "
                        f"{card}")
         graphed.append(g)
+    # The fp16 baseline: its dense experts (the params' own) through the
+    # all-hi kernels.
+    s = _serve_once(cfg, dev, params, prompts, "fp16", "graph",
+                    backend_kw={}, **kw)
+    log("serving", f"{FLAGSHIP} paged/ragged fp16 graph: 8 requests x 32 "
+                   f"tokens | TTFT {s['ttft_s'] * 1e3:.1f} ms TPOT "
+                   f"{s['tpot_s'] * 1e3:.2f} ms {s['tokens_per_s']:.1f} "
+                   f"tok/s | replay ms by events {_ms(s['replay_ms'])} over "
+                   f"{s['replays']} replays | expert bytes (device_bytes) "
+                   f"{s['expert_bytes']} | max allocated {s['max_mem']} B | "
+                   f"shared-expert calls {s['shared_calls']} | launches "
+                   f"{s['launches']} | served in {s['wall_s']:.1f} s | "
+                   f"{card}")
+    _check_baseline("paged/ragged", "fp16", s, L)
+    if s["shared_calls"] < L:
+        raise AssertionError(f"{FLAGSHIP} fp16: the shared expert did not "
+                             f"run")
+    graphed.append(s)
     log("serving", f"{FLAGSHIP}: {time.perf_counter() - t0:.1f} s")
     del params
     return graphed
@@ -1629,6 +2003,15 @@ SPIN_CYCLES = 100_000_000
 #: that ran them.
 TRACE_NOISE = 0.03
 
+#: Clock cycles of the marker kernels (``torch.cuda._sleep``, device name
+#: ``spin_kernel``) launched just inside both edges of the traced window:
+#: the profiler has seen the whole window only if it saw both.
+TRACE_MARK_CYCLES = 1000
+#: Fresh engines traced before giving up when the profiler misses an edge
+#: of the window (its start lags now and then: one run lost ~0.8 of the
+#: first eager step's kernels).
+TRACE_ATTEMPTS = 3
+
 
 def _group(name: str) -> str:
     for group, keys in TRACE_GROUPS:
@@ -1667,11 +2050,12 @@ def _traced_steps(engine, mode):
     host, then one traced step whose trace is dropped (the tracer's start
     lags: it missed a few kernels of the first traced step in one run),
     then ``TRACE_STEPS`` traced (device activity only; the profiler slows
-    the host, so the host time is read from the first set), with the
-    replays' CUDA events in both sets when graphed. Returns (kernel name →
-    (device ms, launches) summed over the traced steps, ``ops.LAUNCHES``
-    over the traced steps, host ms per step, replay ms by events untraced
-    and traced, or None)."""
+    the host, so the host time is read from the first set) between two
+    marker kernels, with the replays' CUDA events in both sets when
+    graphed. Returns (kernel name → (device ms, launches) summed over the
+    traced steps, ``ops.LAUNCHES`` over the traced steps, host ms per
+    step, replay ms by events untraced and traced, or None, the markers
+    the profiler saw)."""
     import contextlib
     import repro_torch.serving.engine as eng_mod
     from repro_torch.kernels import ops
@@ -1695,22 +2079,26 @@ def _traced_steps(engine, mode):
             prof.step()
             if graphed:
                 engine.decode_graph.events = events[1]
+            torch.cuda._sleep(TRACE_MARK_CYCLES)
             ops.reset_launches()
             for _ in range(TRACE_STEPS):
                 engine.step()
+            torch.cuda._sleep(TRACE_MARK_CYCLES)
             torch.cuda.synchronize()
             launches = dict(ops.LAUNCHES)
             prof.step()
-    kernels = {}
+    kernels, marks = {}, 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None) or \
             getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
+        if "spin_kernel" in e.key:
+            marks += e.count
+        elif us > 0:
             kernels[e.key] = (us / 1e3, e.count)
     engine.decode_graph.events = None
     replay = [float(np.mean([a.elapsed_time(b) for a, b in ev]))
               for ev in events] if graphed else None
-    return kernels, launches, wall, replay
+    return kernels, launches, wall, replay, marks
 
 
 def phase_trace(card: str) -> None:
@@ -1755,16 +2143,27 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
     from repro_torch.serving.backends import make_backend
     from repro_torch.serving.requests import Request
     dev = torch.device("cuda")
-    engine = eng_mod.InferenceEngine(
-        cfg, _fresh(params), make_backend("static", lo_bits=lo_bits,
-                                          device=dev),
-        eng_mod.EngineConfig(max_slots=8, max_len=288, paged=paged,
-                             moe_dispatch=dispatch), device=dev)
-    for p in prompts:
-        engine.submit(Request(tokens=p, max_new_tokens=32))
-    while engine.queue or engine.counters["steps"] < 3:
-        engine.step()
-    kernels, launches, wall, replay = _traced_steps(engine, mode)
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        engine = eng_mod.InferenceEngine(
+            cfg, _fresh(params), make_backend("static", lo_bits=lo_bits,
+                                              device=dev),
+            eng_mod.EngineConfig(max_slots=8, max_len=288, paged=paged,
+                                 moe_dispatch=dispatch), device=dev)
+        for p in prompts:
+            engine.submit(Request(tokens=p, max_new_tokens=32))
+        while engine.queue or engine.counters["steps"] < 3:
+            engine.step()
+        kernels, launches, wall, replay, marks = _traced_steps(engine, mode)
+        if marks == 2:
+            break
+        del engine
+        log("trace", f"{what} static {mode}: the profiler saw {marks} of "
+                     f"the 2 marker kernels at the edges of the traced "
+                     f"window (attempt {attempt} of {TRACE_ATTEMPTS}); "
+                     f"tracing a fresh engine")
+    else:
+        raise AssertionError(f"{what} {mode}: the profiler missed an edge "
+                             f"of the traced window in every attempt")
     queued = _queued_replays(engine.decode_graph.graph) \
         if mode == "graph" else None
     del engine

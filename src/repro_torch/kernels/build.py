@@ -33,6 +33,8 @@ SIGNATURES = {
     "ragged_ffn": {
         "ragged_gateup": [_P] * 11 + [_I] * 6 + [_P],
         "ragged_down": [_P] * 8 + [_I] * 6 + [_P],
+        "ragged_dense_gateup": [_P] * 6 + [_I] * 3 + [_P],
+        "ragged_dense_down": [_P] * 5 + [_I] * 3 + [_P],
     },
     "flash_decode_paged": {
         "flash_decode_paged": [_P] * 8 + [_F, _P],

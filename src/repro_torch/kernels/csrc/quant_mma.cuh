@@ -159,7 +159,7 @@ __device__ __forceinline__ void tile_product(
     unsigned char* ring, const __nv_bfloat16* sc_s,
     const uint8_t* const (&lp)[2], const __nv_bfloat16* const (&hw)[2],
     int K, int N, int n0, int group, int lane) {
-  constexpr int EPB = 8 / BITS;
+  constexpr int EPB = HI ? 1 : 8 / BITS;   // (BITS is unused when HI)
   constexpr int KS = HI ? 16 : 32 * EPB;   // K rows per stage
   constexpr int CPS = KS / 16;             // k16 chunks per stage
   const int kp = K / EPB;

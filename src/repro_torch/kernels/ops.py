@@ -22,7 +22,11 @@ cut across CTAs (then a second small kernel adds the ranges in order; one
 ``LAUNCHES`` count) and in how many pieces a CTA walks its range. The
 ragged FFN's two kernels read the per-tile maps ``tile_eid`` /
 ``tile_slot`` directly: the Pallas version's DMA hold maps (``_hold_last``)
-have no counterpart here.
+have no counterpart here. Their all-hi mode (``ragged_dense_ffn``: every
+tile on its expert's dense bf16 weights, for the fp16 and offload
+backends) is the same kernel with the lo tier compiled out; unlike the
+reference's ``ragged_dense_ffn_op`` it never falls back to the plain
+version on the card: a shape the kernel rejects raises.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ from repro_torch.kernels import ref
 
 #: Launch counts per kernel (plain integers; ``reset_launches`` zeroes them).
 LAUNCHES: Dict[str, int] = {"ragged_gateup": 0, "ragged_down": 0,
+                            "ragged_dense_gateup": 0,
+                            "ragged_dense_down": 0,
                             "flash_decode_paged": 0, "grouped_lo_matmul": 0,
                             "flash_decode": 0, "quant_matmul": 0}
 
@@ -398,6 +404,87 @@ def ragged_quant_ffn(xs, tile_eid, tile_slot, n_tiles, lo: dict,
     return ragged_down(h, tile_eid, tile_slot, n_tiles,
                        lo["w_down"].packed, lo["w_down"].scales, hd,
                        bits=bits, group=group, bm=bm)
+
+
+def _check_dense(x, tile_eid, n_tiles, weights, bm, name):
+    """The ragged dense kernels' operands: x (Tt·bm, K) bf16, the tile
+    maps, and (E, K, N) bf16 banks of one N; returns (Tt, K, N)."""
+    dev = x.device
+    _need(x, name, torch.bfloat16, dev, 2)
+    _need(tile_eid, "tile_eid", torch.int32, dev, 1)
+    _need(n_tiles, "n_tiles", torch.int32, dev, 1)
+    if n_tiles.numel() != 1:
+        raise ValueError("n_tiles must hold one element")
+    Tt = tile_eid.shape[0]
+    R, K = x.shape
+    if R != Tt * bm:
+        raise ValueError(f"{name} rows {R} != tiles {Tt} × bm {bm}")
+    for w in weights:
+        _need(w, "dense weights", torch.bfloat16, dev, 3)
+    E, N = weights[0].shape[0], weights[0].shape[-1]
+    for w in weights:
+        if tuple(w.shape) != (E, K, N):
+            raise ValueError(f"dense weights {tuple(w.shape)} != (E, {K}, "
+                             f"{N})")
+    return Tt, K, N
+
+
+def _dense_shape_rules(bm: int, K: int, N: int, *tensors) -> None:
+    """What the all-hi CUDA entries take beyond the plain versions: K whole
+    k16 mma steps, and the ragged kernels' rules (``_cuda_shape_rules``:
+    bm = 8, N a multiple of 64, 16-byte aligned operands)."""
+    if K % 16:
+        raise ValueError(f"K={K}: the dense CUDA kernels take a multiple of "
+                         f"16 (whole k16 mma steps)")
+    _cuda_shape_rules(bm, N, 16, *tensors)
+
+
+def ragged_dense_gateup(xs, tile_eid, n_tiles, w_gate, w_up, *,
+                        bm: int) -> torch.Tensor:
+    """The all-hi mode's gate/up: h (R, F) = bf16(silu(xs·W_gate[e])) ·
+    bf16(xs·W_up[e]) per row tile, e = ``tile_eid[t]``, from (E, K, F) bf16
+    banks. Rows of tiles ``t >= n_tiles`` are not written on the card."""
+    Tt, K, F = _check_dense(xs, tile_eid, n_tiles, (w_gate, w_up), bm, "xs")
+    if xs.device.type == "cpu":
+        return ref.ragged_dense_gateup_ref(xs, tile_eid, w_gate, w_up, bm=bm)
+    _dense_shape_rules(bm, K, F, xs, w_gate, w_up)
+    from repro_torch.kernels import build
+    h = torch.empty((Tt * bm, F), dtype=torch.bfloat16, device=xs.device)
+    err = build.library("ragged_ffn").ragged_dense_gateup(
+        xs.data_ptr(), tile_eid.data_ptr(), n_tiles.data_ptr(),
+        w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr(), Tt, K, F,
+        _stream())
+    build.check(err, "ragged_dense_gateup")
+    LAUNCHES["ragged_dense_gateup"] += 1
+    return h
+
+
+def ragged_dense_down(h, tile_eid, n_tiles, w_down, *,
+                      bm: int) -> torch.Tensor:
+    """The all-hi mode's down: y (R, D) = h · W_down[e] per row tile from
+    an (E, F, D) bf16 bank."""
+    Tt, F, D = _check_dense(h, tile_eid, n_tiles, (w_down,), bm, "h")
+    if h.device.type == "cpu":
+        return ref.ragged_dense_down_ref(h, tile_eid, w_down, bm=bm)
+    _dense_shape_rules(bm, F, D, h, w_down)
+    from repro_torch.kernels import build
+    y = torch.empty((Tt * bm, D), dtype=torch.bfloat16, device=h.device)
+    err = build.library("ragged_ffn").ragged_dense_down(
+        h.data_ptr(), tile_eid.data_ptr(), n_tiles.data_ptr(),
+        w_down.data_ptr(), y.data_ptr(), Tt, F, D, _stream())
+    build.check(err, "ragged_dense_down")
+    LAUNCHES["ragged_dense_down"] += 1
+    return y
+
+
+def ragged_dense_ffn(xs, tile_eid, n_tiles, bank: dict, *,
+                     bm: int) -> torch.Tensor:
+    """The ragged dense SwiGLU FFN (the two all-hi kernels in turn):
+    ``bank`` {'w_gate', 'w_up', 'w_down'} → (E, K, N) bf16, every tile on
+    its expert's weights. Returns (R, D)."""
+    h = ragged_dense_gateup(xs, tile_eid, n_tiles, bank["w_gate"],
+                            bank["w_up"], bm=bm)
+    return ragged_dense_down(h, tile_eid, n_tiles, bank["w_down"], bm=bm)
 
 
 def flash_decode_paged(q, k, v, table, valid) -> torch.Tensor:

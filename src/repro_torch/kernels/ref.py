@@ -9,13 +9,17 @@ holds the kernels against them on the card.
 * ``ragged_gateup_ref`` / ``ragged_down_ref`` / ``ragged_quant_ffn_ref`` —
   the ragged mixed-precision SwiGLU FFN over bm-row tiles, each tile on its
   expert's hi bf16 slot (``tile_slot >= 0``) or its packed lo codes.
+* ``ragged_dense_gateup_ref`` / ``ragged_dense_down_ref`` /
+  ``ragged_dense_ffn_ref`` — its all-hi mode: every tile on its expert's
+  dense bf16 weights, an (E, K, N) bank (the fp16 and offload backends).
 * ``flash_decode_ref`` / ``flash_decode_paged_ref`` — one-query GQA
   attention over a dense (B, S, Hkv, hd) cache view or through a block
   table: float32 softmax with -inf masking, all-masked rows give zeros.
 * ``ragged_gateup_mma`` / ``ragged_down_mma`` — the ragged kernels'
   arithmetic order in plain form, for the CPU tests (slow; small shapes):
   yᵀ = Wᵀ·xᵀ as k16 block products summed in turn, each scale group's sum
-  scaled into the accumulator; ``decode_biased`` — their code decode by
+  scaled into the accumulator (``ragged_dense_gateup_mma`` /
+  ``ragged_dense_down_mma``: the all-hi mode's); ``decode_biased`` — their code decode by
   an exponent bias; ``lo_fragment_map`` / ``hi_fragment_map`` — which
   weights each lane's mma A fragment holds on each tier.
 * ``grouped_lo_mma`` — the GEMM kernels' arithmetic order in plain form
@@ -154,6 +158,32 @@ def ragged_quant_ffn_ref(xs, tile_eid, tile_slot, gate_packed, gate_scales,
                            hi_down, bits=bits, group=group, bm=bm)
 
 
+def ragged_dense_gateup_ref(xs, tile_eid, w_gate, w_up, *,
+                            bm: int) -> torch.Tensor:
+    """The all-hi mode's gate/up: h = bf16(silu(xs·W_gate[e])) ·
+    bf16(xs·W_up[e]) per tile, e = ``tile_eid[t]``, from (E, K, F) bf16
+    banks: (R, K) → (R, F) bf16 (the reference's bf16 einsums)."""
+    xt = _tiles(xs, bm)
+    eid = tile_eid.long()
+    h = _silu_mul(_dense_tiles(xt, w_gate, eid), _dense_tiles(xt, w_up, eid))
+    return h.reshape(xs.shape[0], h.shape[-1])
+
+
+def ragged_dense_down_ref(h, tile_eid, w_down, *, bm: int) -> torch.Tensor:
+    """The all-hi mode's down: y = h · W_down[e] per tile: (R, F) → (R, D)
+    bf16."""
+    y = _dense_tiles(_tiles(h, bm), w_down, tile_eid.long())
+    return y.reshape(h.shape[0], y.shape[-1])
+
+
+def ragged_dense_ffn_ref(xs, tile_eid, w_gate, w_up, w_down, *,
+                         bm: int) -> torch.Tensor:
+    """The ragged dense FFN: ``ragged_dense_down_ref ∘
+    ragged_dense_gateup_ref`` (the reference's ``ragged_dense_ffn_ref``)."""
+    h = ragged_dense_gateup_ref(xs, tile_eid, w_gate, w_up, bm=bm)
+    return ragged_dense_down_ref(h, tile_eid, w_down, bm=bm)
+
+
 def _swap_ab(xt: torch.Tensor, w: torch.Tensor,
              scales: Optional[torch.Tensor], group: int) -> torch.Tensor:
     """The tensor-core order of one weight over tiles: xt (T, bm, K), w
@@ -238,6 +268,25 @@ def ragged_down_mma(h, tile_eid, tile_slot, down_packed, down_scales,
     """``ragged_down_ref`` in the kernel's arithmetic order."""
     y = _tiers_mma(_tiles(h, bm), tile_eid, tile_slot, down_packed,
                    down_scales, hi_down, bits, group)
+    return y.to(h.dtype).reshape(h.shape[0], y.shape[-1])
+
+
+def ragged_dense_gateup_mma(xs, tile_eid, w_gate, w_up, *,
+                            bm: int) -> torch.Tensor:
+    """``ragged_dense_gateup_ref`` in the kernel's arithmetic order: every
+    tile on the hi branch (k16 block products summed in turn straight into
+    the float32 accumulator), the same epilogue."""
+    xt = _tiles(xs, bm)
+    eid = tile_eid.long()
+    g = _swap_ab(xt, w_gate[eid], None, 16)
+    u = _swap_ab(xt, w_up[eid], None, 16)
+    h = _silu_mul(g.to(xs.dtype), u.to(xs.dtype))
+    return h.reshape(xs.shape[0], h.shape[-1])
+
+
+def ragged_dense_down_mma(h, tile_eid, w_down, *, bm: int) -> torch.Tensor:
+    """``ragged_dense_down_ref`` in the kernel's arithmetic order."""
+    y = _swap_ab(_tiles(h, bm), w_down[tile_eid.long()], None, 16)
     return y.to(h.dtype).reshape(h.shape[0], y.shape[-1])
 
 

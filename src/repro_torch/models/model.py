@@ -15,9 +15,11 @@ Entry points:
 * ``prefill`` / ``decode_step`` — the same over dense rows.
 
 Every MoE layer runs through its mixed-precision bank (``bank``: MoE
-position → stacked ``ExpertBankQ``) with the token layout ``moe_dispatch``
-names ("ragged", the default, or "padded"; either KV layout takes either)
-and returns its router counts — the hotness signal.
+position → stacked ``ExpertBankQ``), or with ``bank=None`` through the
+dense bf16 experts in ``params`` (the fp16 and offload backends), with the
+token layout ``moe_dispatch`` names ("ragged", the default, or "padded";
+either KV layout takes either) and returns its router counts — the
+hotness signal.
 """
 from __future__ import annotations
 
@@ -163,17 +165,19 @@ def _block_step(bp: Dict, cfg: ArchConfig, x: torch.Tensor, cache,
 
 def _run_layers(params, cfg, x, caches, bank, **kw):
     """The layer loop (the reference's scan): per-layer views of the
-    stacked parameters, caches and bank. Returns (x, {pos: stacked
-    counts})."""
-    if bank is None:
-        raise ValueError("the port serves through a quantized expert bank: "
-                         "pass bank={position: ExpertBankQ}")
+    stacked parameters, caches and bank; with ``bank=None`` each layer's
+    experts come from ``params`` (the reference's rule). Returns (x, {pos:
+    stacked counts})."""
+    bp_all, cache = params["blocks"]["0"], caches["0"]
+    if bank is None and bp_all["moe"].get("experts") is None:
+        raise ValueError("bank=None serves the dense experts in params, "
+                         "but a backend has dropped them: pass its banks")
     counts = []
-    bp_all, cache, bank0 = params["blocks"]["0"], caches["0"], bank["0"]
     for l in range(cfg.n_superblocks()):
-        x, c = _block_step(_layer(bp_all, l), cfg, x,
-                           type(cache)(cache.k[l], cache.v[l]),
-                           bank=bank0.layer(l), **kw)
+        bp = _layer(bp_all, l)
+        x, c = _block_step(bp, cfg, x, type(cache)(cache.k[l], cache.v[l]),
+                           bank=bp["moe"]["experts"] if bank is None
+                           else bank["0"].layer(l), **kw)
         counts.append(c)
     return x, {"0": torch.stack(counts)}
 

@@ -14,6 +14,11 @@ assignments, the drop rule and the combine, so they agree per token.
   into a fixed-capacity (E, C, d) buffer and three grouped lo GEMMs
   (``kernels.ops.grouped_lo_matmul``) run over ALL experts; the published
   hi experts recompute in bf16 and replace their owners' outputs.
+
+A bank is one layer's ``ExpertBankQ``, or a dense dict {'w_gate', 'w_up',
+'w_down'} → (E, K, N) bf16 (the fp16 and offload backends, which have no
+quantized tier): the ragged layout runs it through the FFN's all-hi mode
+(``kernels.ops.ragged_dense_ffn``), the padded one as a batched SwiGLU.
 """
 from __future__ import annotations
 
@@ -163,16 +168,15 @@ def _tile_slots(bank: ExpertBankQ, tile_eid: torch.Tensor,
     return eff[:e_local][tile_eid.long()]
 
 
-def _dispatch_ragged(bank: ExpertBankQ, x: torch.Tensor, idx: torch.Tensor,
+def _dispatch_ragged(bank, x: torch.Tensor, idx: torch.Tensor,
                      gates: torch.Tensor, e_local: int, capacity: int,
                      row_capacity: Optional[int] = None,
                      n_rows: Optional[int] = None):
     """Padding-free ragged dispatch + the mixed-precision FFN kernels.
     ``bank`` holds ONE layer (lo leaves (E, ...), hi leaves (n_hi, ...),
-    ``slot_owner`` (n_hi,)). Returns (y (T, D), counts (E,) int32, dropped,
-    pad_ratio)."""
-    if not isinstance(bank, ExpertBankQ):
-        raise TypeError("the port serves quantized expert banks only")
+    ``slot_owner`` (n_hi,)), or is a dense dict of (E, K, N) bf16 weights
+    (every tile on its expert's weights). Returns (y (T, D), counts (E,)
+    int32, dropped, pad_ratio)."""
     T, d = x.shape
     k = idx.shape[1]
     Tk = T * k
@@ -191,12 +195,15 @@ def _dispatch_ragged(bank: ExpertBankQ, x: torch.Tensor, idx: torch.Tensor,
     xs = torch.zeros((R + 1, d), dtype=x.dtype, device=x.device)
     xs[rowpos] = x[tok]
     xs = xs[:R]
-    tile_slot = _tile_slots(bank, tile_eid, e_local)
-    n_hi = bank.slot_owner.shape[0]
-    lo = bank.lo
-    y_rows = kops.ragged_quant_ffn(
-        xs, tile_eid, tile_slot, n_tiles, lo, bank.hi if n_hi else None,
-        bits=lo["w_gate"].bits, group=lo["w_gate"].group_size, bm=bm)
+    if isinstance(bank, ExpertBankQ):
+        tile_slot = _tile_slots(bank, tile_eid, e_local)
+        n_hi = bank.slot_owner.shape[0]
+        lo = bank.lo
+        y_rows = kops.ragged_quant_ffn(
+            xs, tile_eid, tile_slot, n_tiles, lo, bank.hi if n_hi else None,
+            bits=lo["w_gate"].bits, group=lo["w_gate"].group_size, bm=bm)
+    else:
+        y_rows = kops.ragged_dense_ffn(xs, tile_eid, n_tiles, bank, bm=bm)
     y_asn = y_rows[torch.clamp(rowpos, max=R - 1)]
     gate_sorted = gates.reshape(-1)[order].to(x.dtype)
     # torch.where, never a multiply by the mask: rows of tail tiles are
@@ -240,15 +247,14 @@ def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor) -> torch.Tensor:
     return out[:E]
 
 
-def dispatch_compute(bank: ExpertBankQ, x: torch.Tensor, idx: torch.Tensor,
+def dispatch_compute(bank, x: torch.Tensor, idx: torch.Tensor,
                      gates: torch.Tensor, e_local: int, capacity: int,
                      row_capacity: Optional[int] = None):
     """Padded sort-scatter dispatch + the grouped expert FFN + the gated
     combine. x (T, d); idx (T, k) expert ids with ``e_local`` as the
     out-of-range sentinel; gates (T, k), zero on sentinel entries. Returns
-    (y (T, d), counts (E,) int32, dropped)."""
-    if not isinstance(bank, ExpertBankQ):
-        raise TypeError("the port serves quantized expert banks only")
+    (y (T, d), counts (E,) int32, dropped). A dense dict bank runs the
+    reference's three einsums over (E, C, d) as one batched SwiGLU."""
     if row_capacity is not None:
         raise NotImplementedError("the per-row capacity rule of the padded "
                                   "layout is not ported")
@@ -266,7 +272,9 @@ def dispatch_compute(bank: ExpertBankQ, x: torch.Tensor, idx: torch.Tensor,
                        torch.full_like(pos_in_e, EC))
     xg = torch.zeros((EC + 1, d), dtype=x.dtype, device=x.device)
     xg[flat] = x[tok]
-    yg = _quant_expert_ffn(bank, xg[:EC].view(e_local, capacity, d))
+    xg = xg[:EC].view(e_local, capacity, d)
+    yg = _quant_expert_ffn(bank, xg) if isinstance(bank, ExpertBankQ) \
+        else swiglu(bank, xg)
     y_sorted = yg.reshape(EC, -1)[torch.clamp(flat, max=EC - 1)]
     gate_sorted = gates.reshape(-1)[order].to(x.dtype)
     contrib = torch.where(kept[:, None], y_sorted * gate_sorted[:, None],
@@ -277,7 +285,7 @@ def dispatch_compute(bank: ExpertBankQ, x: torch.Tensor, idx: torch.Tensor,
     return y, counts.to(torch.int32), dropped
 
 
-def moe_apply(params, bank: ExpertBankQ, x: torch.Tensor, cfg: MoEConfig,
+def moe_apply(params, bank, x: torch.Tensor, cfg: MoEConfig,
               capacity: int, token_valid: Optional[torch.Tensor] = None,
               n_rows: Optional[int] = None, dispatch: Optional[str] = None):
     """Single-device MoE. ``params``: {'router', ['shared']}; x (T, d).

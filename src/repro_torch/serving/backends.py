@@ -1,5 +1,7 @@
 """Expert-residency backends of the port's serving engine.
 
+* ``Fp16Backend`` — dense bf16 experts, all on the device (the paper's
+  quality reference).
 * ``StaticPTQBackend`` — every expert serves from the always-resident lo
   tier (the paper's static baseline).
 * ``DynaExqBackend`` — the paper's system: a hi bf16 slot pool per layer,
@@ -8,18 +10,26 @@
   promotion copies from pinned host masters → publish. (No host tier,
   streaming, sensitivity weights, fault injection or expert parallelism in
   this port yet.)
+* ``OffloadBackend`` — the offloading/prefetch baseline: an LRU cache of
+  experts per layer in front of host memory, its misses and prefetches
+  priced by ``FetchModel`` as a modeled stall (it computes dense on the
+  device, as the reference does: no real host transfers).
 
 Protocol, as the reference's: ``materialize_banks`` builds the device
-tiers and returns {MoE position: ExpertBankQ}; ``observe`` takes one
-forward's router counts (row-resolved counts are scrubbed by ``row_valid``
-first); ``tick`` runs the policy window; ``stats`` returns exactly
-``STAT_KEYS + STAT_EXTRAS``; ``flush`` waits for in-flight transitions.
+tiers and returns {MoE position: ExpertBankQ}, or None when the forwards
+read the dense experts from ``params`` (fp16, offload); ``observe`` takes
+one forward's router counts (row-resolved counts are scrubbed by
+``row_valid`` first) and returns the forward's modeled stall in seconds;
+``tick`` runs the policy window; ``stats`` returns exactly ``STAT_KEYS +
+STAT_EXTRAS``; ``flush`` waits for in-flight transitions.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
-from typing import Dict, Optional, Tuple
+from collections import OrderedDict
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +42,7 @@ from repro_torch.core.hotness import mask_row_counts
 from repro_torch.core.ver import (build_bank, expert_hi_nbytes,
                                   expert_lo_nbytes)
 from repro_torch.models.config import ArchConfig
+from repro_torch.serving.hoststore import FetchModel
 
 #: Keys every backend's ``stats()`` returns (zeros where N/A) — the
 #: reference's uniform schema.
@@ -84,12 +95,14 @@ class _BackendBase:
             cleaned[k] = c
             acc = self._counts_sum.get(k)
             self._counts_sum[k] = c.copy() if acc is None else acc + c
-        self._observe_residency(cleaned)
-        (self._ttft if prefill else self._tpot).append(compute_s)
-        return 0.0
+        stall = self._observe_residency(cleaned, compute_s)
+        (self._ttft if prefill else self._tpot).append(compute_s + stall)
+        return stall
 
-    def _observe_residency(self, counts: Dict) -> None:
-        pass
+    def _observe_residency(self, counts: Dict, compute_s: float) -> float:
+        """Residency accounting of one forward; returns its modeled stall
+        (seconds the forward would have waited on transfers)."""
+        return 0.0
 
     def tick(self) -> None:
         pass
@@ -126,6 +139,14 @@ def _param_bytes(tree) -> int:
     return 0 if tree is None else tree.numel() * tree.element_size()
 
 
+def _device_experts(params: Dict, pos, device) -> Dict[str, torch.Tensor]:
+    """Position ``pos``'s dense (L, E, K, N) experts, moved onto ``device``
+    in ``params`` (a no-op where they already are)."""
+    moe = params["blocks"][str(pos)]["moe"]
+    moe["experts"] = {k: v.to(device) for k, v in moe["experts"].items()}
+    return moe["experts"]
+
+
 def envelope_fixed_bytes(params: Dict, kv_bytes: int) -> int:
     """The fixed bytes of an ``hbm_gb`` envelope as the reference counts
     them: the parameters outside ``blocks`` (embedding, LM head, final
@@ -134,6 +155,29 @@ def envelope_fixed_bytes(params: Dict, kv_bytes: int) -> int:
     return _param_bytes({k: v for k, v in params.items()
                          if k != "blocks"}) + kv_bytes + \
         ACTIVATION_SLACK_BYTES
+
+
+class Fp16Backend(_BackendBase):
+    """Dense bf16 experts, fully device-resident: the quality/latency
+    reference (and the compute substrate the offload model prices). The
+    forwards read the experts from ``params`` (``materialize_banks``
+    returns None): the ragged FFN's all-hi mode, or the padded dispatch's
+    batched SwiGLU."""
+
+    name = "fp16"
+
+    def __init__(self, device=None):
+        super().__init__(device)
+        self._dense_bytes = 0
+
+    def _materialize(self, cfg, params, kv_bytes):
+        self._dense_bytes = sum(
+            _param_bytes(_device_experts(params, p, self.device))
+            for p in self.moe_positions)
+        return None
+
+    def device_bytes(self) -> int:
+        return self._dense_bytes
 
 
 class StaticPTQBackend(_BackendBase):
@@ -331,13 +375,14 @@ class DynaExqBackend(_BackendBase):
         return None
 
     # -- per-forward hook and windows --------------------------------------
-    def _observe_residency(self, counts):
+    def _observe_residency(self, counts, compute_s):
         for k, ctl in self.controllers.items():
             c = counts.get(k)
             if c is None:
                 continue
             ctl.observe(c)
             self.hi_routed += int(((c > 0) & (ctl.tm.slot_map_h >= 0)).sum())
+        return 0.0
 
     def tick(self) -> None:
         if self.allocator is not None:
@@ -431,7 +476,140 @@ class DynaExqBackend(_BackendBase):
         return agg
 
 
-BACKENDS = {"static": StaticPTQBackend, "dynaexq": DynaExqBackend}
+class LRUSet:
+    """O(1) LRU set over expert ids (``move_to_end`` on a hit,
+    ``popitem(last=False)`` on eviction)."""
+
+    def __init__(self, size: int, init: Optional[Iterable[int]] = None):
+        self.size = size
+        self._od: "OrderedDict[int, None]" = OrderedDict()
+        for e in init or ():
+            self.add(int(e))
+
+    def __contains__(self, e: int) -> bool:
+        return e in self._od
+
+    def __len__(self) -> int:
+        return len(self._od)
+
+    def hit(self, e: int) -> bool:
+        """Refresh ``e`` if cached; returns whether it was a hit."""
+        if e in self._od:
+            self._od.move_to_end(e)
+            return True
+        return False
+
+    def add(self, e: int) -> None:
+        """Insert ``e`` as most recent, evicting the LRU entry on
+        overflow."""
+        self._od[e] = None
+        self._od.move_to_end(e)
+        while len(self._od) > self.size:
+            self._od.popitem(last=False)
+
+    def touch(self, e: int) -> bool:
+        """Hit or insert; returns True on a hit."""
+        if self.hit(e):
+            return True
+        self.add(e)
+        return False
+
+    def order(self) -> List[int]:
+        """Entries, least recent first."""
+        return list(self._od)
+
+
+@dataclasses.dataclass
+class OffloadConfig:
+    cache_experts_per_layer: int = 16
+    # PCIe gen4 x16, the paper's A6000; give the card's own pinned
+    # host→device copy rate to price this card's link.
+    pcie_gbps: float = 16.0
+    prefetch: bool = True
+
+
+class OffloadBackend(_BackendBase):
+    """ExpertFlow-like offloading/prefetch baseline (the paper's §5.3
+    comparator). Experts live in host memory; the device keeps an LRU
+    cache of ``cache_experts_per_layer`` bf16 experts per layer. Each
+    forward's routed set is held against the cache: misses are fetched on
+    the critical path, priced by ``FetchModel`` (bytes / ``pcie_gbps``),
+    and that modeled stall is added to the measured compute time, so the
+    comparison reflects transfer volume, not host noise. Prefetch: before
+    each step the previous step's routed set is fetched; those bytes hide
+    under ``compute_s`` and only their spill stalls.
+
+    As in the reference, residency is modeled: the forwards compute with
+    the dense experts on the device (``params``), and nothing is copied."""
+
+    name = "offload"
+    STAT_EXTRAS = ("hits", "misses")
+
+    def __init__(self, ocfg: Optional[OffloadConfig] = None, device=None):
+        super().__init__(device)
+        self.ocfg = ocfg if ocfg is not None else OffloadConfig()
+        self.fetch = FetchModel(gbps=self.ocfg.pcie_gbps)
+        self.expert_bytes = 0
+        self.n_moe_layers = 0
+        self.lru: Dict[int, LRUSet] = {}
+        self.prev_active: Dict[int, set] = {}
+        self._acct = {"hits": 0, "misses": 0, "stall_s": 0.0,
+                      "bytes_moved": 0}
+
+    def _materialize(self, cfg, params, kv_bytes):
+        for p in self.moe_positions:
+            _device_experts(params, p, self.device)
+        # bf16 bytes of one expert (w_gate + w_up + w_down).
+        self.expert_bytes = 3 * cfg.d_model * cfg.moe.d_ff_expert * 2
+        self.n_moe_layers = len(self.moe_positions) * cfg.n_superblocks()
+        self.lru = {l: LRUSet(self.ocfg.cache_experts_per_layer)
+                    for l in range(self.n_moe_layers)}
+        self.prev_active = {l: set() for l in range(self.n_moe_layers)}
+        return None
+
+    def _observe_residency(self, counts, compute_s):
+        activated: Dict[int, np.ndarray] = {}
+        li = 0
+        for pos in self.moe_positions:
+            c = np.asarray(counts[str(pos)])       # (L, E)
+            for l in range(c.shape[0]):
+                activated[li] = np.nonzero(c[l] > 0)[0]
+                li += 1
+        miss_bytes = prefetched_bytes = 0
+        for l, acts in activated.items():
+            lru = self.lru[l]
+            if self.ocfg.prefetch:
+                for e in self.prev_active[l]:
+                    if e not in lru:
+                        prefetched_bytes += self.expert_bytes
+                    lru.touch(int(e))
+            for e in acts:
+                if lru.touch(int(e)):
+                    self._acct["hits"] += 1
+                else:
+                    self._acct["misses"] += 1
+                    miss_bytes += self.expert_bytes
+            self.prev_active[l] = set(int(x) for x in acts)
+        stall = self.fetch.stall_s(miss_bytes, prefetched_bytes, compute_s)
+        self._acct["stall_s"] += stall
+        self._acct["bytes_moved"] += miss_bytes + prefetched_bytes
+        return stall
+
+    def device_bytes(self) -> int:
+        """The device-resident cache under the offload budget."""
+        return (self.n_moe_layers * self.ocfg.cache_experts_per_layer *
+                self.expert_bytes)
+
+    def _residency_stats(self):
+        return {"stall_s": self._acct["stall_s"],
+                "bytes_moved": float(self._acct["bytes_moved"]),
+                "hits": float(self._acct["hits"]),
+                "misses": float(self._acct["misses"]),
+                "host_fetches": float(self._acct["misses"])}
+
+
+BACKENDS = {"fp16": Fp16Backend, "static": StaticPTQBackend,
+            "dynaexq": DynaExqBackend, "offload": OffloadBackend}
 
 
 def make_backend(name: str, **kwargs):

@@ -25,6 +25,12 @@ request by one greedy token; ``drain()`` runs until the queue empties.
   one transfer per step brings the (B,) tokens and the per-row router
   counts to the host, which go to ``backend.observe`` with the row mask.
   Prefill stays eager: its shapes vary by (rows, bucket).
+* **Modeled stalls**: ``observe`` returns the seconds a forward would have
+  waited on transfers (the offload baseline's misses; 0 elsewhere), never
+  slept. The engine charges them as the reference does: a decode step's
+  latency is its measured time plus its stall (``decode_times``, TPOT,
+  each request's ``step_times``), and a request's TTFT adds every stall
+  since its submission (``_stall_clock``).
 
 Not ported yet: prefix sharing, speculation, sampling, the QoS scheduler,
 chunked prefill, preemption, the watchdog, per-row MoE capacity
@@ -99,10 +105,12 @@ class RequestHandle:
         self.slot: Optional[int] = None
         self.tokens: List[int] = []
         self.submit_s = 0.0
+        self.stall_at_submit = 0.0     # the engine's stall clock at submit
         self.ttft_s = 0.0
         self.finish_s = 0.0
         self.lease: Optional[KVLease] = None
         self.expert_counts: Optional[Dict[str, np.ndarray]] = None
+        self.step_times: List[float] = []     # decode latency, stall incl.
 
     def token_array(self) -> np.ndarray:
         return np.asarray(self.tokens, np.int32)
@@ -166,7 +174,11 @@ class InferenceEngine:
         self.prefill_shapes: set = set()
         self.last_row_counts: Dict[str, np.ndarray] = {}  # last forward
         self.ttfts: List[float] = []
-        self.decode_times: List[float] = []
+        self.decode_times: List[float] = []     # per step, stall included
+        # Cumulative modeled stall seconds (returned by the backend, never
+        # slept): TTFT charges the stalls of the work that ran ahead of a
+        # request.
+        self._stall_clock = 0.0
         self._tpot_sum = 0.0
         self._tpot_tokens = 0
         self._disp_active_sum = 0.0
@@ -206,6 +218,7 @@ class InferenceEngine:
                              f"but the envelope caps at {self.budget.cap}")
         h = RequestHandle(next(self._ids), request)
         h.submit_s = time.perf_counter()
+        h.stall_at_submit = self._stall_clock
         self.queue.append(h)
         return h
 
@@ -296,13 +309,16 @@ class InferenceEngine:
         self.last_row_counts = counts_np
         row_valid = np.zeros(R, bool)
         row_valid[:G] = True
-        self.backend.observe(counts_np, dt, prefill=True, row_valid=row_valid)
+        stall = self.backend.observe(counts_np, dt, prefill=True,
+                                     row_valid=row_valid)
+        self._stall_clock += stall
         now = time.perf_counter()
         for r, h in enumerate(group):
             slot = free[r]
             tok = int(amax[r])
             h.tokens.append(tok)
-            h.ttft_s = now - h.submit_s
+            h.ttft_s = now - h.submit_s + self._stall_clock - \
+                h.stall_at_submit
             self.ttfts.append(h.ttft_s)
             h.state = RequestState.RUNNING
             h.slot = slot
@@ -410,13 +426,17 @@ class InferenceEngine:
         self.last_logits = logits
         self.last_row_counts = counts_np
         self._note_dispatch(counts_np)
-        self.backend.observe(counts_np, dt, prefill=False, row_valid=row_valid)
-        self.decode_times.append(dt)
-        self._tpot_sum += dt * len(active)
+        stall = self.backend.observe(counts_np, dt, prefill=False,
+                                     row_valid=row_valid)
+        self._stall_clock += stall
+        latency = dt + stall
+        self.decode_times.append(latency)
+        self._tpot_sum += latency * len(active)
         self._tpot_tokens += len(active)
         for i, h in active:
             tok = int(amax[i])
             h.tokens.append(tok)
+            h.step_times.append(latency)
             for k, v in counts_np.items():
                 h.expert_counts[k] += v[:, i]
             self.tokens[i] = tok

@@ -141,6 +141,49 @@ def test_ragged_kernels_without_live_tiles(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", ["small", "30b", "80b"])
+def test_ragged_dense_kernels_match_plain(cuda, width):
+    """The all-hi (dense bf16) mode: every tile on its expert's weights of
+    an (E, K, N) bank, tail tiles left out; at the small test shape and at
+    the widths of Qwen3-30B-A3B (K = D = 2048, F = 768) and the flagship
+    (F = 512)."""
+    K, F, D = {"small": (256, 128, 256), "30b": (2048, 768, 2048),
+               "80b": (2048, 512, 2048)}[width]
+    gen = torch.Generator().manual_seed(K + F)
+    bank = {n: (torch.randn((4,) + s, generator=gen) * s[0] ** -0.5)
+            .to(torch.bfloat16) for n, s in (("w_gate", (K, F)),
+                                            ("w_up", (K, F)),
+                                            ("w_down", (F, D)))}
+    te = torch.tensor(TILE_EID, dtype=torch.int32)
+    n = torch.tensor([len(TILE_EID) - 2], dtype=torch.int32)
+    xs = torch.randn((len(TILE_EID) * BM, K), generator=gen) \
+        .to(torch.bfloat16)
+    want = ops.ragged_dense_ffn(xs, te, n, bank, bm=BM)
+    before = dict(ops.LAUNCHES)
+    got = ops.ragged_dense_ffn(xs.to(cuda), te.to(cuda), n.to(cuda),
+                               _to(bank, cuda), bm=BM).cpu()
+    _assert_ffn_close(got, want, int(n) * BM)
+    assert ops.LAUNCHES["ragged_dense_gateup"] == \
+        before["ragged_dense_gateup"] + 1
+    assert ops.LAUNCHES["ragged_dense_down"] == \
+        before["ragged_dense_down"] + 1
+    assert ops.LAUNCHES["ragged_gateup"] == before["ragged_gateup"]
+
+
+@pytest.mark.cuda
+def test_ragged_dense_kernels_reject_what_they_do_not_take(cuda):
+    """No fallback on the card: a shape the kernel rejects raises."""
+    bank = {n: torch.zeros((2,) + s, dtype=torch.bfloat16, device=cuda)
+            for n, s in (("w_gate", (256, 96)), ("w_up", (256, 96)),
+                         ("w_down", (96, 256)))}
+    te = torch.zeros(2, dtype=torch.int32, device=cuda)
+    n = torch.ones(1, dtype=torch.int32, device=cuda)
+    xs = torch.zeros((2 * BM, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ops.ragged_dense_ffn(xs, te, n, bank, bm=BM)
+
+
+@pytest.mark.cuda
 def test_ragged_ffn_replays_in_a_cuda_graph(cuda):
     """Capture the ragged FFN once, rewrite the tile map, the hi slots,
     n_tiles and the activations in place, replay: the output follows the
@@ -690,7 +733,7 @@ def _serve_steps(cuda, name, path, graphed, make=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["static", "dynaexq"])
+@pytest.mark.parametrize("name", ["static", "dynaexq", "fp16", "offload"])
 @pytest.mark.parametrize("path", list(PATHS))
 def test_graph_matches_eager(cuda, path, name):
     toks_g, lg_g, launches_g, eng_g = _serve_steps(cuda, name, path, True)
@@ -707,6 +750,17 @@ def test_graph_matches_eager(cuda, path, name):
         for eng in (eng_g, eng_e):
             for ctl in eng.backend.controllers.values():
                 ctl.tm.check_invariants()
+    dense = ("ragged_dense_gateup", "ragged_dense_down")
+    quant = ("ragged_gateup", "ragged_down", "grouped_lo_matmul")
+    if name in ("fp16", "offload"):
+        # The baselines' experts are dense: the all-hi mode on the ragged
+        # path, a batched SwiGLU on the padded one; no quantized kernel.
+        assert not any(launches_g[k] for k in quant), launches_g
+        assert all(launches_g[k] > 0 for k in dense) == \
+            (path == "paged-ragged"), launches_g
+        assert eng_g.banks is None
+    else:
+        assert not any(launches_g[k] for k in dense), launches_g
 
 
 @pytest.mark.cuda

@@ -183,19 +183,24 @@ def _bank(experts, n_hi, gen):
     return bank
 
 
-@pytest.mark.parametrize("bank_kind", ["static", "dynaexq"])
+@pytest.mark.parametrize("bank_kind", ["static", "dynaexq", "fp16"])
 @pytest.mark.parametrize("dispatch", ["ragged", "padded"])
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
 def test_decode_steps_read_nothing_on_the_host(monkeypatch, paged, dispatch,
                                                bank_kind):
+    """``fp16``: no bank; the dense experts stay in ``params`` (the fp16
+    and offload backends' forward)."""
     cfg = get_config(ARCH, reduced=True)
     gen = torch.Generator().manual_seed(3)
     params = init_params(cfg, device="cpu", generator=gen)
-    experts = params["blocks"]["0"]["moe"].pop("experts")
-    n_hi = 0 if bank_kind == "static" else 4
-    bank = {"0": _bank(experts, n_hi, gen)}
-    if n_hi:
-        assert bool((bank["0"].slot_owner >= 0).any())
+    if bank_kind == "fp16":
+        bank = None
+    else:
+        experts = params["blocks"]["0"]["moe"].pop("experts")
+        n_hi = 0 if bank_kind == "static" else 4
+        bank = {"0": _bank(experts, n_hi, gen)}
+        if n_hi:
+            assert bool((bank["0"].slot_owner >= 0).any())
     B, bt, nb = 3, 16, 4
     tokens = torch.randint(0, cfg.vocab_size, (B,), generator=gen)
     pos = torch.tensor([5, 17, 0])

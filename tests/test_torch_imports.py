@@ -37,7 +37,8 @@ def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.serving.engine, "
             "repro_torch.serving.backends, repro_torch.convert, "
             "repro_torch.kernels.build, repro_torch.models.model, "
-            "repro_torch.core.allocator, repro_torch.models.mlp; "
+            "repro_torch.core.allocator, repro_torch.models.mlp, "
+            "repro_torch.serving.hoststore; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -71,6 +72,10 @@ def _entry_points():
             lambda device: make_backend("static", device=device),
         "make_backend_dynaexq":
             lambda device: make_backend("dynaexq", device=device),
+        "make_backend_fp16":
+            lambda device: make_backend("fp16", device=device),
+        "make_backend_offload":
+            lambda device: make_backend("offload", device=device),
         "InferenceEngine": engine,
         "InferenceEngine_dense_padded": functools.partial(
             engine, paged=False, moe_dispatch="padded"),
@@ -79,7 +84,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["resolve_device", "init_params",
                                   "init_paged_caches", "make_backend_static",
-                                  "make_backend_dynaexq", "InferenceEngine",
+                                  "make_backend_dynaexq", "make_backend_fp16",
+                                  "make_backend_offload", "InferenceEngine",
                                   "init_caches",
                                   "InferenceEngine_dense_padded"])
 def test_entry_points_need_cuda_unless_cpu_is_asked(name):

@@ -279,6 +279,13 @@ def test_launch_counts_only_on_the_card():
                      to_torch(cv).transpose(1, 2), torch.from_numpy(dvalid))
     _, x, tq = _qmm_inputs(4)
     ops.quant_matmul_op(to_torch(x), tq)
+    bank = {n: torch.zeros((2,) + s, dtype=torch.bfloat16)
+            for n, s in (("w_gate", (64, 64)), ("w_up", (64, 64)),
+                         ("w_down", (64, 64)))}
+    ops.ragged_dense_ffn(torch.zeros((16, 64), dtype=torch.bfloat16),
+                         torch.zeros(2, dtype=torch.int32),
+                         torch.ones(1, dtype=torch.int32), bank, bm=8)
     assert ops.LAUNCHES == {"ragged_gateup": 0, "ragged_down": 0,
+                            "ragged_dense_gateup": 0, "ragged_dense_down": 0,
                             "flash_decode_paged": 0, "grouped_lo_matmul": 0,
                             "flash_decode": 0, "quant_matmul": 0}
