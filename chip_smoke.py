@@ -22,9 +22,10 @@ Phases (each prints one line; any failure exits non-zero):
               Qwen3-80B-A3B's shapes: the ragged FFN at 512 experts top-10,
               int2, hi tiles from a 128-slot pool (decode B=8, prefill
               512), paged attention at H 16, Hkv 2, hd 256; the all-hi
-              (dense bf16) mode at the 30B's decode B=8 and prefill 512 and
-              the flagship's decode B=8, each beside one
-              ``torch._grouped_mm`` over the segments (its yardstick);
+              (dense bf16) mode at decode B=8 and prefill 512 of both
+              models and a skewed 30B prefill (expert 0 in every top-8),
+              each beside one ``torch._grouped_mm`` over the segments (its
+              yardstick);
    splits   — both decode-attention kernels at their main shapes under
               forced split counts, each held against its plain version,
               with device (graph) and host time per call;
@@ -32,6 +33,14 @@ Phases (each prints one line; any failure exits non-zero):
               (8-row chunks per warp pass), K splits across CTAs and pieces
               per CTA, each held against its plain version, with device
               (graph) time: the data behind ``ops.gemm_plan``;
+   dense    — (only when named) the all-hi kernels on the kernels phase's
+              five cases under forced grids, run lengths, consumer warps
+              and ring slots, bit-equal to the default launch, with
+              device time: the data behind ``ops.DENSE_PLAN``; with
+              ``--parent DIR`` (a ``git archive`` of the parent commit)
+              also the parent's all-hi and quantized ragged kernels
+              against this tree's in turns, and their registers and HMMA
+              counts (``cuobjdump``);
 4. model    — a 2-layer full-width model, same seeded weights on the CPU
               (plain versions) and on the card (kernels): one 32-token
               prefill and 4 teacher-forced decode steps, logits compared,
@@ -854,28 +863,70 @@ def _grouped_mm_yardstick(xs, w, offs):
     return (lambda: fn(xs, w, offs=offs)), "row-major weights"
 
 
-def _dense_ffn_case(name, gen, dev, bank, *, T, top_k, tol_rel):
-    """The ragged FFN's all-hi mode (``ragged_dense_gateup`` /
-    ``ragged_dense_down``): route T tokens top-``top_k`` over the dense
-    (E, K, N) bank, build the tile map with the port's dispatch helpers,
-    hold both kernels against the plain versions on the live tiles' rows,
-    and time each (event loop, graph replay, plain version) beside its
-    bound and the ``torch._grouped_mm`` yardstick (gate and up as one call
-    over the two banks side by side; in turns with the kernel)."""
-    from repro_torch.kernels import ops, ref
+#: The all-hi mode's cases: key → (model, tokens, every token routed to
+#: expert 0 as one of its top-k). Decode B=8 and prefill 512 of both
+#: models, and a skewed 30B prefill (expert 0 holds 512 rows, 64 tiles:
+#: the heavy-tailed routing the paper is about).
+DENSE_CASES = {"30b_decode": (ARCH, 8, False),
+               "30b_prefill": (ARCH, 512, False),
+               "30b_prefill_skew": (ARCH, 512, True),
+               "80b_decode": (FLAGSHIP, 8, False),
+               "80b_prefill": (FLAGSHIP, 512, False)}
+
+
+def _dense_cases(dev, seed=2468):
+    """Yield ``(key, name, bank, inputs)`` for each of ``DENSE_CASES``: a
+    random dense (E, K, N) bf16 bank per model (freed after its cases),
+    T tokens routed top-k over it, the tile map from the port's dispatch
+    helpers and random activation rows; from a generator of their own."""
+    from repro_torch.configs import get_config
     from repro_torch.models.moe import (RAGGED_BM, _sort_routing,
                                         ragged_tile_map)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bm = RAGGED_BM
+    for arch in (ARCH, FLAGSHIP):
+        cfg = get_config(arch)
+        E, K, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+        top_k = cfg.moe.top_k
+        bank = {n: (torch.randn((E,) + s, generator=gen, device=dev)
+                    * s[0] ** -0.5).to(torch.bfloat16)
+                for n, s in (("w_gate", (K, F)), ("w_up", (K, F)),
+                             ("w_down", (F, K)))}
+        for key, (a, T, skew) in DENSE_CASES.items():
+            if a != arch:
+                continue
+            logits = torch.randn((T, E), generator=gen, device=dev)
+            if skew:
+                logits[:, 0] = float("inf")
+            idx = torch.topk(logits, top_k, dim=-1).indices
+            _, _, counts, _, _ = _sort_routing(idx, E)
+            _, tile_eid, n_tiles = ragged_tile_map(counts, bm, T * top_k)
+            Tt = tile_eid.shape[0]
+            xs = torch.randn((Tt * bm, K), generator=gen, device=dev) \
+                .to(torch.bfloat16)
+            name = (f"{arch} {'decode B=8' if T == 8 else f'prefill {T}'}"
+                    f"{' skewed (expert 0 in every top-k)' if skew else ''}"
+                    f" top-{top_k} of {E}, F={F}")
+            yield key, name, bank, dict(xs=xs, tile_eid=tile_eid,
+                                        n_tiles=n_tiles, counts=counts)
+        del bank
+
+
+def _dense_ffn_case(name, bank, inp, *, tol_rel):
+    """The ragged FFN's all-hi mode (``ragged_dense_gateup`` /
+    ``ragged_dense_down``) on one case of ``_dense_cases``: hold both
+    kernels against the plain versions on the live tiles' rows, and time
+    each (event loop, graph replay, plain version) beside its bound and
+    the ``torch._grouped_mm`` yardstick (gate and up as one call over the
+    two banks side by side; in turns with the kernel)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.moe import RAGGED_BM
+    xs, tile_eid, n_tiles = inp["xs"], inp["tile_eid"], inp["n_tiles"]
     E, K, F = bank["w_gate"].shape
     D = bank["w_down"].shape[2]
     bm = RAGGED_BM
-    logits = torch.randn((T, E), generator=gen, device=dev)
-    idx = torch.topk(logits, top_k, dim=-1).indices
-    _, _, counts, _, _ = _sort_routing(idx, E)
-    _, tile_eid, n_tiles = ragged_tile_map(counts, bm, T * top_k)
     Tt, n_live = tile_eid.shape[0], int(n_tiles.item())
     rows = n_live * bm
-    xs = torch.randn((Tt * bm, K), generator=gen, device=dev) \
-        .to(torch.bfloat16)
     wg, wu, wd = bank["w_gate"], bank["w_up"], bank["w_down"]
 
     def gateup_k():
@@ -913,11 +964,15 @@ def _dense_ffn_case(name, gen, dev, bank, *, T, top_k, tol_rel):
     gu_bytes = rows * K * 2 + n_e * 2 * K * F * 2 + rows * F * 2 + maps
     dn_bytes = rows * F * 2 + n_e * F * D * 2 + rows * D * 2 + maps
     # The yardstick: each expert's segment of the compacted rows.
+    counts = inp["counts"]
     offs = torch.cumsum((counts + bm - 1) // bm * bm, 0).to(torch.int32)
     w_gu = torch.cat([wg, wu], dim=-1)
     libs = {"gateup": _grouped_mm_yardstick(xs, w_gu, offs),
             "down": _grouped_mm_yardstick(h_ref, wd, offs)}
+    runs = ops.dense_runs(tile_eid.cpu(), n_live)
     out = {"case": name, "ok": ok, "tiles": n_live, "experts": n_e,
+           "runs": len(runs),
+           "longest_segment": int(((counts + bm - 1) // bm).max()),
            "err_ffn": e_f, "tol_ffn": tol_rel * m_f}
     for key, run_k, run_p, e, m, b in (
             ("gateup", gateup_k, gateup_p, e_h, m_h,
@@ -936,7 +991,8 @@ def _dense_ffn_case(name, gen, dev, bank, *, T, top_k, tol_rel):
             c.update(interleaved(run_k, lib))
         out[key] = c
     log("kernels", f"ragged dense FFN {name}: {n_live}/{Tt} live tiles of "
-                   f"{n_e} experts | " + " | ".join(
+                   f"{n_e} experts in {len(runs)} runs (longest segment "
+                   f"{out['longest_segment']} tiles) | " + " | ".join(
                        f"{key} err {c['err']:.3g} (tol {c['tol']:.3g}) "
                        f"{c['ms']:.4f} ms, graph {c['graph_ms']:.4f} ms, "
                        f"plain {c['plain_ms']:.3f} ms, bound "
@@ -956,27 +1012,12 @@ def _dense_ffn_case(name, gen, dev, bank, *, T, top_k, tol_rel):
 
 
 def _kernels_dense_ffn(dev, tol) -> None:
-    """The all-hi mode at the baselines' shapes: Qwen3-30B-A3B decode B = 8
-    (top-8 of 128, K = 2048, F = 768) and prefill 512, and the flagship's
-    decode B = 8 (top-10 of 512, F = 512); random bf16 banks from a
-    generator of their own."""
-    from repro_torch.configs import get_config
-    gen = torch.Generator(device=dev).manual_seed(2468)
-    cases = {}
-    for arch, what in ((ARCH, (("30b_decode", 8), ("30b_prefill", 512))),
-                       (FLAGSHIP, (("80b_decode", 8),))):
-        cfg = get_config(arch)
-        E, K, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
-        bank = {n: (torch.randn((E,) + s, generator=gen, device=dev)
-                    * s[0] ** -0.5).to(torch.bfloat16)
-                for n, s in (("w_gate", (K, F)), ("w_up", (K, F)),
-                             ("w_down", (F, K)))}
-        for key, T in what:
-            cases[key] = _dense_ffn_case(
-                f"{arch} {'decode B=8' if T == 8 else f'prefill {T}'} "
-                f"top-{cfg.moe.top_k} of {E}, F={F}", gen, dev, bank, T=T,
-                top_k=cfg.moe.top_k, tol_rel=tol)
-        del bank
+    """The all-hi mode at the baselines' shapes (``DENSE_CASES``):
+    Qwen3-30B-A3B (top-8 of 128, K = 2048, F = 768) at decode B = 8,
+    prefill 512 and a skewed prefill 512, and the flagship (top-10 of 512,
+    F = 512) at decode B = 8 and prefill 512."""
+    cases = {key: _dense_ffn_case(name, bank, inp, tol_rel=tol)
+             for key, name, bank, inp in _dense_cases(dev)}
     bad = [k for k, c in cases.items() if not c["ok"]]
     if bad:
         raise AssertionError(f"ragged dense FFN kernels disagree: {bad}")
@@ -985,7 +1026,7 @@ def _kernels_dense_ffn(dev, tol) -> None:
                        ("ragged_dense_down", "down")):
         RESULTS[kname] = {
             "name": kname, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ragged_ffn.cu",
+            "source": "src/repro_torch/kernels/csrc/ragged_dense_ffn.cu",
             "replaces": "src/repro/kernels/ops.py:131",
             "launches": 0,
             "max_abs_err": max(c[key]["err"] for c in cases.values()),
@@ -996,7 +1037,7 @@ def _kernels_dense_ffn(dev, tol) -> None:
             "library_graph_ms": d[key]["library_graph_ms"],
             "library": d[key]["library"],
             "cases": [dict(case=c["case"], tiles=c["tiles"],
-                           experts=c["experts"],
+                           experts=c["experts"], runs=c["runs"],
                            **{k: v for k, v in c[key].items()
                               if k != "graph_runs"})
                       for c in cases.values()]}
@@ -1238,6 +1279,229 @@ def phase_gemms() -> None:
               (1, M, K, N, group),
               [(nt, S, None) for nt in ops.GEMM_NT
                for S in (1, 2, 4, 8, 16, 32)])
+
+
+def _parent_library(parent: pathlib.Path):
+    """The parent tree's ragged FFN library (``csrc/ragged_ffn.cu`` of a
+    ``git archive`` of the parent commit), built with this tree's flags
+    into ``build/kernels/parent/`` and loaded with its C signatures: the
+    quantized entries as today's, the all-hi ones as the parent had them
+    (``ragged_dense_gateup(xs, tile_eid, n_tiles, w_gate, w_up, h, Tt, K,
+    F, stream)``)."""
+    import ctypes
+    from repro_torch.kernels import build
+    src = parent / "src/repro_torch/kernels/csrc/ragged_ffn.cu"
+    out = build.build_dir() / "parent" / "libragged_ffn.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sigs = dict(build.SIGNATURES["ragged_ffn"],
+                ragged_dense_gateup=[P] * 6 + [I] * 3 + [P],
+                ragged_dense_down=[P] * 5 + [I] * 3 + [P])
+    for fn, argtypes in sigs.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib, out
+
+
+def _sass_summary(path) -> dict:
+    """Registers and HMMA instructions of each ``ragged_ffn_kernel``
+    instantiation in a library, keyed by (NMAT, BITS), from ``cuobjdump``
+    (``-res-usage`` and ``-sass``)."""
+    import re
+    from repro_torch.kernels import build
+    cuobjdump = pathlib.Path(build.nvcc()).parent / "cuobjdump"
+    res = subprocess.run([str(cuobjdump), "-res-usage", str(path)],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    pat = re.compile(r"ragged_ffn_kernelILi(\d)ELi(\d+)E(?:Lb0E)?E")
+    out = {}
+    for m in re.finditer(r"Function (\S+):\s*\n?\s*REG:(\d+)", res):
+        k = pat.search(m.group(1))
+        if k:
+            out.setdefault(f"nmat{k.group(1)}_bits{k.group(2)}", {})[
+                "regs"] = int(m.group(2))
+    for block in sass.split("Function : ")[1:]:
+        k = pat.search(block.split("\n", 1)[0])
+        if k:
+            out.setdefault(f"nmat{k.group(1)}_bits{k.group(2)}", {})[
+                "hmma"] = block.count("HMMA")
+    return out
+
+
+def _turns(parent_run, change_run) -> list:
+    """Device ms (graph replay) in turns: parent, change, change, parent."""
+    return [graph_ms(parent_run), graph_ms(change_run),
+            graph_ms(change_run), graph_ms(parent_run)]
+
+
+def phase_dense(parent) -> None:
+    """The all-hi kernels on every case of ``DENSE_CASES`` under forced
+    settings, each held bit for bit to the default launch and timed by
+    graph replay: the persistent grid against one CTA for every possible
+    item (``Tt`` × column blocks), runs capped at 8, 4, 2 and 1 tiles (1:
+    each tile reads its expert's weights, as the parent's kernel did), and
+    4 and 8 consumer warps (an item of 64 or 128 columns) × rings of 2, 3,
+    4, 6 and 8 slots (those that fit in shared memory).
+    With ``--parent`` (a ``git archive`` of the parent commit): the parent's
+    all-hi kernels against this tree's in turns (parent, change, change,
+    parent) on every case, held to the plain version's tolerance; the
+    quantized ragged kernels (int4 decode B=8 and prefill 512, hi tiles
+    mixed in) of both trees in turns, bit-equal; and both trees'
+    ``ragged_ffn_kernel`` registers and HMMA counts."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.moe import RAGGED_BM as bm
+    dev = torch.device("cuda")
+    plib = None
+    if parent is not None:
+        plib, ppath = _parent_library(pathlib.Path(parent))
+        from repro_torch.kernels import build
+        mine = build._target("ragged_ffn")
+        sp, sm = _sass_summary(ppath), _sass_summary(mine)
+        log("dense", f"ragged_ffn_kernel (nmat, bits) registers / HMMA, "
+                     f"parent vs change: " + ", ".join(
+                         f"{k} {sp[k].get('regs')}/{sp[k].get('hmma')} vs "
+                         f"{sm.get(k, {}).get('regs')}/"
+                         f"{sm.get(k, {}).get('hmma')}" for k in sorted(sp)
+                         if not k.endswith("bits16")))
+        bad = [k for k in sm if sm[k] != sp.get(k)]
+        if bad:
+            raise AssertionError(f"quantized ragged kernels changed: {bad}")
+    stream = lambda: ops._stream(0)
+    for key, name, bank, inp in _dense_cases(dev):
+        xs, te, n = inp["xs"], inp["tile_eid"], inp["n_tiles"]
+        Tt, rows = te.shape[0], int(n.item()) * bm
+        h = ref.ragged_dense_gateup_ref(xs, te, bank["w_gate"],
+                                        bank["w_up"], bm=bm)
+        for kname, x, ws in (("ragged_dense_gateup", xs,
+                              (bank["w_gate"], bank["w_up"])),
+                             ("ragged_dense_down", h, (bank["w_down"],))):
+            N = ws[0].shape[2]
+            want = ops.ragged_dense_launch(kname, x, te, n, ws)
+            plain = ref.ragged_dense_gateup_ref(xs, te, *ws, bm=bm) \
+                if len(ws) == 2 else ref.ragged_dense_down_ref(x, te, *ws,
+                                                               bm=bm)
+            tol = 2.0 ** -6 * float(plain[:rows].float().abs().max())
+            sweep, (w0, s0) = {}, ops.DENSE_PLAN[kname]
+            every = Tt * -(-N // (16 * w0))
+            settings = [(None, c, w0, s0) for c in (8, 4, 2, 1)] + \
+                [(every, 8, w0, s0), (every, 1, w0, s0)] + \
+                [(None, 8, w, st) for w in (4, 8)
+                 for st in (2, 3, 4, 6, 8) if ops.dense_smem_bytes(
+                     len(ws), w, st, ws[0].shape[0]) <= ops.SMEM_MAX]
+            for grid, cap, warps, stages in settings:
+                run = lambda g=grid, c=cap, w=warps, st=stages: \
+                    ops.ragged_dense_launch(kname, x, te, n, ws, grid=g,
+                                            cap=c, warps=w, stages=st)
+                if not torch.equal(run()[:rows], want[:rows]):
+                    raise AssertionError(f"{kname} {name}: grid {grid}, cap "
+                                         f"{cap}, warps {warps}, stages "
+                                         f"{stages} differs")
+                sweep[("persistent" if grid is None else "all items", cap,
+                       warps, stages)] = graph_ms(run)
+            log("dense", f"{kname} {name}: (grid, run cap, consumer warps, "
+                         f"ring slots) -> graph ms " + ", ".join(
+                             f"{k}: {v:.4f}" for k, v in sweep.items()))
+            if plib is None:
+                continue
+            out_p = torch.empty_like(want)
+            ptrs = [x.data_ptr(), te.data_ptr(), n.data_ptr(),
+                    *[w.data_ptr() for w in ws], out_p.data_ptr(), Tt,
+                    x.shape[1], N]
+            prun = lambda: getattr(plib, kname)(*ptrs, stream())
+            crun = lambda: ops.ragged_dense_launch(kname, x, te, n, ws)
+            prun()
+            torch.cuda.synchronize()
+            e_p = float((out_p[:rows].float() - plain[:rows].float()).abs()
+                        .max())
+            e_c = float((want[:rows].float() - plain[:rows].float()).abs()
+                        .max())
+            if max(e_p, e_c) > tol:
+                raise AssertionError(f"{kname} {name}: err parent {e_p}, "
+                                     f"change {e_c} > tol {tol}")
+            t = _turns(prun, crun)
+            log("dense", f"A/B {kname} {name}: parent/change/change/parent "
+                         f"graph ms {[round(v, 5) for v in t]} -> parent "
+                         f"{(t[0] + t[3]) / 2:.4f}, change "
+                         f"{(t[1] + t[2]) / 2:.4f} (err parent {e_p:.3g}, "
+                         f"change {e_c:.3g}, tol {tol:.3g})")
+    if plib is not None:
+        _quant_ab(plib, dev, stream)
+
+
+def _quant_ab(plib, dev, stream) -> None:
+    """The quantized ragged kernels (rows 1–2) of the parent and this tree
+    on the same inputs in turns: int4, g = 64, hi tiles from a 16-slot
+    pool, Qwen3-30B-A3B widths, decode B=8 and prefill 512; outputs
+    bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ver import ExpertBankQ
+    from repro_torch.kernels import build
+    from repro_torch.models.moe import (RAGGED_BM, _sort_routing,
+                                        _tile_slots, ragged_tile_map)
+    from repro_torch.quant.qtensor import quantize
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=dev).manual_seed(77)
+    E, K, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    n_hi, bits, group, bm = 16, 4, 64, RAGGED_BM
+    lo = {n: quantize((torch.randn((E,) + s, generator=gen, device=dev)
+                       * s[0] ** -0.5).to(torch.bfloat16), bits, group)
+          for n, s in (("w_gate", (K, F)), ("w_up", (K, F)),
+                       ("w_down", (F, K)))}
+    hi = {n: (torch.randn((n_hi,) + s, generator=gen, device=dev)
+              * s[0] ** -0.5).to(torch.bfloat16)
+          for n, s in (("w_gate", (K, F)), ("w_up", (K, F)),
+                       ("w_down", (F, K)))}
+    owner = torch.full((n_hi,), -1, dtype=torch.int32, device=dev)
+    owner[:12] = torch.randperm(E, generator=gen, device=dev)[:12].to(
+        torch.int32)
+    qbank = ExpertBankQ(lo=lo, hi=hi, slot_owner=owner,
+                        slot_map=torch.zeros((E,), dtype=torch.int32,
+                                             device=dev))
+    mine = build.library("ragged_ffn")
+    for T in (8, 512):
+        logits = torch.randn((T, E), generator=gen, device=dev)
+        idx = torch.topk(logits, cfg.moe.top_k, dim=-1).indices
+        _, _, counts, _, _ = _sort_routing(idx, E)
+        _, te, n = ragged_tile_map(counts, bm, T * cfg.moe.top_k)
+        ts = _tile_slots(qbank, te, E)
+        Tt = te.shape[0]
+        xs = torch.randn((Tt * bm, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+        h = [torch.empty((Tt * bm, F), dtype=torch.bfloat16, device=dev)
+             for _ in range(2)]
+        y = [torch.empty((Tt * bm, K), dtype=torch.bfloat16, device=dev)
+             for _ in range(2)]
+        lg, lu, ld = lo["w_gate"], lo["w_up"], lo["w_down"]
+        gu = lambda lib, o: lib.ragged_gateup(
+            xs.data_ptr(), te.data_ptr(), ts.data_ptr(), n.data_ptr(),
+            lg.packed.data_ptr(), lg.scales.data_ptr(), lu.packed.data_ptr(),
+            lu.scales.data_ptr(), hi["w_gate"].data_ptr(),
+            hi["w_up"].data_ptr(), o.data_ptr(), Tt, K, F, n_hi, bits, group,
+            stream())
+        dn = lambda lib, o: lib.ragged_down(
+            h[0].data_ptr(), te.data_ptr(), ts.data_ptr(), n.data_ptr(),
+            ld.packed.data_ptr(), ld.scales.data_ptr(),
+            hi["w_down"].data_ptr(), o.data_ptr(), Tt, F, K, n_hi, bits,
+            group, stream())
+        rows = int(n.item()) * bm
+        for what, fn, outs in (("ragged_gateup", gu, h),
+                               ("ragged_down", dn, y)):
+            for lib, o in zip((plib, mine), outs):
+                build.check(fn(lib, o), what)
+            torch.cuda.synchronize()
+            if not torch.equal(outs[0][:rows], outs[1][:rows]):
+                raise AssertionError(f"{what} T={T}: parent and change "
+                                     f"differ")
+            t = _turns(lambda: fn(plib, outs[0]), lambda: fn(mine, outs[1]))
+            log("dense", f"A/B {what} int4 T={T} (quantized, unchanged): "
+                         f"parent/change/change/parent graph ms "
+                         f"{[round(v, 5) for v in t]}, outputs bit-equal")
 
 
 # ---------------------------------------------------------------------------
@@ -2011,6 +2275,15 @@ TRACE_MARK_CYCLES = 1000
 #: of the window (its start lags now and then: one run lost ~0.8 of the
 #: first eager step's kernels).
 TRACE_ATTEMPTS = 3
+#: Host seconds of idle device on both sides of the traced window's opening
+#: edge and before its closing edge. The profiler clips the device's activities to the window by the
+#: host's clock, onto which their timestamps are mapped with an error that
+#: can reach tens of ms (see ``TRACE_ATTEMPTS``): a marker launched within
+#: microseconds of an edge can then fall outside the window, and a kernel
+#: of the step before inside it. The gaps keep every launch of the window,
+#: and nothing else, this far inside its edges; the kernels' sums and
+#: counts do not change.
+TRACE_EDGE_S = 0.5
 
 
 def _group(name: str) -> str:
@@ -2051,7 +2324,8 @@ def _traced_steps(engine, mode):
     lags: it missed a few kernels of the first traced step in one run),
     then ``TRACE_STEPS`` traced (device activity only; the profiler slows
     the host, so the host time is read from the first set) between two
-    marker kernels, with the replays' CUDA events in both sets when
+    marker kernels, ``TRACE_EDGE_S`` of idle device away from the window's
+    edges, with the replays' CUDA events in both sets when
     graphed. Returns (kernel name → (device ms, launches) summed over the
     traced steps, ``ops.LAUNCHES`` over the traced steps, host ms per
     step, replay ms by events untraced and traced, or None, the markers
@@ -2076,7 +2350,9 @@ def _traced_steps(engine, mode):
                                        repeat=1)) as prof:
             engine.step()
             torch.cuda.synchronize()
+            time.sleep(TRACE_EDGE_S)
             prof.step()
+            time.sleep(TRACE_EDGE_S)
             if graphed:
                 engine.decode_graph.events = events[1]
             torch.cuda._sleep(TRACE_MARK_CYCLES)
@@ -2086,6 +2362,7 @@ def _traced_steps(engine, mode):
             torch.cuda._sleep(TRACE_MARK_CYCLES)
             torch.cuda.synchronize()
             launches = dict(ops.LAUNCHES)
+            time.sleep(TRACE_EDGE_S)
             prof.step()
     kernels, marks = {}, 0
     for e in prof.key_averages():
@@ -2143,6 +2420,7 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
     from repro_torch.serving.backends import make_backend
     from repro_torch.serving.requests import Request
     dev = torch.device("cuda")
+    seen_marks = []
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         engine = eng_mod.InferenceEngine(
             cfg, _fresh(params), make_backend("static", lo_bits=lo_bits,
@@ -2154,6 +2432,7 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
         while engine.queue or engine.counters["steps"] < 3:
             engine.step()
         kernels, launches, wall, replay, marks = _traced_steps(engine, mode)
+        seen_marks.append(marks)
         if marks == 2:
             break
         del engine
@@ -2163,7 +2442,8 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
                      f"tracing a fresh engine")
     else:
         raise AssertionError(f"{what} {mode}: the profiler missed an edge "
-                             f"of the traced window in every attempt")
+                             f"of the traced window in every attempt (it "
+                             f"saw {seen_marks} of the 2 marker kernels)")
     queued = _queued_replays(engine.decode_graph.graph) \
         if mode == "graph" else None
     del engine
@@ -2224,12 +2504,18 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "model",
           "serving", "trace")
+#: Phases that run only when named in ``--only``.
+EXTRA_PHASES = ("dense",)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
-                    help="comma-separated phases to run")
+                    help="comma-separated phases to run, of "
+                         f"{PHASES + EXTRA_PHASES}")
+    ap.add_argument("--parent", default=None,
+                    help="the parent commit's tree (a git archive), for "
+                         "the dense phase's A/B")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2244,6 +2530,8 @@ def main() -> int:
         phase_splits()
     if "gemms" in only:
         phase_gemms()
+    if "dense" in only:
+        phase_dense(args.parent)
     if "model" in only:
         phase_model()
     if "serving" in only:

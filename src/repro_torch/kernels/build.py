@@ -21,8 +21,8 @@ import time
 from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ragged_ffn", "flash_decode_paged", "grouped_quant_matmul",
-           "flash_decode", "quant_matmul")
+SOURCES = ("ragged_ffn", "ragged_dense_ffn", "flash_decode_paged",
+           "grouped_quant_matmul", "flash_decode", "quant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -33,8 +33,12 @@ SIGNATURES = {
     "ragged_ffn": {
         "ragged_gateup": [_P] * 11 + [_I] * 6 + [_P],
         "ragged_down": [_P] * 8 + [_I] * 6 + [_P],
-        "ragged_dense_gateup": [_P] * 6 + [_I] * 3 + [_P],
-        "ragged_dense_down": [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "ragged_dense_ffn": {
+        "ragged_dense_tensor_map": [_P, _P, _I, _P, _P, _P],
+        "ragged_dense_occupancy": [_I] * 4,
+        "ragged_dense_gateup": [_P] * 6 + [_I] * 8 + [_P],
+        "ragged_dense_down": [_P] * 5 + [_I] * 8 + [_P],
     },
     "flash_decode_paged": {
         "flash_decode_paged": [_P] * 8 + [_F, _P],

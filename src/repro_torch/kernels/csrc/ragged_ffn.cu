@@ -66,16 +66,6 @@
 // `qmma::tile_product` in `quant_mma.cuh`, shared with the quantized GEMMs;
 // a tile is one 8-row chunk (NT = 1). This file keeps the tile map, the
 // tiers and the epilogue. `wgmma` (M = 64) and TMA are later work.
-//
-// The all-hi (dense bf16) mode: `ragged_dense_gateup` / `ragged_dense_down`
-// (the reference's `ragged_dense_ffn_op`, src/repro/kernels/ops.py, which
-// runs the Pallas kernels above with every tile hi and a zero lo
-// placeholder) instantiate the same kernel with DENSE = true: every tile
-// takes the hi branch with its expert id as the slot into the dense
-// (E, K, N) bank, and the lo operands, the scale copy and the lo pointer
-// arithmetic are compiled out. At decode it streams 2 B per weight of
-// every live tile's expert (~4x the int4 tier's bytes) at 8 token rows
-// per tile, so it is bound by bytes even more plainly.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,26 +76,17 @@ namespace {
 
 using namespace qmma;
 
-// Scale rows per matrix a warp keeps in shared memory (none when DENSE).
-template <bool DENSE>
-__host__ __device__ __forceinline__ int scale_rows(int K, int group) {
-  return DENSE ? 0 : K / group;
-}
-
 // Shared memory: the activation tile (BM × (K + PAD) bf16), then per warp
 // its ring (NMAT × RING bytes) and its columns' scales (NMAT × K/group
 // rows of WN bf16).
-template <int NMAT, bool DENSE>
+template <int NMAT>
 size_t smem_bytes(int K, int group) {
   return (size_t)BM * (K + PAD) * sizeof(__nv_bfloat16) +
-         (size_t)NWARPS * NMAT *
-             (RING + (size_t)scale_rows<DENSE>(K, group) * WN * 2);
+         (size_t)NWARPS * NMAT * (RING + (size_t)(K / group) * WN * 2);
 }
 
-// NMAT = 2: gate/up with the SiLU·mul epilogue; NMAT = 1: down. DENSE:
-// every tile hi, slot = expert, h0/h1 the (E, K, N) bank; tile_slot, n_hi,
-// the lo codes and scales are not read (BITS unused).
-template <int NMAT, int BITS, bool DENSE>
+// NMAT = 2: gate/up with the SiLU·mul epilogue; NMAT = 1: down.
+template <int NMAT, int BITS>
 __global__ void __launch_bounds__(NTHREADS)
 ragged_ffn_kernel(const __nv_bfloat16* __restrict__ xs,
                   const int32_t* __restrict__ tile_eid,
@@ -128,12 +109,13 @@ ragged_ffn_kernel(const __nv_bfloat16* __restrict__ xs,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n0 = (blockIdx.x % n_cb) * BN + warp * WN;  // warp's columns
   const int e = tile_eid[t];
-  const int slot = DENSE ? e : tile_slot[t];
-  const bool is_hi = DENSE || (slot >= 0 && n_hi > 0 && h0 != nullptr);
+  const int slot = tile_slot[t];
+  const bool is_hi = slot >= 0 && n_hi > 0 && h0 != nullptr;
+  constexpr int EPB = 8 / BITS;
 
   const int ldx = K + PAD;
   __nv_bfloat16* xs_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int n_grp = scale_rows<DENSE>(K, group);
+  const int n_grp = K / group;
   unsigned char* ring = smem + (size_t)BM * ldx * sizeof(__nv_bfloat16) +
                         (size_t)warp * NMAT * (RING + n_grp * WN * 2);
   __nv_bfloat16* sc_s = reinterpret_cast<__nv_bfloat16*>(ring + NMAT * RING);
@@ -147,22 +129,24 @@ ragged_ffn_kernel(const __nv_bfloat16* __restrict__ xs,
     const int r = i / cpr, c = (i % cpr) * 8;
     cp_async16(xs_s + r * ldx + c, xt + (size_t)r * K + c);
   }
-  if constexpr (!DENSE) {
-    const size_t sc_stride = (size_t)n_grp * N;
-    if (!is_hi) {
-      for (int i = lane; i < NMAT * n_grp * 2; i += 32) {
-        const int m = i / (2 * n_grp), g = (i / 2) % n_grp, h = i & 1;
-        const __nv_bfloat16* src = (m ? s1 : s0) + (size_t)e * sc_stride +
-                                   (size_t)g * N + n0 + 8 * h;
-        cp_async16(sc_s + (m * n_grp + g) * WN + 8 * h, src);
-      }
+  const size_t sc_stride = (size_t)n_grp * N;
+  if (!is_hi) {
+    for (int i = lane; i < NMAT * n_grp * 2; i += 32) {
+      const int m = i / (2 * n_grp), g = (i / 2) % n_grp, h = i & 1;
+      const __nv_bfloat16* src = (m ? s1 : s0) + (size_t)e * sc_stride +
+                                 (size_t)g * N + n0 + 8 * h;
+      cp_async16(sc_s + (m * n_grp + g) * WN + 8 * h, src);
     }
   }
   cp_async_commit();
 
+  const size_t lo_stride = (size_t)(K / EPB) * N;
   const size_t hi_stride = (size_t)K * N;
   // Per-matrix weight pointers of this tile's expert (slot 1 unused when
   // NMAT == 1).
+  const uint8_t* const lp[2] = {p0 + (size_t)e * lo_stride,
+                                NMAT > 1 ? p1 + (size_t)e * lo_stride
+                                         : nullptr};
   const __nv_bfloat16* const hw[2] = {
       is_hi ? h0 + (size_t)slot * hi_stride : nullptr,
       (is_hi && NMAT > 1) ? h1 + (size_t)slot * hi_stride : nullptr};
@@ -172,22 +156,12 @@ ragged_ffn_kernel(const __nv_bfloat16* __restrict__ xs,
   for (int m = 0; m < NMAT; ++m)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[m][0][i] = 0.f;
-  if constexpr (DENSE) {
-    const uint8_t* const lp[2] = {nullptr, nullptr};
+  if (is_hi)
     tile_product<NMAT, BITS, true, 1>(acc, xs_s, ldx, ring, sc_s, lp, hw,
                                       K, N, n0, group, lane);
-  } else {
-    const size_t lo_stride = (size_t)(K / (8 / BITS)) * N;
-    const uint8_t* const lp[2] = {p0 + (size_t)e * lo_stride,
-                                  NMAT > 1 ? p1 + (size_t)e * lo_stride
-                                           : nullptr};
-    if (is_hi)
-      tile_product<NMAT, BITS, true, 1>(acc, xs_s, ldx, ring, sc_s, lp, hw,
-                                        K, N, n0, group, lane);
-    else
-      tile_product<NMAT, BITS, false, 1>(acc, xs_s, ldx, ring, sc_s, lp,
-                                         hw, K, N, n0, group, lane);
-  }
+  else
+    tile_product<NMAT, BITS, false, 1>(acc, xs_s, ldx, ring, sc_s, lp, hw,
+                                       K, N, n0, group, lane);
 
   // acc[m][0][i]: token 2·tid + (i & 1); M row gid + 8·(i >> 1), which is
   // column gid + 8·(i >> 1) on the hi tier, 2·gid + (i >> 1) on the lo tier.
@@ -209,13 +183,13 @@ ragged_ffn_kernel(const __nv_bfloat16* __restrict__ xs,
   }
 }
 
-template <int NMAT, int BITS, bool DENSE = false>
+template <int NMAT, int BITS>
 int launch(const void* xs, const void* tile_eid, const void* tile_slot,
            const void* n_tiles, const void* p0, const void* s0,
            const void* p1, const void* s1, const void* h0, const void* h1,
            void* out, int Tt, int K, int N, int n_hi, int group,
            cudaStream_t stream) {
-  auto kern = ragged_ffn_kernel<NMAT, BITS, DENSE>;
+  auto kern = ragged_ffn_kernel<NMAT, BITS>;
   static bool attr_set = false;            // once per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -223,7 +197,7 @@ int launch(const void* xs, const void* tile_eid, const void* tile_slot,
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  const size_t smem = smem_bytes<NMAT, DENSE>(K, group);
+  const size_t smem = smem_bytes<NMAT>(K, group);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   kern<<<Tt * (N / BN), NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(xs),
@@ -261,10 +235,6 @@ int dispatch_bits(int bits, const void* xs, const void* tile_eid,
   }
 }
 
-// The dense entries' instantiation: BITS is unused (16 names the bf16
-// bank), and the group they pass sizes nothing (no scale rows).
-constexpr int DENSE_BITS = 16;
-
 }  // namespace
 
 extern "C" {
@@ -294,33 +264,6 @@ int ragged_down(const void* h, const void* tile_eid, const void* tile_slot,
                           down_scales, nullptr, nullptr, hi_down, nullptr, y,
                           Tt, F, D, n_hi, group,
                           static_cast<cudaStream_t>(stream));
-}
-
-// The all-hi (dense bf16) mode. h (Tt·8, F) = bf16(silu(xs·W_gate[e])) ·
-// bf16(xs·W_up[e]) with e = tile_eid[t], from the (E, K, F) bf16 banks.
-// F a multiple of 64, K a multiple of 16.
-int ragged_dense_gateup(const void* xs, const void* tile_eid,
-                        const void* n_tiles, const void* w_gate,
-                        const void* w_up, void* h, int Tt, int K, int F,
-                        void* stream) {
-  if (Tt == 0) return 0;
-  if (F % BN != 0 || K % 16 != 0) return (int)cudaErrorInvalidValue;
-  return launch<2, DENSE_BITS, true>(
-      xs, tile_eid, nullptr, n_tiles, nullptr, nullptr, nullptr, nullptr,
-      w_gate, w_up, h, Tt, K, F, 0, 16, static_cast<cudaStream_t>(stream));
-}
-
-// y (Tt·8, D) = h · W_down[e] from the (E, F, D) bf16 bank; D a multiple
-// of 64, F a multiple of 16.
-int ragged_dense_down(const void* h, const void* tile_eid,
-                      const void* n_tiles, const void* w_down, void* y,
-                      int Tt, int F, int D, void* stream) {
-  if (Tt == 0) return 0;
-  if (D % BN != 0 || F % 16 != 0) return (int)cudaErrorInvalidValue;
-  return launch<1, DENSE_BITS, true>(
-      h, tile_eid, nullptr, n_tiles, nullptr, nullptr, nullptr, nullptr,
-      w_down, nullptr, y, Tt, F, D, 0, 16,
-      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

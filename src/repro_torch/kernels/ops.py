@@ -24,9 +24,15 @@ ragged FFN's two kernels read the per-tile maps ``tile_eid`` /
 ``tile_slot`` directly: the Pallas version's DMA hold maps (``_hold_last``)
 have no counterpart here. Their all-hi mode (``ragged_dense_ffn``: every
 tile on its expert's dense bf16 weights, for the fp16 and offload
-backends) is the same kernel with the lo tier compiled out; unlike the
-reference's ``ragged_dense_ffn_op`` it never falls back to the plain
-version on the card: a shape the kernel rejects raises.
+backends) is a kernel of its own (``csrc/ragged_dense_ffn.cu``): runs of
+up to ``DENSE_NT`` tiles of one expert share each weight read, a
+persistent grid walks (run, column block) items, and TMA loads fill a
+ring shared by the CTA, through tensor maps cached here by
+``tensor_map_key``. On the card it needs ``tile_eid`` non-decreasing over
+the live tiles, as the dispatch makes it (``dense_runs`` mirrors the
+kernel's runs). Unlike the reference's ``ragged_dense_ffn_op`` it never
+falls back to the plain version on the card: a shape the kernel rejects
+raises.
 """
 from __future__ import annotations
 
@@ -80,6 +86,42 @@ GEMM_WAVES = 2
 GEMM_CTA_SMEM = 60 * 1024
 #: The per-warp ring bytes of the GEMM kernels' layout (``qmma::RING``).
 _GEMM_RING = 4 * 512
+
+#: Most tiles per run of the all-hi kernels (compiled in: ``NT`` of
+#: ``csrc/ragged_dense_ffn.cu``): a run's rows share each weight read.
+DENSE_NT = 8
+#: Columns per TMA weight box of the all-hi kernels (compiled in): N must
+#: be a multiple.
+DENSE_BN = 64
+#: Each all-hi kernel's consumer warps per CTA (16 columns each, so a work
+#: item covers 16 × this many columns; compiled for 4 and 8) and ring
+#: slots (2 … 16), chosen by ``chip_smoke.py --only card,build,dense`` on
+#: the H100.
+DENSE_PLAN = {"ragged_dense_gateup": (4, 2), "ragged_dense_down": (8, 2)}
+#: Shared memory a CTA may have (``SMEM_MAX`` of the kernels).
+SMEM_MAX = 227 * 1024
+#: The all-hi kernels' TMA boxes, innermost dimension first: 64 K values ×
+#: 8 rows (one tile) of the activations; 64 columns × 64 K rows × one
+#: expert of a bank (compiled in).
+DENSE_X_BOX = (64, 8)
+DENSE_W_BOX = (64, 64, 1)
+#: Most experts the all-hi kernels take: each CTA keeps three ints per
+#: expert in shared memory beside its ring.
+DENSE_MAX_EXPERTS = 2048
+#: Tensor maps (128-byte buffers) by ``tensor_map_key``; cleared when it
+#: holds ``_TMAP_CAP`` of them.
+_TMAPS: Dict[tuple, ctypes.Array] = {}
+_TMAP_CAP = 256
+
+
+def dense_smem_bytes(nmat: int, warps: int, stages: int, E: int) -> int:
+    """Shared memory of one all-hi CTA (``smem_bytes`` of the kernels): 1 KB
+    of alignment slack, ``stages`` slots of ``warps / 4`` 8 KB weight boxes
+    per matrix and 8 tiles' 1 KB row boxes, 16 barrier pairs, and per
+    expert three ints (first tile, end tile, run offset) plus the scan's
+    17."""
+    slot = nmat * (warps // 4) * 8192 + DENSE_NT * 1024
+    return 1024 + stages * slot + 16 * 16 + 4 * (3 * E + 1 + 16)
 
 
 def reset_launches() -> None:
@@ -429,34 +471,158 @@ def _check_dense(x, tile_eid, n_tiles, weights, bm, name):
     return Tt, K, N
 
 
-def _dense_shape_rules(bm: int, K: int, N: int, *tensors) -> None:
-    """What the all-hi CUDA entries take beyond the plain versions: K whole
-    k16 mma steps, and the ragged kernels' rules (``_cuda_shape_rules``:
-    bm = 8, N a multiple of 64, 16-byte aligned operands)."""
+def _dense_shape_rules(bm: int, K: int, N: int, *tensors,
+                       E: int = 1) -> None:
+    """What the all-hi CUDA kernels take beyond the plain versions: bm = 8
+    token rows (the mma's N), N a multiple of the 64-column weight box, K
+    whole k16 mma steps, at most ``DENSE_MAX_EXPERTS`` experts, and
+    16-byte aligned operands (TMA's global addresses)."""
+    if bm != KERNEL_BM:
+        raise ValueError(f"the CUDA kernels are built for bm={KERNEL_BM}, "
+                         f"got {bm}")
+    if N % DENSE_BN:
+        raise ValueError(f"N={N} not a multiple of {DENSE_BN}")
     if K % 16:
         raise ValueError(f"K={K}: the dense CUDA kernels take a multiple of "
                          f"16 (whole k16 mma steps)")
-    _cuda_shape_rules(bm, N, 16, *tensors)
+    if E > DENSE_MAX_EXPERTS:
+        raise ValueError(f"E={E}: the dense CUDA kernels take at most "
+                         f"{DENSE_MAX_EXPERTS} experts")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the dense CUDA kernels load through TMA: "
+                         "activations and weights must start 16-byte "
+                         "aligned")
+
+
+def dense_runs(tile_eid: torch.Tensor, n_tiles: int,
+               cap: int = DENSE_NT) -> list:
+    """The all-hi kernels' runs in their order, in plain form: each
+    expert's segment of the live tiles ``[0, n_tiles)`` cut into runs of at
+    most ``cap`` tiles, as ``(expert, first tile, tiles)``, experts in
+    order. A work item is a run and a ``DENSE_BN``-column block (column
+    blocks fastest). Raises on a map that is not non-decreasing over the
+    live tiles (the kernel traps on one)."""
+    eid = tile_eid[:n_tiles].tolist()
+    if any(b < a for a, b in zip(eid, eid[1:])):
+        raise ValueError("tile_eid must be non-decreasing over the live "
+                         "tiles (sorted by expert, as ragged_tile_map "
+                         "makes it)")
+    runs, t = [], 0
+    while t < len(eid):
+        end = t
+        while end < len(eid) and eid[end] == eid[t]:
+            end += 1
+        runs += [(eid[t], t0, min(cap, end - t0))
+                 for t0 in range(t, end, cap)]
+        t = end
+    return runs
+
+
+def dense_grid(n_sm: int, per_sm: int, Tt: int, n_cb: int) -> int:
+    """The all-hi kernels' persistent grid: the CTAs that fit on the card
+    at once (``per_sm`` on each of ``n_sm``), but no more than the most
+    work items any routing of Tt tiles can give (Tt runs × ``n_cb`` column
+    blocks). A function of shapes only, so a captured graph replays any
+    routing."""
+    return max(1, min(n_sm * max(1, per_sm), Tt * n_cb))
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_occupancy(nmat: int, warps: int, stages: int, E: int,
+                     index: int) -> int:
+    from repro_torch.kernels import build
+    with torch.cuda.device(index):
+        n = build.library("ragged_dense_ffn").ragged_dense_occupancy(
+            nmat, warps, stages, E)
+    if n < 0:
+        build.check(-n, "ragged_dense_occupancy")
+    return n
+
+
+def tensor_map_key(t: torch.Tensor, box) -> tuple:
+    """What a TMA tensor map over ``t`` depends on: its device, address,
+    shape and strides, and the box (the dtype is always bf16). A
+    reallocated tensor gets a new map; a graph keeps the map it captured
+    (the kernel takes it by value)."""
+    return (t.device.index, t.data_ptr(), tuple(t.shape), tuple(t.stride()),
+            tuple(box))
+
+
+def tensor_map_geometry(t: torch.Tensor):
+    """A tensor's dimensions innermost first and the byte strides of its
+    outer dimensions, innermost first: the layout a tensor map takes."""
+    dims = tuple(reversed(t.shape))
+    strides = tuple(s * t.element_size() for s in reversed(t.stride()[:-1]))
+    return dims, strides
+
+
+def _tensor_map(t: torch.Tensor, box) -> int:
+    """The address of a cached tensor map over ``t`` with ``box``."""
+    key = tensor_map_key(t, box)
+    m = _TMAPS.get(key)
+    if m is None:
+        from repro_torch.kernels import build
+        if len(_TMAPS) >= _TMAP_CAP:
+            _TMAPS.clear()
+        dims, strides = tensor_map_geometry(t)
+        m = (ctypes.c_ubyte * 128)()
+        # Named, so the arrays outlive the call.
+        c_dims = (ctypes.c_longlong * 3)(*dims)
+        c_strides = (ctypes.c_longlong * 3)(*strides)
+        c_box = (ctypes.c_int * 3)(*box)
+        err = build.library("ragged_dense_ffn").ragged_dense_tensor_map(
+            ctypes.addressof(m), t.data_ptr(), len(dims),
+            ctypes.addressof(c_dims), ctypes.addressof(c_strides),
+            ctypes.addressof(c_box))
+        build.check(err, "ragged_dense_tensor_map")
+        _TMAPS[key] = m
+    return ctypes.addressof(m)
+
+
+def ragged_dense_launch(name: str, x, tile_eid, n_tiles, weights, *,
+                        grid: Optional[int] = None, cap: int = DENSE_NT,
+                        warps: Optional[int] = None,
+                        stages: Optional[int] = None) -> torch.Tensor:
+    """Allocate, launch one all-hi kernel (``name``: gate/up with two
+    weights, down with one), count. ``grid`` (CTAs; default
+    ``dense_grid``), ``cap`` (most tiles per run), ``warps`` (consumer
+    warps) and ``stages`` (ring slots; defaults ``DENSE_PLAN``) are there
+    for the kernels' sweep in ``chip_smoke.py``."""
+    from repro_torch.kernels import build
+    dev = x.device
+    Tt, K = tile_eid.shape[0], x.shape[1]
+    E, N = weights[0].shape[0], weights[0].shape[2]
+    out = torch.empty((x.shape[0], N), dtype=torch.bfloat16, device=dev)
+    if Tt == 0:
+        return out
+    warps = DENSE_PLAN[name][0] if warps is None else warps
+    stages = DENSE_PLAN[name][1] if stages is None else stages
+    if grid is None:
+        per_sm = _dense_occupancy(len(weights), warps, stages, E, dev.index)
+        grid = dense_grid(_sm_count(dev.index), per_sm, Tt,
+                          -(-N // (16 * warps)))
+    maps = [_tensor_map(x, DENSE_X_BOX)] + \
+        [_tensor_map(w, DENSE_W_BOX) for w in weights]
+    err = getattr(build.library("ragged_dense_ffn"), name)(
+        *maps, tile_eid.data_ptr(), n_tiles.data_ptr(), out.data_ptr(), Tt,
+        K, N, E, grid, cap, stages, warps, _stream(dev.index))
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def ragged_dense_gateup(xs, tile_eid, n_tiles, w_gate, w_up, *,
                         bm: int) -> torch.Tensor:
     """The all-hi mode's gate/up: h (R, F) = bf16(silu(xs·W_gate[e])) ·
     bf16(xs·W_up[e]) per row tile, e = ``tile_eid[t]``, from (E, K, F) bf16
-    banks. Rows of tiles ``t >= n_tiles`` are not written on the card."""
+    banks. Rows of tiles ``t >= n_tiles`` are not written on the card,
+    where ``tile_eid`` must be non-decreasing over the live tiles."""
     Tt, K, F = _check_dense(xs, tile_eid, n_tiles, (w_gate, w_up), bm, "xs")
     if xs.device.type == "cpu":
         return ref.ragged_dense_gateup_ref(xs, tile_eid, w_gate, w_up, bm=bm)
-    _dense_shape_rules(bm, K, F, xs, w_gate, w_up)
-    from repro_torch.kernels import build
-    h = torch.empty((Tt * bm, F), dtype=torch.bfloat16, device=xs.device)
-    err = build.library("ragged_ffn").ragged_dense_gateup(
-        xs.data_ptr(), tile_eid.data_ptr(), n_tiles.data_ptr(),
-        w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr(), Tt, K, F,
-        _stream())
-    build.check(err, "ragged_dense_gateup")
-    LAUNCHES["ragged_dense_gateup"] += 1
-    return h
+    _dense_shape_rules(bm, K, F, xs, w_gate, w_up, E=w_gate.shape[0])
+    return ragged_dense_launch("ragged_dense_gateup", xs, tile_eid, n_tiles,
+                               (w_gate, w_up))
 
 
 def ragged_dense_down(h, tile_eid, n_tiles, w_down, *,
@@ -466,15 +632,9 @@ def ragged_dense_down(h, tile_eid, n_tiles, w_down, *,
     Tt, F, D = _check_dense(h, tile_eid, n_tiles, (w_down,), bm, "h")
     if h.device.type == "cpu":
         return ref.ragged_dense_down_ref(h, tile_eid, w_down, bm=bm)
-    _dense_shape_rules(bm, F, D, h, w_down)
-    from repro_torch.kernels import build
-    y = torch.empty((Tt * bm, D), dtype=torch.bfloat16, device=h.device)
-    err = build.library("ragged_ffn").ragged_dense_down(
-        h.data_ptr(), tile_eid.data_ptr(), n_tiles.data_ptr(),
-        w_down.data_ptr(), y.data_ptr(), Tt, F, D, _stream())
-    build.check(err, "ragged_dense_down")
-    LAUNCHES["ragged_dense_down"] += 1
-    return y
+    _dense_shape_rules(bm, F, D, h, w_down, E=w_down.shape[0])
+    return ragged_dense_launch("ragged_dense_down", h, tile_eid, n_tiles,
+                               (w_down,))
 
 
 def ragged_dense_ffn(xs, tile_eid, n_tiles, bank: dict, *,

@@ -140,34 +140,73 @@ def test_ragged_kernels_without_live_tiles(cuda):
     assert ops.LAUNCHES["ragged_down"] == before["ragged_down"] + 1
 
 
+# The all-hi kernels' segments, in rows per expert: lengths that straddle
+# a run of NT = 8 tiles (64 rows) and the 64-row K slots (1, 8, 9, 64, 65,
+# 513: one hot expert of 9 runs), an expert with no rows, and a short last
+# segment; ``ragged_tile_map`` adds the tail tiles.
+DENSE_ROWS = [1, 8, 9, 64, 65, 0, 513, 3]
+
+
+def _dense_bank(E, K, F, D, seed):
+    gen = torch.Generator().manual_seed(seed)
+    bank = {n: (torch.randn((E,) + s, generator=gen) * s[0] ** -0.5)
+            .to(torch.bfloat16) for n, s in (("w_gate", (K, F)),
+                                            ("w_up", (K, F)),
+                                            ("w_down", (F, D)))}
+    return bank, gen
+
+
+def _dense_map(rows):
+    """The dispatch's tile map for these segment lengths (rows per
+    expert): (tile_eid, n_tiles) on the CPU."""
+    from repro_torch.models.moe import ragged_tile_map
+    counts = torch.tensor(rows, dtype=torch.int64)
+    _, te, n = ragged_tile_map(counts, BM, int(counts.sum()))
+    return te, n
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", ["small", "30b", "80b"])
 def test_ragged_dense_kernels_match_plain(cuda, width):
     """The all-hi (dense bf16) mode: every tile on its expert's weights of
-    an (E, K, N) bank, tail tiles left out; at the small test shape and at
-    the widths of Qwen3-30B-A3B (K = D = 2048, F = 768) and the flagship
-    (F = 512)."""
-    K, F, D = {"small": (256, 128, 256), "30b": (2048, 768, 2048),
+    an (E, K, N) bank, runs of up to 8 tiles over segments of 1 … 513
+    rows, an expert without rows, tail tiles left out; at the small test
+    shape (K = 80: a partial K slot) and at the widths of Qwen3-30B-A3B
+    (K = D = 2048, F = 768) and the flagship (F = 512). Also under forced
+    grids (one CTA, and one per run), runs of one and three tiles, rings of
+    two, three and six slots, and 4 and 8 consumer warps (items of 64 and
+    128 columns: D = 192 leaves a partial item)."""
+    K, F, D = {"small": (80, 128, 192), "30b": (2048, 768, 2048),
                "80b": (2048, 512, 2048)}[width]
-    gen = torch.Generator().manual_seed(K + F)
-    bank = {n: (torch.randn((4,) + s, generator=gen) * s[0] ** -0.5)
-            .to(torch.bfloat16) for n, s in (("w_gate", (K, F)),
-                                            ("w_up", (K, F)),
-                                            ("w_down", (F, D)))}
-    te = torch.tensor(TILE_EID, dtype=torch.int32)
-    n = torch.tensor([len(TILE_EID) - 2], dtype=torch.int32)
-    xs = torch.randn((len(TILE_EID) * BM, K), generator=gen) \
+    bank, gen = _dense_bank(len(DENSE_ROWS), K, F, D, K + F)
+    te, n = _dense_map(DENSE_ROWS)
+    xs = torch.randn((te.shape[0] * BM, K), generator=gen) \
         .to(torch.bfloat16)
     want = ops.ragged_dense_ffn(xs, te, n, bank, bm=BM)
     before = dict(ops.LAUNCHES)
-    got = ops.ragged_dense_ffn(xs.to(cuda), te.to(cuda), n.to(cuda),
-                               _to(bank, cuda), bm=BM).cpu()
-    _assert_ffn_close(got, want, int(n) * BM)
+    x, t, nd, bd = xs.to(cuda), te.to(cuda), n.to(cuda), _to(bank, cuda)
+    got = ops.ragged_dense_ffn(x, t, nd, bd, bm=BM).cpu()
+    rows = int(n) * BM
+    _assert_ffn_close(got, want, rows)
     assert ops.LAUNCHES["ragged_dense_gateup"] == \
         before["ragged_dense_gateup"] + 1
     assert ops.LAUNCHES["ragged_dense_down"] == \
         before["ragged_dense_down"] + 1
     assert ops.LAUNCHES["ragged_gateup"] == before["ragged_gateup"]
+    h = ops.ragged_dense_gateup(x, t, nd, bd["w_gate"], bd["w_up"], bm=BM)
+    n_runs = len(ops.dense_runs(te, int(n)))
+    for grid, cap, warps, stages in (
+            (1, ops.DENSE_NT, None, None), (n_runs, ops.DENSE_NT, None, None),
+            (None, 1, None, None), (None, 3, None, 2), (None, 8, 4, 6),
+            (None, 8, 8, 3), (None, 2, 8, 2)):
+        kw = dict(grid=grid, cap=cap, warps=warps, stages=stages)
+        h2 = ops.ragged_dense_launch("ragged_dense_gateup", x, t, nd,
+                                     (bd["w_gate"], bd["w_up"]), **kw)
+        y2 = ops.ragged_dense_launch("ragged_dense_down", h2, t, nd,
+                                     (bd["w_down"],), **kw)
+        # The same sums in the same order, whatever CTA takes an item.
+        assert torch.equal(h2[:rows], h[:rows]), kw
+        _assert_ffn_close(y2.cpu(), want, rows)
 
 
 @pytest.mark.cuda
@@ -181,6 +220,57 @@ def test_ragged_dense_kernels_reject_what_they_do_not_take(cuda):
     xs = torch.zeros((2 * BM, 256), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="multiple of 64"):
         ops.ragged_dense_ffn(xs, te, n, bank, bm=BM)
+    big = {n: torch.zeros((ops.DENSE_MAX_EXPERTS + 1, 64, 64),
+                          dtype=torch.bfloat16, device=cuda)
+           for n in ("w_gate", "w_up", "w_down")}
+    with pytest.raises(ValueError, match="at most"):
+        ops.ragged_dense_ffn(torch.zeros((2 * BM, 64), dtype=torch.bfloat16,
+                                         device=cuda), te, n, big, bm=BM)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.ragged_dense_ffn(torch.zeros((2 * BM * 64 + 1,),
+                                         dtype=torch.bfloat16,
+                                         device=cuda)[1:].view(2 * BM, 64),
+                             te, n, {k: v[:2] for k, v in big.items()},
+                             bm=BM)
+
+
+@pytest.mark.cuda
+def test_ragged_dense_kernels_replay_in_a_cuda_graph(cuda):
+    """Capture the all-hi FFN once, then rewrite tile_eid, n_tiles and the
+    activations in place and replay: the output follows the new routing
+    (the kernels read the map and n_tiles on the device, and the grid does
+    not depend on them)."""
+    E, K, F, D = 6, 256, 128, 256
+    bank, gen = _dense_bank(E, K, F, D, 21)
+    maps = [_dense_map(r) for r in ([3, 70, 0, 9, 1, 24],
+                                    [0, 0, 130, 0, 0, 2],
+                                    [8, 8, 8, 8, 8, 8],
+                                    [0, 0, 0, 0, 0, 1])]
+    Tt = max(te.shape[0] for te, _ in maps)
+    pad = [torch.cat([te, te[-1:].expand(Tt - te.shape[0])]) for te, _ in maps]
+    te_d = pad[0].to(cuda)
+    n_d = maps[0][1].to(cuda)
+    x_d = torch.randn((Tt * BM, K), generator=gen).to(torch.bfloat16).to(cuda)
+    bd = _to(bank, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.ragged_dense_ffn(x_d, te_d, n_d, bd, bm=BM)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = ops.ragged_dense_ffn(x_d, te_d, n_d, bd, bm=BM)
+    for te, (_, n) in zip(pad, maps):
+        xs = torch.randn((Tt * BM, K), generator=gen).to(torch.bfloat16)
+        te_d.copy_(te)
+        n_d.copy_(n)
+        x_d.copy_(xs)
+        before = dict(ops.LAUNCHES)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == before    # a replay calls no wrapper
+        want = ops.ragged_dense_ffn(xs, te, n, bank, bm=BM)
+        _assert_ffn_close(y.cpu(), want, int(n) * BM)
 
 
 @pytest.mark.cuda

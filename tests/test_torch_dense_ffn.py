@@ -230,3 +230,76 @@ def test_dense_bank_matches_reference_moe_apply(model, dispatch, capacity):
                                   at.row_counts.numpy())
     assert float(aj.dropped) == float(at.dropped)
     _bf16_close(yt.float().numpy(), yj)
+
+
+@pytest.mark.parametrize("rows", [[1, 8, 9, 64, 65, 0, 513, 3],
+                                  [0, 0, 7], [64] * 4, [1]])
+def test_dense_runs_cover_the_live_tiles(rows):
+    """The all-hi kernels' runs (``ops.dense_runs``, the kernel's run list
+    in plain form) over the dispatch's tile map: every live tile in
+    exactly one run, a run is one expert's consecutive tiles, at most
+    ``DENSE_NT`` of them, in tile order; ceil(tiles / NT) runs per
+    expert."""
+    counts = torch.tensor(rows, dtype=torch.int64)
+    _, te, n = tmoe.ragged_tile_map(counts, BM, int(counts.sum()))
+    n = int(n)
+    for cap in (ops.DENSE_NT, 3, 1):
+        runs = ops.dense_runs(te, n, cap)
+        covered = [t0 + i for _, t0, nt in runs for i in range(nt)]
+        assert covered == list(range(n))
+        assert all(1 <= nt <= cap for _, _, nt in runs)
+        assert all(int(te[t0 + i]) == e for e, t0, nt in runs
+                   for i in range(nt))
+        tiles = [-(-r // BM) for r in rows]
+        assert len(runs) == sum(-(-t // cap) for t in tiles)
+
+
+def test_dense_runs_reject_an_unsorted_map():
+    """The kernel needs each expert's tiles in one segment; the plain
+    versions do not, so the order is checked where runs are formed."""
+    te = torch.tensor(TILE_EID, dtype=torch.int32)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        ops.dense_runs(te, N_LIVE)
+    # Tail tiles are not looked at.
+    assert ops.dense_runs(torch.tensor([0, 2, 2, 1], dtype=torch.int32),
+                          3) == [(0, 0, 1), (2, 1, 2)]
+
+
+def test_dense_grid_is_persistent_and_static():
+    """One wave of CTAs (per SM × SMs), never more than the items any
+    routing of Tt tiles gives, at least one; shapes only."""
+    assert ops.dense_grid(132, 1, 73, 12) == 132
+    assert ops.dense_grid(132, 1, 641, 32) == 132
+    assert ops.dense_grid(132, 2, 3, 12) == 36
+    assert ops.dense_grid(132, 0, 5, 1) == 5
+    assert ops.dense_grid(132, 1, 0, 12) == 1
+
+
+def test_tensor_map_key_and_geometry():
+    """A tensor map's cache key changes with the address, shape and strides
+    (so a reallocated bank or another view gets its own map) and the box;
+    the geometry is the tensor's dims and byte strides innermost first."""
+    w = torch.zeros((4, 256, 128), dtype=torch.bfloat16)
+    assert ops.tensor_map_geometry(w) == ((128, 256, 4), (256, 65536))
+    x = torch.zeros((24, 80), dtype=torch.bfloat16)
+    assert ops.tensor_map_geometry(x) == ((80, 24), (160,))
+    key = ops.tensor_map_key(w, ops.DENSE_W_BOX)
+    assert key == ops.tensor_map_key(w, ops.DENSE_W_BOX)
+    assert key != ops.tensor_map_key(w.clone(), ops.DENSE_W_BOX)
+    assert key != ops.tensor_map_key(w[:2], ops.DENSE_W_BOX)
+    assert key != ops.tensor_map_key(w.view(4, 128, 256), ops.DENSE_W_BOX)
+    assert key != ops.tensor_map_key(w, ops.DENSE_X_BOX)
+
+
+def test_dense_plans_fit_in_shared_memory():
+    """Each all-hi kernel's plan (consumer warps, ring slots) fits a CTA's
+    shared memory at the most experts the wrappers take; the byte count is
+    the kernels' layout (a gate/up slot of 8 warps: two matrices × two
+    8 KB boxes, then 8 KB of rows)."""
+    assert ops.dense_smem_bytes(2, 8, 4, 128) == \
+        1024 + 4 * (2 * 2 * 8192 + 8 * 1024) + 256 + 4 * (3 * 128 + 17)
+    for name, (warps, stages) in ops.DENSE_PLAN.items():
+        nmat = 2 if name == "ragged_dense_gateup" else 1
+        assert warps in (4, 8) and 2 <= stages <= 16
+        assert ops.dense_smem_bytes(nmat, warps, stages,
+                                    ops.DENSE_MAX_EXPERTS) <= ops.SMEM_MAX
