@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only card,build,kernels
     python3 chip_smoke.py --only card,build,kernels,serving
+    python3 chip_smoke.py --only card,build,model,requests
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -47,6 +48,13 @@ Phases (each prints one line; any failure exits non-zero):
               for the paged/ragged and the dense/padded path; then padded
               against ragged dispatch on the card; then 1 full-width layer
               of the flagship (its shared expert, int2 lo) on paged/ragged;
+              then the suffix prefill over cached blocks (2 layers,
+              drop-free): a 96-token prompt whole, and its first 64 tokens
+              then the last 32 with ``has_prefix``, pool K/V per layer and
+              row and the logits against the CPU and split against whole
+              on the card, and a 768-token prompt whole against three
+              256-token chunks on the card, wherever every expert they
+              depend on agrees;
 5. serving  — the 8-layer full-width model served by ``static`` and
               ``dynaexq`` (8 requests, 64–256-token prompts, 32 new tokens)
               on each path: paged KV with ragged dispatch, and dense KV rows
@@ -74,6 +82,24 @@ Phases (each prints one line; any failure exits non-zero):
               dynaexq's device bytes) in turns, graphed: tokens/s (the
               modeled stall counted), TPOT, TTFT, stall, hits and misses,
               ``device_bytes()``;
+   requests — the request front on the main path (8 full-width layers,
+              8 slots, max_len 1024): 24 requests x 32 tokens through
+              ``replay(realtime=False)`` — 12 standard sharing a
+              160-token prefix, 8 batch of 64-256 tokens, 4 premium of 768
+              tokens arriving last, 4 of them sampled — served by
+              ``static`` with prefix sharing, chunked prefill (256) and
+              preemption on, again with all three off fed the first
+              run's tokens (per position: another token only where the
+              flip is rounding-sized, greedy and sampled; the share of
+              positions that would pass one reported and bounded), every
+              run drop-free, by ``dynaexq`` (promotions while
+              the batch tier decodes on the all-lo view through the second
+              graph), ``static`` eager (tokens and launches identical to
+              the graphed run) and once on the wall clock
+              (``realtime=True``, uninstrumented): prefill tokens computed
+              against submitted, prefill ms whole and over a
+              cached prefix, ms per replay of each graph, TPOT, TTFT per
+              tier, the counters, pool invariants after every run;
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -88,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -1021,6 +1048,7 @@ def _kernels_dense_ffn(dev, tol) -> None:
     bad = [k for k, c in cases.items() if not c["ok"]]
     if bad:
         raise AssertionError(f"ragged dense FFN kernels disagree: {bad}")
+    _dense_routes(dev, tol)
     d = cases["30b_decode"]
     for kname, key in (("ragged_dense_gateup", "gateup"),
                        ("ragged_dense_down", "down")):
@@ -1041,6 +1069,75 @@ def _kernels_dense_ffn(dev, tol) -> None:
                            **{k: v for k, v in c[key].items()
                               if k != "graph_runs"})
                       for c in cases.values()]}
+
+
+def _dense_routes(dev, tol) -> None:
+    """The all-hi wrappers' route (``ops.dense_route``, decided from shapes
+    before any launch): every registered config at full width takes the
+    kernel on its operands as they are; a shape the kernels cannot tile as
+    it is (N = 96, then K = 200) and a misaligned operand go to the kernel
+    as zero-padded aligned copies, equal to the kernel on operands padded
+    by hand and to the plain version within ``tol``. The counters are
+    zeroed again before the main paths run."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels import ops, ref
+    routes = {}
+    for name in ARCH_IDS:
+        c = get_config(name)
+        d, f, E = c.d_model, c.moe.d_ff_expert, c.moe.num_experts
+        x = torch.zeros((8, max(d, f)), dtype=torch.bfloat16, device=dev)
+        routes[name] = (ops.dense_route(8, d, f, E, x),
+                        ops.dense_route(8, f, d, E, x))
+    if any(r != ("kernel", "kernel") for r in routes.values()):
+        raise AssertionError(f"all-hi routes {routes}")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    te = torch.tensor([0, 1, 1], dtype=torch.int32, device=dev)
+    nt = torch.tensor([3], dtype=torch.int32, device=dev)
+    pad = torch.nn.functional.pad
+    errs = {}
+    for K, N in ((256, 96), (200, 128)):
+        x = torch.randn((24, K), generator=gen, device=dev).bfloat16()
+        w = torch.randn((2, K, N), generator=gen, device=dev).bfloat16() * .1
+        Kp, Np = -(-K // 16) * 16, -(-N // 64) * 64
+        ops.reset_launches()
+        got = ops.ragged_dense_gateup(x, te, nt, w, w, bm=8)
+        route, launches = ops.dense_route(8, K, N, 2, x, w), \
+            ops.LAUNCHES["ragged_dense_gateup"]
+        byhand = ops.ragged_dense_launch(
+            "ragged_dense_gateup", pad(x, (0, Kp - K)), te, nt,
+            (pad(w, (0, Np - N, 0, Kp - K)),) * 2)[:, :N]
+        want = ref.ragged_dense_gateup_ref(x, te, w, w, bm=8).float()
+        err = float((got.float() - want).abs().max())
+        errs[(K, N)] = err
+        if route != "copy" or launches != 1 or \
+                not torch.equal(got, byhand) or \
+                err > tol * float(want.abs().max()):
+            raise AssertionError(f"K, N = {K}, {N}: route {route}, "
+                                 f"launches {launches}, equal to the "
+                                 f"padded call {torch.equal(got, byhand)}, "
+                                 f"max |err| {err}")
+    wa = torch.randn((2, 256, 128), generator=gen, device=dev).bfloat16()
+    x = torch.randn((24, 256), generator=gen, device=dev).bfloat16()
+    xm = torch.zeros(24 * 256 + 1, dtype=torch.bfloat16, device=dev)[1:] \
+        .view(24, 256)
+    xm.copy_(x)
+    route = ops.dense_route(8, 256, 128, 2, xm, wa)
+    ops.reset_launches()
+    got = ops.ragged_dense_gateup(xm, te, nt, wa, wa, bm=8)
+    want = ops.ragged_dense_gateup(x, te, nt, wa, wa, bm=8)
+    torch.cuda.synchronize()
+    if route != "copy" or ops.LAUNCHES["ragged_dense_gateup"] != 2 or \
+            not torch.equal(got[:24], want[:24]):
+        raise AssertionError(f"misaligned x: route {route}, launches "
+                             f"{ops.LAUNCHES}")
+    ops.reset_launches()
+    log("kernels", f"all-hi routes (decided before launch): every "
+                   f"registered config takes the kernel on its operands "
+                   f"{routes}; (K, N) = (256, 96) and (200, 128) and a "
+                   f"misaligned x took the kernel on zero-padded aligned "
+                   f"copies (equal to the kernel on operands padded by "
+                   f"hand; max |err| against the plain version {errs}, tol "
+                   f"{tol} of the largest output)")
 
 
 def phase_kernels() -> None:
@@ -1611,6 +1708,94 @@ def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
     return report
 
 
+#: The suffix-prefill cases: (prompt tokens, where it is cut, whether the
+#: CPU runs it too). 96 = 64 + 32 (a trie hit of 4 blocks); 768 = 3 x 256
+#: (the requests phase's chunked premium prompts), on the card alone.
+PREFIX_CASES = ((96, (64,), True), (768, (256, 512), False))
+
+
+def run_prefix_check(cfg, dev_ref, dev, cases=PREFIX_CASES, bt=16, seed=9,
+                     lo_bits=4, n_hi=None, bank_device="cpu"):
+    """Same seeded weights and bank on ``dev_ref`` and ``dev``: for each
+    of ``cases`` an S-token prompt prefilled whole into blocks 1.., and
+    separately in pieces cut at ``cuts`` into other blocks, each piece
+    after the first a suffix with ``has_prefix`` over the blocks before it
+    (the engine's route for a trie hit and for a chunk); the bank quantized
+    on ``bank_device``, every MoE layer drop-free (capacity over every
+    token), so the routes differ only by rounding. Returns per device and
+    S {"whole", "split"}: (logits (1, V), K and V of the S positions (nsb,
+    S, Hkv, hd), each position's experts per layer, sorted (nsb, S,
+    top_k)) on the CPU."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.models.model import (init_paged_caches, init_params,
+                                          prefill_paged)
+    gen = torch.Generator().manual_seed(seed)
+    params = init_params(cfg, device="cpu", generator=gen)
+    experts = params["blocks"]["0"]["moe"].pop("experts")
+    if n_hi is None:
+        n_hi = 16 if cfg.moe.num_experts >= 64 else 2
+    bank = _bank_with_hi({k: v.to(bank_device) for k, v in experts.items()},
+                         n_hi, gen, lo_bits=lo_bits)
+    del experts
+    prompts = {S: torch.randint(0, cfg.vocab_size, (1, S), generator=gen)
+               for S, _, _ in cases}
+    seen, route = [], moe_mod.route
+
+    def route_seen(*a, **k):
+        out = route(*a, **k)
+        seen.append(out[1].sort(dim=-1).values.cpu())
+        return out
+
+    def experts_of(n_calls):
+        L = cfg.n_layers
+        got = seen[-n_calls * L:]
+        return torch.cat([torch.stack(got[c * L:(c + 1) * L])
+                          for c in range(n_calls)], dim=1)
+
+    out = {}
+    moe_mod.route = route_seen
+    try:
+        for d in (dev_ref, dev):
+            key = d.type if isinstance(d, torch.device) else str(d)
+            prm, bk = _to(params, d), {"0": bank.to(d)}
+            kw = dict(bank=bk, per_row_counts=True, moe_dispatch="ragged",
+                      capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+            t = lambda x, d=d: torch.as_tensor(x).to(d)
+            for S, cuts, both in cases:
+                if d is dev_ref and not both:
+                    continue
+                toks, nb = prompts[S], -(-S // bt)
+                whole = torch.arange(1, 1 + nb, dtype=torch.int32)[None]
+                split = whole + nb
+                caches = init_paged_caches(cfg, 1 + 2 * nb, bt, device=d)
+
+                def kv(table, S=S, caches=caches):
+                    blk = table[0].long().to(d)
+                    c = caches["0"]
+                    k = c.k[:, blk].permute(0, 1, 3, 2, 4).reshape(
+                        c.k.shape[0], -1, c.k.shape[2], c.k.shape[4])[:, :S]
+                    v = c.v[:, blk].permute(0, 1, 3, 2, 4).reshape(
+                        c.v.shape[0], -1, c.v.shape[2], c.v.shape[4])[:, :S]
+                    return k.float().cpu(), v.float().cpu()
+
+                lw, _ = prefill_paged(prm, cfg, t(toks), caches, t(whole),
+                                      t([0]), t([S]), **kw)
+                ew = experts_of(1)
+                edges = (0,) + tuple(cuts) + (S,)
+                for c0, c1 in zip(edges, edges[1:]):
+                    ls, _ = prefill_paged(prm, cfg, t(toks[:, c0:c1]),
+                                          caches, t(split), t([c0]),
+                                          t([c1]), has_prefix=c0 > 0, **kw)
+                es = experts_of(len(edges) - 1)
+                out.setdefault(key, {})[S] = {
+                    "whole": (lw.float().cpu(),) + kv(whole) + (ew,),
+                    "split": (ls.float().cpu(),) + kv(split) + (es,)}
+                del caches
+    finally:
+        moe_mod.route = route
+    return out
+
+
 # Logits of the same weights on the CPU (plain versions, oneDNN GEMMs) and
 # on the card (the kernels, cuBLAS GEMMs): float32 accumulation in other
 # orders and bf16 roundings that flip in other places leave the hidden
@@ -1670,6 +1855,87 @@ def phase_model() -> None:
         if e_same > MODEL_TOL or e_all > MODEL_TOL_SWAP or \
                 same < B * len(report) // 2:
             raise AssertionError(f"logits disagree: {cfg.name} {what}")
+    _model_prefix(dataclasses.replace(get_config(ARCH),
+                                      n_layers=CHECK_LAYERS), card)
+
+
+def routed_alike(ea, eb):
+    """Which compared values two runs of one prompt computed from the same
+    experts: ``ea``, ``eb`` each position's experts per layer (L, S, k).
+    Returns (clean (L + 1, S) bool: row i of layer l's input, i.e. its K/V
+    for l < L and its logits for l = L, depends only on experts that agree
+    in both runs, the layer of the first expert difference (None)). The
+    input of layer l at row i is fixed by row i's experts in layers < l and,
+    through attention over rows j <= i, by theirs in layers < l - 1."""
+    same = (ea == eb).all(dim=-1)                          # (L, S)
+    L, S = same.shape
+    clean = torch.ones((L + 1, S), dtype=torch.bool)
+    for l in range(1, L + 1):
+        clean[l] = same[:l].all(dim=0)
+        if l > 1:
+            clean[l] &= same[:l - 1].all(dim=0).cumprod(0).bool()
+    bad = (~same).any(dim=1).nonzero()
+    return clean, (int(bad[0]) if len(bad) else None)
+
+
+def _model_prefix(cfg, card) -> None:
+    """The suffix prefill over cached prefix blocks on the card against
+    the plain CPU path, drop-free (``PREFIX_CASES``): a 96-token prompt
+    whole, and as 64 + a 32-token suffix with ``has_prefix``, on the CPU
+    and the card, split against whole on the card; and a 768-token prompt
+    whole and as three 256-token chunks, split against whole on the card.
+    Each pair compares K/V per layer and row, and the logits, to MODEL_TOL
+    wherever the value depends only on experts that both runs chose alike
+    (``routed_alike``); at least half the rows of the deepest layer, and
+    half of those past the first cut, must be held so."""
+    t0 = time.perf_counter()
+    res = run_prefix_check(cfg, torch.device("cpu"), card, bank_device=card)
+    cpu, dev = res["cpu"], res["cuda"]
+    pairs = []
+    for S, cuts, both in PREFIX_CASES:
+        if both:
+            pairs += [(f"{S} whole, CPU vs card", S, cuts,
+                       cpu[S]["whole"], dev[S]["whole"]),
+                      (f"{S} split, CPU vs card", S, cuts,
+                       cpu[S]["split"], dev[S]["split"])]
+        pairs.append((f"{S} on the card, whole vs split", S, cuts,
+                      dev[S]["whole"], dev[S]["split"]))
+    parts, bad = [], []
+    for what, S, cuts, (lr, kr, vr, er), (lk, kk, vk, ek) in pairs:
+        if not torch.isfinite(lk).all():
+            raise AssertionError(f"{what}: non-finite logits")
+        clean, first = routed_alike(er, ek)
+        L = kr.shape[0]
+        dkv = torch.maximum((kk - kr).abs().amax(dim=(2, 3)),
+                            (vk - vr).abs().amax(dim=(2, 3)))    # (L, S)
+        held = [float(dkv[l][clean[l]].max()) if clean[l].any() else None
+                for l in range(L)]
+        free = [float(dkv[l][~clean[l]].max()) if (~clean[l]).any()
+                else None for l in range(L)]
+        dl = float((lk - lr).abs().max())
+        logits_held = bool(clean[L, S - 1])
+        rows = [int(clean[l].sum()) for l in range(L)]
+        past = int(clean[L - 1, cuts[0]:].sum())
+        parts.append(f"{what}: first expert difference at layer {first}; "
+                     f"rows held per layer {rows} of {S} ({past} of "
+                     f"{S - cuts[0]} past the first cut at layer {L - 1}), "
+                     f"max |dK|,|dV| on them {held}, on the rest {free}; "
+                     f"max |dlogit| {dl:.4f} "
+                     f"({'held' if logits_held else 'not held'})")
+        if any(h is not None and h > MODEL_TOL for h in held) or \
+                (logits_held and dl > MODEL_TOL) or \
+                rows[-1] < S // 2 or past < (S - cuts[0]) // 2:
+            bad.append(what)
+    log("model", f"{cfg.name} at full width, {cfg.n_layers} layers, "
+                 f"suffix prefill over cached blocks, drop-free, cases "
+                 f"(tokens, cuts, on the CPU too) {PREFIX_CASES}; values "
+                 f"held to MODEL_TOL {MODEL_TOL} where every expert they "
+                 f"depend on agrees; {'; '.join(parts)} | "
+                 f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"prefix routes {bad}: K/V or logits disagree "
+                             f"where routed alike, or too few rows routed "
+                             f"alike")
 
 
 # ---------------------------------------------------------------------------
@@ -2230,6 +2496,550 @@ def _serve_flagship(card: str) -> list:
 
 
 # ---------------------------------------------------------------------------
+# 5b. requests: the request front on the main path
+# ---------------------------------------------------------------------------
+
+#: All on against all off: the second run is fed the first run's tokens
+#: (teacher forcing), so both read the same tokens at every position and
+#: differ only by rounding (a prefix hit, a chunk or a resume computes the
+#: same K/V in other shapes). Rounding changes a token's experts only as a
+#: router near tie does: at the first layer where they differ, one expert
+#: swapped for another. The swap moves that token's later layers, and so
+#: its K/V there, by up to O(1) (the model phase's MODEL_TOL_SWAP case):
+#: a later token may then differ first at a deeper layer in any way. Every
+#: difference in experts between the runs must be one of the two
+#: (``routing_explained``). A position is held where no token it reads
+#: (its context and itself) took other experts, as the model phase holds
+#: a row; there, another token is allowed only where the flip is
+#: rounding-sized: the two runs' logits of the tokens in play (greedy: the
+#: two chosen; sampled: every token the first run could draw) differ by at
+#: most FLIP_STEPS steps of bf16 (the logits' type) at the top logit's
+#: magnitude (MODEL_TOL is 8 steps at logits of 4-8). At least MIN_HELD of
+#: the positions must be held, and per request the median |logit|
+#: difference of the first run's token must stay within MODEL_TOL. A wrong
+#: prefix or chunk makes its request's tokens read other K/V: experts that
+#: differ by more than one at their first layer, or flips of tens of steps
+#: where they agree. A resume must read every lane back bit for bit
+#: (``_watch``): a few lost lanes move the tokens that read them as little
+#: as a near tie does.
+FLIP_STEPS = 3
+MIN_HELD = 1 / 2
+#: The logit rule says little when near ties are common: it fails when more
+#: than this share of the held greedy positions would pass a flip on it
+#: (the two runs' top-2 gaps, the least change a flip needs, add up to
+#: FLIP_STEPS at most).
+MAX_TIE_SHARE = 1 / 2
+#: Logits recorded per emitted position (top-k): room for a sampled
+#: position's tokens in play to move in rank.
+TOP_K_SEEN = 256
+#: One virtual step of ``replay(realtime=False)`` (its default).
+REQ_STEP_S = 2e-3
+REQ_SLOTS = 8
+REQ_MAX_LEN = 1024
+REQ_NEW = 32
+
+
+def request_stream(vocab, seed=0):
+    """The requests phase's stream, timed in virtual steps of
+    ``REQ_STEP_S``: 12 standard requests, one per step from step 0, each a
+    shared 160-token system prompt (10 blocks) and 40-120 tokens of its
+    own; then 8 batch requests of 64-256 tokens, one per step; then, at
+    step 50 and every 6 steps after it (while batch rows hold the slots,
+    each alone through its 3 chunks), 4 premium requests with 768-token
+    prompts. Four sample (temperature 0.8, top-k 50, top-p 0.9, seeds
+    1-4): standard 0 and 6, batch 3, premium 1; the rest are greedy."""
+    from repro_torch.serving.requests import Request, make_prompts
+    from repro_torch.serving.sampler import SamplingParams
+    rng = np.random.default_rng(seed)
+    system = make_prompts("text", vocab, 1, 160, seed=seed + 1)[0]
+    sampled = {("standard", 0): 1, ("standard", 6): 2, ("batch", 3): 3,
+               ("premium", 1): 4}
+    out = []
+
+    def add(qos, j, toks, step):
+        sp = sampled.get((qos, j))
+        out.append(Request(
+            tokens=toks, max_new_tokens=REQ_NEW, qos=qos,
+            arrival_s=(step - 0.5) * REQ_STEP_S if step else 0.0,
+            sampling=None if sp is None else SamplingParams(
+                temperature=0.8, top_k=50, top_p=0.9, seed=sp)))
+
+    for j in range(12):
+        n = int(rng.integers(40, 121))
+        add("standard", j, np.concatenate([system, make_prompts(
+            "code", vocab, 1, n, seed=seed + 100 + j)[0]]), j)
+    for j in range(8):
+        n = int(rng.integers(64, 257))
+        add("batch", j, make_prompts("math", vocab, 1, n,
+                                     seed=seed + 200 + j)[0], 12 + j)
+    for j in range(4):
+        add("premium", j, make_prompts("text", vocab, 1, 768,
+                                       seed=seed + 300 + j)[0], 50 + 6 * j)
+    return out
+
+
+def bf16_step(v: float) -> float:
+    """The spacing of bf16 values at magnitude ``|v|``."""
+    return 2.0 ** (math.floor(math.log2(abs(v))) - 7) if v else 2.0 ** -133
+
+
+def _watch(engine, eng_mod, rec, force=None):
+    """Instrument one engine for the requests phase: every prefill forward
+    timed (CUDA-synchronised perf_counter; whole or with a prefix, its
+    computed tokens); every emitted position's top ``TOP_K_SEEN`` logits
+    and token ids, the token the engine chose, the position of the token
+    it was emitted from and, sampled, the tokens it could draw (vocabulary
+    order), under ``rec["pos"][request id][index]``; every token's experts
+    in every layer as the forward that wrote its K/V took them, under
+    ``rec["experts"][request id][position]`` (a trie hit's as the request
+    that wrote the shared blocks); after every resume, whether the pool
+    holds every lane of the request's snapshot bit for bit
+    (``rec["resumed"]``); every forward's logits held finite.
+    With ``force`` ({id(request): tokens}), each emitted token is then
+    replaced by the forced one, which the next step reads. This costs
+    device syncs and host copies on every step: wall-clock runs go
+    unwatched. Returns the function that removes the wrappers."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.serving.sampler import sampling_probs
+    entry, route = eng_mod.prefill_paged, moe_mod.route
+    submit, resume = engine.submit, engine._resume_paged
+    first, decode = engine._first_token, engine._decode_one
+    bt, handles, last = engine.ecfg.block_tokens, [], {}
+    at_block = {}           # (block, offset) -> experts of the K/V there
+    sync = engine.device.type == "cuda"
+
+    def wrote(h, p, blk, experts):
+        rec["experts"].setdefault(h.id, {})[p] = experts
+        at_block[(int(blk), p % bt)] = experts
+
+    def note(h, t, row, slot, end):
+        top = torch.topk(row, TOP_K_SEEN)
+        r = rec["pos"].setdefault(h.id, {})[t] = {
+            "v": top.values.float().tolist(), "ids": top.indices.tolist(),
+            "own": h.tokens[t], "end": end}
+        if not h.sampler.greedy:
+            r["nucleus"] = np.flatnonzero(sampling_probs(
+                row.float().cpu().numpy(), h.sampler.sp)).tolist()
+        if force is not None:
+            h.tokens[t] = force[id(h.request)][t]
+            engine.tokens[slot] = h.tokens[t]
+
+    def submit_watched(req):
+        h = submit(req)
+        handles.append(h)
+        return h
+
+    def prefill_watched(*a, **k):
+        seen = []
+
+        def route_seen(*ra, **rk):
+            got = route(*ra, **rk)
+            seen.append(got[1])
+            return got
+
+        if sync:
+            torch.cuda.synchronize()
+        moe_mod.route = route_seen
+        t0 = time.perf_counter()
+        try:
+            out = entry(*a, **k)
+        finally:
+            moe_mod.route = route
+        if sync:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        R, S = a[2].shape
+        ex = torch.stack([i.sort(dim=-1).values for i in seen], 1) \
+            .view(R, S, len(seen), -1).cpu().numpy()
+        tables = a[4].cpu().numpy()
+        starts, lengths = a[5].tolist(), a[6].tolist()
+        for r in range(R):
+            if lengths[r] <= starts[r]:
+                continue
+            h = next(h for h in handles if h.lease is not None and
+                     np.array_equal(h.lease.table, tables[r]))
+            mine = rec["experts"].setdefault(h.id, {})
+            for p in range(starts[r]):
+                if p not in mine:
+                    mine[p] = at_block[(int(tables[r][p // bt]), p % bt)]
+            for p in range(starts[r], lengths[r]):
+                wrote(h, p, tables[r][p // bt],
+                      tuple(map(tuple, ex[r, p - starts[r]])))
+        last["ends"] = [n - 1 for n in lengths]
+        rec["prefill"].append((bool(k.get("has_prefix")),
+                               int((a[6] - a[5]).sum()), ms))
+        rec["finite"].append(bool(torch.isfinite(out[0]).all()))
+        last["logits"] = out[0]
+        return out
+
+    def resume_watched(h, slot):
+        snap = h._snapshot
+        ok = resume(h, slot)
+        if ok:
+            # The lanes read back bit for bit, restored or adopted; they
+            # keep their experts.
+            span = np.arange(snap.pos)
+            got = engine._gather_lanes(h.lease.table[span // bt], span % bt)
+            rec["resumed"].append(all(
+                torch.equal(got[k][i], snap.attn_lanes[k][i])
+                for k in got for i in (0, 1)))
+            for p, e in rec["experts"][h.id].items():
+                if p // bt < len(h.lease.table):
+                    at_block[(int(h.lease.table[p // bt]), p % bt)] = e
+        return ok
+
+    def first_token(h, slot, plen, r, *a):
+        first(h, slot, plen, r, *a)
+        note(h, 0, last["logits"][r], slot, last["ends"][r])
+
+    def decode_one(active, finished, lo=False):
+        at = [(i, h, len(h.tokens), int(engine.pos[i])) for i, h in active]
+        decode(active, finished, lo)
+        rec["finite"].append(bool(torch.isfinite(engine.last_logits).all()))
+        counts = engine.last_row_counts
+        wblk = engine.decode_graph.inputs.host["wblk"]
+        for i, h, t, p in at:
+            wrote(h, p, wblk[i], tuple(
+                tuple(np.flatnonzero(layer).tolist())
+                for k in sorted(counts) for layer in counts[k][:, i]))
+            note(h, t, engine.last_logits[i], i, p)
+
+    eng_mod.prefill_paged = prefill_watched
+    engine.submit, engine._resume_paged = submit_watched, resume_watched
+    engine._first_token, engine._decode_one = first_token, decode_one
+
+    def restore():
+        eng_mod.prefill_paged = entry
+        for name in ("submit", "_resume_paged", "_first_token",
+                     "_decode_one"):
+            delattr(engine, name)
+    return restore
+
+
+def run_requests(cfg, device, params, stream, *, backend, backend_kw,
+                 chunk=256, sharing=True, preemption=True, realtime=False,
+                 eager=False, watch=True, force=None):
+    """``stream`` through ``replay`` on a fresh engine over ``params`` on
+    the main path: paged KV, ragged dispatch, decode graphed on the card
+    (op by op under ``engine.eager()`` with ``eager``), every MoE layer
+    drop-free (capacity over every token: which tokens an expert drops
+    depends on the batch, so runs of other batches would compute other
+    functions), instrumented by
+    ``_watch`` unless ``watch`` is false, fed ``force`` (a run's
+    summary) if given. Returns a summary: per request (in arrival order)
+    its QoS, prompt length, tokens, TTFT and per-position records; the
+    counters; prefill, replay and TPOT times; launches; the all-lo view's
+    owners."""
+    import contextlib
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.scheduler import SchedulerConfig
+    t_build = time.perf_counter()
+    engine = eng_mod.InferenceEngine(
+        cfg, _fresh(params), make_backend(backend, device=device,
+                                          **backend_kw),
+        eng_mod.EngineConfig(
+            max_slots=REQ_SLOTS, max_len=REQ_MAX_LEN, prefix_sharing=sharing,
+            capacity_factor=cfg.moe.num_experts / cfg.moe.top_k,
+            scheduler=SchedulerConfig(prefill_chunk=chunk,
+                                      preemption=preemption)),
+        device=device)
+    t_build = time.perf_counter() - t_build
+    cuda = device.type == "cuda" and not eager
+    if cuda:
+        engine.decode_graph.events, engine.lo_graph.events = [], []
+    rec = {"pos": {}, "experts": {}, "resumed": [], "prefill": [],
+           "finite": []}
+    fed = None if force is None else {
+        id(r): h["tokens"] for r, h in zip(stream, force["handles"])}
+    restore = _watch(engine, eng_mod, rec, fed) if watch else \
+        (lambda: None)
+    try:
+        ops.reset_launches()                 # the main path starts here
+        t0 = time.perf_counter()
+        with eng_mod.eager() if eager else contextlib.nullcontext():
+            handles = engine.replay(stream, realtime=realtime)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)        # ... and ends here
+    finally:
+        restore()
+    engine.flush()
+    engine.pool.check_invariants()
+    st = engine.stats()
+    lo_owned = [int((b.slot_owner >= 0).sum())
+                for b in (engine.lo_banks or {}).values()]
+    hi_owned = [int((b.slot_owner >= 0).sum())
+                for b in (engine.banks or {}).values()]
+    graphs = {"mixed": engine.decode_graph, "lo": engine.lo_graph}
+    out = {
+        "handles": [dict(id=h.id, qos=h.qos, state=h.state.value,
+                         tokens=list(h.tokens), ttft_s=h.ttft_s,
+                         greedy=h.sampler.greedy,
+                         pos=rec["pos"].get(h.id, {}),
+                         experts=rec["experts"].get(h.id, {}),
+                         prompt=len(h.prompt()))
+                    for h in handles],
+        "stats": st, "launches": launches, "wall_s": wall,
+        "build_s": t_build, "capture_s": engine.capture_s, "watched": watch,
+        "prefill": rec["prefill"], "finite": all(rec["finite"]),
+        "resumed": rec["resumed"],
+        "replay_ms": {k: [a.elapsed_time(b) for a, b in g.events]
+                      if cuda else [] for k, g in graphs.items()},
+        "captured": {k: g.graph is not None for k, g in graphs.items()},
+        "lo_owned": lo_owned, "hi_owned": hi_owned}
+    del engine
+    return out
+
+
+def _moved(ra, rb, toks) -> float:
+    """The largest |logit| change between two records over ``toks``
+    (infinite where one falls outside a record's top ``TOP_K_SEEN``)."""
+    A, B = dict(zip(ra["ids"], ra["v"])), dict(zip(rb["ids"], rb["v"]))
+    return max(abs(A[t] - B[t]) if t in A and t in B else math.inf
+               for t in toks)
+
+
+def routing_explained(ea, eb, n):
+    """Two runs' experts per layer for positions 0..n-1 of one sequence
+    ({position: experts per layer}). Returns (clean (n,) bool: no position
+    up to it differs, the differences not explained [(position, layer,
+    experts in one run only)]). A position's difference is explained when
+    at its first differing layer one expert is swapped for another (a
+    router near tie), or when an earlier position differs first at a
+    shallower layer (whose K/V the swap has moved from the next layer
+    on)."""
+    clean, bad, lo = np.ones(n, bool), [], math.inf
+    for p in range(n):
+        a, b = ea.get(p), eb.get(p)
+        if a is None or b is None:
+            bad.append((p, None, "no record"))
+            clean[p:] = False
+            continue
+        diff = [(l, sorted(set(x) ^ set(y)))
+                for l, (x, y) in enumerate(zip(a, b)) if x != y]
+        if not diff:
+            continue
+        clean[p:] = False
+        f, d = diff[0]
+        if len(d) != 2 and not lo < f:
+            bad.append((p, f, d))
+        lo = min(lo, f)
+    return clean, bad
+
+
+def compare_forced(a, b):
+    """Run ``a`` against run ``b`` fed ``a``'s tokens, position by
+    position. Returns per request (id, positions, positions held, flips
+    [(index, the largest logit change in play in bf16 steps, held,
+    passes)], median |dlogit| of ``a``'s token, expert differences not
+    explained), and over the held greedy positions (those where a flip
+    would pass, positions)."""
+    out, near, greedy = [], 0, 0
+    for x, y in zip(a["handles"], b["handles"]):
+        assert x["id"] == y["id"] and x["prompt"] == y["prompt"]
+        clean, unexplained = routing_explained(
+            x["experts"], y["experts"], max(x["experts"]) + 1)
+        flips, dl, held = [], [], 0
+        for t, tok in enumerate(x["tokens"]):
+            ra, rb = x["pos"][t], y["pos"][t]
+            assert ra["own"] == tok and ra["end"] == rb["end"]
+            step = bf16_step(ra["v"][0])
+            keep = bool(clean[ra["end"]])
+            held += keep
+            if x["greedy"] and keep:
+                greedy += 1
+                near += (ra["v"][0] - ra["v"][1]) / step + \
+                    (rb["v"][0] - rb["v"][1]) / bf16_step(rb["v"][0]) <= \
+                    FLIP_STEPS
+            if rb["own"] != tok:
+                play = {tok, rb["own"]} if x["greedy"] else \
+                    set(ra["nucleus"]) | {rb["own"]}
+                moved = _moved(ra, rb, play) / step
+                flips.append((t, round(moved, 2), keep,
+                              moved <= FLIP_STEPS or not keep))
+            dl.append(_moved(ra, rb, [tok]))
+        out.append((x["id"], len(x["tokens"]), held, flips,
+                    float(np.median(dl)), unexplained))
+    return out, (near, greedy)
+
+
+def _tiers(run, clock):
+    """TTFT p50/p99 per QoS tier, in ms."""
+    out = []
+    for q in ("premium", "standard", "batch"):
+        v = [h["ttft_s"] * 1e3 for h in run["handles"] if h["qos"] == q]
+        if v:
+            out.append(f"{q} p50 {np.percentile(v, 50):.1f} p99 "
+                       f"{np.percentile(v, 99):.1f}")
+    return f"TTFT ms ({clock}) " + ", ".join(out)
+
+
+def _report(what, run, card, clock="virtual clock"):
+    st = run["stats"]
+    whole = [(n, ms) for hp, n, ms in run["prefill"] if not hp]
+    suffix = [(n, ms) for hp, n, ms in run["prefill"] if hp]
+
+    def pf(rows):
+        if not run["watched"]:
+            return "not timed (unwatched run)"
+        if not rows:
+            return "none"
+        n, ms = sum(r[0] for r in rows), sum(r[1] for r in rows)
+        return (f"{len(rows)} forwards, {n} tokens, {ms / len(rows):.2f} "
+                f"ms per forward, {ms / max(n, 1) * 1e3:.1f} us per token")
+
+    submitted = sum(h["prompt"] for h in run["handles"])
+    resumed = f"{sum(run['resumed'])} of {len(run['resumed'])}" \
+        if run["watched"] else "not watched"
+    counters = {k: int(st[k]) for k in (
+        "prefills", "steps", "prefill_tokens", "prefix_hit_tokens",
+        "chunk_prefills", "preemptions", "resumes", "kv_cow_copies",
+        "prefix_trie_nodes", "shed_requests", "downgraded",
+        "prefill_compiles")}
+    rp = {k: (f"{np.mean(v):.3f}" if v else "n/a") + f" over {len(v)}"
+          for k, v in run["replay_ms"].items()}
+    log("requests", f"{what}: prefill tokens computed "
+                    f"{int(st['prefill_tokens'])} of {submitted} submitted "
+                    f"| prefill whole: "
+                    f"{pf(whole)}; with a cached prefix: {pf(suffix)} | "
+                    f"ms per graph replay (CUDA events) mixed {rp['mixed']}, "
+                    f"all-lo {rp['lo']} | TPOT {st['tpot_s'] * 1e3:.2f} ms | "
+                    f"{_tiers(run, clock)} | counters {counters} | "
+                    f"resumes reading back every lane bit for bit "
+                    f"{resumed} | "
+                    f"promotions {st['promotions']:.0f} | launches "
+                    f"{run['launches']} | built {run['build_s']:.1f} s, "
+                    f"capture {run['capture_s']:.2f} s, served "
+                    f"{run['wall_s']:.1f} s | {card}")
+
+
+def phase_requests(card: str) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.models.model import init_params
+    full = get_config(ARCH)
+    cfg = dataclasses.replace(full, n_layers=SERVE_LAYERS)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    stream = request_stream(cfg.vocab_size)
+    log("requests", f"{cfg.name}: full width, {SERVE_LAYERS} of "
+                    f"{full.n_layers} layers, random weights, seed 0; "
+                    f"paged/ragged, decode graphed, {REQ_SLOTS} slots, "
+                    f"max_len {REQ_MAX_LEN}; {len(stream)} requests x "
+                    f"{REQ_NEW} "
+                    f"tokens through replay(realtime=False): 12 standard "
+                    f"sharing a 160-token prefix, 8 batch of 64-256 tokens, "
+                    f"4 premium of 768 tokens arriving last; 4 sampled")
+    static = dict(lo_bits=4, group_size=64)
+    runs = {"static, all on": run_requests(cfg, dev, params, stream,
+                                           backend="static",
+                                           backend_kw=static)}
+    runs["static, sharing/chunking/preemption off"] = run_requests(
+        cfg, dev, params, stream, backend="static", backend_kw=static,
+        chunk=0, sharing=False, preemption=False,
+        force=runs["static, all on"])
+    runs["dynaexq, all on"] = run_requests(
+        cfg, dev, params, stream, backend="dynaexq",
+        backend_kw=dict(lo_bits=4, group_size=64, n_hi_per_layer=16,
+                        controller=ControllerConfig(update_interval_s=0.0)))
+    eager = run_requests(cfg, dev, params, stream, backend="static",
+                         backend_kw=static, eager=True)
+    wall = run_requests(cfg, dev, params, stream, backend="static",
+                        backend_kw=static, realtime=True, watch=False)
+    used = PATHS["paged/ragged"][2]
+    extra = [("static, all on, eager", eager),
+             ("static, all on, wall clock", wall)]
+    for what, run in list(runs.items()) + extra:
+        _report(what, run, card, "wall clock" if run is wall
+                else "virtual clock")
+        st = run["stats"]
+        if not run["finite"]:
+            raise AssertionError(f"{what}: non-finite logits")
+        if not all(run["launches"][k] > 0 for k in used):
+            raise AssertionError(f"{what}: launches {run['launches']}")
+        if any(h["state"] != "finished" or len(h["tokens"]) != REQ_NEW
+               for h in run["handles"]):
+            raise AssertionError(f"{what}: a request did not finish")
+        if any(run["lo_owned"]) or (run is not eager and (
+                not run["captured"]["lo"] or not run["replay_ms"]["lo"])):
+            raise AssertionError(f"{what}: the batch tier's view owns hi "
+                                 f"slots {run['lo_owned']} or its graph "
+                                 f"never ran")
+        if st["preemptions"] != st["resumes"] or (run["watched"] and (
+                len(run["resumed"]) != st["resumes"] or
+                not all(run["resumed"]))):
+            raise AssertionError(f"{what}: {st['preemptions']} preemptions, "
+                                 f"{st['resumes']} resumes, lanes read back "
+                                 f"bit for bit {run['resumed']}")
+    on = runs["static, all on"]["stats"]
+    submitted = sum(h["prompt"] for h in runs["static, all on"]["handles"])
+    if not (on["prefix_hit_tokens"] > 0 and on["prefill_tokens"] < submitted
+            and on["chunk_prefills"] >= 12 and on["preemptions"] >= 1):
+        raise AssertionError(f"static, all on: hits "
+                             f"{on['prefix_hit_tokens']}, prefill tokens "
+                             f"{on['prefill_tokens']} of {submitted}, chunk "
+                             f"prefills {on['chunk_prefills']}, preemptions "
+                             f"{on['preemptions']}")
+    dx = runs["dynaexq, all on"]
+    if dx["stats"]["promotions"] < 1 or not any(dx["hi_owned"]):
+        raise AssertionError(f"dynaexq: promotions "
+                             f"{dx['stats']['promotions']}, hi owners "
+                             f"{dx['hi_owned']}")
+    g = runs["static, all on"]
+    if [h["tokens"] for h in g["handles"]] != \
+            [h["tokens"] for h in eager["handles"]] or \
+            g["launches"] != eager["launches"]:
+        raise AssertionError("static, all on: the two graphs and eager "
+                             "decode disagree on tokens or launches")
+    log("requests", "static, all on: both graphs (served and all-lo "
+                    "banks, one memory pool) and eager decode give "
+                    "identical tokens for all 24 requests and identical "
+                    "launches")
+    per, (near, greedy) = compare_forced(
+        runs["static, all on"], runs["static, sharing/chunking/preemption "
+                                     "off"])
+    n = sum(r[1] for r in per)
+    held = sum(r[2] for r in per)
+    flips = {r[0]: r[3] for r in per if r[3]}
+    bad = [(i, [f for f in fl if not f[3]], round(m, 4), un[:3])
+           for i, _, _, fl, m, un in per
+           if m > MODEL_TOL or un or not all(f[3] for f in fl)]
+    log("requests", f"static all on vs off fed all on's tokens: "
+                    f"{sum(not r[3] for r in per)} of {len(per)} requests "
+                    f"choose the same token at every position; positions "
+                    f"held (every token read took the same experts in both "
+                    f"runs) {held} of {n} (at least {MIN_HELD}), per "
+                    f"request {[r[2] for r in per]}; flips "
+                    f"{sum(len(f) for f in flips.values())} (request: "
+                    f"[(index, largest logit change in play in bf16 "
+                    f"steps, held, passes)]) {flips}; a held flip passes "
+                    f"within {FLIP_STEPS} steps, as it would at {near} of "
+                    f"{greedy} held greedy positions (limit "
+                    f"{MAX_TIE_SHARE}); median |dlogit| of on's token per "
+                    f"request, max {max(r[4] for r in per):.4f} (tol "
+                    f"{MODEL_TOL}); expert differences not explained as "
+                    f"router near ties {sum(len(r[5]) for r in per)}; over "
+                    f"the limits (request, flips, median, first three "
+                    f"unexplained) {bad} | dynaexq: hi "
+                    f"owners per MoE position {dx['hi_owned']} while the "
+                    f"batch tier's view owns {dx['lo_owned']} | "
+                    f"{time.perf_counter() - t0:.1f} s | {card}")
+    if bad or held < MIN_HELD * n or near > MAX_TIE_SHARE * greedy:
+        raise AssertionError(f"all on vs off, fed the same tokens: {bad}; "
+                             f"held {held} of {n}; {near} of {greedy} held "
+                             f"greedy positions would pass a flip")
+    for k in RESULTS:
+        RESULTS[k]["launches"] = RESULTS[k].get("launches", 0) + sum(
+            r["launches"][k] for r in list(runs.values()) + [eager, wall])
+    del params
+
+
+# ---------------------------------------------------------------------------
 # 6. trace: where a decode step's device time goes
 # ---------------------------------------------------------------------------
 
@@ -2503,7 +3313,7 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
 
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "model",
-          "serving", "trace")
+          "serving", "requests", "trace")
 #: Phases that run only when named in ``--only``.
 EXTRA_PHASES = ("dense",)
 
@@ -2536,6 +3346,8 @@ def main() -> int:
         phase_model()
     if "serving" in only:
         phase_serving(card)
+    if "requests" in only:
+        phase_requests(card)
     if "trace" in only:
         phase_trace(card)
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")

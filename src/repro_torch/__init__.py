@@ -3,10 +3,11 @@
 The package mirrors the module names of the JAX reference package
 (``src/repro``) so each counterpart is easy to find, but is written in
 PyTorch idiom and imports neither JAX nor the reference package. Its main
-path is greedy serving through ``serving.InferenceEngine`` with a paged KV
-pool, ragged MoE dispatch and the mixed-precision expert banks of
-``core.ver``; the three kernels of that path are hand-written CUDA C++ in
-``kernels/csrc`` (see ``kernels.ops``).
+path is serving through ``serving.InferenceEngine`` (the reference's
+request front: sampling, prefix sharing, SLO tiers, chunked prefill,
+preemption) with a paged KV pool, ragged MoE dispatch and the
+mixed-precision expert banks of ``core.ver``; the kernels of that path
+are hand-written CUDA C++ in ``kernels/csrc`` (see ``kernels.ops``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that request they raise (``resolve_device``).

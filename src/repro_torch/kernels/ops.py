@@ -30,9 +30,10 @@ persistent grid walks (run, column block) items, and TMA loads fill a
 ring shared by the CTA, through tensor maps cached here by
 ``tensor_map_key``. On the card it needs ``tile_eid`` non-decreasing over
 the live tiles, as the dispatch makes it (``dense_runs`` mirrors the
-kernel's runs). Unlike the reference's ``ragged_dense_ffn_op`` it never
-falls back to the plain version on the card: a shape the kernel rejects
-raises.
+kernel's runs). Where the reference's ``ragged_dense_ffn_op`` runs its
+oracle for a shape its kernel cannot tile, these wrappers copy the
+operands, zero-padded to whole k16 steps and 64-column boxes, and run the
+kernel all the same (``dense_route``, decided before any launch).
 """
 from __future__ import annotations
 
@@ -471,27 +472,40 @@ def _check_dense(x, tile_eid, n_tiles, weights, bm, name):
     return Tt, K, N
 
 
-def _dense_shape_rules(bm: int, K: int, N: int, *tensors,
-                       E: int = 1) -> None:
-    """What the all-hi CUDA kernels take beyond the plain versions: bm = 8
-    token rows (the mma's N), N a multiple of the 64-column weight box, K
-    whole k16 mma steps, at most ``DENSE_MAX_EXPERTS`` experts, and
-    16-byte aligned operands (TMA's global addresses)."""
+def dense_route(bm: int, K: int, N: int, E: int, *tensors) -> str:
+    """How an all-hi call on the card runs, decided from shapes and
+    addresses before any launch: "kernel" on the operands as they are, or
+    "copy" when K is not whole k16 mma steps, N not whole 64-column weight
+    boxes or an operand not 16-byte aligned (TMA's global addresses): the
+    operands are copied, zero-padded to whole steps and boxes, to fresh
+    aligned buffers, the kernel runs on the copies (the padding adds only
+    zero products) and its output is cut back to N columns. The reference's
+    ``ragged_dense_ffn_op`` (``src/repro/kernels/ops.py:158-161``) runs its
+    oracle for such shapes instead. Raises ``ValueError`` for what no copy
+    fixes: bm other than 8 token rows (the mma's N), more than
+    ``DENSE_MAX_EXPERTS`` experts."""
     if bm != KERNEL_BM:
         raise ValueError(f"the CUDA kernels are built for bm={KERNEL_BM}, "
                          f"got {bm}")
-    if N % DENSE_BN:
-        raise ValueError(f"N={N} not a multiple of {DENSE_BN}")
-    if K % 16:
-        raise ValueError(f"K={K}: the dense CUDA kernels take a multiple of "
-                         f"16 (whole k16 mma steps)")
     if E > DENSE_MAX_EXPERTS:
         raise ValueError(f"E={E}: the dense CUDA kernels take at most "
                          f"{DENSE_MAX_EXPERTS} experts")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the dense CUDA kernels load through TMA: "
-                         "activations and weights must start 16-byte "
-                         "aligned")
+    if K % 16 or N % DENSE_BN or any(t.data_ptr() % 16 for t in tensors):
+        return "copy"
+    return "kernel"
+
+
+def _dense_call(name: str, bm: int, x, tile_eid, n_tiles,
+                weights) -> torch.Tensor:
+    """One all-hi kernel on the card by ``dense_route``."""
+    K, N = x.shape[1], weights[0].shape[2]
+    if dense_route(bm, K, N, weights[0].shape[0], x, *weights) == "copy":
+        Kp, Np = -(-K // 16) * 16, -(-N // DENSE_BN) * DENSE_BN
+        pad = torch.nn.functional.pad            # always a fresh tensor
+        x = pad(x, (0, Kp - K))
+        weights = tuple(pad(w, (0, Np - N, 0, Kp - K)) for w in weights)
+    out = ragged_dense_launch(name, x, tile_eid, n_tiles, weights)
+    return out if out.shape[1] == N else out[:, :N].contiguous()
 
 
 def dense_runs(tile_eid: torch.Tensor, n_tiles: int,
@@ -617,24 +631,22 @@ def ragged_dense_gateup(xs, tile_eid, n_tiles, w_gate, w_up, *,
     bf16(xs·W_up[e]) per row tile, e = ``tile_eid[t]``, from (E, K, F) bf16
     banks. Rows of tiles ``t >= n_tiles`` are not written on the card,
     where ``tile_eid`` must be non-decreasing over the live tiles."""
-    Tt, K, F = _check_dense(xs, tile_eid, n_tiles, (w_gate, w_up), bm, "xs")
+    _check_dense(xs, tile_eid, n_tiles, (w_gate, w_up), bm, "xs")
     if xs.device.type == "cpu":
         return ref.ragged_dense_gateup_ref(xs, tile_eid, w_gate, w_up, bm=bm)
-    _dense_shape_rules(bm, K, F, xs, w_gate, w_up, E=w_gate.shape[0])
-    return ragged_dense_launch("ragged_dense_gateup", xs, tile_eid, n_tiles,
-                               (w_gate, w_up))
+    return _dense_call("ragged_dense_gateup", bm, xs, tile_eid, n_tiles,
+                       (w_gate, w_up))
 
 
 def ragged_dense_down(h, tile_eid, n_tiles, w_down, *,
                       bm: int) -> torch.Tensor:
     """The all-hi mode's down: y (R, D) = h · W_down[e] per row tile from
     an (E, F, D) bf16 bank."""
-    Tt, F, D = _check_dense(h, tile_eid, n_tiles, (w_down,), bm, "h")
+    _check_dense(h, tile_eid, n_tiles, (w_down,), bm, "h")
     if h.device.type == "cpu":
         return ref.ragged_dense_down_ref(h, tile_eid, w_down, bm=bm)
-    _dense_shape_rules(bm, F, D, h, w_down, E=w_down.shape[0])
-    return ragged_dense_launch("ragged_dense_down", h, tile_eid, n_tiles,
-                               (w_down,))
+    return _dense_call("ragged_dense_down", bm, h, tile_eid, n_tiles,
+                       (w_down,))
 
 
 def ragged_dense_ffn(xs, tile_eid, n_tiles, bank: dict, *,

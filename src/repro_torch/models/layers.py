@@ -159,20 +159,32 @@ def attention_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
 
 def attention_prefill_paged(p: dict, cfg: AttnConfig, x: torch.Tensor,
                             cache: PagedKVCache, table: torch.Tensor,
-                            start: torch.Tensor, lengths: torch.Tensor
-                            ) -> torch.Tensor:
-    """Masked prefill of whole prompts (no cached prefix) into pool blocks.
+                            start: torch.Tensor, lengths: torch.Tensor,
+                            has_prefix: bool = False) -> torch.Tensor:
+    """Masked prefill of prompt SUFFIXES into pool blocks.
 
-    x (B, S, d) right-padded to the bucket S; ``lengths`` (B,) true prompt
-    lengths (0 = inert pad row); ``start`` (B,) must be 0. Slot s of a row
-    takes the row's largest real position p < length with p % C == s (ring
-    wrap included); unowned lanes write to the trash block. The pool is
-    updated in place. Outputs at padded positions are garbage."""
+    x (B, S, d): embeds of tokens ``start[b] .. lengths[b]-1`` right-padded
+    to the bucket S; ``start`` (B,) prefix-hit offsets (0 = whole prompt);
+    ``lengths`` (B,) TOTAL prompt lengths (``lengths == start``: an inert
+    pad row). For a prefix hit the leading entries of ``table`` alias
+    blocks an earlier request wrote (any block this call writes was
+    copied-on-write or freshly allocated by the engine first). Slot s of a
+    row takes the row's largest real position p in [start, length) with
+    p % C == s (ring wrap included); unowned lanes write to the trash
+    block, so the shared prefix slots are never touched. With
+    ``has_prefix`` the suffix queries also attend over the row's cached
+    prefix K/V, gathered BEFORE the suffix scatter: the pool is updated in
+    place here, where the reference (``attention_prefill_paged`` in
+    ``repro.models.layers``) orders the gather ahead of the scatter by
+    their data dependency inside one jit. Outputs at padded positions are
+    garbage."""
     B, S, _ = x.shape
     bt = cache.block_tokens
     C = table.shape[1] * bt
     positions = start[:, None] + torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
+    if has_prefix:
+        pk, pv = paged_view(cache, table)   # (B, Hkv, C, hd) copies
 
     idx = torch.arange(C, device=x.device)[None, :]
     last = lengths[:, None] - 1 - torch.remainder(lengths[:, None] - 1 - idx,
@@ -194,8 +206,18 @@ def attention_prefill_paged(p: dict, cfg: AttnConfig, x: torch.Tensor,
     mask = (kpos <= qpos) & (kpos < lengths[:, None, None])
     if cfg.sliding_window is not None:
         mask = mask & (kpos > qpos - cfg.sliding_window)
-    out = _sdpa(q, k, v, mask, cfg.n_heads)
-    return out @ p["wo"]
+    if not has_prefix:
+        return _sdpa(q, k, v, mask, cfg.n_heads) @ p["wo"]
+    # Slot s of the pre-write view holds prefix position p_s = the largest
+    # p < start with p % C == s (ring and full alike).
+    ppos = start[:, None] - 1 - torch.remainder(start[:, None] - 1 - idx, C)
+    pmask = (ppos >= 0)[:, None, :].expand(B, S, C)
+    if cfg.sliding_window is not None:
+        pmask = pmask & (ppos[:, None, :] > qpos - cfg.sliding_window)
+    k_cat = torch.cat([pk.transpose(1, 2), k], dim=1)
+    v_cat = torch.cat([pv.transpose(1, 2), v], dim=1)
+    mask = torch.cat([pmask, mask.expand(B, S, S)], dim=-1)
+    return _sdpa(q, k_cat, v_cat, mask, cfg.n_heads) @ p["wo"]
 
 
 def decode_valid(pos_b: torch.Tensor, C: int, cfg: AttnConfig) -> torch.Tensor:

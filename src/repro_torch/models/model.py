@@ -9,7 +9,8 @@ Entry points:
 
 * ``init_params``        — random weights from a seeded ``torch.Generator``;
 * ``init_paged_caches``  — the shared (nsb, N, Hkv, bt, hd) block pools;
-* ``prefill_paged``      — masked, bucketed prefill of whole prompts;
+* ``prefill_paged``      — masked, bucketed prefill of prompt suffixes
+                           (whole prompts, or over cached prefix blocks);
 * ``decode_step_paged``  — one token per row (the serving hot path);
 * ``init_caches``        — dense (nsb, B, Hkv, C, hd) KV rows;
 * ``prefill`` / ``decode_step`` — the same over dense rows.
@@ -143,7 +144,7 @@ def _block_step(bp: Dict, cfg: ArchConfig, x: torch.Tensor, cache,
     if paged is not None and prefill:
         attn_out = L.attention_prefill_paged(
             bp["attn"], cfg.attn, h, cache, paged["table"], paged["start"],
-            paged["lengths"])
+            paged["lengths"], has_prefix=paged["has_prefix"])
     elif paged is not None:
         attn_out = L.attention_decode_paged(
             bp["attn"], cfg.attn, h, pos_idx, cache, paged["table"],
@@ -192,13 +193,16 @@ def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                   caches: Dict, block_table: torch.Tensor,
                   start: torch.Tensor, lengths: torch.Tensor, bank=None,
                   capacity_factor: Optional[float] = None,
-                  per_row_counts: bool = False,
+                  per_row_counts: bool = False, has_prefix: bool = False,
                   moe_dispatch: Optional[str] = None):
-    """Masked prefill of whole prompts into the paged pool (updated in
-    place). ``tokens`` (R, S) right-padded to the bucket S; ``lengths``
-    (R,) prompt lengths (0 = inert pad row); ``start`` (R,) zeros.
-    Returns (last-token logits (R, V) float32, counts {pos: (nsb, R, E) or
-    (nsb, E)})."""
+    """Masked prefill of prompt SUFFIXES into the paged pool (updated in
+    place). ``tokens`` (R, S) hold tokens ``start[r]`` .. ``lengths[r]-1``
+    right-padded to the bucket S; ``lengths`` (R,) are TOTAL prompt
+    lengths, so ``lengths - start`` are the suffix lengths (0 = inert pad
+    row). ``has_prefix`` also attends each suffix over its row's cached
+    prefix blocks (the prefix-sharing and chunked-prefill path; every MoE
+    layer runs on the suffix rows only). Returns (suffix-last-token logits
+    (R, V) float32, counts {pos: (nsb, R, E) or (nsb, E)})."""
     _check_family(cfg)
     x = params["embed"][tokens]
     R, S, _ = x.shape
@@ -208,7 +212,8 @@ def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     token_valid = (torch.arange(S, device=x.device)[None, :] <
                    suffix[:, None]).reshape(-1)
     cap = X.moe_capacity(R * S, cfg.moe, capacity_factor)
-    paged = {"table": block_table, "start": start, "lengths": lengths}
+    paged = {"table": block_table, "start": start, "lengths": lengths,
+             "has_prefix": has_prefix}
     x, counts = _run_layers(params, cfg, x, caches, bank, capacity=cap,
                             pos_idx=None, prefill=True, paged=paged,
                             token_valid=token_valid,

@@ -1,2 +1,4 @@
 """Serving of the port: the continuous-batching ``engine``, residency
-``backends``, the paged ``kvpool`` and ``requests``."""
+``backends``, the paged ``kvpool`` and its ``prefix`` trie, ``requests``,
+the ``sampler``, the SLO-tiered ``scheduler``, the decode ``graphs`` and
+the batch tier's all-lo view (``lobanks``)."""

@@ -10,6 +10,9 @@ in its engine), which runs the whole step as one compiled executable.
   captured once (after a warm-up on a side stream, as
   ``torch.cuda.graph`` requires) and replayed on the current stream; on the
   CPU, and on the card inside ``eager()``, the same function runs op by op.
+  The engine keeps two over one set of inputs and one memory pool: the
+  step on the served banks and the batch tier's step on the all-lo view
+  (``serving.lobanks``).
 
 A replay calls no kernel wrapper, so the launch counts each wrapper added
 during capture (``kernels.ops.LAUNCHES``) are added again on every replay;
@@ -92,10 +95,16 @@ class DecodeGraph:
     WARMUP = 3
 
     def __init__(self, fn: Callable[[], tuple], inputs: StaticInputs,
-                 device: torch.device):
+                 device: torch.device, pool=None):
+        """``pool``: a ``torch.cuda.graph_pool_handle()`` shared with other
+        graphs over the same inputs. Graphs that share a pool must run one
+        after the other on one stream, and each one's outputs are read
+        before another replays (a later capture may place its outputs in
+        memory an earlier graph uses for its temporaries)."""
         self.fn = fn
         self.inputs = inputs
         self.device = device
+        self.pool = pool
         self.graph = None
         self.outputs: tuple = ()
         self.launches: Dict[str, int] = {}   # kernel → launches per replay
@@ -129,7 +138,7 @@ class DecodeGraph:
             main.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             start = dict(kops.LAUNCHES)
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=self.pool):
                 outputs = self.fn()
             self.launches = {k: n - start[k] for k, n in kops.LAUNCHES.items()
                              if n != start[k]}

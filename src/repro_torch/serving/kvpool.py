@@ -1,6 +1,5 @@
 """Paged KV-cache pool: block accounting for the serving engine (the
-port's copy of the reference's numpy-only module, without the prefix-
-sharing and speculative-rewind entry points it does not use yet).
+port's copy of the reference's numpy-only module).
 
 The engine's KV memory is one preallocated device pool of fixed-size blocks
 (``block_tokens`` cache positions each, across every attention layer of the
@@ -27,7 +26,7 @@ jitted forwards keep static shapes without corrupting live blocks.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -127,6 +126,13 @@ class KVBlockPool:
         self.stats["allocs"] += 1
         return blk
 
+    def retain(self, blk: int) -> None:
+        """Add a reference (prefix hit / trie registration)."""
+        if blk == TRASH_BLOCK or self.refcount[blk] <= 0:
+            raise RuntimeError(f"retain of dead block {blk}")
+        self.refcount[blk] += 1
+        self.stats["retains"] += 1
+
     def release(self, blk: int) -> bool:
         """Drop one reference; returns True when the block was freed (its
         bytes return to the budget)."""
@@ -173,6 +179,19 @@ class KVLease:
         self.quota = quota_blocks              # lease's share of pool quota
         self.closed = False
 
+    def adopt_prefix(self, blocks: Sequence[int],
+                     retained: bool = False) -> None:
+        """Map a trie hit: share ``blocks`` as logical blocks 0..len-1.
+        ``retained=True`` when the caller already holds the references
+        (pinned before a reclaim-capable operation, e.g. the quota
+        reservation) — the lease takes ownership of them."""
+        for j, blk in enumerate(blocks):
+            if self.table[j] != -1:
+                raise RuntimeError("adopt over an occupied logical block")
+            if not retained:
+                self.pool.retain(int(blk))
+            self.table[j] = int(blk)
+
     def _alloc(self) -> int:
         if self.quota <= 0:
             raise RuntimeError("lease quota exhausted — quota sizing bug")
@@ -204,6 +223,39 @@ class KVLease:
         if new == cow_src:
             cow_src = -1                        # self-copy is a no-op
         return new, cow_src
+
+    def unwind(self, j: int) -> None:
+        """Give logical block ``j`` back (speculative-rewind path): the
+        block held only REJECTED positions, so it returns to the pool and
+        its bytes move back onto this lease's quota — a later write at the
+        same position re-allocates without a new admission decision.
+
+        COW-safety: only privately-owned blocks may unwind. A block the
+        rewind would release back while shared (adopted prefix, trie
+        registration) was never allocated BY the burst in the first place —
+        the engine only unwinds blocks it saw ``ensure`` freshly allocate,
+        and those always carry exactly one reference."""
+        blk = int(self.table[j])
+        if blk < 0:
+            raise RuntimeError(f"unwind of unallocated logical block {j}")
+        if self.pool.refcount[blk] != 1:
+            raise RuntimeError(
+                f"unwind of shared block {blk} (refcount "
+                f"{int(self.pool.refcount[blk])}) — only burst-fresh "
+                f"private blocks may rewind")
+        self.pool.release(blk)                  # frees the block's bytes
+        self.table[j] = -1
+        # Re-fund the quota with the bytes the release just returned; this
+        # cannot fail — the budget has at least block_bytes free now.
+        if self.pool.budget is not None and \
+                not self.pool.budget.try_reserve(self.pool.block_bytes):
+            raise RuntimeError("unwind could not re-reserve quota bytes")
+        self.pool.quota_blocks += 1
+        self.quota += 1
+        self.pool.stats["unwinds"] += 1
+
+    def blocks(self) -> List[int]:
+        return [int(b) for b in self.table if b >= 0]
 
     def close(self) -> None:
         """Release every reference and the unspent quota."""

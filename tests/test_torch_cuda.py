@@ -211,27 +211,78 @@ def test_ragged_dense_kernels_match_plain(cuda, width):
 
 @pytest.mark.cuda
 def test_ragged_dense_kernels_reject_what_they_do_not_take(cuda):
-    """No fallback on the card: a shape the kernel rejects raises."""
-    bank = {n: torch.zeros((2,) + s, dtype=torch.bfloat16, device=cuda)
-            for n, s in (("w_gate", (256, 96)), ("w_up", (256, 96)),
-                         ("w_down", (96, 256)))}
-    te = torch.zeros(2, dtype=torch.int32, device=cuda)
-    n = torch.ones(1, dtype=torch.int32, device=cuda)
-    xs = torch.zeros((2 * BM, 256), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        ops.ragged_dense_ffn(xs, te, n, bank, bm=BM)
-    big = {n: torch.zeros((ops.DENSE_MAX_EXPERTS + 1, 64, 64),
-                          dtype=torch.bfloat16, device=cuda)
-           for n in ("w_gate", "w_up", "w_down")}
-    with pytest.raises(ValueError, match="at most"):
-        ops.ragged_dense_ffn(torch.zeros((2 * BM, 64), dtype=torch.bfloat16,
-                                         device=cuda), te, n, big, bm=BM)
-    with pytest.raises(ValueError, match="aligned"):
-        ops.ragged_dense_ffn(torch.zeros((2 * BM * 64 + 1,),
-                                         dtype=torch.bfloat16,
-                                         device=cuda)[1:].view(2 * BM, 64),
-                             te, n, {k: v[:2] for k, v in big.items()},
-                             bm=BM)
+    """The kernels never launch on a shape they cannot tile as it is: bm
+    other than 8 and more than ``DENSE_MAX_EXPERTS`` experts raise before
+    any launch; K that is not whole k16 steps, N that is not whole
+    64-column boxes and a misaligned operand go to the kernel as
+    zero-padded aligned copies, and equal the kernel on operands padded
+    by hand (and the plain version to its tolerance)."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(4)
+
+    def bank_of(E, K, N):
+        return {n: (torch.randn((E,) + s, generator=gen) * 0.1).bfloat16()
+                .to(cuda) for n, s in (("w_gate", (K, N)), ("w_up", (K, N)),
+                                       ("w_down", (N, K)))}
+
+    te = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    n = torch.full((1,), 2, dtype=torch.int32, device=cuda)
+    rows = 2 * BM
+    big = bank_of(ops.DENSE_MAX_EXPERTS + 1, 64, 64)
+    xs = (torch.randn((rows, 64), generator=gen) * 0.5).bfloat16().to(cuda)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="experts"):
+        ops.ragged_dense_ffn(xs, te, n, big, bm=BM)
+    with pytest.raises(ValueError, match="bm="):
+        ops.ragged_dense_gateup(xs[:BM // 2], te[:1], n - 1,
+                                big["w_gate"][:2], big["w_up"][:2],
+                                bm=BM // 2)
+    assert not any(ops.LAUNCHES.values())
+    del big
+    pad = torch.nn.functional.pad
+    # (E, K, N): N = 96 is no whole number of 64-column boxes (gate/up's
+    # F), K = 200 no whole number of k16 steps (then down's D).
+    for E, K, N in ((2, 256, 96), (2, 200, 64)):
+        bank = bank_of(E, K, N)
+        xs = (torch.randn((rows, K), generator=gen) * 0.5).bfloat16() \
+            .to(cuda)
+        # Gate/up multiply over K and write N columns; down over N and K.
+        Kp, Np = -(-K // 16) * 16, -(-N // 64) * 64
+        Fp, Dp = -(-N // 16) * 16, -(-K // 64) * 64
+        ops.reset_launches()
+        h = ops.ragged_dense_gateup(xs, te, n, bank["w_gate"], bank["w_up"],
+                                    bm=BM)
+        y = ops.ragged_dense_down(h, te, n, bank["w_down"], bm=BM)
+        hp = ops.ragged_dense_launch(
+            "ragged_dense_gateup", pad(xs, (0, Kp - K)), te, n,
+            tuple(pad(bank[w], (0, Np - N, 0, Kp - K))
+                  for w in ("w_gate", "w_up")))
+        yp = ops.ragged_dense_launch(
+            "ragged_dense_down", pad(h, (0, Fp - N)), te, n,
+            (pad(bank["w_down"], (0, Dp - K, 0, Fp - N)),))
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["ragged_dense_gateup"] == 2, (E, K, N)
+        assert ops.LAUNCHES["ragged_dense_down"] == 2, (E, K, N)
+        assert h.shape == (rows, N) and y.shape == (rows, K)
+        assert torch.equal(h, hp[:, :N]) and torch.equal(y, yp[:, :K])
+        hr = ref.ragged_dense_gateup_ref(xs.cpu(), te.cpu(),
+                                         bank["w_gate"].cpu(),
+                                         bank["w_up"].cpu(), bm=BM)
+        _assert_ffn_close(h.cpu(), hr, rows)
+        _assert_ffn_close(y.cpu(), ref.ragged_dense_down_ref(
+            h.cpu(), te.cpu(), bank["w_down"].cpu(), bm=BM), rows)
+    bank = bank_of(2, 64, 64)
+    xs = (torch.randn((rows, 64), generator=gen) * 0.5).bfloat16().to(cuda)
+    xm = torch.zeros(rows * 64 + 1, dtype=torch.bfloat16,
+                     device=cuda)[1:].view(rows, 64)
+    xm.copy_(xs)
+    assert ops.dense_route(BM, 64, 64, 2, xm) == "copy"
+    ops.reset_launches()
+    got = ops.ragged_dense_ffn(xm, te, n, bank, bm=BM)
+    want = ops.ragged_dense_ffn(xs, te, n, bank, bm=BM)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ragged_dense_gateup"] == 2
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -959,3 +1010,80 @@ def test_capture_refuses_a_host_read(cuda, monkeypatch):
             eng.step()
     assert eng.decode_graph.graph is None
     assert all(len(h.tokens) <= 1 for h in hs)
+
+
+def _front_engine(cuda):
+    """The reduced 30B on the main path with the request front: dynaexq
+    (a policy window every step), prefix sharing, chunked prefill at 32
+    tokens, preemption."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+    cfg = get_config("qwen3-moe-30b-a3b", reduced=True)
+    be = make_backend("dynaexq", n_hi_per_layer=2, device=cuda,
+                      controller=ControllerConfig(update_interval_s=0.0))
+    return InferenceEngine(cfg, init_params(cfg, seed=0, device=cuda), be,
+                           EngineConfig(max_slots=2, max_len=128,
+                                        scheduler=SchedulerConfig(
+                                            prefill_chunk=32)),
+                           device=cuda)
+
+
+def _front_stream(vocab):
+    """Two batch requests sharing a 16-token prefix (one block), the
+    second one sampled, then a standard one with a 70-token prompt
+    (chunked) arriving while they hold both slots (it preempts one)."""
+    from repro_torch.serving.requests import Request, make_prompts
+    from repro_torch.serving.sampler import SamplingParams
+    system = make_prompts("text", vocab, 1, 16, seed=1)[0]
+    reqs = [Request(tokens=np.concatenate([system, make_prompts(
+        "code", vocab, 1, 6 + i, seed=10 + i)[0]]), max_new_tokens=8,
+        qos="batch", arrival_s=0.002 * i - 0.001 if i else 0.0,
+        sampling=SamplingParams(temperature=0.8, top_k=20, seed=3)
+        if i else None) for i in range(2)]
+    reqs.append(Request(tokens=make_prompts("math", vocab, 1, 70, seed=5)[0],
+                        max_new_tokens=8, qos="standard", arrival_s=0.007))
+    return reqs
+
+
+@pytest.mark.cuda
+def test_request_front_graphs_match_eager(cuda):
+    """The request front on the card: trie hits, chunks, a preemption and
+    its resume, a sampled row, and the batch tier on the all-lo view;
+    graphed (the two decode graphs sharing one memory pool) and under
+    ``eager()``, dynaexq flushed after every step: identical tokens and
+    launches, both graphs captured, the pool's invariants kept."""
+    import contextlib
+    from repro_torch.serving.engine import eager
+    runs = []
+    for graphed in (True, False):
+        eng = _front_engine(cuda)
+        ops.reset_launches()
+        flush = eng.step
+
+        def step(flush=flush, eng=eng):
+            out = flush()
+            eng.flush()
+            return out
+
+        eng.step = step
+        with contextlib.nullcontext() if graphed else eager():
+            hs = eng.replay(_front_stream(eng.cfg.vocab_size),
+                            realtime=False)
+        torch.cuda.synchronize()
+        st = eng.stats()
+        assert st["prefix_hit_tokens"] > 0 and st["chunk_prefills"] >= 2
+        assert st["preemptions"] == st["resumes"] >= 1
+        assert st["promotions"] > 0
+        eng.pool.check_invariants()
+        assert all(int((b.slot_owner >= 0).sum()) == 0
+                   for b in eng.lo_banks.values())
+        captured = (eng.decode_graph.graph is not None,
+                    eng.lo_graph.graph is not None)
+        assert captured == ((True, True) if graphed else (False, False))
+        runs.append(([h.tokens for h in hs], dict(ops.LAUNCHES)))
+    assert runs[0] == runs[1]
+    assert runs[0][1]["ragged_gateup"] > 0

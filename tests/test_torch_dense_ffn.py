@@ -152,18 +152,50 @@ def test_dense_wrapper_checks(model):
     (256, 512, 8, True), (2048, 768, 8, True), (256, 96, 8, False),
     (200, 512, 8, False), (256, 512, 16, False)])
 def test_dense_cuda_shape_rules(K, N, bm, ok):
-    """What the CUDA entries take beyond the plain versions (checked
-    before any launch): bm = 8, N a multiple of 64, K a multiple of 16,
-    16-byte aligned operands."""
+    """What the CUDA entries take as they are (decided before any launch):
+    N a multiple of 64, K a multiple of 16 and 16-byte aligned operands;
+    other K, N or addresses go to the kernel as zero-padded copies. bm
+    other than 8 raises."""
     x = torch.zeros((bm, K), dtype=torch.bfloat16)
-    if ok:
-        ops._dense_shape_rules(bm, K, N, x)
+    if bm != ops.KERNEL_BM:
+        with pytest.raises(ValueError, match="bm="):
+            ops.dense_route(bm, K, N, 4, x)
     else:
+        assert ops.dense_route(bm, K, N, 4, x) == ("kernel" if ok
+                                                   else "copy")
+    assert ops.dense_route(8, 256, 512, 4, torch.zeros(
+        9, dtype=torch.bfloat16)[1:]) == "copy"
+
+
+@pytest.mark.parametrize("K,N,bm,E,aligned,route", [
+    (256, 512, 8, 128, True, "kernel"), (2048, 768, 8, 512, True, "kernel"),
+    (256, 96, 8, 4, True, "copy"),           # N not whole 64-column boxes
+    (200, 512, 8, 4, True, "copy"),          # K not whole k16 steps
+    (256, 512, 16, 4, True, None),           # bm the kernels are not built for
+    (256, 512, 8, 4096, True, None),         # too many experts
+    (256, 512, 8, 4, False, "copy"),         # tiles, but x is misaligned
+    (256, 96, 8, 4, False, "copy")])
+def test_dense_route_decided_from_shapes(K, N, bm, E, aligned, route):
+    """The all-hi op's route on the card, decided before any launch: the
+    kernel on the operands, the kernel on zero-padded aligned copies, or a
+    ``ValueError`` for what no copy fixes (bm, the expert count). On the
+    CPU the wrappers run the plain version and launch nothing."""
+    x = torch.zeros((bm * 2 + (0 if aligned else 1), K),
+                    dtype=torch.bfloat16)
+    x = x[:bm * 2] if aligned else x.view(-1)[1:1 + bm * 2 * K].view(bm * 2,
+                                                                    K)
+    w = torch.zeros((2, K, N), dtype=torch.bfloat16)
+    if route is None:
         with pytest.raises(ValueError):
-            ops._dense_shape_rules(bm, K, N, x)
-    with pytest.raises(ValueError, match="aligned"):
-        ops._dense_shape_rules(8, 256, 512, torch.zeros(
-            9, dtype=torch.bfloat16)[1:])
+            ops.dense_route(bm, K, N, E, x, w)
+    else:
+        assert ops.dense_route(bm, K, N, E, x, w) == route
+    ops.reset_launches()
+    te = torch.zeros(2, dtype=torch.int32)
+    n = torch.tensor([2], dtype=torch.int32)
+    got = ops.ragged_dense_gateup(x, te, n, w, w, bm=bm)
+    assert torch.equal(got, ref.ragged_dense_gateup_ref(x, te, w, w, bm=bm))
+    assert not any(ops.LAUNCHES.values())
 
 
 def _moe_inputs(model, T, seed):

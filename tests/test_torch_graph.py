@@ -333,3 +333,30 @@ def test_engine_static_step_matches_fresh_tensors(monkeypatch, paged,
                 assert h.tokens[-1] == int(greedy[h.slot])
     assert len(steps) >= 6
     assert all(len(h.tokens) == 6 for h in handles)
+
+
+@pytest.mark.parametrize("lo", [False, True], ids=["served", "all-lo"])
+def test_engine_decode_steps_read_nothing_on_the_host(monkeypatch, lo):
+    """Both of the engine's captured steps (the served banks and the batch
+    tier's all-lo view) over its static inputs, rows running, shared
+    prefix blocks in their tables: no host read."""
+    cfg = get_config(ARCH, reduced=True)
+    eng = InferenceEngine(
+        cfg, init_params(cfg, seed=2, device="cpu"),
+        make_backend("dynaexq", n_hi_per_layer=2, device="cpu"),
+        EngineConfig(max_slots=3, max_len=64), device="cpu")
+    system = make_prompts("text", cfg.vocab_size, 1, 20, seed=1)[0]
+    for i, qos in enumerate(("batch", "standard")):
+        eng.submit(Request(tokens=np.concatenate([system, [i + 1] * 3]),
+                           max_new_tokens=4, qos=qos))
+        eng.step()
+    assert eng.counters["prefix_hit_tokens"] == 16
+    rows = [(i, h) for i, h in enumerate(eng.slots) if h is not None]
+    cows = []
+    eng._fill_step(rows, cows)
+    eng._apply_copies(cows)
+    eng.decode_graph.inputs.push()
+    with no_host_reads(monkeypatch):
+        logits, packed = eng._decode_fn(lo=lo)
+    assert logits.shape == (3, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
