@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only card,build,kernels
     python3 chip_smoke.py --only card,build,kernels,serving
     python3 chip_smoke.py --only card,build,model,requests
+    python3 chip_smoke.py --only card,build,spec
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -26,7 +27,8 @@ Phases (each prints one line; any failure exits non-zero):
               (dense bf16) mode at decode B=8 and prefill 512 of both
               models and a skewed 30B prefill (expert 0 in every top-8),
               each beside one ``torch._grouped_mm`` over the segments (its
-              yardstick);
+              yardstick), and the 30B prefill's tile map shuffled and with
+              one expert in two places, held to the plain version;
    splits   — both decode-attention kernels at their main shapes under
               forced split counts, each held against its plain version,
               with device (graph) and host time per call;
@@ -40,8 +42,9 @@ Phases (each prints one line; any failure exits non-zero):
               device time: the data behind ``ops.DENSE_PLAN``; with
               ``--parent DIR`` (a ``git archive`` of the parent commit)
               also the parent's all-hi and quantized ragged kernels
-              against this tree's in turns, and their registers and HMMA
-              counts (``cuobjdump``);
+              against this tree's in turns (the all-hi ones on this
+              tree's tensor maps, at the parent's own default grid), and
+              their registers and HMMA counts (``cuobjdump``);
 4. model    — a 2-layer full-width model, same seeded weights on the CPU
               (plain versions) and on the card (kernels): one 32-token
               prefill and 4 teacher-forced decode steps, logits compared,
@@ -100,6 +103,23 @@ Phases (each prints one line; any failure exits non-zero):
               against submitted, prefill ms whole and over a
               cached prefix, ms per replay of each graph, TPOT, TTFT per
               tier, the counters, pool invariants after every run;
+   spec     — self-speculative decoding on the main path (8 full-width
+              layers, graphed, 8 slots, 8 greedy requests of 64-256
+              tokens, 32 new, all admitted in the first step): ``static``
+              int4 and ``dynaexq`` (n_hi 16, hi sets from one window after
+              a warm-up, then fixed) with spec off, ``spec_k=4`` adaptive
+              and ``spec_k=4`` fixed: tokens identical to spec off (or
+              each difference explained by routing), the backend's
+              observed counts those of the accepted steps in every round,
+              rounds, drafted/accepted/emitted tokens, the draft and verify
+              graphs' ms per replay by width (CUDA events), TPOT per
+              emitted token against spec off; then on the dense/padded
+              path (4 layers): ``spec_k=2`` with ``row_capacity_norm``
+              against spec off, one preemption (the resumed row read back
+              bit for bit) and one ``watchdog_no_progress_s`` requeue
+              against an undisturbed run, and promotion copies held behind
+              a spin on the side stream, cancelled by ``promo_deadline_s``
+              on the virtual clock (each refunded once);
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -1038,13 +1058,60 @@ def _dense_ffn_case(name, bank, inp, *, tol_rel):
     return out
 
 
+def _dense_orders(name, bank, inp, tol) -> dict:
+    """The all-hi kernels on one case's tile map with its live tiles in
+    other orders: ``shuffled`` (a random permutation) and ``split`` (the
+    second half first: the expert at the cut has tiles in two separate
+    places), beside the dispatch's ``sorted`` map. Each FFN is held to the
+    plain version on the same map at ``tol`` × max|plain| over the live
+    rows, with its segments (maximal runs of one id), runs and device
+    time per call (graph replay). Returns {order: {"err", "tol",
+    "segments", "runs", "graph_ms"}}."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.moe import RAGGED_BM as bm
+    xs, te, n = inp["xs"], inp["tile_eid"], inp["n_tiles"]
+    live = int(n.item())
+    gen = torch.Generator(device=te.device).manual_seed(17)
+    perm = torch.randperm(live, generator=gen, device=te.device)
+    eid = te[:live].tolist()
+    cut = next(t for t in range(live // 2, live) if eid[t] == eid[t - 1])
+    maps = {"sorted": te,
+            "shuffled": torch.cat([te[:live][perm], te[live:]]),
+            "split": torch.cat([te[cut:live], te[:cut], te[live:]])}
+    out, rows = {}, live * bm
+    for order, m in maps.items():
+        run = lambda m=m: ops.ragged_dense_ffn(xs, m, n, bank, bm=bm)
+        got = run()[:rows].float()
+        want = ref.ragged_dense_ffn_ref(xs, m, bank["w_gate"], bank["w_up"],
+                                        bank["w_down"], bm=bm)[:rows].float()
+        torch.cuda.synchronize()
+        ids = m[:live].tolist()
+        out[order] = {"err": float((got - want).abs().max()),
+                      "tol": tol * float(want.abs().max()),
+                      "segments": 1 + sum(a != b for a, b in
+                                          zip(ids, ids[1:])),
+                      "runs": len(ops.dense_runs(m.cpu(), live)),
+                      "graph_ms": graph_ms(run)}
+    log("kernels", f"ragged dense FFN {name}, tile orders: " + ", ".join(
+        f"{k} {v['segments']} segments in {v['runs']} runs, err "
+        f"{v['err']:.3g} (tol {v['tol']:.3g}), "
+        f"graph {v['graph_ms']:.4f} ms" for k, v in out.items()))
+    bad = [k for k, v in out.items() if not v["err"] <= v["tol"]]
+    if bad or not out["split"]["segments"] > out["sorted"]["segments"]:
+        raise AssertionError(f"all-hi kernels on other tile orders: {bad}")
+    return out
+
+
 def _kernels_dense_ffn(dev, tol) -> None:
     """The all-hi mode at the baselines' shapes (``DENSE_CASES``):
     Qwen3-30B-A3B (top-8 of 128, K = 2048, F = 768) at decode B = 8,
     prefill 512 and a skewed prefill 512, and the flagship (top-10 of 512,
     F = 512) at decode B = 8 and prefill 512."""
-    cases = {key: _dense_ffn_case(name, bank, inp, tol_rel=tol)
-             for key, name, bank, inp in _dense_cases(dev)}
+    cases, orders = {}, None
+    for key, name, bank, inp in _dense_cases(dev):
+        cases[key] = _dense_ffn_case(name, bank, inp, tol_rel=tol)
+        if key == "30b_prefill":
+            orders = _dense_orders(name, bank, inp, tol)
     bad = [k for k, c in cases.items() if not c["ok"]]
     if bad:
         raise AssertionError(f"ragged dense FFN kernels disagree: {bad}")
@@ -1064,6 +1131,7 @@ def _kernels_dense_ffn(dev, tol) -> None:
             "graph_ms": d[key]["graph_ms"],
             "library_graph_ms": d[key]["library_graph_ms"],
             "library": d[key]["library"],
+            "tile_orders": orders,
             "cases": [dict(case=c["case"], tiles=c["tiles"],
                            experts=c["experts"], runs=c["runs"],
                            **{k: v for k, v in c[key].items()
@@ -1084,10 +1152,12 @@ def _dense_routes(dev, tol) -> None:
     routes = {}
     for name in ARCH_IDS:
         c = get_config(name)
-        d, f, E = c.d_model, c.moe.d_ff_expert, c.moe.num_experts
+        d, f, m = c.d_model, c.moe.d_ff_expert, c.moe
+        # A prefill of 512 tokens: the dispatch's tile budget.
+        Tt = 512 * m.top_k // 8 + min(m.num_experts, 512 * m.top_k) + 1
         x = torch.zeros((8, max(d, f)), dtype=torch.bfloat16, device=dev)
-        routes[name] = (ops.dense_route(8, d, f, E, x),
-                        ops.dense_route(8, f, d, E, x))
+        routes[name] = (ops.dense_route(8, d, f, Tt, x),
+                        ops.dense_route(8, f, d, Tt, x))
     if any(r != ("kernel", "kernel") for r in routes.values()):
         raise AssertionError(f"all-hi routes {routes}")
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1101,7 +1171,7 @@ def _dense_routes(dev, tol) -> None:
         Kp, Np = -(-K // 16) * 16, -(-N // 64) * 64
         ops.reset_launches()
         got = ops.ragged_dense_gateup(x, te, nt, w, w, bm=8)
-        route, launches = ops.dense_route(8, K, N, 2, x, w), \
+        route, launches = ops.dense_route(8, K, N, te.shape[0], x, w), \
             ops.LAUNCHES["ragged_dense_gateup"]
         byhand = ops.ragged_dense_launch(
             "ragged_dense_gateup", pad(x, (0, Kp - K)), te, nt,
@@ -1121,7 +1191,7 @@ def _dense_routes(dev, tol) -> None:
     xm = torch.zeros(24 * 256 + 1, dtype=torch.bfloat16, device=dev)[1:] \
         .view(24, 256)
     xm.copy_(x)
-    route = ops.dense_route(8, 256, 128, 2, xm, wa)
+    route = ops.dense_route(8, 256, 128, te.shape[0], xm, wa)
     ops.reset_launches()
     got = ops.ragged_dense_gateup(xm, te, nt, wa, wa, bm=8)
     want = ops.ragged_dense_gateup(x, te, nt, wa, wa, bm=8)
@@ -1379,28 +1449,34 @@ def phase_gemms() -> None:
 
 
 def _parent_library(parent: pathlib.Path):
-    """The parent tree's ragged FFN library (``csrc/ragged_ffn.cu`` of a
-    ``git archive`` of the parent commit), built with this tree's flags
-    into ``build/kernels/parent/`` and loaded with its C signatures: the
-    quantized entries as today's, the all-hi ones as the parent had them
-    (``ragged_dense_gateup(xs, tile_eid, n_tiles, w_gate, w_up, h, Tt, K,
-    F, stream)``)."""
+    """The parent tree's ragged FFN and all-hi libraries
+    (``csrc/ragged_ffn.cu`` and ``csrc/ragged_dense_ffn.cu`` of a ``git
+    archive`` of the parent commit), built at once with this tree's flags
+    into ``build/kernels/parent/`` and loaded with this tree's C
+    signatures (the same entries; the parent's all-hi occupancy takes E
+    where this tree's takes the tile count). Returns ({name: library},
+    {name: path})."""
     import ctypes
     from repro_torch.kernels import build
-    src = parent / "src/repro_torch/kernels/csrc/ragged_ffn.cu"
-    out = build.build_dir() / "parent" / "libragged_ffn.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                    str(src)], check=True, timeout=600)
-    lib = ctypes.CDLL(str(out))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    sigs = dict(build.SIGNATURES["ragged_ffn"],
-                ragged_dense_gateup=[P] * 6 + [I] * 3 + [P],
-                ragged_dense_down=[P] * 5 + [I] * 3 + [P])
-    for fn, argtypes in sigs.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib, out
+    out_dir = build.build_dir() / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    names = ("ragged_ffn", "ragged_dense_ffn")
+    paths = {n: out_dir / f"lib{n}.so" for n in names}
+    procs = [subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-o",
+                               str(paths[n]), str(
+                                   parent / "src/repro_torch/kernels/csrc" /
+                                   f"{n}.cu")]) for n in names]
+    for p in procs:
+        if p.wait(timeout=600) != 0:
+            raise RuntimeError("nvcc failed on a parent source")
+    libs = {}
+    for n in names:
+        lib = ctypes.CDLL(str(paths[n]))
+        for fn, argtypes in build.SIGNATURES[n].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[n] = lib
+    return libs, paths
 
 
 def _sass_summary(path) -> dict:
@@ -1454,12 +1530,13 @@ def phase_dense(parent) -> None:
     from repro_torch.kernels import ops, ref
     from repro_torch.models.moe import RAGGED_BM as bm
     dev = torch.device("cuda")
-    plib = None
+    plibs = plib = None
     if parent is not None:
-        plib, ppath = _parent_library(pathlib.Path(parent))
+        plibs, ppaths = _parent_library(pathlib.Path(parent))
+        plib = plibs["ragged_ffn"]
         from repro_torch.kernels import build
         mine = build._target("ragged_ffn")
-        sp, sm = _sass_summary(ppath), _sass_summary(mine)
+        sp, sm = _sass_summary(ppaths["ragged_ffn"]), _sass_summary(mine)
         log("dense", f"ragged_ffn_kernel (nmat, bits) registers / HMMA, "
                      f"parent vs change: " + ", ".join(
                          f"{k} {sp[k].get('regs')}/{sp[k].get('hmma')} vs "
@@ -1490,7 +1567,7 @@ def phase_dense(parent) -> None:
                 [(every, 8, w0, s0), (every, 1, w0, s0)] + \
                 [(None, 8, w, st) for w in (4, 8)
                  for st in (2, 3, 4, 6, 8) if ops.dense_smem_bytes(
-                     len(ws), w, st, ws[0].shape[0]) <= ops.SMEM_MAX]
+                     len(ws), w, st, Tt) <= ops.SMEM_MAX]
             for grid, cap, warps, stages in settings:
                 run = lambda g=grid, c=cap, w=warps, st=stages: \
                     ops.ragged_dense_launch(kname, x, te, n, ws, grid=g,
@@ -1504,13 +1581,20 @@ def phase_dense(parent) -> None:
             log("dense", f"{kname} {name}: (grid, run cap, consumer warps, "
                          f"ring slots) -> graph ms " + ", ".join(
                              f"{k}: {v:.4f}" for k, v in sweep.items()))
-            if plib is None:
+            if plibs is None:
                 continue
             out_p = torch.empty_like(want)
-            ptrs = [x.data_ptr(), te.data_ptr(), n.data_ptr(),
-                    *[w.data_ptr() for w in ws], out_p.data_ptr(), Tt,
-                    x.shape[1], N]
-            prun = lambda: getattr(plib, kname)(*ptrs, stream())
+            pdense = plibs["ragged_dense_ffn"]
+            E, K = ws[0].shape[0], x.shape[1]
+            per_sm = pdense.ragged_dense_occupancy(len(ws), w0, s0, E)
+            pgrid = ops.dense_grid(torch.cuda.get_device_properties(
+                0).multi_processor_count, per_sm, Tt, -(-N // (16 * w0)))
+            maps = [ops._tensor_map(x, ops.DENSE_X_BOX)] + \
+                [ops._tensor_map(w, ops.DENSE_W_BOX) for w in ws]
+            args = [*maps, te.data_ptr(), n.data_ptr(), out_p.data_ptr(),
+                    Tt, K, N, E, pgrid, ops.DENSE_NT, s0, w0]
+            prun = lambda: build.check(getattr(pdense, kname)(
+                *args, stream()), f"parent {kname}")
             crun = lambda: ops.ragged_dense_launch(kname, x, te, n, ws)
             prun()
             torch.cuda.synchronize()
@@ -1636,13 +1720,14 @@ def _bank_with_hi(experts, n_hi, gen, lo_bits=4):
 
 def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
                     seed=7, paged=True, dispatch="ragged", dispatch_ref=None,
-                    lo_bits=4, n_hi=None, bank_device="cpu"):
+                    lo_bits=4, n_hi=None):
     """Same seeded weights on ``dev_ref`` and ``dev``: one S-token prefill
     and ``steps`` teacher-forced decode steps, on the paged pool or dense
     rows, with MoE dispatch ``dispatch`` (``dispatch_ref`` on ``dev_ref``,
     default the same). One bank for both, int ``lo_bits`` with ``n_hi``
-    hi slots per layer, half of them published, quantized on
-    ``bank_device``. Returns per forward (max |Δlogit| on identically
+    hi slots per layer, half of them published. The weights are drawn and
+    the bank quantized on ``dev`` (on the CPU either takes minutes at full
+    width), then copied. Returns per forward (max |Δlogit| on identically
     routed rows and on all rows, mean |Δlogit|, max |logit|, rows routed
     identically)."""
     from repro_torch.models.model import (decode_step, decode_step_paged,
@@ -1650,12 +1735,11 @@ def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
                                           init_params, prefill,
                                           prefill_paged)
     gen = torch.Generator().manual_seed(seed)
-    params = init_params(cfg, device="cpu", generator=gen)
+    params = init_params(cfg, seed=seed, device=dev)
     experts = params["blocks"]["0"]["moe"].pop("experts")
     if n_hi is None:
         n_hi = 16 if cfg.moe.num_experts >= 64 else 2
-    bank = _bank_with_hi({k: v.to(bank_device) for k, v in experts.items()},
-                         n_hi, gen, lo_bits=lo_bits)
+    bank = _bank_with_hi(experts, n_hi, gen, lo_bits=lo_bits)
     del experts
     runs = [(d, _to(params, d), {"0": bank.to(d)}, disp)
             for d, disp in ((dev_ref, dispatch_ref or dispatch),
@@ -1715,13 +1799,14 @@ PREFIX_CASES = ((96, (64,), True), (768, (256, 512), False))
 
 
 def run_prefix_check(cfg, dev_ref, dev, cases=PREFIX_CASES, bt=16, seed=9,
-                     lo_bits=4, n_hi=None, bank_device="cpu"):
+                     lo_bits=4, n_hi=None):
     """Same seeded weights and bank on ``dev_ref`` and ``dev``: for each
     of ``cases`` an S-token prompt prefilled whole into blocks 1.., and
     separately in pieces cut at ``cuts`` into other blocks, each piece
     after the first a suffix with ``has_prefix`` over the blocks before it
-    (the engine's route for a trie hit and for a chunk); the bank quantized
-    on ``bank_device``, every MoE layer drop-free (capacity over every
+    (the engine's route for a trie hit and for a chunk); the weights drawn
+    and the bank quantized on ``dev``, every MoE layer drop-free (capacity
+    over every
     token), so the routes differ only by rounding. Returns per device and
     S {"whole", "split"}: (logits (1, V), K and V of the S positions (nsb,
     S, Hkv, hd), each position's experts per layer, sorted (nsb, S,
@@ -1730,12 +1815,11 @@ def run_prefix_check(cfg, dev_ref, dev, cases=PREFIX_CASES, bt=16, seed=9,
     from repro_torch.models.model import (init_paged_caches, init_params,
                                           prefill_paged)
     gen = torch.Generator().manual_seed(seed)
-    params = init_params(cfg, device="cpu", generator=gen)
+    params = init_params(cfg, seed=seed, device=dev)
     experts = params["blocks"]["0"]["moe"].pop("experts")
     if n_hi is None:
         n_hi = 16 if cfg.moe.num_experts >= 64 else 2
-    bank = _bank_with_hi({k: v.to(bank_device) for k, v in experts.items()},
-                         n_hi, gen, lo_bits=lo_bits)
+    bank = _bank_with_hi(experts, n_hi, gen, lo_bits=lo_bits)
     del experts
     prompts = {S: torch.randint(0, cfg.vocab_size, (1, S), generator=gen)
                for S, _, _ in cases}
@@ -1825,13 +1909,12 @@ def phase_model() -> None:
                    dict(paged=False, dispatch="padded",
                         dispatch_ref="ragged")))
     # The flagship on its main path: the shared expert, 512 experts top-10,
-    # int2 lo with 64 of a 128-slot pool published (its bank quantized on
-    # the card: the CPU would take minutes), 8 rows.
+    # int2 lo with 64 of a 128-slot pool published, 8 rows.
     cfg80 = dataclasses.replace(get_config(FLAGSHIP),
                                 n_layers=FLAGSHIP_CHECK_LAYERS)
     checks.append((cfg80, "paged/ragged, CPU vs card", "cpu",
                    dict(paged=True, dispatch="ragged", B=8, lo_bits=2,
-                        n_hi=128, bank_device=card)))
+                        n_hi=128)))
     for cfg, what, dev_ref, kw in checks:
         t0 = time.perf_counter()
         report = run_model_check(cfg, dev_ref, card, **kw)
@@ -1889,7 +1972,7 @@ def _model_prefix(cfg, card) -> None:
     (``routed_alike``); at least half the rows of the deepest layer, and
     half of those past the first cut, must be held so."""
     t0 = time.perf_counter()
-    res = run_prefix_check(cfg, torch.device("cpu"), card, bank_device=card)
+    res = run_prefix_check(cfg, torch.device("cpu"), card)
     cpu, dev = res["cpu"], res["cuda"]
     pairs = []
     for S, cuts, both in PREFIX_CASES:
@@ -3040,6 +3123,446 @@ def phase_requests(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 5. spec: self-speculative decoding, the watchdogs, dense preemption and
+#    per-row MoE capacity
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_NEW = 32
+SPEC_SLOTS = 8
+SPEC_MAX_LEN = 288              # 256-token prompts + 32 tokens
+SPEC_DENSE_LAYERS = 4
+#: The draft and verify ladders' runs: (label, EngineConfig keywords).
+SPEC_RUNS = (("off", {}), ("spec_k=4", dict(spec_k=SPEC_K)),
+             ("spec_k=4 fixed", dict(spec_k=SPEC_K, spec_adaptive=False)))
+
+
+def _spec_prompts(vocab, seed=0):
+    """8 greedy prompts of 64-256 tokens (the serving phase's draw) and 8
+    warm-up prompts of 96 tokens from other seeds."""
+    from repro_torch.serving.requests import make_prompts
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 257, 8)
+    return ([make_prompts("text", vocab, 1, int(n), seed=seed + i)[0]
+             for i, n in enumerate(lens)],
+            make_prompts("text", vocab, 8, 96, seed=seed + 50))
+
+
+def _spec_engine(cfg, params, backend, warm, *, paged, dispatch, **ecfg):
+    """A fresh engine (8 slots) with ``static`` int4 or ``dynaexq`` (int4
+    lo, n_hi 16). ``dynaexq``'s policy runs no window by itself: after 4
+    tokens of the 8 warm-up prompts (which leave no prefix in common with
+    the served ones) one window publishes its hi sets, and they stay,
+    so every run of a backend serves the same target."""
+    import dataclasses
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.serving.backends import make_backend
+    dev = params["embed"].device
+    kw = dict(lo_bits=4, group_size=64, device=dev)
+    if backend == "dynaexq":
+        kw.update(n_hi_per_layer=16, controller=ControllerConfig(
+            update_interval_s=1e9))
+    eng = eng_mod.InferenceEngine(
+        cfg, _fresh(params), make_backend(backend, **kw),
+        eng_mod.EngineConfig(max_slots=SPEC_SLOTS, max_len=SPEC_MAX_LEN,
+                             paged=paged, moe_dispatch=dispatch, **ecfg),
+        device=dev)
+    if backend == "dynaexq":
+        eng.generate({"tokens": warm}, 4)
+        eng.backend.force_update()
+        eng.backend.flush()
+        for ctl in eng.backend.controllers.values():
+            ctl.cfg = dataclasses.replace(ctl.cfg, update_interval_s=1e9)
+    return eng
+
+
+def _experts(counts, i, j=None):
+    """Row ``i``'s experts in every layer from per-row counts ((nsb, B, E),
+    or step ``j`` of a verify's (W, nsb, B, E))."""
+    return tuple(tuple(np.flatnonzero(layer).tolist())
+                 for k in sorted(counts)
+                 for layer in (counts[k][:, i] if j is None
+                               else counts[k][j, :, i]))
+
+
+def _spec_serve(eng, prompts, new=SPEC_NEW):
+    """Serve ``prompts`` greedy on a built engine, every one admitted in
+    its first step (so the prefill's shape is every run's). Records per
+    request its tokens and, per decode position, its experts in every
+    layer as the forward that consumed the position routed them (plain
+    steps, and the accepted steps of each verify); holds what the backend
+    observed in each round to the round's per-step counts under its accept
+    mask; times every graph replay (CUDA events). Returns a summary."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import RequestState
+    from repro_torch.serving.requests import Request
+    spec, rec = eng._spec, {}
+    decode, observe = eng._decode_one, eng.backend.observe
+    observed, rounds = [], {"n": 0, "held": 0, "rows": 0}
+
+    def decode_one(active, finished, lo=False):
+        at = [(i, h, int(eng.pos[i])) for i, h in active]
+        decode(active, finished, lo)
+        for i, h, p in at:
+            rec.setdefault(h.id, {})[p] = _experts(eng.last_row_counts, i)
+
+    def watched(counts, *a, **k):
+        observed.append({p: v.copy() for p, v in counts.items()})
+        return observe(counts, *a, **k)
+
+    graphs = [eng.decode_graph]
+    if spec is not None:
+        spec_round = spec.round
+
+        def round_(rows, finished):
+            at = [(i, h, int(eng.pos[i])) for i, h in rows]
+            n = len(observed)
+            ran = spec_round(rows, finished)
+            if ran:
+                mask, counts = spec.last["accept_mask"], spec.last["counts"]
+                rounds["n"] += 1
+                rounds["rows"] += len(rows)
+                rounds["held"] += all(np.array_equal(
+                    observed[n][k], (v * mask[:, None, :, None]).sum(0))
+                    for k, v in counts.items())
+                for i, h, p in at:
+                    for j in np.flatnonzero(mask[:, i]):
+                        rec.setdefault(h.id, {})[p + int(j)] = \
+                            _experts(counts, i, int(j))
+            return ran
+
+        spec.round = round_
+        graphs += [g for pair in spec.graphs.values() for g in pair]
+    for g in graphs:
+        g.events = []
+    eng._decode_one, eng.backend.observe = decode_one, watched
+    steps0, cap0 = eng.counters["steps"], eng.capture_s
+    tpot0 = (eng._tpot_sum, eng._tpot_tokens)
+    try:
+        ops.reset_launches()                 # the path starts here
+        t0 = time.perf_counter()
+        handles = [eng.submit(Request(tokens=p, max_new_tokens=new))
+                   for p in prompts]
+        eng.step()
+        if any(h.state is RequestState.QUEUED for h in handles):
+            raise AssertionError("spec: not every request was admitted in "
+                                 "the first step")
+        eng.drain()
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)        # ... and ends here
+    finally:
+        del eng._decode_one, eng.backend.observe
+        if spec is not None:
+            del spec.round
+    st = eng.stats()
+    ms = lambda g: float(np.mean([a.elapsed_time(b) for a, b in g.events])) \
+        if g.events else None
+    summary = {
+        "tokens": [list(h.tokens) for h in handles], "experts": rec,
+        "plens": [len(p) for p in prompts], "ids": [h.id for h in handles],
+        "launches": launches, "wall_s": wall,
+        "steps": eng.counters["steps"] - steps0,
+        # Per emitted token of a row: a step's (or round's) latency over
+        # the tokens it emitted for each row (the engine's TPOT).
+        "tpot_ms": (eng._tpot_sum - tpot0[0]) /
+        (eng._tpot_tokens - tpot0[1]) * 1e3,
+        "replay_ms": ms(eng.decode_graph), "capture_s": eng.capture_s - cap0,
+        "hi_sets": eng.backend.hi_sets() if hasattr(eng.backend, "hi_sets")
+        else None}
+    if spec is not None:
+        summary.update(
+            rounds=rounds["n"], row_rounds=rounds["rows"],
+            observed_held=rounds["held"], accepted=spec.accepted_total,
+            drafted=spec.draft_total, verified=spec.verified_total,
+            accept_rate=st["accept_rate"], spec_capture_s=spec.capture_s,
+            widths={k: (ms(d), len(d.events), ms(v), len(v.events))
+                    for k, (d, v) in spec.graphs.items()})
+    return summary
+
+
+def _spec_compare(off, on) -> list:
+    """Each request's tokens of a spec run against spec off's. Returns
+    [(request, first differing token, explained)]: a difference is
+    explained (``routing_explained``) when the forwards' experts differ
+    before the position it was emitted from by a router near tie."""
+    out = []
+    for r, (a, b) in enumerate(zip(off["tokens"], on["tokens"])):
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is None and len(a) == len(b):
+            continue
+        t = min(len(a), len(b)) if t is None else t
+        plen = off["plens"][r]
+        ea = {p - plen: e for p, e in off["experts"][off["ids"][r]].items()}
+        eb = {p - plen: e for p, e in on["experts"][on["ids"][r]].items()}
+        n = min(len(ea), len(eb))
+        clean, bad = routing_explained(ea, eb, n)
+        at = max(0, t - 1)                  # token t came from plen + t - 1
+        out.append((r, t, at < n and not clean[at] and not bad))
+    return out
+
+
+def _spec_paged(card, cfg, params, prompts, warm) -> list:
+    """(a, b): static and dynaexq on the main path, spec off, spec_k = 4
+    adaptive and fixed, graphed; greedy tokens identical to spec off (or
+    each difference explained by routing)."""
+    used, unused = PATHS["paged/ragged"][2:]
+    runs = []
+    for backend in ("static", "dynaexq"):
+        res = {}
+        for label, ecfg in SPEC_RUNS:
+            eng = _spec_engine(cfg, params, backend, warm, paged=True,
+                               dispatch="ragged", **ecfg)
+            res[label] = _spec_serve(eng, prompts)
+            del eng
+        off = res["off"]
+        for label, s in res.items():
+            if not all(s["launches"][k] > 0 for k in used) or \
+                    any(s["launches"][k] for k in unused):
+                raise AssertionError(f"spec {backend} {label}: launches "
+                                     f"{s['launches']}")
+            if s["hi_sets"] != off["hi_sets"]:
+                raise AssertionError(f"spec {backend} {label}: another "
+                                     f"target's hi sets than spec off's")
+            if label == "off":
+                continue
+            div = _spec_compare(off, s)
+            wid = ", ".join(
+                f"k={k}: draft {_ms(d)} ms x{nd}, verify {_ms(v)} ms x{nv}"
+                for k, (d, nd, v, nv) in s["widths"].items())
+            log("spec", f"paged/ragged {backend} {label}: {s['rounds']} "
+                        f"rounds ({s['row_rounds']} row-rounds), drafted "
+                        f"{s['drafted']}, accepted {s['accepted']}, "
+                        f"verified (emitted) {s['verified']}, accept rate "
+                        f"{s['accept_rate']:.3f}, tokens per row-round "
+                        f"{s['verified'] / max(1, s['row_rounds']):.2f} | "
+                        f"graph replay ms by width (CUDA events) {wid}; "
+                        f"capture {s['spec_capture_s']:.2f} s | TPOT per "
+                        f"emitted token {s['tpot_ms']:.2f} ms vs spec off "
+                        f"{off['tpot_ms']:.2f} ms (plain replay "
+                        f"{_ms(off['replay_ms'])} ms), {s['steps']} steps "
+                        f"vs {off['steps']} | backend observed the accepted "
+                        f"steps' counts in {s['observed_held']} of "
+                        f"{s['rounds']} rounds | tokens vs spec off: "
+                        f"{8 - len(div)} of 8 requests identical"
+                        + (f", differences (request, token, explained by "
+                           f"routing) {div}" if div else "")
+                        + f" | launches {s['launches']} | {card}")
+            if s["observed_held"] != s["rounds"] or s["rounds"] < 1:
+                raise AssertionError(f"spec {backend} {label}: the backend "
+                                     f"observed other counts than the "
+                                     f"accepted steps'")
+            if any(not ok for _, _, ok in div):
+                raise AssertionError(f"spec {backend} {label}: tokens differ "
+                                     f"from spec off, unexplained: {div}")
+        runs += list(res.values())
+    return runs
+
+
+def _dense_row_lanes(eng, slot):
+    return {p: (c.k[:, slot].clone(), c.v[:, slot].clone())
+            for p, c in eng.caches.items()}
+
+
+def _spec_dense(card, cfg, params, prompts, warm) -> list:
+    """(c) on the dense/padded path: spec_k = 2 with per-row capacity
+    against spec off (dynaexq); one preemption whose resume reads every
+    lane of the row back bit for bit, and one no-progress requeue, each
+    against an undisturbed run (static)."""
+    used, unused = PATHS["dense/padded"][2:]
+    kw = dict(paged=False, dispatch="padded")
+    runs = {}
+    for label, ecfg in (("off", {}), ("spec_k=2", dict(spec_k=2))):
+        eng = _spec_engine(cfg, params, "dynaexq", warm,
+                           row_capacity_norm=True, **kw, **ecfg)
+        runs[label] = _spec_serve(eng, prompts)
+        del eng
+    s, off = runs["spec_k=2"], runs["off"]
+    div = _spec_compare(off, s)
+    for label, r in runs.items():
+        if not all(r["launches"][k] > 0 for k in used) or \
+                any(r["launches"][k] for k in unused):
+            raise AssertionError(f"spec dense {label}: launches "
+                                 f"{r['launches']}")
+    if any(not ok for _, _, ok in div) or s["hi_sets"] != off["hi_sets"] \
+            or s["observed_held"] != s["rounds"] or s["rounds"] < 1:
+        raise AssertionError(f"spec dense: differences {div}, observed "
+                             f"{s['observed_held']} of {s['rounds']}")
+    log("spec", f"dense/padded dynaexq spec_k=2, row_capacity_norm: "
+                f"{s['rounds']} rounds, accept rate {s['accept_rate']:.3f},"
+                f" tokens per row-round "
+                f"{s['verified'] / max(1, s['row_rounds']):.2f}, TPOT "
+                f"{s['tpot_ms']:.2f} ms vs spec off {off['tpot_ms']:.2f} ms; "
+                f"verify ms by width {[(k, _ms(v[2])) for k, v in s['widths'].items()]}"
+                f"; tokens vs spec off: {8 - len(div)} of 8 identical"
+                + (f", differences {div}" if div else "")
+                + f" | launches {s['launches']} | {card}")
+
+    # Preemption and the no-progress watchdog against an undisturbed run.
+    base = _spec_serve(_spec_engine(cfg, params, "static", warm, **kw),
+                       prompts)
+    checks = {}
+    for what, ecfg in (("preempt", {}), ("watchdog",
+                                        dict(watchdog_no_progress_s=30.0))):
+        eng = _spec_engine(cfg, params, "static", warm, **kw, **ecfg)
+        eng._clock = 0.0
+        from repro_torch.serving.requests import Request
+        hs = [eng.submit(Request(tokens=p, max_new_tokens=SPEC_NEW))
+              for p in prompts]
+        for _ in range(3):
+            eng.step()
+            eng._clock += 1.0
+        victim = hs[2]
+        snap_rows, readback = _dense_row_lanes(eng, victim.slot), []
+        resume = eng._resume_dense
+
+        def resumed(h, slot, resume=resume, readback=readback):
+            ok = resume(h, slot)
+            if h is victim:
+                got = _dense_row_lanes(eng, slot)
+                readback.append(all(
+                    torch.equal(got[p][i], snap_rows[p][i])
+                    for p in got for i in (0, 1)))
+            return ok
+
+        eng._resume_dense = resumed
+        if what == "preempt":
+            eng.preempt(victim)
+        else:
+            victim.last_progress_s -= 1000.0
+        eng.step()
+        eng.drain()
+        st = eng.stats()
+        checks[what] = dict(
+            tokens=[list(h.tokens) for h in hs] == base["tokens"],
+            readback=readback, preemptions=st["preemptions"],
+            resumes=st["resumes"], watchdog=st["watchdog_cancels"])
+        del eng
+    ok = all(c["tokens"] and c["readback"] == [True] and
+             c["preemptions"] == c["resumes"] == 1 for c in checks.values())
+    ok = ok and checks["watchdog"]["watchdog"] == 1
+    log("spec", f"dense/padded static: one preemption and one no-progress "
+                f"requeue (watchdog_no_progress_s=30, virtual clock) against "
+                f"an undisturbed run: {checks} | {card}")
+    if not ok:
+        raise AssertionError(f"spec dense preemption/watchdog: {checks}")
+    return list(runs.values()) + [base]
+
+
+def _spec_promo_deadline(card, cfg, params, prompts) -> None:
+    """(c) ``promo_deadline_s`` on the dense/padded path (dynaexq, a
+    policy window every step): the first window's copies are queued
+    behind a ~1 s spin on each side stream, and with the virtual clock
+    moved past the deadline the next step's watchdog cancels each once:
+    its reservation refunded exactly once (the tracker's bytes and the
+    invariants right after the cancel), the expert left lo, and every
+    request finishes."""
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.core.ver import Residency
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.requests import Request
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    eng = eng_mod.InferenceEngine(
+        cfg, _fresh(params), make_backend(
+            "dynaexq", lo_bits=4, group_size=64, n_hi_per_layer=16,
+            device=dev, controller=ControllerConfig(update_interval_s=0.0)),
+        eng_mod.EngineConfig(max_slots=SPEC_SLOTS, max_len=SPEC_MAX_LEN,
+                             paged=False, moe_dispatch="padded",
+                             promo_deadline_s=1.0), device=dev)
+    tms = [c.tm for c in eng.backend.controllers.values()]
+    tick, ticks = eng.backend.tick, [0]
+
+    def held_tick():
+        if not ticks[0]:
+            for tm in tms:                   # ~1 s of spin on the side
+                with torch.cuda.stream(tm._side):
+                    torch.cuda._sleep(2_000_000_000)
+        ticks[0] += 1
+        return tick()
+
+    cancel, calls, stuck = eng.backend.cancel_stuck_promotions, [], []
+
+    def cancel_watched(now, deadline_s):
+        used = sum(tm.tracker.used for tm in tms)
+        n = cancel(now, deadline_s)
+        for tm in tms:
+            tm.check_invariants()
+        calls.append((now, n, used - sum(tm.tracker.used for tm in tms),
+                      all(tm.state[l, e] == Residency.RESIDENT_LO.value
+                          for tm, l, e in stuck)))
+        return n
+
+    eng.backend.tick = held_tick
+    eng.backend.cancel_stuck_promotions = cancel_watched
+    eng._clock = 0.0
+    hs = [eng.submit(Request(tokens=p, max_new_tokens=8))
+          for p in prompts]
+    eng.step()                # its tick issues copies behind the spin
+    stuck += [(tm, p.layer, p.expert) for tm in tms for p in tm._pending
+              if not p.event.query()]
+    eng._clock = 5.0
+    eng.step()                # the watchdog's scan runs first
+    del eng.backend.tick, eng.backend.cancel_stuck_promotions
+    _, cancelled, refunded, lo = calls[1]
+    eng.drain()
+    eng.flush()
+    for tm in tms:
+        tm.check_invariants()
+    st = eng.stats()
+    hi_bytes = tms[0].hi_bytes
+    log("spec", f"dense/padded dynaexq promo_deadline_s=1 (virtual clock): "
+                f"{len(stuck)} copies held behind a ~1 s spin, "
+                f"{cancelled} cancelled at t=5 s (fault_cancels "
+                f"{st['fault_cancels']:.0f} at the end), bytes refunded by "
+                f"the cancel {refunded} (= {refunded / max(1, hi_bytes):.0f}"
+                f" x hi bytes), experts left lo {lo}, invariants hold after "
+                f"the cancel and after the flush; "
+                f"promotions {st['promotions']:.0f}, all "
+                f"{len(hs)} requests finished "
+                f"{all(len(h.tokens) == 8 for h in hs)} | "
+                f"{time.perf_counter() - t0:.1f} s | {card}")
+    if not (stuck and cancelled == len(stuck) == st["fault_cancels"] and
+            refunded == cancelled * hi_bytes and lo and calls[0][1] == 0
+            and all(len(h.tokens) == 8 for h in hs)):
+        raise AssertionError("spec: promo_deadline_s did not cancel the "
+                             "held copies once each")
+
+
+def phase_spec(card: str) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    full = get_config(ARCH)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(full, n_layers=SERVE_LAYERS)
+    params = init_params(cfg, seed=0, device=dev)
+    prompts, warm = _spec_prompts(cfg.vocab_size)
+    log("spec", f"{cfg.name}: full width, {SERVE_LAYERS} of {full.n_layers} "
+                f"layers, random weights, seed 0; paged/ragged, graphed; "
+                f"{SPEC_SLOTS} slots, 8 greedy requests (64-256-token "
+                f"prompts, {SPEC_NEW} tokens) all admitted in the first "
+                f"step; static int4 and dynaexq (n_hi 16, hi sets from one "
+                f"window after a warm-up, then fixed); runs "
+                f"{[label for label, _ in SPEC_RUNS]}")
+    runs = _spec_paged(card, cfg, params, prompts, warm)
+    del params
+    cfg4 = dataclasses.replace(full, n_layers=SPEC_DENSE_LAYERS)
+    params = init_params(cfg4, seed=0, device=dev)
+    runs += _spec_dense(card, cfg4, params, prompts, warm)
+    _spec_promo_deadline(card, cfg4, params, prompts)
+    del params
+    for k in RESULTS:
+        RESULTS[k]["launches"] = RESULTS[k].get("launches", 0) + sum(
+            r["launches"][k] for r in runs)
+    log("spec", f"phase done in {time.perf_counter() - t0:.1f} s | {card}")
+
+
+# ---------------------------------------------------------------------------
 # 6. trace: where a decode step's device time goes
 # ---------------------------------------------------------------------------
 
@@ -3313,7 +3836,7 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
 
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "model",
-          "serving", "requests", "trace")
+          "serving", "requests", "spec", "trace")
 #: Phases that run only when named in ``--only``.
 EXTRA_PHASES = ("dense",)
 
@@ -3334,23 +3857,22 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
-    if "kernels" in only:
-        phase_kernels()
-    if "splits" in only:
-        phase_splits()
-    if "gemms" in only:
-        phase_gemms()
-    if "dense" in only:
-        phase_dense(args.parent)
-    if "model" in only:
-        phase_model()
-    if "serving" in only:
-        phase_serving(card)
-    if "requests" in only:
-        phase_requests(card)
-    if "trace" in only:
-        phase_trace(card)
-    log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    took = {}
+    for name, run in (("kernels", phase_kernels), ("splits", phase_splits),
+                      ("gemms", phase_gemms),
+                      ("dense", lambda: phase_dense(args.parent)),
+                      ("model", phase_model),
+                      ("serving", lambda: phase_serving(card)),
+                      ("requests", lambda: phase_requests(card)),
+                      ("spec", lambda: phase_spec(card)),
+                      ("trace", lambda: phase_trace(card))):
+        if name in only:
+            t = time.perf_counter()
+            run()
+            took[name] = time.perf_counter() - t
+    log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s ("
+                + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
+                + ")")
     print(json.dumps({"kernels": [RESULTS[k] for k in sorted(RESULTS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

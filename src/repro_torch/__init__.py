@@ -5,7 +5,8 @@ The package mirrors the module names of the JAX reference package
 PyTorch idiom and imports neither JAX nor the reference package. Its main
 path is serving through ``serving.InferenceEngine`` (the reference's
 request front: sampling, prefix sharing, SLO tiers, chunked prefill,
-preemption) with a paged KV pool, ragged MoE dispatch and the
+preemption; self-speculative decoding and the watchdogs of ``fault``)
+with a paged KV pool, ragged MoE dispatch and the
 mixed-precision expert banks of ``core.ver``; the kernels of that path
 are hand-written CUDA C++ in ``kernels/csrc`` (see ``kernels.ops``).
 

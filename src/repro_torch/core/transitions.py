@@ -10,6 +10,12 @@
   complete when its event has (``event.query()``).
 * ``publish_ready()`` publishes completed copies into the host maps and
   pushes the maps to the device arrays on the compute stream.
+* ``cancel_stuck(now, deadline_s)`` (the watchdog's hook) cancels every
+  promotion whose copy has not completed ``deadline_s`` after it was issued
+  (``issue_ts`` on ``clock``, which the engine rebinds to its own): the
+  slot frees, the reservation is refunded exactly once, and the expert
+  keeps serving lo. The slot was never published, so no forward reads it;
+  a later copy into it queues behind the stuck one on the side stream.
 
 The forward never observes a partially written version: a slot is read only
 through ``slot_owner``, which names it only after its copy's event
@@ -22,6 +28,7 @@ On the CPU copies are synchronous and complete at once.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -41,6 +48,8 @@ class PendingPromotion:
     slot: int
     nbytes: int
     event: Optional[torch.cuda.Event] = None   # None: completed (CPU)
+    issue_ts: float = 0.0          # ``clock`` when the copy was issued
+    cancelled: bool = False        # refunded: a second cancel is a no-op
 
 
 class TransitionManager:
@@ -72,8 +81,11 @@ class TransitionManager:
             if self._cuda else None
         self._reuse_event: Optional[torch.cuda.Event] = None
         self.stats = {"promoted": 0, "demoted": 0, "deferred": 0,
-                      "bytes_moved": 0}
+                      "bytes_moved": 0, "fault_cancels": 0}
         self.inflight_bytes = 0
+        # Promotion ages (the watchdog's input) are read on this clock;
+        # the engine rebinds it to its own (virtual under replay).
+        self.clock = time.monotonic
 
     # -- queue side ------------------------------------------------------
     def request_promotion(self, layer: int, expert: int) -> None:
@@ -139,7 +151,8 @@ class TransitionManager:
                 write_hi_slot(leaf, layer, slot,
                               self.host_hi[name][layer, expert])
         self._pending.append(PendingPromotion(layer, expert, slot,
-                                              self.hi_bytes, event))
+                                              self.hi_bytes, event,
+                                              issue_ts=self.clock()))
         self.inflight_bytes += self.hi_bytes
         self.stats["bytes_moved"] += self.hi_bytes
 
@@ -164,8 +177,8 @@ class TransitionManager:
                 elif not p.event.query():
                     still.append(p)
                     continue
-            self.inflight_bytes -= p.nbytes
             if self.state[p.layer, p.expert] == Residency.PROMOTING.value:
+                self.inflight_bytes -= p.nbytes
                 publish(self.slot_map_h, self.slot_owner_h, p.layer,
                         p.expert, p.slot)
                 self.state[p.layer, p.expert] = Residency.RESIDENT_HI.value
@@ -173,13 +186,46 @@ class TransitionManager:
                 self.stats["promoted"] += 1
             else:
                 # Demoted while promoting: reclaim without publishing.
-                self.pools[p.layer].free(p.slot)
-                self.tracker.release(p.nbytes)
-                self.state[p.layer, p.expert] = Residency.RESIDENT_LO.value
+                self._cancel_pending(p, fault=False)
             self._dirty = True
         self._pending = still
         self._flush_maps()
         return published
+
+    def _cancel_pending(self, p: PendingPromotion, fault: bool = True) -> None:
+        """Cancel an in-flight promotion: free its slot, refund its
+        reservation, leave the expert lo. Idempotent: the refund happens
+        exactly once however many paths (publish, watchdog) cancel it."""
+        if p.cancelled:
+            return
+        p.cancelled = True
+        self.pools[p.layer].free(p.slot)
+        self.tracker.release(p.nbytes)
+        self.state[p.layer, p.expert] = Residency.RESIDENT_LO.value
+        self.inflight_bytes -= p.nbytes
+        if fault:
+            self.stats["fault_cancels"] += 1
+
+    def cancel_stuck(self, now: float, deadline_s: float) -> int:
+        """The watchdog's hook: cancel the promotions whose copy has not
+        completed ``deadline_s`` after it was issued (engine-clock age).
+        The expert keeps serving lo and the controller may choose it again.
+        Returns how many were cancelled."""
+        still, n = [], 0
+        for p in self._pending:
+            done = p.event is None or p.event.query()
+            if not done and now - p.issue_ts > deadline_s:
+                self._cancel_pending(p)
+                n += 1
+            else:
+                still.append(p)
+        self._pending = still
+        return n
+
+    def pending_ages(self, now: float) -> List[tuple]:
+        """(layer, expert, age_s) of every in-flight promotion."""
+        return [(p.layer, p.expert, round(now - p.issue_ts, 6))
+                for p in self._pending]
 
     def _flush_maps(self) -> None:
         """Push the host handle table to the device arrays, in place, on
@@ -217,6 +263,7 @@ class TransitionManager:
             (self.inflight_bytes, open_bytes)
         assert self.tracker.used == (n_used + len(self._pending)) * \
             self.hi_bytes, (self.tracker.used, n_used, len(self._pending))
+        assert not any(p.cancelled for p in self._pending)
         assert not self._dirty
         assert np.array_equal(self.bank.slot_owner.cpu().numpy(),
                               self.slot_owner_h)

@@ -18,17 +18,21 @@
 // cores would take over from its 3.35 TB/s of HBM. So the design reads each
 // weight byte once per run of tiles and keeps enough bytes in flight:
 //
-// * Runs. Over [0, n_tiles) tile_eid is non-decreasing (the dispatch sorts
-//   rows by expert, `ragged_tile_map`), so an expert's tiles are one
-//   segment. A run is up to `cap` (<= NT = 8) consecutive tiles of one
-//   segment, and a work item is (run, 64-column block): each weight
-//   fragment multiplies every 8-row tile of the run, so the weights are
-//   read once per run instead of once per tile. Each CTA builds the runs in
-//   shared memory from tile_eid (per expert its first and end tile, then
-//   one block scan of the run counts into run offsets) and finds an item's
-//   run by binary search over the offsets: shared memory grows with E, not
-//   with the number of tiles. A map that is not sorted, or an expert id
-//   outside [0, E), traps (the launch then fails at the next sync).
+// * Runs. A segment is a maximal run of equal ids in tile_eid over
+//   [0, n_tiles): a boundary wherever tile_eid[t] != tile_eid[t - 1]. The
+//   dispatch sorts rows by expert (`ragged_tile_map`), so there each
+//   expert's tiles are one segment; any other order (an expert in two
+//   places) is computed all the same, as more and shorter segments. A run
+//   is up to `cap` (<= NT = 8) consecutive tiles of one segment, and a work
+//   item is (run, 64-column block): each weight fragment multiplies every
+//   8-row tile of the run, so the weights are read once per run instead of
+//   once per tile. Each CTA builds the segments in shared memory from
+//   tile_eid (one block scan of the segment starts into segment indices,
+//   then one of the run counts into run offsets) and finds an item's run
+//   by binary search over the offsets. The arrays are sized for the most
+//   segments any map of Tt tiles has (Tt: one per tile), so shared memory
+//   grows with the tile budget, not with E. An expert id outside [0, E)
+//   traps (the launch then fails at the next sync).
 // * Persistent grid. The grid is the SMs times the CTAs that fit on one
 //   (the occupancy of the chosen ring and warps), and each CTA walks items
 //   blockIdx.x, + gridDim.x, … up to the count it computed, column blocks
@@ -96,12 +100,13 @@ __host__ __device__ constexpr int slot_bytes(int nmat, int ncw) {
 }
 
 // Dynamic shared memory: 1 KB of alignment slack (the swizzle needs
-// 1024-byte aligned boxes), the ring, the barriers, then per expert its
-// first tile, end tile and run offset (E + 1), and the scan's warp sums.
+// 1024-byte aligned boxes), the ring, the barriers, then per segment its
+// first tile and run offset (Tt + 1 each: a map of Tt tiles has at most Tt
+// segments, and one more entry holds the end), and the scan's warp sums.
 __host__ __device__ constexpr size_t smem_bytes(int nmat, int ncw,
-                                                int stages, int E) {
+                                                int stages, int Tt) {
   return 1024 + (size_t)stages * slot_bytes(nmat, ncw) + 16 * MAX_STAGES +
-         4 * ((size_t)3 * E + 1 + MAX_WARPS);
+         4 * ((size_t)2 * (Tt + 1) + MAX_WARPS);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -169,14 +174,14 @@ struct Item {
   int e, t0, nt, n0;
 };
 
-// Item `it` from the run offsets: run r = it / n_cb belongs to the last
-// expert whose offset is <= r (experts without tiles share their
-// successor's offset, so that expert has at least one run).
+// Item `it` from the run offsets: run r belongs to the last segment whose
+// offset is <= r (every segment has at least one run).
 __device__ __forceinline__ Item item_at(int it, int n_cb, int BN,
-                                        const int* first, const int* last,
-                                        const int* roff, int E, int cap) {
+                                        const int* seg, const int* roff,
+                                        int n_seg, int cap,
+                                        const int32_t* tile_eid) {
   const int r = it / n_cb;
-  int lo = 0, hi = E;                      // roff[lo] <= r < roff[hi]
+  int lo = 0, hi = n_seg;                  // roff[lo] <= r < roff[hi]
   while (hi - lo > 1) {
     const int mid = (lo + hi) >> 1;
     if (roff[mid] <= r)
@@ -185,11 +190,35 @@ __device__ __forceinline__ Item item_at(int it, int n_cb, int BN,
       hi = mid;
   }
   Item x;
-  x.e = lo;
-  x.t0 = first[lo] + (r - roff[lo]) * cap;
-  x.nt = min(cap, last[lo] - x.t0);
+  x.t0 = seg[lo] + (r - roff[lo]) * cap;
+  x.e = tile_eid[seg[lo]];
+  x.nt = min(cap, seg[lo + 1] - x.t0);
   x.n0 = (it % n_cb) * BN;
   return x;
+}
+
+// An exclusive scan of `local` over the block's threads in order (warps by
+// shuffles, then the warp sums in `wsum`): returns this thread's offset;
+// `total` gets the sum. Every thread of the block calls it.
+template <int NTHREADS>
+__device__ __forceinline__ int block_scan(int local, int* wsum, int& total) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int incl = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  int off = incl - local;
+  total = 0;
+  for (int w = 0; w < NTHREADS / 32; ++w) {
+    if (w < warp) off += wsum[w];
+    total += wsum[w];
+  }
+  __syncthreads();                         // wsum may be written again
+  return off;
 }
 
 // NMAT = 2: h = bf16(silu(x·W0[e])) · bf16(x·W1[e]); NMAT = 1: y = x·W0[e].
@@ -216,10 +245,9 @@ dense_ffn_kernel(const __grid_constant__ CUtensorMap tx,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   constexpr int SLOT = slot_bytes(NMAT, NCW);
   uint64_t* bars = reinterpret_cast<uint64_t*>(ring + stages * SLOT);
-  int* first = reinterpret_cast<int*>(bars + 2 * MAX_STAGES);
-  int* last = first + E;
-  int* roff = last + E;                    // E + 1 entries
-  int* wsum = roff + E + 1;
+  int* seg = reinterpret_cast<int*>(bars + 2 * MAX_STAGES);   // Tt + 1
+  int* roff = seg + Tt + 1;                                     // Tt + 1
+  int* wsum = roff + Tt + 1;
   const uint32_t ring_s = smem_u32(ring), bars_s = smem_u32(bars);
   auto full = [&](int s) { return bars_s + 8 * s; };
   auto empty = [&](int s) { return bars_s + 8 * (MAX_STAGES + s); };
@@ -233,49 +261,50 @@ dense_ffn_kernel(const __grid_constant__ CUtensorMap tx,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  for (int e = tid; e < E; e += NTHREADS) first[e] = last[e] = 0;
   __syncthreads();
 
-  // Each expert's segment [first, last) of the live tiles.
+  // The segments of the live tiles: each thread takes a contiguous range
+  // of tiles and counts the segment starts in it (a start: tile 0, or an
+  // id other than the tile before); a block scan gives each start its
+  // segment index.
   const int n = max(0, min(*n_tiles, Tt));
-  for (int t = tid; t < n; t += NTHREADS) {
-    const int e = tile_eid[t];
-    const int prev = t > 0 ? tile_eid[t - 1] : -1;
-    const int next = t + 1 < n ? tile_eid[t + 1] : E;
-    if (e < 0 || e >= E || prev > e) __trap();
-    if (prev != e) first[e] = t;
-    if (next != e) last[e] = t + 1;
+  int n_seg;
+  {
+    const int per = (n + NTHREADS - 1) / NTHREADS;
+    const int lo = min(n, tid * per), hi = min(n, lo + per);
+    int local = 0;
+    for (int t = lo; t < hi; ++t) {
+      const int e = tile_eid[t];
+      if (e < 0 || e >= E) __trap();
+      local += t == 0 || tile_eid[t - 1] != e;
+    }
+    int k = block_scan<NTHREADS>(local, wsum, n_seg);
+    for (int t = lo; t < hi; ++t)
+      if (t == 0 || tile_eid[t - 1] != tile_eid[t]) seg[k++] = t;
+    if (tid == 0) seg[n_seg] = n;
   }
   __syncthreads();
 
   // Run offsets: an exclusive scan of ceil(segment / cap) over the
-  // experts, each thread a contiguous range, warps by shuffles.
+  // segments, each thread a contiguous range.
   {
-    const int per = (E + NTHREADS - 1) / NTHREADS;
-    const int lo = min(E, tid * per), hi = min(E, lo + per);
+    const int per = (n_seg + NTHREADS - 1) / NTHREADS;
+    const int lo = min(n_seg, tid * per), hi = min(n_seg, lo + per);
     int local = 0;
-    for (int e = lo; e < hi; ++e)
-      local += (last[e] - first[e] + cap - 1) / cap;
-    int incl = local;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += v;
+    for (int k = lo; k < hi; ++k)
+      local += (seg[k + 1] - seg[k] + cap - 1) / cap;
+    int total;
+    int run = block_scan<NTHREADS>(local, wsum, total);
+    for (int k = lo; k < hi; ++k) {
+      roff[k] = run;
+      run += (seg[k + 1] - seg[k] + cap - 1) / cap;
     }
-    if (lane == 31) wsum[warp] = incl;
-    __syncthreads();
-    int run = incl - local;
-    for (int w = 0; w < warp; ++w) run += wsum[w];
-    for (int e = lo; e < hi; ++e) {
-      roff[e] = run;
-      run += (last[e] - first[e] + cap - 1) / cap;
-    }
-    if (tid == NTHREADS - 1) roff[E] = run;   // the last thread: the total
+    if (tid == 0) roff[n_seg] = total;
   }
   __syncthreads();
 
   const int n_cb = (N + BN - 1) / BN;
-  const int n_items = roff[E] * n_cb;
+  const int n_items = roff[n_seg] * n_cb;
   const int n_k = (K + KS - 1) / KS;
 
   if (warp == NCW) {
@@ -284,7 +313,7 @@ dense_ffn_kernel(const __grid_constant__ CUtensorMap tx,
     int s = 0;
     uint32_t phase = 0, wrapped = 0;
     for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-      const Item x = item_at(it, n_cb, BN, first, last, roff, E, cap);
+      const Item x = item_at(it, n_cb, BN, seg, roff, n_seg, cap, tile_eid);
       const int nb = min(NB, (N - x.n0) / BOXN);   // boxes inside N
       for (int kb = 0; kb < n_k; ++kb) {
         // The slot's previous use must have been released.
@@ -325,7 +354,7 @@ dense_ffn_kernel(const __grid_constant__ CUtensorMap tx,
   int s = 0;
   uint32_t phase = 0;
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const Item x = item_at(it, n_cb, BN, first, last, roff, E, cap);
+    const Item x = item_at(it, n_cb, BN, seg, roff, n_seg, cap, tile_eid);
     float acc[NMAT][NT][4];
 #pragma unroll
     for (int m = 0; m < NMAT; ++m)
@@ -414,7 +443,7 @@ int launch(const CUtensorMap (&m)[3], const void* tile_eid,
            int grid, int cap, int stages, cudaStream_t stream) {
   if (int err = prepare<NMAT, NCW>()) return err;
   dense_ffn_kernel<NMAT, NCW>
-      <<<grid, (NCW + 1) * 32, smem_bytes(NMAT, NCW, stages, E), stream>>>(
+      <<<grid, (NCW + 1) * 32, smem_bytes(NMAT, NCW, stages, Tt), stream>>>(
           m[0], m[1], m[2], static_cast<const int32_t*>(tile_eid),
           static_cast<const int32_t*>(n_tiles),
           static_cast<__nv_bfloat16*>(out), Tt, K, N, E, cap, stages);
@@ -432,7 +461,7 @@ int checked(const void* tx, const void* tw0, const void* tw1,
   if (Tt == 0) return 0;
   if (N % BOXN != 0 || K % 16 != 0 || E < 1 || cap < 1 || cap > NT ||
       grid < 1 || stages < 2 || stages > MAX_STAGES ||
-      smem_bytes(NMAT, ncw, stages, E) > SMEM_MAX)
+      smem_bytes(NMAT, ncw, stages, Tt) > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   CUtensorMap m[3];
   memcpy(&m[0], tx, sizeof(CUtensorMap));
@@ -451,12 +480,12 @@ int checked(const void* tx, const void* tw0, const void* tw1,
 }
 
 template <int NMAT, int NCW>
-int occupancy(int stages, int E) {
+int occupancy(int stages, int Tt) {
   if (int err = prepare<NMAT, NCW>()) return -err;
   int n = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &n, dense_ffn_kernel<NMAT, NCW>, (NCW + 1) * 32,
-      smem_bytes(NMAT, NCW, stages, E));
+      smem_bytes(NMAT, NCW, stages, Tt));
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -521,14 +550,14 @@ int ragged_dense_tensor_map(void* out, const void* base, int rank,
 }
 
 // CTAs of the gate/up (nmat = 2) or down (nmat = 1) kernel with ncw
-// consumer warps and `stages` ring slots for E experts that fit on one SM;
-// negative: minus a CUDA error code.
-int ragged_dense_occupancy(int nmat, int ncw, int stages, int E) {
+// consumer warps and `stages` ring slots for a map of Tt tiles that fit on
+// one SM; negative: minus a CUDA error code.
+int ragged_dense_occupancy(int nmat, int ncw, int stages, int Tt) {
   switch (nmat * 100 + ncw) {
-    case 204: return occupancy<2, 4>(stages, E);
-    case 208: return occupancy<2, 8>(stages, E);
-    case 104: return occupancy<1, 4>(stages, E);
-    case 108: return occupancy<1, 8>(stages, E);
+    case 204: return occupancy<2, 4>(stages, Tt);
+    case 208: return occupancy<2, 8>(stages, Tt);
+    case 104: return occupancy<1, 4>(stages, Tt);
+    case 108: return occupancy<1, 8>(stages, Tt);
     default: return -(int)cudaErrorInvalidValue;
   }
 }

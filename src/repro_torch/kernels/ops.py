@@ -28,8 +28,8 @@ backends) is a kernel of its own (``csrc/ragged_dense_ffn.cu``): runs of
 up to ``DENSE_NT`` tiles of one expert share each weight read, a
 persistent grid walks (run, column block) items, and TMA loads fill a
 ring shared by the CTA, through tensor maps cached here by
-``tensor_map_key``. On the card it needs ``tile_eid`` non-decreasing over
-the live tiles, as the dispatch makes it (``dense_runs`` mirrors the
+``tensor_map_key``. A run stays within a segment of equal ids of
+``tile_eid``, so any tile order is computed (``dense_runs`` mirrors the
 kernel's runs). Where the reference's ``ragged_dense_ffn_op`` runs its
 oracle for a shape its kernel cannot tile, these wrappers copy the
 operands, zero-padded to whole k16 steps and 64-column boxes, and run the
@@ -106,23 +106,24 @@ SMEM_MAX = 227 * 1024
 #: expert of a bank (compiled in).
 DENSE_X_BOX = (64, 8)
 DENSE_W_BOX = (64, 64, 1)
-#: Most experts the all-hi kernels take: each CTA keeps three ints per
-#: expert in shared memory beside its ring.
-DENSE_MAX_EXPERTS = 2048
+#: Most tiles the all-hi kernels take: each CTA keeps two ints per tile
+#: (a map of Tt tiles has at most Tt segments) in shared memory beside its
+#: ring.
+DENSE_MAX_TILES = 16384
 #: Tensor maps (128-byte buffers) by ``tensor_map_key``; cleared when it
 #: holds ``_TMAP_CAP`` of them.
 _TMAPS: Dict[tuple, ctypes.Array] = {}
 _TMAP_CAP = 256
 
 
-def dense_smem_bytes(nmat: int, warps: int, stages: int, E: int) -> int:
-    """Shared memory of one all-hi CTA (``smem_bytes`` of the kernels): 1 KB
-    of alignment slack, ``stages`` slots of ``warps / 4`` 8 KB weight boxes
-    per matrix and 8 tiles' 1 KB row boxes, 16 barrier pairs, and per
-    expert three ints (first tile, end tile, run offset) plus the scan's
-    17."""
+def dense_smem_bytes(nmat: int, warps: int, stages: int, Tt: int) -> int:
+    """Shared memory of one all-hi CTA over a map of ``Tt`` tiles
+    (``smem_bytes`` of the kernels): 1 KB of alignment slack, ``stages``
+    slots of ``warps / 4`` 8 KB weight boxes per matrix and 8 tiles' 1 KB
+    row boxes, 16 barrier pairs, and per segment two ints (first tile, run
+    offset; Tt + 1 of each) plus the scan's 16 warp sums."""
     slot = nmat * (warps // 4) * 8192 + DENSE_NT * 1024
-    return 1024 + stages * slot + 16 * 16 + 4 * (3 * E + 1 + 16)
+    return 1024 + stages * slot + 16 * 16 + 4 * (2 * (Tt + 1) + 16)
 
 
 def reset_launches() -> None:
@@ -472,7 +473,7 @@ def _check_dense(x, tile_eid, n_tiles, weights, bm, name):
     return Tt, K, N
 
 
-def dense_route(bm: int, K: int, N: int, E: int, *tensors) -> str:
+def dense_route(bm: int, K: int, N: int, Tt: int, *tensors) -> str:
     """How an all-hi call on the card runs, decided from shapes and
     addresses before any launch: "kernel" on the operands as they are, or
     "copy" when K is not whole k16 mma steps, N not whole 64-column weight
@@ -483,13 +484,13 @@ def dense_route(bm: int, K: int, N: int, E: int, *tensors) -> str:
     ``ragged_dense_ffn_op`` (``src/repro/kernels/ops.py:158-161``) runs its
     oracle for such shapes instead. Raises ``ValueError`` for what no copy
     fixes: bm other than 8 token rows (the mma's N), more than
-    ``DENSE_MAX_EXPERTS`` experts."""
+    ``DENSE_MAX_TILES`` tiles."""
     if bm != KERNEL_BM:
         raise ValueError(f"the CUDA kernels are built for bm={KERNEL_BM}, "
                          f"got {bm}")
-    if E > DENSE_MAX_EXPERTS:
-        raise ValueError(f"E={E}: the dense CUDA kernels take at most "
-                         f"{DENSE_MAX_EXPERTS} experts")
+    if Tt > DENSE_MAX_TILES:
+        raise ValueError(f"Tt={Tt}: the dense CUDA kernels take at most "
+                         f"{DENSE_MAX_TILES} tiles")
     if K % 16 or N % DENSE_BN or any(t.data_ptr() % 16 for t in tensors):
         return "copy"
     return "kernel"
@@ -499,7 +500,7 @@ def _dense_call(name: str, bm: int, x, tile_eid, n_tiles,
                 weights) -> torch.Tensor:
     """One all-hi kernel on the card by ``dense_route``."""
     K, N = x.shape[1], weights[0].shape[2]
-    if dense_route(bm, K, N, weights[0].shape[0], x, *weights) == "copy":
+    if dense_route(bm, K, N, tile_eid.shape[0], x, *weights) == "copy":
         Kp, Np = -(-K // 16) * 16, -(-N // DENSE_BN) * DENSE_BN
         pad = torch.nn.functional.pad            # always a fresh tensor
         x = pad(x, (0, Kp - K))
@@ -509,18 +510,18 @@ def _dense_call(name: str, bm: int, x, tile_eid, n_tiles,
 
 
 def dense_runs(tile_eid: torch.Tensor, n_tiles: int,
-               cap: int = DENSE_NT) -> list:
-    """The all-hi kernels' runs in their order, in plain form: each
-    expert's segment of the live tiles ``[0, n_tiles)`` cut into runs of at
-    most ``cap`` tiles, as ``(expert, first tile, tiles)``, experts in
-    order. A work item is a run and a ``DENSE_BN``-column block (column
-    blocks fastest). Raises on a map that is not non-decreasing over the
-    live tiles (the kernel traps on one)."""
+               cap: int = DENSE_NT, n_experts: Optional[int] = None) -> list:
+    """The all-hi kernels' runs in their order, in plain form: each segment
+    (a maximal run of equal ids) of the live tiles ``[0, n_tiles)`` cut
+    into runs of at most ``cap`` tiles, as ``(expert, first tile, tiles)``,
+    segments in tile order. A sorted map has one segment per expert; an
+    expert in two places has two. A work item is a run and a
+    ``DENSE_BN``-column block (column blocks fastest). With ``n_experts``,
+    raises on an id outside ``[0, n_experts)`` (the kernel traps on
+    one)."""
     eid = tile_eid[:n_tiles].tolist()
-    if any(b < a for a, b in zip(eid, eid[1:])):
-        raise ValueError("tile_eid must be non-decreasing over the live "
-                         "tiles (sorted by expert, as ragged_tile_map "
-                         "makes it)")
+    if n_experts is not None and any(e < 0 or e >= n_experts for e in eid):
+        raise ValueError(f"tile_eid holds ids outside [0, {n_experts})")
     runs, t = [], 0
     while t < len(eid):
         end = t
@@ -542,12 +543,12 @@ def dense_grid(n_sm: int, per_sm: int, Tt: int, n_cb: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _dense_occupancy(nmat: int, warps: int, stages: int, E: int,
+def _dense_occupancy(nmat: int, warps: int, stages: int, Tt: int,
                      index: int) -> int:
     from repro_torch.kernels import build
     with torch.cuda.device(index):
         n = build.library("ragged_dense_ffn").ragged_dense_occupancy(
-            nmat, warps, stages, E)
+            nmat, warps, stages, Tt)
     if n < 0:
         build.check(-n, "ragged_dense_occupancy")
     return n
@@ -612,7 +613,8 @@ def ragged_dense_launch(name: str, x, tile_eid, n_tiles, weights, *,
     warps = DENSE_PLAN[name][0] if warps is None else warps
     stages = DENSE_PLAN[name][1] if stages is None else stages
     if grid is None:
-        per_sm = _dense_occupancy(len(weights), warps, stages, E, dev.index)
+        per_sm = _dense_occupancy(len(weights), warps, stages, Tt,
+                                  dev.index)
         grid = dense_grid(_sm_count(dev.index), per_sm, Tt,
                           -(-N // (16 * warps)))
     maps = [_tensor_map(x, DENSE_X_BOX)] + \
@@ -629,8 +631,9 @@ def ragged_dense_gateup(xs, tile_eid, n_tiles, w_gate, w_up, *,
                         bm: int) -> torch.Tensor:
     """The all-hi mode's gate/up: h (R, F) = bf16(silu(xs·W_gate[e])) ·
     bf16(xs·W_up[e]) per row tile, e = ``tile_eid[t]``, from (E, K, F) bf16
-    banks. Rows of tiles ``t >= n_tiles`` are not written on the card,
-    where ``tile_eid`` must be non-decreasing over the live tiles."""
+    banks. Rows of tiles ``t >= n_tiles`` are not written on the card;
+    ``tile_eid`` may hold the live tiles' experts in any order (an
+    expert's tiles need not be adjacent), each id in ``[0, E)``."""
     _check_dense(xs, tile_eid, n_tiles, (w_gate, w_up), bm, "xs")
     if xs.device.type == "cpu":
         return ref.ragged_dense_gateup_ref(xs, tile_eid, w_gate, w_up, bm=bm)

@@ -13,7 +13,10 @@ Entry points:
                            (whole prompts, or over cached prefix blocks);
 * ``decode_step_paged``  — one token per row (the serving hot path);
 * ``init_caches``        — dense (nsb, B, Hkv, C, hd) KV rows;
-* ``prefill`` / ``decode_step`` — the same over dense rows.
+* ``prefill`` / ``decode_step`` — the same over dense rows;
+* ``spec_draft`` / ``spec_verify`` — S chained decode steps (paged or
+                           dense): the draft and verify of self-speculative
+                           decoding.
 
 Every MoE layer runs through its mixed-precision bank (``bank``: MoE
 position → stacked ``ExpertBankQ``), or with ``bank=None`` through the
@@ -134,11 +137,12 @@ def _layer(tree, l: int):
 def _block_step(bp: Dict, cfg: ArchConfig, x: torch.Tensor, cache,
                 pos_idx, capacity: int, bank, prefill: bool,
                 paged: Optional[Dict] = None, lengths=None, token_valid=None,
-                n_rows=None, moe_dispatch=None):
+                n_rows=None, moe_dispatch=None, row_capacity=None):
     """One attention + MoE layer. x (B, S, d); ``cache`` a ``PagedKVCache``
     with ``paged`` holding the block tables and write targets, or dense
-    ``KVCache`` rows with ``paged`` None. Returns (x, counts) with counts
-    (E,) or (n_rows, E)."""
+    ``KVCache`` rows with ``paged`` None. ``row_capacity``: the per-row
+    MoE drop rule over the B rows. Returns (x, counts) with counts (E,) or
+    (n_rows, E)."""
     B, S, d = x.shape
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
     if paged is not None and prefill:
@@ -157,9 +161,13 @@ def _block_step(bp: Dict, cfg: ArchConfig, x: torch.Tensor, cache,
                                       cache)
     x = x + attn_out
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
+    # Per-row capacity needs the row count even where per-row counts were
+    # not asked for; the counts returned still follow ``n_rows``.
     y, aux = X.moe_apply(bp["moe"], bank, h.reshape(B * S, d), cfg.moe,
-                         capacity, token_valid=token_valid, n_rows=n_rows,
-                         dispatch=moe_dispatch)
+                         capacity, token_valid=token_valid,
+                         n_rows=n_rows if n_rows is not None or
+                         row_capacity is None else B,
+                         dispatch=moe_dispatch, row_capacity=row_capacity)
     counts = aux.row_counts if n_rows is not None else aux.counts
     return x + y.reshape(B, S, d), counts
 
@@ -194,15 +202,17 @@ def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                   start: torch.Tensor, lengths: torch.Tensor, bank=None,
                   capacity_factor: Optional[float] = None,
                   per_row_counts: bool = False, has_prefix: bool = False,
-                  moe_dispatch: Optional[str] = None):
+                  moe_dispatch: Optional[str] = None,
+                  row_capacity: Optional[int] = None):
     """Masked prefill of prompt SUFFIXES into the paged pool (updated in
     place). ``tokens`` (R, S) hold tokens ``start[r]`` .. ``lengths[r]-1``
     right-padded to the bucket S; ``lengths`` (R,) are TOTAL prompt
     lengths, so ``lengths - start`` are the suffix lengths (0 = inert pad
     row). ``has_prefix`` also attends each suffix over its row's cached
     prefix blocks (the prefix-sharing and chunked-prefill path; every MoE
-    layer runs on the suffix rows only). Returns (suffix-last-token logits
-    (R, V) float32, counts {pos: (nsb, R, E) or (nsb, E)})."""
+    layer runs on the suffix rows only). ``row_capacity``: the per-row MoE
+    drop rule. Returns (suffix-last-token logits (R, V) float32, counts
+    {pos: (nsb, R, E) or (nsb, E)})."""
     _check_family(cfg)
     x = params["embed"][tokens]
     R, S, _ = x.shape
@@ -218,7 +228,8 @@ def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                             pos_idx=None, prefill=True, paged=paged,
                             token_valid=token_valid,
                             n_rows=R if per_row_counts else None,
-                            moe_dispatch=moe_dispatch)
+                            moe_dispatch=moe_dispatch,
+                            row_capacity=row_capacity)
     last = torch.clamp(suffix - 1, 0, S - 1)
     x_last = x[torch.arange(R, device=x.device), last][:, None, :]
     return _lm_logits(params, cfg, x_last)[:, 0], counts
@@ -231,7 +242,8 @@ def decode_step_paged(params: Dict, cfg: ArchConfig, token: torch.Tensor,
                       capacity_factor: float = 2.0,
                       row_valid: Optional[torch.Tensor] = None,
                       per_row_counts: bool = False,
-                      moe_dispatch: Optional[str] = None):
+                      moe_dispatch: Optional[str] = None,
+                      row_capacity: Optional[int] = None):
     """One token per row against the paged pool. ``token``/``pos_idx``
     (B,); ``write_blk``/``write_off`` (B,) pre-resolved write targets;
     ``row_valid`` (B,) masks vacant rows out of dispatch and counts.
@@ -246,7 +258,8 @@ def decode_step_paged(params: Dict, cfg: ArchConfig, token: torch.Tensor,
                             pos_idx=pos_idx, prefill=False, paged=paged,
                             token_valid=row_valid,
                             n_rows=B if per_row_counts else None,
-                            moe_dispatch=moe_dispatch)
+                            moe_dispatch=moe_dispatch,
+                            row_capacity=row_capacity)
     return _lm_logits(params, cfg, x)[:, 0], counts
 
 
@@ -254,7 +267,8 @@ def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
             caches: Dict, lengths: torch.Tensor, bank=None,
             capacity_factor: Optional[float] = None,
             per_row_counts: bool = False,
-            moe_dispatch: Optional[str] = None):
+            moe_dispatch: Optional[str] = None,
+            row_capacity: Optional[int] = None):
     """Masked prefill from position 0 into dense rows (updated in place).
     ``tokens`` (B, S) right-padded; ``lengths`` (B,) prompt lengths (0 =
     inert pad row). Returns (last-token logits (B, V) float32, counts
@@ -270,7 +284,8 @@ def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                             pos_idx=None, prefill=True, lengths=lengths,
                             token_valid=token_valid,
                             n_rows=B if per_row_counts else None,
-                            moe_dispatch=moe_dispatch)
+                            moe_dispatch=moe_dispatch,
+                            row_capacity=row_capacity)
     last = torch.clamp(lengths - 1, 0, S - 1)
     x_last = x[torch.arange(B, device=x.device), last][:, None, :]
     return _lm_logits(params, cfg, x_last)[:, 0], counts
@@ -281,7 +296,8 @@ def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
                 capacity_factor: float = 2.0,
                 row_valid: Optional[torch.Tensor] = None,
                 per_row_counts: bool = False,
-                moe_dispatch: Optional[str] = None):
+                moe_dispatch: Optional[str] = None,
+                row_capacity: Optional[int] = None):
     """One token per row against dense rows, written in place at slot
     ``pos % C``. ``token``/``pos_idx`` (B,); ``row_valid`` (B,) masks
     vacant rows out of dispatch and counts. Returns (logits (B, V)
@@ -294,5 +310,84 @@ def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
                             pos_idx=pos_idx, prefill=False,
                             token_valid=row_valid,
                             n_rows=B if per_row_counts else None,
-                            moe_dispatch=moe_dispatch)
+                            moe_dispatch=moe_dispatch,
+                            row_capacity=row_capacity)
     return _lm_logits(params, cfg, x)[:, 0], counts
+
+
+# --------------------------------------------------------------------------
+# Self-speculative decoding: S chained decode steps. Each step IS
+# ``decode_step``/``decode_step_paged`` (the same attention, the same MoE
+# capacity moe_capacity(B), the same masked writes), so a verified prefix
+# computes exactly what the plain decode would have: token parity with the
+# non-speculative path by construction. The port serves no recurrent
+# (mamba) or sliding-window family, so no per-step state is stacked.
+# --------------------------------------------------------------------------
+
+def _spec_step(params, cfg, tok, pos, caches, j: int, row_valid, paged,
+               **kw):
+    """Step ``j`` of a burst: one decode step at ``pos + j``, written where
+    ``paged["write_blk"][j]``/``["write_off"][j]`` say (paged) or at slot
+    ``(pos + j) % C`` (dense)."""
+    if paged is None:
+        return decode_step(params, cfg, tok, pos + j, caches,
+                           row_valid=row_valid[j], **kw)
+    return decode_step_paged(params, cfg, tok, pos + j, caches,
+                             paged["table"], paged["write_blk"][j],
+                             paged["write_off"][j], row_valid=row_valid[j],
+                             **kw)
+
+
+def spec_draft(params: Dict, cfg: ArchConfig, token: torch.Tensor,
+               pos: torch.Tensor, caches: Dict, row_valid: torch.Tensor,
+               bank=None, capacity_factor: float = 2.0,
+               paged: Optional[Dict] = None,
+               row_capacity: Optional[int] = None,
+               moe_dispatch: Optional[str] = None) -> torch.Tensor:
+    """Draft ``S = row_valid.shape[0]`` greedy tokens per row by chaining
+    decode steps: each step's argmax (on the device) is the next step's
+    token. ``token`` (B,) the last emitted token per row; ``pos`` (B,) the
+    first write position; ``row_valid`` (S, B) per-step validity (a row
+    past its own depth is masked out of MoE dispatch and counts but rides
+    along); ``paged``: {"table": (B, nb), "write_blk"/"write_off": (S, B)}
+    pre-resolved write lanes. With the all-lo view of the served banks
+    (``serving.lobanks``) the always-resident lo tier is the draft model.
+    Emits no counts: draft traffic never feeds hotness. Returns drafted
+    (S, B) int64; the caches are written in place."""
+    _check_family(cfg)
+    kw = dict(bank=bank, capacity_factor=capacity_factor,
+              row_capacity=row_capacity, moe_dispatch=moe_dispatch)
+    out, tok = [], token
+    for j in range(row_valid.shape[0]):
+        logits, _ = _spec_step(params, cfg, tok, pos, caches, j, row_valid,
+                               paged, **kw)
+        tok = torch.argmax(logits, -1)
+        out.append(tok)
+    return torch.stack(out)
+
+
+def spec_verify(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+                pos: torch.Tensor, caches: Dict, row_valid: torch.Tensor,
+                bank=None, capacity_factor: float = 2.0,
+                paged: Optional[Dict] = None,
+                row_capacity: Optional[int] = None,
+                moe_dispatch: Optional[str] = None):
+    """Verify ``S`` positions: chained decode steps over the given tokens
+    (row r, step j consumes ``tokens[j, r]`` at position ``pos[r] + j``)
+    on the served (mixed-precision) banks. Returns (logits (S, B, V)
+    float32, counts {pos: (S, nsb, B, E)}): ``logits[j]`` is the
+    next-token distribution after ``tokens[:j+1]``; the counts are per
+    step, so the engine keeps rejected positions out of the hotness
+    signal. The caches are written in place."""
+    _check_family(cfg)
+    kw = dict(bank=bank, capacity_factor=capacity_factor,
+              per_row_counts=True, row_capacity=row_capacity,
+              moe_dispatch=moe_dispatch)
+    logits, counts = [], []
+    for j in range(tokens.shape[0]):
+        lg, c = _spec_step(params, cfg, tokens[j], pos, caches, j,
+                           row_valid, paged, **kw)
+        logits.append(lg)
+        counts.append(c)
+    return torch.stack(logits), {k: torch.stack([c[k] for c in counts])
+                                 for k in counts[0]}

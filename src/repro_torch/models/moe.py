@@ -249,27 +249,40 @@ def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor) -> torch.Tensor:
 
 def dispatch_compute(bank, x: torch.Tensor, idx: torch.Tensor,
                      gates: torch.Tensor, e_local: int, capacity: int,
-                     row_capacity: Optional[int] = None):
+                     row_capacity: Optional[int] = None,
+                     n_rows: Optional[int] = None):
     """Padded sort-scatter dispatch + the grouped expert FFN + the gated
     combine. x (T, d); idx (T, k) expert ids with ``e_local`` as the
-    out-of-range sentinel; gates (T, k), zero on sentinel entries. Returns
-    (y (T, d), counts (E,) int32, dropped). A dense dict bank runs the
-    reference's three einsums over (E, C, d) as one batched SwiGLU."""
-    if row_capacity is not None:
-        raise NotImplementedError("the per-row capacity rule of the padded "
-                                  "layout is not ported")
+    out-of-range sentinel; gates (T, k), zero on sentinel entries.
+    ``row_capacity`` (with ``n_rows``) switches to the per-row drop rule
+    (``_row_capacity_keep``); ``capacity`` is then the physical bound the
+    caller derived (``n_rows · row_capacity``), and the kept assignments
+    of an expert fill its rows in order. Returns (y (T, d), counts (E,)
+    int32, dropped). A dense dict bank runs the reference's three einsums
+    over (E, C, d) as one batched SwiGLU."""
     T, d = x.shape
     k = idx.shape[1]
     order, sorted_eid, counts, pos_in_e, tok = _sort_routing(idx, e_local)
-    kept = _keep_mask(sorted_eid, pos_in_e, tok, e_local, capacity, None,
-                      None, T)
+    kept = _keep_mask(sorted_eid, pos_in_e, tok, e_local, capacity,
+                      row_capacity, n_rows, T)
+    if row_capacity is None:
+        scat_pos = pos_in_e
+    else:
+        # Rank among the expert's KEPT assignments: the buffer holds only
+        # survivors.
+        kept_i = kept.long()
+        kept_e = torch.zeros(e_local + 1, dtype=torch.int64,
+                             device=x.device).scatter_add_(0, sorted_eid,
+                                                           kept_i)
+        kstart = torch.cumsum(kept_e, 0) - kept_e
+        scat_pos = torch.cumsum(kept_i, 0) - 1 - kstart[sorted_eid]
     # The reference scatters with mode="drop"; here dropped and sentinel
     # assignments write to one spare row past the (E·C, d) buffer, which
     # is cut off (a view: the buffer stays contiguous for the kernel).
     EC = e_local * capacity
     eid_safe = torch.clamp(sorted_eid, max=e_local - 1)
-    flat = torch.where(kept, eid_safe * capacity + pos_in_e,
-                       torch.full_like(pos_in_e, EC))
+    flat = torch.where(kept, eid_safe * capacity + scat_pos,
+                       torch.full_like(scat_pos, EC))
     xg = torch.zeros((EC + 1, d), dtype=x.dtype, device=x.device)
     xg[flat] = x[tok]
     xg = xg[:EC].view(e_local, capacity, d)
@@ -287,16 +300,27 @@ def dispatch_compute(bank, x: torch.Tensor, idx: torch.Tensor,
 
 def moe_apply(params, bank, x: torch.Tensor, cfg: MoEConfig,
               capacity: int, token_valid: Optional[torch.Tensor] = None,
-              n_rows: Optional[int] = None, dispatch: Optional[str] = None):
+              n_rows: Optional[int] = None, dispatch: Optional[str] = None,
+              row_capacity: Optional[int] = None):
     """Single-device MoE. ``params``: {'router', ['shared']}; x (T, d).
     ``token_valid`` masks tokens out of dispatch and every count;
     ``n_rows`` adds per-row (R, E) counts; ``dispatch`` ∈ {"ragged",
-    "padded"} picks the token layout (None = ragged). A ``params["shared"]``
-    SwiGLU (the shared expert) is added to every row after the combine,
-    masked rows too, as the reference does. Returns (y (T, d), MoEAux)."""
+    "padded"} picks the token layout (None = ragged); ``row_capacity``
+    (needs ``n_rows``) makes the drop rule per row: whether a token's
+    assignment drops no longer depends on the other rows of the batch. A
+    ``params["shared"]`` SwiGLU (the shared expert) is added to every row
+    after the combine, masked rows too, as the reference does. Returns
+    (y (T, d), MoEAux)."""
     dispatch = "ragged" if dispatch is None else dispatch
     if dispatch not in DISPATCHES:
         raise ValueError(f"dispatch={dispatch!r}; one of {DISPATCHES}")
+    if row_capacity is not None:
+        if n_rows is None:
+            raise ValueError("row_capacity needs n_rows")
+        # The physical capacity that covers the per-row rule's worst case
+        # (every surviving assignment on one expert): drops come from the
+        # row rule alone.
+        capacity = n_rows * row_capacity
     E, k = cfg.num_experts, cfg.top_k
     T = x.shape[0]
     gates, idx, probs = route(params["router"], x, cfg)
@@ -307,10 +331,12 @@ def moe_apply(params, bank, x: torch.Tensor, cfg: MoEConfig,
     gates_l = torch.where(sel, gates, torch.zeros_like(gates))
     if dispatch == "ragged":
         y, counts, dropped, pad_ratio = _dispatch_ragged(
-            bank, x, idx_l, gates_l, E, capacity)
+            bank, x, idx_l, gates_l, E, capacity, row_capacity=row_capacity,
+            n_rows=n_rows)
     else:
-        y, counts, dropped = dispatch_compute(bank, x, idx_l, gates_l, E,
-                                              capacity)
+        y, counts, dropped = dispatch_compute(
+            bank, x, idx_l, gates_l, E, capacity, row_capacity=row_capacity,
+            n_rows=n_rows)
         kept_rows = torch.clamp(counts, 0, capacity).sum().float()
         pad_ratio = 1.0 - kept_rows / max(E * capacity, 1)
     if "shared" in params:

@@ -448,6 +448,25 @@ class DynaExqBackend(_BackendBase):
         for ctl in self.controllers.values():
             ctl.flush()
 
+    # -- the watchdog's hooks ---------------------------------------------
+    def bind_clock(self, clock) -> None:
+        """Read promotion ages on the engine clock (virtual under replay):
+        the time base of the watchdog's deadline."""
+        for ctl in self.controllers.values():
+            ctl.tm.clock = clock
+
+    def cancel_stuck_promotions(self, now: float, deadline_s: float) -> int:
+        """Cancel the promotions whose copy has not completed
+        ``deadline_s`` after it was issued (slot freed, reservation
+        refunded once, the expert keeps serving lo)."""
+        return sum(ctl.tm.cancel_stuck(now, deadline_s)
+                   for ctl in self.controllers.values())
+
+    def pending_promotions(self, now: float) -> list:
+        """(position, layer, expert, age_s) of every in-flight promotion."""
+        return [(pos, l, e, a) for pos, ctl in self.controllers.items()
+                for l, e, a in ctl.tm.pending_ages(now)]
+
     # -- introspection -----------------------------------------------------
     def hi_sets(self) -> Dict[str, list]:
         return {k: [sorted(ctl.tm.hi_set(l))
@@ -466,13 +485,14 @@ class DynaExqBackend(_BackendBase):
 
     def _residency_stats(self):
         agg = {"bytes_moved": 0.0, "promotions": 0.0, "demotions": 0.0,
-               "deferred": 0.0, "lo_resident_frac": 1.0,
+               "deferred": 0.0, "fault_cancels": 0.0, "lo_resident_frac": 1.0,
                "residency_ready_frac": 1.0}
         for ctl in self.controllers.values():
             agg["bytes_moved"] += ctl.tm.stats["bytes_moved"]
             agg["promotions"] += ctl.tm.stats["promoted"]
             agg["demotions"] += ctl.tm.stats["demoted"]
             agg["deferred"] += ctl.tm.stats["deferred"]
+            agg["fault_cancels"] += ctl.tm.stats["fault_cancels"]
         return agg
 
 

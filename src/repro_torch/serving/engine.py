@@ -25,7 +25,7 @@ own ``SamplingParams`` (``serving.sampler``; greedy by default).
   appends lazily and copies a shared block on write (``_ensure_write``,
   the copies run on the device before the step); block 0 takes vacant
   rows' writes. With ``paged=False`` every slot owns a dense
-  (Hkv, max_len, hd) row (no trie, chunking or preemption there).
+  (Hkv, max_len, hd) row (no trie or chunking there).
 * **MoE dispatch** (``EngineConfig.moe_dispatch``): "ragged" (None, the
   default) or "padded", on either KV layout.
 * **Decode** runs one step per tier group (``Scheduler.decode_groups``):
@@ -40,11 +40,25 @@ own ``SamplingParams`` (``serving.sampler``; greedy by default).
   one transfer per step brings the (B,) tokens and the per-row router
   counts to the host; only rows that sample ship their (V,) logits,
   gathered on the device.
-* **Preemption** (paged path): a blocked higher-class head evicts one
-  lower-class running request; its valid K/V lanes go to the host, its
+* **Self-speculative decoding** (``EngineConfig.spec_k > 0``,
+  ``serving.spec``): the scheduler's ``spec`` rows advance by a draft of up
+  to ``spec_k`` tokens on the all-lo view and its verify on the served
+  banks, one CUDA graph each per ladder width; a round emits 1 … k+1
+  tokens per row, and at temperature 0 the same tokens as plain decode.
+* **Preemption**: a blocked higher-class head evicts one lower-class
+  running request. On the pool its valid K/V lanes go to the host, its
   lease closes (blocks and quota return to the pool, its full chunks stay
   in the trie), and resume adopts the trie hits and uploads only the lanes
-  the trie lost: the continuation is the uninterrupted one.
+  the trie lost; on dense rows its whole row goes to the host and comes
+  back into any free slot. The continuation is the uninterrupted one.
+* **Watchdogs** (``promo_deadline_s``, ``watchdog_no_progress_s``;
+  ``fault.watchdog``): before each step, promotions whose copy has not
+  completed past the deadline are cancelled (the expert keeps serving lo),
+  and RUNNING requests that emitted no token for too long are preempted
+  and requeued.
+* **Per-row MoE capacity** (``row_capacity_norm``): the drop rule of every
+  MoE layer becomes per request row, so whether a token's assignment drops
+  does not depend on the other rows of the batch.
 * **Modeled stalls**: ``observe`` returns the seconds a forward would have
   waited on transfers (the offload baseline's misses; 0 elsewhere), never
   slept. A decode step's latency is its measured time plus its stall
@@ -54,10 +68,8 @@ own ``SamplingParams`` (``serving.sampler``; greedy by default).
   engine clock ``_now`` (wall time, or ``replay``'s virtual clock);
   compute latencies read ``perf_counter``.
 
-Not ported yet: speculative decoding (``spec_k``), the watchdogs
-(``promo_deadline_s``, ``watchdog_no_progress_s``), per-row MoE capacity
-(``row_capacity_norm``), preemption on the dense path and the dense path's
-sliding-window rings.
+Not ported: the dense path's sliding-window rings (the port serves no
+sliding-window family).
 """
 from __future__ import annotations
 
@@ -77,6 +89,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import (decode_step, decode_step_paged,
                                       init_caches, init_paged_caches,
                                       prefill, prefill_paged)
+from repro_torch.fault.watchdog import Watchdog, WatchdogConfig
 from repro_torch.models.moe import DISPATCHES, RAGGED_BM, moe_capacity
 from repro_torch.serving.graphs import DecodeGraph, StaticInputs, eager
 from repro_torch.serving.kvpool import KVBlockPool, KVLease
@@ -100,10 +113,6 @@ ENGINE_STAT_KEYS = (
 LOAD_SNAPSHOT_KEYS = ("queue_depth", "tpot_ema_s", "est_wait_s",
                       "budget_headroom_frac", "residency_ready_frac")
 
-#: The slice of the port that brings each option still missing.
-_NOT_PORTED = {"spec_k": 0, "promo_deadline_s": None,
-               "watchdog_no_progress_s": None, "row_capacity_norm": False}
-
 __all__ = ["ENGINE_STAT_KEYS", "LOAD_SNAPSHOT_KEYS", "EngineConfig",
            "EngineStallError", "InferenceEngine", "RequestHandle",
            "RequestState", "eager"]
@@ -111,10 +120,7 @@ __all__ = ["ENGINE_STAT_KEYS", "LOAD_SNAPSHOT_KEYS", "EngineConfig",
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The reference's fields and defaults (but ``spec_adaptive``, which
-    tunes speculation). The options of speculative decoding, the
-    watchdogs and per-row capacity raise ``NotImplementedError`` when set
-    (slice 11 of the port)."""
+    """The reference's fields and defaults."""
     max_slots: int = 4
     max_len: int = 512
     capacity_factor: float = 2.0
@@ -129,13 +135,22 @@ class EngineConfig:
     # Envelope shared by KV block reservations and the expert hi tier
     # (None = unbounded).
     hbm_budget_bytes: Optional[int] = None
+    # Self-speculative decoding: the most draft tokens per round (0 = off)
+    # and whether the depth adapts per request from its acceptance EMA
+    # over a power-of-two ladder (False: always spec_k).
     spec_k: int = 0
+    spec_adaptive: bool = True
     # MoE token layout: "ragged", "padded", or None (ragged).
     moe_dispatch: Optional[str] = None
+    # Per-row MoE capacity: the drop rule under a tight capacity_factor
+    # becomes per request row.
     row_capacity_norm: bool = False
     # SLO-tiered scheduling; None → SchedulerConfig() (the untiered engine
     # for traffic of the default class).
     scheduler: Optional[SchedulerConfig] = None
+    # The watchdogs (None = off): cancel promotions whose copy has not
+    # completed this long after it was issued (engine-clock seconds), and
+    # requeue RUNNING requests that emitted no token for this long.
     promo_deadline_s: Optional[float] = None
     watchdog_no_progress_s: Optional[float] = None
 
@@ -187,6 +202,11 @@ class RequestHandle:
         self.prefix_hit_tokens = 0     # prompt tokens served from the trie
         self.expert_counts: Optional[Dict[str, np.ndarray]] = None
         self.step_times: List[float] = []     # decode latency, stall incl.
+        # The request's own speculative acceptance EMA (its draft depth).
+        self.spec_ema = 0.75
+        # Engine clock at the last emitted token (the watchdog's input).
+        self.last_progress_s = 0.0
+        self._eos_scanned = 0          # tokens already checked for EOS
 
     def prompt(self) -> np.ndarray:
         return np.asarray(self.request.tokens, np.int64).reshape(-1)
@@ -207,11 +227,6 @@ class InferenceEngine:
         self.backend = backend
         self.ecfg = ecfg if ecfg is not None else EngineConfig()
         e = self.ecfg
-        for name, default in _NOT_PORTED.items():
-            if getattr(e, name) != default:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(e, name)!r} is not "
-                    f"ported yet (slice 11 of the port brings it)")
         if backend.device != self.device:
             raise ValueError(f"backend on {backend.device}, engine on "
                              f"{self.device}")
@@ -252,6 +267,20 @@ class InferenceEngine:
             self.banks = backend.materialize_banks(
                 cfg, params, pos_bytes * n * e.max_len, budget=self.budget)
             self.caches = init_caches(cfg, n, e.max_len, self.device)
+        # Promotion ages (the watchdog's input) on the engine clock.
+        bind = getattr(backend, "bind_clock", None)
+        if bind is not None:
+            bind(self._now)
+        self._watchdog = None
+        if e.promo_deadline_s is not None or \
+                e.watchdog_no_progress_s is not None:
+            self._watchdog = Watchdog(WatchdogConfig(
+                promo_deadline_s=e.promo_deadline_s,
+                no_progress_s=e.watchdog_no_progress_s))
+        # Per-row MoE capacity: the decode steps' row cap (the prefills'
+        # depends on the length bucket, ``_row_cap_prefill``).
+        self._row_cap_decode = moe_capacity(1, cfg.moe, e.capacity_factor) \
+            if e.row_capacity_norm else None
         # The batch tier's banks: the same buffers, every hi slot disowned.
         self._lo_owner_cache: Dict = {}
         self.lo_banks = all_lo_banks(self.banks, self._lo_owner_cache)
@@ -294,7 +323,8 @@ class InferenceEngine:
         self.counters = {k: 0 for k in (
             "steps", "prefills", "admitted", "finished", "prefill_tokens",
             "prefix_hit_tokens", "kv_cow_copies", "preemptions", "resumes",
-            "shed_requests", "downgraded", "chunk_prefills")}
+            "shed_requests", "downgraded", "chunk_prefills",
+            "watchdog_cancels")}
         # The decode steps: static inputs, rewritten in place every step,
         # and one step over them per bank view (one CUDA graph each on the
         # card, sharing a memory pool).
@@ -305,7 +335,7 @@ class InferenceEngine:
                        ("table", (n, self._nb), torch.int32)]
         fields.append(("row_valid", (n,), torch.bool))
         inputs = StaticInputs(fields, self.device)
-        pool = torch.cuda.graph_pool_handle() \
+        pool = self._graph_pool = torch.cuda.graph_pool_handle() \
             if self.device.type == "cuda" else None
         # The graphs hold their engine weakly: a reference cycle would keep
         # the engine's device memory until the collector ran.
@@ -318,6 +348,10 @@ class InferenceEngine:
         self._out_host: Optional[torch.Tensor] = None
         self.capture_s = 0.0           # set-up: warm-up and capture
         self.last_logits: Optional[torch.Tensor] = None   # last decode step
+        self._spec = None
+        if e.spec_k > 0:
+            from repro_torch.serving.spec import SpecDecoder
+            self._spec = SpecDecoder(self)
 
     # ------------------------------------------------------------------
     def _now(self) -> float:
@@ -369,6 +403,14 @@ class InferenceEngine:
         its (block-aligned) prefix hit ``start`` to its sequence cap."""
         return -(-min(self.ecfg.max_len, plen + max_new) // self._bt) - \
             start // self._bt
+
+    def _row_cap_prefill(self, bucket: int) -> Optional[int]:
+        """The per-row MoE capacity of a prefill at this length bucket
+        (None when ``row_capacity_norm`` is off): it depends only on the
+        request's own length, never on the rows beside it."""
+        if self._row_cap_decode is None:
+            return None
+        return moe_capacity(bucket, self.cfg.moe, self.ecfg.capacity_factor)
 
     def _bucket_len(self, plen: int) -> int:
         for b in self.buckets:
@@ -520,9 +562,12 @@ class InferenceEngine:
             head = self.queue.peek()
             if head._snapshot is not None or self._chunk_eligible(head):
                 self.queue.popleft()
-                ok = self._resume_paged(head, free[0]) \
-                    if head._snapshot is not None \
-                    else self._begin_chunked(head, free[0])
+                if head._snapshot is None:
+                    ok = self._begin_chunked(head, free[0])
+                elif self.pool is None:
+                    ok = self._resume_dense(head, free[0])
+                else:
+                    ok = self._resume_paged(head, free[0])
                 if not ok:
                     # Blocked on quota/headroom — back to the head.
                     self.queue.appendleft(head)
@@ -581,7 +626,8 @@ class InferenceEngine:
             lengths[r], starts[r] = p.shape[0], start
             toks[r, :p.shape[0] - start] = p[start:]
         kw = dict(bank=self.banks, capacity_factor=self.ecfg.capacity_factor,
-                  per_row_counts=True, moe_dispatch=self.moe_dispatch)
+                  per_row_counts=True, moe_dispatch=self.moe_dispatch,
+                  row_capacity=self._row_cap_prefill(bucket))
         if self.pool is not None:
             tables = np.full((R, self._nb), -1, np.int32)
             cows: List[Tuple[int, int]] = []
@@ -649,7 +695,7 @@ class InferenceEngine:
         tok = int(amax[r]) if r not in samp else \
             h.sampler.next_token(samp[r], 0)
         h.tokens.append(tok)
-        h.first_token_s = self._now()
+        h.first_token_s = h.last_progress_s = self._now()
         h.ttft_s = h.first_token_s - h.submit_s + self._stall_clock - \
             h.stall_at_submit
         self.ttfts.append(h.ttft_s)
@@ -661,9 +707,17 @@ class InferenceEngine:
 
     def _done(self, h: RequestHandle) -> bool:
         req = h.request
-        if req.eos_token_id is not None and h.tokens and \
-                h.tokens[-1] == req.eos_token_id:
-            return True
+        if req.eos_token_id is not None:
+            # A speculative round can accept a burst with EOS in the
+            # middle: check every token not yet checked and truncate the
+            # output at the first EOS.
+            toks = h.tokens
+            for t in range(h._eos_scanned, len(toks)):
+                if toks[t] == req.eos_token_id:
+                    del toks[t + 1:]
+                    h._eos_scanned = len(toks)
+                    return True
+            h._eos_scanned = len(toks)
         if len(h.tokens) >= req.max_new_tokens:
             return True
         return int(self.pos[h.slot]) >= self.ecfg.max_len
@@ -679,12 +733,14 @@ class InferenceEngine:
         finished.append(h)
 
     # ------------------------------------------------------------------
-    # Preemption (paged path): the evicted request's valid K/V lanes go to
+    # Preemption: on the pool the evicted request's valid K/V lanes go to
     # the host and its lease closes; resume re-admits through the same
     # gates as a fresh request, adopting the trie hits and uploading only
-    # the lanes the trie lost. Cached tokens = seq[:pos] and the next input
-    # is tokens[-1], and sampling is keyed by the request's own counters,
-    # so the resumed continuation is the uninterrupted one.
+    # the lanes the trie lost. On dense rows its whole row goes to the host
+    # and resume writes it into any free slot (a row is indexed by
+    # position, not bound to its slot). Cached tokens = seq[:pos] and the
+    # next input is tokens[-1], and sampling is keyed by the request's own
+    # counters, so the resumed continuation is the uninterrupted one.
     # ------------------------------------------------------------------
     def preempt(self, h: RequestHandle) -> None:
         """Evict a RUNNING request and requeue it at the front of its QoS
@@ -692,21 +748,22 @@ class InferenceEngine:
         if h.state is not RequestState.RUNNING:
             raise ValueError(f"preempt of a {h.state.value} request (only "
                              f"RUNNING requests hold evictable state)")
-        if self.pool is None:
-            raise NotImplementedError(
-                "preemption on the dense path is not ported yet (slice 11 "
-                "of the port brings it)")
         slot, pos = h.slot, int(self.pos[h.slot])
         snap = SlotSnapshot(pos=pos, span_start=0)
-        span = np.arange(pos)
-        snap.attn_lanes = self._gather_lanes(
-            h.lease.table[span // self._bt], span % self._bt)
-        # The full blocks stay warm in the trie (its own reference): an
-        # early resume adopts them instead of uploading.
-        seq = np.concatenate([h.prompt(), np.asarray(h.tokens, np.int64)])
-        self._register(seq, h.lease, pos)
-        h.lease.close()
-        h.lease = None
+        if self.pool is None:
+            snap.attn_rows = {p: (c.k[:, slot].cpu(), c.v[:, slot].cpu())
+                              for p, c in self.caches.items()}
+        else:
+            span = np.arange(pos)
+            snap.attn_lanes = self._gather_lanes(
+                h.lease.table[span // self._bt], span % self._bt)
+            # The full blocks stay warm in the trie (its own reference): an
+            # early resume adopts them instead of uploading.
+            seq = np.concatenate([h.prompt(),
+                                  np.asarray(h.tokens, np.int64)])
+            self._register(seq, h.lease, pos)
+            h.lease.close()
+            h.lease = None
         self.slots[slot] = None
         self.tokens[slot] = self.ecfg.pad_token_id
         h.slot = None
@@ -745,6 +802,24 @@ class InferenceEngine:
         if victim is not None:
             self.preempt(victim[1])
 
+    def _resume_dense(self, h: RequestHandle, slot: int) -> bool:
+        """Write the snapshot's whole rows into ``slot``'s row. Cannot be
+        blocked: dense rows are preallocated and hold no quota."""
+        for p, (k, v) in h._snapshot.attn_rows.items():
+            self.caches[p].k[:, slot] = k.to(self.device)
+            self.caches[p].v[:, slot] = v.to(self.device)
+        self._finish_resume(h, slot)
+        return True
+
+    def _finish_resume(self, h: RequestHandle, slot: int) -> None:
+        self.slots[slot] = h
+        h.slot = slot
+        h.state = RequestState.RUNNING
+        self.pos[slot] = h._snapshot.pos
+        self.tokens[slot] = h.tokens[-1]
+        h._snapshot = None
+        self.counters["resumes"] += 1
+
     def _resume_paged(self, h: RequestHandle, slot: int) -> bool:
         """The admission gates of a fresh request (trie match → pin,
         headroom, quota), then the upload of the lanes the trie does not
@@ -773,13 +848,7 @@ class InferenceEngine:
                                 lease.table[span // self._bt],
                                 span % self._bt)
         h.lease = lease
-        self.slots[slot] = h
-        h.slot = slot
-        h.state = RequestState.RUNNING
-        h._snapshot = None
-        self.pos[slot] = pos
-        self.tokens[slot] = h.tokens[-1]
-        self.counters["resumes"] += 1
+        self._finish_resume(h, slot)
         return True
 
     # ------------------------------------------------------------------
@@ -853,7 +922,8 @@ class InferenceEngine:
             self._dev(tables, torch.int32), self._dev(starts),
             self._dev(lengths), bank=self.banks,
             capacity_factor=self.ecfg.capacity_factor, per_row_counts=True,
-            has_prefix=True, moe_dispatch=self.moe_dispatch)
+            has_prefix=True, moe_dispatch=self.moe_dispatch,
+            row_capacity=self._row_cap_prefill(bucket))
         amax, counts_np = self._fetch(torch.argmax(logits, -1), counts)
         dt = time.perf_counter() - t0
         self.prefill_shapes.add((R, bucket))
@@ -881,12 +951,18 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def step(self) -> List[RequestHandle]:
-        """Shed expired batch work, admit, preempt for a blocked higher
-        class, advance chunked prefills by one chunk, then advance every
-        running request by one token, one decode per tier group (premium
-        and standard on the served banks first, then the batch tier on the
+        """Run the watchdogs, shed expired batch work, admit, preempt for a
+        blocked higher class, advance chunked prefills by one chunk, then
+        advance every running request, one decode per tier group (with
+        ``spec_k`` the premium and standard rows by a speculative round,
+        else by one token on the served banks; then the batch tier on the
         all-lo view). Returns the handles that finished."""
         finished: List[RequestHandle] = []
+        if self._watchdog is not None:
+            # Before this step makes progress: a request wedged in earlier
+            # steps still carries its stale stamp, and a cancelled
+            # promotion's slot can be taken again this step.
+            self._watchdog.scan(self)
         self._shed_expired()
         self._admit(finished)
         self._maybe_preempt()
@@ -894,7 +970,12 @@ class InferenceEngine:
         active = [(i, h) for i, h in enumerate(self.slots)
                   if h is not None and h.state is RequestState.RUNNING]
         if active:
-            for kind, rows in self.sched.decode_groups(active, False):
+            for kind, rows in self.sched.decode_groups(
+                    active, self._spec is not None):
+                # A speculative round falls back to the one-token step
+                # when no row has draft headroom (one token left).
+                if kind == "spec" and self._spec.round(rows, finished):
+                    continue
                 self._decode_one(rows, finished, lo=kind == "lo")
         self.backend.tick()
         return finished
@@ -907,7 +988,8 @@ class InferenceEngine:
         kw = dict(bank=self.lo_banks if lo else self.banks,
                   capacity_factor=self.ecfg.capacity_factor,
                   row_valid=d["row_valid"], per_row_counts=True,
-                  moe_dispatch=self.moe_dispatch)
+                  moe_dispatch=self.moe_dispatch,
+                  row_capacity=self._row_cap_decode)
         if self.pool is None:
             logits, counts = decode_step(self.params, self.cfg, d["tokens"],
                                          d["pos"], self.caches, **kw)
@@ -981,11 +1063,13 @@ class InferenceEngine:
         self._tpot_tokens += len(active)
         self._tpot_ema = latency if self._tpot_ema == 0.0 else \
             0.9 * self._tpot_ema + 0.1 * latency
+        now = self._now()
         for i, h in active:
             tok = int(amax[i]) if i not in samp else \
                 h.sampler.next_token(samp[i], len(h.tokens))
             h.tokens.append(tok)
             h.step_times.append(latency)
+            h.last_progress_s = now
             for k, v in counts_np.items():
                 h.expert_counts[k] += v[:, i]
             self.tokens[i] = tok
@@ -997,12 +1081,17 @@ class InferenceEngine:
     def _note_dispatch(self, counts_np: Dict[str, np.ndarray]) -> None:
         """Host mirror of the dispatch gauges: active experts per layer and
         the padding of the configured layout (intra-tile slack of the
-        ragged layout, or empty rows of the padded (E, C) buffer)."""
+        ragged layout, or empty rows of the padded (E, C) buffer). Counts
+        are (nsb, B, E) per decode step, or (W, nsb, B, E) per speculative
+        verify (one entry per step and layer)."""
         E = self.cfg.moe.num_experts
-        C = moe_capacity(self.ecfg.max_slots, self.cfg.moe,
-                         self.ecfg.capacity_factor)
+        if self._row_cap_decode is not None:
+            C = self.ecfg.max_slots * self._row_cap_decode
+        else:
+            C = moe_capacity(self.ecfg.max_slots, self.cfg.moe,
+                             self.ecfg.capacity_factor)
         for v in counts_np.values():
-            per = v.sum(axis=1).reshape(-1, E).astype(np.float64)
+            per = v.sum(axis=-2).reshape(-1, E).astype(np.float64)
             routed = per.sum(axis=1)
             live = routed > 0
             if not live.any():
@@ -1048,8 +1137,16 @@ class InferenceEngine:
             "budget_used": int(self.budget.used),
             "budget_cap": int(self.budget.cap),
             "budget_headroom_frac": float(self.budget.headroom_frac()),
+            "pending_promotions": self._pending_promotions(),
             "counters": dict(self.counters),
         }
+
+    def _pending_promotions(self) -> List[Dict[str, object]]:
+        pend = getattr(self.backend, "pending_promotions", None)
+        if pend is None:
+            return []
+        return [{"pos": str(p), "layer": int(l), "expert": int(e),
+                 "age_s": float(a)} for p, l, e, a in pend(self._now())]
 
     def replay(self, stream, realtime: bool = True,
                virtual_step_s: float = 2e-3) -> List[RequestHandle]:
@@ -1135,6 +1232,8 @@ class InferenceEngine:
             out["tpot_s"] = self._tpot_sum / self._tpot_tokens
         out.update({k: float(v) for k, v in self.counters.items()})
         out["prefill_compiles"] = float(len(self.prefill_shapes))
+        if self._spec is not None:
+            out.update(self._spec.stats())
         if self._disp_layers:
             out["active_experts"] = self._disp_active_sum / self._disp_layers
             out["dispatch_pad_ratio"] = self._disp_pad_sum / \

@@ -210,9 +210,49 @@ def test_ragged_dense_kernels_match_plain(cuda, width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("order", ["shuffled", "split", "sorted"])
+def test_ragged_dense_kernels_take_any_tile_order(cuda, order):
+    """Tile maps in no sorted order: the dispatch's map of ``DENSE_ROWS``
+    shuffled, and one with an expert in two separate places. Each is held
+    to the plain version at 2^-6 of its largest magnitude, under the
+    default launch and under runs of one and three tiles (the same sums
+    per tile, so bit-equal to the default); ``sorted`` is the dispatch's
+    own map through the same checks. The kernel then still launches
+    cleanly (no trap ended the context)."""
+    K, F, D = 256, 128, 192
+    bank, gen = _dense_bank(len(DENSE_ROWS), K, F, D, 5)
+    te, n = _dense_map(DENSE_ROWS)
+    live = int(n)
+    if order == "shuffled":
+        perm = torch.randperm(live, generator=gen)
+        te = torch.cat([te[:live][perm], te[live:]])
+    elif order == "split":
+        te = te.clone()
+        te[:live] = torch.cat([te[live // 2:live], te[:live // 2]])
+    xs = torch.randn((te.shape[0] * BM, K), generator=gen) \
+        .to(torch.bfloat16)
+    want = ops.ragged_dense_ffn(xs, te, n, bank, bm=BM)
+    x, t, nd, bd = xs.to(cuda), te.to(cuda), n.to(cuda), _to(bank, cuda)
+    got = ops.ragged_dense_ffn(x, t, nd, bd, bm=BM)
+    rows = live * BM
+    _assert_ffn_close(got.cpu(), want, rows)
+    h = ops.ragged_dense_gateup(x, t, nd, bd["w_gate"], bd["w_up"], bm=BM)
+    for cap in (1, 3):
+        h2 = ops.ragged_dense_launch("ragged_dense_gateup", x, t, nd,
+                                     (bd["w_gate"], bd["w_up"]), cap=cap)
+        assert torch.equal(h2[:rows], h[:rows]), cap
+    torch.cuda.synchronize()
+    ids = te[:live].tolist()
+    segments = 1 + sum(a != b for a, b in zip(ids, ids[1:]))
+    n_experts = len([r for r in DENSE_ROWS if r])
+    assert segments > n_experts if order != "sorted" else \
+        segments == n_experts
+
+
+@pytest.mark.cuda
 def test_ragged_dense_kernels_reject_what_they_do_not_take(cuda):
     """The kernels never launch on a shape they cannot tile as it is: bm
-    other than 8 and more than ``DENSE_MAX_EXPERTS`` experts raise before
+    other than 8 and more than ``DENSE_MAX_TILES`` tiles raise before
     any launch; K that is not whole k16 steps, N that is not whole
     64-column boxes and a misaligned operand go to the kernel as
     zero-padded aligned copies, and equal the kernel on operands padded
@@ -228,11 +268,15 @@ def test_ragged_dense_kernels_reject_what_they_do_not_take(cuda):
     te = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
     n = torch.full((1,), 2, dtype=torch.int32, device=cuda)
     rows = 2 * BM
-    big = bank_of(ops.DENSE_MAX_EXPERTS + 1, 64, 64)
+    big = bank_of(2, 64, 64)
     xs = (torch.randn((rows, 64), generator=gen) * 0.5).bfloat16().to(cuda)
+    many = torch.zeros(ops.DENSE_MAX_TILES + 1, dtype=torch.int32,
+                       device=cuda)
     ops.reset_launches()
-    with pytest.raises(ValueError, match="experts"):
-        ops.ragged_dense_ffn(xs, te, n, big, bm=BM)
+    with pytest.raises(ValueError, match="tiles"):
+        ops.ragged_dense_ffn(torch.zeros((many.shape[0] * BM, 64),
+                                         dtype=torch.bfloat16, device=cuda),
+                             many, n, big, bm=BM)
     with pytest.raises(ValueError, match="bm="):
         ops.ragged_dense_gateup(xs[:BM // 2], te[:1], n - 1,
                                 big["w_gate"][:2], big["w_up"][:2],
@@ -795,7 +839,7 @@ PATHS = {"paged-ragged": dict(paged=True, moe_dispatch="ragged"),
          "dense-padded": dict(paged=False, moe_dispatch="padded")}
 
 
-def _engine(cuda, name, path, update_interval_s=0.0):
+def _engine(cuda, name, path, update_interval_s=0.0, **ecfg):
     from repro_torch.configs import get_config
     from repro_torch.core.controller import ControllerConfig
     from repro_torch.models.model import init_params
@@ -809,7 +853,8 @@ def _engine(cuda, name, path, update_interval_s=0.0):
     return InferenceEngine(cfg, init_params(cfg, seed=0, device=cuda),
                            make_backend(name, **kw),
                            EngineConfig(max_slots=2, max_len=64,
-                                        **PATHS[path]), device=cuda)
+                                        **PATHS[path], **ecfg),
+                           device=cuda)
 
 
 def _submit(eng):
@@ -1087,3 +1132,51 @@ def test_request_front_graphs_match_eager(cuda):
         runs.append(([h.tokens for h in hs], dict(ops.LAUNCHES)))
     assert runs[0] == runs[1]
     assert runs[0][1]["ragged_gateup"] > 0
+
+
+# --------------------------------------------------------------------------
+# Self-speculative decoding: the draft and verify graphs against eager()
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("name", ["static", "dynaexq"])
+def test_spec_graphs_match_eager(cuda, path, name):
+    """spec_k = 4 on the reduced 30B (dynaexq with its hi sets published
+    and then fixed, so drafts on the all-lo view are rejected at times):
+    the draft and verify graphs of every ladder width used against the
+    same rounds under ``eager()``, in a fresh engine each: identical tokens
+    and launches, identical spec counters; the tokens equal spec off's."""
+    import contextlib
+    import dataclasses
+    from repro_torch.serving.engine import eager
+    out = []
+    for spec_k, graphed in ((4, True), (4, False), (0, True)):
+        eng = _engine(cuda, name, path, update_interval_s=1e9,
+                      spec_k=spec_k)
+        if name == "dynaexq":
+            eng.generate({"tokens": np.stack([np.arange(16) % 7] * 2)}, 3)
+            eng.backend.force_update()
+            eng.backend.flush()
+            for ctl in eng.backend.controllers.values():
+                ctl.cfg = dataclasses.replace(ctl.cfg, update_interval_s=1e9)
+        ops.reset_launches()
+        with contextlib.nullcontext() if graphed else eager():
+            hs = _submit(eng)
+            eng.drain()
+        torch.cuda.synchronize()
+        st = eng.stats()
+        out.append(([h.tokens for h in hs], dict(ops.LAUNCHES),
+                    {k: st[k] for k in ("spec_rounds", "draft_tokens",
+                                        "verified_tokens", "accept_rate")}))
+        if spec_k:
+            assert st["spec_rounds"] > 0
+            if graphed:
+                assert any(d.graph is not None and v.graph is not None
+                           for d, v in eng._spec.graphs.values())
+        if eng.pool is not None:
+            eng.pool.check_invariants()
+    assert out[0] == out[1]
+    assert out[0][0] == out[2][0]
+    kernels = PAGED_KERNELS if path == "paged-ragged" else DENSE_KERNELS
+    assert all(out[0][1][k] > 0 for k in kernels), out[0][1]

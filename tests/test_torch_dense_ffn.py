@@ -167,18 +167,18 @@ def test_dense_cuda_shape_rules(K, N, bm, ok):
         9, dtype=torch.bfloat16)[1:]) == "copy"
 
 
-@pytest.mark.parametrize("K,N,bm,E,aligned,route", [
+@pytest.mark.parametrize("K,N,bm,Tt,aligned,route", [
     (256, 512, 8, 128, True, "kernel"), (2048, 768, 8, 512, True, "kernel"),
     (256, 96, 8, 4, True, "copy"),           # N not whole 64-column boxes
     (200, 512, 8, 4, True, "copy"),          # K not whole k16 steps
     (256, 512, 16, 4, True, None),           # bm the kernels are not built for
-    (256, 512, 8, 4096, True, None),         # too many experts
+    (256, 512, 8, 20000, True, None),        # too many tiles
     (256, 512, 8, 4, False, "copy"),         # tiles, but x is misaligned
     (256, 96, 8, 4, False, "copy")])
-def test_dense_route_decided_from_shapes(K, N, bm, E, aligned, route):
+def test_dense_route_decided_from_shapes(K, N, bm, Tt, aligned, route):
     """The all-hi op's route on the card, decided before any launch: the
     kernel on the operands, the kernel on zero-padded aligned copies, or a
-    ``ValueError`` for what no copy fixes (bm, the expert count). On the
+    ``ValueError`` for what no copy fixes (bm, the tile count). On the
     CPU the wrappers run the plain version and launch nothing."""
     x = torch.zeros((bm * 2 + (0 if aligned else 1), K),
                     dtype=torch.bfloat16)
@@ -187,9 +187,9 @@ def test_dense_route_decided_from_shapes(K, N, bm, E, aligned, route):
     w = torch.zeros((2, K, N), dtype=torch.bfloat16)
     if route is None:
         with pytest.raises(ValueError):
-            ops.dense_route(bm, K, N, E, x, w)
+            ops.dense_route(bm, K, N, Tt, x, w)
     else:
-        assert ops.dense_route(bm, K, N, E, x, w) == route
+        assert ops.dense_route(bm, K, N, Tt, x, w) == route
     ops.reset_launches()
     te = torch.zeros(2, dtype=torch.int32)
     n = torch.tensor([2], dtype=torch.int32)
@@ -287,14 +287,64 @@ def test_dense_runs_cover_the_live_tiles(rows):
 
 
 def test_dense_runs_reject_an_unsorted_map():
-    """The kernel needs each expert's tiles in one segment; the plain
-    versions do not, so the order is checked where runs are formed."""
+    """Runs form over segments of equal ids, so a map in any order is
+    taken (an expert in two places gives two segments): what is refused is
+    an id outside ``[0, E)``, which the kernel traps on."""
     te = torch.tensor(TILE_EID, dtype=torch.int32)
-    with pytest.raises(ValueError, match="non-decreasing"):
-        ops.dense_runs(te, N_LIVE)
+    assert ops.dense_runs(te, N_LIVE, n_experts=4) == [
+        (0, 0, 1), (1, 1, 2), (3, 3, 1), (2, 4, 1), (3, 5, 1), (0, 6, 1)]
+    assert ops.dense_runs(te, N_LIVE, cap=1) == [
+        (e, t, 1) for t, e in enumerate(TILE_EID[:N_LIVE])]
+    with pytest.raises(ValueError, match="outside"):
+        ops.dense_runs(te, N_LIVE, n_experts=3)
+    with pytest.raises(ValueError, match="outside"):
+        ops.dense_runs(torch.tensor([0, -1], dtype=torch.int32), 2,
+                       n_experts=2)
     # Tail tiles are not looked at.
     assert ops.dense_runs(torch.tensor([0, 2, 2, 1], dtype=torch.int32),
                           3) == [(0, 0, 1), (2, 1, 2)]
+    # A sorted map: one segment per expert, cut into runs of ``cap``.
+    sorted_map = torch.tensor([0] * 10 + [2] * 3, dtype=torch.int32)
+    assert ops.dense_runs(sorted_map, 13) == [(0, 0, 8), (0, 8, 2),
+                                              (2, 10, 3)]
+
+
+@pytest.mark.parametrize("order", ["shuffled", "split"])
+def test_dense_ffn_unsorted_map_matches_reference_ref(model, order):
+    """A tile map in no sorted order (``shuffled``), and one with an expert
+    in two separate places (``split``): the plain version, and the kernel's
+    arithmetic order (``ref.ragged_dense_*_mma``, the same sums in each
+    tile whatever run holds it), against the reference's
+    ``ragged_dense_ffn_ref`` on every live row (``_bf16_close``); the
+    runs cover each live tile once."""
+    from repro.kernels import ref as jref
+    jcfg, jp, tp = model
+    jbank = _layer(jp["blocks"]["0"]["moe"]["experts"])
+    tbank = _layer(tp["blocks"]["0"]["moe"]["experts"])
+    rng = np.random.default_rng(11)
+    if order == "shuffled":
+        eid = rng.permutation([0] * 3 + [1] * 2 + [2] * 4 + [3] * 2)
+    else:
+        eid = np.asarray([2, 2, 0, 1, 1, 1, 3, 2, 2, 0])
+    eid = np.concatenate([eid, [eid[-1]] * 2]).astype(np.int32)  # tail
+    n_live = len(eid) - 2
+    xs, te = _tiles(eid, jcfg.d_model, seed=12)
+    want = jref.ragged_dense_ffn_ref(xs, jnp.asarray(te), jbank["w_gate"],
+                                     jbank["w_up"], jbank["w_down"], bm=BM)
+    x, t = to_torch(xs), torch.from_numpy(te)
+    n = torch.tensor([n_live], dtype=torch.int32)
+    got = ops.ragged_dense_ffn(x, t, n, tbank, bm=BM)
+    h = ref.ragged_dense_gateup_mma(x, t, tbank["w_gate"], tbank["w_up"],
+                                    bm=BM)
+    mma = ref.ragged_dense_down_mma(h, t, tbank["w_down"], bm=BM)
+    rows = n_live * BM
+    for y in (got, mma):
+        _bf16_close(y[:rows].float().numpy(),
+                    np.asarray(want, np.float32)[:rows])
+    runs = ops.dense_runs(t, n_live, n_experts=4)
+    assert [t0 + i for _, t0, nt in runs for i in range(nt)] == \
+        list(range(n_live))
+    assert len(runs) > len(set(eid[:n_live].tolist()))
 
 
 def test_dense_grid_is_persistent_and_static():
@@ -325,13 +375,13 @@ def test_tensor_map_key_and_geometry():
 
 def test_dense_plans_fit_in_shared_memory():
     """Each all-hi kernel's plan (consumer warps, ring slots) fits a CTA's
-    shared memory at the most experts the wrappers take; the byte count is
+    shared memory at the most tiles the wrappers take; the byte count is
     the kernels' layout (a gate/up slot of 8 warps: two matrices × two
-    8 KB boxes, then 8 KB of rows)."""
-    assert ops.dense_smem_bytes(2, 8, 4, 128) == \
-        1024 + 4 * (2 * 2 * 8192 + 8 * 1024) + 256 + 4 * (3 * 128 + 17)
+    8 KB boxes, then 8 KB of rows; two ints per segment, Tt + 1 each)."""
+    assert ops.dense_smem_bytes(2, 8, 4, 641) == \
+        1024 + 4 * (2 * 2 * 8192 + 8 * 1024) + 256 + 4 * (2 * 642 + 16)
     for name, (warps, stages) in ops.DENSE_PLAN.items():
         nmat = 2 if name == "ragged_dense_gateup" else 1
         assert warps in (4, 8) and 2 <= stages <= 16
         assert ops.dense_smem_bytes(nmat, warps, stages,
-                                    ops.DENSE_MAX_EXPERTS) <= ops.SMEM_MAX
+                                    ops.DENSE_MAX_TILES) <= ops.SMEM_MAX

@@ -207,7 +207,7 @@ def test_schemas_equal_reference():
     assert LOAD_SNAPSHOT_KEYS == J_LOAD_KEYS
     ref = {f.name: f.default for f in dataclasses.fields(JEngineConfig)}
     ours = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
-    assert set(ref) - set(ours) == {"spec_adaptive"}  # tunes speculation
+    assert set(ref) == set(ours)
     assert all(ref[k] == v for k, v in ours.items())
 
 
@@ -499,13 +499,41 @@ def test_default_config_serves_as_the_reference_default(setup):
                                     dict(row_capacity_norm=True)],
                          ids=lambda o: next(iter(o)))
 def test_unported_options_raise(setup, option):
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        _engines(setup, **option)
+    """Each of these options (once refused by the port) builds an engine
+    on both paths and, drop-free with nothing for a watchdog to do, serves
+    the same tokens as without it (tests/test_torch_spec.py and
+    tests/test_torch_watchdog.py hold each feature against the
+    reference)."""
+    vocab = setup[1].vocab_size
+    specs = [(p, None, None, 0) for p in _prompts(vocab, 2, 12, "code",
+                                                  seed=8)]
+    for paged in (True, False):
+        kw = dict(paged=paged, moe_dispatch="ragged" if paged else "padded")
+        out = []
+        for opt in ({}, option):
+            _, te = _engines(setup, **kw, **opt)
+            out.append([h.tokens for h in te.replay(_stream(vocab, specs)[1],
+                                                    realtime=False)])
+        assert out[1] == out[0]
+        assert all(len(t) == 8 for t in out[1])
 
 
 def test_dense_path_preemption_is_not_ported(setup):
-    _, te = _engines(setup, paged=False, moe_dispatch="padded")
-    h = te.submit(Request(tokens=np.arange(9), max_new_tokens=4))
-    te.step()
-    with pytest.raises(NotImplementedError, match="dense path"):
-        te.preempt(h)
+    """Preemption on the dense path (which the port once refused): an
+    explicit ``preempt`` requeues the request and its resume continues
+    bit-exact; the reference does the same."""
+    out = []
+    for at in (None, 2):
+        je, te = _engines(setup, paged=False, moe_dispatch="padded")
+        for eng, R in ((je, JRequest), (te, Request)):
+            h = eng.submit(R(tokens=np.arange(9), max_new_tokens=6))
+            steps = 0
+            while h.state.value != "finished":
+                eng.step()
+                steps += 1
+                if steps == at:
+                    eng.preempt(h)
+                    assert h.state.value == "queued"
+            assert eng.counters["resumes"] == (0 if at is None else 1)
+            out.append(list(h.tokens))
+    assert out[0] == out[2] and out[1] == out[3]

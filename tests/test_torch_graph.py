@@ -360,3 +360,42 @@ def test_engine_decode_steps_read_nothing_on_the_host(monkeypatch, lo):
         logits, packed = eng._decode_fn(lo=lo)
     assert logits.shape == (3, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_spec_steps_read_nothing_on_the_host(monkeypatch, paged):
+    """The speculative decoder's two captured steps at the top ladder
+    width (the draft on the all-lo view, the verify on the served banks
+    with hi experts published) over its static inputs, rows running, one
+    past its depth after the first step: no host read."""
+    cfg = get_config(ARCH, reduced=True)
+    eng = InferenceEngine(
+        cfg, init_params(cfg, seed=2, device="cpu"),
+        make_backend("dynaexq", n_hi_per_layer=2, device="cpu"),
+        EngineConfig(max_slots=3, max_len=64, spec_k=2, paged=paged,
+                     moe_dispatch="ragged" if paged else "padded"),
+        device="cpu")
+    for n in (9, 20):
+        eng.submit(Request(tokens=make_prompts("text", cfg.vocab_size, 1, n,
+                                               seed=n)[0], max_new_tokens=6))
+    eng.step()
+    eng.backend.force_update()
+    eng.backend.flush()
+    assert any(int((b.slot_owner >= 0).sum()) for b in eng.banks.values())
+    spec, k = eng._spec, 2
+    rows = [(i, h) for i, h in enumerate(eng.slots) if h is not None]
+    depth = np.array([2, 1, 0])
+    step_valid = (np.arange(k + 1)[:, None] <= depth[None, :]) & \
+        np.array([True, True, False])[None, :]
+    cows = []
+    spec._fill(rows, step_valid, depth, cows)
+    eng._apply_copies(cows)
+    spec.inputs.push()
+    with no_host_reads(monkeypatch):
+        spec._draft_fn(k)
+        logits, packed = spec._verify_fn(k)
+    assert logits.shape == (k + 1, 3, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    c = spec._shapes[k]["0"]
+    assert packed.shape == ((k + 1) * 3 + k * 3 + int(np.prod(c)),)
+
