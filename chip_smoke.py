@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only card,build,kernels,serving
     python3 chip_smoke.py --only card,build,model,requests
     python3 chip_smoke.py --only card,build,spec
+    python3 chip_smoke.py --only card,build,ladder
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -120,6 +121,28 @@ Phases (each prints one line; any failure exits non-zero):
               against an undisturbed run, and promotion copies held behind
               a spin on the side stream, cancelled by ``promo_deadline_s``
               on the virtual clock (each refunded once);
+   ladder   — the residency ladder on the main path (graphed, greedy,
+              drop-free, the spec phase's 8 requests; policy frozen
+              where tokens are compared): (a) a streaming cold start at
+              full width and 2 of 48 layers from expert shards written
+              to a temporary directory (~8 GB: the reference's float32
+              hi rows) — tokens equal the engine built from the
+              in-memory params, staged lo rows equal ``build_bank``'s
+              byte for byte, seconds to ``serving_ready``, bytes read
+              before serving against full materialization, the staging
+              rate, TTFT, hi shards read by promotions — then a cold
+              start with one lo shard unreadable (quarantine, degraded
+              requests, healed); (b) at 8 layers, ``model_sensitivity``
+              on the card and ``dynaexq`` with the host tier
+              (``lo_resident_total`` = L·E/2, priced at the card's
+              pinned rate) and sensitivity weights: host fetches, the
+              modeled stall, tokens equal without the host tier, hi
+              sets against plain ``dynaexq``'s after the same window;
+              (c) the same configuration under a fault plan (promotion copies
+              failing, stalled on the virtual clock, corrupt; host
+              fetches failing): invariants, no stalled copy published
+              before its stall expired, no corrupt copy published,
+              refunds once, tokens equal the fault-free run's;
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -3563,6 +3586,557 @@ def phase_spec(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 5d. ladder: the residency ladder on the main path
+# ---------------------------------------------------------------------------
+
+#: Layers of the streaming cold start. Its shards hold the reference's
+#: float32 hi rows (128 x 18,874,368 B per layer of Qwen3-30B-A3B), the
+#: packed lo rows and the float32 embedding and LM head: ~7.7 GB on disk
+#: at 2 of 48 layers.
+LADDER_STREAM_LAYERS = 2
+LADDER_PER_TICK = 64           # experts staged per cold-start window
+LADDER_NEW = 32
+LADDER_SLOTS = 8
+LADDER_MAX_LEN = 288           # 256-token prompts + 32 tokens
+#: Free disk the shard directory needs over its own size.
+LADDER_DISK_SLACK = 1.1
+
+
+def _moe_positions(cfg) -> list:
+    return [p for p, _ in enumerate(cfg.superblock_or_default())
+            if cfg.ffn_kind(p) == "moe"]
+
+
+def _ladder_engine(cfg, params, ecfg=None, **bkw):
+    """A fresh engine on the main path (graphed, 8 slots) with ``dynaexq``
+    (int4 lo, n_hi 16, policy frozen unless ``controller`` is given)."""
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.serving.backends import make_backend
+    dev = torch.device("cuda")
+    kw = dict(lo_bits=4, group_size=64, n_hi_per_layer=16, device=dev,
+              controller=ControllerConfig(update_interval_s=1e9))
+    kw.update(bkw)
+    return eng_mod.InferenceEngine(
+        cfg, params, make_backend("dynaexq", **kw),
+        eng_mod.EngineConfig(max_slots=LADDER_SLOTS, max_len=LADDER_MAX_LEN,
+                             **(ecfg or {})), device=dev)
+
+
+def _ladder_warm(eng, warm):
+    """The spec phase's pattern: 4 tokens of the warm-up prompts, one
+    policy window, flush, then the policy stays frozen."""
+    import dataclasses
+    eng.generate({"tokens": warm}, 4)
+    eng.backend.force_update()
+    eng.backend.flush()
+    for ctl in eng.backend.controllers.values():
+        ctl.cfg = dataclasses.replace(ctl.cfg, update_interval_s=1e9)
+
+
+def _ladder_serve(eng, prompts, on_step=None, virtual=False):
+    """Serve ``prompts`` greedy on a built engine, the launch counts set to
+    0 just before and read just after; ``on_step`` runs after every step
+    (drain), ``virtual`` serves through ``replay(realtime=False)``.
+    Returns the run's summary."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.requests import Request
+    reqs = [Request(tokens=p, max_new_tokens=LADDER_NEW, arrival_s=0.0)
+            for p in prompts]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    if virtual:
+        hs = eng.replay(reqs, realtime=False)
+    else:
+        hs = [eng.submit(r) for r in reqs]
+        while eng.queue or any(h is not None for h in eng.slots):
+            eng.step()
+            if on_step is not None:
+                on_step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if not all(len(h.tokens) == LADDER_NEW for h in hs):
+        raise AssertionError(f"ladder: tokens {[len(h.tokens) for h in hs]}")
+    if not bool(torch.isfinite(eng.last_logits).all()):
+        raise AssertionError("ladder: NaN logits")
+    used, unused = PATHS["paged/ragged"][2:]
+    if not all(launches[k] > 0 for k in used) or \
+            any(launches[k] for k in unused):
+        raise AssertionError(f"ladder: launches {launches}")
+    return {"tokens": [list(h.tokens) for h in hs], "launches": launches,
+            "ttft_s": float(np.mean([h.ttft_s for h in hs])),
+            "first_s": float(min(h.ttft_s for h in hs)),
+            "wall_s": wall, "degraded": [h.degraded for h in hs]}
+
+
+def _check_ladder(be) -> None:
+    for ctl in be.controllers.values():
+        ctl.tm.check_invariants()
+    for store in be.stores.values():
+        store.check_invariants()
+
+
+def _same_lo_rows(a, b) -> int:
+    """Bank ``a``'s lo rows equal bank ``b``'s byte for byte (on the card);
+    returns the bytes compared."""
+    n = 0
+    for pos, bank in a.banks.items():
+        for name, q in bank.lo.items():
+            want = b.banks[pos].lo[name]
+            for x, y in ((q.packed, want.packed), (q.scales, want.scales)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"ladder: staged lo rows of "
+                                         f"{pos}/{name} differ from "
+                                         f"build_bank's")
+                n += x.numel() * x.element_size()
+    return n
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def _dir_bytes(root) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(root) for f in fs)
+
+
+def _ladder_stream(card, full, prompts, runs) -> None:
+    """(a) The streaming cold start at full width, 2 layers, and a cold
+    start with one lo shard unreadable."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.streaming import (ShardSource,
+                                               load_streaming_params,
+                                               save_expert_shards)
+    cfg = dataclasses.replace(full, n_layers=LADDER_STREAM_LAYERS)
+    dev = torch.device("cuda")
+    params = init_params(cfg, seed=0, device=dev)
+    positions = _moe_positions(cfg)
+    experts = {str(p): params["blocks"][str(p)]["moe"]["experts"]
+               for p in positions}
+    # float32 on disk: every leaf, and the experts' lo codes and scales.
+    need = sum(v.numel() * 4 for v in _leaves(params)) + \
+        sum(v.numel() // 2 + v.numel() // 64 * 4
+            for ex in experts.values() for v in ex.values())
+    root = tempfile.mkdtemp(prefix="ladder_shards_")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < need * LADDER_DISK_SLACK:
+            raise AssertionError(
+                f"ladder: {root} has {free / 1e9:.1f} GB free, the shard "
+                f"directory needs {need * LADDER_DISK_SLACK / 1e9:.1f} GB")
+        t = time.perf_counter()
+        save_expert_shards(root, _fresh(params), positions, lo_bits=4)
+        t_save = time.perf_counter() - t
+        on_disk = _dir_bytes(root)
+        base_bytes = _dir_bytes(os.path.join(root, "base"))
+        log("ladder", f"{cfg.name}: full width, {LADDER_STREAM_LAYERS} of "
+                      f"{full.n_layers} layers, random weights, seed 0; "
+                      f"expert shards written in {t_save:.1f} s, "
+                      f"{on_disk / 1e9:.2f} GB on disk (base/ "
+                      f"{base_bytes / 1e9:.2f} GB) | {card}")
+        # The engine built from the in-memory params: the tokens and rows
+        # to hold the streamed one to (its run also warms the process).
+        t = time.perf_counter()
+        mat = _ladder_engine(cfg, _fresh(params))
+        torch.cuda.synchronize()
+        t_mat = time.perf_counter() - t
+        a = _ladder_serve(mat, prompts)
+        runs.append(a)
+        # The streamed engine: base/ leaves, empty banks, staged lo rows.
+        t0 = time.perf_counter()
+        sp = load_streaming_params(root, device=dev)
+        eng = _ladder_engine(cfg, sp, stream=root,
+                             stream_experts_per_tick=LADDER_PER_TICK)
+        be = eng.backend
+        if be.serving_ready():
+            raise AssertionError("ladder: serving ready before any tick")
+        torch.cuda.synchronize()
+        t_built = time.perf_counter() - t0
+        state = {"calls": 0}
+
+        def opened():
+            state["calls"] += 1
+            if "t" not in state and be.serving_ready():
+                state["t"] = time.perf_counter()
+                state["read"] = dict(be.stream.stats)
+                state["steps"] = state["calls"]
+        b = _ladder_serve(eng, prompts, on_step=opened)
+        runs.append(b)
+        staged = sum(s.stats["lo_bytes_staged"] for s in be.stores.values())
+        t_ready = state["t"] - t0
+        t_pump = state["t"] - t0 - t_built
+        if b["tokens"] != a["tokens"]:
+            bad = [i for i, (x, y) in enumerate(zip(a["tokens"],
+                                                    b["tokens"])) if x != y]
+            raise AssertionError(f"ladder: streamed tokens differ from the "
+                                 f"materialized engine's for requests {bad}")
+        lo_bytes = _same_lo_rows(be, mat.backend)
+        _check_ladder(be)
+        # Full materialization reads every hi shard of the same directory
+        # up front (the cold start without streaming).
+        t1 = time.perf_counter()
+        src = ShardSource(root)
+        for pos in positions:
+            dense = src.load_dense_experts(pos, device=dev)
+            for n, v in dense.items():
+                if not torch.equal(v, experts[str(pos)][n]):
+                    raise AssertionError(f"ladder: dense {n} from the "
+                                         f"shards differs")
+            del dense
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t1
+        full_read = src.stats["bytes_read"]
+        log("ladder", f"stream: serving_ready {t_ready:.2f} s after the "
+                      f"load began (base/ leaves and engine {t_built:.2f} "
+                      f"s, staging {t_pump:.2f} s over "
+                      f"{state['steps']} windows of {LADDER_PER_TICK} "
+                      f"experts); read before serving opened "
+                      f"{state['read']['bytes_read'] / 1e9:.3f} GB of lo "
+                      f"shards ({state['read']['lo_reads']} files, "
+                      f"{state['read']['hi_reads']} hi) + base/ "
+                      f"{base_bytes / 1e9:.2f} GB, against "
+                      f"{full_read / 1e9:.3f} GB of hi shards for full "
+                      f"materialization (load_dense_experts alone "
+                      f"{t_full:.2f} s, equal to the params); staged "
+                      f"{staged / 1e9:.3f} GB at {staged / 1e9 / t_pump:.2f}"
+                      f" GB/s (shard reads, pinning and copies, wall clock)"
+                      f" | {card}")
+        log("ladder", f"stream: 8 requests x {LADDER_NEW} tokens identical "
+                      f"to the engine built from the in-memory params; "
+                      f"{lo_bytes / 1e9:.3f} GB of staged lo rows equal "
+                      f"build_bank's byte for byte; invariants hold | TTFT "
+                      f"(submit to first token, mean of 8; both submitted "
+                      f"to a freshly built engine): streamed "
+                      f"{b['ttft_s'] * 1e3:.1f} ms (it holds the staging), "
+                      f"materialized {a['ttft_s'] * 1e3:.1f} ms (built "
+                      f"from the in-memory params in {t_mat:.2f} s); first "
+                      f"token {t_built + b['first_s']:.2f} s after the "
+                      f"streamed load began | {card}")
+        # Promotions read their hi shards lazily.
+        for e in (mat, eng):
+            e.backend.force_update()
+            e.backend.flush()
+        if be.hi_sets() != mat.backend.hi_sets():
+            raise AssertionError("ladder: streamed hi sets differ")
+        st = be.stats()
+        n_hi = sum(len(s) for sets in be.hi_sets().values() for s in sets)
+        if st["hi_loads"] != n_hi or n_hi < 1:
+            raise AssertionError(f"ladder: hi_loads {st['hi_loads']}, "
+                                 f"{n_hi} hi experts")
+        for pos, ctl in be.controllers.items():
+            for l in range(ctl.tm.slot_map_h.shape[0]):
+                for e_ in ctl.tm.hi_set(l):
+                    s = int(ctl.tm.slot_map_h[l, e_])
+                    for n, h in be.banks[pos].hi.items():
+                        if not torch.equal(h[l, s], experts[pos][n][l, e_]):
+                            raise AssertionError("ladder: a hi slot read "
+                                                 "from its shard differs")
+        _check_ladder(be)
+        log("ladder", f"stream: one window after serving promoted {n_hi} "
+                      f"experts, each read from its hi shard once "
+                      f"(hi_loads {st['hi_loads']:.0f}, "
+                      f"{be.stores['0'].stats['hi_bytes_loaded'] / 1e9:.3f}"
+                      f" GB), hi sets equal the materialized engine's, hi "
+                      f"slots equal the bf16 params | {card}")
+        del eng, mat, sp
+        _ladder_quarantine(card, cfg, root, prompts, a, be, runs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _ladder_quarantine(card, cfg, root, prompts, clean, clean_be,
+                       runs) -> None:
+    """A cold start with layer 1's lo shard unreadable (garbage on disk)
+    and stage_lo failing at a fixed cadence (absorbed by retries): layer
+    1's cells quarantine, serving opens, every request routed there is
+    flagged degraded; with the shard restored the cells heal, 2 per
+    window, to build_bank's rows and the fault-free tokens. Prefix sharing
+    is off: the degraded run's prompt blocks would otherwise serve the
+    healed run's prompts with K/V computed through the quarantined
+    rows."""
+    from repro_torch.fault import FaultPlan, FaultRule
+    from repro_torch.serving.streaming import load_streaming_params
+    dev = torch.device("cuda")
+    bad = os.path.join(root, "lo", "p0_l1.npz")
+    os.replace(bad, bad + ".kept")
+    with open(bad, "wb") as f:
+        f.write(b"not a shard")
+    plan = FaultPlan(seed=7, rules=(FaultRule(site="stage_lo", every=3),))
+    eng = _ladder_engine(cfg, load_streaming_params(root, device=dev),
+                         ecfg=dict(prefix_sharing=False), stream=root,
+                         stream_experts_per_tick=LADDER_PER_TICK,
+                         fault=plan)
+    be = eng.backend
+    store = be.stores["0"]
+    E = store.E
+    steps = 0
+    while not be.serving_ready():
+        eng.step()
+        steps += 1
+        if steps > 100:
+            raise AssertionError("ladder: a quarantined cold start never "
+                                 "opened")
+    if not (store.quarantined[1].all() and not store.quarantined[0].any()):
+        raise AssertionError(f"ladder: quarantined "
+                             f"{store.quarantined.sum(axis=1)}")
+    _check_ladder(be)
+    d = _ladder_serve(eng, prompts)
+    runs.append(d)
+    if not all(d["degraded"]):
+        raise AssertionError(f"ladder: degraded {d['degraded']}")
+    os.replace(bad + ".kept", bad)
+    t = time.perf_counter()
+    heal = 0
+    while store.quarantined.any():
+        eng.step()
+        heal += 1
+        if heal > 4 * E:
+            raise AssertionError("ladder: quarantine never healed")
+    be.flush()
+    t_heal = time.perf_counter() - t
+    _same_lo_rows(be, clean_be)
+    _check_ladder(be)
+    h = _ladder_serve(eng, prompts)
+    runs.append(h)
+    if any(h["degraded"]) or h["tokens"] != clean["tokens"]:
+        raise AssertionError("ladder: healed tokens differ from the "
+                             "fault-free run's")
+    st = be.stats()
+    inj = be.injector
+    log("ladder", f"quarantine: layer 1's lo shard unreadable: serving "
+                  f"opened after {steps} windows with {E} cells quarantined "
+                  f"(quarantines {store.stats['quarantines']}), all 8 "
+                  f"requests flagged degraded (host fetches "
+                  f"{st['host_fetches']:.0f}); shard restored, healed in "
+                  f"{heal} windows ({t_heal:.2f} s), rows equal build_bank's"
+                  f", tokens then equal the fault-free run's; retries "
+                  f"{st['retries']:.0f}, stage_lo arrivals "
+                  f"{inj.arrivals('stage_lo')} of which injected "
+                  f"{inj.stats['injected']} | {card}")
+
+
+def _ladder_host_tier(card, full, prompts, warm, pcie, runs) -> None:
+    """(b) the host tier and sensitivity on 8 full-width layers, then (c)
+    faults on the same configuration."""
+    import dataclasses
+    from repro_torch.models.model import init_params
+    from repro_torch.quant.sensitivity import model_sensitivity
+    from repro_torch.serving.hoststore import FetchModel
+    cfg = dataclasses.replace(full, n_layers=SERVE_LAYERS)
+    params = init_params(cfg, seed=0, device=torch.device("cuda"))
+    positions = _moe_positions(cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sens = model_sensitivity(params, positions, lo_bits=4)
+    torch.cuda.synchronize()
+    t_sens = time.perf_counter() - t
+    L, E = SERVE_LAYERS, cfg.moe.num_experts
+    quota = L * E // 2
+    fetch = FetchModel(gbps=pcie)
+    # The same window without sensitivity: the hi sets it moves.
+    plain = _ladder_engine(cfg, _fresh(params))
+    _ladder_warm(plain, warm)
+    h_plain = plain.backend.hi_sets()
+    del plain
+    weighted = _ladder_engine(cfg, _fresh(params), sensitivity=sens)
+    _ladder_warm(weighted, warm)
+    w = _ladder_serve(weighted, prompts)
+    runs.append(w)
+    h_sens = weighted.backend.hi_sets()
+    del weighted
+    host = _ladder_engine(cfg, _fresh(params), sensitivity=sens,
+                          lo_resident_total=quota, fetch=fetch,
+                          ecfg=dict(prefix_sharing=False))
+    _ladder_warm(host, warm)
+    x = _ladder_serve(host, prompts)
+    runs.append(x)
+    be = host.backend
+    if be.hi_sets() != h_sens or x["tokens"] != w["tokens"]:
+        raise AssertionError("ladder: the host tier changed the hi sets or "
+                             "the tokens")
+    _check_ladder(be)
+    st = be.stats()
+    overlap = sum(len(set(a) & set(b)) for p in h_sens
+                  for a, b in zip(h_sens[p], h_plain[p]))
+    n_hi = sum(len(s) for sets in h_sens.values() for s in sets)
+    log("ladder", f"host tier: {cfg.name} {L} of {full.n_layers} layers; "
+                  f"model_sensitivity on the card {t_sens:.2f} s "
+                  f"({len(positions)} position, {L} x {E} experts); "
+                  f"dynaexq(n_hi 16, sensitivity, lo_resident_total "
+                  f"{quota}, fetch {pcie:.2f} GB/s, this card's pinned "
+                  f"rate): tokens and hi sets equal dynaexq(n_hi 16, "
+                  f"sensitivity) without the host tier; host_fetches "
+                  f"{st['host_fetches']:.0f}, host_fetch_bytes "
+                  f"{be._host_acct['host_fetch_bytes'] / 1e9:.3f} GB, "
+                  f"modeled stall {host._stall_clock:.4f} s over the run "
+                  f"(the engine's stall clock; stats' stall_s is "
+                  f"{st['stall_s']:.1f} for dynaexq, as the reference's), "
+                  f"lo_resident_frac "
+                  f"{st['lo_resident_frac']:.3f}, device bytes "
+                  f"{be.device_bytes() / 1e9:.3f} GB; hi sets with "
+                  f"sensitivity share {overlap} of {n_hi} experts with "
+                  f"plain dynaexq's after the same warm-up window | TTFT "
+                  f"{x['ttft_s'] * 1e3:.1f} ms | {card}")
+    del params
+    _ladder_faults(card, host, prompts, x, h_sens, runs)
+
+
+#: (c)'s plan: promotion copies fail (every 4th: absorbed by the retry),
+#: stall 20 ms on the virtual clock (every 5th) or arrive corrupt (every
+#: 7th, twice); demand host fetches fail every 3rd (retried, a second
+#: transfer's stall). Staging faults are the quarantined cold start's.
+LADDER_FAULTS = (
+    dict(site="promo_copy", every=4),
+    dict(site="promo_copy", kind="stall", every=5, start=1, stall_s=0.02),
+    dict(site="promo_copy", kind="corrupt", every=7, start=2, max_fires=2),
+    dict(site="host_fetch", every=3))
+
+
+def _ladder_faults(card, eng, prompts, clean, clean_sets, runs) -> None:
+    """(c) The host-tier engine of (b) again, under ``LADDER_FAULTS``: its
+    hi experts demoted, then promotion windows on the virtual clock until
+    every stalled copy published (as its stall expired) and every corrupt
+    one was cancelled, with the failure decay off and (b)'s served traffic
+    dropped from the hotness, so that the windows reach (b)'s hi sets;
+    then the requests through ``replay(realtime=False)``."""
+    from repro_torch.fault import FaultPlan, FaultRule
+    be = eng.backend
+    be.injector = FaultPlan(seed=11, rules=tuple(
+        FaultRule(**r) for r in LADDER_FAULTS)).injector()
+    be._propagate_faults()
+    tms = [c.tm for c in be.controllers.values()]
+    for ctl in be.controllers.values():
+        ctl.fail_decay = 1.0
+        ctl.hotness.counts[:] = 0
+        L = ctl.tm.state.shape[0]
+        ctl.apply_plan([], [(l, e) for l in range(L)
+                            for e in ctl.tm.hi_set(l)])
+    be.flush()
+    if any(s for sets in be.hi_sets().values() for s in sets):
+        raise AssertionError("ladder: hi experts left after the demotions")
+    issued, held, early = [], [0], []
+    issue = type(tms[0])._issue_copy
+    publish = type(tms[0]).publish_ready
+
+    def watched(tm, layer, expert, slot):
+        ok = issue(tm, layer, expert, slot)
+        if ok:
+            issued.append(tm._pending[-1])
+        return ok
+
+    def watched_publish(tm, wait=False):
+        # Copies still stalled before the sweep must still be pending
+        # after it (a blocking flush publishes regardless; none runs here).
+        stalled = [p for p in tm._pending if p.stall_until > tm.clock()]
+        n = publish(tm, wait)
+        left = {id(p) for p in tm._pending}
+        early.extend(p for p in stalled if id(p) not in left)
+        return n
+    for tm in tms:
+        tm._issue_copy = watched.__get__(tm)
+        tm.publish_ready = watched_publish.__get__(tm)
+    eng._clock = 0.0
+    target, windows = None, 0
+    while True:
+        be.force_update()
+        windows += 1
+        while any(tm._pending for tm in tms):
+            torch.cuda.synchronize()
+            for tm in tms:
+                tm.publish_ready()
+            if any(p.stall_until > eng._clock for tm in tms
+                   for p in tm._pending):
+                held[0] += 1
+            eng._clock += 0.005
+            for tm in tms:
+                tm.check_invariants()
+        sets = be.hi_sets()
+        if sets == target:
+            break
+        target = sets
+        if windows > 8:
+            raise AssertionError("ladder: the fault windows never settled")
+    eng._clock = None
+    for tm in tms:
+        del tm._issue_copy, tm.publish_ready
+    if be.hi_sets() != clean_sets:
+        raise AssertionError("ladder: the fault windows settled on other "
+                             "hi sets than the fault-free window")
+    corrupt = [p for p in issued if p.corrupt]
+    stalled = [p for p in issued if p.stall_until > 0]
+    if not corrupt or not stalled:
+        raise AssertionError(f"ladder: {len(corrupt)} corrupt and "
+                             f"{len(stalled)} stalled copies")
+    if early:
+        raise AssertionError(f"ladder: {len(early)} stalled copies left "
+                             f"the wire before their stall expired")
+    if any(any(p is q for tm in tms for q in tm._pending) for p in stalled):
+        raise AssertionError("ladder: a stalled copy never published")
+    if not all(p.cancelled for p in corrupt):
+        raise AssertionError("ladder: a corrupt copy was published")
+    # A second cancel of a cancelled copy refunds nothing.
+    tm = tms[0]
+    used = tm.tracker.used
+    tm._cancel_pending(corrupt[0])
+    if tm.tracker.used != used:
+        raise AssertionError("ladder: a second cancel refunded again")
+    c = _ladder_serve(eng, prompts, virtual=True)
+    runs.append(c)
+    be.flush()
+    _check_ladder(be)
+    st = be.stats()
+    keep = [i for i, dg in enumerate(c["degraded"]) if not dg]
+    if any(c["tokens"][i] != clean["tokens"][i] for i in keep):
+        raise AssertionError("ladder: a non-degraded request's tokens differ "
+                             "from the fault-free run's")
+    inj = be.injector
+    arrivals = {s: inj.arrivals(s) for s in ("promo_copy", "host_fetch")}
+    log("ladder", f"faults: (b)'s engine, its hi experts demoted: "
+                  f"{len(issued)} promotion copies issued over {windows} "
+                  f"windows on the virtual clock, {len(stalled)} stalled "
+                  f"(none left the wire before the clock passed its stall, "
+                  f"asserted at every publication sweep; {held[0]} sweeps "
+                  f"found one still held), {len(corrupt)} "
+                  f"corrupt and cancelled, never published; retries "
+                  f"{st['retries']:.0f}, fault_cancels "
+                  f"{st['fault_cancels']:.0f}, quarantined "
+                  f"{st['quarantined']:.0f}, degraded requests "
+                  f"{sum(c['degraded'])}; arrivals by site {arrivals}, "
+                  f"{inj.stats['injected']} faults injected; invariants and "
+                  f"exactly-once refunds hold; the {len(keep)} non-degraded "
+                  f"requests' tokens equal the fault-free run's (replay, "
+                  f"virtual clock) | {card}")
+
+
+def phase_ladder(card: str) -> None:
+    from repro_torch.configs import get_config
+    full = get_config(ARCH)
+    t0 = time.perf_counter()
+    pcie = pinned_h2d_gbps()
+    prompts, warm = _spec_prompts(full.vocab_size)
+    runs: list = []
+    t1 = time.perf_counter()
+    _ladder_stream(card, full, prompts, runs)
+    t2 = time.perf_counter()
+    _ladder_host_tier(card, full, prompts, warm, pcie, runs)
+    for k in RESULTS:
+        RESULTS[k]["launches"] = RESULTS[k].get("launches", 0) + sum(
+            r["launches"][k] for r in runs)
+    log("ladder", f"phase done in {time.perf_counter() - t0:.1f} s (cold "
+                  f"starts {t2 - t1:.1f} s, host tier and faults "
+                  f"{time.perf_counter() - t2:.1f} s) | {card}")
+
+
+# ---------------------------------------------------------------------------
 # 6. trace: where a decode step's device time goes
 # ---------------------------------------------------------------------------
 
@@ -3836,7 +4410,7 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
 
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "model",
-          "serving", "requests", "spec", "trace")
+          "serving", "requests", "spec", "ladder", "trace")
 #: Phases that run only when named in ``--only``.
 EXTRA_PHASES = ("dense",)
 
@@ -3865,6 +4439,7 @@ def main() -> int:
                       ("serving", lambda: phase_serving(card)),
                       ("requests", lambda: phase_requests(card)),
                       ("spec", lambda: phase_spec(card)),
+                      ("ladder", lambda: phase_ladder(card)),
                       ("trace", lambda: phase_trace(card))):
         if name in only:
             t = time.perf_counter()

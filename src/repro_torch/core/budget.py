@@ -1,7 +1,6 @@
 """HBM budget admission control (paper §3.3); the port's copy of the
-reference's numpy-only ledger and its one-shot envelope planner
-(``plan_budget``; the three-tier ``plan_hierarchy`` comes with the host
-tier).
+reference's numpy-only ledger and its one-shot envelope planners
+(``plan_budget`` for two tiers, ``plan_hierarchy`` with the host tier).
 
 ``BudgetTracker`` is the runtime admission gate: every promotion must
 ``try_reserve`` its bytes before it may enter the transition pipeline, so the
@@ -143,6 +142,53 @@ class BudgetPlan:
             raise BudgetExceeded(
                 f"infeasible: fixed {self.m_fixed} + lo {self.m_lo} + hi "
                 f"{self.m_hi_cap} > total {self.m_total}")
+
+
+@dataclasses.dataclass(frozen=True)
+class HierarchyPlan:
+    """Three-tier budget split: device bytes → (lo-resident cells, global
+    hi slots); everything else lives in the host-DRAM tier."""
+    m_total: int
+    m_fixed: int
+    m_lo_cap: int            # bytes reserved for lo-resident cells
+    m_hi_cap: int            # bytes reserved for hi slots
+    lo_resident_total: int   # lo-resident (layer, expert) cells, global
+    total_hi: int            # hi slots, global (across all layers)
+
+    def check(self):
+        if self.m_fixed + self.m_lo_cap + self.m_hi_cap > self.m_total:
+            raise BudgetExceeded(
+                f"infeasible: fixed {self.m_fixed} + lo {self.m_lo_cap} + "
+                f"hi {self.m_hi_cap} > total {self.m_total}")
+
+
+def plan_hierarchy(m_total: int, m_fixed: int,
+                   lo_bytes_per_expert_layer: int,
+                   hi_bytes_per_expert_layer: int,
+                   n_layers: int, num_experts: int) -> HierarchyPlan:
+    """Three-tier budget initialization. Unlike :func:`plan_budget` (which
+    REQUIRES the full lo tier to fit), the always-available fallback here is
+    the host tier: fill lo residency first (it is the serving floor — a
+    routed host expert pays a demand-fetch stall), then spend what remains
+    on hi slots. An envelope too small for every lo cell yields a partial
+    lo tier and zero hi slots — the model still serves, never having fully
+    materialized."""
+    avail = m_total - m_fixed
+    cells = n_layers * num_experts
+    lo_resident = min(cells, max(0, avail) // lo_bytes_per_expert_layer)
+    if lo_resident == 0:
+        raise BudgetExceeded(
+            f"envelope fits no lo-resident expert at all: avail {avail} < "
+            f"lo bytes {lo_bytes_per_expert_layer}")
+    rem = avail - lo_resident * lo_bytes_per_expert_layer
+    total_hi = min(cells, rem // hi_bytes_per_expert_layer)
+    plan = HierarchyPlan(
+        m_total=m_total, m_fixed=m_fixed,
+        m_lo_cap=lo_resident * lo_bytes_per_expert_layer,
+        m_hi_cap=total_hi * hi_bytes_per_expert_layer,
+        lo_resident_total=int(lo_resident), total_hi=int(total_hi))
+    plan.check()
+    return plan
 
 
 def plan_budget(m_total: int, m_fixed: int, lo_bytes_total: int,

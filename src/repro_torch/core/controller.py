@@ -46,15 +46,25 @@ class DynaExqController:
             bank, host_hi, self.tracker, hi_bytes_per_expert,
             migration_bytes_per_window=cfg.migration_bytes_per_window)
         self._last_update = time.monotonic()
+        # Failure decay: an (L, E) multiplier on the folded hotness, halved
+        # each time an expert's promotion copy fails and recovering toward
+        # 1 every window, so a flapping expert is re-candidated but cannot
+        # livelock the promotion budget.
+        self._fail_penalty = np.ones((L, E))
+        self.fail_decay = 0.5
+        self.fail_recover = 0.5
+        self.tm.fail_cb = self.note_promotion_failure
+
+    def note_promotion_failure(self, layer: int, expert: int) -> None:
+        self._fail_penalty[layer, expert] *= self.fail_decay
 
     def folded_scores(self) -> np.ndarray:
-        """Fold the hotness EMA: what every policy path ranks on, the
-        per-layer ``update()`` and the global allocator alike. The
-        reference multiplies the fold by a failure-decay penalty that
-        only failed promotion copies move below 1; the port has no fault
-        plane yet, so the penalty is exactly 1 and the fold alone is
-        bit-equal to it."""
-        return self.hotness.fold()
+        """Fold the hotness EMA and apply (then partly recover) the failure
+        decay: what every policy path ranks on, the per-layer ``update()``
+        and the global allocator alike."""
+        scores = self.hotness.fold() * self._fail_penalty
+        self._fail_penalty += (1.0 - self._fail_penalty) * self.fail_recover
+        return scores
 
     @property
     def bank(self) -> ExpertBankQ:

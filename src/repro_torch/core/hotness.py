@@ -53,3 +53,33 @@ class HotnessEstimator:
         self.counts[:] = 0
         self.intervals += 1
         return self.scores
+
+    # -- persistence (cold-start priors) ---------------------------------
+    def state_dict(self) -> dict:
+        """EMA + unfolded counters, serializable with ``np.savez`` (the
+        reference's keys, so a file written by either package loads in the
+        other)."""
+        return {"alpha": np.float64(self.alpha),
+                "counts": self.counts.copy(),
+                "scores": self.scores.copy(),
+                "intervals": np.int64(self.intervals)}
+
+    def load_state(self, state: dict) -> None:
+        """Restore a previous run's traffic history. Shapes must match the
+        live estimator (a resized model must not inherit stale priors)."""
+        scores = np.asarray(state["scores"], np.float64)
+        counts = np.asarray(state["counts"], np.int64)
+        if scores.shape != self.scores.shape:
+            raise ValueError(
+                f"hotness state shape {scores.shape} != "
+                f"{self.scores.shape}")
+        self.scores = scores.copy()
+        self.counts = counts.copy()
+        self.intervals = int(state.get("intervals", 0))
+
+    def save(self, path: str) -> None:
+        np.savez(path, **self.state_dict())
+
+    def load(self, path: str) -> None:
+        with np.load(path) as z:
+            self.load_state({k: z[k] for k in z.files})

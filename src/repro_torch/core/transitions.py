@@ -16,6 +16,14 @@
   slot frees, the reservation is refunded exactly once, and the expert
   keeps serving lo. The slot was never published, so no forward reads it;
   a later copy into it queues behind the stuck one on the side stream.
+* Faults (``injector``, the ``promo_copy`` site of ``fault.inject``): a
+  ``fail`` is retried under ``retry`` (modeled backoff, never slept); a
+  copy whose attempts (or the host-side ``ensure_hi`` load under it) are
+  exhausted is aborted — slot freed, reservation refunded once,
+  ``fail_cb`` told — and the expert keeps serving lo. A ``stall`` holds
+  publication until ``stall_until`` on ``clock``; a ``corrupt`` copy is
+  cancelled at publication and never published. Both ride on the pending
+  entry beside its event: nothing sleeps and nothing reads the device.
 
 The forward never observes a partially written version: a slot is read only
 through ``slot_owner``, which names it only after its copy's event
@@ -39,6 +47,8 @@ from repro_torch.core.budget import BudgetTracker
 from repro_torch.core.pools import SlotPool
 from repro_torch.core.ver import (ExpertBankQ, Residency, publish, unpublish,
                                   write_hi_slot)
+from repro_torch.fault.inject import TransferFault
+from repro_torch.fault.retry import RetryExhausted, RetryPolicy, retry_call
 
 
 @dataclasses.dataclass
@@ -50,6 +60,11 @@ class PendingPromotion:
     event: Optional[torch.cuda.Event] = None   # None: completed (CPU)
     issue_ts: float = 0.0          # ``clock`` when the copy was issued
     cancelled: bool = False        # refunded: a second cancel is a no-op
+    # Injected faults: a DMA stall keeps the copy in flight until ``clock``
+    # passes ``stall_until``; a corrupt payload fails the publish-time
+    # integrity check and is cancelled instead of published.
+    stall_until: float = 0.0
+    corrupt: bool = False
 
 
 class TransitionManager:
@@ -57,8 +72,10 @@ class TransitionManager:
                  tracker: BudgetTracker, hi_bytes_per_expert: int,
                  migration_bytes_per_window: int = 0):
         """``host_hi``: name → (L, E, K, N) bf16 host copies of the hi tier
-        (pinned when the bank is on the card), indexed ``[layer, expert]``.
-        ``migration_bytes_per_window`` 0 = unlimited."""
+        (pinned when the bank is on the card), indexed ``[layer, expert]``:
+        a dict, or a ``HostExpertStore`` (duck-typed on ``ensure_hi``, which
+        loads an expert's rows before its copy). ``migration_bytes_per_window``
+        0 = unlimited."""
         self.bank = bank
         self.host_hi = host_hi
         self.tracker = tracker
@@ -81,11 +98,15 @@ class TransitionManager:
             if self._cuda else None
         self._reuse_event: Optional[torch.cuda.Event] = None
         self.stats = {"promoted": 0, "demoted": 0, "deferred": 0,
-                      "bytes_moved": 0, "fault_cancels": 0}
+                      "bytes_moved": 0, "retries": 0, "fault_cancels": 0}
         self.inflight_bytes = 0
-        # Promotion ages (the watchdog's input) are read on this clock;
-        # the engine rebinds it to its own (virtual under replay).
+        # Promotion ages (the watchdog's input) and injected stalls are read
+        # on this clock; the engine rebinds it to its own (virtual under
+        # replay).
         self.clock = time.monotonic
+        self.injector = None            # fault.inject.FaultInjector
+        self.retry = RetryPolicy()
+        self.fail_cb = None             # the controller's failure decay
 
     # -- queue side ------------------------------------------------------
     def request_promotion(self, layer: int, expert: int) -> None:
@@ -130,12 +151,38 @@ class TransitionManager:
                 self.stats["deferred"] += 1
                 continue
             slot = self.pools[l].alloc(e)
-            self._issue_copy(l, e, slot)
-            window += self.hi_bytes
+            if self._issue_copy(l, e, slot):
+                window += self.hi_bytes
         self.update_q = deferred
 
-    def _issue_copy(self, layer: int, expert: int, slot: int) -> None:
-        """Asynchronous hi-weight copy into the (unpublished) pool slot."""
+    def _issue_copy(self, layer: int, expert: int, slot: int) -> bool:
+        """Asynchronous hi-weight copy into the (unpublished) pool slot,
+        after the host rows are loaded (``ensure_hi``) and the fault plan
+        is consulted. Returns True iff the copy was issued; an exhausted
+        transfer aborts the admission (``_abort_issue``)."""
+        fault = [None]
+
+        def attempt():
+            if self.injector is not None:
+                f = self.injector.fire("promo_copy", layer=layer,
+                                       expert=expert)
+                if f is not None:
+                    if f.kind == "fail":
+                        raise TransferFault("promo_copy", seq=f.seq)
+                    fault[0] = f        # stall / corrupt ride the copy
+            ensure = getattr(self.host_hi, "ensure_hi", None)
+            if ensure is not None:
+                ensure(layer, expert)
+
+        seed = self.injector.seed if self.injector is not None else 0
+        try:
+            _, retries, _ = retry_call(
+                attempt, self.retry, seed=seed, key=(layer << 16) | expert,
+                site="promo_copy")
+        except (RetryExhausted, TransferFault):
+            self._abort_issue(layer, expert, slot)
+            return False
+        self.stats["retries"] += retries
         event = None
         if self._cuda:
             if self._reuse_event is not None:
@@ -150,11 +197,30 @@ class TransitionManager:
             for name, leaf in self.bank.hi.items():
                 write_hi_slot(leaf, layer, slot,
                               self.host_hi[name][layer, expert])
-        self._pending.append(PendingPromotion(layer, expert, slot,
-                                              self.hi_bytes, event,
-                                              issue_ts=self.clock()))
+        p = PendingPromotion(layer, expert, slot, self.hi_bytes, event,
+                             issue_ts=self.clock())
+        f = fault[0]
+        if f is not None:
+            if f.kind == "stall":
+                p.stall_until = p.issue_ts + f.stall_s
+            else:
+                p.corrupt = True
+        self._pending.append(p)
         self.inflight_bytes += self.hi_bytes
         self.stats["bytes_moved"] += self.hi_bytes
+        return True
+
+    def _abort_issue(self, layer: int, expert: int, slot: int) -> None:
+        """Unwind an admission whose copy never issued: the slot and the
+        reservation go back (once), the expert stays lo, and the
+        controller's failure decay keeps a flapping expert from livelocking
+        the promotion budget."""
+        self.pools[layer].free(slot)
+        self.tracker.release(self.hi_bytes)
+        self.state[layer, expert] = Residency.RESIDENT_LO.value
+        self.stats["fault_cancels"] += 1
+        if self.fail_cb is not None:
+            self.fail_cb(layer, expert)
 
     def _demote(self, layer: int, expert: int) -> None:
         """Publish-then-reclaim: redirect the handle to lo, then free."""
@@ -171,6 +237,9 @@ class TransitionManager:
         blocks on all of them first). Returns how many were published."""
         still, published = [], 0
         for p in self._pending:
+            if not wait and p.stall_until > self.clock():
+                still.append(p)         # injected stall: still on the wire
+                continue
             if p.event is not None:
                 if wait:
                     p.event.synchronize()
@@ -178,6 +247,11 @@ class TransitionManager:
                     still.append(p)
                     continue
             if self.state[p.layer, p.expert] == Residency.PROMOTING.value:
+                if p.corrupt:
+                    # The publish-time integrity check: a bad payload is
+                    # cancelled, so no forward ever sees it.
+                    self._cancel_pending(p)
+                    continue
                 self.inflight_bytes -= p.nbytes
                 publish(self.slot_map_h, self.slot_owner_h, p.layer,
                         p.expert, p.slot)
@@ -205,6 +279,8 @@ class TransitionManager:
         self.inflight_bytes -= p.nbytes
         if fault:
             self.stats["fault_cancels"] += 1
+            if self.fail_cb is not None:
+                self.fail_cb(p.layer, p.expert)
 
     def cancel_stuck(self, now: float, deadline_s: float) -> int:
         """The watchdog's hook: cancel the promotions whose copy has not
@@ -213,7 +289,8 @@ class TransitionManager:
         Returns how many were cancelled."""
         still, n = [], 0
         for p in self._pending:
-            done = p.event is None or p.event.query()
+            done = (p.event is None or p.event.query()) and \
+                p.stall_until <= now
             if not done and now - p.issue_ts > deadline_s:
                 self._cancel_pending(p)
                 n += 1

@@ -4,6 +4,8 @@
   resident (the guaranteed fallback), leaves (L, E, ...).
 * hi pool — ``n_hi`` bf16 expert slots per layer, leaves (L, n_hi, K, N),
   filled by promotions.
+* A streaming cold start builds the lo pool empty (``build_bank_empty``)
+  and stages its rows in place (``write_lo_rows``).
 * ``slot_owner`` (L, n_hi) int32 on the device: hi slot → expert (-1 free).
   The forward derives each tile's slot from it, so a slot is read only
   once its owner is published.
@@ -22,8 +24,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.quant.qtensor import (QuantizedTensor, quantize,
-                                       quantized_nbytes)
+from repro_torch.quant.qtensor import (QuantizedTensor, _elems_per_byte,
+                                       quantize, quantized_nbytes)
 
 
 class Residency(enum.Enum):
@@ -92,6 +94,37 @@ def build_bank(expert_weights: Dict[str, torch.Tensor], n_hi: int,
         slot_map=torch.full((L, E), -1, dtype=torch.int32, device=dev))
 
 
+def build_bank_empty(expert_weights_shapes: Dict[str, tuple], n_hi: int,
+                     lo_bits: int, group_size: int = 64,
+                     device="cpu") -> ExpertBankQ:
+    """A bank whose lo rows are NOT yet materialized (streaming cold start):
+    packed codes and scales are zero until ``write_lo_rows`` /
+    ``write_lo_expert`` stage each expert's rows from the checkpoint shards,
+    in place. Callers gate serving on the store's ``lo_valid`` mask: a
+    forward must never read a zero row as if it were real.
+
+    ``expert_weights_shapes``: name → (L, E, K, N) logical dense shapes."""
+    epb = _elems_per_byte(lo_bits)
+    lo, hi = {}, {}
+    first = next(iter(expert_weights_shapes.values()))
+    L, E = first[0], first[1]
+    for n, shape in sorted(expert_weights_shapes.items()):
+        l4, e4, k, nn = shape
+        lo[n] = QuantizedTensor(
+            packed=torch.zeros((l4, e4, k // epb, nn), dtype=torch.uint8,
+                               device=device),
+            scales=torch.zeros((l4, e4, k // group_size, nn),
+                               dtype=torch.bfloat16, device=device),
+            bits=lo_bits, group_size=group_size, shape=tuple(shape))
+        hi[n] = torch.zeros((l4, n_hi, k, nn), dtype=torch.bfloat16,
+                            device=device)
+    return ExpertBankQ(
+        lo=lo, hi=hi,
+        slot_owner=torch.full((L, n_hi), -1, dtype=torch.int32,
+                              device=device),
+        slot_map=torch.full((L, E), -1, dtype=torch.int32, device=device))
+
+
 def expert_hi_nbytes(expert_weights_shapes: Dict[str, tuple],
                      hi_bits: int = 16, group_size: int = 64) -> int:
     """Device bytes of ONE expert's hi version (one layer): bf16, or
@@ -115,6 +148,38 @@ def write_hi_slot(hi_leaf: torch.Tensor, layer: int, slot: int,
     and asynchronously when ``w`` is pinned host memory. The slot must be
     unpublished (no forward reads it) until the copy has completed."""
     hi_leaf[layer, slot].copy_(w, non_blocking=True)
+
+
+def write_lo_expert(leaf: torch.Tensor, layer: int, expert: int,
+                    row: torch.Tensor) -> None:
+    """Copy one expert's lo-tier rows (packed codes OR scales) into an
+    (L, E, ...) bank leaf, in place: the host→device staging write of
+    host→lo promotion and of the streaming cold start. Asynchronous when
+    ``row`` is pinned host memory; the row stays unreferenced as valid
+    until its residency mask flips after the copy completed.
+
+    In place, unlike the reference (which returns a new array and rebinds
+    the bank's leaf): the decode step captured as a CUDA graph reads the
+    leaf's storage, so a rebound leaf would leave it reading the old
+    storage."""
+    leaf[layer, expert].copy_(row, non_blocking=True)
+
+
+def write_lo_rows(leaf: torch.Tensor, layer: int, idx,
+                  rows: torch.Tensor) -> None:
+    """Bulk variant of :func:`write_lo_expert`: stage the experts ``idx`` of
+    one layer, in place. ``rows`` holds every expert's rows of that layer
+    (E, ...) and is read at ``idx``, so each run of consecutive experts is
+    one slice copy (one copy per leaf for the cold-start pump's row-major
+    order)."""
+    idx = np.asarray(idx, np.int64).reshape(-1)
+    start = 0
+    for i in range(1, len(idx) + 1):
+        if i < len(idx) and idx[i] == idx[i - 1] + 1:
+            continue
+        a, b = int(idx[start]), int(idx[i - 1]) + 1
+        leaf[layer, a:b].copy_(rows[a:b], non_blocking=True)
+        start = i
 
 
 def publish(slot_map: np.ndarray, slot_owner: np.ndarray, layer: int,

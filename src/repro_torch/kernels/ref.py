@@ -56,6 +56,23 @@ torch.backends.cudnn.allow_tf32 = False
 _TILE_CHUNK = 32
 
 
+def _codes_f32(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """``unpack_codes_int8(packed, bits)`` as float32 (..., K, N), shifted
+    and masked in uint8 and written once as float32: the codes are small
+    integers, so the values are the same, at a fraction of the int32
+    passes."""
+    if bits == 8:
+        return packed.to(torch.float32) - 128
+    epb = 8 // bits
+    *lead, kp, n = packed.shape
+    out = torch.empty((*lead, kp, epb, n), dtype=torch.float32,
+                      device=packed.device)
+    for j in range(epb):
+        out[..., j, :] = (packed >> (j * bits)) & ((1 << bits) - 1)
+    out -= 1 << (bits - 1)
+    return out.reshape(*lead, kp * epb, n)
+
+
 def grouped_lo_gemm(xg: torch.Tensor, packed: torch.Tensor,
                     scales: torch.Tensor, bits: int, group: int,
                     index: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -72,8 +89,7 @@ def grouped_lo_gemm(xg: torch.Tensor, packed: torch.Tensor,
     for b0 in range(0, B, _TILE_CHUNK):
         b1 = min(B, b0 + _TILE_CHUNK)
         sel = slice(b0, b1) if index is None else index[b0:b1]
-        codes = unpack_codes_int8(packed[sel], bits).to(torch.float32)
-        q = codes.reshape(b1 - b0, G, group, N)
+        q = _codes_f32(packed[sel], bits).reshape(b1 - b0, G, group, N)
         x = xg[b0:b1].to(torch.float32).reshape(b1 - b0, C, G, group) \
             .permute(0, 2, 1, 3)                          # (b, G, C, g)
         part = torch.matmul(x, q)                         # (b, G, C, N)

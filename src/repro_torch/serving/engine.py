@@ -59,6 +59,12 @@ own ``SamplingParams`` (``serving.sampler``; greedy by default).
 * **Per-row MoE capacity** (``row_capacity_norm``): the drop rule of every
   MoE layer becomes per request row, so whether a token's assignment drops
   does not depend on the other rows of the batch.
+* **Residency ladder**: while the backend's ``serving_ready()`` is False (a
+  streaming cold start), ``step()`` only ticks the backend, which stages
+  the lo tier; requests queue and no forward runs. A request whose forward
+  routed through a quarantined expert cell (``backend.degraded_cells()``)
+  is flagged ``degraded``, from the per-row counts the step already
+  brought to the host.
 * **Modeled stalls**: ``observe`` returns the seconds a forward would have
   waited on transfers (the offload baseline's misses; 0 elsewhere), never
   slept. A decode step's latency is its measured time plus its stall
@@ -206,6 +212,9 @@ class RequestHandle:
         self.spec_ema = 0.75
         # Engine clock at the last emitted token (the watchdog's input).
         self.last_progress_s = 0.0
+        # True once a forward of this request routed through a quarantined
+        # (host-served) expert cell: it completes, at degraded quality.
+        self.degraded = False
         self._eos_scanned = 0          # tokens already checked for EOS
 
     def prompt(self) -> np.ndarray:
@@ -271,6 +280,8 @@ class InferenceEngine:
         bind = getattr(backend, "bind_clock", None)
         if bind is not None:
             bind(self._now)
+        self._degraded_fn = getattr(backend, "degraded_cells", None)
+        self._ready_fn = getattr(backend, "serving_ready", None)
         self._watchdog = None
         if e.promo_deadline_s is not None or \
                 e.watchdog_no_progress_s is not None:
@@ -658,6 +669,8 @@ class InferenceEngine:
         amax, counts_np = self._fetch(torch.argmax(logits, -1), counts)
         dt = time.perf_counter() - t0
         self.prefill_shapes.add((R, bucket))
+        self._note_degraded(counts_np, [(r, h) for r, (h, _, _)
+                                        in enumerate(group)])
         for h, lease, _ in group:
             if lease is not None:
                 self._register(h.prompt(), lease, h.prompt().shape[0])
@@ -928,6 +941,8 @@ class InferenceEngine:
         dt = time.perf_counter() - t0
         self.prefill_shapes.add((R, bucket))
         self._observe_prefill(counts_np, dt, len(group))
+        self._note_degraded(counts_np, [(r, h) for r, (_, h)
+                                        in enumerate(group)])
         samp = self._gather_sampling_rows(
             logits, [r for r, (_, h) in enumerate(group)
                      if not h.sampler.greedy and
@@ -963,6 +978,12 @@ class InferenceEngine:
             # steps still carries its stale stamp, and a cancelled
             # promotion's slot can be taken again this step.
             self._watchdog.scan(self)
+        if self._ready_fn is not None and not self._ready_fn():
+            # Streaming cold start: the ladder is still materializing, so
+            # only its staging windows run; requests queue, and no forward
+            # may read a partially materialized expert.
+            self.backend.tick()
+            return finished
         self._shed_expired()
         self._admit(finished)
         self._maybe_preempt()
@@ -1054,6 +1075,7 @@ class InferenceEngine:
         self.last_logits = logits
         self.last_row_counts = counts_np
         self._note_dispatch(counts_np)
+        self._note_degraded(counts_np, active)
         stall = self.backend.observe(counts_np, dt, prefill=False,
                                      row_valid=row_valid)
         self._stall_clock += stall
@@ -1077,6 +1099,22 @@ class InferenceEngine:
             if self._done(h):
                 self._finish(h, finished)
         self.counters["steps"] += 1
+
+    def _note_degraded(self, counts_np: Dict[str, np.ndarray], rows) -> None:
+        """Flag the requests whose forward routed through a quarantined
+        expert cell. ``counts_np``: the forward's per-row counts (nsb, R, E)
+        already on the host; ``rows``: (row, handle) pairs."""
+        if self._degraded_fn is None:
+            return
+        cells = self._degraded_fn()
+        for pos, q in cells.items():
+            v = counts_np.get(pos)
+            if v is None or v.ndim != 3:
+                continue
+            hit = ((v > 0) & q[:, None, :]).any(axis=(0, 2))
+            for r, h in rows:
+                if hit[r]:
+                    h.degraded = True
 
     def _note_dispatch(self, counts_np: Dict[str, np.ndarray]) -> None:
         """Host mirror of the dispatch gauges: active experts per layer and
@@ -1121,6 +1159,8 @@ class InferenceEngine:
         return done
 
     def _check_admission_stall(self, stalled: int, queue_before: int) -> int:
+        if self._ready_fn is not None and not self._ready_fn():
+            return 0    # a cold start still staging: queueing is progress
         idle = not any(h is not None for h in self.slots)
         if self.queue and idle and len(self.queue) == queue_before:
             stalled += 1
@@ -1137,6 +1177,8 @@ class InferenceEngine:
             "budget_used": int(self.budget.used),
             "budget_cap": int(self.budget.cap),
             "budget_headroom_frac": float(self.budget.headroom_frac()),
+            "residency_ready_frac": self.load_snapshot()[
+                "residency_ready_frac"],
             "pending_promotions": self._pending_promotions(),
             "counters": dict(self.counters),
         }

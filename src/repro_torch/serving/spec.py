@@ -403,6 +403,9 @@ class SpecDecoder:
             (np.arange(W)[:, None] <= accepts[None, :])        # (W, B)
         obs = {kk: (v * accept_mask[:, None, :, None]).sum(axis=0)
                for kk, v in counts_np.items()}
+        # A row whose accepted steps routed through a quarantined cell
+        # emitted tokens computed on its unreal rows.
+        eng._note_degraded(obs, active)
         stall = eng.backend.observe(obs, dt, prefill=False,
                                     row_valid=row_valid)
         eng._stall_clock += stall

@@ -225,10 +225,12 @@ def test_global_tick_honours_a_frozen_cadence():
     for ctl in be.controllers.values():
         ctl.cfg = dataclasses.replace(ctl.cfg, update_interval_s=1e9)
     assert be._global_tick() is False
-    for unported in ("sensitivity", "lo_resident_total", "stream", "fault",
-                     "ep_shards"):
-        with pytest.raises(TypeError):
-            make_backend("dynaexq", device="cpu", **{unported: None})
+    # The ladder's options are accepted (None is each one's default);
+    # expert parallelism is not ported.
+    for option in ("sensitivity", "lo_resident_total", "stream", "fault"):
+        make_backend("dynaexq", device="cpu", **{option: None})
+    with pytest.raises(NotImplementedError):
+        make_backend("dynaexq", device="cpu", ep_shards=2)
 
 
 @pytest.mark.parametrize("extra_gb", [0.0005, 0.002, 1.0])

@@ -1180,3 +1180,63 @@ def test_spec_graphs_match_eager(cuda, path, name):
     assert out[0][0] == out[2][0]
     kernels = PAGED_KERNELS if path == "paged-ragged" else DENSE_KERNELS
     assert all(out[0][1][k] > 0 for k in kernels), out[0][1]
+
+
+def _lo_rows(shapes, layer, seed=0):
+    """One layer's packed lo rows as a shard holds them: uint8 codes and
+    float32 scales (bf16 values)."""
+    gen = torch.Generator().manual_seed(seed + layer)
+    rows = {}
+    for n, (L, E, K, N) in shapes.items():
+        rows[f"{n}.packed"] = torch.randint(
+            0, 256, (E, K // 2, N), generator=gen, dtype=torch.uint8).numpy()
+        rows[f"{n}.scales"] = torch.rand(
+            (E, K // 64, N), generator=gen).to(torch.bfloat16).float().numpy()
+    return rows
+
+
+@pytest.mark.cuda
+def test_lo_staging_publishes_after_its_copy(cuda):
+    """Staged lo rows held in flight behind a spin on the side stream are
+    not published by a non-blocking ``publish_lo`` (the entry's own event
+    has not completed); a blocking one publishes them, equal to the
+    source rows, in place. A heal's copy starts only after the forwards
+    already queued on the compute stream: a read queued before it (behind
+    a spin) sees the old rows."""
+    from repro_torch.core.ver import build_bank_empty
+    from repro_torch.serving.hoststore import HostExpertStore
+    shapes = {n: (2, 4, 128, 64) for n in ("w_down", "w_gate", "w_up")}
+    bank = build_bank_empty(shapes, n_hi=1, lo_bits=4, device=cuda)
+    rows = {l: _lo_rows(shapes, l) for l in range(2)}
+    store = HostExpertStore(shapes, hi_loader=lambda l, e: {},
+                            lo_loader=lambda l: rows[l],
+                            lo_valid_init=False, device=cuda)
+    ptrs = [t.data_ptr() for q in bank.lo.values()
+            for t in (q.packed, q.scales)]
+    store.side = torch.cuda.Stream()
+    with torch.cuda.stream(store.side):
+        torch.cuda._sleep(4_000_000_000)
+    store.stage_lo_batch(bank, 0, [0, 1, 2, 3], [True] * 4)
+    assert store.publish_lo() == 0 and store.staging_inflight == 1
+    assert not store.lo_valid.any() and not store.lo_complete
+    assert store.publish_lo(wait=True) == 4
+    assert store.lo_valid[0].all() and not store.lo_valid[1].any()
+    for n, q in bank.lo.items():
+        assert torch.equal(q.packed[0].cpu(),
+                           torch.from_numpy(rows[0][f"{n}.packed"]))
+        assert torch.equal(q.scales[0].cpu().float(),
+                           torch.from_numpy(rows[0][f"{n}.scales"]))
+    # Ordering against the compute stream (the heal of a quarantined cell).
+    assert store.quarantine(1, [2]) == 1
+    torch.cuda._sleep(4_000_000_000)
+    snap = bank.lo["w_up"].packed[1, 2].clone()     # queued behind the spin
+    store.stage_lo(bank, 1, 2)
+    assert store.publish_lo(wait=True) == 1
+    torch.cuda.synchronize()
+    assert not snap.any()
+    assert torch.equal(bank.lo["w_up"].packed[1, 2].cpu(),
+                       torch.from_numpy(rows[1]["w_up.packed"][2]))
+    assert not store.quarantined.any() and store.lo_valid[1, 2]
+    assert [t.data_ptr() for q in bank.lo.values()
+            for t in (q.packed, q.scales)] == ptrs
+    store.check_invariants()

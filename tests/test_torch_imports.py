@@ -40,7 +40,10 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.core.allocator, repro_torch.models.mlp, "
             "repro_torch.serving.hoststore, repro_torch.serving.sampler, "
             "repro_torch.serving.prefix, repro_torch.serving.scheduler, "
-            "repro_torch.serving.lobanks, repro_torch.serving.requests; "
+            "repro_torch.serving.lobanks, repro_torch.serving.requests, "
+            "repro_torch.serving.streaming, repro_torch.fault.inject, "
+            "repro_torch.fault.retry, repro_torch.quant.ptq, "
+            "repro_torch.quant.sensitivity; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
