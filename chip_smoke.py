@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only card,build,model,requests
     python3 chip_smoke.py --only card,build,spec
     python3 chip_smoke.py --only card,build,ladder
+    python3 chip_smoke.py --only card,build,obs
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -143,6 +144,23 @@ Phases (each prints one line; any failure exits non-zero):
               fetches failing): invariants, no stalled copy published
               before its stall expired, no corrupt copy published,
               refunds once, tokens equal the fault-free run's;
+   obs      — observability and the serving launcher: the reference
+              launcher's default model (granite-moe-1b-a400m: d 1024, 32
+              experts top-8, hd 64) checked on 2 full-width layers, CPU
+              against the card; then (a) ``repro_torch.launch.serve.main``
+              in this process at ``--full`` (24 of 24 layers), 8 requests of
+              64 tokens, 32 new, with ``dynaexq`` (speculation on, the
+              launcher's defaults) and ``static --no-spec``: the ragged FFN
+              and paged attention kernels ran, the saved trace loads and
+              the cost model folds it, its published promotion spans are
+              the backend's promotions, one metrics row per step; (b) the
+              30B main path at 8 layers, ``static`` graphed with the
+              recorder and registry off, on, on, off on fresh engines:
+              identical tokens and launches, TPOT, replay ms and host ms
+              per step; (c) ``dynaexq`` observed on the wall clock, a
+              window every step, no flush until the end: every published
+              promotion span ends after its copy's event completed, the
+              publish latency and the bytes/token residual by bucket;
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -1919,6 +1937,34 @@ MODEL_TOL = 0.25
 MODEL_TOL_SWAP = 4.0
 
 
+def check_model(phase, cfg, what, dev_ref, card, **kw) -> None:
+    """``run_model_check`` of ``cfg`` on ``dev_ref`` against ``card``, its
+    line logged under ``phase``; raises when the logits disagree."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    report = run_model_check(cfg, dev_ref, card, **kw)
+    B = kw.get("B", 12)
+    e_same = max(r["err_same"] for r in report)
+    e_all = max(r["err_all"] for r in report)
+    full = get_config(cfg.name)
+    log(phase, f"{cfg.name} at full width, {cfg.n_layers} of "
+               f"{full.n_layers} layers, {what}: prefill "
+               f"+ {len(report) - 1} decode steps of {B} rows (prompts "
+               f"6-32 tokens); max |dlogit| {e_same:.4f} on "
+               f"identically routed rows (tol {MODEL_TOL}), "
+               f"{e_all:.4f} on all rows (tol {MODEL_TOL_SWAP}); mean "
+               f"|dlogit| {max(r['mean_err'] for r in report):.5f} on "
+               f"identically routed rows; max |logit| "
+               f"{max(r['mag'] for r in report):.3f}; identically "
+               f"routed rows per forward "
+               f"{[r['rows_same'] for r in report]} | "
+               f"{time.perf_counter() - t0:.1f} s")
+    same = sum(r["rows_same"] for r in report)
+    if e_same > MODEL_TOL or e_all > MODEL_TOL_SWAP or \
+            same < B * len(report) // 2:
+        raise AssertionError(f"logits disagree: {cfg.name} {what}")
+
+
 def phase_model() -> None:
     import dataclasses
     from repro_torch.configs import get_config
@@ -1939,28 +1985,7 @@ def phase_model() -> None:
                    dict(paged=True, dispatch="ragged", B=8, lo_bits=2,
                         n_hi=128)))
     for cfg, what, dev_ref, kw in checks:
-        t0 = time.perf_counter()
-        report = run_model_check(cfg, dev_ref, card, **kw)
-        B = kw.get("B", 12)
-        e_same = max(r["err_same"] for r in report)
-        e_all = max(r["err_all"] for r in report)
-        full = get_config(cfg.name)
-        log("model", f"{cfg.name} at full width, {cfg.n_layers} of "
-                     f"{full.n_layers} layers, {what}: prefill "
-                     f"+ {len(report) - 1} decode steps of {B} rows (prompts "
-                     f"6-32 tokens); max |dlogit| {e_same:.4f} on "
-                     f"identically routed rows (tol {MODEL_TOL}), "
-                     f"{e_all:.4f} on all rows (tol {MODEL_TOL_SWAP}); mean "
-                     f"|dlogit| {max(r['mean_err'] for r in report):.5f} on "
-                     f"identically routed rows; max |logit| "
-                     f"{max(r['mag'] for r in report):.3f}; identically "
-                     f"routed rows per forward "
-                     f"{[r['rows_same'] for r in report]} | "
-                     f"{time.perf_counter() - t0:.1f} s")
-        same = sum(r["rows_same"] for r in report)
-        if e_same > MODEL_TOL or e_all > MODEL_TOL_SWAP or \
-                same < B * len(report) // 2:
-            raise AssertionError(f"logits disagree: {cfg.name} {what}")
+        check_model("model", cfg, what, dev_ref, card, **kw)
     _model_prefix(dataclasses.replace(get_config(ARCH),
                                       n_layers=CHECK_LAYERS), card)
 
@@ -2069,14 +2094,10 @@ def run_serving(cfg, device, *, n_requests, prompt_range, new_tokens,
     arguments}: the paper's ``fp16`` and ``offload``) graphed, then eager.
     Returns {name: [summary per run]}."""
     from repro_torch.models.model import init_params
-    from repro_torch.serving.requests import make_prompts
 
     if params is None:
         params = init_params(cfg, seed=seed, device=device)
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(prompt_range[0], prompt_range[1] + 1, n_requests)
-    prompts = [make_prompts("text", cfg.vocab_size, 1, int(n),
-                            seed=seed + i)[0] for i, n in enumerate(lens)]
+    prompts = serving_prompts(cfg.vocab_size, n_requests, prompt_range, seed)
     max_len = -(-(int(prompt_range[1]) + new_tokens) // 16) * 16
     kw = dict(new_tokens=new_tokens, max_slots=max_slots, max_len=max_len,
               paged=paged, dispatch=dispatch)
@@ -2098,12 +2119,23 @@ def run_serving(cfg, device, *, n_requests, prompt_range, new_tokens,
     return runs
 
 
+def serving_prompts(vocab, n_requests, prompt_range, seed=0) -> list:
+    """The serving phase's greedy prompts: ``n_requests`` "text" prompts of
+    lengths drawn from ``prompt_range`` (inclusive) by ``seed``."""
+    from repro_torch.serving.requests import make_prompts
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt_range[0], prompt_range[1] + 1, n_requests)
+    return [make_prompts("text", vocab, 1, int(n), seed=seed + i)[0]
+            for i, n in enumerate(lens)]
+
+
 def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
                 max_slots, max_len, backend_kw, paged, dispatch,
-                policy_every_step=True):
+                policy_every_step=True, obs=None):
     """One served run on a fresh engine with ``make_backend(name,
     **backend_kw)`` (``dynaexq``: a policy window every step, unless
-    ``policy_every_step`` is False: then the controller's default), ``mode``
+    ``policy_every_step`` is False: then the controller's default), observed
+    by ``obs`` (an ``Observability``, or None), ``mode``
     "graph", "eager" or "free" (graphed; ``dynaexq`` flushes only at the
     end instead of after every step). Every step's logits must be finite:
     the prefill's through its entry point (watched for this run), the
@@ -2128,7 +2160,7 @@ def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
         cfg, _fresh(params), make_backend(name, **kw),
         eng_mod.EngineConfig(max_slots=max_slots, max_len=max_len,
                              paged=paged, moe_dispatch=dispatch),
-        device=device)
+        device=device, obs=obs)
     t_build = time.perf_counter() - t_build
     graphed = mode != "eager" and device.type == "cuda"
     if graphed:
@@ -4137,6 +4169,235 @@ def phase_ladder(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 5e. obs: the flight recorder, the metrics and the cost model on the card,
+#     and the serving launcher
+# ---------------------------------------------------------------------------
+
+#: The reference launcher's default model, served through the launcher at
+#: full width and depth (24 layers, d 1024, 32 experts top-8, hd 64).
+OBS_ARCH = "granite-moe-1b-a400m"
+OBS_LAUNCH = ("--full", "--batch", "8", "--prompt-len", "64",
+              "--new-tokens", "32")
+#: The launcher's two runs: its defaults (dynaexq, speculation on), and
+#: static without speculation.
+OBS_LAUNCH_RUNS = (("dynaexq", ("--backend", "dynaexq")),
+                   ("static", ("--backend", "static", "--no-spec")))
+#: The 30B main path with the recorder and registry off and on, in turns
+#: on fresh engines.
+OBS_TURNS = (False, True, True, False)
+OBS_NEW = 32
+OBS_MAX_LEN = 288              # 256-token prompts + 32 tokens
+
+
+def _obs_launcher(card, tmp) -> list:
+    """(a) ``repro_torch.launch.serve.main`` in this process on granite at
+    full width and depth: the ragged FFN and paged attention kernels ran,
+    the saved trace loads and folds, its published promotion spans are the
+    backend's promotions, and the metrics file has one row per step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.obs import costmodel, load_chrome_trace
+    used, unused = PATHS["paged/ragged"][2:]
+    runs = []
+    for name, extra in OBS_LAUNCH_RUNS:
+        trace = os.path.join(tmp, f"{name}.trace.json")
+        rows = os.path.join(tmp, f"{name}.metrics.jsonl")
+        ops.reset_launches()                 # the main path starts here
+        t0 = time.perf_counter()
+        out = serve.main(list(OBS_LAUNCH + extra) + [
+            "--trace-out", trace, "--metrics-jsonl", rows])
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)        # ... and ends here
+        secs = time.perf_counter() - t0
+        if not all(launches[k] for k in used) or \
+                any(launches[k] for k in unused):
+            raise AssertionError(f"launcher {name}: launches {launches}")
+        if any(len(t) != OBS_NEW for t in out["tokens"]):
+            raise AssertionError(f"launcher {name}: token counts "
+                                 f"{[len(t) for t in out['tokens']]}")
+        obj = load_chrome_trace(trace)
+        rep = costmodel.report(obj)
+        steps = [e["args"]["step"] for e in obj["traceEvents"]
+                 if e["name"] == "step"]
+        sampled = [json.loads(line)["step"] for line in open(rows)]
+        published = rep["promotions"]["n_published"]
+        if rep["roofline"]["n_steps"] < 1 or sampled != steps or \
+                obj["otherData"]["dropped_events"]:
+            raise AssertionError(f"launcher {name}: "
+                                 f"{rep['roofline']['n_steps']} folded "
+                                 f"steps, {len(sampled)} metrics rows for "
+                                 f"{len(steps)} steps")
+        if published != out["stats"]["promotions"] or \
+                (name == "dynaexq" and published < 1):
+            raise AssertionError(f"launcher {name}: {published} published "
+                                 f"spans, promotions "
+                                 f"{out['stats']['promotions']}")
+        log("obs", f"(a) launcher {OBS_ARCH} --full ({name}): "
+                   f"{' '.join(OBS_LAUNCH + extra)} | {secs:.1f} s in "
+                   f"process (weights drawn, banks built, graphs captured, "
+                   f"served) | launches {launches} | trace {len(steps)} "
+                   f"steps, {len(obj['traceEvents'])} events, "
+                   f"{rep['roofline']['n_steps']} decode forwards folded; "
+                   f"{published} promotion spans published = the backend's "
+                   f"promotions; {len(sampled)} metrics rows | {card}")
+        runs.append({"launches": launches})
+    return runs
+
+
+def _obs_overhead(card, cfg, params, prompts) -> list:
+    """(b) The 30B main path, ``static`` graphed, with obs off and on in
+    turns on fresh engines: identical tokens and launches; TPOT, the
+    replay's device ms and the host's ms per step (TPOT - replay ms)
+    reported, not gated."""
+    from repro_torch.obs import ObsConfig, Observability
+    dev = torch.device("cuda")
+    kw = dict(new_tokens=OBS_NEW, max_slots=8, max_len=OBS_MAX_LEN,
+              backend_kw=dict(lo_bits=4, group_size=64), paged=True,
+              dispatch="ragged")
+    runs = []
+    for on in OBS_TURNS:
+        obs = Observability(ObsConfig()) if on else None
+        s = _serve_once(cfg, dev, params, prompts, "static", "graph",
+                        obs=obs, **kw)
+        s["obs"] = on
+        s["host_ms"] = s["tpot_s"] * 1e3 - s["replay_ms"]
+        log("obs", f"(b) {cfg.name} {cfg.n_layers} layers static graphed, "
+                   f"obs {'on' if on else 'off'}: TPOT "
+                   f"{s['tpot_s'] * 1e3:.3f} ms, replay "
+                   f"{s['replay_ms']:.3f} ms, host {s['host_ms']:.3f} ms per "
+                   f"step over {s['steps']} steps"
+                   + (f"; {len(obs.tracer)} events" if on else "")
+                   + f" | {card}")
+        runs.append(s)
+    first = runs[0]
+    for s in runs[1:]:
+        if s["tokens"] != first["tokens"] or \
+                s["launches"] != first["launches"]:
+            raise AssertionError("obs on and off served different tokens "
+                                 "or launches")
+    mean = lambda key, on: float(np.mean([s[key] for s in runs
+                                          if s["obs"] == on]))
+    log("obs", f"(b) obs off / on, mean of 2 each: TPOT "
+               f"{mean('tpot_s', False) * 1e3:.3f} / "
+               f"{mean('tpot_s', True) * 1e3:.3f} ms, replay "
+               f"{mean('replay_ms', False):.3f} / "
+               f"{mean('replay_ms', True):.3f} ms, host "
+               f"{mean('host_ms', False):.3f} / {mean('host_ms', True):.3f} "
+               f"ms per step; tokens and launches identical | {card}")
+    return runs
+
+
+def _obs_promotions(card, cfg, params, prompts) -> dict:
+    """(c) ``dynaexq`` observed on the wall clock, a policy window every
+    step and no flush until the end, so copies are in flight while replays
+    run: every ``published=1`` span ends after its own copy's event
+    completed; publish latency and the bytes/token residual reported."""
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.obs import ObsConfig, Observability, costmodel
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.requests import Request
+    dev = torch.device("cuda")
+    obs = Observability(ObsConfig())
+    engine = eng_mod.InferenceEngine(
+        cfg, _fresh(params), make_backend(
+            "dynaexq", lo_bits=4, group_size=64, n_hi_per_layer=16,
+            device=dev, controller=ControllerConfig(update_interval_s=0.0)),
+        eng_mod.EngineConfig(max_slots=8, max_len=OBS_MAX_LEN), device=dev,
+        obs=obs)
+    tms = [c.tm for c in engine.backend.controllers.values()]
+    ended, end = [], obs.tracer.async_end
+
+    def audited(name, span_id, cat="", **args):
+        if name == "promotion" and args.get("published"):
+            p = next(p for tm in tms for p in tm._pending
+                     if p.seq == span_id)
+            ended.append(p.event is not None and p.event.query())
+        end(name, span_id, cat, **args)
+
+    obs.tracer.async_end = audited
+    ops.reset_launches()                     # the main path starts here
+    handles = [engine.submit(Request(tokens=p, max_new_tokens=OBS_NEW))
+               for p in prompts]
+    pending_steps = steps = 0
+    while engine.queue or any(h is not None for h in engine.slots):
+        pending_steps += any(tm._pending for tm in tms)
+        steps += 1
+        engine.step()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)            # ... and ends here
+    in_flight = sum(len(tm._pending) for tm in tms)
+    engine.flush()
+    st = engine.stats()
+    prom = costmodel.promotion_report(obs.tracer)
+    roof = costmodel.residual_report(obs.tracer)
+    snap = obs.metrics.snapshot()
+    if not ended or not all(ended) or len(ended) != st["promotions"] or \
+            prom["n_published"] != st["promotions"] or \
+            snap["promotion_publish_latency_seconds_count"] != len(ended):
+        raise AssertionError(f"dynaexq: {len(ended)} published span ends, "
+                             f"{sum(ended)} after their copy completed; "
+                             f"promotions {st['promotions']}")
+    if pending_steps < 1 or any(len(t.tokens) != OBS_NEW for t in handles):
+        raise AssertionError("dynaexq: no step ran with copies in flight")
+    for tm in tms:
+        tm.check_invariants()
+    buckets = "; ".join(
+        f"{b['tokens']:g} tok, {b['hi_per_layer']:g} hi/layer: "
+        f"{b['measured_bpt']:.0f} vs {b['predicted_bpt']:.0f} B/token "
+        f"({b['rel_residual']:+.4f}, {b['n_steps']} steps)"
+        for b in roof["buckets"])
+    log("obs", f"(c) {cfg.name} {cfg.n_layers} layers dynaexq (n_hi 16, a "
+               f"window every step, wall clock), graphed, no flush until the "
+               f"end: {prom['n_published']} promotions published, "
+               f"{prom['n_cancelled']} cancelled, every published span "
+               f"ended after its copy's event completed; {pending_steps} of "
+               f"{steps} steps began with copies in flight, {in_flight} "
+               f"still in flight at the end; publish latency p50 "
+               f"{prom['publish_latency_p50_s'] * 1e3:.3f} ms, p95 "
+               f"{prom['publish_latency_p95_s'] * 1e3:.3f} ms, max "
+               f"{prom['publish_latency_max_s'] * 1e3:.3f} ms (histogram "
+               f"p50 {snap['promotion_publish_latency_seconds_p50'] * 1e3:.3f}"
+               f" ms); bytes/token residual over {roof['n_steps']} decode "
+               f"forwards: mean |r| {roof['mean_abs_rel_residual']:.4f}, "
+               f"max {roof['max_abs_rel_residual']:.4f}; by bucket: "
+               f"{buckets} | launches {launches} | {card}")
+    return {"launches": launches}
+
+
+def phase_obs(card: str) -> None:
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    card_dev = torch.device("cuda")
+    granite = get_config(OBS_ARCH)
+    check_model("obs", dataclasses.replace(granite, n_layers=CHECK_LAYERS),
+                "paged/ragged, CPU vs card", "cpu", card_dev, paged=True,
+                dispatch="ragged")
+    t1 = time.perf_counter()
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        runs += _obs_launcher(card, tmp)
+    t2 = time.perf_counter()
+    full = get_config(ARCH)
+    cfg = dataclasses.replace(full, n_layers=SERVE_LAYERS)
+    params = init_params(cfg, seed=0, device=card_dev)
+    prompts = serving_prompts(cfg.vocab_size, 8, (64, 256))
+    runs += _obs_overhead(card, cfg, params, prompts)
+    runs.append(_obs_promotions(card, cfg, params, prompts))
+    del params
+    for k in RESULTS:
+        RESULTS[k]["launches"] = RESULTS[k].get("launches", 0) + sum(
+            r["launches"][k] for r in runs)
+    log("obs", f"phase done in {time.perf_counter() - t0:.1f} s (model "
+               f"check {t1 - t0:.1f} s, launcher {t2 - t1:.1f} s, 30B "
+               f"{time.perf_counter() - t2:.1f} s) | {card}")
+
+
+# ---------------------------------------------------------------------------
 # 6. trace: where a decode step's device time goes
 # ---------------------------------------------------------------------------
 
@@ -4410,7 +4671,7 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
 
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "model",
-          "serving", "requests", "spec", "ladder", "trace")
+          "serving", "requests", "spec", "ladder", "obs", "trace")
 #: Phases that run only when named in ``--only``.
 EXTRA_PHASES = ("dense",)
 
@@ -4440,6 +4701,7 @@ def main() -> int:
                       ("requests", lambda: phase_requests(card)),
                       ("spec", lambda: phase_spec(card)),
                       ("ladder", lambda: phase_ladder(card)),
+                      ("obs", lambda: phase_obs(card)),
                       ("trace", lambda: phase_trace(card))):
         if name in only:
             t = time.perf_counter()

@@ -25,6 +25,15 @@
   cancelled at publication and never published. Both ride on the pending
   entry beside its event: nothing sleeps and nothing reads the device.
 
+* Observability (``tracer``, ``publish_hist``; None by default, every hook
+  a pointer check): a ``promotion`` async span opens when the copy is
+  issued (layer, expert, slot, bytes) and closes where the port publishes,
+  after the copy's event reported completion (``published=1``; the
+  histogram observes ``clock() − issue_ts``), or at a cancellation
+  (``published=0`` with its reason); ``promo_request``, ``demo_request``,
+  ``promo_deferred``, ``demotion``, ``fault_cancel``, ``promo_timeout`` and
+  the retries are instants, as the reference records them.
+
 The forward never observes a partially written version: a slot is read only
 through ``slot_owner``, which names it only after its copy's event
 completed. Demotion adds a hazard immutable arrays never had: a freed slot
@@ -59,6 +68,7 @@ class PendingPromotion:
     nbytes: int
     event: Optional[torch.cuda.Event] = None   # None: completed (CPU)
     issue_ts: float = 0.0          # ``clock`` when the copy was issued
+    seq: int = 0                   # the flight recorder's span id
     cancelled: bool = False        # refunded: a second cancel is a no-op
     # Injected faults: a DMA stall keeps the copy in flight until ``clock``
     # passes ``stall_until``; a corrupt payload fails the publish-time
@@ -107,17 +117,26 @@ class TransitionManager:
         self.injector = None            # fault.inject.FaultInjector
         self.retry = RetryPolicy()
         self.fail_cb = None             # the controller's failure decay
+        # Observability, attached by the backend (None: no event is built).
+        self.tracer = None              # obs.FlightRecorder
+        self.publish_hist = None        # obs Histogram of publish latency
 
     # -- queue side ------------------------------------------------------
     def request_promotion(self, layer: int, expert: int) -> None:
         if self.state[layer, expert] == Residency.RESIDENT_LO.value:
             self.state[layer, expert] = Residency.PROMOTING.value
             self.update_q.append((layer, expert))
+            if self.tracer is not None:
+                self.tracer.instant("promo_request", cat="residency",
+                                    layer=layer, expert=expert)
 
     def request_demotion(self, layer: int, expert: int) -> None:
         if self.state[layer, expert] == Residency.RESIDENT_HI.value:
             self.state[layer, expert] = Residency.DEMOTING.value
             self.evict_q.append((layer, expert))
+            if self.tracer is not None:
+                self.tracer.instant("demo_request", cat="residency",
+                                    layer=layer, expert=expert)
 
     # -- worker side -----------------------------------------------------
     def drain(self) -> None:
@@ -149,6 +168,9 @@ class TransitionManager:
                     not self.tracker.try_reserve(self.hi_bytes):
                 deferred.append((l, e))     # backpressure: stay queued
                 self.stats["deferred"] += 1
+                if self.tracer is not None:
+                    self.tracer.instant("promo_deferred", cat="residency",
+                                        layer=l, expert=e)
                 continue
             slot = self.pools[l].alloc(e)
             if self._issue_copy(l, e, slot):
@@ -178,9 +200,9 @@ class TransitionManager:
         try:
             _, retries, _ = retry_call(
                 attempt, self.retry, seed=seed, key=(layer << 16) | expert,
-                site="promo_copy")
-        except (RetryExhausted, TransferFault):
-            self._abort_issue(layer, expert, slot)
+                site="promo_copy", tracer=self.tracer)
+        except (RetryExhausted, TransferFault) as err:
+            self._abort_issue(layer, expert, slot, err)
             return False
         self.stats["retries"] += retries
         event = None
@@ -205,12 +227,20 @@ class TransitionManager:
                 p.stall_until = p.issue_ts + f.stall_s
             else:
                 p.corrupt = True
+        if self.tracer is not None:
+            # The lifecycle span: opens at the copy's issue, closes where
+            # the copy is published (or cancelled), on the engine clock.
+            p.seq = self.tracer.next_id()
+            self.tracer.async_begin("promotion", p.seq, cat="residency",
+                                    layer=layer, expert=expert, slot=slot,
+                                    bytes=self.hi_bytes)
         self._pending.append(p)
         self.inflight_bytes += self.hi_bytes
         self.stats["bytes_moved"] += self.hi_bytes
         return True
 
-    def _abort_issue(self, layer: int, expert: int, slot: int) -> None:
+    def _abort_issue(self, layer: int, expert: int, slot: int,
+                     err: Exception) -> None:
         """Unwind an admission whose copy never issued: the slot and the
         reservation go back (once), the expert stays lo, and the
         controller's failure decay keeps a flapping expert from livelocking
@@ -221,6 +251,10 @@ class TransitionManager:
         self.stats["fault_cancels"] += 1
         if self.fail_cb is not None:
             self.fail_cb(layer, expert)
+        if self.tracer is not None:
+            self.tracer.instant("fault_cancel", cat="fault", layer=layer,
+                                expert=expert, site="promo_copy",
+                                reason=type(err).__name__)
 
     def _demote(self, layer: int, expert: int) -> None:
         """Publish-then-reclaim: redirect the handle to lo, then free."""
@@ -231,6 +265,9 @@ class TransitionManager:
         self._dirty = True
         self.state[layer, expert] = Residency.RESIDENT_LO.value
         self.stats["demoted"] += 1
+        if self.tracer is not None:
+            self.tracer.instant("demotion", cat="residency", layer=layer,
+                                expert=expert, slot=slot)
 
     def publish_ready(self, wait: bool = False) -> int:
         """Publish every pending promotion whose copy completed (``wait``
@@ -250,7 +287,7 @@ class TransitionManager:
                 if p.corrupt:
                     # The publish-time integrity check: a bad payload is
                     # cancelled, so no forward ever sees it.
-                    self._cancel_pending(p)
+                    self._cancel_pending(p, "corrupt")
                     continue
                 self.inflight_bytes -= p.nbytes
                 publish(self.slot_map_h, self.slot_owner_h, p.layer,
@@ -258,15 +295,24 @@ class TransitionManager:
                 self.state[p.layer, p.expert] = Residency.RESIDENT_HI.value
                 published += 1
                 self.stats["promoted"] += 1
+                if self.tracer is not None:
+                    # ``published=1``: this copy's own event completed
+                    # before its slot was published (on the CPU, at once).
+                    self.tracer.async_end("promotion", p.seq,
+                                          cat="residency", published=1)
+                    if self.publish_hist is not None:
+                        self.publish_hist.observe(
+                            self.tracer.clock() - p.issue_ts)
             else:
                 # Demoted while promoting: reclaim without publishing.
-                self._cancel_pending(p, fault=False)
+                self._cancel_pending(p, "demoted", fault=False)
             self._dirty = True
         self._pending = still
         self._flush_maps()
         return published
 
-    def _cancel_pending(self, p: PendingPromotion, fault: bool = True) -> None:
+    def _cancel_pending(self, p: PendingPromotion, reason: str = "fault",
+                        fault: bool = True) -> None:
         """Cancel an in-flight promotion: free its slot, refund its
         reservation, leave the expert lo. Idempotent: the refund happens
         exactly once however many paths (publish, watchdog) cancel it."""
@@ -281,6 +327,9 @@ class TransitionManager:
             self.stats["fault_cancels"] += 1
             if self.fail_cb is not None:
                 self.fail_cb(p.layer, p.expert)
+        if self.tracer is not None:
+            self.tracer.async_end("promotion", p.seq, cat="residency",
+                                  published=0, reason=reason)
 
     def cancel_stuck(self, now: float, deadline_s: float) -> int:
         """The watchdog's hook: cancel the promotions whose copy has not
@@ -291,8 +340,13 @@ class TransitionManager:
         for p in self._pending:
             done = (p.event is None or p.event.query()) and \
                 p.stall_until <= now
-            if not done and now - p.issue_ts > deadline_s:
-                self._cancel_pending(p)
+            age = now - p.issue_ts
+            if not done and age > deadline_s:
+                if self.tracer is not None:
+                    self.tracer.instant("promo_timeout", cat="fault",
+                                        layer=p.layer, expert=p.expert,
+                                        age_s=round(age, 6))
+                self._cancel_pending(p, "timeout")
                 n += 1
             else:
                 still.append(p)

@@ -148,8 +148,8 @@ class FaultInjector:
     comes back when a rule fires (first matching rule wins), else ``None``.
     Holding ``injector = None`` and pointer-checking before the call keeps
     the disabled path at zero cost. ``ctx`` names the transfer (layer,
-    expert, ...) for the caller's own records; it does not change the
-    decision.
+    expert, ...) in the ``fault_injected`` event a bound flight recorder
+    (``tracer``) records; it does not change the decision.
     """
 
     def __init__(self, plan: FaultPlan):
@@ -158,6 +158,7 @@ class FaultInjector:
         self._arrivals: Dict[str, int] = {}
         self._fires: Dict[int, int] = {}        # rule index → times fired
         self.stats = {"injected": 0}
+        self.tracer = None                      # bound by obs propagation
 
     def arrivals(self, site: str) -> int:
         return self._arrivals.get(site, 0)
@@ -180,5 +181,8 @@ class FaultInjector:
             self.stats["injected"] += 1
             f = Fault(site=site, kind=rule.kind, seq=k,
                       stall_s=rule.stall_s, rule=ri)
+            if self.tracer is not None:
+                self.tracer.instant("fault_injected", cat="fault", site=site,
+                                    kind=rule.kind, seq=k, **ctx)
             return f
         return None

@@ -53,7 +53,8 @@ class RetryPolicy:
 
 
 def retry_call(fn: Callable, policy: RetryPolicy, *, seed: int = 0,
-               key: int = 0, site: str = "") -> Tuple[object, int, float]:
+               key: int = 0, site: str = "",
+               tracer=None) -> Tuple[object, int, float]:
     """Run ``fn`` until it stops raising `TransferFault`.
 
     Returns ``(result, retries, backoff_s)`` where ``backoff_s`` is the total
@@ -74,5 +75,8 @@ def retry_call(fn: Callable, policy: RetryPolicy, *, seed: int = 0,
                 raise RetryExhausted(site, attempt, waited) from e
             d = policy.delay_s(attempt, seed=seed, site=site, key=key)
             waited += d
+            if tracer is not None:
+                tracer.instant("retry", cat="fault", site=site,
+                               attempt=attempt, backoff_s=round(d, 6))
             if policy.timeout_s is not None and waited > policy.timeout_s:
                 raise RetryExhausted(site, attempt, waited) from e

@@ -13,6 +13,10 @@ a deadline is configured. Two sweeps:
   preempted back to the front of their QoS tier (the snapshot resume is
   bit-exact: the request is requeued, not failed).
 
+With a flight recorder (``tracer``) each requeue records a
+``watchdog_cancel`` event; the promotion sweep's ``promo_timeout`` events
+come from the transition managers.
+
 Every age is read on the engine clock, so a virtual-clock replay takes the
 same watchdog decisions as a run on the wall clock.
 """
@@ -29,8 +33,9 @@ class WatchdogConfig:
 
 
 class Watchdog:
-    def __init__(self, cfg: WatchdogConfig):
+    def __init__(self, cfg: WatchdogConfig, tracer=None):
         self.cfg = cfg
+        self.tracer = tracer            # obs.FlightRecorder | None
         self.stats = {"promo_timeouts": 0, "request_requeues": 0}
 
     def scan(self, engine) -> int:
@@ -52,11 +57,15 @@ class Watchdog:
                     continue
                 if h.state.value != "running":
                     continue
-                if now - h.last_progress_s <= self.cfg.no_progress_s:
+                age = now - h.last_progress_s
+                if age <= self.cfg.no_progress_s:
                     continue
                 engine.preempt(h)
                 h.last_progress_s = now
                 engine.counters["watchdog_cancels"] += 1
                 self.stats["request_requeues"] += 1
                 n += 1
+                if self.tracer is not None:
+                    self.tracer.instant("watchdog_cancel", cat="fault",
+                                        rid=h.id, age_s=round(age, 6))
         return n

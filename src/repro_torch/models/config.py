@@ -75,6 +75,13 @@ class ArchConfig:
             return "moe"
         return "moe" if pos_in_superblock in self.moe_positions else "dense"
 
+    # ---- parameter accounting (the roofline's 2·N·D terms) ------------
+    def param_count(self) -> int:
+        return _count_params(self, active_only=False)
+
+    def active_param_count(self) -> int:
+        return _count_params(self, active_only=True)
+
     def reduced(self, n_layers: int = 2, d_model: int = 256,
                 num_experts: int = 4, vocab: int = 512,
                 max_seq_len: int = 1024) -> "ArchConfig":
@@ -101,3 +108,28 @@ class ArchConfig:
             d_model=d_model, vocab_size=vocab,
             d_ff=min(self.d_ff, 2 * d_model) if self.d_ff else 0,
             attn=attn, moe=moe, max_seq_len=max_seq_len)
+
+
+def _count_params(cfg: ArchConfig, active_only: bool) -> int:
+    """The reference's count for the attention + MoE stacks: embedding (and
+    LM head unless tied), per layer the two pre-norms, the attention
+    projections, the router, every expert (``active_only``: top-k of
+    them) and the shared experts."""
+    d = cfg.d_model
+    total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    per_sb = 0
+    for pos, kind in enumerate(cfg.superblock_or_default()):
+        per_sb += 2 * d
+        if kind == "attn" and cfg.attn is not None:
+            a = cfg.attn
+            per_sb += d * a.q_dim + 2 * d * a.kv_dim + a.q_dim * d
+        if cfg.ffn_kind(pos) == "moe":
+            m = cfg.moe
+            per_sb += d * m.num_experts
+            e = m.num_experts if not active_only else m.top_k
+            per_sb += e * 3 * d * m.d_ff_expert
+            if m.n_shared_experts:
+                per_sb += m.n_shared_experts * 3 * d * m.d_ff_shared
+        elif cfg.d_ff:
+            per_sb += 3 * d * cfg.d_ff
+    return int(total + per_sb * cfg.n_superblocks())

@@ -24,6 +24,14 @@ one forward's router counts (row-resolved counts are scrubbed by
 ``row_valid`` first) and returns the forward's modeled stall in seconds;
 ``tick`` runs the policy window; ``stats`` returns exactly ``STAT_KEYS +
 STAT_EXTRAS``; ``flush`` waits for in-flight transitions.
+
+Observability, as the reference's: ``attach_obs(tracer, metrics)`` binds
+the engine's flight recorder and metrics registry (``None``: every site is
+a pointer check); ``observe`` then records one ``moe_forward`` event per
+forward, the tier split of its active (layer, expert) cells from the
+counts the engine already holds on the host (``_tier_counts``);
+``obs_meta`` gives the cost model its byte prices and ``residency_mix``
+the per-step census of cells by tier.
 """
 from __future__ import annotations
 
@@ -81,6 +89,32 @@ class _BackendBase:
         self.cfg: Optional[ArchConfig] = None
         self.budget = None
         self.moe_positions: list = []
+        self.tracer = None              # obs.FlightRecorder | None
+        self.metrics = None             # obs.MetricsRegistry | None
+
+    # -- observability -----------------------------------------------------
+    def attach_obs(self, tracer=None, metrics=None) -> None:
+        """Bind the engine's flight recorder and metrics registry (subclasses
+        pass them on to the components they own); ``None`` detaches."""
+        self.tracer = tracer
+        self.metrics = metrics
+
+    def obs_meta(self) -> Dict[str, int]:
+        """The byte prices the trace cost model replays against:
+        ``{"lo_bytes", "hi_bytes"}`` per expert-layer cell (0 where the tier
+        does not exist under this backend)."""
+        return {}
+
+    def _tier_counts(self, cleaned: Dict) -> Tuple[int, int, int, int]:
+        """One forward's ``(active_hi, active_lo, active_host,
+        published_hi)`` cell counts: here every active cell serves from an
+        always-resident lo tier."""
+        act = sum(int((c > 0).sum()) for c in cleaned.values())
+        return 0, act, 0, 0
+
+    def residency_mix(self) -> Dict[str, int]:
+        """The (layer, expert) cells by tier: ``{"hi", "lo", "host"}``."""
+        return {"hi": 0, "lo": 0, "host": 0}
 
     def materialize_banks(self, cfg: ArchConfig, params: Dict,
                           kv_bytes: int, budget=None) -> Dict:
@@ -103,6 +137,16 @@ class _BackendBase:
             acc = self._counts_sum.get(k)
             self._counts_sum[k] = c.copy() if acc is None else acc + c
         stall = self._observe_residency(cleaned, compute_s)
+        if self.tracer is not None:
+            # The per-forward traffic record the cost model replays: counts
+            # only (no durations), so virtual-clock traces are byte-stable.
+            hi, lo, host, pub = self._tier_counts(cleaned)
+            self.tracer.instant(
+                "moe_forward", cat="engine",
+                routed=int(sum(int(c.sum()) for c in cleaned.values())),
+                layers=int(sum(c.shape[0] for c in cleaned.values())),
+                active_hi=hi, active_lo=lo, active_host=host,
+                published_hi=pub, prefill=int(prefill))
         (self._ttft if prefill else self._tpot).append(compute_s + stall)
         return stall
 
@@ -164,6 +208,15 @@ def envelope_fixed_bytes(params: Dict, kv_bytes: int,
                          if k != "blocks"}) + kv_bytes + slack
 
 
+def _dense_tier_counts(cleaned: Dict) -> Tuple[int, int, int, int]:
+    """``_tier_counts`` of the backends that compute with dense bf16
+    experts: every active cell streams at full precision, every cell
+    counts as published hi."""
+    act = sum(int((c > 0).sum()) for c in cleaned.values())
+    cells = sum(int(c.size) for c in cleaned.values())
+    return act, 0, 0, cells
+
+
 class Fp16Backend(_BackendBase):
     """Dense bf16 experts, fully device-resident: the quality/latency
     reference (and the compute substrate the offload model prices). The
@@ -176,12 +229,25 @@ class Fp16Backend(_BackendBase):
     def __init__(self, device=None):
         super().__init__(device)
         self._dense_bytes = 0
+        self._cells = 0
+        self._cell_bytes = 0
 
     def _materialize(self, cfg, params, kv_bytes):
-        self._dense_bytes = sum(
-            _param_bytes(_device_experts(params, p, self.device))
-            for p in self.moe_positions)
+        experts = [_device_experts(params, p, self.device)
+                   for p in self.moe_positions]
+        self._dense_bytes = sum(_param_bytes(x) for x in experts)
+        self._cells = sum(int(np.prod(x["w_gate"].shape[:2]))
+                          for x in experts)
+        self._cell_bytes = self._dense_bytes // max(1, self._cells)
         return None
+
+    _tier_counts = staticmethod(_dense_tier_counts)
+
+    def residency_mix(self) -> Dict[str, int]:
+        return {"hi": self._cells, "lo": 0, "host": 0}
+
+    def obs_meta(self) -> Dict[str, int]:
+        return {"lo_bytes": 0, "hi_bytes": self._cell_bytes}
 
     def device_bytes(self) -> int:
         return self._dense_bytes
@@ -199,19 +265,29 @@ class StaticPTQBackend(_BackendBase):
         self.group_size = group_size
         self.banks: Dict = {}
         self._lo_bytes = 0
+        self._cells = 0
+        self._lo_per = 0
 
     def _materialize(self, cfg, params, kv_bytes):
         for pos in self.moe_positions:
             moe = params["blocks"][str(pos)]["moe"]
             experts = moe["experts"]
             L, E = experts["w_gate"].shape[:2]
-            self._lo_bytes += expert_lo_nbytes(
-                _shapes(experts), self.lo_bits, self.group_size) * L * E
+            self._lo_per = expert_lo_nbytes(
+                _shapes(experts), self.lo_bits, self.group_size)
+            self._lo_bytes += self._lo_per * L * E
+            self._cells += L * E
             self.banks[str(pos)] = build_bank(
                 {k: v.to(self.device) for k, v in experts.items()}, n_hi=0,
                 lo_bits=self.lo_bits, group_size=self.group_size)
             moe["experts"] = None       # the bank is the only residency now
         return self.banks
+
+    def residency_mix(self) -> Dict[str, int]:
+        return {"hi": 0, "lo": self._cells, "host": 0}
+
+    def obs_meta(self) -> Dict[str, int]:
+        return {"lo_bytes": self._lo_per, "hi_bytes": 0}
 
     def device_bytes(self) -> int:
         return self._lo_bytes
@@ -440,6 +516,7 @@ class DynaExqBackend(_BackendBase):
         if not self._serving_ready:
             self._build_pump_queue()
         self._propagate_faults()
+        self._propagate_obs()           # components built after attach_obs
         return self.banks
 
     def _slots(self, n_hi: int, E: int) -> int:
@@ -549,6 +626,58 @@ class DynaExqBackend(_BackendBase):
         if self.stream is not None and hasattr(self.stream, "lo_layer"):
             self.stream.injector = self.injector
 
+    # -- observability -----------------------------------------------------
+    def attach_obs(self, tracer=None, metrics=None) -> None:
+        super().attach_obs(tracer, metrics)
+        self._propagate_obs()
+
+    def _propagate_obs(self) -> None:
+        """Push the recorder and registry into the transition managers, the
+        host stores and the injector. Idempotent: runs at attach time and
+        at the end of ``_materialize``, whichever comes second sees all."""
+        hist = self.metrics.histogram(
+            "promotion_publish_latency_seconds",
+            "copy issue -> publish latency of hi promotions") \
+            if self.metrics is not None else None
+        for ctl in self.controllers.values():
+            ctl.tm.tracer = self.tracer
+            ctl.tm.publish_hist = hist
+        for store in self.stores.values():
+            store.tracer = self.tracer
+        if self.injector is not None:
+            self.injector.tracer = self.tracer
+        if self.tracer is not None:
+            # Issue stamps and publish latencies on ONE clock (the engine
+            # rebinds the recorder's clock to its own).
+            for ctl in self.controllers.values():
+                ctl.tm.clock = self.tracer.clock
+
+    def obs_meta(self) -> Dict[str, int]:
+        if not self._lo_b:
+            return {}
+        return {"lo_bytes": int(next(iter(self._lo_b.values()))),
+                "hi_bytes": int(next(iter(self._hi_b.values())))}
+
+    def _tier_counts(self, cleaned):
+        hi = lo = host = pub = 0
+        for k, c in cleaned.items():
+            act = c > 0
+            ctl = self.controllers.get(k)
+            hi_mask = ctl.tm.slot_map_h >= 0 if ctl is not None \
+                else np.zeros(c.shape, bool)
+            store = self.stores.get(k)
+            if store is not None and self.lo_resident_total:
+                host_mask = ~store.lo_resident & store.lo_valid
+            else:
+                host_mask = np.zeros(c.shape, bool)
+            if store is not None:
+                host_mask = host_mask | store.quarantined
+            pub += int(hi_mask.sum())
+            hi += int((act & hi_mask).sum())
+            host += int((act & ~hi_mask & host_mask).sum())
+            lo += int((act & ~hi_mask & ~host_mask).sum())
+        return hi, lo, host, pub
+
     # -- per-forward hook and windows --------------------------------------
     def _observe_residency(self, counts, compute_s):
         stall = 0.0
@@ -581,9 +710,18 @@ class DynaExqBackend(_BackendBase):
                         # A failed (or slow) demand fetch is retried on the
                         # critical path: one more full transfer plus any
                         # injected stall; only latency is lost.
-                        s += s + (f.stall_s if f.kind == "stall" else 0.0)
+                        extra = s + (f.stall_s if f.kind == "stall" else 0.0)
+                        s += extra
                         self._fault_acct["retries"] += 1
+                        if self.tracer is not None:
+                            self.tracer.instant("retry", cat="fault",
+                                                site="host_fetch", pos=k,
+                                                backoff_s=round(extra, 9))
                 stall += s
+                if self.tracer is not None:
+                    # A modeled stall (from bytes): byte-stable in replays.
+                    self.tracer.instant("host_fetch", cat="host", pos=k,
+                                        experts=n, bytes=demand, stall_s=s)
         return stall
 
     def tick(self) -> None:
@@ -988,6 +1126,17 @@ class OffloadBackend(_BackendBase):
         self._acct["stall_s"] += stall
         self._acct["bytes_moved"] += miss_bytes + prefetched_bytes
         return stall
+
+    _tier_counts = staticmethod(_dense_tier_counts)
+
+    def residency_mix(self) -> Dict[str, int]:
+        hi = sum(len(lru) for lru in self.lru.values())
+        E = self.cfg.moe.num_experts if self.cfg is not None else 0
+        return {"hi": hi, "lo": 0,
+                "host": max(0, self.n_moe_layers * E - hi)}
+
+    def obs_meta(self) -> Dict[str, int]:
+        return {"lo_bytes": 0, "hi_bytes": self.expert_bytes}
 
     def device_bytes(self) -> int:
         """The device-resident cache under the offload budget."""

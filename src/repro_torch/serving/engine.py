@@ -73,6 +73,17 @@ own ``SamplingParams`` (``serving.sampler``; greedy by default).
 * **Clock**: submit, TTFT, finish, queue aging and deadlines read the
   engine clock ``_now`` (wall time, or ``replay``'s virtual clock);
   compute latencies read ``perf_counter``.
+* **Observability** (``obs=Observability(...)``, ``repro_torch.obs``): the
+  flight recorder's clock is rebound to ``_now``, so a virtual-clock
+  replay traces byte-identically; the engine records the scheduling
+  events (submit, shed, downgrade, admit, finish, preempt, resume) and one
+  ``step`` event with the per-step gauges after each step, samples the
+  metrics every ``sample_every`` steps, and the backend records the
+  residency events. Every value is a count the host already holds or a
+  modeled stall: nothing is read from the device for it and nothing is
+  added to a captured graph. With ``obs=None`` (the default) every site is
+  a pointer check. ``RequestHandle.stall_exposure_s`` sums the modeled
+  stalls of the forwards a request was resident for.
 
 Not ported: the dense path's sliding-window rings (the port serves no
 sliding-window family).
@@ -216,6 +227,10 @@ class RequestHandle:
         # (host-served) expert cell: it completes, at degraded quality.
         self.degraded = False
         self._eos_scanned = 0          # tokens already checked for EOS
+        # Modeled stall seconds of the forwards this request was resident
+        # for (prefill, decode, speculative rounds): exposure, not a share
+        # (concurrent residents each record the whole stall of a step).
+        self.stall_exposure_s = 0.0
 
     def prompt(self) -> np.ndarray:
         return np.asarray(self.request.tokens, np.int64).reshape(-1)
@@ -226,16 +241,19 @@ class RequestHandle:
 
 class InferenceEngine:
     """Continuous-batching serving loop over a residency backend, on
-    ``device`` (``cuda`` unless ``device="cpu"`` is passed)."""
+    ``device`` (``cuda`` unless ``device="cpu"`` is passed), observed by
+    ``obs`` (an ``obs.Observability``; None: no recorder, no registry)."""
 
     def __init__(self, cfg: ArchConfig, params: Dict, backend,
-                 ecfg: Optional[EngineConfig] = None, device=None):
+                 ecfg: Optional[EngineConfig] = None, device=None,
+                 obs=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
         self.backend = backend
         self.ecfg = ecfg if ecfg is not None else EngineConfig()
         e = self.ecfg
+        self._clock: Optional[float] = None     # replay's virtual clock
         if backend.device != self.device:
             raise ValueError(f"backend on {backend.device}, engine on "
                              f"{self.device}")
@@ -254,6 +272,17 @@ class InferenceEngine:
         pos_bytes = 2 * a.n_kv_heads * a.head_dim * 2 * cfg.n_superblocks()
         self.budget = BudgetTracker(UNBOUNDED if e.hbm_budget_bytes is None
                                     else e.hbm_budget_bytes)
+        # Observability: the recorder stamps events on the engine clock.
+        self.obs = obs
+        self.tracer = obs.tracer if obs is not None else None
+        self.metrics = obs.metrics if obs is not None else None
+        self._sample_every = max(1, obs.cfg.sample_every) \
+            if obs is not None else 1
+        self._obs_prev = (0.0, 0.0, 0)  # dispatch sums at the last step
+        if self.tracer is not None:
+            self.tracer.clock = self._now
+        if obs is not None:
+            backend.attach_obs(self.tracer, self.metrics)
         self.pool: Optional[KVBlockPool] = None
         self.trie: Optional[PrefixTrie] = None
         if e.paged:
@@ -276,6 +305,14 @@ class InferenceEngine:
             self.banks = backend.materialize_banks(
                 cfg, params, pos_bytes * n * e.max_len, budget=self.budget)
             self.caches = init_caches(cfg, n, e.max_len, self.device)
+        if self.tracer is not None:
+            # What the cost model (``obs.costmodel``) replays against:
+            # dispatch, router shape, byte prices.
+            self.tracer.meta.update(
+                moe_dispatch=self.moe_dispatch,
+                num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                lo_bytes=0, hi_bytes=0, backend=backend.name)
+            self.tracer.meta.update(backend.obs_meta())
         # Promotion ages (the watchdog's input) on the engine clock.
         bind = getattr(backend, "bind_clock", None)
         if bind is not None:
@@ -287,7 +324,7 @@ class InferenceEngine:
                 e.watchdog_no_progress_s is not None:
             self._watchdog = Watchdog(WatchdogConfig(
                 promo_deadline_s=e.promo_deadline_s,
-                no_progress_s=e.watchdog_no_progress_s))
+                no_progress_s=e.watchdog_no_progress_s), tracer=self.tracer)
         # Per-row MoE capacity: the decode steps' row cap (the prefills'
         # depends on the length bucket, ``_row_cap_prefill``).
         self._row_cap_decode = moe_capacity(1, cfg.moe, e.capacity_factor) \
@@ -298,7 +335,6 @@ class InferenceEngine:
         self.slots: List[Optional[RequestHandle]] = [None] * n
         self.pos = np.zeros(n, np.int64)
         self.tokens = np.full(n, e.pad_token_id, np.int64)
-        self._clock: Optional[float] = None     # replay's virtual clock
         self.queue = TieredQueue(self._now, self.sched.cfg.aging_s)
         self._ids = itertools.count()
         ladder, v = [], e.bucket_base
@@ -398,14 +434,23 @@ class InferenceEngine:
         h.qos = h.exec_qos = qos
         h.submit_s = h.enqueue_s = self._now()
         h.stall_at_submit = self._stall_clock
+        if self.tracer is not None:
+            self.tracer.instant("submit", cat="sched", rid=h.id, qos=qos,
+                                prompt=plen)
         action = self.sched.admit_action(qos, self.load_snapshot())
         if action == "shed":
             h.state = RequestState.SHED
             self.counters["shed_requests"] += 1
+            if self.tracer is not None:
+                self.tracer.instant("shed", cat="sched", rid=h.id, qos=qos,
+                                    reason="overload")
             return h
         if action == "downgrade" and h.exec_qos != "batch":
             h.exec_qos = "batch"
             self.counters["downgraded"] += 1
+            if self.tracer is not None:
+                self.tracer.instant("downgrade", cat="sched", rid=h.id,
+                                    qos=qos)
         self.queue.append(h)
         return h
 
@@ -559,6 +604,9 @@ class InferenceEngine:
         for h in self.queue.prune(expired):
             h.state = RequestState.SHED
             self.counters["shed_requests"] += 1
+            if self.tracer is not None:
+                self.tracer.instant("shed", cat="sched", rid=h.id,
+                                    qos=h.qos, reason="deadline")
 
     # ------------------------------------------------------------------
     def _admit(self, finished: List[RequestHandle]) -> None:
@@ -677,9 +725,13 @@ class InferenceEngine:
         samp = self._gather_sampling_rows(
             logits, [r for r, (h, _, _) in enumerate(group)
                      if not h.sampler.greedy])
-        self._observe_prefill(counts_np, dt, G)
+        stall = self._observe_prefill(counts_np, dt, G)
         for r, (h, _, start) in enumerate(group):
             slot = free[r]
+            h.stall_exposure_s += stall
+            if self.tracer is not None:
+                self.tracer.instant("admit", cat="sched", rid=h.id, slot=slot,
+                                    qos=h.exec_qos)
             h.slot = slot
             h.expert_counts = {k: v[:, r].astype(np.int64)
                                for k, v in counts_np.items()}
@@ -691,15 +743,16 @@ class InferenceEngine:
                               finished)
         self.counters["prefills"] += 1
 
-    def _observe_prefill(self, counts_np, dt: float, G: int) -> None:
+    def _observe_prefill(self, counts_np, dt: float, G: int) -> float:
         """A prefill's counts (its first ``G`` rows real) to the backend;
-        its modeled stall onto the stall clock."""
+        its modeled stall onto the stall clock. Returns the stall."""
         self.last_row_counts = counts_np
         row_valid = np.zeros(self._prefill_rows, bool)
         row_valid[:G] = True
         stall = self.backend.observe(counts_np, dt, prefill=True,
                                      row_valid=row_valid)
         self._stall_clock += stall
+        return stall
 
     def _first_token(self, h: RequestHandle, slot: int, plen: int, r: int,
                      amax, samp, finished) -> None:
@@ -743,6 +796,9 @@ class InferenceEngine:
             # Trie-registered blocks keep the trie's own reference.
             h.lease.close()
         self.counters["finished"] += 1
+        if self.tracer is not None:
+            self.tracer.instant("finish", cat="sched", rid=h.id,
+                                tokens=len(h.tokens))
         finished.append(h)
 
     # ------------------------------------------------------------------
@@ -784,6 +840,9 @@ class InferenceEngine:
         h._snapshot = snap
         h.preempts += 1
         self.counters["preemptions"] += 1
+        if self.tracer is not None:
+            self.tracer.instant("preempt", cat="sched", rid=h.id, slot=slot,
+                                pos=pos)
         self.queue.appendleft(h)
 
     def _gather_lanes(self, blk: np.ndarray, off: np.ndarray):
@@ -825,13 +884,17 @@ class InferenceEngine:
         return True
 
     def _finish_resume(self, h: RequestHandle, slot: int) -> None:
+        pos = h._snapshot.pos
         self.slots[slot] = h
         h.slot = slot
         h.state = RequestState.RUNNING
-        self.pos[slot] = h._snapshot.pos
+        self.pos[slot] = pos
         self.tokens[slot] = h.tokens[-1]
         h._snapshot = None
         self.counters["resumes"] += 1
+        if self.tracer is not None:
+            self.tracer.instant("resume", cat="sched", rid=h.id, slot=slot,
+                                pos=pos)
 
     def _resume_paged(self, h: RequestHandle, slot: int) -> bool:
         """The admission gates of a fresh request (trie match → pin,
@@ -940,7 +1003,9 @@ class InferenceEngine:
         amax, counts_np = self._fetch(torch.argmax(logits, -1), counts)
         dt = time.perf_counter() - t0
         self.prefill_shapes.add((R, bucket))
-        self._observe_prefill(counts_np, dt, len(group))
+        stall = self._observe_prefill(counts_np, dt, len(group))
+        for _, h in group:
+            h.stall_exposure_s += stall
         self._note_degraded(counts_np, [(r, h) for r, (_, h)
                                         in enumerate(group)])
         samp = self._gather_sampling_rows(
@@ -999,7 +1064,55 @@ class InferenceEngine:
                     continue
                 self._decode_one(rows, finished, lo=kind == "lo")
         self.backend.tick()
+        if self.obs is not None:
+            self._step_obs()
         return finished
+
+    def _step_obs(self) -> None:
+        """The step's ``step`` event with the per-step gauges, and the
+        metrics at their sampling cadence. Every value is a count or a
+        modeled quantity, never a duration, so virtual-clock replays trace
+        byte-identically."""
+        a0, p0, l0 = self._obs_prev
+        self._obs_prev = (self._disp_active_sum, self._disp_pad_sum,
+                          self._disp_layers)
+        d_lay = self._disp_layers - l0
+        active = (self._disp_active_sum - a0) / d_lay if d_lay else 0.0
+        pad = (self._disp_pad_sum - p0) / d_lay if d_lay else 0.0
+        mix = self.backend.residency_mix()
+        headroom = float(self.budget.headroom_frac())
+        depths = self.queue.depths()
+        running = sum(h is not None for h in self.slots)
+        step = self.counters["steps"]
+        if self.tracer is not None:
+            self.tracer.instant(
+                "step", cat="engine", step=step,
+                active_experts=round(active, 4), pad_ratio=round(pad, 4),
+                hi=mix["hi"], lo=mix["lo"], host=mix["host"],
+                headroom=round(headroom, 6), queued=len(self.queue),
+                running=running)
+        if self.metrics is not None and step % self._sample_every == 0:
+            m = self.metrics
+            m.gauge("engine_active_experts",
+                    "mean experts with routed tokens per layer-step").set(
+                        active)
+            m.gauge("engine_dispatch_pad_ratio",
+                    "padding fraction of the MoE dispatch layout").set(pad)
+            m.gauge("residency_hi_cells").set(mix["hi"])
+            m.gauge("residency_lo_cells").set(mix["lo"])
+            m.gauge("residency_host_cells").set(mix["host"])
+            m.gauge("budget_headroom_frac",
+                    "shared HBM envelope headroom").set(headroom)
+            for q, d in depths.items():
+                m.gauge(f"queue_depth_{q}").set(d)
+            if self._spec is not None:
+                m.gauge("spec_accept_rate").set(
+                    self._spec.accepted_total /
+                    max(1, self._spec.draft_total))
+            m.sample(step=step, active_experts=round(active, 4),
+                     pad_ratio=round(pad, 4), hi=mix["hi"], lo=mix["lo"],
+                     host=mix["host"], headroom=round(headroom, 6),
+                     **{f"queued_{q}": d for q, d in depths.items()})
 
     def _decode_fn(self, lo: bool):
         """The decode step over the static inputs, on the served banks or
@@ -1079,6 +1192,9 @@ class InferenceEngine:
         stall = self.backend.observe(counts_np, dt, prefill=False,
                                      row_valid=row_valid)
         self._stall_clock += stall
+        if stall:
+            for _, h in active:
+                h.stall_exposure_s += stall
         latency = dt + stall
         self.decode_times.append(latency)
         self._tpot_sum += latency * len(active)

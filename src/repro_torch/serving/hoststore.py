@@ -40,6 +40,8 @@ The store duck-types the ``host_hi`` mapping interface (``items`` /
 exhausts its retries is quarantined: served from the host tier (the device
 rows stay unreal, routed requests are flagged degraded) until a later
 staging lands and heals it. On the CPU every copy completes at once.
+A flight recorder bound by the backend (``tracer``) records the reference's
+``host_stage``, ``lo_publish`` and ``quarantine`` events and the retries.
 """
 from __future__ import annotations
 
@@ -139,6 +141,7 @@ class HostExpertStore:
                       "retries": 0, "retry_stall_s": 0.0, "quarantines": 0}
         self.injector = None    # fault.inject.FaultInjector
         self.retry = RetryPolicy()
+        self.tracer = None      # obs.FlightRecorder, bound by the backend
         self.quarantined = np.zeros((self.L, self.E), bool)
 
     # -- host_hi mapping interface (TransitionManager) --------------------
@@ -175,7 +178,8 @@ class HostExpertStore:
         caller's graceful-degradation path."""
         try:
             out, retries, waited = retry_call(
-                fn, self.retry, seed=self._seed(), key=key, site=site)
+                fn, self.retry, seed=self._seed(), key=key, site=site,
+                tracer=self.tracer)
         except RetryExhausted as e:
             # The attempts were still made (and their backoff modeled).
             self.stats["retries"] += e.attempts - 1
@@ -251,6 +255,9 @@ class HostExpertStore:
                     np.asarray([resident], bool), rows, nbytes,
                     lambda leaf, src: write_lo_expert(leaf, layer, expert,
                                                       src[expert]))
+        if self.tracer is not None:
+            self.tracer.instant("host_stage", cat="host", layer=layer,
+                                experts=1, bytes=nbytes)
         return nbytes
 
     def stage_lo_batch(self, bank: ExpertBankQ, layer: int, experts,
@@ -271,6 +278,9 @@ class HostExpertStore:
                      // (self.L * self.E) for q in bank.lo.values())
         self._stage(bank, layer, idx, res, rows, nbytes,
                     lambda leaf, src: write_lo_rows(leaf, layer, idx, src))
+        if self.tracer is not None:
+            self.tracer.instant("host_stage", cat="host", layer=layer,
+                                experts=int(idx.size), bytes=nbytes)
         return nbytes
 
     def _stage(self, bank, layer, idx, res, rows, nbytes, write) -> None:
@@ -322,6 +332,8 @@ class HostExpertStore:
             self.quarantined[p.layer, p.experts] = False
             published += int(p.experts.size)
         self._staging = still
+        if published and self.tracer is not None:
+            self.tracer.instant("lo_publish", cat="host", experts=published)
         return published
 
     @property
@@ -348,6 +360,9 @@ class HostExpertStore:
         self.quarantined[layer, fresh] = True
         n = int(fresh.size)
         self.stats["quarantines"] += n
+        if n and self.tracer is not None:
+            self.tracer.instant("quarantine", cat="fault", layer=layer,
+                                experts=n)
         return n
 
     def check_invariants(self) -> None:

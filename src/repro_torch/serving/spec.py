@@ -409,6 +409,9 @@ class SpecDecoder:
         stall = eng.backend.observe(obs, dt, prefill=False,
                                     row_valid=row_valid)
         eng._stall_clock += stall
+        if stall:
+            for _, h in active:
+                h.stall_exposure_s += stall
         latency = dt + stall
         eng.decode_times.append(latency)
         eng._tpot_ema = latency if eng._tpot_ema == 0.0 else \
@@ -466,6 +469,11 @@ class SpecDecoder:
         self.draft_total += n_draft
         self.accepted_total += n_accept
         self.verified_total += kept_total
+        if eng.tracer is not None:
+            eng.tracer.instant("spec_round", cat="engine",
+                               rows=len(active), drafted=int(n_draft),
+                               accepted=int(n_accept),
+                               emitted=int(kept_total))
         if n_draft:
             r = n_accept / n_draft
             self.ema = (1 - self.ema_alpha) * self.ema + self.ema_alpha * r

@@ -1041,6 +1041,66 @@ def test_replays_run_while_promotion_copies_are_pending(cuda, path):
 
 
 @pytest.mark.cuda
+def test_promotion_span_ends_after_its_copy_completes(cuda):
+    """With a flight recorder on the engine, hi copies held in flight
+    behind a ~2 s spin on the side stream open their ``promotion`` spans
+    at issue and close none while their events have not completed
+    (replays and policy ticks run meanwhile); every ``published=1`` end
+    comes after its own copy's event completed, and the publish-latency
+    histogram records each, spin included."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.obs import ObsConfig, Observability
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = get_config("qwen3-moe-30b-a3b", reduced=True)
+    obs = Observability(ObsConfig())
+    eng = InferenceEngine(
+        cfg, init_params(cfg, seed=0, device=cuda),
+        make_backend("dynaexq", n_hi_per_layer=2, device=cuda,
+                     controller=ControllerConfig(update_interval_s=1e9)),
+        EngineConfig(max_slots=2, max_len=64), device=cuda, obs=obs)
+    _submit(eng)
+    for _ in range(2):
+        _step(eng, graphed=True)
+    tms = [c.tm for c in eng.backend.controllers.values()]
+    for tm in tms:
+        with torch.cuda.stream(tm._side):
+            torch.cuda._sleep(4_000_000_000)
+    eng.backend.force_update()                  # copies queue behind it
+    pending = [p for tm in tms for p in tm._pending]
+    assert pending and not any(p.event.query() for p in pending)
+    ends = []
+    end = obs.tracer.async_end
+
+    def audited(name, span_id, cat="", **args):
+        if name == "promotion" and args.get("published"):
+            p = next(p for p in pending if p.seq == span_id)
+            ends.append(p.event.query())
+        end(name, span_id, cat, **args)
+
+    obs.tracer.async_end = audited
+    for _ in range(2):
+        _step(eng, graphed=True)
+        eng.backend.tick()
+    begun = [b for b in obs.tracer.events()
+             if b.name == "promotion" and b.ph == "b"]
+    assert len(begun) == len(pending) and not obs.tracer.spans("promotion")
+    assert not ends
+    eng.flush()
+    spans = obs.tracer.spans("promotion")
+    assert ends and all(ends) and len(ends) == len(pending)
+    assert sum(e.args["published"] for _, e in spans) == len(pending)
+    snap = obs.metrics.snapshot()
+    assert snap["promotion_publish_latency_seconds_count"] == len(pending)
+    assert min(e.ts - b.ts for b, e in spans) > 0.5     # the spin
+    assert snap["promotion_publish_latency_seconds_p50"] > 0.5
+    for tm in tms:
+        tm.check_invariants()
+
+
+@pytest.mark.cuda
 def test_capture_refuses_a_host_read(cuda, monkeypatch):
     """A host read in the step (``torch.bincount`` sizes its output from
     ``ids.max().item()``) makes the capture raise; the step is not run

@@ -399,3 +399,69 @@ def test_spec_steps_read_nothing_on_the_host(monkeypatch, paged):
     c = spec._shapes[k]["0"]
     assert packed.shape == ((k + 1) * 3 + k * 3 + int(np.prod(c)),)
 
+
+
+# --------------------------------------------------------------------------
+# 5. observability adds nothing to the step
+# --------------------------------------------------------------------------
+
+HOST_READS = ("item", "cpu", "tolist", "numpy", "__bool__", "__int__",
+              "__float__", "__index__", "nonzero")
+
+
+@contextlib.contextmanager
+def counted_host_reads(monkeypatch):
+    """Count every call of a tensor method that reads values on the host."""
+    counts = {n: 0 for n in HOST_READS}
+
+    def counting(name, orig):
+        def call(*a, **k):
+            counts[name] += 1
+            return orig(*a, **k)
+        return call
+
+    with monkeypatch.context() as mp:
+        for name in HOST_READS:
+            mp.setattr(torch.Tensor, name,
+                       counting(name, getattr(torch.Tensor, name)))
+        yield counts
+
+
+@pytest.mark.parametrize("backend,spec_k", [("static", 0), ("dynaexq", 0),
+                                            ("dynaexq", 2)],
+                         ids=["static", "dynaexq", "dynaexq-spec"])
+def test_observed_engine_reads_what_the_bare_engine_reads(monkeypatch,
+                                                          backend, spec_k):
+    """With a flight recorder and a metrics registry on, every engine step
+    reads exactly the tensor values on the host that it reads with
+    ``obs=None`` (the sites take counts the engine already holds), the
+    tokens are the same, and the captured steps stay free of host reads."""
+    from repro_torch.obs import ObsConfig, Observability
+    cfg = get_config(ARCH, reduced=True)
+    runs = []
+    for obs in (None, Observability(ObsConfig())):
+        eng = InferenceEngine(
+            cfg, init_params(cfg, seed=2, device="cpu"),
+            make_backend(backend, device="cpu", **(
+                dict(n_hi_per_layer=2) if backend == "dynaexq" else {})),
+            EngineConfig(max_slots=3, max_len=64, spec_k=spec_k),
+            device="cpu", obs=obs)
+        handles = [eng.submit(Request(tokens=make_prompts(
+            "text", cfg.vocab_size, 1, n, seed=n)[0], max_new_tokens=6))
+            for n in (9, 20, 14, 5)]
+        per_step = []
+        while eng.queue or any(h is not None for h in eng.slots):
+            with counted_host_reads(monkeypatch) as counts:
+                eng.step()
+            per_step.append(dict(counts))
+        runs.append((per_step, [h.tokens for h in handles], eng))
+    (bare, toks_bare, _), (seen, toks_obs, eng) = runs
+    assert seen == bare
+    assert toks_obs == toks_bare
+    assert eng.tracer.instants("step") and eng.tracer.instants("moe_forward")
+    rows = [(i, h) for i, h in enumerate(eng.slots) if h is not None]
+    eng._fill_step(rows, [])
+    eng.decode_graph.inputs.push()
+    with no_host_reads(monkeypatch):
+        logits, _ = eng._decode_fn(lo=False)
+    assert bool(torch.isfinite(logits).all())

@@ -43,7 +43,9 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.serving.lobanks, repro_torch.serving.requests, "
             "repro_torch.serving.streaming, repro_torch.fault.inject, "
             "repro_torch.fault.retry, repro_torch.quant.ptq, "
-            "repro_torch.quant.sensitivity; "
+            "repro_torch.quant.sensitivity, repro_torch.obs, "
+            "repro_torch.obs.costmodel, repro_torch.launch.roofline, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -58,14 +60,22 @@ def _entry_points():
     from repro_torch.models.model import (init_caches, init_paged_caches,
                                           init_params)
     from repro_torch.serving.backends import make_backend
+    from repro_torch.launch import serve
+    from repro_torch.obs import Observability
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
     cfg = get_config("granite-moe-1b-a400m", reduced=True)
 
-    def engine(device, **kw):
+    def engine(device, obs=None, **kw):
         params = init_params(cfg, device="cpu")
         return InferenceEngine(cfg, params,
                                make_backend("static", device="cpu"),
-                               EngineConfig(**kw), device=device)
+                               EngineConfig(**kw), device=device, obs=obs)
+
+    def launch(device):
+        argv = ["--backend", "static", "--batch", "1", "--prompt-len", "8",
+                "--new-tokens", "2", "--no-spec"]
+        return serve.main(argv + ([] if device is None
+                                  else ["--device", device]))
 
     return {
         "resolve_device": lambda device: resolve_device(device),
@@ -84,6 +94,9 @@ def _entry_points():
         "InferenceEngine": engine,
         "InferenceEngine_dense_padded": functools.partial(
             engine, paged=False, moe_dispatch="padded"),
+        "InferenceEngine_observed":
+            lambda device: engine(device, obs=Observability()),
+        "launch_serve": launch,
     }
 
 
@@ -92,7 +105,9 @@ def _entry_points():
                                   "make_backend_dynaexq", "make_backend_fp16",
                                   "make_backend_offload", "InferenceEngine",
                                   "init_caches",
-                                  "InferenceEngine_dense_padded"])
+                                  "InferenceEngine_dense_padded",
+                                  "InferenceEngine_observed",
+                                  "launch_serve"])
 def test_entry_points_need_cuda_unless_cpu_is_asked(name):
     fn = _entry_points()[name]
     fn("cpu")                                  # the CPU on request works
