@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only card,build,spec
     python3 chip_smoke.py --only card,build,ladder
     python3 chip_smoke.py --only card,build,obs
+    python3 chip_smoke.py --only card,build,hybrid [--parent DIR]
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -161,6 +162,37 @@ Phases (each prints one line; any failure exits non-zero):
               window every step, no flush until the end: every published
               promotion span ends after its copy's event completed, the
               publish latency and the bytes/token residual by bucket;
+   hybrid   — the hybrid family, Jamba-v0.1-52B at full width (d 4096,
+              16 experts x 14336 top-2, SSD, window 8192) on 8 of its 32
+              layers (one super-block; the host's free memory read
+              first): (a) the ragged FFN kernels at its shapes (int4, a
+              4-slot hi pool; down walks K = 14336 in two pieces of
+              shared memory), decode B=8 top-2 and prefill 512, their
+              all-hi mode at both beside ``torch._grouped_mm``, and the
+              paged decode attention (H 32, Hkv 8, hd 128) on rows past a
+              ring's wrap, each held against its plain version; with
+              ``--parent`` the quantized ragged kernels of the parent tree
+              and this one in turns at the 30B's and the 80B's decode
+              shapes (bit-equal), with registers and HMMA instructions;
+              (b) the model check, CPU against the card, with the window
+              cut to 256: a 320-token prompt that wraps the ring and a
+              48-token one, 4 decode steps, the card on paged/ragged and
+              on dense rows/padded, each held to the one CPU run by
+              routing first (the CPU's forwards in a thread beside the
+              rest of the phase, its prefill on the padded layout); (c)
+              8 requests
+              (64-256 tokens, 32 new, 8 slots)
+              on paged/ragged, graphed: ``static`` (graph = eager),
+              ``dynaexq`` under an ``hbm_gb`` envelope of 4 hi slots per
+              MoE layer (observed: each published promotion after its
+              copy's event), ``fp16`` and ``offload`` (cache sized to
+              dynaexq's device bytes; tokens = fp16's), then ``static``
+              on dense rows/padded (graph = eager; tokens against the
+              paged run's by routing: at least half the requests route
+              alike, and those agree), then a forced preemption and
+              resume (tokens = the uninterrupted run's); (d) the window
+              cut to 256: 8 requests of 300-380 tokens on both layouts,
+              held to each other by routing as in (c);
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -174,12 +206,15 @@ of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import functools
+import gc
 import json
 import math
 import os
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1489,14 +1524,15 @@ def phase_gemms() -> None:
                for S in (1, 2, 4, 8, 16, 32)])
 
 
+@functools.lru_cache(maxsize=None)
 def _parent_library(parent: pathlib.Path):
     """The parent tree's ragged FFN and all-hi libraries
     (``csrc/ragged_ffn.cu`` and ``csrc/ragged_dense_ffn.cu`` of a ``git
     archive`` of the parent commit), built at once with this tree's flags
     into ``build/kernels/parent/`` and loaded with this tree's C
     signatures (the same entries; the parent's all-hi occupancy takes E
-    where this tree's takes the tile count). Returns ({name: library},
-    {name: path})."""
+    where this tree's takes the tile count), once per tree. Returns
+    ({name: library}, {name: path})."""
     import ctypes
     from repro_torch.kernels import build
     out_dir = build.build_dir() / "parent"
@@ -1584,9 +1620,6 @@ def phase_dense(parent) -> None:
                          f"{sm.get(k, {}).get('regs')}/"
                          f"{sm.get(k, {}).get('hmma')}" for k in sorted(sp)
                          if not k.endswith("bits16")))
-        bad = [k for k in sm if sm[k] != sp.get(k)]
-        if bad:
-            raise AssertionError(f"quantized ragged kernels changed: {bad}")
     stream = lambda: ops._stream(0)
     for key, name, bank, inp in _dense_cases(dev):
         xs, te, n = inp["xs"], inp["tile_eid"], inp["n_tiles"]
@@ -1653,45 +1686,46 @@ def phase_dense(parent) -> None:
                          f"{(t[1] + t[2]) / 2:.4f} (err parent {e_p:.3g}, "
                          f"change {e_c:.3g}, tol {tol:.3g})")
     if plib is not None:
-        _quant_ab(plib, dev, stream)
+        _quant_ab(plib, ((ARCH, 4, 8), (ARCH, 4, 512)), "dense")
 
 
-def _quant_ab(plib, dev, stream) -> None:
-    """The quantized ragged kernels (rows 1–2) of the parent and this tree
-    on the same inputs in turns: int4, g = 64, hi tiles from a 16-slot
-    pool, Qwen3-30B-A3B widths, decode B=8 and prefill 512; outputs
-    bit-equal."""
+def _quant_ab(plib, cases, phase) -> None:
+    """The quantized ragged kernels (rows 1–2) of the parent (``plib``)
+    and this tree on the same inputs in turns (parent, change, change,
+    parent), for each (arch, lo bits, tokens) of ``cases``: hi tiles from
+    a 16-slot pool, g = 64; outputs bit-equal. Logged under ``phase``."""
     from repro_torch.configs import get_config
     from repro_torch.core.ver import ExpertBankQ
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.models.moe import (RAGGED_BM, _sort_routing,
                                         _tile_slots, ragged_tile_map)
     from repro_torch.quant.qtensor import quantize
-    cfg = get_config(ARCH)
+    dev = torch.device("cuda")
+    stream = lambda: ops._stream(0)
     gen = torch.Generator(device=dev).manual_seed(77)
-    E, K, F = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
-    n_hi, bits, group, bm = 16, 4, 64, RAGGED_BM
-    lo = {n: quantize((torch.randn((E,) + s, generator=gen, device=dev)
-                       * s[0] ** -0.5).to(torch.bfloat16), bits, group)
-          for n, s in (("w_gate", (K, F)), ("w_up", (K, F)),
-                       ("w_down", (F, K)))}
-    hi = {n: (torch.randn((n_hi,) + s, generator=gen, device=dev)
-              * s[0] ** -0.5).to(torch.bfloat16)
-          for n, s in (("w_gate", (K, F)), ("w_up", (K, F)),
-                       ("w_down", (F, K)))}
-    owner = torch.full((n_hi,), -1, dtype=torch.int32, device=dev)
-    owner[:12] = torch.randperm(E, generator=gen, device=dev)[:12].to(
-        torch.int32)
-    qbank = ExpertBankQ(lo=lo, hi=hi, slot_owner=owner,
-                        slot_map=torch.zeros((E,), dtype=torch.int32,
-                                             device=dev))
     mine = build.library("ragged_ffn")
-    for T in (8, 512):
-        logits = torch.randn((T, E), generator=gen, device=dev)
-        idx = torch.topk(logits, cfg.moe.top_k, dim=-1).indices
+    for arch, bits, T in cases:
+        cfg = get_config(arch)
+        E, K, F, k = cfg.moe.num_experts, cfg.d_model, \
+            cfg.moe.d_ff_expert, cfg.moe.top_k
+        n_hi, bm = 16, RAGGED_BM
+        shapes = (("w_gate", (K, F)), ("w_up", (K, F)), ("w_down", (F, K)))
+        lo = {n: quantize((torch.randn((E,) + s, generator=gen, device=dev)
+                           * s[0] ** -0.5).to(torch.bfloat16), bits, 64)
+              for n, s in shapes}
+        hi = {n: (torch.randn((n_hi,) + s, generator=gen, device=dev)
+                  * s[0] ** -0.5).to(torch.bfloat16) for n, s in shapes}
+        owner = torch.full((n_hi,), -1, dtype=torch.int32, device=dev)
+        owner[:12] = torch.randperm(E, generator=gen, device=dev)[:12].to(
+            torch.int32)
+        bank = ExpertBankQ(lo=lo, hi=hi, slot_owner=owner,
+                           slot_map=torch.zeros((E,), dtype=torch.int32,
+                                                device=dev))
+        idx = torch.topk(torch.randn((T, E), generator=gen, device=dev), k,
+                         dim=-1).indices
         _, _, counts, _, _ = _sort_routing(idx, E)
-        _, te, n = ragged_tile_map(counts, bm, T * cfg.moe.top_k)
-        ts = _tile_slots(qbank, te, E)
+        _, te, n = ragged_tile_map(counts, bm, T * k)
+        ts = _tile_slots(bank, te, E)
         Tt = te.shape[0]
         xs = torch.randn((Tt * bm, K), generator=gen, device=dev).to(
             torch.bfloat16)
@@ -1704,13 +1738,13 @@ def _quant_ab(plib, dev, stream) -> None:
             xs.data_ptr(), te.data_ptr(), ts.data_ptr(), n.data_ptr(),
             lg.packed.data_ptr(), lg.scales.data_ptr(), lu.packed.data_ptr(),
             lu.scales.data_ptr(), hi["w_gate"].data_ptr(),
-            hi["w_up"].data_ptr(), o.data_ptr(), Tt, K, F, n_hi, bits, group,
+            hi["w_up"].data_ptr(), o.data_ptr(), Tt, K, F, n_hi, bits, 64,
             stream())
         dn = lambda lib, o: lib.ragged_down(
             h[0].data_ptr(), te.data_ptr(), ts.data_ptr(), n.data_ptr(),
             ld.packed.data_ptr(), ld.scales.data_ptr(),
-            hi["w_down"].data_ptr(), o.data_ptr(), Tt, F, K, n_hi, bits,
-            group, stream())
+            hi["w_down"].data_ptr(), o.data_ptr(), Tt, F, K, n_hi, bits, 64,
+            stream())
         rows = int(n.item()) * bm
         for what, fn, outs in (("ragged_gateup", gu, h),
                                ("ragged_down", dn, y)):
@@ -1718,12 +1752,16 @@ def _quant_ab(plib, dev, stream) -> None:
                 build.check(fn(lib, o), what)
             torch.cuda.synchronize()
             if not torch.equal(outs[0][:rows], outs[1][:rows]):
-                raise AssertionError(f"{what} T={T}: parent and change "
-                                     f"differ")
+                raise AssertionError(f"{what} {arch} T={T}: parent and "
+                                     f"change differ")
             t = _turns(lambda: fn(plib, outs[0]), lambda: fn(mine, outs[1]))
-            log("dense", f"A/B {what} int4 T={T} (quantized, unchanged): "
-                         f"parent/change/change/parent graph ms "
-                         f"{[round(v, 5) for v in t]}, outputs bit-equal")
+            p_ms, c_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            log(phase, f"A/B {what} {arch} int{bits} T={T}: "
+                       f"parent/change/change/parent graph ms "
+                       f"{[round(v, 5) for v in t]} -> parent {p_ms:.5f}, "
+                       f"change {c_ms:.5f} ({(c_ms / p_ms - 1) * 100:+.2f}%),"
+                       f" outputs bit-equal")
+        del lo, hi
 
 
 # ---------------------------------------------------------------------------
@@ -1761,64 +1799,131 @@ def _bank_with_hi(experts, n_hi, gen, lo_bits=4):
 
 def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
                     seed=7, paged=True, dispatch="ragged", dispatch_ref=None,
-                    lo_bits=4, n_hi=None):
+                    lo_bits=4, n_hi=None, prefill_dispatch_ref=None,
+                    background=False, lengths=None, card_dense=False):
     """Same seeded weights on ``dev_ref`` and ``dev``: one S-token prefill
     and ``steps`` teacher-forced decode steps, on the paged pool or dense
     rows, with MoE dispatch ``dispatch`` (``dispatch_ref`` on ``dev_ref``,
-    default the same). One bank for both, int ``lo_bits`` with ``n_hi``
-    hi slots per layer, half of them published. The weights are drawn and
-    the bank quantized on ``dev`` (on the CPU either takes minutes at full
+    default the same; ``prefill_dispatch_ref`` for its prefill alone). One
+    bank per MoE position for both, int ``lo_bits`` with ``n_hi`` hi slots
+    per layer, half of them published. The weights are drawn and the
+    banks quantized on ``dev`` (on the CPU either takes minutes at full
     width), then copied. Returns per forward (max |Δlogit| on identically
     routed rows and on all rows, mean |Δlogit|, max |logit|, rows routed
-    identically)."""
+    identically). ``lengths``: the rows' prompt lengths (else random in
+    6..S, row 0 S). A sliding window shorter than S + steps makes the KV a
+    ring of ``ceil(window / bt)`` blocks (dense rows: ``window`` slots),
+    as the engine's. With ``background`` the forwards on ``dev`` run first,
+    its tensors are freed, and the forwards on ``dev_ref`` (the CPU) run
+    in a thread of their own: it returns a function that waits for them
+    and returns the report. ``card_dense``: ``dev`` also runs the forwards
+    on dense rows with padded dispatch (the same ring: ``window`` slots),
+    held to the same reference; the report is then a pair (``paged``'s,
+    dense rows')."""
     from repro_torch.models.model import (decode_step, decode_step_paged,
                                           init_caches, init_paged_caches,
                                           init_params, prefill,
                                           prefill_paged)
     gen = torch.Generator().manual_seed(seed)
     params = init_params(cfg, seed=seed, device=dev)
-    experts = params["blocks"]["0"]["moe"].pop("experts")
     if n_hi is None:
         n_hi = 16 if cfg.moe.num_experts >= 64 else 2
-    bank = _bank_with_hi(experts, n_hi, gen, lo_bits=lo_bits)
-    del experts
-    runs = [(d, _to(params, d), {"0": bank.to(d)}, disp)
-            for d, disp in ((dev_ref, dispatch_ref or dispatch),
-                            (dev, dispatch))]
+    banks = {}
+    for p in map(str, _moe_positions(cfg)):
+        experts = params["blocks"][p]["moe"].pop("experts")
+        banks[p] = _bank_with_hi(experts, n_hi, gen, lo_bits=lo_bits)
+        del experts
+    runs = [(d, _to(params, d), {p: b.to(d) for p, b in banks.items()},
+             disp, pdisp)
+            for d, disp, pdisp in (
+                (dev_ref, dispatch_ref or dispatch,
+                 prefill_dispatch_ref or dispatch_ref or dispatch),
+                (dev, dispatch, dispatch))]
     nb = (S + steps + bt - 1) // bt + 1
+    window = cfg.attn.sliding_window
+    if window is not None and window < S + steps:
+        nb = -(-window // bt)
     N = 1 + B * nb
     table = torch.arange(1, N, dtype=torch.int32).reshape(B, nb)
-    lengths = torch.randint(6, S + 1, (B,), generator=gen)
-    lengths[0] = S
+    if lengths is None:
+        lengths = torch.randint(6, S + 1, (B,), generator=gen)
+        lengths[0] = S
+    else:
+        lengths = torch.as_tensor(lengths, dtype=torch.long)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
     feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=gen)
-    out = []
-    for d, prm, bk, disp in runs:
+    def layers(counts):
+        """Every MoE layer's (B, E) counts, position-major."""
+        return torch.cat([counts[p] for p in sorted(counts)]).cpu()
+
+    def forward(d, prm, bk, disp, pdisp, paged=paged):
         t = lambda x, d=d: x.to(d)
         kw = dict(bank=bk, per_row_counts=True, moe_dispatch=disp)
+        pkw = dict(kw, moe_dispatch=pdisp)
         if paged:
-            caches = init_paged_caches(cfg, N, bt, device=d)
+            caches = init_paged_caches(cfg, N, bt, device=d, batch=B)
             logits, counts = prefill_paged(
                 prm, cfg, t(toks), caches, t(table),
-                t(torch.zeros(B, dtype=torch.long)), t(lengths), **kw)
+                t(torch.zeros(B, dtype=torch.long)), t(lengths), **pkw)
         else:
             caches = init_caches(cfg, B, nb * bt, device=d)
             logits, counts = prefill(prm, cfg, t(toks), caches, t(lengths),
-                                     **kw)
-        seq = [(logits.float().cpu(), counts["0"].cpu())]
+                                     **pkw)
+        seq = [(logits.float().cpu(), layers(counts))]
         pos = lengths.clone()
         for j in range(steps):
             if paged:
-                wb = table[torch.arange(B), pos // bt].long()
+                slot = pos % (nb * bt)
+                wb = table[torch.arange(B), slot // bt].long()
                 logits, counts = decode_step_paged(
                     prm, cfg, t(feed[j]), t(pos), caches, t(table), t(wb),
-                    t(pos % bt), **kw)
+                    t(slot % bt), **kw)
             else:
                 logits, counts = decode_step(prm, cfg, t(feed[j]), t(pos),
                                              caches, **kw)
-            seq.append((logits.float().cpu(), counts["0"].cpu()))
+            seq.append((logits.float().cpu(), layers(counts)))
             pos = pos + 1
-        out.append(seq)
+        return seq
+
+    def on_card():
+        """The card's forwards: [paged's] (+ [dense rows']); frees them."""
+        run = runs.pop()
+        seqs = [forward(*run)]
+        if card_dense:
+            seqs.append(forward(*run[:3], "padded", "padded", paged=False))
+        return seqs
+
+    def reports(ref_seq, cards):
+        out = [_model_report([ref_seq, c], B) for c in cards]
+        return tuple(out) if card_dense else out[0]
+
+    if background:
+        card = on_card()
+        del params, banks
+        ref, done = [runs.pop()], {}
+
+        def run_ref():
+            try:         # the CPU copies are freed as the forwards end
+                done["seq"] = forward(*ref.pop())
+            except BaseException as e:          # re-raised by finish()
+                done["error"] = e
+
+        thread = threading.Thread(target=run_ref, daemon=True)
+        thread.start()
+
+        def finish():
+            thread.join()
+            if "error" in done:
+                raise done["error"]
+            return reports(done["seq"], card)
+
+        return finish
+    card = on_card()
+    return reports(forward(*runs.pop()), card)
+
+
+def _model_report(out, B) -> list:
+    """``run_model_check``'s report from the (reference, card) forwards."""
     report = []
     for (lr, cr), (lk, ck) in zip(out[0], out[1]):
         assert torch.isfinite(lk).all(), "non-finite logits"
@@ -1937,20 +2042,41 @@ MODEL_TOL = 0.25
 MODEL_TOL_SWAP = 4.0
 
 
-def check_model(phase, cfg, what, dev_ref, card, **kw) -> None:
+def check_model(phase, cfg, what, dev_ref, card, background=False, **kw):
     """``run_model_check`` of ``cfg`` on ``dev_ref`` against ``card``, its
-    line logged under ``phase``; raises when the logits disagree."""
-    from repro_torch.configs import get_config
+    line logged under ``phase``; raises when the logits disagree. With
+    ``background`` (``dev_ref`` the CPU): the card's forwards now, the
+    CPU's in a thread; returns the function that waits, logs and
+    checks. With ``card_dense``: also the card's forwards on dense rows
+    with padded dispatch against the same reference, on a line of their
+    own."""
     t0 = time.perf_counter()
-    report = run_model_check(cfg, dev_ref, card, **kw)
-    B = kw.get("B", 12)
+
+    def report(out):
+        if not kw.get("card_dense"):
+            return _check_report(phase, cfg, what, out, t0, kw)
+        _check_report(phase, cfg, what, out[0], t0, kw)
+        _check_report(phase, cfg, f"{what}; the card on dense rows, padded "
+                                  f"dispatch", out[1], t0, kw)
+
+    if background:
+        pending = run_model_check(cfg, dev_ref, card, background=True, **kw)
+        return lambda: report(pending())
+    report(run_model_check(cfg, dev_ref, card, **kw))
+
+
+def _check_report(phase, cfg, what, report, t0, kw) -> None:
+    from repro_torch.configs import get_config
+    B, S = kw.get("B", 12), kw.get("S", 32)
     e_same = max(r["err_same"] for r in report)
     e_all = max(r["err_all"] for r in report)
     full = get_config(cfg.name)
     log(phase, f"{cfg.name} at full width, {cfg.n_layers} of "
                f"{full.n_layers} layers, {what}: prefill "
                f"+ {len(report) - 1} decode steps of {B} rows (prompts "
-               f"6-32 tokens); max |dlogit| {e_same:.4f} on "
+               + (f"{list(kw['lengths'])} tokens" if kw.get("lengths")
+                  else f"6-{S} tokens, row 0 {S}")
+               + f"); max |dlogit| {e_same:.4f} on "
                f"identically routed rows (tol {MODEL_TOL}), "
                f"{e_all:.4f} on all rows (tol {MODEL_TOL_SWAP}); mean "
                f"|dlogit| {max(r['mean_err'] for r in report):.5f} on "
@@ -2131,7 +2257,7 @@ def serving_prompts(vocab, n_requests, prompt_range, seed=0) -> list:
 
 def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
                 max_slots, max_len, backend_kw, paged, dispatch,
-                policy_every_step=True, obs=None):
+                policy_every_step=True, obs=None, audit=False):
     """One served run on a fresh engine with ``make_backend(name,
     **backend_kw)`` (``dynaexq``: a policy window every step, unless
     ``policy_every_step`` is False: then the controller's default), observed
@@ -2144,7 +2270,9 @@ def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
     began with hi copies still in flight or unpublished; ``shared_calls``
     the shared-expert SwiGLUs the forwards ran op by op (prefill, eager
     decode, and the graph's capture); ``max_layer_hi`` the most hi
-    residents one layer held after a flush."""
+    residents one layer held after a flush. ``audit`` (with ``obs``): for
+    every published promotion span, whether its copy's event had completed
+    when it ended (``published_after_event``: (after, all))."""
     import contextlib
     import repro_torch.models.moe as moe_mod
     import repro_torch.serving.engine as eng_mod
@@ -2162,6 +2290,19 @@ def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
                              paged=paged, moe_dispatch=dispatch),
         device=device, obs=obs)
     t_build = time.perf_counter() - t_build
+    audited_ends = []
+    if audit:
+        tms_a, end = [c.tm for c in engine.backend.controllers.values()], \
+            engine.tracer.async_end
+
+        def audited(span, span_id, cat="", **args):
+            if span == "promotion" and args.get("published"):
+                p = next(p for tm in tms_a for p in tm._pending
+                         if p.seq == span_id)
+                audited_ends.append(p.event is not None and p.event.query())
+            end(span, span_id, cat, **args)
+
+        engine.tracer.async_end = audited
     graphed = mode != "eager" and device.type == "cuda"
     if graphed:
         engine.decode_graph.events = []
@@ -2232,7 +2373,8 @@ def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
         "misses": st.get("misses"), "prefills": int(st["prefills"]),
         "shared_calls": shared_calls[0], "max_layer_hi": max_layer_hi,
         "kv_bytes": None if engine.pool is None
-        else engine.pool.capacity_bytes}
+        else engine.pool.capacity_bytes,
+        "experts": [h.expert_counts for h in handles]}
     if graphed and summary["replays"] != summary["steps"]:
         raise AssertionError(f"{name}: {summary['steps']} decode steps but "
                              f"{summary['replays']} graph replays")
@@ -2240,12 +2382,21 @@ def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
         summary["hi_routed"] = engine.backend.hi_routed
         summary["n_hi"] = next(iter(engine.backend.controllers.values())) \
             .policy.n_hi
-        summary["slots"] = engine.backend.banks["0"].slot_owner.shape[1]
+        summary["slots"] = next(iter(engine.backend.banks.values())) \
+            .slot_owner.shape[1]
         summary["global"] = engine.backend.allocator is not None
         engine.flush()
         for tm in tms:
             tm.check_invariants()
+        summary["published_after_event"] = (sum(audited_ends),
+                                            len(audited_ends))
+        if audit:
+            engine.tracer.async_end = end
     del engine
+    # The engine and its backend refer to each other (the backend's
+    # clock): collect now, not when the collector next runs, so the next
+    # run gets its device memory and pinned host memory.
+    gc.collect()
     return summary
 
 
@@ -2498,18 +2649,20 @@ def _serve_comparison(card, cfg, params, pcie_gbps) -> None:
                    f"{time.perf_counter() - t0:.1f} s | {card}")
 
 
-def _flagship_envelope(params, kv_bytes, n_hi) -> float:
+def _envelope_gb(params, kv_bytes, n_hi, lo_bits, hi_bits=16) -> float:
     """An ``hbm_gb`` envelope from which ``plan_budget`` leaves the hi tier
-    ``n_hi`` int4-priced slots per layer (and half a slot over): the fixed
-    bytes as the backend counts them (``envelope_fixed_bytes``, on the KV
-    pool of an engine of the same shape) plus the int2 lo tier."""
+    ``n_hi`` slots per layer priced at ``hi_bits`` (and half a slot over):
+    the fixed bytes as the backend counts them (``envelope_fixed_bytes``,
+    on the KV pool of an engine of the same shape) plus one MoE
+    position's int ``lo_bits`` lo tier (the backend's per-position
+    rule)."""
     from repro_torch.core.ver import expert_hi_nbytes, expert_lo_nbytes
     from repro_torch.serving.backends import GiB, envelope_fixed_bytes
-    shapes = {k: tuple(v.shape) for k, v in
-              params["blocks"]["0"]["moe"]["experts"].items()}
+    moe = next(bp["moe"] for bp in params["blocks"].values() if "moe" in bp)
+    shapes = {k: tuple(v.shape) for k, v in moe["experts"].items()}
     L, E = shapes["w_gate"][:2]
-    hi_b = expert_hi_nbytes(shapes, hi_bits=4)
-    lo = expert_lo_nbytes(shapes, 2) * L * E
+    hi_b = expert_hi_nbytes(shapes, hi_bits=hi_bits)
+    lo = expert_lo_nbytes(shapes, lo_bits) * L * E
     return (envelope_fixed_bytes(params, kv_bytes) + lo
             + (n_hi + 0.5) * hi_b * L) / GiB
 
@@ -2554,7 +2707,8 @@ def _serve_flagship(card: str) -> list:
     for name in ("static", "dynaexq"):
         if name == "dynaexq":
             # The envelope on the KV pool the static engine built.
-            hbm_gb = _flagship_envelope(params, graphed[0]["kv_bytes"], n_hi)
+            hbm_gb = _envelope_gb(params, graphed[0]["kv_bytes"], n_hi,
+                                  lo_bits=2, hi_bits=4)
             backend_kw[name]["hbm_gb"] = hbm_gb
             log("serving", f"{FLAGSHIP} dynaexq: hbm_gb {hbm_gb:.4f} for "
                            f"n_hi {n_hi} on a KV pool of "
@@ -4398,6 +4552,518 @@ def phase_obs(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 5b. hybrid: Jamba-v0.1 (Mamba/attention super-blocks) on the main path
+# ---------------------------------------------------------------------------
+
+#: The hybrid family: Jamba-v0.1-52B at full width (d 4096, 16 experts x
+#: 14336 top-2, SSD d_state 16, attention 32/8 x 128, window 8192), depth
+#: cut to one super-block of 8 of its 32 layers (bf16 experts 22.5 GB, not
+#: 90 GB; the model's 104 GB of bf16 do not fit one 80 GB card).
+JAMBA = "jamba-v0_1-52b"
+JAMBA_LAYERS = 8
+#: The ring run's window, cut from 8192 so that prompts and decode wrap it.
+JAMBA_RING = 256
+HYBRID_NEW = 32
+HYBRID_SLOTS = 8
+HYBRID_MAX_LEN = 288           # 256-token prompts + 32 tokens
+HYBRID_RING_PROMPTS = (300, 380)
+HYBRID_RING_MAX_LEN = 448      # 380-token prompts + 32, whole SSD chunks
+#: Hi slots per MoE layer that dynaexq's hbm_gb envelope leaves.
+HYBRID_N_HI = 4
+#: Decode steps served before the forced preemption.
+HYBRID_PREEMPT_AT = 8
+#: The quantized ragged kernels' A/B against the parent (with --parent):
+#: Qwen3-30B-A3B and the flagship at decode B=8, int4 / int2.
+HYBRID_AB = ((ARCH, 4, 8), (FLAGSHIP, 2, 8))
+
+
+def _jamba(window=None):
+    """(the full config, the served one: JAMBA_LAYERS layers, ``window``
+    in place of the model's when given)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(JAMBA)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    if window is not None:
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, sliding_window=window))
+    return full, cfg
+
+
+def _hybrid_attention(full, gen, dev) -> list:
+    """The paged decode attention at Jamba's heads (H 32, Hkv 8, hd 128:
+    rep 4), B=8, rows past a ring's wrap: the model's 8192 window over a
+    512-block ring (every slot valid once wrapped), and a 250 window over
+    a 16-block ring (the slots of positions past the window masked at the
+    wrap point); against the plain version and SDPA over the gathered
+    view."""
+    import dataclasses
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import (PagedKVCache, decode_valid,
+                                           paged_view)
+    H, Hkv, hd, bt, B = full.attn.n_heads, full.attn.n_kv_heads, \
+        full.attn.head_dim, 16, 8
+    cases = []
+    for case, nb, window, lo, hi in (
+            ("jamba B=8 window 8192 wrapped, nb=512", 512, 8192, 8192,
+             12000),
+            ("jamba B=8 window 250 ring, nb=16", 16, 250, 256, 700)):
+        acfg = dataclasses.replace(full.attn, sliding_window=window)
+        N = 1 + B * nb
+        k = torch.randn((N, Hkv, bt, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn((N, Hkv, bt, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q = torch.randn((B, H, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        table = (1 + torch.randperm(N - 1, generator=gen, device=dev)
+                 ).to(torch.int32).reshape(B, nb)
+        pos = torch.randint(lo, hi, (B,), generator=gen, device=dev)
+        valid = decode_valid(pos, nb * bt, acfg)
+        kl, vl = paged_view(PagedKVCache(k, v), table)
+        kl = kl.repeat_interleave(H // Hkv, dim=1)
+        vl = vl.repeat_interleave(H // Hkv, dim=1)
+
+        def lib(q=q, kl=kl, vl=vl, m=valid):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None, :], kl, vl, attn_mask=m[:, None, None, :])
+
+        n_blocks = int(valid.reshape(B, nb, bt).any(-1).sum().item())
+        n_valid = int(valid.sum().item())
+        nbytes = q.numel() * 2 * 2 + n_blocks * 2 * Hkv * bt * hd * 2 + \
+            table.numel() * 4 + valid.numel()
+        cases.append(_attn_case(
+            "flash_decode_paged", case,
+            lambda q=q, k=k, v=v, t=table, m=valid:
+                ops.flash_decode_paged(q, k, v, t, m),
+            lambda q=q, k=k, v=v, t=table, m=valid:
+                ref.flash_decode_paged_ref(q, k, v, t, m),
+            lib, nbytes, 4 * n_valid * H * hd, [], _n_split(B, Hkv, nb)))
+    bad = [c["case"] for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"flash_decode_paged disagrees: {bad}")
+    return cases
+
+
+def _hybrid_kernels() -> dict:
+    """(a) The kernels of the hybrid main path at Jamba's shapes, each held
+    against its plain version on the card to 2^-6 x max|plain| (attention:
+    2^-7): the quantized ragged FFN (rows 1-2; int4 g=64, a 4-slot hi pool
+    all owned; K = 4096 -> F = 14336 -> D = 4096, so down walks K = 14336
+    in two pieces) at decode B=8 top-2 and prefill 512; its all-hi mode
+    (row 7) on the dense bf16 bank at both shapes beside one
+    ``torch._grouped_mm``; the paged decode attention (row 3). Returns
+    {"ffn", "dense", "attn"}."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import (RAGGED_BM, _sort_routing,
+                                        ragged_tile_map)
+    from repro_torch.quant.qtensor import quantize
+    full, _ = _jamba()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8080)
+    E, K, F = full.moe.num_experts, full.d_model, full.moe.d_ff_expert
+    tol = 2.0 ** -6
+    dense = {n: (torch.randn((E,) + s, generator=gen, device=dev)
+                 * s[0] ** -0.5).to(torch.bfloat16)
+             for n, s in (("w_gate", (K, F)), ("w_up", (K, F)),
+                          ("w_down", (F, K)))}
+    hi_w = {n: (torch.randn((HYBRID_N_HI,) + tuple(w.shape[1:]),
+                            generator=gen, device=dev) * w.shape[1] ** -0.5
+                ).to(torch.bfloat16) for n, w in dense.items()}
+    owner = torch.randperm(E, generator=gen, device=dev)[:HYBRID_N_HI].to(
+        torch.int32)
+    lo = {n: quantize(w, 4, 64) for n, w in dense.items()}
+    log("hybrid", f"ragged FFN pieces of K at Jamba's shapes: gate/up K={K}"
+                  f" in {-(-(K // 64) // ops.ragged_piece(2, K, 64))} "
+                  f"piece(s), down K={F} in "
+                  f"{-(-(F // 64) // ops.ragged_piece(1, F, 64))} of "
+                  f"{ops.ragged_piece(1, F, 64)} groups "
+                  f"({ops.ragged_smem_bytes(1, 64, ops.ragged_piece(1, F, 64))}"
+                  f" B of shared memory)")
+    ffn = {key: _ffn_case(f"jamba int4 {what} top-2 of 16, F={F}", gen, dev,
+                          bits=4, T=T, lo_w=lo, hi_w=hi_w, slot_owner=owner,
+                          tol_rel=tol, top_k=full.moe.top_k)
+           for key, T, what in (("decode", 8, "decode B=8"),
+                                ("prefill", 512, "prefill 512"))}
+    del lo, hi_w
+    bad = [k for k, c in ffn.items() if not c["ok"]]
+    if bad or not any(c["hi_tiles"] for c in ffn.values()):
+        raise AssertionError(f"ragged FFN at Jamba's shapes: {bad} (or no "
+                             f"hi tile)")
+    dcases = {}
+    for key, T in (("decode", 8), ("prefill", 512)):
+        idx = torch.topk(torch.randn((T, E), generator=gen, device=dev),
+                         full.moe.top_k, dim=-1).indices
+        _, _, counts, _, _ = _sort_routing(idx, E)
+        _, tile_eid, n_tiles = ragged_tile_map(counts, RAGGED_BM,
+                                               T * full.moe.top_k)
+        xs = torch.randn((tile_eid.shape[0] * RAGGED_BM, K), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        dcases[key] = _dense_ffn_case(
+            f"{JAMBA} {'decode B=8' if T == 8 else f'prefill {T}'} top-2 of "
+            f"16, F={F}", dense,
+            dict(xs=xs, tile_eid=tile_eid, n_tiles=n_tiles, counts=counts),
+            tol_rel=tol)
+    del dense
+    bad = [k for k, c in dcases.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"all-hi kernels at Jamba's shapes: {bad}")
+    attn = _hybrid_attention(full, gen, dev)
+    return {"ffn": ffn, "dense": dcases, "attn": attn}
+
+
+def _hybrid_results(k) -> None:
+    """The hybrid phase's kernel numbers into ``RESULTS``: each kernel's
+    entry gains a "hybrid" list of its Jamba cases; a kernel whose entry
+    the kernels phase did not make (``--only card,build,hybrid``) gets one
+    from its Jamba decode case."""
+    src = "src/repro_torch/kernels/csrc/"
+    rows = {"ragged_gateup": ("ffn", "gateup", src + "ragged_ffn.cu",
+                              "src/repro/kernels/quant_matmul.py:185"),
+            "ragged_down": ("ffn", "down", src + "ragged_ffn.cu",
+                            "src/repro/kernels/quant_matmul.py:236"),
+            "ragged_dense_gateup": ("dense", "gateup",
+                                    src + "ragged_dense_ffn.cu",
+                                    "src/repro/kernels/ops.py:131"),
+            "ragged_dense_down": ("dense", "down",
+                                  src + "ragged_dense_ffn.cu",
+                                  "src/repro/kernels/ops.py:131")}
+    keys = ("err", "tol", "ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_graph_ms")
+    for name, (group, part, source, replaces) in rows.items():
+        cases = [dict(case=c["case"], tiles=c["tiles"],
+                      **{x: c[part].get(x) for x in keys})
+                 for c in k[group].values()]
+        d = cases[0]
+        RESULTS.setdefault(name, {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": max(c["err"] for c in cases), "ms": d["ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+            "graph_ms": d["graph_ms"]})["hybrid"] = cases
+    cases = [{x: c[x] for x in ("case", "n_split", "err", "tol", "ms",
+                                "graph_ms", "plain_ms", "library_ms",
+                                "library_graph_ms", "bound_ms", "bound_by")}
+             for c in k["attn"]]
+    d = cases[0]
+    RESULTS.setdefault("flash_decode_paged", {
+        "name": "flash_decode_paged", "route": "cuda",
+        "source": src + "flash_decode_paged.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:92", "launches": 0,
+        "max_abs_err": max(c["err"] for c in cases), "ms": d["ms"],
+        "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+        "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+        "graph_ms": d["graph_ms"]})["hybrid"] = cases
+
+
+def _hybrid_ab(parent) -> None:
+    """With ``--parent``: the quantized ragged kernels of the parent tree
+    and this one at today's decode shapes (``HYBRID_AB``), in turns,
+    bit-equal (a K that fits one piece sums in the parent's order), with
+    both trees' registers and HMMA instructions per instantiation."""
+    from repro_torch.kernels import build
+    libs, paths = _parent_library(pathlib.Path(parent))
+    sp = _sass_summary(paths["ragged_ffn"])
+    sm = _sass_summary(build._target("ragged_ffn"))
+    log("hybrid", "ragged_ffn_kernel (nmat, bits) registers / HMMA, parent "
+                  "vs change: " + ", ".join(
+                      f"{k} {sp[k].get('regs')}/{sp[k].get('hmma')} vs "
+                      f"{sm.get(k, {}).get('regs')}/"
+                      f"{sm.get(k, {}).get('hmma')}" for k in sorted(sp)))
+    _quant_ab(libs["ragged_ffn"], HYBRID_AB, "hybrid")
+
+
+def _hybrid_kv_bytes(cfg) -> int:
+    """The KV pool of an engine of ``HYBRID_SLOTS`` x ``HYBRID_MAX_LEN``
+    on ``cfg`` (its attention position only), as the engine sizes it."""
+    from repro_torch.models.model import attn_logical_capacity, \
+        attn_positions
+    bt = 16
+    nb = attn_logical_capacity(cfg, HYBRID_MAX_LEN, bt) // bt
+    return (1 + HYBRID_SLOTS * nb) * bt * 2 * cfg.attn.n_kv_heads * \
+        cfg.attn.head_dim * 2 * len(attn_positions(cfg)) * \
+        cfg.n_superblocks()
+
+
+def _hybrid_preempt(cfg, params, prompts, want) -> dict:
+    """(c) One paged/ragged ``static`` run, graphed, with the first
+    running request preempted after ``HYBRID_PREEMPT_AT`` decode steps
+    (its K/V lanes and its Mamba rows to the host) and resumed by the next
+    step's admission; every request's tokens must equal ``want``, the
+    uninterrupted run's."""
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.requests import Request
+    dev = torch.device("cuda")
+    engine = eng_mod.InferenceEngine(
+        cfg, _fresh(params), make_backend("static", lo_bits=4, device=dev),
+        eng_mod.EngineConfig(max_slots=HYBRID_SLOTS,
+                             max_len=HYBRID_MAX_LEN), device=dev)
+    ops.reset_launches()                     # the main path starts here
+    handles = [engine.submit(Request(tokens=p, max_new_tokens=HYBRID_NEW))
+               for p in prompts]
+    victim = None
+    while engine.queue or any(h is not None for h in engine.slots):
+        engine.step()
+        if victim is None and engine.counters["steps"] == HYBRID_PREEMPT_AT:
+            victim = next(h for h in engine.slots if h is not None)
+            engine.preempt(victim)
+            if victim._snapshot.mamba_rows is None:
+                raise AssertionError("preemption kept no Mamba rows")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)            # ... and ends here
+    got = [list(h.tokens) for h in handles]
+    if engine.counters["preemptions"] != 1 or \
+            engine.counters["resumes"] != 1 or got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"preempted run: counters "
+                             f"{engine.counters['preemptions']}/"
+                             f"{engine.counters['resumes']}, requests {bad} "
+                             f"differ from the uninterrupted run")
+    out = {"launches": launches, "victim": victim.id,
+           "tpot_s": engine.stats()["tpot_s"]}
+    del engine
+    gc.collect()
+    return out
+
+
+def _serve_line(what, s, card) -> None:
+    log("hybrid", f"{what} {s['mode']}: {len(s['tokens'])} requests x "
+                  f"{HYBRID_NEW} tokens | TTFT {s['ttft_s'] * 1e3:.1f} ms "
+                  f"TPOT {s['tpot_s'] * 1e3:.2f} ms "
+                  f"{s['tokens_per_s']:.1f} tok/s (wall) | replay ms "
+                  f"{_ms(s['replay_ms'])} over {s['replays']} replays | "
+                  f"device_bytes {s['expert_bytes']} | promotions "
+                  f"{s['promotions']:.0f} | modeled stall "
+                  f"{s['stall_s']:.4f} s"
+                  + (f", hits {s['hits']:.0f} misses {s['misses']:.0f}"
+                     if s.get("hits") is not None else "")
+                  + f" | max allocated {s['max_mem'] / 1e9:.2f} GB | "
+                  f"launches {s['launches']} | built in "
+                  f"{s['build_s']:.1f} s, served in {s['wall_s']:.1f} s | "
+                  f"{card}")
+
+
+def _same_by_routing(a, b, what) -> int:
+    """Two runs' tokens held by routing first: the requests whose
+    per-request expert counts agree must be at least half of them, and
+    each must have equal tokens. Returns how many routed alike."""
+    same = [i for i, (x, y) in enumerate(zip(a["experts"], b["experts"]))
+            if all(np.array_equal(x[k], y[k]) for k in x)]
+    bad = [i for i in same if a["tokens"][i] != b["tokens"][i]]
+    if bad or 2 * len(same) < len(a["tokens"]):
+        raise AssertionError(f"{what}: {len(same)} of {len(a['tokens'])} "
+                             f"requests routed alike (at least half must), "
+                             f"of those {bad} have other tokens")
+    return len(same)
+
+
+def _hybrid_serving(card, cfg, params, pcie) -> list:
+    """(c) The 8-layer Jamba served on its main path (paged KV, ragged
+    dispatch, graphed; 8 requests of 64-256 tokens, 32 new, greedy, 8
+    slots) by ``static`` int4 (graph, then eager: identical tokens and
+    launches), ``dynaexq`` (int4 lo, bf16 hi, an ``hbm_gb`` envelope for
+    ``HYBRID_N_HI`` hi slots per MoE layer, a policy window every step, no
+    flush until the end, observed: every published promotion ended after
+    its copy's event completed), ``fp16`` and ``offload`` (its cache sized
+    to dynaexq's ``device_bytes()``, at this card's pinned rate; the same
+    tokens as fp16); then ``static`` on dense rows with padded dispatch
+    (graph, eager); then the forced preemption. Returns the main path's
+    runs."""
+    from repro_torch.obs import ObsConfig, Observability
+    from repro_torch.serving.backends import OffloadConfig
+    from repro_torch.models.model import mamba_positions
+    dev = torch.device("cuda")
+    prompts = serving_prompts(cfg.vocab_size, HYBRID_SLOTS, (64, 256))
+    kw = dict(new_tokens=HYBRID_NEW, max_slots=HYBRID_SLOTS,
+              max_len=HYBRID_MAX_LEN)
+    paged = dict(kw, paged=True, dispatch="ragged")
+    static = dict(lo_bits=4, group_size=64)
+    runs = {}
+    for mode in ("graph", "eager"):
+        runs[f"static {mode}"] = _serve_once(cfg, dev, params, prompts,
+                                             "static", mode,
+                                             backend_kw=static, **paged)
+    hbm = _envelope_gb(params, _hybrid_kv_bytes(cfg), HYBRID_N_HI, lo_bits=4)
+    torch.cuda.empty_cache()     # the lo tier's quantization takes 7 GB
+
+    obs = Observability(ObsConfig())
+    runs["dynaexq"] = _serve_once(
+        cfg, dev, params, prompts, "dynaexq", "free",
+        backend_kw=dict(lo_bits=4, group_size=64, hbm_gb=hbm), obs=obs,
+        audit=True, **paged)
+    obs.close()
+    del obs              # its recorder's clock refers to the engine
+    gc.collect()
+    runs["fp16"] = _serve_once(cfg, dev, params, prompts, "fp16", "graph",
+                               backend_kw={}, **paged)
+    moe_layers = len(_moe_positions(cfg)) * cfg.n_superblocks()
+    expert_bytes = 3 * cfg.d_model * cfg.moe.d_ff_expert * 2
+    cache = runs["dynaexq"]["expert_bytes"] // (moe_layers * expert_bytes)
+    runs["offload"] = _serve_once(
+        cfg, dev, params, prompts, "offload", "graph",
+        backend_kw=dict(ocfg=OffloadConfig(
+            cache_experts_per_layer=int(cache), pcie_gbps=pcie)), **paged)
+    dense = dict(kw, paged=False, dispatch="padded")
+    for mode in ("graph", "eager"):
+        runs[f"static dense {mode}"] = _serve_once(
+            cfg, dev, params, prompts, "static", mode, backend_kw=static,
+            **dense)
+    for what, s in runs.items():
+        _serve_line(f"{cfg.name} {cfg.n_layers} layers "
+                    + ("dense/padded" if "dense" in what else "paged/ragged")
+                    + f" {what.split()[0]}", s, card)
+    used = {"paged": PATHS["paged/ragged"][2],
+            "dense": PATHS["dense/padded"][2]}
+    for what, s in runs.items():
+        want = BASELINE_PATHS["paged/ragged"][0] if what in ("fp16",
+                                                             "offload") \
+            else used["dense" if "dense" in what else "paged"]
+        if not all(s["launches"][k] > 0 for k in want):
+            raise AssertionError(f"{what}: a kernel of its path never ran: "
+                                 f"{s['launches']}")
+    for a, b in (("static graph", "static eager"),
+                 ("static dense graph", "static dense eager")):
+        if runs[a]["tokens"] != runs[b]["tokens"] or \
+                runs[a]["launches"] != runs[b]["launches"]:
+            raise AssertionError(f"{a} and {b} disagree on tokens or "
+                                 f"launches")
+    if runs["fp16"]["tokens"] != runs["offload"]["tokens"]:
+        raise AssertionError("fp16 and offload disagree on tokens")
+    d = runs["dynaexq"]
+    ok, total = d["published_after_event"]
+    if not (d["promotions"] >= 1 and d["hi_routed"] >= 1 and ok == total
+            >= 1 and d["pending_steps"] >= 1):
+        raise AssertionError(f"dynaexq: promotions {d['promotions']}, "
+                             f"served from hi {d['hi_routed']}, published "
+                             f"after their event {ok}/{total}, steps with "
+                             f"copies pending {d['pending_steps']}")
+    if not runs["offload"]["stall_s"] > 0:
+        raise AssertionError("offload modeled no stall")
+    same = _same_by_routing(runs["static graph"], runs["static dense graph"],
+                            "paged/ragged and dense/padded")
+    log("hybrid", f"graphed = eager (tokens and launches) on both paths; "
+                  f"fp16 = offload; dynaexq (hbm_gb {hbm:.3f}: n_hi "
+                  f"{d['n_hi']}, {d['slots']} slots per layer) published "
+                  f"{ok} promotions, each after its copy's event completed, "
+                  f"{d['hi_routed']} routed cells served from hi, "
+                  f"{d['pending_steps']} of {d['steps']} steps began with "
+                  f"copies pending; offload at {pcie:.2f} GB/s (this "
+                  f"card's pinned copy rate), its cache {int(cache)} "
+                  f"experts per layer = dynaexq device_bytes "
+                  f"{d['expert_bytes']} // ({moe_layers} x {expert_bytes}); "
+                  f"paged/ragged vs dense/padded: {same} of "
+                  f"{len(prompts)} requests routed alike, their tokens "
+                  f"equal; Mamba positions {mamba_positions(cfg)} | {card}")
+    pre = _hybrid_preempt(cfg, params, prompts, runs["static graph"]["tokens"])
+    log("hybrid", f"paged static graphed, request {pre['victim']} preempted "
+                  f"after {HYBRID_PREEMPT_AT} decode steps (K/V lanes and "
+                  f"Mamba rows to the host) and resumed: every request's "
+                  f"tokens equal the uninterrupted run's | TPOT "
+                  f"{pre['tpot_s'] * 1e3:.2f} ms | {card}")
+    return [runs["static graph"], runs["dynaexq"], runs["fp16"],
+            runs["offload"], pre]
+
+
+def _hybrid_ring(card, params) -> list:
+    """(d) The same 8 layers and weights with the window cut to
+    ``JAMBA_RING``: 8 requests of 300-380 tokens, 32 new, served graphed by
+    ``static`` on paged/ragged (a 256-slot ring of blocks) and on dense
+    rows/padded (a 256-slot ring row), held to each other by routing first
+    (at least half the requests route alike, and those have equal tokens).
+    The ring against the CPU, on both layouts, is the phase's model
+    check."""
+    _, cfg = _jamba(window=JAMBA_RING)
+    dev = torch.device("cuda")
+    prompts = serving_prompts(cfg.vocab_size, HYBRID_SLOTS,
+                              HYBRID_RING_PROMPTS, seed=5)
+    kw = dict(new_tokens=HYBRID_NEW, max_slots=HYBRID_SLOTS,
+              max_len=HYBRID_RING_MAX_LEN, backend_kw=dict(lo_bits=4))
+    pg = _serve_once(cfg, dev, params, prompts, "static", "graph",
+                     paged=True, dispatch="ragged", **kw)
+    dn = _serve_once(cfg, dev, params, prompts, "static", "graph",
+                     paged=False, dispatch="padded", **kw)
+    for what, s in (("paged/ragged", pg), ("dense/padded", dn)):
+        _serve_line(f"ring {JAMBA_RING} {what} static", s, card)
+    if pg["kv_bytes"] is None or not all(
+            pg["launches"][k] > 0 for k in PATHS["paged/ragged"][2]):
+        raise AssertionError(f"ring paged: launches {pg['launches']}")
+    same = _same_by_routing(pg, dn, f"ring {JAMBA_RING} on both layouts")
+    log("hybrid", f"ring {JAMBA_RING}: prompts "
+                  f"{HYBRID_RING_PROMPTS[0]}-{HYBRID_RING_PROMPTS[1]} + "
+                  f"{HYBRID_NEW} tokens wrap it on both layouts; "
+                  f"{same} of {len(prompts)} requests routed alike, "
+                  f"their tokens equal | {card}")
+    return [pg]
+
+
+def phase_hybrid(card: str, parent=None) -> None:
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    # Jamba's 22.5 GB of experts need the card and the host clear of what
+    # earlier phases left to the collector or the allocator's cache.
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=30).stdout.split("\n")[1].split()
+    full, cfg = _jamba()
+    host_gb = cfg.n_superblocks() * len(_moe_positions(cfg)) * \
+        cfg.moe.num_experts * 3 * cfg.d_model * cfg.moe.d_ff_expert * 2 / 1e9
+    log("hybrid", f"{cfg.name}: full width, depth cut to {JAMBA_LAYERS} of "
+                  f"{full.n_layers} layers (one super-block: Mamba at "
+                  f"0-6, attention at 7, MoE at 1/3/5/7); bf16 experts "
+                  f"{host_gb:.1f} GB (dynaexq pins them on the host), host "
+                  f"memory total {free[1]} GB, available {free[-1]} GB; "
+                  f"device memory allocated "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, reserved "
+                  f"{torch.cuda.memory_reserved() / 1e9:.2f} GB | {card}")
+    # (b) The model check, CPU against the card, on the main path at the
+    # ring run's window: row 0 a 320-token prompt that wraps its 16-block
+    # ring, row 1 a 48-token one (below the window it computes what the
+    # model's 8192 window would), 4 decode steps; the card also runs them on
+    # dense rows (a 256-slot ring row), held to the same CPU forwards. The
+    # CPU's plain forwards
+    # take minutes at full width: the check runs its card forwards first,
+    # then its CPU forwards in a thread beside the rest of the phase (two
+    # cores left to it).
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 2))
+    try:
+        _, ring_cfg = _jamba(window=JAMBA_RING)
+        model_check = check_model(
+            "hybrid", ring_cfg, f"window {JAMBA_RING}, paged/ragged, CPU vs "
+            "card (CPU prefill padded)", "cpu", torch.device("cuda"),
+            background=True, paged=True, dispatch="ragged", B=2, S=320,
+            steps=4, lengths=(320, 48), prefill_dispatch_ref="padded",
+            card_dense=True)
+        t1 = time.perf_counter()
+        k = _hybrid_kernels()
+        _hybrid_results(k)
+        if parent is not None:
+            _hybrid_ab(parent)
+        t2 = time.perf_counter()
+        pcie = pinned_h2d_gbps()
+        params = init_params(cfg, seed=0, device=torch.device("cuda"))
+        main_runs = _hybrid_serving(card, cfg, params, pcie)
+        main_runs += _hybrid_ring(card, params)
+        del params
+        t3 = time.perf_counter()
+        model_check()
+    finally:
+        torch.set_num_threads(threads)
+    for name in RESULTS:
+        RESULTS[name]["launches"] = RESULTS[name].get("launches", 0) + sum(
+            r["launches"].get(name, 0) for r in main_runs)
+    log("hybrid", f"phase done in {time.perf_counter() - t0:.1f} s (the "
+                  f"model check's card part {t1 - t0:.1f} s, kernels and "
+                  f"A/B {t2 - t1:.1f} s, serving and ring {t3 - t2:.1f} s, "
+                  f"then waiting on the check's CPU part "
+                  f"{time.perf_counter() - t3:.1f} s) | {card}")
+
+
+# ---------------------------------------------------------------------------
 # 6. trace: where a decode step's device time goes
 # ---------------------------------------------------------------------------
 
@@ -4671,7 +5337,7 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
 
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "model",
-          "serving", "requests", "spec", "ladder", "obs", "trace")
+          "serving", "requests", "spec", "ladder", "obs", "hybrid", "trace")
 #: Phases that run only when named in ``--only``.
 EXTRA_PHASES = ("dense",)
 
@@ -4683,7 +5349,7 @@ def main() -> int:
                          f"{PHASES + EXTRA_PHASES}")
     ap.add_argument("--parent", default=None,
                     help="the parent commit's tree (a git archive), for "
-                         "the dense phase's A/B")
+                         "the dense and hybrid phases' A/B")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4702,11 +5368,16 @@ def main() -> int:
                       ("spec", lambda: phase_spec(card)),
                       ("ladder", lambda: phase_ladder(card)),
                       ("obs", lambda: phase_obs(card)),
+                      ("hybrid", lambda: phase_hybrid(card, args.parent)),
                       ("trace", lambda: phase_trace(card))):
         if name in only:
             t = time.perf_counter()
             run()
             took[name] = time.perf_counter() - t
+            log("mem", f"after {name}: device memory allocated "
+                       f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+                       f"reserved {torch.cuda.memory_reserved() / 1e9:.2f} "
+                       f"GB")
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s ("
                 + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
                 + ")")

@@ -42,7 +42,11 @@
 //   fastest in the grid (the CTAs of a tile run together and read whole
 //   rows of its expert's weights); each warp owns 16 columns of every
 //   matrix, so no reduction crosses warps. The activation tile is copied
-//   to shared memory once per CTA (the only block barrier).
+//   to shared memory in pieces of whole scale groups, all of K in one
+//   piece when it fits (`piece_groups`: at K = 14336, down's row alone
+//   would outgrow the 227 KB a CTA may have); the float32 accumulators
+//   run on across pieces, so the sum order is the same as over the whole
+//   row. A barrier separates two pieces.
 // * Each warp streams its own weights through a private ring of STAGES
 //   slots with 16-byte `cp.async.cg` copies, one copy per lane per matrix
 //   and stage: 32 packed rows of 16 code bytes (lo), or 16 K rows of 16
@@ -56,12 +60,12 @@
 //   integer-to-float conversion, and the next k16 chunk's bytes load while
 //   this one multiplies. Hi rows go through `ldmatrix.x4.trans` from the
 //   ring (unpermuted columns; row halves swizzled against bank conflicts).
-// * Scales: the warp's columns of every scale row are copied to shared
-//   memory with the activation tile (reading them from device memory when
-//   a group starts stalled each group for a memory latency). Each scale
-//   group's mmas sum into a zeroed float32 fragment, which is then scaled
-//   per column (`fmaf`) into the accumulator; hi tiles accumulate
-//   directly.
+// * Scales: the warp's columns of the piece's scale rows are copied to
+//   shared memory with the activation tile (reading them from device
+//   memory when a group starts stalled each group for a memory latency).
+//   Each scale group's mmas sum into a zeroed float32 fragment, which is
+//   then scaled per column (`fmaf`) into the accumulator; hi tiles
+//   accumulate directly.
 // The warp loop (ring, decode, group-blocked accumulation) is
 // `qmma::tile_product` in `quant_mma.cuh`, shared with the quantized GEMMs;
 // a tile is one 8-row chunk (NT = 1). This file keeps the tile map, the
@@ -76,16 +80,31 @@ namespace {
 
 using namespace qmma;
 
-// Shared memory: the activation tile (BM × (K + PAD) bf16), then per warp
-// its ring (NMAT × RING bytes) and its columns' scales (NMAT × K/group
-// rows of WN bf16).
+// Shared memory for pieces of gpc scale groups: the activation tile's piece
+// (BM × (gpc·group + PAD) bf16), then per warp its ring (NMAT × RING
+// bytes) and its columns' scales for the piece (NMAT × gpc rows of WN
+// bf16).
 template <int NMAT>
-size_t smem_bytes(int K, int group) {
-  return (size_t)BM * (K + PAD) * sizeof(__nv_bfloat16) +
-         (size_t)NWARPS * NMAT * (RING + (size_t)(K / group) * WN * 2);
+size_t smem_bytes(int group, int gpc) {
+  return (size_t)BM * (gpc * group + PAD) * sizeof(__nv_bfloat16) +
+         (size_t)NWARPS * NMAT * (RING + (size_t)gpc * WN * 2);
 }
 
-// NMAT = 2: gate/up with the SiLU·mul epilogue; NMAT = 1: down.
+// Scale groups per piece of K: all K / group of them when they fit
+// SMEM_MAX (one piece), else the fewest pieces that fit, of equal size but
+// the last. 0 when not even one group fits.
+template <int NMAT>
+int piece_groups(int K, int group) {
+  const int G = K / group;
+  int most = 0;
+  while (most < G && smem_bytes<NMAT>(group, most + 1) <= SMEM_MAX) ++most;
+  if (most == 0) return 0;
+  const int n = (G + most - 1) / most;
+  return (G + n - 1) / n;
+}
+
+// NMAT = 2: gate/up with the SiLU·mul epilogue; NMAT = 1: down. K is
+// walked in pieces of gpc scale groups (one piece when the row fits).
 template <int NMAT, int BITS>
 __global__ void __launch_bounds__(NTHREADS)
 ragged_ffn_kernel(const __nv_bfloat16* __restrict__ xs,
@@ -99,7 +118,7 @@ ragged_ffn_kernel(const __nv_bfloat16* __restrict__ xs,
                   const __nv_bfloat16* __restrict__ h0,
                   const __nv_bfloat16* __restrict__ h1,
                   __nv_bfloat16* __restrict__ out, int K, int N, int n_hi,
-                  int group) {
+                  int group, int gpc) {
   extern __shared__ __align__(16) unsigned char smem[];
   // Column blocks vary fastest: the CTAs of one tile run together and
   // read whole rows of its expert's weights.
@@ -113,55 +132,63 @@ ragged_ffn_kernel(const __nv_bfloat16* __restrict__ xs,
   const bool is_hi = slot >= 0 && n_hi > 0 && h0 != nullptr;
   constexpr int EPB = 8 / BITS;
 
-  const int ldx = K + PAD;
-  __nv_bfloat16* xs_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int n_grp = K / group;
-  unsigned char* ring = smem + (size_t)BM * ldx * sizeof(__nv_bfloat16) +
-                        (size_t)warp * NMAT * (RING + n_grp * WN * 2);
-  __nv_bfloat16* sc_s = reinterpret_cast<__nv_bfloat16*>(ring + NMAT * RING);
-
-  // Activation tile → shared memory (all threads), and on the lo tier each
-  // warp's columns of the scales (n_grp rows of 32 bytes per matrix): one
-  // copy group.
-  const __nv_bfloat16* xt = xs + (size_t)t * BM * K;
-  const int cpr = K / 8;                   // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BM * cpr; i += NTHREADS) {
-    const int r = i / cpr, c = (i % cpr) * 8;
-    cp_async16(xs_s + r * ldx + c, xt + (size_t)r * K + c);
-  }
-  const size_t sc_stride = (size_t)n_grp * N;
-  if (!is_hi) {
-    for (int i = lane; i < NMAT * n_grp * 2; i += 32) {
-      const int m = i / (2 * n_grp), g = (i / 2) % n_grp, h = i & 1;
-      const __nv_bfloat16* src = (m ? s1 : s0) + (size_t)e * sc_stride +
-                                 (size_t)g * N + n0 + 8 * h;
-      cp_async16(sc_s + (m * n_grp + g) * WN + 8 * h, src);
-    }
-  }
-  cp_async_commit();
-
-  const size_t lo_stride = (size_t)(K / EPB) * N;
-  const size_t hi_stride = (size_t)K * N;
-  // Per-matrix weight pointers of this tile's expert (slot 1 unused when
-  // NMAT == 1).
-  const uint8_t* const lp[2] = {p0 + (size_t)e * lo_stride,
-                                NMAT > 1 ? p1 + (size_t)e * lo_stride
-                                         : nullptr};
-  const __nv_bfloat16* const hw[2] = {
-      is_hi ? h0 + (size_t)slot * hi_stride : nullptr,
-      (is_hi && NMAT > 1) ? h1 + (size_t)slot * hi_stride : nullptr};
-
   float acc[NMAT][1][4];
 #pragma unroll
   for (int m = 0; m < NMAT; ++m)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[m][0][i] = 0.f;
-  if (is_hi)
-    tile_product<NMAT, BITS, true, 1>(acc, xs_s, ldx, ring, sc_s, lp, hw,
-                                      K, N, n0, group, lane);
-  else
-    tile_product<NMAT, BITS, false, 1>(acc, xs_s, ldx, ring, sc_s, lp, hw,
-                                       K, N, n0, group, lane);
+  const __nv_bfloat16* xt = xs + (size_t)t * BM * K;
+  const size_t lo_stride = (size_t)(K / EPB) * N;
+  const size_t hi_stride = (size_t)K * N;
+  const int ldx = gpc * group + PAD;
+  __nv_bfloat16* xs_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* ring = smem + (size_t)BM * ldx * sizeof(__nv_bfloat16) +
+                        (size_t)warp * NMAT * (RING + (size_t)gpc * WN * 2);
+  __nv_bfloat16* sc_s = reinterpret_cast<__nv_bfloat16*>(ring + NMAT * RING);
+  const int G = K / group;
+  const size_t sc_stride = (size_t)G * N;
+  // K in pieces of gpc scale groups, the float32 accumulators carried
+  // across pieces: the group-blocked sum runs in the same order as over
+  // the whole row.
+#pragma unroll 1
+  for (int g0 = 0; g0 < G; g0 += gpc) {
+    const int n_grp = min(gpc, G - g0);    // this piece's scale groups
+    const int k0 = g0 * group, ks = n_grp * group;
+    if (g0 > 0) __syncthreads();           // the last piece's tile is read
+    // The piece of the activation tile → shared memory (all threads), and
+    // on the lo tier each warp's columns of the piece's scales (n_grp rows
+    // of 32 bytes per matrix): one copy group.
+    const int cpr = ks / 8;                // 16-byte chunks per row
+    for (int i = threadIdx.x; i < BM * cpr; i += NTHREADS) {
+      const int r = i / cpr, c = (i % cpr) * 8;
+      cp_async16(xs_s + r * ldx + c, xt + (size_t)r * K + k0 + c);
+    }
+    if (!is_hi) {
+      for (int i = lane; i < NMAT * n_grp * 2; i += 32) {
+        const int m = i / (2 * n_grp), g = (i / 2) % n_grp, h = i & 1;
+        const __nv_bfloat16* src = (m ? s1 : s0) + (size_t)e * sc_stride +
+                                   (size_t)(g0 + g) * N + n0 + 8 * h;
+        cp_async16(sc_s + (m * n_grp + g) * WN + 8 * h, src);
+      }
+    }
+    cp_async_commit();
+    // Per-matrix weight pointers of this tile's expert at the piece's
+    // first K row (slot 1 unused when NMAT == 1).
+    const size_t lo_off = (size_t)(k0 / EPB) * N, hi_off = (size_t)k0 * N;
+    const uint8_t* const lp[2] = {
+        p0 + (size_t)e * lo_stride + lo_off,
+        NMAT > 1 ? p1 + (size_t)e * lo_stride + lo_off : nullptr};
+    const __nv_bfloat16* const hw[2] = {
+        is_hi ? h0 + (size_t)slot * hi_stride + hi_off : nullptr,
+        (is_hi && NMAT > 1) ? h1 + (size_t)slot * hi_stride + hi_off
+                            : nullptr};
+    if (is_hi)
+      tile_product<NMAT, BITS, true, 1>(acc, xs_s, ldx, ring, sc_s, lp, hw,
+                                        ks, N, n0, group, lane);
+    else
+      tile_product<NMAT, BITS, false, 1>(acc, xs_s, ldx, ring, sc_s, lp, hw,
+                                         ks, N, n0, group, lane);
+  }
 
   // acc[m][0][i]: token 2·tid + (i & 1); M row gid + 8·(i >> 1), which is
   // column gid + 8·(i >> 1) on the hi tier, 2·gid + (i >> 1) on the lo tier.
@@ -183,12 +210,16 @@ ragged_ffn_kernel(const __nv_bfloat16* __restrict__ xs,
   }
 }
 
+// Pieces of piece_groups() scale groups: one piece when the whole row
+// fits.
 template <int NMAT, int BITS>
 int launch(const void* xs, const void* tile_eid, const void* tile_slot,
            const void* n_tiles, const void* p0, const void* s0,
            const void* p1, const void* s1, const void* h0, const void* h1,
            void* out, int Tt, int K, int N, int n_hi, int group,
            cudaStream_t stream) {
+  const int gpc = piece_groups<NMAT>(K, group);
+  if (gpc == 0) return (int)cudaErrorInvalidValue;
   auto kern = ragged_ffn_kernel<NMAT, BITS>;
   static bool attr_set = false;            // once per instantiation
   if (!attr_set) {
@@ -197,9 +228,7 @@ int launch(const void* xs, const void* tile_eid, const void* tile_slot,
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  const size_t smem = smem_bytes<NMAT>(K, group);
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  kern<<<Tt * (N / BN), NTHREADS, smem, stream>>>(
+  kern<<<Tt * (N / BN), NTHREADS, smem_bytes<NMAT>(group, gpc), stream>>>(
       static_cast<const __nv_bfloat16*>(xs),
       static_cast<const int32_t*>(tile_eid),
       static_cast<const int32_t*>(tile_slot),
@@ -208,7 +237,7 @@ int launch(const void* xs, const void* tile_eid, const void* tile_slot,
       static_cast<const __nv_bfloat16*>(s1),
       static_cast<const __nv_bfloat16*>(h0),
       static_cast<const __nv_bfloat16*>(h1),
-      static_cast<__nv_bfloat16*>(out), K, N, n_hi, group);
+      static_cast<__nv_bfloat16*>(out), K, N, n_hi, group, gpc);
   return (int)cudaGetLastError();
 }
 
@@ -240,7 +269,8 @@ int dispatch_bits(int bits, const void* xs, const void* tile_eid,
 extern "C" {
 
 // h (Tt·8, F) = bf16(silu(xs·W_gate)) · bf16(xs·W_up), per tile on its tier.
-// F a multiple of 64, group a multiple of 16, K a multiple of group.
+// F a multiple of 64, group a multiple of 16, K a multiple of group, and
+// one scale group's piece within SMEM_MAX.
 int ragged_gateup(const void* xs, const void* tile_eid, const void* tile_slot,
                   const void* n_tiles, const void* gate_packed,
                   const void* gate_scales, const void* up_packed,

@@ -184,6 +184,34 @@ def gemm_piece(nt: int, group: int, gps: int) -> int:
     return gpc
 
 
+def ragged_smem_bytes(nmat: int, group: int, gpc: int) -> int:
+    """Shared memory of one ragged FFN CTA over pieces of ``gpc`` scale
+    groups (``smem_bytes`` of ``csrc/ragged_ffn.cu``): the activation
+    tile's piece (8 rows of gpc·group + 8 bf16), then for each of the 4
+    warps and ``nmat`` matrices a ring and the columns' scales."""
+    return 8 * (gpc * group + 8) * 2 + 4 * nmat * (_GEMM_RING + gpc * 16 * 2)
+
+
+def ragged_piece(nmat: int, K: int, group: int) -> int:
+    """Scale groups per piece of K in the ragged FFN kernels
+    (``piece_groups`` of ``csrc/ragged_ffn.cu``): all ``K // group`` when
+    they fit ``SMEM_MAX`` (one piece: the shapes that fitted before K was
+    walked in pieces sum as they did), else the fewest pieces that fit,
+    equal but the last. Raises a ``ValueError`` naming K when not
+    even one group fits."""
+    G = K // group
+    most = 0
+    while most < G and ragged_smem_bytes(nmat, group, most + 1) <= SMEM_MAX:
+        most += 1
+    if most == 0:
+        raise ValueError(
+            f"K={K}: one scale group of {group} needs "
+            f"{ragged_smem_bytes(nmat, group, 1)} B of shared memory, above "
+            f"the {SMEM_MAX} B a CTA may have")
+    n = -(-G // most)
+    return -(-G // n)
+
+
 def gemm_plan(E: int, C: int, K: int, N: int, group: int,
               n_sm: int) -> GemmPlan:
     """The launch shape of the grouped and plain quantized GEMMs, from
@@ -394,6 +422,7 @@ def ragged_gateup(xs, tile_eid, tile_slot, n_tiles, gate_packed, gate_scales,
                                      bm=bm)
     _cuda_shape_rules(bm, F, group, xs, gate_packed, gate_scales, up_packed,
                       up_scales, hi_gate, hi_up)
+    ragged_piece(2, K, group)
     from repro_torch.kernels import build
     h = torch.empty((Tt * bm, F), dtype=torch.bfloat16, device=xs.device)
     err = build.library("ragged_ffn").ragged_gateup(
@@ -421,6 +450,7 @@ def ragged_down(h, tile_eid, tile_slot, n_tiles, down_packed, down_scales,
                                    down_scales, hi_down, bits=bits,
                                    group=group, bm=bm)
     _cuda_shape_rules(bm, D, group, h, down_packed, down_scales, hi_down)
+    ragged_piece(1, F, group)
     from repro_torch.kernels import build
     y = torch.empty((Tt * bm, D), dtype=torch.bfloat16, device=h.device)
     err = build.library("ragged_ffn").ragged_down(

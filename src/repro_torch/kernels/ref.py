@@ -201,29 +201,33 @@ def ragged_dense_ffn_ref(xs, tile_eid, w_gate, w_up, w_down, *,
 
 
 def _swap_ab(xt: torch.Tensor, w: torch.Tensor,
-             scales: Optional[torch.Tensor], group: int) -> torch.Tensor:
+             scales: Optional[torch.Tensor], group: int,
+             acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The tensor-core order of one weight over tiles: xt (T, bm, K), w
     (T, K, N) (codes or bf16 weights, any float dtype), scales (T, K//g,
     N) or None (hi) → float32 (T, bm, N). Each k16 block's product Wᵀ·xᵀ
     (an mma's float32 result) is added in turn: into a zeroed partial per
     scale group, which is then scaled per column into the accumulator
-    (lo), or straight into the accumulator (hi)."""
+    (lo), or straight into the accumulator (hi). ``acc`` (T, bm, N): the
+    accumulator to continue (a later piece of K), else zeros."""
     T, bm, K = xt.shape
     N = w.shape[-1]
     wt = w.float().transpose(1, 2).reshape(T, N, K // 16, 16)
     xtt = xt.float().transpose(1, 2).reshape(T, K // 16, 16, bm)
     blocks = torch.matmul(wt.permute(0, 2, 1, 3), xtt)   # (T, K/16, N, bm)
-    acc = torch.zeros((T, N, bm), dtype=torch.float32)
-    spg = K // 16 if scales is None else group // 16
+    acc = torch.zeros((T, N, bm), dtype=torch.float32) if acc is None \
+        else acc.transpose(1, 2)
+    if scales is None:
+        for b in range(K // 16):
+            acc = acc + blocks[:, b]
+        return acc.transpose(1, 2)
+    spg = group // 16
     for g0 in range(0, K // 16, spg):
         part = torch.zeros_like(acc)
         for b in range(g0, g0 + spg):
             part = part + blocks[:, b]
-        if scales is None:
-            acc = acc + part
-        else:
-            s = scales[:, g0 // spg].float()[:, :, None]
-            acc = torch.addcmul(acc, part, s)
+        s = scales[:, g0 // spg].float()[:, :, None]
+        acc = torch.addcmul(acc, part, s)
     return acc.transpose(1, 2)
 
 
@@ -251,39 +255,57 @@ def grouped_lo_mma(xg: torch.Tensor, packed: torch.Tensor,
     return acc.to(xg.dtype)
 
 
-def _tiers_mma(xt, tile_eid, tile_slot, packed, scales, hi, bits, group):
+def _pieces(xt, w, scales, group: int, gpc: Optional[int]):
+    """``_swap_ab`` over K in pieces of ``gpc`` scale groups (None: one
+    piece), the float32 accumulator carried across pieces, as the ragged
+    FFN kernels walk a K whose row does not fit shared memory."""
+    K = xt.shape[-1]
+    step = K if gpc is None else gpc * group
+    acc = None
+    for k0 in range(0, K, step):
+        k1 = min(K, k0 + step)
+        sc = None if scales is None else \
+            scales[:, k0 // group:k1 // group]
+        acc = _swap_ab(xt[..., k0:k1], w[:, k0:k1], sc, group, acc)
+    return acc
+
+
+def _tiers_mma(xt, tile_eid, tile_slot, packed, scales, hi, bits, group,
+               gpc=None):
     """float32 (T, bm, N) of one weight per tile on its tier."""
     eid = tile_eid.long()
     codes = unpack_codes_int8(packed[eid], bits)
-    y = _swap_ab(xt, codes, scales[eid], group)
+    y = _pieces(xt, codes, scales[eid], group, gpc)
     is_hi = _hi_rows(tile_slot, hi)
     if is_hi is not None:
         safe = torch.clamp(tile_slot, 0, hi.shape[0] - 1).long()
-        y = torch.where(is_hi[:, None, None], _swap_ab(xt, hi[safe], None,
-                                                       group), y)
+        y = torch.where(is_hi[:, None, None],
+                        _pieces(xt, hi[safe], None, group, gpc), y)
     return y
 
 
 def ragged_gateup_mma(xs, tile_eid, tile_slot, gate_packed, gate_scales,
                       up_packed, up_scales, hi_gate=None, hi_up=None, *,
-                      bits: int, group: int, bm: int) -> torch.Tensor:
+                      bits: int, group: int, bm: int,
+                      gpc: Optional[int] = None) -> torch.Tensor:
     """``ragged_gateup_ref`` in the kernel's arithmetic order (group a
-    multiple of 16): the same epilogue on g and u."""
+    multiple of 16): the same epilogue on g and u. ``gpc``: K walked in
+    pieces of that many scale groups (``ops.ragged_piece``; None: one)."""
     xt = _tiles(xs, bm)
     g = _tiers_mma(xt, tile_eid, tile_slot, gate_packed, gate_scales,
-                   hi_gate, bits, group)
+                   hi_gate, bits, group, gpc)
     u = _tiers_mma(xt, tile_eid, tile_slot, up_packed, up_scales, hi_up,
-                   bits, group)
+                   bits, group, gpc)
     h = _silu_mul(g.to(xs.dtype), u.to(xs.dtype))
     return h.reshape(xs.shape[0], h.shape[-1])
 
 
 def ragged_down_mma(h, tile_eid, tile_slot, down_packed, down_scales,
-                    hi_down=None, *, bits: int, group: int,
-                    bm: int) -> torch.Tensor:
+                    hi_down=None, *, bits: int, group: int, bm: int,
+                    gpc: Optional[int] = None) -> torch.Tensor:
     """``ragged_down_ref`` in the kernel's arithmetic order."""
     y = _tiers_mma(_tiles(h, bm), tile_eid, tile_slot, down_packed,
-                   down_scales, hi_down, bits, group)
+                   down_scales, hi_down, bits, group, gpc)
     return y.to(h.dtype).reshape(h.shape[0], y.shape[-1])
 
 

@@ -1,5 +1,6 @@
 """Architecture configuration (the port's copy of the reference dataclasses,
-restricted to the attention + MoE families this package serves)."""
+restricted to the decoder-only families this package serves: attention +
+MoE stacks and the hybrid Mamba/attention MoE stacks)."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,15 +39,36 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) layer: state width, conv taps, expansion, head width,
+    B/C groups and the chunk of the chunked scan."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 64
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # this package serves "moe"
+    family: str                  # this package serves "moe" and "hybrid"
     n_layers: int
     d_model: int
     vocab_size: int
     d_ff: int = 0
     attn: Optional[AttnConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # Hybrid stacks: per-position block kinds of one repeating super-block
+    # ("attn" or "mamba"), MoE FFNs at ``moe_positions``, dense elsewhere.
     superblock: Tuple[str, ...] = ()
     moe_positions: Tuple[int, ...] = ()
     norm_eps: float = 1e-6
@@ -59,7 +81,12 @@ class ArchConfig:
         return self.moe is not None
 
     def superblock_or_default(self) -> Tuple[str, ...]:
-        return self.superblock if self.superblock else ("attn",)
+        """Layer-kind pattern of one repeating super-block."""
+        if self.superblock:
+            return self.superblock
+        if self.family == "ssm":
+            return ("mamba",)
+        return ("attn",)
 
     def n_superblocks(self) -> int:
         sb = self.superblock_or_default()
@@ -103,18 +130,28 @@ class ArchConfig:
                 d_ff_expert=min(moe.d_ff_expert, 2 * d_model),
                 d_ff_shared=min(moe.d_ff_shared, d_model)
                 if moe.n_shared_experts else 0)
+        ssm = self.ssm
+        if ssm is not None:
+            ssm = dataclasses.replace(ssm, d_state=min(ssm.d_state, 32),
+                                      head_dim=32, chunk=16)
+        # A super-block stack keeps at least one whole super-block.
+        sb = self.superblock_or_default()
+        n_layers = max(n_layers, len(sb)) if self.superblock else n_layers
+        if self.superblock and n_layers % len(sb):
+            n_layers = len(sb)
         return dataclasses.replace(
             self, name=self.name + "-smoke", n_layers=n_layers,
             d_model=d_model, vocab_size=vocab,
             d_ff=min(self.d_ff, 2 * d_model) if self.d_ff else 0,
-            attn=attn, moe=moe, max_seq_len=max_seq_len)
+            attn=attn, moe=moe, ssm=ssm, max_seq_len=max_seq_len)
 
 
 def _count_params(cfg: ArchConfig, active_only: bool) -> int:
-    """The reference's count for the attention + MoE stacks: embedding (and
+    """The reference's count for the decoder-only stacks: embedding (and
     LM head unless tied), per layer the two pre-norms, the attention
-    projections, the router, every expert (``active_only``: top-k of
-    them) and the shared experts."""
+    projections or the Mamba layer's (in/out projections, conv, A/D/dt,
+    gate norm), then the router, every expert (``active_only``: top-k of
+    them) and the shared experts, or the dense FFN."""
     d = cfg.d_model
     total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     per_sb = 0
@@ -123,6 +160,13 @@ def _count_params(cfg: ArchConfig, active_only: bool) -> int:
         if kind == "attn" and cfg.attn is not None:
             a = cfg.attn
             per_sb += d * a.q_dim + 2 * d * a.kv_dim + a.q_dim * d
+        elif kind == "mamba" and cfg.ssm is not None:
+            s = cfg.ssm
+            di, nh = s.d_inner(d), s.n_heads(d)
+            conv_dim = di + 2 * s.n_groups * s.d_state
+            per_sb += d * (2 * di + 2 * s.n_groups * s.d_state + nh)
+            per_sb += conv_dim * s.d_conv + 3 * nh + di
+            per_sb += di * d
         if cfg.ffn_kind(pos) == "moe":
             m = cfg.moe
             per_sb += d * m.num_experts

@@ -124,17 +124,18 @@ PREFILL_CHUNK_THRESHOLD = 2048
 
 def attention_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
                       cache: KVCache, lengths: torch.Tensor) -> torch.Tensor:
-    """Causal prefill from position 0 into dense rows (full cache only).
+    """Causal prefill from position 0 into dense rows: a full cache, or a
+    sliding-window ring (capacity ``min(max_len, window)``, which may be
+    shorter than the bucket).
 
     x (B, S, d); ``lengths`` (B,) true prompt lengths of a right-padded
     batch (0 = inert pad row). Slot i of row b takes the row's
-    largest real position p < length with p % C == i; slots no real
-    position maps to keep their contents (the reference's masked write, in
-    place). Outputs at padded positions are garbage."""
+    largest real position p < length with p % C == i (a ring keeps each
+    row's last C real positions); slots no real position maps to keep
+    their contents (the reference's masked write, in place). A window
+    masks keys more than ``window - 1`` positions back. Outputs at padded
+    positions are garbage."""
     B, S, _ = x.shape
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window rings on dense rows are "
-                                  "not ported")
     if S > PREFILL_CHUNK_THRESHOLD:
         raise NotImplementedError(
             f"prefill of {S} > {PREFILL_CHUNK_THRESHOLD} tokens needs the "
@@ -142,7 +143,10 @@ def attention_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
     qpos, kpos = positions[:, :, None], positions[:, None, :]
-    out = _sdpa(q, k, v, (kpos <= qpos).expand(B, S, S), cfg.n_heads)
+    mask = kpos <= qpos
+    if cfg.sliding_window is not None:
+        mask = mask & (kpos > qpos - cfg.sliding_window)
+    out = _sdpa(q, k, v, mask.expand(B, S, S), cfg.n_heads)
 
     C = cache.capacity
     idx = torch.arange(C, device=x.device)[None, :]

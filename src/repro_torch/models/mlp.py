@@ -1,5 +1,6 @@
 """Dense SwiGLU feed-forward (the port of the reference's
-``models/mlp.py::swiglu``): the shared expert of MoE layers that have one."""
+``models/mlp.py``: ``init_swiglu`` and ``swiglu``): the shared expert of
+MoE layers that have one, and the dense FFN positions of hybrid stacks."""
 from __future__ import annotations
 
 from typing import Dict
@@ -15,6 +16,15 @@ def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda:
         return a @ b
     return (a.float() @ b.float()).to(a.dtype)
+
+
+def init_swiglu(normal, d_model: int, d_ff: int) -> Dict[str, torch.Tensor]:
+    """The reference's leaves: (d, F), (d, F), (F, d) bf16, each scaled by
+    its fan_in^-1/2. ``normal(shape, scale)``: the caller's seeded draw
+    (with its leading layer axis)."""
+    return {"w_gate": normal((d_model, d_ff), d_model ** -0.5),
+            "w_up": normal((d_model, d_ff), d_model ** -0.5),
+            "w_down": normal((d_ff, d_model), d_ff ** -0.5)}
 
 
 def swiglu(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

@@ -1,29 +1,38 @@
-"""Decoder-only attention + MoE model over the paged KV pool or dense KV
-rows.
+"""Decoder-only stacks over the paged KV pool or dense KV rows: attention
++ MoE stacks and hybrid Mamba/attention stacks of repeating super-blocks
+(e.g. Jamba: seven Mamba-2 layers then one attention layer, MoE FFNs on
+the odd positions and dense SwiGLU FFNs on the even ones).
 
 Parameters keep the reference's tree: per super-block position a dict of
-leaves stacked over layers (leading ``nsb`` axis). The reference's
+leaves stacked over super-blocks (leading ``nsb`` axis). The reference's
 ``lax.scan`` over that axis becomes a Python loop over per-layer views.
 
 Entry points:
 
 * ``init_params``        — random weights from a seeded ``torch.Generator``;
-* ``init_paged_caches``  — the shared (nsb, N, Hkv, bt, hd) block pools;
+* ``init_paged_caches``  — the shared (nsb, N, Hkv, bt, hd) block pools of
+                           the attention positions, and per-slot Mamba
+                           rows (nsb, B, ...) of the Mamba positions;
 * ``prefill_paged``      — masked, bucketed prefill of prompt suffixes
                            (whole prompts, or over cached prefix blocks);
 * ``decode_step_paged``  — one token per row (the serving hot path);
-* ``init_caches``        — dense (nsb, B, Hkv, C, hd) KV rows;
+* ``init_caches``        — dense (nsb, B, Hkv, C, hd) KV rows (C =
+                           ``max_len``, or the sliding window's ring) and
+                           the Mamba rows;
 * ``prefill`` / ``decode_step`` — the same over dense rows;
 * ``spec_draft`` / ``spec_verify`` — S chained decode steps (paged or
                            dense): the draft and verify of self-speculative
-                           decoding.
+                           decoding (attention stacks only).
 
 Every MoE layer runs through its mixed-precision bank (``bank``: MoE
 position → stacked ``ExpertBankQ``), or with ``bank=None`` through the
 dense bf16 experts in ``params`` (the fp16 and offload backends), with the
 token layout ``moe_dispatch`` names ("ragged", the default, or "padded";
 either KV layout takes either) and returns its router counts — the
-hotness signal.
+hotness signal. A Mamba layer's prefill writes its final state into the
+caches given (the engine hands it fresh rows and copies them into the
+admitted slots); its decode step updates the rows in place, only where
+``row_valid`` holds.
 """
 from __future__ import annotations
 
@@ -33,24 +42,68 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mlp as M
 from repro_torch.models import moe as X
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig
+
+#: Where the speculative decoding of stacks with Mamba positions stands.
+SPEC_MAMBA_ITEM = "ROADMAP Queue 1 item 8"
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.superblock_or_default() != ("attn",) or cfg.attn is None \
-            or cfg.moe is None or cfg.d_ff or cfg.attn.sliding_window:
+    """Decoder-only MoE stacks of ``attn``/``mamba`` positions with MoE or
+    dense FFNs. Encoder-decoder, VLM and pure-SSM stacks are not ported."""
+    sb = cfg.superblock_or_default()
+    if cfg.family in ("audio", "vlm", "ssm") or cfg.moe is None:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves full-attention MoE stacks only")
+            f"{cfg.name}: the port serves decoder-only MoE stacks (attention "
+            f"or hybrid Mamba/attention); the {cfg.family!r} family "
+            f"(encoder-decoder, VLM or pure-SSM stacks) is not ported")
+    if any(k not in ("attn", "mamba") for k in sb) or "attn" not in sb \
+            or cfg.attn is None or ("mamba" in sb and cfg.ssm is None):
+        raise NotImplementedError(
+            f"{cfg.name}: super-block {sb} is not an attention or hybrid "
+            f"Mamba/attention stack")
+    if any(cfg.ffn_kind(p) == "dense" for p in range(len(sb))) \
+            and not cfg.d_ff:
+        raise NotImplementedError(f"{cfg.name}: a dense FFN position needs "
+                                  f"d_ff")
+
+
+def attn_positions(cfg: ArchConfig):
+    return [str(p) for p, k in enumerate(cfg.superblock_or_default())
+            if k == "attn"]
+
+
+def mamba_positions(cfg: ArchConfig):
+    return [str(p) for p, k in enumerate(cfg.superblock_or_default())
+            if k == "mamba"]
+
+
+def attn_logical_capacity(cfg: ArchConfig, max_len: int,
+                          block_tokens: int) -> int:
+    """Per-sequence logical KV capacity under paging: the dense capacity
+    (``max_len``, or the sliding window) rounded up to whole blocks. The
+    extra slots are never valid, so attention matches the dense rows."""
+    return -(-attn_capacity(cfg, max_len) // block_tokens) * block_tokens
+
+
+def attn_capacity(cfg: ArchConfig, max_len: int) -> int:
+    """Dense KV row capacity: ``max_len``, or the sliding window's ring
+    when it is shorter."""
+    w = cfg.attn.sliding_window
+    return max_len if w is None else min(max_len, w)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None,
                 generator: Optional[torch.Generator] = None) -> Dict:
     """Random parameters in the reference's layout and scales (normal ·
-    fan_in^-1/2 in bf16, router float32, embedding · 0.02, norms ones),
-    drawn from ``generator`` or a generator seeded with ``seed`` on the
-    target device. Large leaves are drawn one layer at a time so the
-    float32 scratch stays one layer's worth at full width."""
+    fan_in^-1/2 in bf16, router float32, embedding · 0.02, norms ones,
+    the Mamba layers' A_log/dt_bias/D as the reference sets them), drawn
+    from ``generator`` or a generator seeded with ``seed`` on the target
+    device, position by position. Large leaves are drawn one layer at a
+    time so the float32 scratch stays one layer's worth at full width."""
     _check_family(cfg)
     dev = resolve_device(device)
     gen = generator if generator is not None else \
@@ -70,61 +123,95 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     d, a, m = cfg.d_model, cfg.attn, cfg.moe
     nsb = cfg.n_superblocks()
     ones = lambda n: torch.ones((nsb, n), dtype=torch.bfloat16, device=dev)
-    attn = {"wq": stacked((d, a.q_dim), d ** -0.5),
-            "wk": stacked((d, a.kv_dim), d ** -0.5),
-            "wv": stacked((d, a.kv_dim), d ** -0.5),
-            "wo": stacked((a.q_dim, d), a.q_dim ** -0.5)}
-    if a.qk_norm:
-        attn["q_norm"] = {"scale": ones(a.head_dim)}
-        attn["k_norm"] = {"scale": ones(a.head_dim)}
-    E, f = m.num_experts, m.d_ff_expert
-    # The reference draws expert stacks (E, K, N) with fan_in = E.
-    experts = {"w_gate": stacked((E, d, f), E ** -0.5),
-               "w_up": stacked((E, d, f), E ** -0.5),
-               "w_down": stacked((E, f, d), E ** -0.5)}
-    moe = {"router": stacked((d, E), d ** -0.5, torch.float32),
-           "experts": experts}
-    if m.n_shared_experts:
-        # The reference's init_swiglu: (d, F_sh), (d, F_sh), (F_sh, d) per
-        # layer, scaled by each matrix's fan_in^-1/2.
-        fs = m.d_ff_shared * m.n_shared_experts
-        moe["shared"] = {"w_gate": stacked((d, fs), d ** -0.5),
-                         "w_up": stacked((d, fs), d ** -0.5),
-                         "w_down": stacked((fs, d), fs ** -0.5)}
+
+    def attention():
+        p = {"wq": stacked((d, a.q_dim), d ** -0.5),
+             "wk": stacked((d, a.kv_dim), d ** -0.5),
+             "wv": stacked((d, a.kv_dim), d ** -0.5),
+             "wo": stacked((a.q_dim, d), a.q_dim ** -0.5)}
+        if a.qk_norm:
+            p["q_norm"] = {"scale": ones(a.head_dim)}
+            p["k_norm"] = {"scale": ones(a.head_dim)}
+        return p
+
+    def moe():
+        E, f = m.num_experts, m.d_ff_expert
+        # The reference draws expert stacks (E, K, N) with fan_in = E.
+        experts = {"w_gate": stacked((E, d, f), E ** -0.5),
+                   "w_up": stacked((E, d, f), E ** -0.5),
+                   "w_down": stacked((E, f, d), E ** -0.5)}
+        p = {"router": stacked((d, E), d ** -0.5, torch.float32),
+             "experts": experts}
+        if m.n_shared_experts:
+            p["shared"] = M.init_swiglu(stacked, d,
+                                        m.d_ff_shared * m.n_shared_experts)
+        return p
+
+    blocks = {}
+    for pos, kind in enumerate(cfg.superblock_or_default()):
+        bp = {"norm1": {"scale": ones(d)}, "norm2": {"scale": ones(d)}}
+        if kind == "attn":
+            bp["attn"] = attention()
+        else:
+            bp["mamba"] = SSM.init_mamba(stacked, d, cfg.ssm, (nsb,), dev)
+        if cfg.ffn_kind(pos) == "moe":
+            bp["moe"] = moe()
+        else:
+            bp["mlp"] = M.init_swiglu(stacked, d, cfg.d_ff)
+        blocks[str(pos)] = bp
     params = {
         "embed": normal((cfg.vocab_size, d), 0.02),
         "final_norm": {"scale": torch.ones((d,), dtype=torch.bfloat16,
                                            device=dev)},
-        "blocks": {"0": {
-            "norm1": {"scale": ones(d)}, "norm2": {"scale": ones(d)},
-            "attn": attn, "moe": moe}},
+        "blocks": blocks,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)
     return params
 
 
+def init_mamba_rows(cfg: ArchConfig, batch: Optional[int], device=None
+                    ) -> Dict:
+    """Per-slot Mamba rows of every Mamba position, (nsb, batch, ...), each
+    from a zero state ({} on a stack without Mamba positions)."""
+    dev = resolve_device(device)
+    pos = mamba_positions(cfg)
+    if pos and batch is None:
+        raise ValueError(f"{cfg.name} has Mamba positions: its caches need "
+                         f"the batch (slots)")
+    return {p: SSM.init_mamba_cache((cfg.n_superblocks(), batch),
+                                    cfg.d_model, cfg.ssm, dev) for p in pos}
+
+
 def init_paged_caches(cfg: ArchConfig, n_blocks: int, block_tokens: int,
-                      device=None) -> Dict[str, L.PagedKVCache]:
+                      device=None, batch: Optional[int] = None) -> Dict:
     """One shared block pool per attention position, (nsb, N, Hkv, bt, hd)
-    bf16 K and V."""
+    bf16 K and V; per-slot rows of ``batch`` slots per Mamba position
+    (recurrent state is O(1) per slot: paging it buys nothing)."""
     _check_family(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_superblocks(), n_blocks, cfg.attn.n_kv_heads,
              block_tokens, cfg.attn.head_dim)
-    return {"0": L.PagedKVCache(
+    caches = {p: L.PagedKVCache(
         torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-        torch.zeros(shape, dtype=torch.bfloat16, device=dev))}
+        torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+        for p in attn_positions(cfg)}
+    caches.update(init_mamba_rows(cfg, batch, dev))
+    return caches
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
-                device=None) -> Dict[str, L.KVCache]:
-    """Dense KV rows per attention position, (nsb, B, Hkv, max_len, hd)
-    bf16 K and V (full attention: slot = position)."""
+                device=None) -> Dict:
+    """Dense rows: KV (nsb, B, Hkv, C, hd) bf16 per attention position (C
+    = ``max_len``, or the sliding window's ring: slot = position % C), and
+    the Mamba rows per Mamba position."""
     _check_family(cfg)
     dev = resolve_device(device)
-    return {"0": L.init_kv_cache((cfg.n_superblocks(), batch), max_len,
-                                 cfg.attn, dev)}
+    C = attn_capacity(cfg, max_len)
+    caches = {p: L.init_kv_cache((cfg.n_superblocks(), batch), C, cfg.attn,
+                                 dev) for p in attn_positions(cfg)}
+    caches.update(init_mamba_rows(cfg, batch, dev))
+    return caches
 
 
 def _layer(tree, l: int):
@@ -134,33 +221,44 @@ def _layer(tree, l: int):
     return tree[l]
 
 
-def _block_step(bp: Dict, cfg: ArchConfig, x: torch.Tensor, cache,
-                pos_idx, capacity: int, bank, prefill: bool,
+def _block_step(bp: Dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
+                cache, pos_idx, capacity: int, bank, prefill: bool,
                 paged: Optional[Dict] = None, lengths=None, token_valid=None,
                 n_rows=None, moe_dispatch=None, row_capacity=None):
-    """One attention + MoE layer. x (B, S, d); ``cache`` a ``PagedKVCache``
-    with ``paged`` holding the block tables and write targets, or dense
-    ``KVCache`` rows with ``paged`` None. ``row_capacity``: the per-row
-    MoE drop rule over the B rows. Returns (x, counts) with counts (E,) or
-    (n_rows, E)."""
+    """One layer: attention (``kind`` "attn") or Mamba, then its FFN (MoE
+    when ``bp`` has "moe", else the dense SwiGLU). x (B, S, d); an
+    attention ``cache`` is a ``PagedKVCache`` with ``paged`` holding the
+    block tables and write targets, or dense ``KVCache`` rows with
+    ``paged`` None; a Mamba cache is the layer's ``MambaCache`` rows
+    (prefill: ``lengths`` the rows' suffix lengths). ``row_capacity``: the
+    per-row MoE drop rule over the B rows. Returns (x, counts) with counts
+    (E,) or (n_rows, E), or None for a dense FFN."""
     B, S, d = x.shape
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    if paged is not None and prefill:
-        attn_out = L.attention_prefill_paged(
+    if kind == "mamba" and prefill:
+        mix, new = SSM.ssd_forward(bp["mamba"], cfg.ssm, d, h,
+                                   lengths=lengths)
+        cache.conv.copy_(new.conv)
+        cache.state.copy_(new.state)
+    elif kind == "mamba":
+        mix = SSM.ssd_decode_step(bp["mamba"], cfg.ssm, d, h, cache,
+                                  row_valid=token_valid)
+    elif paged is not None and prefill:
+        mix = L.attention_prefill_paged(
             bp["attn"], cfg.attn, h, cache, paged["table"], paged["start"],
             paged["lengths"], has_prefix=paged["has_prefix"])
     elif paged is not None:
-        attn_out = L.attention_decode_paged(
+        mix = L.attention_decode_paged(
             bp["attn"], cfg.attn, h, pos_idx, cache, paged["table"],
             paged["write_blk"], paged["write_off"])
     elif prefill:
-        attn_out = L.attention_prefill(bp["attn"], cfg.attn, h, cache,
-                                       lengths)
+        mix = L.attention_prefill(bp["attn"], cfg.attn, h, cache, lengths)
     else:
-        attn_out = L.attention_decode(bp["attn"], cfg.attn, h, pos_idx,
-                                      cache)
-    x = x + attn_out
+        mix = L.attention_decode(bp["attn"], cfg.attn, h, pos_idx, cache)
+    x = x + mix
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
+    if "moe" not in bp:
+        return x + M.swiglu(bp["mlp"], h), None
     # Per-row capacity needs the row count even where per-row counts were
     # not asked for; the counts returned still follow ``n_rows``.
     y, aux = X.moe_apply(bp["moe"], bank, h.reshape(B * S, d), cfg.moe,
@@ -173,22 +271,33 @@ def _block_step(bp: Dict, cfg: ArchConfig, x: torch.Tensor, cache,
 
 
 def _run_layers(params, cfg, x, caches, bank, **kw):
-    """The layer loop (the reference's scan): per-layer views of the
-    stacked parameters, caches and bank; with ``bank=None`` each layer's
-    experts come from ``params`` (the reference's rule). Returns (x, {pos:
-    stacked counts})."""
-    bp_all, cache = params["blocks"]["0"], caches["0"]
-    if bank is None and bp_all["moe"].get("experts") is None:
+    """The layer loop (the reference's scan over super-blocks, each running
+    its positions in order): per-layer views of the stacked parameters,
+    caches and bank; with ``bank=None`` each MoE layer's experts come from
+    ``params`` (the reference's rule). Returns (x, {MoE position: stacked
+    counts})."""
+    sb = cfg.superblock_or_default()
+    blocks = params["blocks"]
+    moe_pos = [str(p) for p in range(len(sb)) if "moe" in blocks[str(p)]]
+    if bank is None and any(blocks[p]["moe"].get("experts") is None
+                            for p in moe_pos):
         raise ValueError("bank=None serves the dense experts in params, "
                          "but a backend has dropped them: pass its banks")
-    counts = []
+    counts = {p: [] for p in moe_pos}
     for l in range(cfg.n_superblocks()):
-        bp = _layer(bp_all, l)
-        x, c = _block_step(bp, cfg, x, type(cache)(cache.k[l], cache.v[l]),
-                           bank=bp["moe"]["experts"] if bank is None
-                           else bank["0"].layer(l), **kw)
-        counts.append(c)
-    return x, {"0": torch.stack(counts)}
+        for pos, kind in enumerate(sb):
+            key = str(pos)
+            bp = _layer(blocks[key], l)
+            c = caches[key]
+            b = None
+            if key in counts:
+                b = bp["moe"]["experts"] if bank is None \
+                    else bank[key].layer(l)
+            x, n = _block_step(bp, cfg, kind, x, type(c)(*(t[l] for t in c)),
+                               bank=b, **kw)
+            if n is not None:
+                counts[key].append(n)
+    return x, {p: torch.stack(v) for p, v in counts.items()}
 
 
 def _lm_logits(params: Dict, cfg: ArchConfig, x: torch.Tensor):
@@ -226,7 +335,7 @@ def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
              "has_prefix": has_prefix}
     x, counts = _run_layers(params, cfg, x, caches, bank, capacity=cap,
                             pos_idx=None, prefill=True, paged=paged,
-                            token_valid=token_valid,
+                            lengths=suffix, token_valid=token_valid,
                             n_rows=R if per_row_counts else None,
                             moe_dispatch=moe_dispatch,
                             row_capacity=row_capacity)
@@ -320,9 +429,22 @@ def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
 # ``decode_step``/``decode_step_paged`` (the same attention, the same MoE
 # capacity moe_capacity(B), the same masked writes), so a verified prefix
 # computes exactly what the plain decode would have: token parity with the
-# non-speculative path by construction. The port serves no recurrent
-# (mamba) or sliding-window family, so no per-step state is stacked.
+# non-speculative path by construction. A sliding-window ring needs
+# nothing more (a rejected position's slot is rewritten by the next
+# accepted one before any read). Stacks with Mamba positions would need
+# their recurrent rows stacked per step, so that a rejection rolls a row
+# back to its last accepted step (the reference's ``ssm_states``): not
+# ported, and both entry points raise on them.
 # --------------------------------------------------------------------------
+
+
+def _check_spec(cfg: ArchConfig) -> None:
+    _check_family(cfg)
+    if mamba_positions(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: speculative decoding on stacks with Mamba "
+            f"positions (per-step recurrent state) is not ported yet "
+            f"({SPEC_MAMBA_ITEM})")
 
 def _spec_step(params, cfg, tok, pos, caches, j: int, row_valid, paged,
                **kw):
@@ -354,7 +476,7 @@ def spec_draft(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     (``serving.lobanks``) the always-resident lo tier is the draft model.
     Emits no counts: draft traffic never feeds hotness. Returns drafted
     (S, B) int64; the caches are written in place."""
-    _check_family(cfg)
+    _check_spec(cfg)
     kw = dict(bank=bank, capacity_factor=capacity_factor,
               row_capacity=row_capacity, moe_dispatch=moe_dispatch)
     out, tok = [], token
@@ -379,7 +501,7 @@ def spec_verify(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     next-token distribution after ``tokens[:j+1]``; the counts are per
     step, so the engine keeps rejected positions out of the hotness
     signal. The caches are written in place."""
-    _check_family(cfg)
+    _check_spec(cfg)
     kw = dict(bank=bank, capacity_factor=capacity_factor,
               per_row_counts=True, row_capacity=row_capacity,
               moe_dispatch=moe_dispatch)

@@ -85,8 +85,21 @@ own ``SamplingParams`` (``serving.sampler``; greedy by default).
   a pointer check. ``RequestHandle.stall_exposure_s`` sums the modeled
   stalls of the forwards a request was resident for.
 
-Not ported: the dense path's sliding-window rings (the port serves no
-sliding-window family).
+* **Hybrid stacks** (Mamba/attention super-blocks, e.g. Jamba): the
+  pool and the KV bytes cover the attention positions only; every Mamba
+  position keeps per-slot recurrent rows (``models.ssm.MambaCache``).
+  Admission prefills fresh rows from a zero state and copies them into
+  the admitted slots only; the decode step updates them in place for its
+  valid rows only, so rows of another decode group keep their state (the
+  reference's ``guard_ssm`` merge); preemption snapshots and restores a
+  slot's rows. The prefix trie and chunked prefill are off on such
+  stacks (recurrent state is not leased), and every prefill bucket is a
+  multiple of the SSD chunk. Speculative decoding on them raises
+  (``models.model.SPEC_MAMBA_ITEM``).
+* **Sliding windows**: KV capacity is ``min(max_len, window)`` (a ring,
+  slot = position % C) on either layout; chunked prefill takes a windowed
+  prompt only while it fits the window, and only prompts that fit it are
+  offered to the trie.
 """
 from __future__ import annotations
 
@@ -103,8 +116,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.budget import UNBOUNDED, BudgetTracker
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import (decode_step, decode_step_paged,
-                                      init_caches, init_paged_caches,
+from repro_torch.models.model import (SPEC_MAMBA_ITEM, attn_capacity,
+                                      attn_logical_capacity, attn_positions,
+                                      decode_step, decode_step_paged,
+                                      init_caches, init_mamba_rows,
+                                      init_paged_caches, mamba_positions,
                                       prefill, prefill_paged)
 from repro_torch.fault.watchdog import Watchdog, WatchdogConfig
 from repro_torch.models.moe import DISPATCHES, RAGGED_BM, moe_capacity
@@ -264,12 +280,22 @@ class InferenceEngine:
             raise ValueError(f"moe_dispatch={e.moe_dispatch!r}; one of "
                              f"{DISPATCHES}")
         self.sched = Scheduler(e.scheduler)
+        self._attn_pos = attn_positions(cfg)
+        self._mamba_pos = mamba_positions(cfg)
+        if e.spec_k > 0 and self._mamba_pos:
+            raise NotImplementedError(
+                f"{cfg.name}: speculative decoding on stacks with Mamba "
+                f"positions is not ported yet ({SPEC_MAMBA_ITEM})")
         self._bt = e.block_tokens
-        self._C_pad = -(-e.max_len // self._bt) * self._bt
+        # Logical KV capacity: max_len, or the sliding window's ring.
+        self._C_attn = attn_capacity(cfg, e.max_len)
+        self._C_pad = attn_logical_capacity(cfg, e.max_len, self._bt)
         self._nb = self._C_pad // self._bt
         a = cfg.attn
-        # KV bytes of one cache position across every layer (K and V).
-        pos_bytes = 2 * a.n_kv_heads * a.head_dim * 2 * cfg.n_superblocks()
+        # KV bytes of one cache position across every attention layer (K
+        # and V).
+        pos_bytes = 2 * a.n_kv_heads * a.head_dim * 2 * \
+            len(self._attn_pos) * cfg.n_superblocks()
         self.budget = BudgetTracker(UNBOUNDED if e.hbm_budget_bytes is None
                                     else e.hbm_budget_bytes)
         # Observability: the recorder stamps events on the engine clock.
@@ -295,15 +321,18 @@ class InferenceEngine:
             self.pool = KVBlockPool(n_blocks, self._bt, self._bt * pos_bytes,
                                     budget=self.budget.view("kv"),
                                     reclaim=self._reclaim_blocks)
-            if e.prefix_sharing:
+            # Recurrent (Mamba) state cannot be leased from a cache: mixed
+            # stacks run the pool without the trie.
+            if e.prefix_sharing and not self._mamba_pos:
                 self.trie = PrefixTrie(self.pool)
             self.banks = backend.materialize_banks(
                 cfg, params, self.pool.capacity_bytes, budget=self.budget)
             self.caches = init_paged_caches(cfg, n_blocks, self._bt,
-                                            self.device)
+                                            self.device, batch=n)
         else:
             self.banks = backend.materialize_banks(
-                cfg, params, pos_bytes * n * e.max_len, budget=self.budget)
+                cfg, params, pos_bytes * n * self._C_attn,
+                budget=self.budget)
             self.caches = init_caches(cfg, n, e.max_len, self.device)
         if self.tracer is not None:
             # What the cost model (``obs.costmodel``) replays against:
@@ -337,11 +366,18 @@ class InferenceEngine:
         self.tokens = np.full(n, e.pad_token_id, np.int64)
         self.queue = TieredQueue(self._now, self.sched.cfg.aging_s)
         self._ids = itertools.count()
-        ladder, v = [], e.bucket_base
-        while v < e.max_len:
+        # SSD prefill takes whole chunks: with Mamba positions every bucket
+        # is a multiple of the chunk.
+        m = cfg.ssm.chunk if self._mamba_pos else 1
+        cap = (e.max_len // m) * m
+        if cap <= 0:
+            raise ValueError(f"max_len={e.max_len} below the SSD chunk "
+                             f"multiple {m}; no prefill bucket fits")
+        ladder, v = [], max(1, -(-e.bucket_base // m) * m)
+        while v < cap:
             ladder.append(v)
             v *= 2
-        ladder.append(e.max_len)
+        ladder.append(cap)
         self.buckets = tuple(ladder)
         self._prefill_rows = e.prefill_rows if e.prefill_rows is not None \
             else min(4, n)
@@ -349,7 +385,7 @@ class InferenceEngine:
         # knob, so every chunk prefills at a bucket shape.
         self._chunk_tokens = 0
         pc = self.sched.cfg.prefill_chunk
-        if pc > 0 and self.pool is not None:
+        if pc > 0 and self.pool is not None and not self._mamba_pos:
             fits = [b for b in self.buckets if b <= pc and b % self._bt == 0]
             if fits:
                 self._chunk_tokens = fits[-1]
@@ -374,7 +410,7 @@ class InferenceEngine:
             "watchdog_cancels")}
         # The decode steps: static inputs, rewritten in place every step,
         # and one step over them per bank view (one CUDA graph each on the
-        # card, sharing a memory pool).
+        # card, sharing a memory pool), updating the caches in place.
         fields = [("tokens", (n,), torch.int64), ("pos", (n,), torch.int64)]
         if e.paged:
             fields += [("wblk", (n,), torch.int64),
@@ -387,10 +423,13 @@ class InferenceEngine:
         # The graphs hold their engine weakly: a reference cycle would keep
         # the engine's device memory until the collector ran.
         engine = weakref.ref(self)
+        state = [t for c in self.caches.values() for t in c]
         self.decode_graph = DecodeGraph(
-            lambda: engine()._decode_fn(lo=False), inputs, self.device, pool)
+            lambda: engine()._decode_fn(lo=False), inputs, self.device, pool,
+            state=state)
         self.lo_graph = DecodeGraph(
-            lambda: engine()._decode_fn(lo=True), inputs, self.device, pool)
+            lambda: engine()._decode_fn(lo=True), inputs, self.device, pool,
+            state=state)
         self._count_shapes: Dict[str, tuple] = {}
         self._out_host: Optional[torch.Tensor] = None
         self.capture_s = 0.0           # set-up: warm-up and capture
@@ -455,10 +494,19 @@ class InferenceEngine:
         return h
 
     def _quota_blocks(self, plen: int, start: int, max_new: int) -> int:
-        """Worst-case blocks a request allocates: the logical blocks from
-        its (block-aligned) prefix hit ``start`` to its sequence cap."""
-        return -(-min(self.ecfg.max_len, plen + max_new) // self._bt) - \
-            start // self._bt
+        """Worst-case blocks a request allocates. Full attention: the
+        logical blocks from its (block-aligned) prefix hit ``start`` to
+        its sequence cap. A sliding-window ring can wrap a write onto any
+        logical block: one allocation per logical block it writes, plus
+        one per trie-registrable prompt chunk (a block it computes, shares,
+        then copies on a later wrap)."""
+        seq_cap = min(self.ecfg.max_len, plen + max_new)
+        if self.cfg.attn.sliding_window is None:
+            return -(-seq_cap // self._bt) - start // self._bt
+        n_write = -(-min(self._C_pad, seq_cap) // self._bt)
+        n_reg = plen // self._bt \
+            if (self.trie is not None and plen <= self._C_attn) else 0
+        return n_write + n_reg
 
     def _row_cap_prefill(self, bucket: int) -> Optional[int]:
         """The per-row MoE capacity of a prefill at this length bucket
@@ -507,7 +555,8 @@ class InferenceEngine:
             return
         src = self._dev([s for s, _ in cows])
         dst = self._dev([d for _, d in cows])
-        for c in self.caches.values():
+        for p in self._attn_pos:
+            c = self.caches[p]
             for a in (c.k, c.v):
                 a[:, dst] = a[:, src]
         self.counters["kv_cow_copies"] += len(cows)
@@ -568,8 +617,9 @@ class InferenceEngine:
 
     def _register(self, toks: np.ndarray, lease: KVLease, n: int) -> None:
         """Offer the first ``n // block_tokens`` whole blocks of ``toks``
-        to the trie."""
-        if self.trie is not None and n // self._bt:
+        to the trie, when all ``n`` tokens fit the logical cache (a ring's
+        later wraps would leave stale chunks in the trie)."""
+        if self.trie is not None and n // self._bt and n <= self._C_attn:
             self.trie.insert(toks[:n], [int(lease.table[j])
                                         for j in range(n // self._bt)])
 
@@ -699,21 +749,25 @@ class InferenceEngine:
                 h.lease = lease
             self._apply_copies(cows)
             t0 = time.perf_counter()
+            # Mamba positions prefill into fresh rows from a zero state.
+            rows = init_mamba_rows(self.cfg, R, self.device)
             logits, counts = prefill_paged(
-                self.params, self.cfg, self._dev(toks), self.caches,
-                self._dev(tables, torch.int32), self._dev(starts),
-                self._dev(lengths), has_prefix=bool((starts > 0).any()),
-                **kw)
+                self.params, self.cfg, self._dev(toks),
+                {**self.caches, **rows}, self._dev(tables, torch.int32),
+                self._dev(starts), self._dev(lengths),
+                has_prefix=bool((starts > 0).any()), **kw)
         else:
             # Fresh row caches, then a copy into the slots' rows.
             t0 = time.perf_counter()
             rows = init_caches(self.cfg, R, self.ecfg.max_len, self.device)
             logits, counts = prefill(self.params, self.cfg, self._dev(toks),
                                      rows, self._dev(lengths), **kw)
-            slots = self._dev(free[:G])
-            for pos, c in rows.items():
-                self.caches[pos].k[:, slots] = c.k[:, :G]
-                self.caches[pos].v[:, slots] = c.v[:, :G]
+        # The admitted slots' rows only, in place: every other slot keeps
+        # its state.
+        slots = self._dev(free[:G])
+        for pos, c in rows.items():
+            for dst, src in zip(self.caches[pos], c):
+                dst[:, slots] = src[:, :G]
         amax, counts_np = self._fetch(torch.argmax(logits, -1), counts)
         dt = time.perf_counter() - t0
         self.prefill_shapes.add((R, bucket))
@@ -818,12 +872,21 @@ class InferenceEngine:
             raise ValueError(f"preempt of a {h.state.value} request (only "
                              f"RUNNING requests hold evictable state)")
         slot, pos = h.slot, int(self.pos[h.slot])
-        snap = SlotSnapshot(pos=pos, span_start=0)
+        # What attention can still read: the whole history, or a ring's
+        # last window (distinct slots, one lane each).
+        snap = SlotSnapshot(pos=pos, span_start=max(0, pos - self._C_attn))
+        # Host copies (``copy=True``: on the CPU a bare ``.cpu()`` would
+        # alias the slot's rows, which the next admission rewrites).
+        if self._mamba_pos:
+            snap.mamba_rows = {p: tuple(t[:, slot].to("cpu", copy=True)
+                                        for t in self.caches[p])
+                               for p in self._mamba_pos}
         if self.pool is None:
-            snap.attn_rows = {p: (c.k[:, slot].cpu(), c.v[:, slot].cpu())
-                              for p, c in self.caches.items()}
+            snap.attn_rows = {p: tuple(t[:, slot].to("cpu", copy=True)
+                                       for t in self.caches[p])
+                              for p in self._attn_pos}
         else:
-            span = np.arange(pos)
+            span = np.arange(snap.span_start, pos) % self._C_pad
             snap.attn_lanes = self._gather_lanes(
                 h.lease.table[span // self._bt], span % self._bt)
             # The full blocks stay warm in the trie (its own reference): an
@@ -849,15 +912,17 @@ class InferenceEngine:
         """Host copies of the K/V at the physical lanes (blk[i], off[i]) of
         every layer: {position: (k, v)}, each (W, nsb, Hkv, hd)."""
         b, o = self._dev(blk), self._dev(off)
-        return {p: (c.k[:, b, :, o].cpu(), c.v[:, b, :, o].cpu())
-                for p, c in self.caches.items()}
+        return {p: (self.caches[p].k[:, b, :, o].cpu(),
+                    self.caches[p].v[:, b, :, o].cpu())
+                for p in self._attn_pos}
 
     def _restore_lanes(self, lanes, sel: np.ndarray, blk: np.ndarray,
                        off: np.ndarray) -> None:
         """Upload snapshot lanes ``sel`` into physical lanes (blk, off)."""
         b, o = self._dev(blk), self._dev(off)
         s = torch.as_tensor(sel, dtype=torch.int64)
-        for p, c in self.caches.items():
+        for p in self._attn_pos:
+            c = self.caches[p]
             k, v = lanes[p]
             c.k[:, b, :, o] = k[s].to(self.device)
             c.v[:, b, :, o] = v[s].to(self.device)
@@ -884,6 +949,11 @@ class InferenceEngine:
         return True
 
     def _finish_resume(self, h: RequestHandle, slot: int) -> None:
+        """The slot's Mamba rows from the snapshot (whole state: it has no
+        per-position structure), then the slot's decode state."""
+        for p, rows in (h._snapshot.mamba_rows or {}).items():
+            for dst, src in zip(self.caches[p], rows):
+                dst[:, slot] = src.to(self.device)
         pos = h._snapshot.pos
         self.slots[slot] = h
         h.slot = slot
@@ -903,7 +973,8 @@ class InferenceEngine:
         snap = h._snapshot
         pos = snap.pos
         seq = np.concatenate([h.prompt(), np.asarray(h.tokens, np.int64)])
-        hits = self._pin_hits(seq[:pos], min(pos // self._bt, self._nb))
+        hits = self._pin_hits(seq[:pos], min(pos // self._bt, self._nb)) \
+            if pos <= self._C_attn else []
         start = len(hits) * self._bt
         if not self._headroom():
             self._unpin(hits)
@@ -914,15 +985,16 @@ class InferenceEngine:
             return False
         span = np.arange(max(start, snap.span_start), pos)
         if span.size:
+            slot_of = span % self._C_pad
             cows: List[Tuple[int, int]] = []
-            for j in sorted({int(x) // self._bt for x in span}):
+            for j in sorted({int(x) // self._bt for x in slot_of}):
                 phys, cow = lease.ensure(j)
                 if cow >= 0:
                     cows.append((cow, phys))
             self._apply_copies(cows)
             self._restore_lanes(snap.attn_lanes, span - snap.span_start,
-                                lease.table[span // self._bt],
-                                span % self._bt)
+                                lease.table[slot_of // self._bt],
+                                slot_of % self._bt)
         h.lease = lease
         self._finish_resume(h, slot)
         return True
@@ -933,8 +1005,12 @@ class InferenceEngine:
     # the blocks before it, at a bucket shape.
     # ------------------------------------------------------------------
     def _chunk_eligible(self, h: RequestHandle) -> bool:
-        return bool(self._chunk_tokens) and \
-            len(h.prompt()) > self._chunk_tokens
+        """Prompts longer than a chunk; a windowed prompt only while it
+        fits the window (a ring wrap mid-prompt would change which
+        positions a later chunk may overwrite)."""
+        plen = len(h.prompt())
+        return bool(self._chunk_tokens) and plen > self._chunk_tokens and \
+            (self.cfg.attn.sliding_window is None or plen <= self._C_attn)
 
     def _begin_chunked(self, h: RequestHandle, slot: int) -> bool:
         """Trie match and quota gate as a normal admission, no forward yet:
@@ -1140,8 +1216,8 @@ class InferenceEngine:
         row mask. Rows not in ``active`` are vacant: masked out of dispatch
         and counts, they replay their last token at their position and
         write its K/V to the trash block (on the pool) or to their own row
-        at ``pos % max_len`` (dense): for a row that is running, the slot
-        its next step writes first."""
+        at ``pos % C`` (dense; C the row's capacity): for a row that is
+        running, the slot its next step writes first."""
         h = self.decode_graph.inputs.host
         h["tokens"][:] = self.tokens
         h["pos"][:] = self.pos

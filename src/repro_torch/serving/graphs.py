@@ -6,7 +6,10 @@ in its engine), which runs the whole step as one compiled executable.
   buffer, written each step by one copy from a pinned host mirror whose
   numpy views the engine fills. Their addresses never move, so a captured
   graph reads each step's values.
-* ``DecodeGraph`` — a step function over those views. On the card it is
+* ``DecodeGraph`` — a step function over those views and the state it
+  updates in place (``state``: the KV pools or rows, and the Mamba
+  layers' ``conv``/``state`` rows; a replay advances them with no copy,
+  the same graph for every backend). On the card it is
   captured once (after a warm-up on a side stream, as
   ``torch.cuda.graph`` requires) and replayed on the current stream; on the
   CPU, and on the card inside ``eager()``, the same function runs op by op.
@@ -95,16 +98,21 @@ class DecodeGraph:
     WARMUP = 3
 
     def __init__(self, fn: Callable[[], tuple], inputs: StaticInputs,
-                 device: torch.device, pool=None):
+                 device: torch.device, pool=None,
+                 state: Sequence[torch.Tensor] = ()):
         """``pool``: a ``torch.cuda.graph_pool_handle()`` shared with other
         graphs over the same inputs. Graphs that share a pool must run one
         after the other on one stream, and each one's outputs are read
         before another replays (a later capture may place its outputs in
-        memory an earlier graph uses for its temporaries)."""
+        memory an earlier graph uses for its temporaries). ``state``: the
+        tensors ``fn`` updates in place; a replay raises if one of them
+        has been reallocated since the capture."""
         self.fn = fn
         self.inputs = inputs
         self.device = device
         self.pool = pool
+        self.state = list(state)
+        self._state_ptrs: List[int] = []
         self.graph = None
         self.outputs: tuple = ()
         self.launches: Dict[str, int] = {}   # kernel → launches per replay
@@ -149,6 +157,7 @@ class DecodeGraph:
         finally:
             kops.LAUNCHES.update(saved)
         self.graph, self.outputs = graph, outputs
+        self._state_ptrs = [t.data_ptr() for t in self.state]
 
     def run(self) -> tuple:
         """One step: push the inputs, then replay (or run ``fn`` op by op
@@ -159,6 +168,10 @@ class DecodeGraph:
         if self.graph is None:
             raise RuntimeError("the decode step has not been captured yet "
                                "(capture() first)")
+        if any(t.data_ptr() != p for t, p in zip(self.state,
+                                                 self._state_ptrs)):
+            raise RuntimeError("state the decode graph updates in place was "
+                               "reallocated after its capture")
         if self.events is None:
             self.graph.replay()
         else:

@@ -409,6 +409,64 @@ def test_ragged_ffn_replays_in_a_cuda_graph(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["jamba", "gateup_long_k"])
+@pytest.mark.parametrize("with_hi", [True, False])
+def test_ragged_kernels_walk_k_in_pieces(cuda, shape, with_hi):
+    """K beyond one shared-memory tile: Jamba-v0.1's experts (K = 4096 →
+    F = 14336 → D = 4096, int4 g = 64: down walks K = 14336 in two
+    pieces), and gate/up at K = 14336 (two pieces); hi and lo tiles
+    interleaved with tail tiles, against the plain versions on the card
+    on the same inputs."""
+    from repro_torch.kernels import ref
+    K, F, D = (4096, 14336, 4096) if shape == "jamba" else (14336, 128, 256)
+    gen = torch.Generator(device=cuda).manual_seed(K + F)
+    lo = {n: quantize((torch.randn((4,) + s, generator=gen, device=cuda)
+                       * s[0] ** -0.5).to(torch.bfloat16), 4, 64)
+          for n, s in (("w_gate", (K, F)), ("w_up", (K, F)),
+                       ("w_down", (F, D)))}
+    hi = {n: (torch.randn((2,) + tuple(q.shape[1:]), generator=gen,
+                          device=cuda) * q.shape[1] ** -0.5)
+          .to(torch.bfloat16) for n, q in lo.items()} if with_hi else \
+        {n: None for n in lo}
+    nmat, k_long = (1, F) if shape == "jamba" else (2, K)
+    assert ops.ragged_piece(nmat, k_long, 64) < k_long // 64
+    te = torch.tensor(TILE_EID, dtype=torch.int32, device=cuda)
+    ts = torch.tensor(TILE_SLOT, dtype=torch.int32, device=cuda)
+    n = torch.tensor([len(TILE_EID) - 2], dtype=torch.int32, device=cuda)
+    xs = torch.randn((len(TILE_EID) * BM, K), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    kw = dict(bits=4, group=64, bm=BM)
+    args = (lo["w_gate"].packed, lo["w_gate"].scales, lo["w_up"].packed,
+            lo["w_up"].scales, hi["w_gate"], hi["w_up"])
+    h_want = ref.ragged_gateup_ref(xs, te, ts, *args, **kw)
+    h_got = ops.ragged_gateup(xs, te, ts, n, *args, **kw)
+    dn = (lo["w_down"].packed, lo["w_down"].scales, hi["w_down"])
+    y_want = ref.ragged_down_ref(h_want, te, ts, *dn, **kw)
+    y_got = ops.ragged_down(h_want, te, ts, n, *dn, **kw)
+    rows = int(n) * BM
+    _assert_ffn_close(h_got.cpu(), h_want.cpu(), rows)
+    _assert_ffn_close(y_got.cpu(), y_want.cpu(), rows)
+
+
+@pytest.mark.cuda
+def test_ragged_kernels_refuse_a_group_beyond_shared_memory(cuda):
+    """One scale group of 14336 K rows cannot fit a CTA's shared memory:
+    the wrapper raises a ValueError naming K before any launch, and never
+    runs the plain version on the card."""
+    K, D = 14336, 64
+    q = quantize((torch.randn((1, K, D)) * 0.01).to(torch.bfloat16), 4, K)
+    te = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    ts = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    n = torch.ones((1,), dtype=torch.int32, device=cuda)
+    h = torch.zeros((BM, K), dtype=torch.bfloat16, device=cuda)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="K=14336"):
+        ops.ragged_down(h, te, ts, n, q.packed.to(cuda), q.scales.to(cuda),
+                        bits=4, group=K, bm=BM)
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T", [8, 40])
 def test_ragged_kernels_flagship_width(cuda, T):
     """The flagship's experts: 512 of them, T tokens routed top-10, K =
@@ -1001,11 +1059,13 @@ def test_promotion_published_between_replays_is_served(cuda, path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", list(PATHS))
 def test_replays_run_while_promotion_copies_are_pending(cuda, path):
-    """Hi copies held in flight on the side stream (queued behind a ~2 s
-    spin) while replays run on the compute stream: the replays read only
-    published slots, so their logits equal eager decode's under the same
-    (empty) published set; once the copies land and publish, the next
-    replay serves them from hi, again equal to eager."""
+    """Hi copies held in flight on the side stream (queued behind a ~6 s
+    spin: ~3x the body's two replays and two eager steps, which took
+    2.15 s where the spin was ~2 s) while replays run on the compute
+    stream: the replays read only published slots, so their logits equal
+    eager decode's under the same (empty) published set; once the copies
+    land and publish, the next replay serves them from hi, again equal to
+    eager."""
     engines = [_engine(cuda, "dynaexq", path, update_interval_s=1e9)
                for _ in range(2)]                  # graphed, eager
     for eng in engines:
@@ -1018,7 +1078,7 @@ def test_replays_run_while_promotion_copies_are_pending(cuda, path):
     for eng, managers in zip(engines, tms):
         for tm in managers:
             with torch.cuda.stream(tm._side):
-                torch.cuda._sleep(4_000_000_000)
+                torch.cuda._sleep(12_000_000_000)
         eng.backend.force_update()               # copies queue behind it
         assert any(tm.inflight_bytes for tm in managers)
     for _ in range(2):

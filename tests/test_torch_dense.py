@@ -88,12 +88,37 @@ def test_attention_prefill_refuses_the_chunked_length(attn):
 
 
 def test_attention_prefill_refuses_sliding_window_rings(attn):
-    jcfg, cfg, _, tattn = attn
-    x = torch.zeros((1, 8, jcfg.d_model), dtype=torch.bfloat16)
-    _, tc = _cache(jcfg, 1, 4, seed=0)
-    ring = dataclasses.replace(cfg.attn, sliding_window=4)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tlayers.attention_prefill(tattn, ring, x, tc, torch.tensor([8]))
+    """Sliding-window rings on dense rows are ported: a ring of capacity
+    ``min(max_len, window)`` smaller than the bucket takes each row's last
+    ``C`` real positions at slot ``pos % C`` (a short row wraps less, an
+    inert row keeps its slots), and the window mask, as the reference's
+    ``attention_prefill``. What stays refused is a prefill beyond the
+    plain attention's length (the chunked attention, not ported)."""
+    jcfg, cfg, jattn, tattn = attn
+    B, S, W = 3, 32, 12
+    jring = dataclasses.replace(jcfg.attn, sliding_window=W)
+    ring = dataclasses.replace(cfg.attn, sliding_window=W)
+    rng = np.random.default_rng(8)
+    x = jnp.asarray(rng.standard_normal((B, S, jcfg.d_model)), jnp.bfloat16)
+    lengths = np.array([20, 0, 32])
+    jc, tc = _cache(jcfg, B, W, seed=9)
+    jo, jc2 = jlayers.attention_prefill(jattn, jring, x, jc,
+                                        lengths=jnp.asarray(lengths))
+    to = tlayers.attention_prefill(tattn, ring, to_torch(x), tc,
+                                   torch.from_numpy(lengths))
+    _ulps(tc.k, jc2.k)
+    _ulps(tc.v, jc2.v)
+    np.testing.assert_array_equal(tc.k[1].float().numpy(),
+                                  np.asarray(jc.k[1], np.float32))
+    for r, n in enumerate(lengths):
+        np.testing.assert_allclose(to[r, :n].float().numpy(),
+                                   np.asarray(jo[r, :n], np.float32),
+                                   rtol=0.05, atol=0.05)
+    x_long = torch.zeros((1, 2049, jcfg.d_model), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="chunked"):
+        tlayers.attention_prefill(tattn, ring, x_long,
+                                  _cache(jcfg, 1, W, seed=0)[1],
+                                  torch.tensor([2049]))
 
 
 def test_attention_decode_matches_reference(attn):

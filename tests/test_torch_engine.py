@@ -106,15 +106,18 @@ def _margin(row):
     return float(top[1] - top[0])
 
 
-def _serve_lockstep(cfg, je, te, monkeypatch, paged=True, tol=LOGIT_TOL):
+def _serve_lockstep(cfg, je, te, monkeypatch, paged=True, tol=LOGIT_TOL,
+                    past_routing=False):
     """Serve the same requests through both engines one step at a time and
     compare every emitted token and its logits row (to ``tol``, the margin
     rule at ``4 * tol``). A request is compared
     until its tokens first differ (which must be at a small-margin step) or
     its router counts first differ (a top-k near tie, after which its
-    hidden states legitimately diverge). Returns per request: (reference
-    tokens, port tokens, (first uncompared token, reason) or None,
-    small-margin steps seen)."""
+    hidden states legitimately diverge). With ``past_routing`` its tokens
+    (not its logits) are still compared after a router difference, under
+    the same margin rule. Returns per request: (reference tokens, port
+    tokens, (first uncompared token, reason) or None, small-margin steps
+    seen)."""
     margins, port_logits = {}, {}
 
     post = je._post_prefill
@@ -158,6 +161,7 @@ def _serve_lockstep(cfg, je, te, monkeypatch, paged=True, tol=LOGIT_TOL):
           for p in prompts]
     stop = {i: None for i in range(len(prompts))}
     small = {i: 0 for i in range(len(prompts))}
+    routed = {i: True for i in range(len(prompts))}
     while je.queue or any(je.slots) or te.queue or any(te.slots):
         before = [len(h.tokens) for h in jh]
         port_logits.clear()
@@ -175,12 +179,14 @@ def _serve_lockstep(cfg, je, te, monkeypatch, paged=True, tol=LOGIT_TOL):
             else:                                  # its prefill
                 port_row = None
             small[i] += margins[a.id][-1] < 4 * tol
-            if any(not np.array_equal(a.expert_counts[k],
-                                      b.expert_counts[k])
-                   for k in b.expert_counts):
-                stop[i] = (n - 1, "router near-tie")
-                continue
-            if port_row is not None:
+            if routed[i] and any(not np.array_equal(a.expert_counts[k],
+                                                    b.expert_counts[k])
+                                 for k in b.expert_counts):
+                routed[i] = False
+                if not past_routing:
+                    stop[i] = (n - 1, "router near-tie")
+                    continue
+            if port_row is not None and routed[i]:
                 np.testing.assert_allclose(port_row, ref_row, rtol=0,
                                            atol=tol)
             if a.tokens[-1] != b.tokens[-1]:

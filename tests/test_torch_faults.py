@@ -305,6 +305,10 @@ def test_promo_stall_publishes_once_the_clock_passes_it():
         ctl.tm.drain()
     t[0] = 3.9
     assert [c.tm.publish_ready() for c in ctls] == [0, 0]
+    # The reference's copy is an asynchronous dispatch that a loaded host
+    # may not have finished yet: wait for it, so the clock alone decides.
+    for p in ctls[0].tm._pending:
+        jax.block_until_ready(p.arrays)
     t[0] = 4.1
     assert [c.tm.publish_ready() for c in ctls] == [1, 1]
     _same(ctls[0].tm, ctls[1].tm)

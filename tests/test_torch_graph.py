@@ -13,6 +13,7 @@ import torch
 
 from repro.models.layers import rope as jrope
 from repro_torch.configs import get_config
+from repro_torch.core.controller import ControllerConfig
 from repro_torch.core.ver import build_bank
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
@@ -335,6 +336,48 @@ def test_engine_static_step_matches_fresh_tensors(monkeypatch, paged,
     assert all(len(h.tokens) == 6 for h in handles)
 
 
+@pytest.mark.parametrize("backend", ["dynaexq", "fp16"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_hybrid_engine_decode_step_reads_nothing_on_the_host(monkeypatch,
+                                                             paged, backend):
+    """The reduced Jamba (seven SSD layers, a windowed attention layer,
+    dense and MoE FFNs) through the engine's step over its static inputs,
+    rows running and one vacant: no host read; the Mamba rows are updated
+    in place (the tensors the graph captures), the vacant row's kept."""
+    cfg = get_config("jamba-v0_1-52b", reduced=True)
+    eng = InferenceEngine(
+        cfg, init_params(cfg, seed=4, device="cpu"),
+        make_backend(backend, device="cpu",
+                     **({"n_hi_per_layer": 2} if backend == "dynaexq"
+                        else {})),
+        EngineConfig(max_slots=3, max_len=64, paged=paged,
+                     moe_dispatch="ragged" if paged else "padded"),
+        device="cpu")
+    for i in range(2):
+        eng.submit(Request(tokens=make_prompts(
+            "text", cfg.vocab_size, 1, 20 + 9 * i, seed=i)[0],
+            max_new_tokens=4))
+    eng.step()
+    rows = [(i, h) for i, h in enumerate(eng.slots) if h is not None]
+    assert len(rows) == 2
+    cows = []
+    eng._fill_step(rows, cows)
+    eng._apply_copies(cows)
+    eng.decode_graph.inputs.push()
+    state = eng.caches["0"].state
+    ptr, before = state.data_ptr(), state.clone()
+    vacant = next(i for i, h in enumerate(eng.slots) if h is None)
+    with no_host_reads(monkeypatch):
+        logits, packed = eng._decode_fn(lo=False)
+    assert logits.shape == (3, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert eng.caches["0"].state.data_ptr() == ptr
+    assert eng.decode_graph.state and any(t is state
+                                          for t in eng.decode_graph.state)
+    assert torch.equal(state[:, vacant], before[:, vacant])
+    assert not torch.equal(state[:, rows[0][0]], before[:, rows[0][0]])
+
+
 @pytest.mark.parametrize("lo", [False, True], ids=["served", "all-lo"])
 def test_engine_decode_steps_read_nothing_on_the_host(monkeypatch, lo):
     """Both of the engine's captured steps (the served banks and the batch
@@ -443,7 +486,13 @@ def test_observed_engine_reads_what_the_bare_engine_reads(monkeypatch,
         eng = InferenceEngine(
             cfg, init_params(cfg, seed=2, device="cpu"),
             make_backend(backend, device="cpu", **(
-                dict(n_hi_per_layer=2) if backend == "dynaexq" else {})),
+                # A policy window every step: at the default cadence (one
+                # per second of wall clock) the host's load decides the
+                # steps that open a window, so two runs' hi sets, and
+                # their tokens, could differ.
+                dict(n_hi_per_layer=2, controller=ControllerConfig(
+                    update_interval_s=0.0)) if backend == "dynaexq"
+                else {})),
             EngineConfig(max_slots=3, max_len=64, spec_k=spec_k),
             device="cpu", obs=obs)
         handles = [eng.submit(Request(tokens=make_prompts(

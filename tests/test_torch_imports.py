@@ -38,6 +38,7 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.serving.backends, repro_torch.convert, "
             "repro_torch.kernels.build, repro_torch.models.model, "
             "repro_torch.core.allocator, repro_torch.models.mlp, "
+            "repro_torch.models.ssm, "
             "repro_torch.serving.hoststore, repro_torch.serving.sampler, "
             "repro_torch.serving.prefix, repro_torch.serving.scheduler, "
             "repro_torch.serving.lobanks, repro_torch.serving.requests, "

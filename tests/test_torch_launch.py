@@ -148,3 +148,16 @@ def test_launcher_runs_as_a_module(tmp_path):
                        cwd=tmp_path)
     assert r.returncode == 0, r.stderr
     _check_lines(r.stdout.strip().splitlines(), spec=False, trace=False)
+
+
+def test_launcher_serves_jamba_on_the_cpu():
+    """``--arch jamba-v0_1-52b`` (reduced: one super-block of seven Mamba
+    layers and one windowed attention layer, dense and MoE FFNs) serves
+    every request on the CPU; speculative decoding, not ported for Mamba
+    stacks, is switched off with a line that says so."""
+    out = serve.main(["--arch", "jamba-v0_1-52b", "--backend", "dynaexq",
+                      "--no-obs"] + SMALL)
+    assert [len(t) for t in out["tokens"]] == [4, 4]
+    assert any("Queue 1 item 8" in line for line in out["lines"])
+    head = next(line for line in out["lines"] if "backend=" in line)
+    assert "jamba-v0.1-52b-smoke" in head and "spec_k=0" in head

@@ -147,3 +147,56 @@ def test_cuda_shape_rules_accept_and_check_alignment():
     ops._cuda_shape_rules(8, 2048, 128, buf[8:])      # 16 bytes in
     with pytest.raises(ValueError, match="16-byte"):
         ops._cuda_shape_rules(8, 768, 64, buf[1:])
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_lo"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_pieces_of_k_keep_the_whole_k_order(bits, case):
+    """K walked in pieces of whole scale groups (K = 12 groups, pieces of
+    4 and of 5 groups, the last shorter), the float32 accumulators carried
+    across pieces, gives the whole-K order bit for bit on both tiers."""
+    group = 64
+    jlo, jhi, tlo, thi, tile_eid, tile_slot, xs = _inputs(
+        bits, group, seed=bits + 3, K=12 * group, F=12 * group)
+    if case == "all_lo":
+        tile_slot = np.full_like(tile_slot, -1)
+    x = to_torch(xs)
+    te, ts = torch.from_numpy(tile_eid), torch.from_numpy(tile_slot)
+    lo = [tlo[n] for n in ("w_gate", "w_up", "w_down")]
+    kw = dict(bits=bits, group=group, bm=BM)
+    h = ref.ragged_gateup_mma(x, te, ts, lo[0].packed, lo[0].scales,
+                              lo[1].packed, lo[1].scales, thi["w_gate"],
+                              thi["w_up"], **kw)
+    y = ref.ragged_down_mma(h, te, ts, lo[2].packed, lo[2].scales,
+                            thi["w_down"], **kw)
+    for gpc in (4, 5):
+        hp = ref.ragged_gateup_mma(x, te, ts, lo[0].packed, lo[0].scales,
+                                   lo[1].packed, lo[1].scales,
+                                   thi["w_gate"], thi["w_up"], gpc=gpc, **kw)
+        yp = ref.ragged_down_mma(h, te, ts, lo[2].packed, lo[2].scales,
+                                 thi["w_down"], gpc=gpc, **kw)
+        assert torch.equal(hp, h) and torch.equal(yp, y)
+
+
+@pytest.mark.parametrize("nmat,K,pieces", [
+    (2, 2048, 1), (1, 768, 1), (2, 4096, 1), (1, 12416, 1),
+    (2, 10752, 1), (1, 14336, 2), (2, 14336, 2), (1, 512, 1)])
+def test_ragged_piece_rule(nmat, K, pieces):
+    """The shapes that fitted one piece still take one (the 30B's, the
+    80B's and granite's K, and the old limits: down 12416, gate/up 10752
+    at g = 64); Jamba's down and gate/up at K = 14336 take two equal
+    pieces within the card's shared memory."""
+    gpc = ops.ragged_piece(nmat, K, 64)
+    G = K // 64
+    assert -(-G // gpc) == pieces
+    assert ops.ragged_smem_bytes(nmat, 64, gpc) <= ops.SMEM_MAX
+    if pieces == 1:
+        assert gpc == G
+    # The old single-tile formula agrees where K fitted one piece.
+    old = 8 * (K + 8) * 2 + 4 * nmat * (2048 + G * 32)
+    assert (old <= ops.SMEM_MAX) == (pieces == 1)
+
+
+def test_ragged_piece_rejects_a_group_beyond_shared_memory():
+    with pytest.raises(ValueError, match="K=14336"):
+        ops.ragged_piece(1, 14336, 14336)
