@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only card,build,ladder
     python3 chip_smoke.py --only card,build,obs
     python3 chip_smoke.py --only card,build,hybrid [--parent DIR]
+    python3 chip_smoke.py --only card,build,families
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -31,7 +32,12 @@ Phases (each prints one line; any failure exits non-zero):
               models and a skewed 30B prefill (expert 0 in every top-8),
               each beside one ``torch._grouped_mm`` over the segments (its
               yardstick), and the 30B prefill's tile map shuffled and with
-              one expert in two places, held to the plain version;
+              one expert in two places, held to the plain version; both
+              decode-attention kernels also at the dense families' heads
+              (Danube hd 120 rep 4 past a wrap of its 4096 ring, DeepSeek
+              rep 1, Llama rep 3); with ``--parent DIR`` both against the
+              parent's kernels at the 30B's, the flagship's and Jamba's
+              heads (bit-equal, device ms in turns);
    splits   — both decode-attention kernels at their main shapes under
               forced split counts, each held against its plain version,
               with device (graph) and host time per call;
@@ -192,7 +198,26 @@ Phases (each prints one line; any failure exits non-zero):
               alike, and those agree), then a forced preemption and
               resume (tokens = the uninterrupted run's); (d) the window
               cut to 256: 8 requests of 300-380 tokens on both layouts,
-              held to each other by routing as in (c);
+              held to each other by routing as in (c); (e) ``dynaexq``
+              with spec off and ``spec_k`` 3 on paged/ragged, graphed:
+              tokens identical (or each difference explained by
+              routing), each row's Mamba state rolled back to its last
+              accepted step;
+   families — the dense and pure-SSM families at full width and depth
+              (Llama-3.2-3B, DeepSeek-7B, Phi-4-mini, H2O-Danube3-4B,
+              Mamba2-130m; seeded weights drawn on the card): 8 greedy
+              requests (64-256 tokens, 32 new, 8 slots) with ``fp16`` on
+              paged KV and dense rows, graphed (Llama also op by op:
+              tokens and launches equal), dense rows fed the paged
+              run's tokens and held to it position by position (at least
+              half the positions held, near ties at most half of them,
+              flips within 3 bf16 steps), the decode-attention kernel of
+              each layout
+              launched and nothing else of the port (Mamba2: no kernel),
+              Mamba2 with ``spec_k`` 4 = spec off, Danube's 4608-token
+              chunked prefill (its layer 0 against the whole masked
+              attention on the card), the launcher at ``--full``; TTFT,
+              TPOT, replay ms, the bytes a step reads and their bound;
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -688,12 +713,13 @@ def _n_split(B, Hkv, n_tiles):
     return ops.decode_splits(B, Hkv, n_tiles, ops._sm_count(0))[0]
 
 
-def _dense_decode_inputs(cfg, gen, dev, B, S, holes=False):
+def _dense_decode_inputs(cfg, gen, dev, B, S, holes=False, valid=None):
     """q, the (B, S, Hkv, hd) views of head-major caches and valid, plus the
     rows that must come out as zeros and SDPA's yardstick call. B=8:
     ragged rows, one full (the inputs of earlier runs); else full rows, or
     with ``holes`` row 0 valid only in [0, 100) ∪ [S-196, S), row 1 at
-    valid[0] alone and row 2 all-masked."""
+    valid[0] alone and row 2 all-masked. A ``valid`` given is used as it
+    is (drawn after the caches and q)."""
     H, Hkv, hd = cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.attn.head_dim
     ck = torch.randn((B, Hkv, S, hd), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -701,11 +727,11 @@ def _dense_decode_inputs(cfg, gen, dev, B, S, holes=False):
         torch.bfloat16)
     q = torch.randn((B, H, hd), generator=gen, device=dev).to(torch.bfloat16)
     zero_rows = []
-    if B == 8:
+    if valid is None and B == 8:
         lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
         lengths[0] = S                         # one full row
         valid = torch.arange(S, device=dev)[None, :] < lengths[:, None]
-    else:
+    elif valid is None:
         valid = torch.ones((B, S), dtype=torch.bool, device=dev)
         if holes:
             valid[0, 100:S - 196] = False
@@ -753,17 +779,21 @@ def _kernels_dense_decode(cfg, gen, dev) -> None:
             cases[-1]["host_steps_us"] = _log_host_steps(
                 "flash_decode", case, host_steps("flash_decode", q, k, v,
                                                  valid))
+    cases += _family_attn_cases("flash_decode", dev)
     _attn_result("flash_decode",
                  "src/repro_torch/kernels/csrc/flash_decode.cu",
                  "src/repro/kernels/flash_decode.py:31", cases)
 
 
-def _paged_decode_inputs(cfg, gen, dev, B, nb, holes=False, bt=16):
+def _paged_decode_inputs(cfg, gen, dev, B, nb, holes=False, bt=16,
+                         valid=None):
     """q, block pools, table and valid, plus the rows that must come out
     as zeros and SDPA's yardstick call over the gathered view: random
     lengths (row 0 full), -1 entries past each row's blocks; with
     ``holes`` row 0 valid only in its first 2 and last 56 blocks, row 1
-    vacant (table -1, valid[0]: reads block 0), row 2 all-masked."""
+    vacant (table -1, valid[0]: reads block 0), row 2 all-masked. A
+    ``valid`` given (every block of every row allocated) replaces the
+    drawn lengths' mask."""
     from repro_torch.models.layers import PagedKVCache, paged_view
     H, Hkv, hd = cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.attn.head_dim
     N = 1 + B * nb
@@ -786,7 +816,11 @@ def _paged_decode_inputs(cfg, gen, dev, B, nb, holes=False, bt=16):
     blk_idx = torch.arange(nb, device=dev)[None, :]
     table = torch.where(blk_idx < used[:, None], table,
                         torch.full_like(table, -1))
-    valid = torch.arange(nb * bt, device=dev)[None, :] < lengths[:, None]
+    if valid is not None:
+        table = perm[:B * nb].reshape(B, nb).clone()
+    else:
+        valid = torch.arange(nb * bt, device=dev)[None, :] < \
+            lengths[:, None]
     if holes:
         valid[0, 2 * bt:(nb - 56) * bt] = False
         valid[1, 0] = True
@@ -859,9 +893,67 @@ def _kernels_paged_decode(cfg, gen, dev) -> None:
                 ref.flash_decode_paged_ref(q, k, v, t, m),
             lib, nbytes, 4 * n_valid * H * hd, zero_rows,
             _n_split(B, Hkv, nb)))
+    cases += _family_attn_cases("flash_decode_paged", dev)
     _attn_result("flash_decode_paged",
                  "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
                  "src/repro/kernels/flash_decode.py:92", cases)
+
+
+#: The dense families' decode-attention shapes (rows 3 and 5 beyond the
+#: compiled widths' first shapes): Danube's hd 120 (run on the 128 width,
+#: zero-padded in shared memory), rep 4, on rows past a wrap of its 4096
+#: ring; DeepSeek's MHA (rep 1); Llama's rep 3 (Phi-4-mini's heads too).
+FAMILY_ATTN = (("danube hd120 rep4 ring 4096", "h2o-danube-3-4b", 4096),
+               ("deepseek hd128 rep1", "deepseek-7b", 288),
+               ("llama hd128 rep3", "llama3_2-3b", 288))
+
+
+def _family_attn_cases(name, dev) -> list:
+    """``FAMILY_ATTN`` through one decode-attention kernel at B=8, each
+    held against its plain version and timed beside SDPA over the gathered
+    view. Danube's rows sit past the wrap of a 4096-slot ring (positions
+    4096 + [0, 500), every slot valid under its 4096 window, as
+    ``layers.decode_valid`` gives it); the others are the serving phase's
+    288-slot rows of random lengths (row 0 full)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import decode_valid
+    gen = torch.Generator(device=dev).manual_seed(61)
+    bt, B, out = 16, 8, []
+    for case, arch, S in FAMILY_ATTN:
+        cfg = get_config(arch)
+        H, Hkv, hd = cfg.attn.n_heads, cfg.attn.n_kv_heads, \
+            cfg.attn.head_dim
+        valid = None
+        if cfg.attn.sliding_window is not None:
+            pos = S + torch.randint(0, 500, (B,), generator=gen, device=dev)
+            valid = decode_valid(pos, S, cfg.attn)
+        if name == "flash_decode":
+            q, k, v, m, zero_rows, lib = _dense_decode_inputs(
+                cfg, gen, dev, B, S, valid=valid)
+            n_valid = int(m.sum().item())
+            nbytes = q.numel() * 2 * 2 + n_valid * 2 * Hkv * hd * 2 + \
+                m.numel()
+            run_k = lambda q=q, k=k, v=v, m=m: ops.flash_decode(q, k, v, m)
+            run_p = lambda q=q, k=k, v=v, m=m: ref.flash_decode_ref(q, k, v,
+                                                                   m)
+            n_split = _n_split(B, Hkv, -(-S // ops.DECODE_TILE))
+        else:
+            nb = S // bt
+            q, k, v, t, m, zero_rows, lib = _paged_decode_inputs(
+                cfg, gen, dev, B, nb, valid=valid)
+            n_blocks = int(m.reshape(B, nb, bt).any(-1).sum().item())
+            n_valid = int(m.sum().item())
+            nbytes = q.numel() * 2 * 2 + n_blocks * 2 * Hkv * bt * hd * 2 + \
+                t.numel() * 4 + m.numel()
+            run_k = lambda q=q, k=k, v=v, t=t, m=m: ops.flash_decode_paged(
+                q, k, v, t, m)
+            run_p = lambda q=q, k=k, v=v, t=t, m=m: \
+                ref.flash_decode_paged_ref(q, k, v, t, m)
+            n_split = _n_split(B, Hkv, nb)
+        out.append(_attn_case(name, case, run_k, run_p, lib, nbytes,
+                              4 * n_valid * H * hd, zero_rows, n_split))
+    return out
 
 
 def _kernels_quant_matmul(gen, dev, tol_rel) -> None:
@@ -1217,7 +1309,7 @@ def _kernels_dense_ffn(dev, tol) -> None:
 
 def _dense_routes(dev, tol) -> None:
     """The all-hi wrappers' route (``ops.dense_route``, decided from shapes
-    before any launch): every registered config at full width takes the
+    before any launch): every registered MoE config at full width takes the
     kernel on its operands as they are; a shape the kernels cannot tile as
     it is (N = 96, then K = 200) and a misaligned operand go to the kernel
     as zero-padded aligned copies, equal to the kernel on operands padded
@@ -1228,6 +1320,8 @@ def _dense_routes(dev, tol) -> None:
     routes = {}
     for name in ARCH_IDS:
         c = get_config(name)
+        if c.moe is None:                   # no expert bank to route
+            continue
         d, f, m = c.d_model, c.moe.d_ff_expert, c.moe
         # A prefill of 512 tokens: the dispatch's tile budget.
         Tt = 512 * m.top_k // 8 + min(m.num_experts, 512 * m.top_k) + 1
@@ -1286,7 +1380,81 @@ def _dense_routes(dev, tol) -> None:
                    f"{tol} of the largest output)")
 
 
-def phase_kernels() -> None:
+#: The decode-attention shapes the kernels took before the padded widths
+#: (the 30B's H 32 / Hkv 4 / hd 128, the flagship's 16 / 2 / 256, Jamba's
+#: 32 / 8 / 128), held to the parent's kernels with ``--parent``.
+ATTN_AB = (("30b", ARCH), ("80b", FLAGSHIP), ("jamba", "jamba-v0_1-52b"))
+#: The parent's graph ms that these shapes' must stay within.
+ATTN_AB_SPREAD = 0.03
+
+
+def _attn_ab(parent) -> None:
+    """With ``--parent``: both decode-attention kernels of the parent tree
+    and this one on the same inputs at ``ATTN_AB``'s shapes (B=8, the
+    serving phase's 288 positions of random lengths, row 0 full), through
+    this tree's launch plan: outputs bit-equal, device ms by graph replay
+    in turns (parent, change, change, parent); each kernel's entry gains a
+    "parent_ab" list."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops
+    libs, _ = _parent_library(pathlib.Path(parent),
+                              ("flash_decode", "flash_decode_paged"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(71)
+    for case, arch in ATTN_AB:
+        cfg = get_config(arch)
+        for name in ("flash_decode", "flash_decode_paged"):
+            if name == "flash_decode":
+                q, k, v, m, _, _ = _dense_decode_inputs(cfg, gen, dev, 8, 288)
+                rest = (m,)
+                ops.flash_decode(q, k, v, m)
+                key = (name, q.shape, k.shape, k.stride(), q.device.index)
+            else:
+                q, k, v, t, m, _, _ = _paged_decode_inputs(cfg, gen, dev, 8,
+                                                           18)
+                rest = (t, m)
+                ops.flash_decode_paged(q, k, v, t, m)
+                key = (name, q.shape, k.shape, t.shape[1], q.device.index)
+            plan = ops._PLANS[key]
+            ptrs = [x.data_ptr() for x in (q, k, v) + rest]
+            outs = [torch.empty(plan.shape, dtype=torch.bfloat16, device=dev)
+                    for _ in range(2)]
+            scratch = [None if not plan.scratch else torch.empty(
+                plan.scratch, dtype=torch.float32, device=dev)
+                for _ in range(2)]
+            # The stream is read at each call: a graph capture runs on a
+            # stream of its own.
+            def run(lib, i, name=name, ptrs=ptrs, plan=plan):
+                build.check(getattr(lib, name)(
+                    *ptrs, outs[i].data_ptr(), ops._ptr(scratch[i]),
+                    plan.dims_ptr, plan.scale, ops._stream(0)), name)
+
+            mine = build.library(name)
+            run(libs[name], 0)
+            run(mine, 1)
+            torch.cuda.synchronize()
+            if not torch.equal(outs[0], outs[1]):
+                raise AssertionError(f"{name} {case}: parent and change "
+                                     f"differ")
+            tt = _turns(lambda: run(libs[name], 0), lambda: run(mine, 1))
+            p_ms, c_ms = (tt[0] + tt[3]) / 2, (tt[1] + tt[2]) / 2
+            within = abs(c_ms / p_ms - 1) <= ATTN_AB_SPREAD
+            RESULTS[name].setdefault("parent_ab", []).append(
+                {"case": case, "split": plan.n_split, "turns_ms": tt,
+                 "parent_ms": p_ms, "change_ms": c_ms,
+                 "within_spread": within})
+            log("kernels", f"A/B {name} {case} B=8 (H {cfg.attn.n_heads}, "
+                           f"Hkv {cfg.attn.n_kv_heads}, hd "
+                           f"{cfg.attn.head_dim}), {plan.n_split} split(s): "
+                           f"parent/change/change/parent graph ms "
+                           f"{[round(x, 5) for x in tt]} -> parent "
+                           f"{p_ms:.5f}, change {c_ms:.5f} "
+                           f"({(c_ms / p_ms - 1) * 100:+.2f}%, within "
+                           f"{ATTN_AB_SPREAD:.0%}: {within}), outputs "
+                           f"bit-equal")
+
+
+def phase_kernels(parent=None) -> None:
     from repro_torch.configs import get_config
     from repro_torch.quant.qtensor import quantize
     cfg = get_config(ARCH)
@@ -1391,6 +1559,8 @@ def phase_kernels() -> None:
     _kernels_dense_decode(cfg, gen, dev)
     _kernels_quant_matmul(gen, dev, tol)
     _kernels_paged_decode(cfg, gen, dev)
+    if parent is not None:
+        _attn_ab(parent)
 
 
 def phase_splits() -> None:
@@ -1525,19 +1695,20 @@ def phase_gemms() -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _parent_library(parent: pathlib.Path):
-    """The parent tree's ragged FFN and all-hi libraries
-    (``csrc/ragged_ffn.cu`` and ``csrc/ragged_dense_ffn.cu`` of a ``git
-    archive`` of the parent commit), built at once with this tree's flags
-    into ``build/kernels/parent/`` and loaded with this tree's C
-    signatures (the same entries; the parent's all-hi occupancy takes E
-    where this tree's takes the tile count), once per tree. Returns
-    ({name: library}, {name: path})."""
+def _parent_library(parent: pathlib.Path,
+                    names=("ragged_ffn", "ragged_dense_ffn")):
+    """The parent tree's libraries ``names`` (by default the ragged FFN's
+    and the all-hi one's: ``csrc/ragged_ffn.cu`` and
+    ``csrc/ragged_dense_ffn.cu`` of a ``git archive`` of the parent
+    commit), built at once with this tree's flags into
+    ``build/kernels/parent/`` and loaded with this tree's C signatures
+    (the same entries; the parent's all-hi occupancy takes E where this
+    tree's takes the tile count). Returns ({name: library}, {name:
+    path})."""
     import ctypes
     from repro_torch.kernels import build
     out_dir = build.build_dir() / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
-    names = ("ragged_ffn", "ragged_dense_ffn")
     paths = {n: out_dir / f"lib{n}.so" for n in names}
     procs = [subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-o",
                                str(paths[n]), str(
@@ -3357,9 +3528,11 @@ def _spec_prompts(vocab, seed=0):
             make_prompts("text", vocab, 8, 96, seed=seed + 50))
 
 
-def _spec_engine(cfg, params, backend, warm, *, paged, dispatch, **ecfg):
+def _spec_engine(cfg, params, backend, warm, *, paged, dispatch, n_hi=16,
+                 **ecfg):
     """A fresh engine (8 slots) with ``static`` int4 or ``dynaexq`` (int4
-    lo, n_hi 16). ``dynaexq``'s policy runs no window by itself: after 4
+    lo, ``n_hi`` hi experts per MoE layer). ``dynaexq``'s policy runs no
+    window by itself: after 4
     tokens of the 8 warm-up prompts (which leave no prefix in common with
     the served ones) one window publishes its hi sets, and they stay,
     so every run of a backend serves the same target."""
@@ -3370,7 +3543,7 @@ def _spec_engine(cfg, params, backend, warm, *, paged, dispatch, **ecfg):
     dev = params["embed"].device
     kw = dict(lo_bits=4, group_size=64, device=dev)
     if backend == "dynaexq":
-        kw.update(n_hi_per_layer=16, controller=ControllerConfig(
+        kw.update(n_hi_per_layer=n_hi, controller=ControllerConfig(
             update_interval_s=1e9))
     eng = eng_mod.InferenceEngine(
         cfg, _fresh(params), make_backend(backend, **kw),
@@ -4999,6 +5172,58 @@ def _hybrid_ring(card, params) -> list:
     return [pg]
 
 
+#: Draft depth of the hybrid phase's speculative decoding.
+HYBRID_SPEC_K = 3
+
+
+def _hybrid_spec(card, cfg, params) -> list:
+    """(e) Speculative decoding on the 8-layer Jamba, paged/ragged,
+    graphed (the spec phase's 8 greedy requests of 64-256 tokens, 32 new):
+    ``dynaexq`` (int4 lo, ``HYBRID_N_HI`` hi experts per MoE layer from one
+    window after a warm-up, then fixed, so drafts on the all-lo view are
+    sometimes rejected) with spec off and ``spec_k`` 3: each row's Mamba
+    state rolls back to its last accepted step; tokens identical to spec
+    off, or each difference explained by routing."""
+    prompts, warm = _spec_prompts(cfg.vocab_size)
+    used, unused = PATHS["paged/ragged"][2:]
+    res = {}
+    for label, ecfg in (("off", {}),
+                        (f"spec_k={HYBRID_SPEC_K}",
+                         dict(spec_k=HYBRID_SPEC_K))):
+        eng = _spec_engine(cfg, params, "dynaexq", warm, paged=True,
+                           dispatch="ragged", n_hi=HYBRID_N_HI, **ecfg)
+        res[label] = _spec_serve(eng, prompts)
+        del eng
+        gc.collect()
+    off, on = res["off"], res[f"spec_k={HYBRID_SPEC_K}"]
+    for label, r in res.items():
+        if not all(r["launches"][k] > 0 for k in used) or \
+                any(r["launches"][k] for k in unused):
+            raise AssertionError(f"hybrid spec {label}: launches "
+                                 f"{r['launches']}")
+    div = _spec_compare(off, on)
+    wid = ", ".join(f"k={k}: draft {_ms(d)} ms x{nd}, verify {_ms(v)} ms "
+                    f"x{nv}" for k, (d, nd, v, nv) in on["widths"].items())
+    log("hybrid", f"spec_k={HYBRID_SPEC_K} on {cfg.n_layers} layers, "
+                  f"dynaexq n_hi {HYBRID_N_HI} fixed: {on['rounds']} rounds "
+                  f"({on['row_rounds']} row-rounds), drafted "
+                  f"{on['drafted']}, accepted {on['accepted']}, accept rate "
+                  f"{on['accept_rate']:.3f} | graph replay ms by width "
+                  f"{wid} | TPOT per emitted token {on['tpot_ms']:.2f} ms vs "
+                  f"spec off {off['tpot_ms']:.2f} ms | tokens vs spec off: "
+                  f"{len(prompts) - len(div)} of {len(prompts)} requests "
+                  f"identical" + (f", differences (request, token, "
+                                  f"explained by routing) {div}" if div
+                                  else "") + f" | {card}")
+    if on["rounds"] < 1 or on["hi_sets"] != off["hi_sets"]:
+        raise AssertionError(f"hybrid spec: {on['rounds']} rounds, or "
+                             f"another target's hi sets than spec off's")
+    if any(not ok for _, _, ok in div):
+        raise AssertionError(f"hybrid spec: tokens differ from spec off, "
+                             f"unexplained: {div}")
+    return [off, on]
+
+
 def phase_hybrid(card: str, parent=None) -> None:
     from repro_torch.models.model import init_params
     t0 = time.perf_counter()
@@ -5048,6 +5273,7 @@ def phase_hybrid(card: str, parent=None) -> None:
         params = init_params(cfg, seed=0, device=torch.device("cuda"))
         main_runs = _hybrid_serving(card, cfg, params, pcie)
         main_runs += _hybrid_ring(card, params)
+        main_runs += _hybrid_spec(card, cfg, params)
         del params
         t3 = time.perf_counter()
         model_check()
@@ -5061,6 +5287,404 @@ def phase_hybrid(card: str, parent=None) -> None:
                   f"A/B {t2 - t1:.1f} s, serving and ring {t3 - t2:.1f} s, "
                   f"then waiting on the check's CPU part "
                   f"{time.perf_counter() - t3:.1f} s) | {card}")
+
+
+# ---------------------------------------------------------------------------
+# families: the dense and pure-SSM stacks
+# ---------------------------------------------------------------------------
+
+#: The dense attention families and the pure SSM stack, at full width and
+#: full depth (bf16 weights 7.2, 13.8, 8.9, 7.9 and 0.26 GB).
+FAMILIES = ("llama3_2-3b", "deepseek-7b", "phi4-mini-3.8b",
+            "h2o-danube-3-4b", "mamba2-130m")
+FAMILY_SLOTS = 8
+FAMILY_NEW = 32
+FAMILY_MAX_LEN = 288            # 256-token prompts + 32 tokens
+#: The family also served op by op (``eager()``), held to its graph run.
+FAMILY_EAGER = "llama3_2-3b"
+FAMILY_SPEC_K = 4
+#: Danube's long prompt: past 2048 at a multiple of 256 (the chunked
+#: attention) and past its 4096 window.
+FAMILY_LONG = 4608
+#: The chunked prefill against the whole masked attention of the same layer
+#: on the card: the same arithmetic per query chunk, the Q·Kᵀ and P·V
+#: products at other GEMM shapes (another cuBLAS order, bf16 outputs a
+#: rounding apart): 2^-6 of the largest output magnitude.
+FAMILY_LONG_TOL = 2.0 ** -6
+
+
+#: Logits recorded per decoded position in the families' runs (top-k):
+#: room for the tokens of a flip to sit below each other's runner-up.
+FAMILY_TOP_K = 8
+
+
+def _family_serve(cfg, params, prompts, *, paged, mode, spec_k=0,
+                  force=None):
+    """8 greedy requests (32 new tokens, 8 slots) through the engine with
+    ``fp16`` on paged KV (``paged``) or dense rows, graphed (``mode``
+    "graph") or op by op ("eager"), ``spec_k`` draft tokens. The counts
+    are zeroed just before the first request and read after the last
+    token. With ``spec_k`` 0, records each decoded position's top
+    ``FAMILY_TOP_K`` logits and their tokens (one top-k kernel on the
+    device per step, read back after the run: no host sync inside it).
+    Every emitted token is kept under ``own`` as the run chose it. With
+    ``force`` (tokens per prompt), each emitted token is then replaced by
+    the forced one, which the next step reads (teacher forcing, for
+    ``_family_margin``)."""
+    import contextlib
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.requests import Request
+    dev = params["embed"].device
+    eng = eng_mod.InferenceEngine(
+        cfg, _fresh(params), make_backend("fp16", device=dev),
+        eng_mod.EngineConfig(max_slots=FAMILY_SLOTS, max_len=FAMILY_MAX_LEN,
+                             paged=paged, spec_k=spec_k), device=dev)
+    graphed = mode == "graph"
+    if graphed:
+        eng.decode_graph.events = []
+    forced, recs, own = {}, [], {}
+    first, decode = eng._first_token, eng._decode_one
+
+    def emit(h, slot):
+        own[(h.id, len(h.tokens) - 1)] = h.tokens[-1]
+        if h.id in forced:
+            h.tokens[-1] = forced[h.id][len(h.tokens) - 1]
+            if eng.slots[slot] is h:
+                eng.tokens[slot] = h.tokens[-1]
+
+    def first_forced(h, slot, *a):
+        first(h, slot, *a)
+        emit(h, slot)
+
+    def decode_seen(active, finished, lo=False):
+        decode(active, finished, lo)
+        top = eng.last_logits.topk(FAMILY_TOP_K, dim=-1)
+        recs.append((top.values, top.indices,
+                     [(h.id, len(h.tokens) - 1, i) for i, h in active]))
+        for i, h in active:
+            emit(h, i)
+
+    eng._first_token = first_forced
+    if not spec_k:
+        eng._decode_one = decode_seen
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                     # the path starts here
+    t0 = time.perf_counter()
+    handles = [eng.submit(Request(tokens=p, max_new_tokens=FAMILY_NEW))
+               for p in prompts]
+    if force is not None:
+        forced = {h.id: f for h, f in zip(handles, force)}
+    with eng_mod.eager() if not graphed else contextlib.nullcontext():
+        while eng.queue or any(h is not None for h in eng.slots):
+            eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)            # ... and ends here
+    st = eng.stats()
+    if not all(len(h.tokens) == FAMILY_NEW for h in handles):
+        raise AssertionError(f"{cfg.name}: {[len(h.tokens) for h in handles]}"
+                             f" tokens")
+    top = {}
+    for v, ids, rows in recs:
+        v, ids = v.float().cpu(), ids.cpu()
+        for hid, t, i in rows:
+            top[(hid, t)] = {"v": v[i].tolist(), "ids": ids[i].tolist()}
+    replay = [a.elapsed_time(b) for a, b in eng.decode_graph.events] \
+        if graphed else []
+    out = {"tokens": [list(h.tokens) for h in handles],
+           "ids": [h.id for h in handles], "top": top, "own": own,
+           "launches": launches, "wall_s": wall, "ttft_s": st["ttft_s"],
+           "tpot_s": st["tpot_s"], "steps": int(st["steps"]),
+           "replay_ms": float(np.mean(replay)) if replay else None,
+           "capture_s": eng.capture_s, "pool": eng.pool is not None,
+           "max_mem": torch.cuda.max_memory_allocated(),
+           "spec_rounds": st["spec_rounds"],
+           "accept_rate": st["accept_rate"]}
+    del eng, recs
+    gc.collect()
+    return out
+
+
+def _family_margin(a, b, what) -> dict:
+    """Run ``b`` fed run ``a``'s tokens (``_family_serve(force=...)``),
+    held position by position as ``compare_forced`` holds the requests
+    phase: both read the same tokens at every position and differ only by
+    rounding. A position is held where both runs recorded its logits (a
+    request's first token comes from the prefill, unrecorded: there the
+    runs must choose alike); at least ``MIN_HELD`` of the positions must
+    be held. Where ``b`` would have chosen another token, the flip passes
+    if the largest change of the two tokens' logits between the runs is
+    within ``FLIP_STEPS`` bf16 steps of ``a``'s top logit (infinite where
+    a token falls outside a record's top ``FAMILY_TOP_K``). The rule says
+    little when near ties are common: it fails when more than
+    ``MAX_TIE_SHARE`` of the held positions would pass a flip (the two
+    runs' top-2 gaps add up to ``FLIP_STEPS`` steps at most). Returns the
+    counts it held."""
+    n = held = near = 0
+    flips, bad, med = [], [], []
+    for r, x in enumerate(a["tokens"]):
+        ia, ib = a["ids"][r], b["ids"][r]
+        dl = []
+        for t, tok in enumerate(x):
+            n += 1
+            ra, rb = a["top"].get((ia, t)), b["top"].get((ib, t))
+            own = b["own"][(ib, t)]
+            if ra is None or rb is None:
+                if t == 0 and ra is None and rb is None and own == tok:
+                    continue                 # the prefill's token: alike
+                bad.append((r, t, "no record"))
+                continue
+            held += 1
+            step = bf16_step(ra["v"][0])
+            near += (ra["v"][0] - ra["v"][1]) / step + \
+                (rb["v"][0] - rb["v"][1]) / bf16_step(rb["v"][0]) <= \
+                FLIP_STEPS
+            A = dict(zip(ra["ids"], ra["v"]))
+            B = dict(zip(rb["ids"], rb["v"]))
+            if tok not in B:
+                bad.append((r, t, "forced token outside b's top"))
+                continue
+            dl.append(abs(A[tok] - B[tok]))
+            if own != tok:
+                moved = max(abs(A[u] - B[u]) if u in A and u in B
+                            else math.inf for u in (tok, own)) / step
+                flips.append((r, t, round(moved, 2)))
+                if moved > FLIP_STEPS:
+                    bad.append((r, t, f"flip moved {moved:.2f} steps"))
+        med.append(float(np.median(dl)) if dl else math.nan)
+    out = {"positions": n, "held": held, "near": near, "flips": flips,
+           "median_dlogit": med}
+    if bad or held < MIN_HELD * n or near > MAX_TIE_SHARE * held:
+        raise AssertionError(f"{what}: held {held} of {n} (at least "
+                             f"{MIN_HELD}); {near} of {held} held positions "
+                             f"would pass a flip (at most {MAX_TIE_SHARE}); "
+                             f"failed (request, index, why) {bad[:8]}")
+    return out
+
+
+def _family_step_bytes(cfg, params, prompts) -> tuple:
+    """The bytes a decode step reads at least: every weight but the
+    embedding table's unused rows (the tied table is the LM head: read
+    whole), the K/V of every valid position at the step's mean context
+    (8 rows, prompts + half the new tokens), and the Mamba rows (read and
+    written). Returns (bytes, bound ms at 3.35 TB/s)."""
+    from repro_torch.models.model import attn_positions, mamba_positions
+    from repro_torch.models.ssm import conv_dim
+    w = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if not cfg.tie_embeddings:
+        w -= params["embed"].numel() * params["embed"].element_size()
+    nsb, kv = cfg.n_superblocks(), 0
+    if attn_positions(cfg):
+        a = cfg.attn
+        ctx = sum(min(len(p) + FAMILY_NEW // 2, a.sliding_window or 1 << 30)
+                  for p in prompts)
+        kv = ctx * 2 * a.n_kv_heads * a.head_dim * 2 * \
+            len(attn_positions(cfg)) * nsb
+    ssm = 0
+    if mamba_positions(cfg):
+        c = cfg.ssm
+        row = c.n_heads(cfg.d_model) * c.head_dim * c.d_state * 4 + \
+            c.d_conv * conv_dim(c, cfg.d_model) * 2
+        ssm = 2 * row * len(prompts) * len(mamba_positions(cfg)) * nsb
+    nbytes = w + kv + ssm
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _family_long_prefill(cfg, params, card) -> None:
+    """Danube's 4608-token prompt: the whole stack's prefill on dense rows
+    (each attention layer past 2048 tokens, at a multiple of 256: the
+    q-chunked attention; a 4096-slot ring, so the prompt wraps it) gives
+    finite logits; and layer 0's chunked attention against the whole
+    masked attention of the same layer on the card, to
+    ``FAMILY_LONG_TOL``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import _layer, init_caches, prefill
+    dev = params["embed"].device
+    S = FAMILY_LONG
+    gen = torch.Generator(device=dev).manual_seed(46)
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device=dev)
+    lengths = torch.full((1,), S, dtype=torch.int64, device=dev)
+    caches = init_caches(cfg, 1, S, device=dev)
+    chunked, entry = [], L._sdpa_chunked
+    L._sdpa_chunked = lambda *a: chunked.append(a[-1]) or entry(*a)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = prefill(params, cfg, tokens, caches, lengths)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        p = _layer(params["blocks"]["0"], 0)
+        x = L.rmsnorm(p["norm1"], params["embed"][tokens], cfg.norm_eps)
+        n_calls = len(chunked)
+        ring = L.init_kv_cache((1,), cfg.attn.sliding_window, cfg.attn, dev)
+        got = L.attention_prefill(p["attn"], cfg.attn, x, ring, lengths)
+    finally:
+        L._sdpa_chunked = entry
+    pos = torch.arange(S, device=dev)[None, :]
+    q, k, v = L._project_qkv(p["attn"], cfg.attn, x, pos)
+    qp, kp = pos[:, :, None], pos[:, None, :]
+    mask = (kp <= qp) & (kp > qp - cfg.attn.sliding_window)
+    want = L._sdpa(q, k, v, mask, cfg.attn.n_heads) @ p["attn"]["wo"]
+    err = float((got.float() - want.float()).abs().max())
+    tol = FAMILY_LONG_TOL * float(want.float().abs().max())
+    ok = bool(torch.isfinite(logits).all()) and n_calls == cfg.n_layers \
+        and len(chunked) == n_calls + 1 and err <= tol
+    log("families", f"{cfg.name} prompt of {S} tokens (window "
+                    f"{cfg.attn.sliding_window}, ring "
+                    f"{caches['0'].k.shape[-2]}): prefill of {cfg.n_layers} "
+                    f"layers on dense rows in {whole_s * 1e3:.1f} ms (host "
+                    f"clock, synchronised), q-chunked attention in "
+                    f"{n_calls} of {cfg.n_layers} layers (chunks of "
+                    f"{chunked[0] if chunked else None}), logits finite "
+                    f"{bool(torch.isfinite(logits).all())}; layer 0 chunked "
+                    f"vs whole masked attention on the card: max |diff| "
+                    f"{err:.4g} (tol {tol:.4g}) | {'ok' if ok else 'FAIL'} "
+                    f"| {card}")
+    if not ok:
+        raise AssertionError(f"{cfg.name}: the chunked prefill failed its "
+                             f"check")
+
+
+def _family_launches(arch, what, run, attn) -> None:
+    """A family's run launched its layout's decode-attention kernel (a
+    paged run: row 3, on a pool; dense rows: row 5) and no other kernel of
+    the port; a stack without attention none."""
+    want = {"flash_decode_paged"} if attn and run["pool"] else \
+        {"flash_decode"} if attn else set()
+    if run["pool"] != (attn and what in ("paged", "eager")) or \
+            any(bool(n) != (k in want) for k, n in run["launches"].items()):
+        raise AssertionError(f"{arch} {what}: pool {run['pool']}, launches "
+                             f"{run['launches']}")
+
+
+def _family_launcher(arch, card) -> dict:
+    """``python -m repro_torch.launch.serve --arch ARCH --full --backend
+    fp16`` in this process (the launcher's defaults otherwise: speculation
+    on, the observability layer on): 8 requests of 64 tokens, 32 new."""
+    from repro_torch.launch import serve
+    out = serve.main(["--arch", arch, "--full", "--backend", "fp16",
+                      "--batch", "8", "--prompt-len", "64", "--new-tokens",
+                      "32"])
+    st = out["stats"]
+    if [len(t) for t in out["tokens"]] != [32] * 8 or out["device_bytes"]:
+        raise AssertionError(f"{arch} launcher: tokens "
+                             f"{[len(t) for t in out['tokens']]}, expert "
+                             f"bytes {out['device_bytes']}")
+    log("families", f"launcher --arch {arch} --full --backend fp16: 8 x 32 "
+                    f"tokens in {out['wall_s']:.2f} s, TPOT "
+                    f"{st['tpot_s'] * 1e3:.2f} ms, spec accept "
+                    f"{st['accept_rate']:.3f} over {st['spec_rounds']:.0f} "
+                    f"rounds, 0 expert bytes | {card}")
+    return out
+
+
+def phase_families(card: str) -> None:
+    """Every dense and pure-SSM family the reference serves, at full width
+    and full depth, seeded random weights drawn on the card: 8 greedy
+    requests (64-256-token prompts, 32 new tokens, 8 slots) with ``fp16``
+    on paged KV and on dense rows, graphed; Llama-3.2-3B also op by op
+    (tokens and launches equal to the graph run); the dense-row run fed
+    the paged run's tokens and held to it position by position
+    (``_family_margin``); the attention families' paged runs launch the
+    paged decode attention (row 3) and their dense runs the dense one (row
+    5), and nothing else of the port; Mamba2 runs none (plain SSD; no pool
+    under ``paged=True``) and, with ``spec_k`` 4, emits the tokens of spec
+    off;
+    Danube's 4608-token chunked prefill; then the launcher at ``--full``.
+    Per family: TTFT, TPOT, ms per graph replay, the bytes a step reads and
+    their bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import attn_positions, init_params
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    main_runs = []
+    for arch in FAMILIES:
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        params = init_params(cfg, seed=0, device=dev)
+        prompts = serving_prompts(cfg.vocab_size, FAMILY_SLOTS, (64, 256))
+        runs = {"paged": _family_serve(cfg, params, prompts, paged=True,
+                                       mode="graph")}
+        runs["dense"] = _family_serve(cfg, params, prompts, paged=False,
+                                      mode="graph",
+                                      force=runs["paged"]["tokens"])
+        if arch == FAMILY_EAGER:
+            runs["eager"] = _family_serve(cfg, params, prompts, paged=True,
+                                          mode="eager")
+            if runs["eager"]["tokens"] != runs["paged"]["tokens"] or \
+                    runs["eager"]["launches"] != runs["paged"]["launches"]:
+                raise AssertionError(f"{arch}: graph and eager disagree on "
+                                     f"tokens or launches")
+        attn = bool(attn_positions(cfg))
+        if not attn:
+            runs["spec"] = _family_serve(cfg, params, prompts, paged=False,
+                                         mode="graph", spec_k=FAMILY_SPEC_K)
+            sp = runs["spec"]
+            if sp["tokens"] != runs["paged"]["tokens"] or \
+                    not sp["spec_rounds"] > 0:
+                raise AssertionError(f"{arch}: spec_k={FAMILY_SPEC_K} emits "
+                                     f"other tokens than spec off (rounds "
+                                     f"{sp['spec_rounds']})")
+        for what, run in runs.items():
+            _family_launches(arch, what, run, attn)
+        held = _family_margin(runs["paged"], runs["dense"],
+                              f"{arch} dense rows fed the paged run's "
+                              f"tokens")
+        nbytes, bnd = _family_step_bytes(cfg, params, prompts)
+        for what, run in runs.items():
+            ran = {k: n for k, n in run["launches"].items() if n}
+            log("families", f"{cfg.name} {cfg.n_layers} layers d "
+                            f"{cfg.d_model} {what} ("
+                            f"{'pool' if run['pool'] else 'dense rows'}): "
+                            f"TTFT "
+                            f"{run['ttft_s'] * 1e3:.1f} ms, TPOT "
+                            f"{run['tpot_s'] * 1e3:.2f} ms, replay "
+                            f"{_ms(run['replay_ms'])} ms, "
+                            f"{run['steps']} steps, served in "
+                            f"{run['wall_s']:.2f} s, max allocated "
+                            f"{run['max_mem'] / 1e9:.2f} GB"
+                            + (f", {run['spec_rounds']:.0f} spec rounds, "
+                               f"accept {run['accept_rate']:.3f}"
+                               if what == "spec" else "")
+                            + f" | launches {ran} | {card}")
+        log("families", f"{cfg.name}: a decode step reads {nbytes / 1e9:.3f} "
+                        f"GB (weights, K/V at the mean context, Mamba "
+                        f"rows): bound {bnd:.3f} ms at 3.35 TB/s; paged "
+                        f"replay {_ms(runs['paged']['replay_ms'])} ms = "
+                        f"{(runs['paged']['replay_ms'] or 0) / bnd:.2f}x the "
+                        f"bound; dense rows fed the paged run's tokens: "
+                        f"positions held {held['held']} of "
+                        f"{held['positions']} (at least {MIN_HELD}), "
+                        f"{held['near']} of them near ties (at most "
+                        f"{MAX_TIE_SHARE}), flips (request, index, bf16 "
+                        f"steps moved; at most {FLIP_STEPS}) "
+                        f"{held['flips']}, median |dlogit| of the paged "
+                        f"token per request "
+                        f"{[round(m, 4) for m in held['median_dlogit']]}"
+                        + (", graph = eager (tokens and launches)"
+                           if "eager" in runs else "")
+                        + (", spec on = spec off" if "spec" in runs else "")
+                        + f" | family done in {time.perf_counter() - t:.1f} "
+                        f"s | {card}")
+        if cfg.attn is not None and cfg.attn.sliding_window:
+            _family_long_prefill(cfg, params, card)
+        main_runs += list(runs.values())
+        del params, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        _family_launcher(arch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in RESULTS:
+        RESULTS[name]["launches"] = RESULTS[name].get("launches", 0) + sum(
+            r["launches"].get(name, 0) for r in main_runs)
+    log("families", f"phase done in {time.perf_counter() - t0:.1f} s | "
+                    f"{card}")
 
 
 # ---------------------------------------------------------------------------
@@ -5337,7 +5961,8 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
 
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "model",
-          "serving", "requests", "spec", "ladder", "obs", "hybrid", "trace")
+          "serving", "requests", "spec", "ladder", "obs", "hybrid",
+          "families", "trace")
 #: Phases that run only when named in ``--only``.
 EXTRA_PHASES = ("dense",)
 
@@ -5349,7 +5974,7 @@ def main() -> int:
                          f"{PHASES + EXTRA_PHASES}")
     ap.add_argument("--parent", default=None,
                     help="the parent commit's tree (a git archive), for "
-                         "the dense and hybrid phases' A/B")
+                         "the kernels, dense and hybrid phases' A/B")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5359,7 +5984,8 @@ def main() -> int:
     card = phase_card()
     phase_build()
     took = {}
-    for name, run in (("kernels", phase_kernels), ("splits", phase_splits),
+    for name, run in (("kernels", lambda: phase_kernels(args.parent)),
+                      ("splits", phase_splits),
                       ("gemms", phase_gemms),
                       ("dense", lambda: phase_dense(args.parent)),
                       ("model", phase_model),
@@ -5369,11 +5995,17 @@ def main() -> int:
                       ("ladder", lambda: phase_ladder(card)),
                       ("obs", lambda: phase_obs(card)),
                       ("hybrid", lambda: phase_hybrid(card, args.parent)),
+                      ("families", lambda: phase_families(card)),
                       ("trace", lambda: phase_trace(card))):
         if name in only:
             t = time.perf_counter()
             run()
             took[name] = time.perf_counter() - t
+            # What the phase built (engines, weights, their graphs) goes
+            # before the next phase: reference cycles collected, the
+            # allocator's cache returned.
+            gc.collect()
+            torch.cuda.empty_cache()
             log("mem", f"after {name}: device memory allocated "
                        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, "
                        f"reserved {torch.cuda.memory_reserved() / 1e9:.2f} "

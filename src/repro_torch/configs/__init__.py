@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``get_config(name)`` returns the full
 configuration, ``get_config(name, reduced=True)`` the smoke variant (2
 layers, or one whole super-block of a hybrid stack: the same reduction
-rule as the reference package)."""
+rule as the reference package). It holds every decoder-only configuration
+of the reference's registry (MoE, hybrid, dense and pure-SSM stacks);
+the encoder-decoder and VLM ones are not ported."""
 from __future__ import annotations
 
 from repro_torch.models.config import (ArchConfig, AttnConfig, MoEConfig,
@@ -88,10 +90,85 @@ _CONFIGS = {
                "encoding on its attention layers (use_rope=False); we add "
                "an 8192 sliding window for the long_500k shape.",
     ),
+    # Llama-3.2-3B: small llama3 dense decoder, GQA 24/8.
+    "llama3_2-3b": ArchConfig(
+        name="llama3.2-3b",
+        family="dense",
+        n_layers=28,
+        d_model=3072,
+        vocab_size=128256,
+        d_ff=8192,
+        attn=AttnConfig(n_heads=24, n_kv_heads=8, head_dim=128,
+                        rope_theta=500000.0),
+        norm_eps=1e-5,
+        max_seq_len=131072,
+        source="hf:meta-llama/Llama-3.2-1B family",
+    ),
+    # DeepSeek-LLM-7B: llama-architecture dense model, MHA (kv = 32).
+    "deepseek-7b": ArchConfig(
+        name="deepseek-7b",
+        family="dense",
+        n_layers=30,
+        d_model=4096,
+        vocab_size=102400,
+        d_ff=11008,
+        attn=AttnConfig(n_heads=32, n_kv_heads=32, head_dim=128,
+                        rope_theta=10000.0),
+        norm_eps=1e-6,
+        max_seq_len=4096,
+        source="arXiv:2401.02954 (DeepSeek LLM)",
+    ),
+    # Phi-4-mini-3.8B: dense decoder, RoPE + SwiGLU + GQA 24/8.
+    "phi4-mini-3.8b": ArchConfig(
+        name="phi4-mini-3.8b",
+        family="dense",
+        n_layers=32,
+        d_model=3072,
+        vocab_size=200064,
+        d_ff=8192,
+        attn=AttnConfig(n_heads=24, n_kv_heads=8, head_dim=128,
+                        rope_theta=10000.0),
+        norm_eps=1e-5,
+        max_seq_len=131072,
+        source="arXiv:2412.08905 (Phi-4)",
+    ),
+    # H2O-Danube3-4B: dense llama+mistral mix, head width 120, a 4096
+    # sliding window.
+    "h2o-danube-3-4b": ArchConfig(
+        name="h2o-danube-3-4b",
+        family="dense",
+        n_layers=24,
+        d_model=3840,
+        vocab_size=32000,
+        d_ff=10240,
+        attn=AttnConfig(n_heads=32, n_kv_heads=8, head_dim=120,
+                        rope_theta=10000.0, sliding_window=4096),
+        norm_eps=1e-5,
+        max_seq_len=524288,
+        source="arXiv:2401.16818 (H2O-Danube); SWA per model card",
+    ),
+    # Mamba2-130m: attention-free SSD stack, no FFN, tied embeddings.
+    "mamba2-130m": ArchConfig(
+        name="mamba2-130m",
+        family="ssm",
+        n_layers=24,
+        d_model=768,
+        vocab_size=50280,
+        d_ff=0,
+        attn=None,
+        ssm=SSMConfig(d_state=128, d_conv=4, expand=2, head_dim=64,
+                      n_groups=1, chunk=64),
+        tie_embeddings=True,
+        norm_eps=1e-5,
+        max_seq_len=1048576,
+        source="arXiv:2405.21060 (Mamba-2 / SSD)",
+    ),
 }
 
 #: Other spellings of registered names.
-_ALIASES = {"jamba-v0.1-52b": "jamba-v0_1-52b"}
+_ALIASES = {"jamba-v0.1-52b": "jamba-v0_1-52b",
+            "llama3.2-3b": "llama3_2-3b",
+            "phi4-mini-3_8b": "phi4-mini-3.8b"}
 
 ARCH_IDS = tuple(_CONFIGS)
 

@@ -42,8 +42,10 @@
 //    rows; a decode group has at most 16). The warps merge (m, l, acc)
 //    through shared memory once at the end.
 //
-// Shapes taken: hd ∈ {64, 128, 256} (register tiles sized at compile
-// time), rep ≤ 16.
+// Shapes taken: hd any multiple of 8 up to 256 (register tiles sized at
+// compile time for 64, 128 and 256; another width runs on the next one,
+// its columns zero-padded in shared memory only: `fd::padded_width`), rep
+// ≤ 16.
 #include "flash_decode_common.cuh"
 
 namespace {
@@ -76,7 +78,8 @@ __global__ void __launch_bounds__(fd::THREADS)
                     float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int H, int Hkv, int S,
                     long long st_b, long long st_s, long long st_h,
-                    int n_split, int tps, int stages, float scale_log2) {
+                    int n_split, int tps, int stages, float scale_log2,
+                    int hd) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int bg = blockIdx.x, s = blockIdx.y;
   const int b = bg / Hkv, g = bg % Hkv, rep = H / Hkv;
@@ -84,20 +87,20 @@ __global__ void __launch_bounds__(fd::THREADS)
                st_s, S, TILE};
   const int n_tiles = (S + TILE - 1) / TILE;
   const int t0 = s * tps, t1 = min(n_tiles, t0 + tps);
-  const size_t head = ((size_t)b * H + (size_t)g * rep) * HD;
+  const size_t head = ((size_t)b * H + (size_t)g * rep) * hd;
   const size_t part = ((size_t)bg * n_split + s) * rep;
   fd::split_attend<HD>(
       src, q + head, k, v, rep, t0, t1, stages, scale_log2,
       n_split == 1 ? out + head : nullptr,
-      n_split == 1 ? nullptr : part_acc + part * HD,
-      n_split == 1 ? nullptr : part_ml + part * 2, smem);
+      n_split == 1 ? nullptr : part_acc + part * hd,
+      n_split == 1 ? nullptr : part_ml + part * 2, smem, hd);
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* valid,
            void* out, void* part_acc, void* part_ml, int B, int H, int Hkv,
            int S, int n_split, int tps, long long st_b, long long st_s,
-           long long st_h, float scale, cudaStream_t stream) {
+           long long st_h, float scale, int hd, cudaStream_t stream) {
   static bool attr_set = false;           // once per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -116,13 +119,13 @@ int launch(const void* q, const void* k, const void* v, const void* valid,
       static_cast<const __nv_bfloat16*>(v), static_cast<const bool*>(valid),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), H, Hkv, S, st_b, st_s, st_h, n_split,
-      tps, stages, scale * fd::LOG2E);
+      tps, stages, scale * fd::LOG2E, hd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)fd::launch_merge(static_cast<const float*>(part_acc),
                                static_cast<const float*>(part_ml),
                                static_cast<__nv_bfloat16*>(out), B, H, Hkv,
-                               HD, n_split, stream);
+                               hd, n_split, stream);
 }
 
 }  // namespace
@@ -132,7 +135,7 @@ extern "C" {
 // out (B, H, hd) = softmax(q·kᵀ/√hd masked by valid) · v; q (B, H, hd)
 // contiguous, k/v (B, S, Hkv, hd) bf16 with element strides st_b, st_s,
 // st_h (shared by k and v; the last axis contiguous), valid (B, S) bool;
-// scale = hd^-1/2 as the caller rounds it. dims = {B, H, Hkv, S, hd, st_b,
+// scale = hd^-1/2 as the caller rounds it; hd a multiple of 8 up to 256. dims = {B, H, Hkv, S, hd, st_b,
 // st_s, st_h, n_split, tps}: n_split CTAs per (row, KV head) of tps
 // 32-position tiles each (the last may hold fewer). With n_split > 1,
 // scratch holds the float32 partials, acc (B·Hkv, n_split, rep, hd) then
@@ -145,7 +148,9 @@ int flash_decode(const void* q, const void* k, const void* v,
             tps = (int)dims[9];
   const long long st_b = dims[5], st_s = dims[6], st_h = dims[7];
   if (B == 0) return 0;
-  if (Hkv < 1 || H % Hkv != 0 || H / Hkv > 16 || n_split < 1 || tps < 1 ||
+  const int hdp = fd::padded_width(hd);
+  if (hdp == 0 || Hkv < 1 || H % Hkv != 0 || H / Hkv > 16 || n_split < 1 ||
+      tps < 1 ||
       st_b % 8 != 0 || st_s % 8 != 0 || st_h % 8 != 0 ||
       (n_split > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -156,13 +161,12 @@ int flash_decode(const void* q, const void* k, const void* v,
 #define FD_CASE(HD)                                                        \
   case HD:                                                                 \
     return launch<HD>(q, k, v, valid, out, part_acc, part_ml, B, H, Hkv,   \
-                      S, n_split, tps, st_b, st_s, st_h, scale, s);
-  switch (hd) {
+                      S, n_split, tps, st_b, st_s, st_h, scale, hd, s);
+  switch (hdp) {
     FD_CASE(64)
     FD_CASE(128)
-    FD_CASE(256)
     default:
-      return (int)cudaErrorInvalidValue;
+      FD_CASE(256)
   }
 #undef FD_CASE
 }

@@ -33,6 +33,15 @@
 // split or warp without a valid slot has m = -inf and weight 0, and a row
 // with no valid slot writes zeros. A non-finite partial is not masked: it
 // reaches the output.
+//
+// Head widths. The register tiles are sized by the compiled width HD (64,
+// 128 or 256); the head width hd is a runtime argument, a multiple of 8 up
+// to HD. A width that is not compiled (e.g. 120) runs on the next compiled
+// one: rows stay packed at hd in device memory, the copies of a row's
+// chunks past hd are zero-filled copies (cp.async with no source bytes), and
+// Q's fragments past hd load as zeros, so the padded columns add exact zeros
+// to Q·Kᵀ, and the P·V columns past hd are not written. At hd == HD every
+// chunk and fragment loads as with a compile-time width: the same sums.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,20 +100,24 @@ __device__ __forceinline__ bool tile_live(const Src& src, int t, int lane) {
 }
 
 // Issue the copies of tile t's K and V rows into one ring slot (K rows, then
-// V rows, each row HD + PAD long). Rows past the tile's length read zeros.
+// V rows, each row HD + PAD long). Rows past the tile's length, and columns
+// past hd, read zeros.
 template <int HD, class Src>
 __device__ __forceinline__ void load_tile(const Src& src,
                                           const __nv_bfloat16* k,
                                           const __nv_bfloat16* v, int t,
-                                          __nv_bfloat16* ks, int lane) {
+                                          __nv_bfloat16* ks, int lane,
+                                          int hd) {
   constexpr int CPR = HD / 8;             // 16-byte chunks per row
+  static_assert(32 % CPR == 0, "a lane copies one column of chunks");
   constexpr int LD = HD + PAD;
   const int rows = src.rows, len = src.len(t);
   const long long base = src.base(t);
   __nv_bfloat16* vs = ks + rows * LD;
-  for (int i = lane; i < rows * CPR; i += 32) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool in = r < len;
+  const int c = (lane % CPR) * 8;         // this lane's chunk in every row
+  const bool col = c < hd;
+  for (int r = lane / CPR; r < rows; r += 32 / CPR) {
+    const bool in = col && r < len;
     const long long off = in ? base + (long long)r * src.step + c : 0;
     cp_async16(ks + r * LD + c, k + off, in ? 16 : 0);
     cp_async16(vs + r * LD + c, v + off, in ? 16 : 0);
@@ -129,16 +142,16 @@ inline int ring_stages(int rows, int hd, int tiles_per_split) {
 }
 
 // The split kernels' body for one CTA. q: the rep query heads of (b, g),
-// (rep, HD) bf16. Tiles [t_begin, t_end) of `src`. With `out` set (one
+// (rep, hd) bf16. Tiles [t_begin, t_end) of `src`. With `out` set (one
 // split) writes the normalized bf16 rows; else the split's partials:
-// part_acc (rep, HD) and part_ml (rep, 2) = (m, l), float32.
+// part_acc (rep, hd) and part_ml (rep, 2) = (m, l), float32; hd ≤ HD.
 template <int HD, class Src>
 __device__ __forceinline__ void split_attend(
     const Src& src, const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
     int rep, int t_begin, int t_end, int stages, float scale_log2,
     __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, unsigned char* smem) {
+    float* __restrict__ part_ml, unsigned char* smem, int hd) {
   constexpr int LD = HD + PAD;
   constexpr int KSTEPS = HD / 16;         // k16 steps of Q·Kᵀ
   constexpr int NCH = HD / 8;             // n8 column blocks of P·V
@@ -150,19 +163,21 @@ __device__ __forceinline__ void split_attend(
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem) +
                         (size_t)warp * stages * stage_elems;
 
-  // Q's A fragments: rows gid and gid + 8, columns kk·16 + tid·2 (+8).
+  // Q's A fragments: rows gid and gid + 8, columns kk·16 + tid·2 (+8);
+  // zeros past hd.
   uint32_t qa[KSTEPS][4];
   const bool r0 = gid < rep, r1 = gid + 8 < rep;
   const unsigned int* q0 = reinterpret_cast<const unsigned int*>(
-      q + gid * HD + tid * 2);
+      q + gid * hd + tid * 2);
   const unsigned int* q1 = reinterpret_cast<const unsigned int*>(
-      q + (gid + 8) * HD + tid * 2);
+      q + (gid + 8) * hd + tid * 2);
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) {
-    qa[kk][0] = r0 ? __ldg(q0 + kk * 8) : 0u;
-    qa[kk][1] = r1 ? __ldg(q1 + kk * 8) : 0u;
-    qa[kk][2] = r0 ? __ldg(q0 + kk * 8 + 4) : 0u;
-    qa[kk][3] = r1 ? __ldg(q1 + kk * 8 + 4) : 0u;
+    const bool c0 = kk * 16 < hd, c1 = kk * 16 + 8 < hd;
+    qa[kk][0] = r0 && c0 ? __ldg(q0 + kk * 8) : 0u;
+    qa[kk][1] = r1 && c0 ? __ldg(q1 + kk * 8) : 0u;
+    qa[kk][2] = r0 && c1 ? __ldg(q0 + kk * 8 + 4) : 0u;
+    qa[kk][3] = r1 && c1 ? __ldg(q1 + kk * 8 + 4) : 0u;
   }
 
   float m0 = -INFINITY, m1 = -INFINITY;   // running max, rows gid, gid + 8
@@ -180,7 +195,7 @@ __device__ __forceinline__ void split_attend(
   int t_load = next_valid(t_begin + warp);
   for (int s = 0; s < stages; ++s) {
     if (t_load < t_end) {
-      load_tile<HD>(src, k, v, t_load, ring + s * stage_elems, lane);
+      load_tile<HD>(src, k, v, t_load, ring + s * stage_elems, lane, hd);
       t_load = next_valid(t_load + WARPS);
     }
     cp_async_commit();
@@ -282,7 +297,7 @@ __device__ __forceinline__ void split_attend(
     }
     __syncwarp();                         // the slot is read: refill it
     if (t_load < t_end) {
-      load_tile<HD>(src, k, v, t_load, slot, lane);
+      load_tile<HD>(src, k, v, t_load, slot, lane, hd);
       t_load = next_valid(t_load + WARPS);
     }
     cp_async_commit();
@@ -318,6 +333,7 @@ __device__ __forceinline__ void split_attend(
   const float* all = reinterpret_cast<const float*>(smem);
   for (int i = threadIdx.x; i < rep * HD; i += THREADS) {
     const int r = i / HD, d = i % HD;
+    if (d >= hd) continue;                // a padded column
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w)
@@ -333,9 +349,9 @@ __device__ __forceinline__ void split_attend(
       L += e * wr[MR * HD + MR + r];
     }
     if (out != nullptr) {
-      out[r * HD + d] = __float2bfloat16(a / fmaxf(L, 1e-30f));
+      out[r * hd + d] = __float2bfloat16(a / fmaxf(L, 1e-30f));
     } else {
-      part_acc[r * HD + d] = a;
+      part_acc[r * hd + d] = a;
       if (d == 0) {
         part_ml[2 * r] = M;
         part_ml[2 * r + 1] = L;
@@ -383,6 +399,14 @@ inline cudaError_t launch_merge(const float* part_acc, const float* part_ml,
   merge_splits_kernel<<<B * H, hd, n_split * sizeof(float), stream>>>(
       part_acc, part_ml, out, n_split, rep, H, Hkv, hd);
   return cudaGetLastError();
+}
+
+// The compiled width a head width runs on: itself when compiled, else the
+// next compiled one; 0 when none takes it (hd not a multiple of 8,
+// or above 256).
+inline int padded_width(int hd) {
+  if (hd <= 0 || hd % 8 != 0 || hd > 256) return 0;
+  return hd <= 64 ? 64 : (hd <= 128 ? 128 : 256);
 }
 
 }  // namespace fd

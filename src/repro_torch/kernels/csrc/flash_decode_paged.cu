@@ -41,10 +41,13 @@
 //    rows; a decode group has at most 16). The warps merge (m, l, acc)
 //    through shared memory once at the end.
 //
-// Shapes taken: hd ∈ {64, 128, 256} (register tiles sized at compile
-// time), rep ≤ 16, bt a multiple of 16 with bt·hd ≤ 8192 (one block of K
-// and V per warp stage in shared memory; `valid` is read 32 slots per warp
-// ballot, so a block of up to 128 slots is masked slot by slot).
+// Shapes taken: hd any multiple of 8 up to 256 (register tiles sized at
+// compile time for 64, 128 and 256; another width runs on the next one,
+// its columns zero-padded in shared memory only: `fd::padded_width`), rep
+// ≤ 16, bt a multiple of 16 with bt·HD ≤ 8192 for the compiled width HD
+// (one block of K and V per warp stage in shared memory; `valid` is read
+// 32 slots per warp ballot, so a block of up to 128 slots is masked slot
+// by slot).
 #include "flash_decode_common.cuh"
 
 namespace {
@@ -78,27 +81,27 @@ __global__ void __launch_bounds__(fd::THREADS)
                           float* __restrict__ part_acc,
                           float* __restrict__ part_ml, int H, int Hkv,
                           int bt, int nb, int n_split, int tps, int stages,
-                          float scale_log2) {
+                          float scale_log2, int hd) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int bg = blockIdx.x, s = blockIdx.y;
   const int b = bg / Hkv, g = bg % Hkv, rep = H / Hkv;
   PagedSrc src{table + (size_t)b * nb, valid + (size_t)b * nb * bt,
-               (long long)g * bt * HD, (long long)Hkv * bt * HD, bt, HD};
+               (long long)g * bt * hd, (long long)Hkv * bt * hd, bt, hd};
   const int t0 = s * tps, t1 = min(nb, t0 + tps);
-  const size_t head = ((size_t)b * H + (size_t)g * rep) * HD;
+  const size_t head = ((size_t)b * H + (size_t)g * rep) * hd;
   const size_t part = ((size_t)bg * n_split + s) * rep;
   fd::split_attend<HD>(
       src, q + head, k, v, rep, t0, t1, stages, scale_log2,
       n_split == 1 ? out + head : nullptr,
-      n_split == 1 ? nullptr : part_acc + part * HD,
-      n_split == 1 ? nullptr : part_ml + part * 2, smem);
+      n_split == 1 ? nullptr : part_acc + part * hd,
+      n_split == 1 ? nullptr : part_ml + part * 2, smem, hd);
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* table,
            const void* valid, void* out, void* part_acc, void* part_ml,
            int B, int H, int Hkv, int bt, int nb, int n_split, int tps,
-           float scale, cudaStream_t stream) {
+           float scale, int hd, cudaStream_t stream) {
   static bool attr_set = false;           // once per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -118,13 +121,13 @@ int launch(const void* q, const void* k, const void* v, const void* table,
       static_cast<const int32_t*>(table), static_cast<const bool*>(valid),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), H, Hkv, bt, nb, n_split, tps, stages,
-      scale * fd::LOG2E);
+      scale * fd::LOG2E, hd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)fd::launch_merge(static_cast<const float*>(part_acc),
                                static_cast<const float*>(part_ml),
                                static_cast<__nv_bfloat16*>(out), B, H, Hkv,
-                               HD, n_split, stream);
+                               hd, n_split, stream);
 }
 
 }  // namespace
@@ -133,7 +136,8 @@ extern "C" {
 
 // out (B, H, hd) = softmax(q·kᵀ/√hd masked by valid) · v over the blocks
 // named by table; q (B, H, hd), k/v (N, Hkv, bt, hd) bf16, table (B, nb)
-// int32, valid (B, nb·bt) bool; scale = hd^-1/2 as the caller rounds it.
+// int32, valid (B, nb·bt) bool; scale = hd^-1/2 as the caller rounds it;
+// hd a multiple of 8 up to 256.
 // dims = {B, H, Hkv, bt, hd, nb, n_split, tps}: n_split CTAs per (row, KV
 // head) of tps blocks each (the last may hold fewer). With n_split > 1,
 // scratch holds the float32 partials, acc (B·Hkv, n_split, rep, hd) then
@@ -146,8 +150,9 @@ int flash_decode_paged(const void* q, const void* k, const void* v,
             bt = (int)dims[3], hd = (int)dims[4], nb = (int)dims[5],
             n_split = (int)dims[6], tps = (int)dims[7];
   if (B == 0) return 0;
-  if (Hkv < 1 || H % Hkv != 0 || H / Hkv > 16 || bt % 16 != 0 || bt < 16 ||
-      bt * hd > 8192 || n_split < 1 || tps < 1 ||
+  const int hdp = fd::padded_width(hd);
+  if (hdp == 0 || Hkv < 1 || H % Hkv != 0 || H / Hkv > 16 || bt % 16 != 0 ||
+      bt < 16 || bt * hdp > 8192 || n_split < 1 || tps < 1 ||
       (n_split > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   float* part_acc = static_cast<float*>(scratch);
@@ -157,13 +162,12 @@ int flash_decode_paged(const void* q, const void* k, const void* v,
 #define FD_CASE(HD)                                                        \
   case HD:                                                                 \
     return launch<HD>(q, k, v, table, valid, out, part_acc, part_ml, B,    \
-                      H, Hkv, bt, nb, n_split, tps, scale, s);
-  switch (hd) {
+                      H, Hkv, bt, nb, n_split, tps, scale, hd, s);
+  switch (hdp) {
     FD_CASE(64)
     FD_CASE(128)
-    FD_CASE(256)
     default:
-      return (int)cudaErrorInvalidValue;
+      FD_CASE(256)
   }
 #undef FD_CASE
 }

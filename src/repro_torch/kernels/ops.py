@@ -58,9 +58,13 @@ KERNEL_BM = 8
 #: multiple).
 KERNEL_BN = 64
 #: Head widths the decode-attention kernels are compiled for (their
-#: register tiles are sized at compile time; the repo's attention configs
-#: use 64, 128 and 256).
+#: register tiles are sized at compile time). Any other multiple of 8 up to
+#: the largest runs on the next one, its columns zero-padded in shared
+#: memory (``decode_width``; e.g. Danube's 120 on 128).
 DECODE_HEAD_DIMS = (64, 128, 256)
+#: Most query heads per KV head the decode-attention kernels take (the 16
+#: M rows of one ``mma.sync``).
+DECODE_MAX_REP = 16
 #: Sequence positions per tile of the dense decode kernel (compiled in).
 DECODE_TILE = 32
 #: Warps per CTA of the decode-attention kernels (compiled in); each warp
@@ -124,6 +128,16 @@ def dense_smem_bytes(nmat: int, warps: int, stages: int, Tt: int) -> int:
     offset; Tt + 1 of each) plus the scan's 16 warp sums."""
     slot = nmat * (warps // 4) * 8192 + DENSE_NT * 1024
     return 1024 + stages * slot + 16 * 16 + 4 * (2 * (Tt + 1) + 16)
+
+
+def decode_width(hd: int) -> int:
+    """The compiled width a head width runs on in the decode-attention
+    kernels (``fd::padded_width``): itself, or the next of
+    ``DECODE_HEAD_DIMS``; 0 when none takes it (hd not a multiple of 8, or
+    above the largest)."""
+    if hd <= 0 or hd % 8 or hd > DECODE_HEAD_DIMS[-1]:
+        return 0
+    return next(w for w in DECODE_HEAD_DIMS if w >= hd)
 
 
 def reset_launches() -> None:
@@ -263,11 +277,12 @@ _PLANS: Dict[tuple, _DecodePlan] = {}
 
 def _new_plan(key: tuple, q, Hkv: int, n_tiles: int, dims) -> _DecodePlan:
     B, H, hd = q.shape
-    if hd not in DECODE_HEAD_DIMS or H // Hkv > 16:
-        raise ValueError(f"the CUDA kernel takes hd in {DECODE_HEAD_DIMS} "
-                         f"(register tiles sized at compile time) and at "
-                         f"most 16 query heads per KV head; got hd={hd}, "
-                         f"{H // Hkv} per KV head")
+    if not decode_width(hd) or H // Hkv > DECODE_MAX_REP:
+        raise ValueError(f"the CUDA kernel takes hd a multiple of 8 up to "
+                         f"{DECODE_HEAD_DIMS[-1]} (register tiles sized at "
+                         f"compile time) and at most {DECODE_MAX_REP} query "
+                         f"heads per KV head; got hd={hd}, {H // Hkv} per "
+                         f"KV head")
     plan = _PLANS[key] = _DecodePlan(key[0], B, H, Hkv, hd, n_tiles,
                                      q.device.index, dims)
     return plan
@@ -716,12 +731,12 @@ def flash_decode_paged(q, k, v, table, valid) -> torch.Tensor:
     key = ("flash_decode_paged", q.shape, k.shape, nb, dev.index)
     plan = _PLANS.get(key)
     if plan is None:
-        if bt % 16 or bt * hd > 8192:
+        if bt % 16 or bt * max(decode_width(hd), hd) > 8192:
             raise ValueError(f"the CUDA kernel takes bt a multiple of 16 "
-                             f"with bt·hd <= 8192 (a block is 16-row MMA "
-                             f"chunks, and one block of K and V per warp "
-                             f"stage fits in shared memory); got bt={bt}, "
-                             f"hd={hd}")
+                             f"with bt·hd <= 8192 at the compiled width (a "
+                             f"block is 16-row MMA chunks, and one block of "
+                             f"K and V per warp stage fits in shared "
+                             f"memory); got bt={bt}, hd={hd}")
         plan = _new_plan(key, q, Hkv, nb, (B, H, Hkv, bt, hd, nb))
     return _decode_launch(plan, "flash_decode_paged", q, k, v, table, valid)
 

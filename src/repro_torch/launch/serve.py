@@ -17,9 +17,9 @@ against the roofline model, the requests' modeled stall exposure).
 returns what it printed and measured, so a test or a harness can call it
 in the same process.
 
-Not ported: expert parallelism (``--ep-shards`` > 1 exits naming ROADMAP
-Queue 1, item 7), and speculative decoding on stacks with Mamba positions
-(``--arch jamba-v0_1-52b`` serves with ``spec_k`` 0 and says so).
+``--arch`` takes every configuration of ``repro_torch.configs``: MoE,
+hybrid, dense and pure Mamba-2 stacks. Not ported: expert parallelism
+(``--ep-shards`` > 1 exits naming ROADMAP Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -32,8 +32,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.controller import ControllerConfig
-from repro_torch.models.model import (SPEC_MAMBA_ITEM, init_params,
-                                      mamba_positions)
+from repro_torch.models.model import init_params
 from repro_torch.serving.backends import BACKENDS, OffloadConfig, make_backend
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.requests import Request, make_prompts
@@ -216,10 +215,6 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     cfg = get_config(args.arch, reduced=not args.full)
     spec_k = 0 if args.no_spec else max(0, args.spec_k)
-    if spec_k and mamba_positions(cfg):
-        say(f"[serve] {cfg.name}: speculative decoding on stacks with Mamba "
-            f"positions is not ported yet ({SPEC_MAMBA_ITEM}): spec_k=0")
-        spec_k = 0
     say(f"[serve] {cfg.name} backend={args.backend} device={device} "
         f"spec_k={spec_k} ep_shards={args.ep_shards}")
     if args.stream_from:
@@ -288,7 +283,7 @@ def _serve(args, cfg, params, device, spec_k, obs, say, lines) -> Dict:
         f"{st['tpot_s']*1e3:.1f} ms  throughput {tput:.2f} tok/s")
     say(f"[serve] moe dispatch={engine.moe_dispatch}: "
         f"active_experts {st.get('active_experts', 0.0):.1f}"
-        f"/{cfg.moe.num_experts}  "
+        f"/{cfg.moe.num_experts if cfg.is_moe else 0}  "
         f"pad_ratio {st.get('dispatch_pad_ratio', 0.0):.2f}")
     if spec_k:
         row_rounds = max(1.0, st.get("spec_row_rounds", 0.0))

@@ -1,6 +1,7 @@
 """Architecture configuration (the port's copy of the reference dataclasses,
 restricted to the decoder-only families this package serves: attention +
-MoE stacks and the hybrid Mamba/attention MoE stacks)."""
+MoE stacks, hybrid Mamba/attention MoE stacks, dense attention stacks and
+pure Mamba-2 stacks)."""
 from __future__ import annotations
 
 import dataclasses
@@ -59,7 +60,9 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # this package serves "moe" and "hybrid"
+    # "moe", "hybrid", "dense" or "ssm" (the reference's "audio" and "vlm"
+    # are not ported)
+    family: str
     n_layers: int
     d_model: int
     vocab_size: int

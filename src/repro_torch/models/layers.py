@@ -117,9 +117,40 @@ def _sdpa(q, k, v, mask, n_heads: int) -> torch.Tensor:
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H * hd)
 
 
-#: Longest prefill the plain attention takes: the reference switches to a
-#: q-chunked scan above it (``_sdpa_chunked``), which is not ported.
+def _sdpa_chunked(q, k, v, n_heads: int, sliding_window, chunk: int
+                  ) -> torch.Tensor:
+    """Causal attention as a loop over query chunks (the reference's
+    ``_sdpa_chunked``): each chunk's logits over every key, (B, Hkv, rep,
+    chunk, S), never the whole (S, S). q (B, S, H, hd), k/v (B, S, Hkv,
+    hd), S a multiple of ``chunk``; the window keeps ``kpos > qpos -
+    window``. The same arithmetic as ``_sdpa`` per chunk."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    rep = n_heads // Hkv
+    kpos = torch.arange(S, device=q.device)
+    kg = k.permute(0, 2, 3, 1)[:, :, None]                       # b g 1 d k
+    vg = v.permute(0, 2, 1, 3)[:, :, None]                       # b g 1 k d
+    outs = []
+    for i in range(S // chunk):
+        qi = q[:, i * chunk:(i + 1) * chunk].reshape(
+            B, chunk, Hkv, rep, hd).permute(0, 2, 3, 1, 4)       # b g r q d
+        logits = torch.matmul(qi, kg).float() * hd ** -0.5       # b g r q k
+        qpos = i * chunk + torch.arange(chunk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        if sliding_window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - sliding_window)
+        logits = logits.masked_fill(~mask, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        outs.append(torch.matmul(probs, vg))                     # b g r q d
+    out = torch.cat(outs, dim=3)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
+
+
+#: Prefills longer than this whose length is a multiple of
+#: ``PREFILL_CHUNK`` run the q-chunked attention (the reference's rule);
+#: every other length runs the whole masked attention.
 PREFILL_CHUNK_THRESHOLD = 2048
+PREFILL_CHUNK = 256
 
 
 def attention_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
@@ -133,20 +164,22 @@ def attention_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
     largest real position p < length with p % C == i (a ring keeps each
     row's last C real positions); slots no real position maps to keep
     their contents (the reference's masked write, in place). A window
-    masks keys more than ``window - 1`` positions back. Outputs at padded
-    positions are garbage."""
+    masks keys more than ``window - 1`` positions back. Past
+    ``PREFILL_CHUNK_THRESHOLD`` tokens, at a multiple of ``PREFILL_CHUNK``,
+    the attention runs chunk by chunk (``_sdpa_chunked``). Outputs at
+    padded positions are garbage."""
     B, S, _ = x.shape
-    if S > PREFILL_CHUNK_THRESHOLD:
-        raise NotImplementedError(
-            f"prefill of {S} > {PREFILL_CHUNK_THRESHOLD} tokens needs the "
-            f"chunked attention, which the port does not have yet")
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
-    qpos, kpos = positions[:, :, None], positions[:, None, :]
-    mask = kpos <= qpos
-    if cfg.sliding_window is not None:
-        mask = mask & (kpos > qpos - cfg.sliding_window)
-    out = _sdpa(q, k, v, mask.expand(B, S, S), cfg.n_heads)
+    if S > PREFILL_CHUNK_THRESHOLD and S % PREFILL_CHUNK == 0:
+        out = _sdpa_chunked(q, k, v, cfg.n_heads, cfg.sliding_window,
+                            PREFILL_CHUNK)
+    else:
+        qpos, kpos = positions[:, :, None], positions[:, None, :]
+        mask = kpos <= qpos
+        if cfg.sliding_window is not None:
+            mask = mask & (kpos > qpos - cfg.sliding_window)
+        out = _sdpa(q, k, v, mask.expand(B, S, S), cfg.n_heads)
 
     C = cache.capacity
     idx = torch.arange(C, device=x.device)[None, :]

@@ -1,7 +1,9 @@
 """Decoder-only stacks over the paged KV pool or dense KV rows: attention
-+ MoE stacks and hybrid Mamba/attention stacks of repeating super-blocks
++ MoE stacks, hybrid Mamba/attention stacks of repeating super-blocks
 (e.g. Jamba: seven Mamba-2 layers then one attention layer, MoE FFNs on
-the odd positions and dense SwiGLU FFNs on the even ones).
+the odd positions and dense SwiGLU FFNs on the even ones), dense
+attention stacks (a SwiGLU FFN at every layer) and pure Mamba-2 stacks
+(no attention, no FFN where ``d_ff`` is 0).
 
 Parameters keep the reference's tree: per super-block position a dict of
 leaves stacked over super-blocks (leading ``nsb`` axis). The reference's
@@ -22,7 +24,8 @@ Entry points:
 * ``prefill`` / ``decode_step`` — the same over dense rows;
 * ``spec_draft`` / ``spec_verify`` — S chained decode steps (paged or
                            dense): the draft and verify of self-speculative
-                           decoding (attention stacks only).
+                           decoding (the verify also returns each step's
+                           Mamba rows).
 
 Every MoE layer runs through its mixed-precision bank (``bank``: MoE
 position → stacked ``ExpertBankQ``), or with ``bank=None`` through the
@@ -47,28 +50,27 @@ from repro_torch.models import moe as X
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig
 
-#: Where the speculative decoding of stacks with Mamba positions stands.
-SPEC_MAMBA_ITEM = "ROADMAP Queue 1 item 8"
+#: Where the encoder-decoder and VLM families stand.
+ENC_DEC_VLM_ITEM = "ROADMAP Queue 1 item 8 (e)"
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    """Decoder-only MoE stacks of ``attn``/``mamba`` positions with MoE or
-    dense FFNs. Encoder-decoder, VLM and pure-SSM stacks are not ported."""
+    """Decoder-only stacks of ``attn``/``mamba`` positions: MoE and hybrid
+    stacks, dense attention stacks (``cfg.moe is None``: a SwiGLU FFN at
+    every position) and pure Mamba-2 stacks (no attention position; no
+    FFN where ``d_ff`` is 0). Encoder-decoder and VLM stacks are not
+    ported."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family (encoder-decoder or VLM "
+            f"frontend) is not ported ({ENC_DEC_VLM_ITEM})")
     sb = cfg.superblock_or_default()
-    if cfg.family in ("audio", "vlm", "ssm") or cfg.moe is None:
+    if any(k not in ("attn", "mamba") for k in sb) \
+            or ("attn" in sb and cfg.attn is None) \
+            or ("mamba" in sb and cfg.ssm is None):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoder-only MoE stacks (attention "
-            f"or hybrid Mamba/attention); the {cfg.family!r} family "
-            f"(encoder-decoder, VLM or pure-SSM stacks) is not ported")
-    if any(k not in ("attn", "mamba") for k in sb) or "attn" not in sb \
-            or cfg.attn is None or ("mamba" in sb and cfg.ssm is None):
-        raise NotImplementedError(
-            f"{cfg.name}: super-block {sb} is not an attention or hybrid "
-            f"Mamba/attention stack")
-    if any(cfg.ffn_kind(p) == "dense" for p in range(len(sb))) \
-            and not cfg.d_ff:
-        raise NotImplementedError(f"{cfg.name}: a dense FFN position needs "
-                                  f"d_ff")
+            f"{cfg.name}: super-block {sb} is not a stack of attention "
+            f"and Mamba positions with their configurations")
 
 
 def attn_positions(cfg: ArchConfig):
@@ -91,7 +93,9 @@ def attn_logical_capacity(cfg: ArchConfig, max_len: int,
 
 def attn_capacity(cfg: ArchConfig, max_len: int) -> int:
     """Dense KV row capacity: ``max_len``, or the sliding window's ring
-    when it is shorter."""
+    when it is shorter (0 on a stack without attention)."""
+    if cfg.attn is None:
+        return 0
     w = cfg.attn.sliding_window
     return max_len if w is None else min(max_len, w)
 
@@ -156,7 +160,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
             bp["mamba"] = SSM.init_mamba(stacked, d, cfg.ssm, (nsb,), dev)
         if cfg.ffn_kind(pos) == "moe":
             bp["moe"] = moe()
-        else:
+        elif cfg.d_ff:
             bp["mlp"] = M.init_swiglu(stacked, d, cfg.d_ff)
         blocks[str(pos)] = bp
     params = {
@@ -187,15 +191,17 @@ def init_paged_caches(cfg: ArchConfig, n_blocks: int, block_tokens: int,
                       device=None, batch: Optional[int] = None) -> Dict:
     """One shared block pool per attention position, (nsb, N, Hkv, bt, hd)
     bf16 K and V; per-slot rows of ``batch`` slots per Mamba position
-    (recurrent state is O(1) per slot: paging it buys nothing)."""
+    (recurrent state is O(1) per slot: paging it buys nothing). A stack
+    without attention positions gets no pool."""
     _check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_superblocks(), n_blocks, cfg.attn.n_kv_heads,
-             block_tokens, cfg.attn.head_dim)
-    caches = {p: L.PagedKVCache(
-        torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-        torch.zeros(shape, dtype=torch.bfloat16, device=dev))
-        for p in attn_positions(cfg)}
+    caches = {}
+    for p in attn_positions(cfg):
+        shape = (cfg.n_superblocks(), n_blocks, cfg.attn.n_kv_heads,
+                 block_tokens, cfg.attn.head_dim)
+        caches[p] = L.PagedKVCache(
+            torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            torch.zeros(shape, dtype=torch.bfloat16, device=dev))
     caches.update(init_mamba_rows(cfg, batch, dev))
     return caches
 
@@ -258,7 +264,9 @@ def _block_step(bp: Dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
     x = x + mix
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
     if "moe" not in bp:
-        return x + M.swiglu(bp["mlp"], h), None
+        # A block with neither FFN adds zeros (the reference's
+        # ``_apply_ffn``): x + 0 is x.
+        return (x + M.swiglu(bp["mlp"], h) if "mlp" in bp else x), None
     # Per-row capacity needs the row count even where per-row counts were
     # not asked for; the counts returned still follow ``n_rows``.
     y, aux = X.moe_apply(bp["moe"], bank, h.reshape(B * S, d), cfg.moe,
@@ -431,20 +439,13 @@ def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
 # computes exactly what the plain decode would have: token parity with the
 # non-speculative path by construction. A sliding-window ring needs
 # nothing more (a rejected position's slot is rewritten by the next
-# accepted one before any read). Stacks with Mamba positions would need
-# their recurrent rows stacked per step, so that a rejection rolls a row
-# back to its last accepted step (the reference's ``ssm_states``): not
-# ported, and both entry points raise on them.
+# accepted one before any read). The Mamba positions' recurrent rows are
+# stacked per verify step (the reference's ``ssm_states``), so that a
+# rejection rolls each row back to its last accepted step
+# (``serving.spec.select_rows``); a row outside ``row_valid`` at a step
+# keeps its state through it.
 # --------------------------------------------------------------------------
 
-
-def _check_spec(cfg: ArchConfig) -> None:
-    _check_family(cfg)
-    if mamba_positions(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: speculative decoding on stacks with Mamba "
-            f"positions (per-step recurrent state) is not ported yet "
-            f"({SPEC_MAMBA_ITEM})")
 
 def _spec_step(params, cfg, tok, pos, caches, j: int, row_valid, paged,
                **kw):
@@ -475,8 +476,8 @@ def spec_draft(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     pre-resolved write lanes. With the all-lo view of the served banks
     (``serving.lobanks``) the always-resident lo tier is the draft model.
     Emits no counts: draft traffic never feeds hotness. Returns drafted
-    (S, B) int64; the caches are written in place."""
-    _check_spec(cfg)
+    (S, B) int64; the caches (the Mamba rows too) are written in place."""
+    _check_family(cfg)
     kw = dict(bank=bank, capacity_factor=capacity_factor,
               row_capacity=row_capacity, moe_dispatch=moe_dispatch)
     out, tok = [], token
@@ -497,19 +498,29 @@ def spec_verify(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     """Verify ``S`` positions: chained decode steps over the given tokens
     (row r, step j consumes ``tokens[j, r]`` at position ``pos[r] + j``)
     on the served (mixed-precision) banks. Returns (logits (S, B, V)
-    float32, counts {pos: (S, nsb, B, E)}): ``logits[j]`` is the
+    float32, counts {pos: (S, nsb, B, E)}, ssm_states {Mamba position:
+    ``MambaCache`` of (S, nsb, B, ...) leaves}): ``logits[j]`` is the
     next-token distribution after ``tokens[:j+1]``; the counts are per
     step, so the engine keeps rejected positions out of the hotness
-    signal. The caches are written in place."""
-    _check_spec(cfg)
+    signal; ``ssm_states[p]`` leaf ``[j]`` is position p's rows after step
+    j. The caches are written in place."""
+    _check_family(cfg)
     kw = dict(bank=bank, capacity_factor=capacity_factor,
               per_row_counts=True, row_capacity=row_capacity,
               moe_dispatch=moe_dispatch)
+    S = tokens.shape[0]
+    ssm = {p: SSM.MambaCache(*(torch.empty((S,) + tuple(t.shape),
+                                           dtype=t.dtype, device=t.device)
+                               for t in caches[p]))
+           for p in mamba_positions(cfg)}
     logits, counts = [], []
-    for j in range(tokens.shape[0]):
+    for j in range(S):
         lg, c = _spec_step(params, cfg, tokens[j], pos, caches, j,
                            row_valid, paged, **kw)
         logits.append(lg)
         counts.append(c)
+        for p, st in ssm.items():
+            for out, now in zip(st, caches[p]):
+                out[j].copy_(now)
     return torch.stack(logits), {k: torch.stack([c[k] for c in counts])
-                                 for k in counts[0]}
+                                 for k in counts[0]}, ssm

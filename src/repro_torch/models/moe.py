@@ -371,8 +371,12 @@ def moe_apply(params, bank, x: torch.Tensor, cfg: MoEConfig,
                      dispatch_pad_ratio=pad_ratio)
 
 
-def moe_capacity(n_tokens: int, cfg: MoEConfig,
+def moe_capacity(n_tokens: int, cfg: Optional[MoEConfig],
                  factor: float | None = None) -> int:
+    """Slots per expert of a forward over ``n_tokens`` (0 on a stack
+    without MoE, ``cfg`` None)."""
+    if cfg is None:
+        return 0
     f = factor if factor is not None else cfg.capacity_factor
     cap = int(n_tokens * cfg.top_k * f / cfg.num_experts) + 1
     return max(8, (cap + 7) // 8 * 8)

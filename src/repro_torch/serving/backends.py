@@ -1089,6 +1089,12 @@ class OffloadBackend(_BackendBase):
                       "bytes_moved": 0}
 
     def _materialize(self, cfg, params, kv_bytes):
+        if cfg.moe is None:
+            # The reference's offload reads the expert width unguarded and
+            # fails with this kind of error on a stack without MoE.
+            raise AttributeError(
+                f"{cfg.name}: the offload baseline prices expert transfers, "
+                f"and this stack has no MoE position (cfg.moe is None)")
         for p in self.moe_positions:
             _device_experts(params, p, self.device)
         # bf16 bytes of one expert (w_gate + w_up + w_down).

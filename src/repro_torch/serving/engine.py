@@ -94,8 +94,12 @@ own ``SamplingParams`` (``serving.sampler``; greedy by default).
   reference's ``guard_ssm`` merge); preemption snapshots and restores a
   slot's rows. The prefix trie and chunked prefill are off on such
   stacks (recurrent state is not leased), and every prefill bucket is a
-  multiple of the SSD chunk. Speculative decoding on them raises
-  (``models.model.SPEC_MAMBA_ITEM``).
+  multiple of the SSD chunk. Speculative decoding rolls each row back to
+  its last accepted step (``serving.spec``). A pure Mamba stack has no
+  attention position: no pool even under ``paged=True`` (dense rows), and
+  0 KV bytes.
+* **Dense stacks** (no MoE position): every FFN is the dense SwiGLU, the
+  router counts are empty, and the backends hold no expert bytes.
 * **Sliding windows**: KV capacity is ``min(max_len, window)`` (a ring,
   slot = position % C) on either layout; chunked prefill takes a windowed
   prompt only while it fits the window, and only prompts that fit it are
@@ -116,8 +120,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.budget import UNBOUNDED, BudgetTracker
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import (SPEC_MAMBA_ITEM, attn_capacity,
-                                      attn_logical_capacity, attn_positions,
+from repro_torch.models.model import (attn_capacity, attn_logical_capacity,
+                                      attn_positions,
                                       decode_step, decode_step_paged,
                                       init_caches, init_mamba_rows,
                                       init_paged_caches, mamba_positions,
@@ -282,19 +286,15 @@ class InferenceEngine:
         self.sched = Scheduler(e.scheduler)
         self._attn_pos = attn_positions(cfg)
         self._mamba_pos = mamba_positions(cfg)
-        if e.spec_k > 0 and self._mamba_pos:
-            raise NotImplementedError(
-                f"{cfg.name}: speculative decoding on stacks with Mamba "
-                f"positions is not ported yet ({SPEC_MAMBA_ITEM})")
         self._bt = e.block_tokens
         # Logical KV capacity: max_len, or the sliding window's ring.
         self._C_attn = attn_capacity(cfg, e.max_len)
         self._C_pad = attn_logical_capacity(cfg, e.max_len, self._bt)
         self._nb = self._C_pad // self._bt
-        a = cfg.attn
         # KV bytes of one cache position across every attention layer (K
-        # and V).
-        pos_bytes = 2 * a.n_kv_heads * a.head_dim * 2 * \
+        # and V); 0 on a stack without attention.
+        pos_bytes = 0 if not self._attn_pos else \
+            2 * cfg.attn.n_kv_heads * cfg.attn.head_dim * 2 * \
             len(self._attn_pos) * cfg.n_superblocks()
         self.budget = BudgetTracker(UNBOUNDED if e.hbm_budget_bytes is None
                                     else e.hbm_budget_bytes)
@@ -311,7 +311,8 @@ class InferenceEngine:
             backend.attach_obs(self.tracer, self.metrics)
         self.pool: Optional[KVBlockPool] = None
         self.trie: Optional[PrefixTrie] = None
-        if e.paged:
+        # Nothing to page without attention: such a stack keeps dense rows.
+        if e.paged and self._attn_pos:
             n_blocks = e.kv_blocks if e.kv_blocks is not None \
                 else 1 + n * self._nb    # trash block + every slot full
             if self._nb > n_blocks - 1:
@@ -339,7 +340,8 @@ class InferenceEngine:
             # dispatch, router shape, byte prices.
             self.tracer.meta.update(
                 moe_dispatch=self.moe_dispatch,
-                num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                num_experts=cfg.moe.num_experts if cfg.is_moe else 0,
+                top_k=cfg.moe.top_k if cfg.is_moe else 1,
                 lo_bytes=0, hi_bytes=0, backend=backend.name)
             self.tracer.meta.update(backend.obs_meta())
         # Promotion ages (the watchdog's input) on the engine clock.
@@ -357,7 +359,7 @@ class InferenceEngine:
         # Per-row MoE capacity: the decode steps' row cap (the prefills'
         # depends on the length bucket, ``_row_cap_prefill``).
         self._row_cap_decode = moe_capacity(1, cfg.moe, e.capacity_factor) \
-            if e.row_capacity_norm else None
+            if e.row_capacity_norm and cfg.is_moe else None
         # The batch tier's banks: the same buffers, every hi slot disowned.
         self._lo_owner_cache: Dict = {}
         self.lo_banks = all_lo_banks(self.banks, self._lo_owner_cache)
@@ -412,7 +414,7 @@ class InferenceEngine:
         # and one step over them per bank view (one CUDA graph each on the
         # card, sharing a memory pool), updating the caches in place.
         fields = [("tokens", (n,), torch.int64), ("pos", (n,), torch.int64)]
-        if e.paged:
+        if self.pool is not None:
             fields += [("wblk", (n,), torch.int64),
                        ("woff", (n,), torch.int64),
                        ("table", (n, self._nb), torch.int32)]
@@ -1314,6 +1316,8 @@ class InferenceEngine:
         ragged layout, or empty rows of the padded (E, C) buffer). Counts
         are (nsb, B, E) per decode step, or (W, nsb, B, E) per speculative
         verify (one entry per step and layer)."""
+        if not self.cfg.is_moe or not counts_np:
+            return
         E = self.cfg.moe.num_experts
         if self._row_cap_decode is not None:
             C = self.ecfg.max_slots * self._row_cap_decode

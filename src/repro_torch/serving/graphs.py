@@ -33,6 +33,7 @@ raises; it never falls back to running eagerly.
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -146,8 +147,17 @@ class DecodeGraph:
             main.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             start = dict(kops.LAUNCHES)
-            with torch.cuda.graph(graph, pool=self.pool):
-                outputs = self.fn()
+            # No collection inside the capture: freeing an unreachable
+            # engine's graph there (cudaGraphExecDestroy) is not permitted
+            # while a stream captures, and invalidates this capture.
+            collect = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    outputs = self.fn()
+            finally:
+                if collect:
+                    gc.enable()
             self.launches = {k: n - start[k] for k, n in kops.LAUNCHES.items()
                              if n != start[k]}
             torch.cuda.synchronize(self.device)

@@ -20,9 +20,16 @@ One round per engine step for the rows of the scheduler's ``spec`` group:
    target model's;
 4. **rewind** — rejected positions roll back: write positions retreat,
    paged blocks that only ever held rejected positions return to the pool
-   (``KVLease.unwind``), and on dense rows the lanes the burst wrote are
-   restored from a snapshot (a lane past a row's depth may wrap onto a live
-   slot).
+   (``KVLease.unwind``; full attention only), and on dense rows, and on
+   the pool under a sliding window, the lanes the burst wrote are restored
+   from a snapshot (a lane past a row's depth may wrap onto a live slot; a
+   ring's draft overwrites slots whose positions the verify still
+   attends). On stacks with Mamba positions the draft graph copies the
+   recurrent rows into a static snapshot before drafting and back after,
+   the verify returns each row's state after every step, and each row of
+   the round takes its state after its last accepted step
+   (``select_rows``, the reference's ``_select_ssm``; a device-side
+   gather, no host read); rows outside the round take the snapshot.
 
 Each ladder width's draft and verify are one CUDA graph each on the card
 (``serving.graphs.DecodeGraph``), over one set of static inputs of this
@@ -49,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import spec_draft, spec_verify
+from repro_torch.models.ssm import MambaCache
 from repro_torch.serving.engine import _pack, _unpack
 from repro_torch.serving.graphs import DecodeGraph, StaticInputs
 from repro_torch.serving.sampler import (STREAM_ACCEPT, STREAM_BONUS,
@@ -113,6 +121,17 @@ def accept_burst(sampler: RequestSampler, drafts: np.ndarray,
     return a, out
 
 
+def select_rows(stacked: Dict[str, MambaCache], sel: torch.Tensor
+                ) -> Dict[str, MambaCache]:
+    """Per-row rollback of recurrent state (the reference's
+    ``_select_ssm``): leaves (S, nsb, B, ...) stacked over the verify's
+    steps, ``sel`` (B,) int64 each row's last accepted step → leaves
+    (nsb, B, ...) holding each row's state after it."""
+    rows = torch.arange(sel.shape[0], device=sel.device)
+    return {p: MambaCache(*(t[sel, :, rows].movedim(0, 1) for t in c))
+            for p, c in stacked.items()}
+
+
 class SpecDecoder:
     """The engine's speculative decoder (built when ``EngineConfig.spec_k
     > 0``): the depth ladder, one draft and one verify graph per ladder
@@ -152,6 +171,17 @@ class SpecDecoder:
         # them here and the verify graph reads them.
         self._drafted = torch.zeros((self.k_max, B), dtype=torch.int64,
                                     device=dev)
+        # The Mamba rows before a round: the draft graph writes them here
+        # first and restores them last, so the verify starts from them and
+        # rows outside the round come back from them.
+        self._mamba_snap = {p: MambaCache(*(torch.zeros_like(t)
+                                            for t in engine.caches[p]))
+                            for p in engine._mamba_pos}
+        # The rollback's inputs: each row's last accepted step and whether
+        # it was in the round, pushed by one host→device copy.
+        self._roll = StaticInputs([("sel", (B,), torch.int64),
+                                   ("act", (B,), torch.bool)], dev) \
+            if engine._mamba_pos else None
         self._shapes: Dict[int, Dict[str, tuple]] = {}
         self._out_host: Dict[int, torch.Tensor] = {}
         me = weakref.ref(self)
@@ -207,52 +237,74 @@ class SpecDecoder:
         ``pos + j`` (step j of the verify's lanes) and is valid where the
         verify's step j + 1 is."""
         eng, d = self.eng, self.inputs.dev
+        for p, snap in self._mamba_snap.items():
+            for s, t in zip(snap, eng.caches[p]):
+                s.copy_(t)
         drafted = spec_draft(eng.params, eng.cfg, d["tokens"], d["pos"],
                              eng.caches, d["step_valid"][1:k + 1],
                              bank=eng.lo_banks, **self._kw(k))
         self._drafted[:k].copy_(drafted)
+        for p, snap in self._mamba_snap.items():
+            for s, t in zip(snap, eng.caches[p]):
+                t.copy_(s)
         return ()
 
     def _verify_fn(self, k: int) -> tuple:
         """The k + 1 verify steps on the served banks over the last token
         and the drafts: (logits (W, B, V) float32, one int32 buffer of the
-        (W, B) argmax, the (k, B) drafts and the per-step per-row
-        counts)."""
+        (W, B) argmax, the (k, B) drafts and the per-step per-row counts,
+        and the Mamba rows after each step: {position: (W, nsb, B, ...)
+        leaves})."""
         eng, d = self.eng, self.inputs.dev
         W = k + 1
         toks = torch.cat([d["tokens"][None], self._drafted[:k]])
-        logits, counts = spec_verify(eng.params, eng.cfg, toks, d["pos"],
-                                     eng.caches, d["step_valid"][:W],
-                                     bank=eng.banks, **self._kw(W))
+        logits, counts, ssm = spec_verify(
+            eng.params, eng.cfg, toks, d["pos"], eng.caches,
+            d["step_valid"][:W], bank=eng.banks, **self._kw(W))
         self._shapes[k] = {p: tuple(v.shape) for p, v in counts.items()}
         head = torch.cat([torch.argmax(logits, -1).reshape(-1),
                           self._drafted[:k].reshape(-1)])
-        return logits, _pack(head, counts)
+        return logits, _pack(head, counts), ssm
 
-    # -- dense rows: the lanes a burst writes -----------------------------
-    def _dense_lanes(self, pos0: np.ndarray, W: int):
-        """The slots (B, W) the burst writes on dense rows, on the device,
-        and a snapshot of their K/V: {position: (k, v)} each (B, W, nsb,
-        Hkv, hd)."""
+    # -- the lanes a burst writes ------------------------------------------
+    def _restores(self) -> bool:
+        """Whether a burst's lanes are snapshotted and restored: always on
+        dense rows, on the pool only under a sliding window (full-attention
+        lanes are fresh private blocks or the trash block), the
+        reference's rule."""
         eng = self.eng
-        C = eng.ecfg.max_len
-        slots = eng._dev((pos0[:, None] + np.arange(W)[None, :]) % C)
-        rows = torch.arange(slots.shape[0], device=slots.device)[:, None]
-        snap = {p: (c.k[:, rows, :, slots].clone(),
-                    c.v[:, rows, :, slots].clone())
-                for p, c in eng.caches.items()}
-        return (rows, slots), snap
+        return bool(eng._attn_pos) and (
+            eng.pool is None or eng.cfg.attn.sliding_window is not None)
 
-    def _restore_dense(self, lanes, snap, mask: np.ndarray) -> None:
+    def _lanes(self, pos0: np.ndarray, W: int):
+        """The lanes (B, W) the burst writes, on the device (dense rows:
+        (row, slot ``pos % C``); the pool: the resolved (block, offset)
+        of ``_fill``), and a snapshot of their K/V: {position: (k, v)} each
+        (B, W, nsb, Hkv, hd)."""
+        eng = self.eng
+        if eng.pool is None:
+            i1 = eng._dev((pos0[:, None] + np.arange(W)[None, :]) %
+                          eng._C_attn)
+            i0 = torch.arange(i1.shape[0], device=i1.device)[:, None]
+        else:
+            h = self.inputs.host
+            i0 = eng._dev(h["wblk"][:W].T)
+            i1 = eng._dev(h["woff"][:W].T)
+        snap = {p: (eng.caches[p].k[:, i0, :, i1].clone(),
+                    eng.caches[p].v[:, i0, :, i1].clone())
+                for p in eng._attn_pos}
+        return (i0, i1), snap
+
+    def _restore(self, lanes, snap, mask: np.ndarray) -> None:
         """Write the snapshot back into the lanes where ``mask`` ((B, W)
         bool) holds; the other lanes keep what the burst wrote."""
         eng = self.eng
-        rows, slots = lanes
+        i0, i1 = lanes
         m = eng._dev(mask, torch.bool)[:, :, None, None, None]
-        for p, c in eng.caches.items():
-            sk, sv = snap[p]
+        for p, (sk, sv) in snap.items():
+            c = eng.caches[p]
             for a, s in ((c.k, sk), (c.v, sv)):
-                a[:, rows, :, slots] = torch.where(m, s, a[:, rows, :, slots])
+                a[:, i0, :, i1] = torch.where(m, s, a[:, i0, :, i1])
 
     # ------------------------------------------------------------------
     def _fill(self, active, step_valid: np.ndarray, depth: np.ndarray,
@@ -299,17 +351,37 @@ class SpecDecoder:
         B = eng.ecfg.max_slots
         W = k + 1
         self._fill([], np.zeros((W, B), bool), np.zeros(B, np.int64), [])
-        lanes = snap = None
-        if eng.pool is None:
-            lanes, snap = self._dense_lanes(eng.pos.copy(), W)
+        # Every row vacant: on the pool every write goes to the trash
+        # block; dense rows' lanes come back.
+        dense = eng.pool is None and self._restores()
+        if dense:
+            lanes, snap = self._lanes(eng.pos.copy(), W)
         for g in self.graphs[k]:
             if g.needs_capture:
                 g.capture()
-        if eng.pool is None:
-            self._restore_dense(lanes, snap, np.ones((B, W), bool))
+        if dense:
+            self._restore(lanes, snap, np.ones((B, W), bool))
         dt = time.perf_counter() - t0
         self.capture_s += dt
         eng.capture_s += dt
+
+    def _rollback_mamba(self, ssm: Dict[str, MambaCache],
+                        accepts: np.ndarray, row_valid: np.ndarray) -> None:
+        """Each row of the round takes its Mamba rows after its last
+        accepted step; every other row its pre-round snapshot. One
+        host→device copy of the (B,) steps and the mask (written after the
+        verify's outputs reached the host, so no earlier copy still reads
+        the mirror), then gathers on the device."""
+        h, d = self._roll.host, self._roll.dev
+        h["sel"][:] = np.maximum(accepts, 0)
+        h["act"][:] = row_valid
+        self._roll.push()
+        act = d["act"]
+        for p, picked in select_rows(ssm, d["sel"]).items():
+            for t, new, old in zip(self.eng.caches[p], picked,
+                                   self._mamba_snap[p]):
+                keep = act.view((1, -1) + (1,) * (t.dim() - 2))
+                t.copy_(torch.where(keep, new, old))
 
     def round(self, active, finished) -> bool:
         """Run one draft/verify round over the active rows. Returns False
@@ -338,8 +410,8 @@ class SpecDecoder:
         for i, _ in active:
             row_valid[i] = True
         # ``occupied`` (every slot holding a request, in this round or not)
-        # drives the dense restore: a lane past a row's depth can wrap
-        # onto a live slot of any occupied row.
+        # drives the restore: a lane past a row's depth can wrap onto a
+        # live slot of any occupied row.
         occupied = np.asarray([h is not None for h in eng.slots], bool)
         step_valid = row_valid[None, :] & \
             (np.arange(W)[:, None] <= depth[None, :])
@@ -348,17 +420,17 @@ class SpecDecoder:
         cows: List[Tuple[int, int]] = []
         fresh = self._fill(active, step_valid, depth, cows)
         eng._apply_copies(cows)
-        lanes = snap = None
-        if eng.pool is None:
-            lanes, snap = self._dense_lanes(pos0, W)
+        restore = self._restores()
+        if restore:
+            lanes, snap = self._lanes(pos0, W)
 
         draft.run()
-        if eng.pool is None:
+        if restore:
             # The verify reads the pre-burst contents through its own
             # step masks: every occupied lane back.
-            self._restore_dense(lanes, snap,
-                                np.repeat(occupied[:, None], W, axis=1))
-        logits, packed = verify.run()
+            self._restore(lanes, snap, np.repeat(occupied[:, None], W,
+                                                 axis=1))
+        logits, packed, ssm = verify.run()
         out = self._out_host.get(k)
         if out is None:
             out = self._out_host[k] = torch.empty(
@@ -421,10 +493,12 @@ class SpecDecoder:
         self.last = {"counts": counts_np, "accept_mask": accept_mask}
 
         # ---- rewind ------------------------------------------------------
-        if eng.pool is None:
-            self._restore_dense(lanes, snap, occupied[:, None] & (
+        if self._mamba_snap:
+            self._rollback_mamba(ssm, accepts, row_valid)
+        if restore:
+            self._restore(lanes, snap, occupied[:, None] & (
                 np.arange(W)[None, :] > accepts[:, None]))
-        else:
+        if eng.pool is not None and eng.cfg.attn.sliding_window is None:
             for i, h in active:
                 new_pos = int(pos0[i]) + int(accepts[i]) + 1
                 for jb in fresh.get(i, ()):

@@ -24,6 +24,7 @@ from repro_torch.core.budget import BudgetExceeded, plan_budget
 from repro_torch.core.ver import expert_hi_nbytes, expert_lo_nbytes
 from repro_torch.serving.backends import GiB, make_backend
 from test_torch_engine import _default_engines, _warm_and_freeze
+from torch_threads import _one_thread  # noqa: F401
 
 FLAGSHIP = "qwen3-moe-80b-a3b"
 

@@ -32,6 +32,7 @@ from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.requests import Request
 
 from test_torch_engine import _check_served, _serve_lockstep
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-moe-1b-a400m"
 #: The offload cache in the engine tests: 2 of the reduced model's 4

@@ -556,8 +556,8 @@ def _paged_case(case, rep, hd, rng, Hkv=2, bt=16):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["short", "long", "holes", "vacant"])
-@pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("rep", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("hd", [40, 64, 120, 128, 200, 256])
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 8, 16])
 def test_flash_decode_paged_matches_plain(cuda, rep, hd, case):
     rng = np.random.default_rng(rep * 100 + hd)
     q, k, v, table, valid, zero_rows = _paged_case(case, rep, hd, rng)
@@ -630,6 +630,25 @@ def test_flash_decode_paged_wide_blocks(cuda, rep, bt):
     # Online vs one-pass float32 softmax, one bf16 rounding of the output.
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                atol=2 ** -8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [36, 264])
+def test_flash_decode_refuses_what_it_does_not_take(cuda, hd):
+    """A head width that no compiled width takes (not a multiple of 8, or
+    above 256) raises on the card: no plain version there. The dense K/V
+    is a view of rows padded to a multiple of 8, so that its strides pass
+    and the head width is what is refused."""
+    q = torch.zeros((2, 4, hd), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((2, 32, 2, -(-hd // 8) * 8), dtype=torch.bfloat16,
+                     device=cuda)[..., :hd]
+    valid = torch.ones((2, 32), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_decode(q, kv, kv, valid)
+    pool = torch.zeros((3, 2, 16, hd), dtype=torch.bfloat16, device=cuda)
+    table = torch.ones((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_decode_paged(q, pool, pool, table, valid)
 
 
 @pytest.mark.cuda
@@ -801,8 +820,8 @@ def _dense_case(case, rep, hd, rng, Hkv=2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["S5", "S48", "S300", "long", "holes"])
-@pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("rep", [1, 3, 8, 16])
+@pytest.mark.parametrize("hd", [40, 64, 120, 128, 200, 256])
+@pytest.mark.parametrize("rep", [1, 3, 4, 8, 16])
 def test_flash_decode_matches_plain(cuda, rep, hd, case):
     rng = np.random.default_rng(rep * 1000 + hd)
     q, ck, cv, valid, zero_rows = _dense_case(case, rep, hd, rng)
@@ -933,7 +952,7 @@ def _step(eng, graphed):
     steps = eng.counters["steps"]
     with contextlib.nullcontext() if graphed else eager():
         eng.step()
-    if eng.counters["steps"] == steps:
+    if eng.counters["steps"] == steps or eng.last_logits is None:
         return None
     valid = torch.from_numpy(eng.decode_graph.inputs.host["row_valid"]
                              .copy()).to(eng.last_logits.device)
@@ -974,6 +993,50 @@ def _serve_steps(cuda, name, path, graphed, make=None):
             eng.flush()
     torch.cuda.synchronize()
     return [h.tokens for h in hs], logits, dict(ops.LAUNCHES), eng
+
+
+def _family_engine(arch, spec_k=0):
+    """An ``fp16`` engine on a reduced family (no MoE, or Jamba's with
+    ``static``), speculating ``spec_k`` tokens."""
+    def make(cuda, name, path):
+        from repro_torch.configs import get_config
+        from repro_torch.models.model import init_params
+        from repro_torch.serving.backends import make_backend
+        from repro_torch.serving.engine import EngineConfig, InferenceEngine
+        cfg = get_config(arch, reduced=True)
+        return InferenceEngine(cfg, init_params(cfg, seed=0, device=cuda),
+                               make_backend(name, device=cuda),
+                               EngineConfig(max_slots=2, max_len=96,
+                                            spec_k=spec_k, **PATHS[path]),
+                               device=cuda)
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("arch,spec_k", [("llama3_2-3b", 0),
+                                         ("h2o-danube-3-4b", 0),
+                                         ("mamba2-130m", 0),
+                                         ("mamba2-130m", 4),
+                                         ("jamba-v0_1-52b", 3)])
+def test_family_graph_matches_eager(cuda, path, arch, spec_k):
+    """The dense and pure-SSM families (and Jamba with speculation) on the
+    card: the captured decode, draft and verify steps give the tokens and
+    launches of the same steps op by op; the attention families launch
+    their layout's decode-attention kernel, Mamba2 no kernel."""
+    name = "static" if arch.startswith("jamba") else "fp16"
+    make = _family_engine(arch, spec_k)
+    toks_g, _, launches_g, eng_g = _serve_steps(cuda, name, path, True, make)
+    toks_e, _, launches_e, _ = _serve_steps(cuda, name, path, False, make)
+    assert toks_g == toks_e
+    assert launches_g == launches_e
+    if spec_k:
+        assert eng_g._spec.rounds > 0
+    attn = "flash_decode_paged" if path == "paged-ragged" else "flash_decode"
+    if arch == "mamba2-130m":
+        assert eng_g.pool is None and not any(launches_g.values())
+    else:
+        assert launches_g[attn] > 0, launches_g
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ from repro_torch.convert import (bank_from_reference, params_from_reference,
 from repro_torch.models import layers as tlayers
 from repro_torch.models.model import decode_step, init_caches, prefill
 from test_torch_model import LOGIT_ATOL, _bank_with_hi
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "qwen3-moe-30b-a3b"
 
@@ -78,22 +79,48 @@ def test_attention_prefill_matches_reference(attn):
                                    rtol=0.05, atol=0.05)
 
 
-def test_attention_prefill_refuses_the_chunked_length(attn):
-    jcfg, cfg, _, tattn = attn
-    x = torch.zeros((1, 2049, jcfg.d_model), dtype=torch.bfloat16)
-    _, tc = _cache(jcfg, 1, 2049, seed=0)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        tlayers.attention_prefill(tattn, cfg.attn, x, tc,
-                                  torch.tensor([2049]))
+@pytest.mark.parametrize("S,window", [(2304, None), (2304, 64),
+                                      (2049, None)],
+                         ids=["chunked", "chunked-window", "whole"])
+def test_attention_prefill_chunked_matches_reference(attn, S, window,
+                                                     monkeypatch):
+    """Past 2048 tokens at a multiple of 256 the prefill attends chunk by
+    chunk (the reference's ``_sdpa_chunked``), with and without a window;
+    at 2049 it runs the whole masked attention. Both against the
+    reference's ``attention_prefill``, to the prefill tolerance above."""
+    jcfg, cfg, jattn, tattn = attn
+    ja = dataclasses.replace(jcfg.attn, sliding_window=window)
+    ta = dataclasses.replace(cfg.attn, sliding_window=window)
+    rng = np.random.default_rng(S + (window or 0))
+    x = jnp.asarray(rng.standard_normal((1, S, jcfg.d_model)), jnp.bfloat16)
+    lengths = np.array([S])
+    jc, tc = _cache(jcfg, 1, S if window is None else window, seed=2)
+    chunked = []
+    monkeypatch.setattr(tlayers, "_sdpa_chunked", lambda *a: chunked.append(
+        a[-1]) or _SDPA_CHUNKED(*a))
+    jo, jc2 = jlayers.attention_prefill(jattn, ja, x, jc,
+                                        lengths=jnp.asarray(lengths))
+    to = tlayers.attention_prefill(tattn, ta, to_torch(x), tc,
+                                   torch.from_numpy(lengths))
+    assert chunked == ([tlayers.PREFILL_CHUNK] if S % 256 == 0 else [])
+    _ulps(tc.k, jc2.k)
+    _ulps(tc.v, jc2.v)
+    np.testing.assert_allclose(to[0].float().numpy(),
+                               np.asarray(jo[0], np.float32),
+                               rtol=0.05, atol=0.05)
 
 
-def test_attention_prefill_refuses_sliding_window_rings(attn):
-    """Sliding-window rings on dense rows are ported: a ring of capacity
+_SDPA_CHUNKED = tlayers._sdpa_chunked
+
+
+def test_attention_prefill_matches_reference_on_sliding_window_rings(attn):
+    """Sliding-window rings on dense rows: a ring of capacity
     ``min(max_len, window)`` smaller than the bucket takes each row's last
     ``C`` real positions at slot ``pos % C`` (a short row wraps less, an
     inert row keeps its slots), and the window mask, as the reference's
-    ``attention_prefill``. What stays refused is a prefill beyond the
-    plain attention's length (the chunked attention, not ported)."""
+    ``attention_prefill``; also past the plain attention's length at a
+    length the chunked attention does not take (2049: the whole masked
+    attention over a ring)."""
     jcfg, cfg, jattn, tattn = attn
     B, S, W = 3, 32, 12
     jring = dataclasses.replace(jcfg.attn, sliding_window=W)
@@ -114,11 +141,17 @@ def test_attention_prefill_refuses_sliding_window_rings(attn):
         np.testing.assert_allclose(to[r, :n].float().numpy(),
                                    np.asarray(jo[r, :n], np.float32),
                                    rtol=0.05, atol=0.05)
-    x_long = torch.zeros((1, 2049, jcfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        tlayers.attention_prefill(tattn, ring, x_long,
-                                  _cache(jcfg, 1, W, seed=0)[1],
-                                  torch.tensor([2049]))
+    x_long = jnp.asarray(rng.standard_normal((1, 2049, jcfg.d_model)),
+                         jnp.bfloat16)
+    jc, tc = _cache(jcfg, 1, W, seed=0)
+    jo, jc2 = jlayers.attention_prefill(jattn, jring, x_long, jc,
+                                        lengths=jnp.asarray([2049]))
+    to = tlayers.attention_prefill(tattn, ring, to_torch(x_long), tc,
+                                   torch.tensor([2049]))
+    _ulps(tc.k, jc2.k)
+    np.testing.assert_allclose(to[0].float().numpy(),
+                               np.asarray(jo[0], np.float32),
+                               rtol=0.05, atol=0.05)
 
 
 def test_attention_decode_matches_reference(attn):
@@ -145,6 +178,54 @@ def test_attention_decode_matches_reference(attn):
     # output projection sums over.
     np.testing.assert_allclose(to.float().numpy(), np.asarray(jo, np.float32),
                                rtol=0.05, atol=0.05)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("H,Hkv,hd,window", [(32, 8, 120, 48),
+                                             (32, 32, 128, None),
+                                             (24, 8, 128, None)],
+                         ids=["danube", "deepseek", "llama"])
+def test_decode_attention_head_shapes_match_reference(layout, H, Hkv, hd,
+                                                      window):
+    """The decode attention's plain versions at the dense families' head
+    shapes (hd 120 rep 4 on a window ring past its wrap, hd 128 rep 1, hd
+    128 rep 3), on dense rows and through a block table, against the
+    reference's ``_attend_cache`` over the same cache view, to the decode
+    tolerance above."""
+    from repro.models.config import AttnConfig as JAttnConfig
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.config import AttnConfig
+    B, C, bt = 3, 48, 16
+    jcfg = JAttnConfig(n_heads=H, n_kv_heads=Hkv, head_dim=hd,
+                       sliding_window=window)
+    cfg = AttnConfig(n_heads=H, n_kv_heads=Hkv, head_dim=hd,
+                     sliding_window=window)
+    rng = np.random.default_rng(hd + H + Hkv)
+    q = rng.standard_normal((B, 1, H, hd))
+    kc = rng.standard_normal((B, Hkv, C, hd))
+    vc = rng.standard_normal((B, Hkv, C, hd))
+    pos = np.array([0, 17, 3 * C + 5])             # the last row wrapped
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, kc, vc))
+    want = np.asarray(jlayers._attend_cache(jq, jk, jv,
+                                            jnp.asarray(pos), jcfg),
+                      np.float32).reshape(B, H, hd)
+    tq, tk, tv = (to_torch(a) for a in (jq, jk, jv))
+    valid = tlayers.decode_valid(torch.from_numpy(pos), C, cfg)
+    if layout == "dense":
+        got = kops.flash_decode(tq[:, 0].contiguous(), tk.transpose(1, 2),
+                                tv.transpose(1, 2), valid)
+    else:
+        nb = C // bt
+        table = torch.from_numpy((1 + rng.permutation(B * nb)).reshape(
+            B, nb).astype(np.int32))
+        pool = [torch.zeros((1 + B * nb, Hkv, bt, hd), dtype=torch.bfloat16)
+                for _ in range(2)]
+        for p, src in zip(pool, (tk, tv)):
+            p[table.long()] = src.reshape(B, Hkv, nb, bt, hd).transpose(1, 2)
+        got = kops.flash_decode_paged(tq[:, 0].contiguous(), *pool, table,
+                                      valid)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0.05,
+                               atol=0.05)
 
 
 def _forward_pair(arch, steps=8, B=3, max_len=64, seed=0):

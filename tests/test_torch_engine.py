@@ -1,6 +1,7 @@
 """The port's serving engine against the reference engine: the same
 requests, the same weights, greedy tokens compared step by step."""
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -21,6 +22,7 @@ from repro_torch.serving.backends import STAT_KEYS, make_backend
 from repro_torch.serving.engine import (ENGINE_STAT_KEYS, EngineConfig,
                                         InferenceEngine)
 from repro_torch.serving.requests import Request
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-moe-1b-a400m"
 # Engine logits of the two packages differ by at most a few hundredths on
@@ -33,13 +35,24 @@ PROMPT_LENS = (20, 13, 37)
 NEW_TOKENS = 8
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_weights(jcfg):
+    """The reference's weights of ``jcfg`` (``PRNGKey(0)``), drawn once per
+    worker process and kept as numpy: each case's reference engine gets
+    device arrays of its own, and the port its own converted copy (the
+    backends replace the experts in the trees they are given)."""
+    return jax.tree_util.tree_map(
+        np.asarray, jinit_params(jax.random.PRNGKey(0), jcfg))
+
+
 def _engines(name, paged=True):
     """Both engines on one set of weights: the paged pool with ragged
     dispatch, or (``paged=False``) dense rows with padded dispatch."""
     jcfg = jget_config(ARCH, reduced=True)
     cfg = get_config(ARCH, reduced=True)
-    jp = jinit_params(jax.random.PRNGKey(0), jcfg)
-    tp = params_from_reference(jax.tree_util.tree_map(np.asarray, jp))
+    jp_np = _reference_weights(jcfg)
+    jp = jax.tree_util.tree_map(jax.numpy.asarray, jp_np)
+    tp = params_from_reference(jp_np)
     ecfg = dict(max_slots=2, max_len=96)
     if name == "dynaexq":
         jbe = jmake_backend("dynaexq", lo_bits=4, n_hi_per_layer=2,
@@ -66,8 +79,9 @@ def _default_engines(jcfg, cfg, name, paged=True, **kw):
     ``make_backend(name, **kw)`` at otherwise default arguments
     (``dynaexq``: the global allocator in both), but a policy window every
     step, so the published sets depend on the tokens alone."""
-    jp = jinit_params(jax.random.PRNGKey(0), jcfg)
-    tp = params_from_reference(jax.tree_util.tree_map(np.asarray, jp))
+    jp_np = _reference_weights(jcfg)
+    jp = jax.tree_util.tree_map(jax.numpy.asarray, jp_np)
+    tp = params_from_reference(jp_np)
     if name == "dynaexq":
         jkw = dict(kw, controller=JControllerConfig(update_interval_s=0.0))
         kw = dict(kw, controller=ControllerConfig(update_interval_s=0.0))
@@ -107,8 +121,9 @@ def _margin(row):
 
 
 def _serve_lockstep(cfg, je, te, monkeypatch, paged=True, tol=LOGIT_TOL,
-                    past_routing=False):
-    """Serve the same requests through both engines one step at a time and
+                    past_routing=False, prompts=None, new_tokens=NEW_TOKENS):
+    """Serve the same requests (``prompts``, by default PROMPT_LENS of the
+    code workload) through both engines one step at a time and
     compare every emitted token and its logits row (to ``tol``, the margin
     rule at ``4 * tol``). A request is compared
     until its tokens first differ (which must be at a small-margin step) or
@@ -153,11 +168,12 @@ def _serve_lockstep(cfg, je, te, monkeypatch, paged=True, tol=LOGIT_TOL,
     for fn, key in (("prefill", "prefill"), ("decode_step", "decode")):
         monkeypatch.setattr(tengine, fn + suffix,
                             capture(getattr(tengine, fn + suffix), key))
-    prompts = [make_prompts("code", cfg.vocab_size, 1, n, seed=7 + i)[0]
-               for i, n in enumerate(PROMPT_LENS)]
-    jh = [je.submit(JRequest(tokens=p, max_new_tokens=NEW_TOKENS))
+    if prompts is None:
+        prompts = [make_prompts("code", cfg.vocab_size, 1, n, seed=7 + i)[0]
+                   for i, n in enumerate(PROMPT_LENS)]
+    jh = [je.submit(JRequest(tokens=p, max_new_tokens=new_tokens))
           for p in prompts]
-    th = [te.submit(Request(tokens=p, max_new_tokens=NEW_TOKENS))
+    th = [te.submit(Request(tokens=p, max_new_tokens=new_tokens))
           for p in prompts]
     stop = {i: None for i in range(len(prompts))}
     small = {i: 0 for i in range(len(prompts))}

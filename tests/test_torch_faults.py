@@ -50,17 +50,10 @@ from repro_torch.serving.engine import (EngineConfig, InferenceEngine,
                                         RequestState)
 from repro_torch.serving.requests import Request
 from repro_torch.serving.streaming import load_streaming_params
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-moe-1b-a400m"
 FROZEN = dict(update_interval_s=1e9)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _plans(*rules, seed=7):

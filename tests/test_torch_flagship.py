@@ -30,6 +30,7 @@ from repro_torch.models.model import (decode_step_paged, init_paged_caches,
                                       init_params, prefill_paged)
 from test_torch_engine import (_check_served, _default_engines,
                                _serve_lockstep, _warm_and_freeze)
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "qwen3-moe-80b-a3b"
 # Logit tolerance of the reduced models, as in test_torch_model: float32

@@ -19,7 +19,6 @@ import types
 import jax
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import get_config as jget_config
 from repro.core import ControllerConfig as JControllerConfig
@@ -46,6 +45,7 @@ from repro_torch.serving.engine import (ENGINE_STAT_KEYS, LOAD_SNAPSHOT_KEYS,
 from repro_torch.serving.requests import Request
 from repro_torch.serving.sampler import SamplingParams
 from repro_torch.serving.scheduler import SchedulerConfig
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-moe-1b-a400m"
 LOGIT_TOL = 0.05
@@ -54,17 +54,6 @@ COUNTERS = ("steps", "prefills", "admitted", "finished", "prefill_tokens",
             "prefix_hit_tokens", "kv_cow_copies", "preemptions", "resumes",
             "shed_requests", "downgraded", "chunk_prefills",
             "prefill_compiles", "prefix_trie_nodes")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """These engines run thousands of tiny CPU ops: one intra-op thread
-    each, so that the suite's parallel workers do not oversubscribe the
-    cores with spinning thread pools."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

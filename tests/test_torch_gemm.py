@@ -17,6 +17,7 @@ from repro.kernels.quant_matmul import quant_matmul as jquant_matmul
 from repro.quant.qtensor import quantize as jquantize
 from repro_torch.convert import to_torch
 from repro_torch.kernels import ops, ref
+from torch_threads import _one_thread  # noqa: F401
 
 SHAPES = [(K, N, g) for K, N, g in ((256, 64, 64), (2048, 768, 64),
                                     (768, 2048, 64), (2048, 768, 128),

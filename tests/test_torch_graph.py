@@ -25,6 +25,7 @@ from repro_torch.serving import engine as tengine
 from repro_torch.serving.backends import make_backend
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.requests import Request, make_prompts
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-moe-1b-a400m"
 
@@ -436,7 +437,8 @@ def test_spec_steps_read_nothing_on_the_host(monkeypatch, paged):
     spec.inputs.push()
     with no_host_reads(monkeypatch):
         spec._draft_fn(k)
-        logits, packed = spec._verify_fn(k)
+        logits, packed, ssm = spec._verify_fn(k)
+    assert ssm == {}                       # no Mamba position
     assert logits.shape == (k + 1, 3, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
     c = spec._shapes[k]["0"]

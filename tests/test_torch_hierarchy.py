@@ -36,16 +36,9 @@ from repro_torch.serving.backends import STAT_KEYS, make_backend
 from repro_torch.serving.hoststore import FetchModel
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 from repro_torch.serving.streaming import load_streaming_params
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-moe-1b-a400m"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.requests import Request
 
 from test_torch_engine import _check_served, _serve_lockstep
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "jamba-v0_1-52b"
 #: Decode logits of the two engines on this 8-layer stack (seven of them
@@ -113,21 +114,116 @@ def test_convert_carries_every_leaf(weights):
         assert np.array_equal(back, raw), k
 
 
+def _spec_engine(cfg, jp, paged, spec_k):
+    """The port's engine on the reduced Jamba with dynaexq (int4 lo, two
+    hi experts per layer published from given counts, the policy frozen):
+    drafts on the all-lo view then differ from the served banks often
+    enough that rounds both accept and reject."""
+    be = make_backend("dynaexq", lo_bits=4, n_hi_per_layer=2,
+                      global_alloc=False,
+                      controller=ControllerConfig(update_interval_s=1e9),
+                      device="cpu")
+    eng = InferenceEngine(cfg, params_from_reference(jp), be, EngineConfig(
+        max_slots=2, max_len=96, paged=paged, spec_k=spec_k,
+        moe_dispatch="ragged" if paged else "padded"), device="cpu")
+    rng = np.random.default_rng(3)
+    be.observe({str(p): rng.integers(0, 6, (cfg.n_superblocks(),
+                                            cfg.moe.num_experts))
+                for p in cfg.moe_positions}, 0.0)
+    be.force_update()
+    be.flush()
+    return eng
+
+
 def test_check_family_and_spec_on_mamba_stacks(weights):
-    jcfg, cfg, _ = weights
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tmodel.spec_draft({}, cfg, None, None, {}, None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tmodel.spec_verify({}, cfg, None, None, {}, None)
-    tp = tmodel.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        InferenceEngine(cfg, tp, make_backend("static", device="cpu"),
-                        EngineConfig(max_slots=2, max_len=64, spec_k=2),
-                        device="cpu")
-    for fam in ("ssm", "audio", "vlm"):
-        with pytest.raises(NotImplementedError, match=fam):
+    """``_check_family`` takes the hybrid stack and a pure SSM stack of its
+    Mamba positions; the encoder-decoder and VLM families still raise.
+    Speculative decoding on the reduced Jamba (the reference suite's
+    ``test_spec_token_identity_jamba_mixed_stack``, with few steps): at
+    ``spec_k`` 3 the engine emits the tokens of ``spec_k`` 0 on both
+    layouts, over rounds that accept some drafts and reject others (each
+    row's Mamba state rolls back to its last accepted step; the second
+    request decodes past the wrap of the 64-slot window ring, whose lanes
+    the draft overwrites and the round restores); and a round leaves the
+    Mamba rows of an occupied row outside it bit for bit."""
+    jcfg, cfg, jp = weights
+    tmodel.init_params(dataclasses.replace(
+        cfg, family="ssm", superblock=("mamba",), moe=None, moe_positions=(),
+        attn=None, d_ff=0), device="cpu")
+    for fam in ("audio", "vlm"):
+        with pytest.raises(NotImplementedError, match=r"item 8 \(e\)"):
             tmodel.init_params(dataclasses.replace(cfg, family=fam),
                                device="cpu")
+    prompts = [make_prompts("text", cfg.vocab_size, 1, n, seed=n)[0]
+               for n in (5, 60)]
+    for paged in (True, False):
+        runs = []
+        for k in (0, 3):
+            eng = _spec_engine(cfg, jp, paged, k)
+            hs = [eng.submit(Request(tokens=p, max_new_tokens=n))
+                  for p, n in zip(prompts, (16, 14))]
+            eng.drain()
+            runs.append(([h.tokens for h in hs], eng.stats()))
+        (plain, _), (spec, st) = runs
+        assert spec == plain
+        assert st["spec_rounds"] > 0 and 0.0 < st["accept_rate"] < 1.0
+    # Rounds over row 1 alone once it decodes past the ring's wrap, until
+    # one rejects a draft: each leaves row 0's Mamba rows unchanged, and of
+    # row 1's ring only the slots of the positions it accepted change (the
+    # lanes the draft and the rejected verify steps wrote are restored).
+    eng = _spec_engine(cfg, jp, True, 3)
+    hs = [eng.submit(Request(tokens=p, max_new_tokens=24)) for p in prompts]
+    h0, h1 = hs
+    eng.step()
+    while eng.pos[h1.slot] < 64:
+        eng.step()
+    ring = eng.caches[eng._attn_pos[0]]
+    bt, C = eng._bt, eng._C_pad
+    spec, rejected = eng._spec, False
+    while not rejected:
+        before = {p: [t.clone() for t in eng.caches[p]]
+                  for p in eng._mamba_pos}
+        blocks = torch.as_tensor(h1.lease.table).long()
+        kv0 = [t[:, blocks].clone() for t in ring]
+        p0, n0 = int(eng.pos[h1.slot]), spec.draft_total - spec.accepted_total
+        assert spec.round([(h1.slot, h1)], [])
+        p1 = int(eng.pos[h1.slot])
+        rejected = spec.draft_total - spec.accepted_total > n0
+        for p in eng._mamba_pos:
+            for t, b in zip(eng.caches[p], before[p]):
+                assert torch.equal(t[:, h0.slot], b[:, h0.slot])
+                assert not torch.equal(t[:, h1.slot], b[:, h1.slot])
+        kept = torch.ones((len(blocks), bt), dtype=torch.bool)
+        for q in range(p0, p1):
+            kept[(q % C) // bt, (q % C) % bt] = False
+        for t, b in zip(ring, kv0):
+            assert torch.equal(t[:, blocks].transpose(2, 3)[:, kept],
+                               b.transpose(2, 3)[:, kept])
+
+
+def test_rollback_select_matches_reference():
+    """``serving.spec.select_rows`` against the reference's
+    ``_select_ssm`` on the same stacked rows (S, nsb, B, ...): each row's
+    state after its accepted step, bit for bit."""
+    from repro.serving.spec import _select_ssm
+    from repro_torch.models.ssm import MambaCache
+    from repro_torch.serving.spec import select_rows
+    rng = np.random.default_rng(5)
+    S, nsb, B = 4, 2, 3
+    conv = rng.standard_normal((S, nsb, B, 4, 24)).astype(np.float32)
+    state = rng.standard_normal((S, nsb, B, 3, 8, 16)).astype(np.float32)
+    sel = np.array([2, 0, 3])
+    want = _select_ssm({"1": {"conv": jax.numpy.asarray(
+        conv, jax.numpy.bfloat16), "state": jax.numpy.asarray(state)}},
+        jax.numpy.asarray(sel))["1"]
+    got = select_rows({"1": MambaCache(torch.from_numpy(conv).to(
+        torch.bfloat16), torch.from_numpy(state))},
+        torch.from_numpy(sel))["1"]
+    assert tuple(got.conv.shape) == (nsb, B, 4, 24)
+    np.testing.assert_array_equal(got.conv.float().numpy(),
+                                  np.asarray(want["conv"], np.float32))
+    np.testing.assert_array_equal(got.state.numpy(),
+                                  np.asarray(want["state"]))
 
 
 @pytest.mark.parametrize("name", ["static", "dynaexq", "fp16", "offload"])

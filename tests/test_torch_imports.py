@@ -9,6 +9,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import _one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \

@@ -14,6 +14,7 @@ from repro.quant.qtensor import quantize as jquantize
 from repro_torch.convert import to_torch
 from repro_torch.kernels import ops
 from repro_torch.quant.qtensor import QuantizedTensor
+from torch_threads import _one_thread  # noqa: F401
 
 BM = 8
 

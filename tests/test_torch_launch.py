@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.launch import serve
 from repro_torch.obs import costmodel, load_chrome_trace
+from torch_threads import _one_thread  # noqa: F401
 
 SMALL = ["--batch", "2", "--prompt-len", "16", "--new-tokens", "4",
          "--device", "cpu"]
@@ -36,14 +37,6 @@ LINES = {
            r"[\d.]+ ms  shed \d+$",
     "trace": r"\[serve\] trace -> \S+$",
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _check_lines(lines, spec=True, trace=True):
@@ -153,11 +146,12 @@ def test_launcher_runs_as_a_module(tmp_path):
 def test_launcher_serves_jamba_on_the_cpu():
     """``--arch jamba-v0_1-52b`` (reduced: one super-block of seven Mamba
     layers and one windowed attention layer, dense and MoE FFNs) serves
-    every request on the CPU; speculative decoding, not ported for Mamba
-    stacks, is switched off with a line that says so."""
+    every request on the CPU, with speculative decoding at the launcher's
+    default depth (each row's Mamba state rolls back to its last accepted
+    step)."""
     out = serve.main(["--arch", "jamba-v0_1-52b", "--backend", "dynaexq",
                       "--no-obs"] + SMALL)
     assert [len(t) for t in out["tokens"]] == [4, 4]
-    assert any("Queue 1 item 8" in line for line in out["lines"])
     head = next(line for line in out["lines"] if "backend=" in line)
-    assert "jamba-v0.1-52b-smoke" in head and "spec_k=0" in head
+    assert "jamba-v0.1-52b-smoke" in head and "spec_k=4" in head
+    assert any(line.startswith("[serve] spec: ") for line in out["lines"])

@@ -21,6 +21,7 @@ from repro_torch.convert import (bank_from_reference, params_from_reference,
 from repro_torch.models import moe as tmoe
 from repro_torch.models.model import (decode_step_paged, init_paged_caches,
                                       prefill_paged)
+from torch_threads import _one_thread  # noqa: F401
 
 # Logit tolerance for the bf16 models: the port attends decode tokens in
 # float32 (its flash kernel's arithmetic) where the reference rounds logits

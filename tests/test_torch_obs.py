@@ -27,7 +27,6 @@ import json
 import jax
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import get_config as jget_config
 from repro.core import ControllerConfig as JControllerConfig
@@ -60,19 +59,12 @@ from repro_torch.serving.engine import (ENGINE_STAT_KEYS, LOAD_SNAPSHOT_KEYS,
                                         EngineConfig, InferenceEngine,
                                         RequestState)
 from repro_torch.serving.requests import Request, RequestStream
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-moe-1b-a400m"
 #: The margin rule of ``test_torch_frontend``: a greedy token may differ
 #: only where the reference's own top-2 logits lie within this gap.
 TIE_GAP = 4 * 0.05
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import (bank_from_reference, params_from_reference,
                                  to_torch)
 from repro_torch.models import moe as tmoe
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "qwen3-moe-30b-a3b"
 

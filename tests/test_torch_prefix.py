@@ -21,6 +21,7 @@ from repro_torch.convert import params_from_reference, to_torch
 from repro_torch.core.budget import BudgetTracker
 from repro_torch.models import layers as L
 from repro_torch.serving import kvpool, prefix
+from torch_threads import _one_thread  # noqa: F401
 
 BT = 4
 

@@ -6,6 +6,7 @@ import torch
 
 from repro.quant import qtensor as jq
 from repro_torch.quant import qtensor as tq
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _weights(seed=0, shape=(3, 256, 64)):

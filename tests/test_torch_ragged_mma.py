@@ -15,6 +15,7 @@ from repro.quant.qtensor import quantize as jquantize
 from repro_torch.convert import to_torch
 from repro_torch.kernels import ops, ref
 from repro_torch.quant.qtensor import QuantizedTensor, unpack_codes_int8
+from torch_threads import _one_thread  # noqa: F401
 
 BM = 8
 

@@ -4,7 +4,6 @@ and tokens, exactly; and a request's sampled tokens depend on its seed and
 emission index only, never on the batch it shares."""
 import numpy as np
 import pytest
-import torch
 
 from repro.serving import sampler as jsampler
 from repro_torch.configs import get_config
@@ -13,17 +12,7 @@ from repro_torch.serving import sampler
 from repro_torch.serving.backends import make_backend
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.requests import Request, make_prompts
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """These engines run thousands of tiny CPU ops: one intra-op thread
-    each, so that the suite's parallel workers do not oversubscribe the
-    cores with spinning thread pools."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
+from torch_threads import _one_thread  # noqa: F401
 
 PARAMS = [dict(temperature=1.0), dict(temperature=0.7, top_k=5),
           dict(temperature=0.8, top_k=50, top_p=0.9),

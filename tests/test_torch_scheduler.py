@@ -9,6 +9,7 @@ import pytest
 
 from repro.serving import scheduler as jsched
 from repro_torch.serving import scheduler as sched
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _handle(i, qos, enqueue_s=0.0, max_new=16, done=0, preempts=0,

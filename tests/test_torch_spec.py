@@ -57,20 +57,11 @@ from repro_torch.serving.lobanks import all_lo_banks
 from repro_torch.serving.requests import Request
 from repro_torch.serving.sampler import RequestSampler, SamplingParams
 from repro_torch.serving.spec import accept_burst
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-moe-1b-a400m"
 # The two packages' logits differ by a few hundredths (test_torch_model).
 LOGIT_ATOL = 0.1
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """Thousands of tiny CPU ops per engine: one intra-op thread, so the
-    suite's parallel workers do not oversubscribe the cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")
@@ -232,10 +223,11 @@ def test_spec_draft_and_verify_match_reference(ref_model, paged):
                                     jnp.asarray(lengths, jnp.int32), jc,
                                     jnp.asarray(step_valid), bank=jbank,
                                     paged=jpg(slice(None)), **kw)
-    tlog, tcnt = spec_verify(tp, cfg, torch.from_numpy(vt).long(),
-                             torch.from_numpy(lengths), tc,
-                             torch.from_numpy(step_valid), bank=tbank,
-                             paged=tpg(slice(None)), **kw)
+    tlog, tcnt, tssm = spec_verify(tp, cfg, torch.from_numpy(vt).long(),
+                                   torch.from_numpy(lengths), tc,
+                                   torch.from_numpy(step_valid), bank=tbank,
+                                   paged=tpg(slice(None)), **kw)
+    assert tssm == {}                      # no Mamba position
     jlog = np.asarray(jlog)
     assert tlog.shape == (k + 1, B, cfg.vocab_size)
     assert tcnt["0"].shape == (k + 1, cfg.n_superblocks(), B,

@@ -18,6 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.convert import to_torch
 from repro_torch.kernels import ops, ref
+from torch_threads import _one_thread  # noqa: F401
 
 N_SM = 132                                  # an H100 SXM's SMs
 HKV = 4

@@ -20,6 +20,7 @@ from repro_torch.convert import params_from_reference, to_torch
 from repro_torch.models import layers as tlayers
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import ssm as tssm
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "jamba-v0_1-52b"
 #: Outputs and conv windows are bf16 values computed from bf16 GEMMs whose

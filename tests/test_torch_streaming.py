@@ -45,18 +45,11 @@ from repro_torch.serving.streaming import (ShardSource, hotness_stage_order,
                                            load_streaming_params,
                                            save_expert_shards)
 from test_torch_engine import NEW_TOKENS, PROMPT_LENS, _serve_lockstep
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-moe-1b-a400m"
 FROZEN = dict(update_interval_s=1e9)
 NEW = 6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _clone(p):

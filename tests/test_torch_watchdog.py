@@ -48,16 +48,9 @@ from repro_torch.serving.backends import make_backend
 from repro_torch.serving.engine import (EngineConfig, InferenceEngine,
                                         RequestState)
 from repro_torch.serving.requests import Request
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-moe-1b-a400m"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")
