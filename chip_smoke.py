@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only card,build,obs
     python3 chip_smoke.py --only card,build,hybrid [--parent DIR]
     python3 chip_smoke.py --only card,build,families
+    python3 chip_smoke.py --only card,build,multimodal
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -33,9 +34,11 @@ Phases (each prints one line; any failure exits non-zero):
               each beside one ``torch._grouped_mm`` over the segments (its
               yardstick), and the 30B prefill's tile map shuffled and with
               one expert in two places, held to the plain version; both
-              decode-attention kernels also at the dense families' heads
+              decode-attention kernels also at the families' heads
               (Danube hd 120 rep 4 past a wrap of its 4096 ring, DeepSeek
-              rep 1, Llama rep 3); with ``--parent DIR`` both against the
+              rep 1, Llama rep 3, LLaVA rep 7) and the dense one at
+              Whisper's cross-attention (1500 frames, every one valid,
+              contiguous rows); with ``--parent DIR`` both against the
               parent's kernels at the 30B's, the flagship's and Jamba's
               heads (bit-equal, device ms in turns);
    splits   — both decode-attention kernels at their main shapes under
@@ -66,7 +69,9 @@ Phases (each prints one line; any failure exits non-zero):
               row and the logits against the CPU and split against whole
               on the card, and a 768-token prompt whole against three
               256-token chunks on the card, wherever every expert they
-              depend on agrees;
+              depend on agrees (in a whole run after the hybrid phase:
+              it times nothing on the host, so its CPU forwards run
+              beside the CPU part of the hybrid model check);
 5. serving  — the 8-layer full-width model served by ``static`` and
               ``dynaexq`` (8 requests, 64–256-token prompts, 32 new tokens)
               on each path: paged KV with ragged dispatch, and dense KV rows
@@ -185,7 +190,9 @@ Phases (each prints one line; any failure exits non-zero):
               48-token one, 4 decode steps, the card on paged/ragged and
               on dense rows/padded, each held to the one CPU run by
               routing first (the CPU's forwards in a thread beside the
-              rest of the phase, its prefill on the padded layout); (c)
+              rest of the phase and the model phase, joined before the
+              next phase that times anything on the host; its prefill on
+              the padded layout); (c)
               8 requests
               (64-256 tokens, 32 new, 8 slots)
               on paged/ragged, graphed: ``static`` (graph = eager),
@@ -218,6 +225,24 @@ Phases (each prints one line; any failure exits non-zero):
               chunked prefill (its layer 0 against the whole masked
               attention on the card), the launcher at ``--full``; TTFT,
               TPOT, replay ms, the bytes a step reads and their bound;
+   multimodal — the encoder-decoder and VLM families at full width
+              (seeded weights drawn on the card): Whisper-tiny at full
+              depth (4 + 4 layers, 1500 stub frames) through ``prefill``
+              and 31 ``decode_step`` calls on dense rows, op by op (8
+              rows, 4-64-token prompts, 32 greedy tokens; the engine
+              refuses the family), row 5 launched exactly twice per layer
+              and step; LLaVA-NeXT-34B at all 60 layers (68.8 GB):
+              ``fp16`` graphed on paged KV and dense rows as the families
+              phase runs them (rows 3 and 5 the only kernels), the step's
+              products timed alone, then 8 rows of 576 stub patches and
+              16-64 text tokens through ``prefill(image_embeds=...)`` and
+              32 decode steps; then LLaVA at 2 of 60 layers (2 rows, the
+              image prefix, 4 steps); Whisper and the 2-layer LLaVA held
+              to CPU twins fed the card's tokens (every position's logits
+              within ``MODEL_TOL``, tokens under the families' margin
+              rule), run after the timed runs; encoder ms,
+              TTFT, TPOT, replay ms, the step's bytes and bound, peak
+              device memory;
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -231,6 +256,7 @@ of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import gc
 import json
@@ -899,13 +925,22 @@ def _kernels_paged_decode(cfg, gen, dev) -> None:
                  "src/repro/kernels/flash_decode.py:92", cases)
 
 
-#: The dense families' decode-attention shapes (rows 3 and 5 beyond the
-#: compiled widths' first shapes): Danube's hd 120 (run on the 128 width,
-#: zero-padded in shared memory), rep 4, on rows past a wrap of its 4096
-#: ring; DeepSeek's MHA (rep 1); Llama's rep 3 (Phi-4-mini's heads too).
-FAMILY_ATTN = (("danube hd120 rep4 ring 4096", "h2o-danube-3-4b", 4096),
-               ("deepseek hd128 rep1", "deepseek-7b", 288),
-               ("llama hd128 rep3", "llama3_2-3b", 288))
+#: The families' decode-attention shapes (rows 3 and 5 beyond the
+#: compiled widths' first shapes), each with the kernels it runs on:
+#: Danube's hd 120 (run on the 128 width, zero-padded in shared memory),
+#: rep 4, on rows past a wrap of its 4096 ring; DeepSeek's MHA (rep 1);
+#: Llama's rep 3 (Phi-4-mini's heads too); Whisper's cross-attention over
+#: its 1500 encoder frames (every frame valid; K/V one layer's contiguous
+#: (B, Senc, Hkv, hd) slice of the cross cache; dense rows only); LLaVA's
+#: rep 7 (56 heads over 8).
+BOTH_ROWS = ("flash_decode", "flash_decode_paged")
+FAMILY_ATTN = (("danube hd120 rep4 ring 4096", "h2o-danube-3-4b", 4096,
+                BOTH_ROWS),
+               ("deepseek hd128 rep1", "deepseek-7b", 288, BOTH_ROWS),
+               ("llama hd128 rep3", "llama3_2-3b", 288, BOTH_ROWS),
+               ("whisper cross S1500 rep1 hd64", "whisper-tiny", 1500,
+                ("flash_decode",)),
+               ("llava hd128 rep7", "llava-next-34b", 288, BOTH_ROWS))
 
 
 def _family_attn_cases(name, dev) -> list:
@@ -913,14 +948,17 @@ def _family_attn_cases(name, dev) -> list:
     held against its plain version and timed beside SDPA over the gathered
     view. Danube's rows sit past the wrap of a 4096-slot ring (positions
     4096 + [0, 500), every slot valid under its 4096 window, as
-    ``layers.decode_valid`` gives it); the others are the serving phase's
-    288-slot rows of random lengths (row 0 full)."""
+    ``layers.decode_valid`` gives it); Whisper's cross-attention reads
+    every one of its 1500 frames from contiguous rows; the others are the
+    serving phase's 288-slot rows of random lengths (row 0 full)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.models.layers import decode_valid
     gen = torch.Generator(device=dev).manual_seed(61)
     bt, B, out = 16, 8, []
-    for case, arch, S in FAMILY_ATTN:
+    for case, arch, S, kernels in FAMILY_ATTN:
+        if name not in kernels:
+            continue
         cfg = get_config(arch)
         H, Hkv, hd = cfg.attn.n_heads, cfg.attn.n_kv_heads, \
             cfg.attn.head_dim
@@ -928,9 +966,13 @@ def _family_attn_cases(name, dev) -> list:
         if cfg.attn.sliding_window is not None:
             pos = S + torch.randint(0, 500, (B,), generator=gen, device=dev)
             valid = decode_valid(pos, S, cfg.attn)
+        if cfg.is_encoder_decoder:
+            valid = torch.ones((B, S), dtype=torch.bool, device=dev)
         if name == "flash_decode":
             q, k, v, m, zero_rows, lib = _dense_decode_inputs(
                 cfg, gen, dev, B, S, valid=valid)
+            if cfg.is_encoder_decoder:
+                k, v = k.contiguous(), v.contiguous()
             n_valid = int(m.sum().item())
             nbytes = q.numel() * 2 * 2 + n_valid * 2 * Hkv * hd * 2 + \
                 m.numel()
@@ -2140,11 +2182,12 @@ def run_prefix_check(cfg, dev_ref, dev, cases=PREFIX_CASES, bt=16, seed=9,
     del experts
     prompts = {S: torch.randint(0, cfg.vocab_size, (1, S), generator=gen)
                for S, _, _ in cases}
-    seen, route = [], moe_mod.route
+    seen, route, me = [], moe_mod.route, threading.get_ident()
 
     def route_seen(*a, **k):
         out = route(*a, **k)
-        seen.append(out[1].sort(dim=-1).values.cpu())
+        if threading.get_ident() == me:     # not another check's thread
+            seen.append(out[1].sort(dim=-1).values.cpu())
         return out
 
     def experts_of(n_calls):
@@ -5224,7 +5267,11 @@ def _hybrid_spec(card, cfg, params) -> list:
     return [off, on]
 
 
-def phase_hybrid(card: str, parent=None) -> None:
+def phase_hybrid(card: str, parent=None):
+    """Jamba at full width through (a)-(e) of the module's docstring.
+    Returns the function that waits for the model check's CPU part, logs
+    and checks it; ``main`` calls it before the next phase that times
+    anything on the host."""
     from repro_torch.models.model import init_params
     t0 = time.perf_counter()
     # Jamba's 22.5 GB of experts need the card and the host clear of what
@@ -5251,8 +5298,11 @@ def phase_hybrid(card: str, parent=None) -> None:
     # dense rows (a 256-slot ring row), held to the same CPU forwards. The
     # CPU's plain forwards
     # take minutes at full width: the check runs its card forwards first,
-    # then its CPU forwards in a thread beside the rest of the phase (two
-    # cores left to it).
+    # then its CPU forwards in a thread (two cores left to the rest of
+    # the phase; a thread's count is fixed at its first parallel op)
+    # beside the rest of the phase and the model phase, whose CPU checks
+    # take every core again: on the card's 8-core host the two finish
+    # sooner so than in turn or at half the cores each (PERF.md).
     threads = torch.get_num_threads()
     torch.set_num_threads(max(1, threads - 2))
     try:
@@ -5276,7 +5326,6 @@ def phase_hybrid(card: str, parent=None) -> None:
         main_runs += _hybrid_spec(card, cfg, params)
         del params
         t3 = time.perf_counter()
-        model_check()
     finally:
         torch.set_num_threads(threads)
     for name in RESULTS:
@@ -5284,9 +5333,18 @@ def phase_hybrid(card: str, parent=None) -> None:
             r["launches"].get(name, 0) for r in main_runs)
     log("hybrid", f"phase done in {time.perf_counter() - t0:.1f} s (the "
                   f"model check's card part {t1 - t0:.1f} s, kernels and "
-                  f"A/B {t2 - t1:.1f} s, serving and ring {t3 - t2:.1f} s, "
-                  f"then waiting on the check's CPU part "
-                  f"{time.perf_counter() - t3:.1f} s) | {card}")
+                  f"A/B {t2 - t1:.1f} s, serving and ring {t3 - t2:.1f} s); "
+                  f"the check's CPU part goes on in its thread | {card}")
+
+    def join():
+        t = time.perf_counter()
+        model_check()
+        log("hybrid", f"the model check's CPU part joined "
+                      f"{time.perf_counter() - t3:.1f} s after the card part "
+                      f"ended, {time.perf_counter() - t:.1f} s of it waited "
+                      f"for | {card}")
+
+    return join
 
 
 # ---------------------------------------------------------------------------
@@ -5688,6 +5746,351 @@ def phase_families(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# multimodal: the encoder-decoder and VLM families
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-tiny"
+LLAVA = "llava-next-34b"
+#: Rows of the batch runs (Whisper's, LLaVA's multimodal run), their
+#: text prompts' lengths (inclusive) and tokens: Whisper's 32 greedy
+#: tokens are the prefill's and 31 decode steps', LLaVA's multimodal run
+#: decodes 32 steps after its prefill.
+MM_ROWS = 8
+WHISPER_PROMPTS = (4, 64)
+WHISPER_NEW = 32
+LLAVA_TEXT = (16, 64)
+LLAVA_STEPS = 32
+#: LLaVA's CPU check: full width, 2 of 60 layers, 2 rows (576 patches and
+#: 48 or 16 text tokens), 4 decode steps.
+LLAVA_CHECK_LAYERS = 2
+LLAVA_CHECK_TEXT = (48, 16)
+LLAVA_CHECK_STEPS = 4
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _batch_run(cfg, params, tokens, lengths, steps, *, extra=None,
+               force=None):
+    """The batch entry points on dense rows: ``prefill`` of the
+    right-padded ``tokens`` (``lengths`` count a VLM's image prefix;
+    ``extra``: ``image_embeds`` or ``audio_embeds``), then ``steps``
+    ``decode_step`` calls, op by op, greedy or fed ``force`` ((B, steps +
+    1) tokens: teacher forcing). On the card the counts are zeroed just
+    before the prefill and read after the last step (a CPU run leaves
+    them alone). Records each position's full logits (kept on the device
+    and read back after the run: no host sync inside the decode loop) and
+    their top ``FAMILY_TOP_K`` in ``_family_margin``'s form. TTFT: the
+    prefill and its argmax, synchronised; TPOT: the decode loop's wall
+    time per step."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_step, init_caches, prefill
+    dev = params["embed"].device
+    B, S = tokens.shape
+    n_img = extra["image_embeds"].shape[1] if extra and \
+        "image_embeds" in extra else 0
+    caches = init_caches(cfg, B, n_img + S + steps + 1, device=dev)
+    outs, chosen, fed = [], [], []
+    card = dev.type == "cuda"
+    _sync(dev)
+    if card:
+        ops.reset_launches()                 # the path starts here
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, cfg, tokens, caches, lengths, **(extra or {}))
+    pos = lengths.clone()
+    for j in range(steps + 1):
+        if j:
+            logits, _ = decode_step(params, cfg, tok, pos, caches)
+            pos = pos + 1
+        outs.append(logits)
+        chosen.append(torch.argmax(logits, -1))
+        tok = chosen[-1] if force is None else force[:, j].to(dev)
+        fed.append(tok)
+        if j == 0:
+            _sync(dev)
+            ttft = time.perf_counter() - t0
+            t1 = time.perf_counter()
+    _sync(dev)
+    tpot = (time.perf_counter() - t1) / max(steps, 1)
+    launches = dict(ops.LAUNCHES) if card else {}    # ... and ends here
+    logits = torch.stack(outs, 1).float().cpu()          # (B, steps+1, V)
+    top = logits.topk(FAMILY_TOP_K, dim=-1)
+    own = torch.stack(chosen, 1).cpu()
+    fed = torch.stack(fed, 1).cpu()
+    del caches, outs
+    return {"tokens": fed.tolist(), "ids": list(range(B)),
+            "own": {(r, t): int(own[r, t]) for r in range(B)
+                    for t in range(steps + 1)},
+            "top": {(r, t): {"v": top.values[r, t].tolist(),
+                             "ids": top.indices[r, t].tolist()}
+                    for r in range(B) for t in range(steps + 1)},
+            "logits": logits, "forced": fed, "ttft_s": ttft,
+            "tpot_s": tpot, "launches": launches, "steps": steps}
+
+
+def _batch_held(card_run, cpu_run, what) -> dict:
+    """The CPU run (fed the card's tokens) against the card's: every
+    position's logits within ``MODEL_TOL`` and the greedy tokens under
+    ``_family_margin``'s rule."""
+    err = float((card_run["logits"] - cpu_run["logits"]).abs().max())
+    if not bool(torch.isfinite(card_run["logits"]).all()) or \
+            err > MODEL_TOL:
+        raise AssertionError(f"{what}: max |dlogit| {err:.4f} (tol "
+                             f"{MODEL_TOL})")
+    held = _family_margin(card_run, cpu_run, what)
+    held["err"] = err
+    held["mag"] = float(card_run["logits"].abs().max())
+    return held
+
+
+def _mm_inputs(cfg, gen, dev, text, n_rows):
+    """Right-padded text tokens (row lengths drawn from ``text``, row 0 at
+    its top; or ``text`` as the lengths), the stub frontend's embeddings
+    and ``lengths`` counting a VLM's image prefix."""
+    from repro_torch.models.frontend import (audio_frame_embeddings,
+                                             image_patch_embeddings)
+    if len(text) == n_rows:
+        lens = torch.tensor(text, dtype=torch.long)
+    else:
+        lens = torch.randint(text[0], text[1] + 1, (n_rows,), generator=gen)
+        lens[0] = text[1]
+    tokens = torch.randint(0, cfg.vocab_size, (n_rows, int(lens.max())),
+                           generator=gen)
+    if cfg.is_encoder_decoder:
+        extra = {"audio_embeds": audio_frame_embeddings(gen, cfg, n_rows)}
+        n_img = 0
+    else:
+        extra = {"image_embeds": image_patch_embeddings(gen, cfg, n_rows)}
+        n_img = cfg.num_image_tokens
+    return (tokens.to(dev), {k: v.to(dev) for k, v in extra.items()},
+            (lens + n_img).to(dev))
+
+
+def _twin_job(what, cfg, params, tokens, lengths, steps, extra, card_run):
+    """(what, the card's run, its CPU twin): ``_batch_run`` on host copies
+    of the card's weights and inputs (made now: the job holds nothing on
+    the card), fed the card's tokens."""
+    cpu = torch.device("cpu")
+    return (what, card_run, functools.partial(
+        _batch_run, cfg, _to(params, cpu), tokens.to(cpu), lengths.to(cpu),
+        steps, extra={k: v.to(cpu) for k, v in extra.items()},
+        force=card_run["forced"]))
+
+
+def _mm_whisper(card, dev, cfg, jobs) -> list:
+    """Whisper at full width and depth on the card: 8 rows of 1500 stub
+    frames and 4-64-token prompts, 32 greedy tokens through ``prefill``
+    and 31 ``decode_step`` calls on dense rows, op by op (the engine
+    refuses the family, as the reference's). Row 5 (``flash_decode``) runs
+    self- and cross-attention: exactly 2 x layers launches per decode
+    step, nothing else of the port. The CPU twin (fed the card's tokens)
+    goes on ``jobs``."""
+    from repro_torch.models.model import encode, init_params
+    params = init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(81)
+    tokens, extra, lengths = _mm_inputs(cfg, gen, dev, WHISPER_PROMPTS,
+                                        MM_ROWS)
+    _batch_run(cfg, params, tokens, lengths, 2, extra=extra)   # warm-up
+    _sync(dev)
+    t0 = time.perf_counter()
+    encode(params, cfg, extra["audio_embeds"])
+    _sync(dev)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    run = _batch_run(cfg, params, tokens, lengths, WHISPER_NEW - 1,
+                     extra=extra)
+    want = {"flash_decode": 2 * cfg.n_layers * (WHISPER_NEW - 1)}
+    got = {k: n for k, n in run["launches"].items() if n}
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"{cfg.name}: launches {got}, want {want}")
+    log("multimodal", f"{cfg.name} (d {cfg.d_model}, {cfg.n_encoder_layers} "
+                      f"encoder + {cfg.n_layers} decoder layers, "
+                      f"{cfg.encoder_seq} frames) on the card, "
+                      f"{MM_ROWS} rows, prompts "
+                      f"{(lengths.cpu()).tolist()} tokens, "
+                      f"{WHISPER_NEW} greedy tokens on dense rows, op by op: "
+                      f"encoder {enc_ms:.2f} ms, TTFT "
+                      f"{run['ttft_s'] * 1e3:.2f} ms (encoder, cross K/V "
+                      f"and prefill), TPOT {run['tpot_s'] * 1e3:.2f} ms | "
+                      f"launches {got} ({2 * cfg.n_layers} per decode step: "
+                      f"self- and cross-attention) | {card}")
+    jobs.append(_twin_job(f"{cfg.name} CPU vs card", cfg, params, tokens,
+                          lengths, WHISPER_NEW - 1, extra, run))
+    return [run]
+
+
+def _mm_llava_check(dev, full, jobs) -> None:
+    """LLaVA at full width and ``LLAVA_CHECK_LAYERS`` of 60 layers on the
+    card: 2 rows of 576 patches and 48 / 16 text tokens through
+    ``prefill(image_embeds=...)`` and 4 decode steps, after the 60-layer
+    model is freed; the CPU twin goes on ``jobs``."""
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(full, n_layers=LLAVA_CHECK_LAYERS)
+    params = init_params(cfg, seed=1, device=dev)
+    gen = torch.Generator().manual_seed(83)
+    tokens, extra, lengths = _mm_inputs(cfg, gen, dev, LLAVA_CHECK_TEXT,
+                                        len(LLAVA_CHECK_TEXT))
+    run = _batch_run(cfg, params, tokens, lengths, LLAVA_CHECK_STEPS,
+                     extra=extra)
+    jobs.append(_twin_job(f"{full.name} {cfg.n_layers} of {full.n_layers} "
+                          f"layers, image prefix, CPU vs card", cfg, params,
+                          tokens, lengths, LLAVA_CHECK_STEPS, extra, run))
+
+
+def _products_ms(cfg, params, B=FAMILY_SLOTS) -> tuple:
+    """Device ms of a decode step's large products at ``B`` rows, each
+    timed alone by graph replay on layer 0's weights (wq, wk, wv, wo,
+    w_gate, w_up, w_down) times the depth, plus the LM head; and their
+    bytes' bound. A weight that fits the 50 MB L2 (wk, wv) is read warm
+    there, cold in a step."""
+    from repro_torch.models.model import _layer
+    dev = params["embed"].device
+    bp = _layer(params["blocks"]["0"], 0)
+    mats = [bp["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
+        [bp["mlp"][n] for n in ("w_gate", "w_up", "w_down")]
+    gen = torch.Generator(device=dev).manual_seed(87)
+    layer_ms = nbytes = 0
+    for w in mats:
+        a = torch.randn((B, w.shape[0]), generator=gen, device=dev).to(
+            torch.bfloat16)
+        layer_ms += graph_ms(lambda a=a, w=w: a @ w)
+        nbytes += w.numel() * w.element_size()
+    head = params["lm_head"]
+    a = torch.randn((B, head.shape[0]), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ms = layer_ms * cfg.n_layers + graph_ms(lambda: a @ head)
+    nbytes = nbytes * cfg.n_layers + head.numel() * head.element_size()
+    return ms, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _mm_llava(card, dev, cfg) -> list:
+    """LLaVA at full width and depth: ``fp16`` graphed on paged KV and on
+    dense rows (8 greedy requests, 64-256-token prompts, 32 new, 8 slots;
+    the dense run fed the paged run's tokens and held to it position by
+    position), rows 3 and 5 the only kernels of the port each launches;
+    then 8 rows of 576 stub patches and 16-64 text tokens through
+    ``prefill(image_embeds=...)`` on dense rows and 32 decode steps, op by
+    op."""
+    from repro_torch.models.model import init_params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    prompts = serving_prompts(cfg.vocab_size, FAMILY_SLOTS, (64, 256))
+    runs = {"paged": _family_serve(cfg, params, prompts, paged=True,
+                                   mode="graph")}
+    runs["dense"] = _family_serve(cfg, params, prompts, paged=False,
+                                  mode="graph",
+                                  force=runs["paged"]["tokens"])
+    if dev.type == "cuda":
+        for what, run in runs.items():
+            _family_launches(cfg.name, what, run, True)
+    held = _family_margin(runs["paged"], runs["dense"],
+                          f"{cfg.name} dense rows fed the paged run's tokens")
+    nbytes, bnd = _family_step_bytes(cfg, params, prompts)
+    prod_ms, prod_bnd = _products_ms(cfg, params) if dev.type == "cuda" \
+        else (math.nan, math.nan)
+    gen = torch.Generator().manual_seed(85)
+    tokens, extra, lengths = _mm_inputs(cfg, gen, dev, LLAVA_TEXT, MM_ROWS)
+    mm = _batch_run(cfg, params, tokens, lengths, LLAVA_STEPS, extra=extra)
+    got = {k: n for k, n in mm["launches"].items() if n}
+    if dev.type == "cuda" and got != {"flash_decode": cfg.n_layers *
+                                      LLAVA_STEPS}:
+        raise AssertionError(f"{cfg.name} multimodal: launches {got}")
+    peak = max([r["max_mem"] for r in runs.values()] +
+               [torch.cuda.max_memory_allocated()])
+    del params
+    for what, run in runs.items():
+        ran = {k: n for k, n in run["launches"].items() if n}
+        log("multimodal", f"{cfg.name} {cfg.n_layers} layers d "
+                          f"{cfg.d_model} {what} "
+                          f"({'pool' if run['pool'] else 'dense rows'}), "
+                          f"fp16 graphed: TTFT {run['ttft_s'] * 1e3:.1f} ms, "
+                          f"TPOT {run['tpot_s'] * 1e3:.2f} ms, replay "
+                          f"{_ms(run['replay_ms'])} ms, {run['steps']} "
+                          f"steps, served in {run['wall_s']:.2f} s | "
+                          f"launches {ran} | {card}")
+    mm_lens = (lengths.cpu() - cfg.num_image_tokens).tolist()
+    log("multimodal", f"{cfg.name}: weights {weights / 1e9:.2f} GB drawn on "
+                      f"the card in {init_s:.1f} s; a decode step reads "
+                      f"{nbytes / 1e9:.3f} GB (weights but the embedding's "
+                      f"unused rows, K/V at the mean context): bound "
+                      f"{bnd:.3f} ms at 3.35 TB/s; paged replay "
+                      f"{_ms(runs['paged']['replay_ms'])} ms = "
+                      f"{(runs['paged']['replay_ms'] or 0) / bnd:.2f}x the "
+                      f"bound, dense {_ms(runs['dense']['replay_ms'])} ms; "
+                      f"its products alone (7 per layer x {cfg.n_layers} + "
+                      f"the LM head, each by graph replay at "
+                      f"{FAMILY_SLOTS} rows) {prod_ms:.3f} ms = "
+                      f"{prod_ms / prod_bnd:.2f}x their bound "
+                      f"{prod_bnd:.3f} ms, the rest of the paged replay "
+                      f"{(runs['paged']['replay_ms'] or 0) - prod_ms:.3f} "
+                      f"ms; dense rows fed the paged run's tokens: positions "
+                      f"held {held['held']} of {held['positions']}, "
+                      f"{held['near']} near ties, flips (request, index, "
+                      f"bf16 steps) {held['flips']} | {card}")
+    log("multimodal", f"{cfg.name} multimodal on dense rows, op by op: "
+                      f"{MM_ROWS} rows of {cfg.num_image_tokens} stub "
+                      f"patches + {mm_lens} text tokens, prefill then "
+                      f"{LLAVA_STEPS} decode steps: TTFT "
+                      f"{mm['ttft_s'] * 1e3:.1f} ms, TPOT "
+                      f"{mm['tpot_s'] * 1e3:.2f} ms, logits finite "
+                      f"{bool(torch.isfinite(mm['logits']).all())} | "
+                      f"launches {got} | peak device memory over the "
+                      f"{cfg.n_layers}-layer runs {peak / 1e9:.2f} GB | "
+                      f"{card}")
+    if not bool(torch.isfinite(mm["logits"]).all()):
+        raise AssertionError(f"{cfg.name} multimodal: non-finite logits")
+    return list(runs.values()) + [mm]
+
+
+def _mm_twins(card, jobs) -> None:
+    """Run the CPU twins (all of the host's threads) and hold each card
+    run to its twin (``_batch_held``)."""
+    t = time.perf_counter()
+    for what, card_run, twin in jobs:
+        held = _batch_held(card_run, twin(), what)
+        log("multimodal", f"{what}: max |dlogit| {held['err']:.4f} over "
+                          f"every position (tol {MODEL_TOL}), max |logit| "
+                          f"{held['mag']:.3f}; greedy tokens held "
+                          f"{held['held']} of {held['positions']} positions, "
+                          f"{held['near']} near ties, flips (row, index, "
+                          f"bf16 steps) {held['flips']} | {card}")
+    log("multimodal", f"the CPU twins took {time.perf_counter() - t:.1f} s "
+                      f"| {card}")
+
+
+def phase_multimodal(card: str) -> None:
+    """The encoder-decoder and VLM families at full width, seeded random
+    weights drawn on the card: Whisper-tiny (full depth) through its batch
+    entry points; LLaVA-NeXT-34B at all 60 layers (68.8 GB of bf16)
+    through the engine on both layouts and its multimodal batch on dense
+    rows; then LLaVA at 2 of 60 layers (image prefix). Whisper and the
+    2-layer LLaVA are held to CPU twins, which run after every timed run
+    of the phase (beside the eager multimodal run they slowed its TPOT
+    1.8x)."""
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    jobs = []
+    main_runs = _mm_whisper(card, dev, get_config(WHISPER), jobs)
+    main_runs += _mm_llava(card, dev, get_config(LLAVA))
+    t1 = time.perf_counter()
+    _mm_llava_check(dev, get_config(LLAVA), jobs)
+    for name in RESULTS:
+        RESULTS[name]["launches"] = RESULTS[name].get("launches", 0) + sum(
+            r["launches"].get(name, 0) for r in main_runs)
+    log("multimodal", f"card part done in {time.perf_counter() - t0:.1f} s "
+                      f"(Whisper and LLaVA at 60 layers {t1 - t0:.1f} s, the "
+                      f"LLaVA check's card part "
+                      f"{time.perf_counter() - t1:.1f} s) | {card}")
+    _mm_twins(card, jobs)
+
+
+# ---------------------------------------------------------------------------
 # 6. trace: where a decode step's device time goes
 # ---------------------------------------------------------------------------
 
@@ -5960,9 +6363,12 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
                  f"steps, profiler = ops.LAUNCHES: {', '.join(seen)}")
 
 
-PHASES = ("card", "build", "kernels", "splits", "gemms", "model",
-          "serving", "requests", "spec", "ladder", "obs", "hybrid",
-          "families", "trace")
+PHASES = ("card", "build", "kernels", "splits", "gemms", "serving",
+          "requests", "spec", "ladder", "obs", "hybrid", "model",
+          "families", "multimodal", "trace")
+#: The phases that time nothing on the host: they run beside the CPU part
+#: of the hybrid model check, which any other phase waits for.
+BESIDE_CPU_CHECK = ("model",)
 #: Phases that run only when named in ``--only``.
 EXTRA_PHASES = ("dense",)
 
@@ -5984,22 +6390,27 @@ def main() -> int:
     card = phase_card()
     phase_build()
     took = {}
+    check = None        # the hybrid model check's CPU part, left running
     for name, run in (("kernels", lambda: phase_kernels(args.parent)),
                       ("splits", phase_splits),
                       ("gemms", phase_gemms),
                       ("dense", lambda: phase_dense(args.parent)),
-                      ("model", phase_model),
                       ("serving", lambda: phase_serving(card)),
                       ("requests", lambda: phase_requests(card)),
                       ("spec", lambda: phase_spec(card)),
                       ("ladder", lambda: phase_ladder(card)),
                       ("obs", lambda: phase_obs(card)),
                       ("hybrid", lambda: phase_hybrid(card, args.parent)),
+                      ("model", phase_model),
                       ("families", lambda: phase_families(card)),
+                      ("multimodal", lambda: phase_multimodal(card)),
                       ("trace", lambda: phase_trace(card))):
         if name in only:
+            if check is not None and name not in BESIDE_CPU_CHECK:
+                check()
+                check = None
             t = time.perf_counter()
-            run()
+            check = run() or check
             took[name] = time.perf_counter() - t
             # What the phase built (engines, weights, their graphs) goes
             # before the next phase: reference cycles collected, the
@@ -6010,6 +6421,8 @@ def main() -> int:
                        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, "
                        f"reserved {torch.cuda.memory_reserved() / 1e9:.2f} "
                        f"GB")
+    if check is not None:
+        check()
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s ("
                 + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
                 + ")")

@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get_config(name)`` returns the full
 configuration, ``get_config(name, reduced=True)`` the smoke variant (2
 layers, or one whole super-block of a hybrid stack: the same reduction
-rule as the reference package). It holds every decoder-only configuration
-of the reference's registry (MoE, hybrid, dense and pure-SSM stacks);
-the encoder-decoder and VLM ones are not ported."""
+rule as the reference package). It holds every configuration of the
+reference's registry: MoE, hybrid, dense and pure-SSM stacks, the
+encoder-decoder audio stack (Whisper-tiny) and the VLM language backbone
+(LLaVA-NeXT-34B)."""
 from __future__ import annotations
 
 from repro_torch.models.config import (ArchConfig, AttnConfig, MoEConfig,
@@ -162,6 +163,43 @@ _CONFIGS = {
         norm_eps=1e-5,
         max_seq_len=1048576,
         source="arXiv:2405.21060 (Mamba-2 / SSD)",
+    ),
+    # Whisper-tiny: encoder-decoder ASR backbone; the conv/mel frontend is a
+    # stub (``models.frontend``: precomputed frame embeddings). Deviation
+    # kept from the reference: positions use RoPE instead of Whisper's
+    # learned embeddings, to stay shape-generic.
+    "whisper-tiny": ArchConfig(
+        name="whisper-tiny",
+        family="audio",
+        n_layers=4,               # decoder layers
+        d_model=384,
+        vocab_size=51865,
+        d_ff=1536,
+        attn=AttnConfig(n_heads=6, n_kv_heads=6, head_dim=64,
+                        rope_theta=10000.0),
+        is_encoder_decoder=True,
+        n_encoder_layers=4,
+        encoder_seq=1500,         # 30 s of audio at 50 Hz after the conv stub
+        norm_eps=1e-5,
+        max_seq_len=448,
+        source="arXiv:2212.04356 (Whisper)",
+    ),
+    # LLaVA-NeXT-34B: VLM language backbone; the anyres-tiling ViT frontend
+    # is a stub (``models.frontend``: precomputed patch embeddings).
+    "llava-next-34b": ArchConfig(
+        name="llava-next-34b",
+        family="vlm",
+        n_layers=60,
+        d_model=7168,
+        vocab_size=64000,
+        d_ff=20480,
+        attn=AttnConfig(n_heads=56, n_kv_heads=8, head_dim=128,
+                        rope_theta=5000000.0),
+        num_image_tokens=576,     # one anyres base tile (24x24 patches)
+        norm_eps=1e-5,
+        max_seq_len=131072,
+        source="hf:llava-hf/llava-v1.6-mistral-7b-hf (scaled to the 34B "
+               "backbone)",
     ),
 }
 

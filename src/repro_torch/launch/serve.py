@@ -18,8 +18,11 @@ returns what it printed and measured, so a test or a harness can call it
 in the same process.
 
 ``--arch`` takes every configuration of ``repro_torch.configs``: MoE,
-hybrid, dense and pure Mamba-2 stacks. Not ported: expert parallelism
-(``--ep-shards`` > 1 exits naming ROADMAP Queue 1, item 7).
+hybrid, dense and pure Mamba-2 stacks, and the VLM backbone
+(``llava-next-34b``, token-only requests); ``whisper-tiny`` fails as the
+reference's launcher does, in ``InferenceEngine`` (the engine serves
+decoder-only stacks). Not ported: expert parallelism (``--ep-shards`` > 1
+exits naming ROADMAP Queue 1, item 7).
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
-"""Architecture configuration (the port's copy of the reference dataclasses,
-restricted to the decoder-only families this package serves: attention +
-MoE stacks, hybrid Mamba/attention MoE stacks, dense attention stacks and
-pure Mamba-2 stacks)."""
+"""Architecture configuration (the port's copy of the reference dataclasses)
+for every family this package serves: attention + MoE stacks, hybrid
+Mamba/attention MoE stacks, dense attention stacks, pure Mamba-2 stacks,
+the encoder-decoder audio stack and the VLM language backbone."""
 from __future__ import annotations
 
 import dataclasses
@@ -60,8 +60,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    # "moe", "hybrid", "dense" or "ssm" (the reference's "audio" and "vlm"
-    # are not ported)
+    # "moe", "hybrid", "dense", "ssm", "audio" or "vlm"
     family: str
     n_layers: int
     d_model: int
@@ -74,6 +73,12 @@ class ArchConfig:
     # ("attn" or "mamba"), MoE FFNs at ``moe_positions``, dense elsewhere.
     superblock: Tuple[str, ...] = ()
     moe_positions: Tuple[int, ...] = ()
+    # Encoder-decoder (audio): encoder depth and the stub frontend's frames.
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0
+    # VLM: image embeddings (the stub frontend's patches) per request.
+    num_image_tokens: int = 0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     max_seq_len: int = 131072
@@ -146,7 +151,12 @@ class ArchConfig:
             self, name=self.name + "-smoke", n_layers=n_layers,
             d_model=d_model, vocab_size=vocab,
             d_ff=min(self.d_ff, 2 * d_model) if self.d_ff else 0,
-            attn=attn, moe=moe, ssm=ssm, max_seq_len=max_seq_len)
+            attn=attn, moe=moe, ssm=ssm,
+            n_encoder_layers=min(self.n_encoder_layers, 2),
+            encoder_seq=min(self.encoder_seq, 64) if self.encoder_seq else 0,
+            num_image_tokens=min(self.num_image_tokens, 16)
+            if self.num_image_tokens else 0,
+            max_seq_len=max_seq_len)
 
 
 def _count_params(cfg: ArchConfig, active_only: bool) -> int:
@@ -154,7 +164,10 @@ def _count_params(cfg: ArchConfig, active_only: bool) -> int:
     LM head unless tied), per layer the two pre-norms, the attention
     projections or the Mamba layer's (in/out projections, conv, A/D/dt,
     gate norm), then the router, every expert (``active_only``: top-k of
-    them) and the shared experts, or the dense FFN."""
+    them) and the shared experts, or the dense FFN; an encoder-decoder
+    stack adds its encoder layers and each decoder layer's cross-attention.
+    As in the reference, an encoder layer's MLP is priced at 3·d·d_ff
+    though its GELU MLP holds two matrices."""
     d = cfg.d_model
     total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     per_sb = 0
@@ -179,4 +192,10 @@ def _count_params(cfg: ArchConfig, active_only: bool) -> int:
                 per_sb += m.n_shared_experts * 3 * d * m.d_ff_shared
         elif cfg.d_ff:
             per_sb += 3 * d * cfg.d_ff
-    return int(total + per_sb * cfg.n_superblocks())
+    total += per_sb * cfg.n_superblocks()
+    if cfg.is_encoder_decoder and cfg.attn is not None:
+        a = cfg.attn
+        proj = d * a.q_dim + 2 * d * a.kv_dim + a.q_dim * d
+        enc_layer = 2 * d + proj + 3 * d * cfg.d_ff
+        total += cfg.n_encoder_layers * enc_layer + cfg.n_layers * (proj + d)
+    return int(total)

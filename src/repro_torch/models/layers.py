@@ -1,4 +1,6 @@
-"""Norms, RoPE and GQA attention over the paged KV pool or dense KV rows.
+"""Norms, RoPE and GQA attention over the paged KV pool or dense KV rows;
+the full-sequence attention of encoder layers and the cross-attention of
+encoder-decoder stacks.
 
 Parameters are plain dicts of tensors in the reference's layout (weights
 (in, out), bf16). Compute dtype is bf16 with float32 norm and softmax
@@ -6,7 +8,7 @@ accumulation, rounding where the reference rounds.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -151,6 +153,32 @@ def _sdpa_chunked(q, k, v, n_heads: int, sliding_window, chunk: int
 #: every other length runs the whole masked attention.
 PREFILL_CHUNK_THRESHOLD = 2048
 PREFILL_CHUNK = 256
+
+
+def attention_full(p: dict, cfg: AttnConfig, x: torch.Tensor,
+                   causal: bool = True,
+                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over a whole sequence, no cache (the reference's
+    ``attention_full``): x (B, S, d), rope at ``positions`` (default 0 ..
+    S-1). ``causal``: each query sees the keys at or before it (and within
+    the window); past ``PREFILL_CHUNK_THRESHOLD`` tokens, at a multiple of
+    ``PREFILL_CHUNK``, chunk by chunk. ``causal=False`` (an encoder): every
+    key."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    if causal and S > PREFILL_CHUNK_THRESHOLD and S % PREFILL_CHUNK == 0:
+        return _sdpa_chunked(q, k, v, cfg.n_heads, cfg.sliding_window,
+                             PREFILL_CHUNK) @ p["wo"]
+    if causal:
+        qpos, kpos = positions[..., :, None], positions[..., None, :]
+        mask = kpos <= qpos
+        if cfg.sliding_window is not None:
+            mask = mask & (kpos > qpos - cfg.sliding_window)
+    else:
+        mask = torch.ones((1, S, S), dtype=torch.bool, device=x.device)
+    return _sdpa(q, k, v, mask.expand(B, S, S), cfg.n_heads) @ p["wo"]
 
 
 def attention_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
@@ -306,3 +334,51 @@ def attention_decode(p: dict, cfg: AttnConfig, x: torch.Tensor,
     out = kops.flash_decode(q[:, 0].contiguous(), cache.k.transpose(1, 2),
                             cache.v.transpose(1, 2), valid)
     return out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+
+# --------------------------------------------------------------------------
+# Cross-attention (encoder-decoder): the decoder's queries over the
+# encoder's K/V, computed once per prefill. Neither side takes rope.
+# --------------------------------------------------------------------------
+
+
+class CrossKV(NamedTuple):
+    """Every decoder layer's cross K/V, (nsb, B, Senc, Hkv, hd) bf16 (the
+    reference's layout), and the (B, Senc) all-true mask the decode step's
+    kernel reads (every encoder frame is valid)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    valid: torch.Tensor
+
+
+def encode_cross_kv(p: dict, cfg: AttnConfig, enc_out: torch.Tensor):
+    """enc_out (B, Senc, d) → K, V (B, Senc, Hkv, hd); k-norm on K when
+    configured."""
+    B, Senc, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(B, Senc, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["wv"]).reshape(B, Senc, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        k = rmsnorm(p["k_norm"], k)
+    return k, v
+
+
+def cross_attention(p: dict, cfg: AttnConfig, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor,
+                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, Sq, d) over ``enc_k``/``enc_v`` (B, Senc, Hkv, hd); q-norm on
+    q when configured. Without ``valid`` (prefill) the plain masked
+    attention over every frame, as the reference computes it; with
+    ``valid`` ((B, Senc) bool; Sq = 1: the decode step) the dense
+    decode-attention kernel ``flash_decode`` over the layer's view."""
+    B, Sq, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+    if valid is None:
+        mask = torch.ones((B, Sq, enc_k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = _sdpa(q, enc_k, enc_v, mask, cfg.n_heads)
+    else:
+        out = kops.flash_decode(q[:, 0].contiguous(), enc_k, enc_v, valid
+                                ).reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"]

@@ -1,6 +1,7 @@
-"""Dense SwiGLU feed-forward (the port of the reference's
-``models/mlp.py``: ``init_swiglu`` and ``swiglu``): the shared expert of
-MoE layers that have one, and the dense FFN positions of hybrid stacks."""
+"""Dense feed-forward blocks (the port of the reference's
+``models/mlp.py``): the SwiGLU (``init_swiglu``/``swiglu``) of the shared
+expert of MoE layers that have one and of every dense FFN position, and
+the GELU MLP (``init_gelu_mlp``/``gelu_mlp``) of encoder layers."""
 from __future__ import annotations
 
 from typing import Dict
@@ -35,3 +36,19 @@ def swiglu(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     g = torch.nn.functional.silu(bf16_matmul(x, p["w_gate"]).float()) \
         .to(x.dtype)
     return bf16_matmul(g * bf16_matmul(x, p["w_up"]), p["w_down"])
+
+
+def init_gelu_mlp(normal, d_model: int, d_ff: int) -> Dict[str, torch.Tensor]:
+    """The reference's leaves: (d, F) and (F, d) bf16, each scaled by its
+    fan_in^-1/2, drawn as ``init_swiglu``'s."""
+    return {"w_up": normal((d_model, d_ff), d_model ** -0.5),
+            "w_down": normal((d_ff, d_model), d_ff ** -0.5)}
+
+
+def gelu_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """``gelu(x @ w_up) @ w_down`` with the reference's casts: the GELU in
+    float32 in its tanh form (``jax.nn.gelu``'s default), cast back to
+    ``x``'s dtype before the down projection."""
+    h = torch.nn.functional.gelu(bf16_matmul(x, p["w_up"]).float(),
+                                 approximate="tanh").to(x.dtype)
+    return bf16_matmul(h, p["w_down"])

@@ -1,9 +1,13 @@
-"""Decoder-only stacks over the paged KV pool or dense KV rows: attention
-+ MoE stacks, hybrid Mamba/attention stacks of repeating super-blocks
-(e.g. Jamba: seven Mamba-2 layers then one attention layer, MoE FFNs on
-the odd positions and dense SwiGLU FFNs on the even ones), dense
-attention stacks (a SwiGLU FFN at every layer) and pure Mamba-2 stacks
-(no attention, no FFN where ``d_ff`` is 0).
+"""Model stacks over the paged KV pool or dense KV rows: attention + MoE
+stacks, hybrid Mamba/attention stacks of repeating super-blocks (e.g.
+Jamba: seven Mamba-2 layers then one attention layer, MoE FFNs on the odd
+positions and dense SwiGLU FFNs on the even ones), dense attention stacks
+(a SwiGLU FFN at every layer), pure Mamba-2 stacks (no attention, no FFN
+where ``d_ff`` is 0), the VLM language backbone (image embeddings ahead of
+the prompt's tokens, ``image_embeds=``) and the encoder-decoder audio
+stack (an encoder over the frontend's frames, ``encode``; each decoder
+layer cross-attends its K/V, filled by ``prefill(audio_embeds=...)``, on
+dense rows only, as the reference).
 
 Parameters keep the reference's tree: per super-block position a dict of
 leaves stacked over super-blocks (leading ``nsb`` axis). The reference's
@@ -19,8 +23,10 @@ Entry points:
                            (whole prompts, or over cached prefix blocks);
 * ``decode_step_paged``  — one token per row (the serving hot path);
 * ``init_caches``        — dense (nsb, B, Hkv, C, hd) KV rows (C =
-                           ``max_len``, or the sliding window's ring) and
-                           the Mamba rows;
+                           ``max_len``, or the sliding window's ring), the
+                           Mamba rows, and an encoder-decoder stack's
+                           cross K/V (nsb, B, Senc, Hkv, hd) under
+                           ``CROSS``;
 * ``prefill`` / ``decode_step`` — the same over dense rows;
 * ``spec_draft`` / ``spec_verify`` — S chained decode steps (paged or
                            dense): the draft and verify of self-speculative
@@ -50,20 +56,17 @@ from repro_torch.models import moe as X
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig
 
-#: Where the encoder-decoder and VLM families stand.
-ENC_DEC_VLM_ITEM = "ROADMAP Queue 1 item 8 (e)"
+#: The key of the dense caches that holds an encoder-decoder stack's
+#: cross K/V (no super-block position uses it).
+CROSS = "cross"
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    """Decoder-only stacks of ``attn``/``mamba`` positions: MoE and hybrid
-    stacks, dense attention stacks (``cfg.moe is None``: a SwiGLU FFN at
-    every position) and pure Mamba-2 stacks (no attention position; no
-    FFN where ``d_ff`` is 0). Encoder-decoder and VLM stacks are not
-    ported."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (encoder-decoder or VLM "
-            f"frontend) is not ported ({ENC_DEC_VLM_ITEM})")
+    """Stacks of ``attn``/``mamba`` positions: MoE and hybrid stacks,
+    dense attention stacks (``cfg.moe is None``: a SwiGLU FFN at every
+    position), pure Mamba-2 stacks (no attention position; no FFN where
+    ``d_ff`` is 0), the VLM backbone (a dense stack) and an
+    encoder-decoder stack of attention layers."""
     sb = cfg.superblock_or_default()
     if any(k not in ("attn", "mamba") for k in sb) \
             or ("attn" in sb and cfg.attn is None) \
@@ -71,6 +74,19 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: super-block {sb} is not a stack of attention "
             f"and Mamba positions with their configurations")
+    if cfg.is_encoder_decoder and sb != ("attn",):
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder stack is one of attention "
+            f"layers, not of super-block {sb}")
+
+
+def _decoder_only(cfg: ArchConfig, what: str) -> None:
+    """The paged entry points serve decoder-only stacks (the reference's
+    rule): an encoder-decoder stack runs ``prefill``/``decode_step`` on
+    dense rows."""
+    _check_family(cfg)
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: {what} is decoder-only")
 
 
 def attn_positions(cfg: ArchConfig):
@@ -106,8 +122,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     fan_in^-1/2 in bf16, router float32, embedding · 0.02, norms ones,
     the Mamba layers' A_log/dt_bias/D as the reference sets them), drawn
     from ``generator`` or a generator seeded with ``seed`` on the target
-    device, position by position. Large leaves are drawn one layer at a
-    time so the float32 scratch stays one layer's worth at full width."""
+    device, position by position (an encoder-decoder stack's encoder
+    last). Large leaves are drawn one layer at a time so the float32
+    scratch stays one layer's worth at full width."""
     _check_family(cfg)
     dev = resolve_device(device)
     gen = generator if generator is not None else \
@@ -118,24 +135,28 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
         return (torch.randn(shape, generator=gen, device=gdev) * scale
                 ).to(dtype).to(dev)
 
-    def stacked(shape, scale, dtype=torch.bfloat16):
-        out = torch.empty((nsb,) + shape, dtype=dtype, device=dev)
-        for l in range(nsb):
+    def stacked(shape, scale, dtype=torch.bfloat16, n=None):
+        n = nsb if n is None else n
+        out = torch.empty((n,) + shape, dtype=dtype, device=dev)
+        for l in range(n):
             out[l] = normal(shape, scale, dtype)
         return out
 
     d, a, m = cfg.d_model, cfg.attn, cfg.moe
     nsb = cfg.n_superblocks()
-    ones = lambda n: torch.ones((nsb, n), dtype=torch.bfloat16, device=dev)
 
-    def attention():
-        p = {"wq": stacked((d, a.q_dim), d ** -0.5),
-             "wk": stacked((d, a.kv_dim), d ** -0.5),
-             "wv": stacked((d, a.kv_dim), d ** -0.5),
-             "wo": stacked((a.q_dim, d), a.q_dim ** -0.5)}
+    def ones(k, n=None):
+        return torch.ones((nsb if n is None else n, k), dtype=torch.bfloat16,
+                          device=dev)
+
+    def attention(n=None):
+        p = {"wq": stacked((d, a.q_dim), d ** -0.5, n=n),
+             "wk": stacked((d, a.kv_dim), d ** -0.5, n=n),
+             "wv": stacked((d, a.kv_dim), d ** -0.5, n=n),
+             "wo": stacked((a.q_dim, d), a.q_dim ** -0.5, n=n)}
         if a.qk_norm:
-            p["q_norm"] = {"scale": ones(a.head_dim)}
-            p["k_norm"] = {"scale": ones(a.head_dim)}
+            p["q_norm"] = {"scale": ones(a.head_dim, n)}
+            p["k_norm"] = {"scale": ones(a.head_dim, n)}
         return p
 
     def moe():
@@ -162,6 +183,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
             bp["moe"] = moe()
         elif cfg.d_ff:
             bp["mlp"] = M.init_swiglu(stacked, d, cfg.d_ff)
+        if cfg.is_encoder_decoder and kind == "attn":
+            bp["norm_cross"] = {"scale": ones(d)}
+            bp["cross"] = attention()
         blocks[str(pos)] = bp
     params = {
         "embed": normal((cfg.vocab_size, d), 0.02),
@@ -171,6 +195,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)
+    if cfg.is_encoder_decoder:
+        n = cfg.n_encoder_layers
+        params["encoder"] = {
+            "norm1": {"scale": ones(d, n)}, "attn": attention(n),
+            "norm2": {"scale": ones(d, n)},
+            "mlp": M.init_gelu_mlp(
+                lambda shape, scale: stacked(shape, scale, n=n), d,
+                cfg.d_ff or 4 * d)}
+        params["enc_final_norm"] = {"scale": torch.ones(
+            (d,), dtype=torch.bfloat16, device=dev)}
     return params
 
 
@@ -192,8 +226,9 @@ def init_paged_caches(cfg: ArchConfig, n_blocks: int, block_tokens: int,
     """One shared block pool per attention position, (nsb, N, Hkv, bt, hd)
     bf16 K and V; per-slot rows of ``batch`` slots per Mamba position
     (recurrent state is O(1) per slot: paging it buys nothing). A stack
-    without attention positions gets no pool."""
-    _check_family(cfg)
+    without attention positions gets no pool; an encoder-decoder stack
+    raises (its cross K/V live in dense rows)."""
+    _decoder_only(cfg, "paged caches")
     dev = resolve_device(device)
     caches = {}
     for p in attn_positions(cfg):
@@ -209,14 +244,25 @@ def init_paged_caches(cfg: ArchConfig, n_blocks: int, block_tokens: int,
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 device=None) -> Dict:
     """Dense rows: KV (nsb, B, Hkv, C, hd) bf16 per attention position (C
-    = ``max_len``, or the sliding window's ring: slot = position % C), and
-    the Mamba rows per Mamba position."""
+    = ``max_len``, or the sliding window's ring: slot = position % C), the
+    Mamba rows per Mamba position, and on an encoder-decoder stack the
+    cross K/V under ``CROSS`` (``layers.CrossKV``: zeros until a prefill
+    fills them, and the all-true mask of the decode step's kernel)."""
     _check_family(cfg)
     dev = resolve_device(device)
     C = attn_capacity(cfg, max_len)
-    caches = {p: L.init_kv_cache((cfg.n_superblocks(), batch), C, cfg.attn,
-                                 dev) for p in attn_positions(cfg)}
+    nsb = cfg.n_superblocks()
+    caches = {p: L.init_kv_cache((nsb, batch), C, cfg.attn, dev)
+              for p in attn_positions(cfg)}
     caches.update(init_mamba_rows(cfg, batch, dev))
+    if cfg.is_encoder_decoder:
+        a = cfg.attn
+        shape = (nsb, batch, cfg.encoder_seq, a.n_kv_heads, a.head_dim)
+        caches[CROSS] = L.CrossKV(
+            torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            torch.ones((batch, cfg.encoder_seq), dtype=torch.bool,
+                       device=dev))
     return caches
 
 
@@ -230,9 +276,13 @@ def _layer(tree, l: int):
 def _block_step(bp: Dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
                 cache, pos_idx, capacity: int, bank, prefill: bool,
                 paged: Optional[Dict] = None, lengths=None, token_valid=None,
-                n_rows=None, moe_dispatch=None, row_capacity=None):
-    """One layer: attention (``kind`` "attn") or Mamba, then its FFN (MoE
-    when ``bp`` has "moe", else the dense SwiGLU). x (B, S, d); an
+                n_rows=None, moe_dispatch=None, row_capacity=None,
+                cross=None):
+    """One layer: attention (``kind`` "attn") or Mamba, then, on an
+    encoder-decoder stack, cross-attention over the layer's ``cross``
+    (K, V, valid) (the reference's order: x += self-attention, then the
+    ``norm_cross`` norm, x += cross-attention), then its FFN (MoE when
+    ``bp`` has "moe", else the dense SwiGLU). x (B, S, d); an
     attention ``cache`` is a ``PagedKVCache`` with ``paged`` holding the
     block tables and write targets, or dense ``KVCache`` rows with
     ``paged`` None; a Mamba cache is the layer's ``MambaCache`` rows
@@ -261,6 +311,12 @@ def _block_step(bp: Dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
         mix = L.attention_prefill(bp["attn"], cfg.attn, h, cache, lengths)
     else:
         mix = L.attention_decode(bp["attn"], cfg.attn, h, pos_idx, cache)
+    if cross is not None:
+        x = x + mix
+        hc = L.rmsnorm(bp["norm_cross"], x, cfg.norm_eps)
+        ek, ev, valid = cross
+        mix = L.cross_attention(bp["cross"], cfg.attn, hc, ek, ev,
+                                None if prefill else valid)
     x = x + mix
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
     if "moe" not in bp:
@@ -282,8 +338,9 @@ def _run_layers(params, cfg, x, caches, bank, **kw):
     """The layer loop (the reference's scan over super-blocks, each running
     its positions in order): per-layer views of the stacked parameters,
     caches and bank; with ``bank=None`` each MoE layer's experts come from
-    ``params`` (the reference's rule). Returns (x, {MoE position: stacked
-    counts})."""
+    ``params`` (the reference's rule); an encoder-decoder stack's layers
+    read their slice of ``caches[CROSS]``. Returns (x, {MoE position:
+    stacked counts})."""
     sb = cfg.superblock_or_default()
     blocks = params["blocks"]
     moe_pos = [str(p) for p in range(len(sb)) if "moe" in blocks[str(p)]]
@@ -292,6 +349,7 @@ def _run_layers(params, cfg, x, caches, bank, **kw):
         raise ValueError("bank=None serves the dense experts in params, "
                          "but a backend has dropped them: pass its banks")
     counts = {p: [] for p in moe_pos}
+    cross = caches.get(CROSS)
     for l in range(cfg.n_superblocks()):
         for pos, kind in enumerate(sb):
             key = str(pos)
@@ -302,10 +360,58 @@ def _run_layers(params, cfg, x, caches, bank, **kw):
                 b = bp["moe"]["experts"] if bank is None \
                     else bank[key].layer(l)
             x, n = _block_step(bp, cfg, kind, x, type(c)(*(t[l] for t in c)),
-                               bank=b, **kw)
+                               bank=b, cross=None if cross is None else
+                               (cross.k[l], cross.v[l], cross.valid), **kw)
             if n is not None:
                 counts[key].append(n)
     return x, {p: torch.stack(v) for p, v in counts.items()}
+
+
+def encode(params: Dict, cfg: ArchConfig, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """frames (B, Senc, d): the stub frontend's output → the encoder's
+    hidden states (B, Senc, d): per layer x += attention over every frame
+    (rope at frame positions), x += GELU MLP, each after its norm; then
+    the final norm."""
+    enc = params["encoder"]
+    x = frames
+    for l in range(cfg.n_encoder_layers):
+        bp = _layer(enc, l)
+        h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+        x = x + L.attention_full(bp["attn"], cfg.attn, h, causal=False)
+        h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
+        x = x + M.gelu_mlp(bp["mlp"], h)
+    return L.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
+
+
+def _fill_cross(params: Dict, cfg: ArchConfig, caches: Dict,
+                audio_embeds: Optional[torch.Tensor]) -> None:
+    """Encode the frames and write every decoder layer's cross K/V into
+    ``caches[CROSS]`` in place (the reference's ``fill_cross``)."""
+    if audio_embeds is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs "
+                         f"audio_embeds (B, {cfg.encoder_seq}, "
+                         f"{cfg.d_model})")
+    enc_out = encode(params, cfg, audio_embeds.to(torch.bfloat16))
+    cross, blocks = caches[CROSS], params["blocks"]["0"]["cross"]
+    for l in range(cfg.n_superblocks()):
+        k, v = L.encode_cross_kv(_layer(blocks, l), cfg.attn, enc_out)
+        cross.k[l].copy_(k)
+        cross.v[l].copy_(v)
+
+
+def _embed_inputs(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+                  image_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Token embeddings (B, S, d); on a VLM stack, ``image_embeds`` (B, n,
+    d) go first: (B, n + S, d) (the reference's ``_embed_inputs``)."""
+    x = params["embed"][tokens]
+    if image_embeds is None:
+        return x
+    if cfg.family != "vlm":
+        raise ValueError(f"{cfg.name}: image_embeds on a {cfg.family!r} "
+                         f"stack (only a VLM takes them)")
+    return torch.cat([image_embeds.to(x.dtype), x], dim=1)
 
 
 def _lm_logits(params: Dict, cfg: ArchConfig, x: torch.Tensor):
@@ -320,7 +426,8 @@ def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                   capacity_factor: Optional[float] = None,
                   per_row_counts: bool = False, has_prefix: bool = False,
                   moe_dispatch: Optional[str] = None,
-                  row_capacity: Optional[int] = None):
+                  row_capacity: Optional[int] = None,
+                  image_embeds: Optional[torch.Tensor] = None):
     """Masked prefill of prompt SUFFIXES into the paged pool (updated in
     place). ``tokens`` (R, S) hold tokens ``start[r]`` .. ``lengths[r]-1``
     right-padded to the bucket S; ``lengths`` (R,) are TOTAL prompt
@@ -328,10 +435,12 @@ def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     row). ``has_prefix`` also attends each suffix over its row's cached
     prefix blocks (the prefix-sharing and chunked-prefill path; every MoE
     layer runs on the suffix rows only). ``row_capacity``: the per-row MoE
-    drop rule. Returns (suffix-last-token logits (R, V) float32, counts
+    drop rule. ``image_embeds`` (R, n, d), on a VLM stack: ahead of the
+    tokens, and counted in ``lengths``. Decoder-only: an encoder-decoder
+    stack raises. Returns (suffix-last-token logits (R, V) float32, counts
     {pos: (nsb, R, E) or (nsb, E)})."""
-    _check_family(cfg)
-    x = params["embed"][tokens]
+    _decoder_only(cfg, "paged prefill")
+    x = _embed_inputs(params, cfg, tokens, image_embeds)
     R, S, _ = x.shape
     start = start.to(torch.int64)
     lengths = lengths.to(torch.int64)
@@ -364,8 +473,8 @@ def decode_step_paged(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     """One token per row against the paged pool. ``token``/``pos_idx``
     (B,); ``write_blk``/``write_off`` (B,) pre-resolved write targets;
     ``row_valid`` (B,) masks vacant rows out of dispatch and counts.
-    Returns (logits (B, V) float32, counts)."""
-    _check_family(cfg)
+    Decoder-only. Returns (logits (B, V) float32, counts)."""
+    _decoder_only(cfg, "paged decode")
     x = params["embed"][token][:, None, :]
     B = x.shape[0]
     cap = X.moe_capacity(B, cfg.moe, capacity_factor)
@@ -385,13 +494,20 @@ def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
             capacity_factor: Optional[float] = None,
             per_row_counts: bool = False,
             moe_dispatch: Optional[str] = None,
-            row_capacity: Optional[int] = None):
+            row_capacity: Optional[int] = None,
+            image_embeds: Optional[torch.Tensor] = None,
+            audio_embeds: Optional[torch.Tensor] = None):
     """Masked prefill from position 0 into dense rows (updated in place).
     ``tokens`` (B, S) right-padded; ``lengths`` (B,) prompt lengths (0 =
-    inert pad row). Returns (last-token logits (B, V) float32, counts
-    {pos: (nsb, B, E) or (nsb, E)})."""
+    inert pad row). On a VLM stack ``image_embeds`` (B, n, d) go ahead of
+    the tokens and ``lengths`` count them. On an encoder-decoder stack
+    ``audio_embeds`` (B, Senc, d) are encoded and every layer's cross K/V
+    written into ``caches[CROSS]``. Returns (last-token logits (B, V)
+    float32, counts {pos: (nsb, B, E) or (nsb, E)})."""
     _check_family(cfg)
-    x = params["embed"][tokens]
+    if cfg.is_encoder_decoder:
+        _fill_cross(params, cfg, caches, audio_embeds)
+    x = _embed_inputs(params, cfg, tokens, image_embeds)
     B, S, _ = x.shape
     lengths = lengths.to(torch.int64)
     token_valid = (torch.arange(S, device=x.device)[None, :] <
@@ -417,8 +533,9 @@ def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
                 row_capacity: Optional[int] = None):
     """One token per row against dense rows, written in place at slot
     ``pos % C``. ``token``/``pos_idx`` (B,); ``row_valid`` (B,) masks
-    vacant rows out of dispatch and counts. Returns (logits (B, V)
-    float32, counts)."""
+    vacant rows out of dispatch and counts. An encoder-decoder stack reads
+    the cross K/V its prefill wrote. Returns (logits (B, V) float32,
+    counts)."""
     _check_family(cfg)
     x = params["embed"][token][:, None, :]
     B = x.shape[0]

@@ -267,6 +267,11 @@ class InferenceEngine:
     def __init__(self, cfg: ArchConfig, params: Dict, backend,
                  ecfg: Optional[EngineConfig] = None, device=None,
                  obs=None):
+        if cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                "InferenceEngine serves decoder-only stacks; encoder-decoder "
+                "architectures go through the batch prefill/decode entry "
+                "points in repro_torch.models.model directly.")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -1434,7 +1439,9 @@ class InferenceEngine:
                  deadline_ms=None):
         """Whole-batch shim over submit + drain: ``batch`` {"tokens": (B,
         S)} with B ≤ ``max_slots``. Returns (tokens (B, n_tokens) int32
-        numpy, mean TTFT, the decode steps' latencies)."""
+        numpy, mean TTFT, the decode steps' latencies). Token-only: image
+        or audio embeddings go through ``models.model.prefill`` /
+        ``decode_step`` directly."""
         extra = set(batch) - {"tokens"}
         if extra:
             raise NotImplementedError(f"the engine serves token-only "

@@ -841,6 +841,31 @@ def test_flash_decode_matches_plain(cuda, rep, hd, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 3])
+def test_flash_decode_cross_attention_shape(cuda, layer):
+    """Whisper's cross-attention at decode: 8 rows over 1500 encoder
+    frames (every frame valid), H = Hkv = 6, hd 64, K/V one layer's slice
+    of the (nsb, B, Senc, Hkv, hd) cross cache (contiguous rows, not a
+    multiple of the kernel's tile)."""
+    rng = np.random.default_rng(1500 + layer)
+    B, S, H, hd = 8, 1500, 6, 64
+    k = torch.from_numpy(rng.standard_normal((4, B, S, H, hd))) \
+        .to(torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal((4, B, S, H, hd))) \
+        .to(torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd))).to(torch.bfloat16)
+    valid = torch.ones((B, S), dtype=torch.bool)
+    want = ops.flash_decode(q, k[layer], v[layer], valid)
+    kd, vd = k.to(cuda), v.to(cuda)
+    before = ops.LAUNCHES["flash_decode"]
+    got = ops.flash_decode(q.to(cuda), kd[layer], vd[layer],
+                           valid.to(cuda)).cpu()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -8)
+    assert ops.LAUNCHES["flash_decode"] == before + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("M", [1, 13, 128])
 def test_quant_matmul_matches_plain(cuda, bits, M):

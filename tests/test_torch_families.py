@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import get_config as jget_config
 from repro.models import init_params as jinit_params
 from repro.obs import ObsConfig as JObsConfig
@@ -150,13 +151,14 @@ def test_convert_carries_every_leaf(arch):
 
 
 def test_registry_and_family_check():
-    """The registry holds the reference's nine decoder-only configurations
-    that are neither encoder-decoder nor VLM, with the reference's fields
-    and aliases; ``_check_family`` takes ``dense`` and ``ssm`` and still
-    refuses ``audio`` and ``vlm``, naming their queue item."""
+    """The registry holds all eleven configurations of the reference's
+    (the encoder-decoder and VLM ones too), with the reference's fields
+    and aliases; ``_check_family`` takes ``dense`` and ``ssm``, and the
+    ``audio`` and ``vlm`` families now build."""
     assert set(ARCH_IDS) == set(FAMILIES) | {
         "qwen3-moe-30b-a3b", "qwen3-moe-80b-a3b", "granite-moe-1b-a400m",
-        "jamba-v0_1-52b"}
+        "jamba-v0_1-52b", "whisper-tiny", "llava-next-34b"}
+    assert set(ARCH_IDS) == set(JARCH_IDS)
     for name in ARCH_IDS + ("llama3.2-3b", "phi4-mini-3_8b",
                             "jamba-v0.1-52b"):
         for reduced in (False, True):
@@ -173,10 +175,12 @@ def test_registry_and_family_check():
     for arch in FAMILIES:
         tmodel._check_family(get_config(arch))
     cfg = get_config("llama3_2-3b", reduced=True)
-    for fam in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match=r"item 8 \(e\)"):
-            tmodel.init_params(dataclasses.replace(cfg, family=fam),
-                               device="cpu")
+    for fam, arch in (("audio", "whisper-tiny"), ("vlm", "llava-next-34b")):
+        tmodel._check_family(get_config(arch))
+        p = tmodel.init_params(get_config(arch, reduced=True), device="cpu")
+        assert ("encoder" in p) == (fam == "audio")
+        tmodel.init_params(dataclasses.replace(cfg, family=fam),
+                           device="cpu")
 
 
 @pytest.mark.parametrize("arch,paged", [
