@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only card,build,hybrid [--parent DIR]
     python3 chip_smoke.py --only card,build,families
     python3 chip_smoke.py --only card,build,multimodal
+    python3 chip_smoke.py --only card,build,train
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -186,7 +187,7 @@ Phases (each prints one line; any failure exits non-zero):
               and this one in turns at the 30B's and the 80B's decode
               shapes (bit-equal), with registers and HMMA instructions;
               (b) the model check, CPU against the card, with the window
-              cut to 256: a 320-token prompt that wraps the ring and a
+              cut to 128: a 192-token prompt that wraps the ring and a
               48-token one, 4 decode steps, the card on paged/ragged and
               on dense rows/padded, each held to the one CPU run by
               routing first (the CPU's forwards in a thread beside the
@@ -243,11 +244,32 @@ Phases (each prints one line; any failure exits non-zero):
               rule), run after the timed runs; encoder ms,
               TTFT, TPOT, replay ms, the step's bytes and bound, peak
               device memory;
+   train    — training on the card: (a) ``repro_torch.launch.train.main``
+              in this process on granite-moe-1b-a400m at ``--full`` (24
+              layers, 1.33 B parameters), 20 AdamW steps of 16 x 64
+              tokens (the padded dispatch's plain products, remat), the
+              loss falling by ``TRAIN_DROP``, the held-out perplexity on
+              the all-hi kernels (row 7, one launch per layer and batch,
+              and no other kernel: no step reached one); the median step
+              ms of the last 10 (CUDA events), tokens/s, peak memory;
+              (b) a twin: one step at full width and 2 layers on the card
+              and on the CPU's plain path, same weights and batch, in bf16
+              (the card's step three times) and in float32: the loss, each
+              gradient leaf and each update held to the CPU's (the CPU's
+              steps run beside (c) and (d));
+              (c) held-out perplexity of (a)'s weights with no bank, a
+              static int4 bank and int2 lo with a hot bf16 quarter from
+              router counts, on the ragged kernels (rows 1-2, 7) against
+              the padded layout (row 4), perplexity and every position's
+              logits; (d) (a)'s parameters and optimizer state saved in
+              the reference's checkpoint layout and loaded back bit-equal;
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
               profiler against ``ops.LAUNCHES``, and the share of a replay
-              the device idles, as issued and enqueued behind a spin.
+              the device idles, as issued and enqueued behind a spin; then
+              one train step of the train phase's model and batch: its
+              device busy ms and kernels against its ms by CUDA events.
 
 The last two lines are a JSON object with one entry per kernel and the
 contract line ``{"ok": true, "device": {...}}``. The script imports nothing
@@ -256,6 +278,7 @@ of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -1876,10 +1899,13 @@ def phase_dense(parent) -> None:
             per_sm = pdense.ragged_dense_occupancy(len(ws), w0, s0, E)
             pgrid = ops.dense_grid(torch.cuda.get_device_properties(
                 0).multi_processor_count, per_sm, Tt, -(-N // (16 * w0)))
+            # The map buffers stay referenced by ``maps`` while ``prun``
+            # runs (the cache may drop them).
             maps = [ops._tensor_map(x, ops.DENSE_X_BOX)] + \
                 [ops._tensor_map(w, ops.DENSE_W_BOX) for w in ws]
-            args = [*maps, te.data_ptr(), n.data_ptr(), out_p.data_ptr(),
-                    Tt, K, N, E, pgrid, ops.DENSE_NT, s0, w0]
+            args = [*map(ctypes.addressof, maps), te.data_ptr(), n.data_ptr(),
+                    out_p.data_ptr(), Tt, K, N, E, pgrid, ops.DENSE_NT, s0,
+                    w0]
             prun = lambda: build.check(getattr(pdense, kname)(
                 *args, stream()), f"parent {kname}")
             crun = lambda: ops.ragged_dense_launch(kname, x, te, n, ws)
@@ -2310,7 +2336,14 @@ def phase_model() -> None:
     from repro_torch.configs import get_config
     card = torch.device("cuda")
     cfg = dataclasses.replace(get_config(ARCH), n_layers=CHECK_LAYERS)
-    checks = [(cfg, f"{p}, CPU vs card", "cpu", dict(paged=pg, dispatch=disp))
+    # The CPU's prefill of the ragged path runs on the padded layout (its
+    # plain ragged version dequantizes an expert per row tile: ~4x the
+    # work at 384 tokens); the same routing, drops and products, held
+    # equal on the card below. Its decode steps stay ragged.
+    checks = [(cfg, f"{p}, CPU vs card" + (" (CPU prefill padded)"
+                                           if disp == "ragged" else ""),
+               "cpu", dict(paged=pg, dispatch=disp,
+                           prefill_dispatch_ref="padded"))
               for p, (pg, disp, _, _) in PATHS.items()]
     # The two dispatch layouts against each other on the card, same
     # weights, same fresh dense caches.
@@ -2321,9 +2354,9 @@ def phase_model() -> None:
     # int2 lo with 64 of a 128-slot pool published, 8 rows.
     cfg80 = dataclasses.replace(get_config(FLAGSHIP),
                                 n_layers=FLAGSHIP_CHECK_LAYERS)
-    checks.append((cfg80, "paged/ragged, CPU vs card", "cpu",
-                   dict(paged=True, dispatch="ragged", B=8, lo_bits=2,
-                        n_hi=128)))
+    checks.append((cfg80, "paged/ragged, CPU vs card (CPU prefill padded)",
+                   "cpu", dict(paged=True, dispatch="ragged", B=8, lo_bits=2,
+                               n_hi=128, prefill_dispatch_ref="padded")))
     for cfg, what, dev_ref, kw in checks:
         check_model("model", cfg, what, dev_ref, card, **kw)
     _model_prefix(dataclasses.replace(get_config(ARCH),
@@ -4779,6 +4812,11 @@ JAMBA = "jamba-v0_1-52b"
 JAMBA_LAYERS = 8
 #: The ring run's window, cut from 8192 so that prompts and decode wrap it.
 JAMBA_RING = 256
+#: The model check's window and prompts: a 192-token prompt (three SSD
+#: chunks) wraps a 128-slot ring, and a 48-token one stays inside it. Half
+#: the ring run's, for the CPU's forwards, the longest part of a whole run.
+HYBRID_CHECK_RING = 128
+HYBRID_CHECK_PROMPTS = (192, 48)
 HYBRID_NEW = 32
 HYBRID_SLOTS = 8
 HYBRID_MAX_LEN = 288           # 256-token prompts + 32 tokens
@@ -5291,11 +5329,11 @@ def phase_hybrid(card: str, parent=None):
                   f"device memory allocated "
                   f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, reserved "
                   f"{torch.cuda.memory_reserved() / 1e9:.2f} GB | {card}")
-    # (b) The model check, CPU against the card, on the main path at the
-    # ring run's window: row 0 a 320-token prompt that wraps its 16-block
-    # ring, row 1 a 48-token one (below the window it computes what the
-    # model's 8192 window would), 4 decode steps; the card also runs them on
-    # dense rows (a 256-slot ring row), held to the same CPU forwards. The
+    # (b) The model check, CPU against the card, on the main path at a
+    # 128 window: row 0 a 192-token prompt that wraps its 8-block ring, row
+    # 1 a 48-token one (below the window it computes what the model's 8192
+    # window would), 4 decode steps; the card also runs them on dense rows
+    # (a 128-slot ring row), held to the same CPU forwards. The
     # CPU's plain forwards
     # take minutes at full width: the check runs its card forwards first,
     # then its CPU forwards in a thread (two cores left to the rest of
@@ -5306,13 +5344,13 @@ def phase_hybrid(card: str, parent=None):
     threads = torch.get_num_threads()
     torch.set_num_threads(max(1, threads - 2))
     try:
-        _, ring_cfg = _jamba(window=JAMBA_RING)
+        _, ring_cfg = _jamba(window=HYBRID_CHECK_RING)
         model_check = check_model(
-            "hybrid", ring_cfg, f"window {JAMBA_RING}, paged/ragged, CPU vs "
-            "card (CPU prefill padded)", "cpu", torch.device("cuda"),
-            background=True, paged=True, dispatch="ragged", B=2, S=320,
-            steps=4, lengths=(320, 48), prefill_dispatch_ref="padded",
-            card_dense=True)
+            "hybrid", ring_cfg, f"window {HYBRID_CHECK_RING}, paged/ragged, "
+            "CPU vs card (CPU prefill padded)", "cpu", torch.device("cuda"),
+            background=True, paged=True, dispatch="ragged", B=2,
+            S=HYBRID_CHECK_PROMPTS[0], steps=4, lengths=HYBRID_CHECK_PROMPTS,
+            prefill_dispatch_ref="padded", card_dense=True)
         t1 = time.perf_counter()
         k = _hybrid_kernels()
         _hybrid_results(k)
@@ -6091,6 +6129,412 @@ def phase_multimodal(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 5j. train: training on the card through the launcher; the twin of one
+#     step on the CPU; perplexity under quantized banks on the ragged
+#     kernels; a checkpoint round trip
+# ---------------------------------------------------------------------------
+
+#: The reference launcher's default model at full width and depth (24
+#: layers, d 1024, 32 experts top-8, F 512, vocab 49155: 1.33 B
+#: parameters), trained by ``repro_torch.launch.train.main`` in process.
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_STEPS = 20
+TRAIN_BATCH = 16
+TRAIN_SEQ = 65
+TRAIN_ARGV = ("--full", "--steps", str(TRAIN_STEPS), "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ))
+#: The step time reported: the median of the last this many steps.
+TRAIN_TIMED = 10
+#: The held-out cross-entropy (the launcher's three held-out batches) must
+#: fall at least this far (nats) from the seeded weights to the trained
+#: ones. The same batches before and after, not the first and last steps'
+#: losses: each step's batch differs (its CE moves ~0.03 between steps),
+#: and the steps' total loss carries the load-balance term, which rose
+#: over the 20 steps while the cross-entropy fell (on the H100).
+TRAIN_DROP = 0.01
+#: The twin: the same weights (drawn on the CPU) at full width and 2 of 24
+#: layers, one step on a batch of TWIN_BATCH rows on the card and on the
+#: CPU's plain path, in bf16 (the training dtype) and in float32. The card's
+#: bf16 step runs TWIN_CARD_RUNS times (its backward scatters with atomics,
+#: so runs differ); the worst run is held. Loss to *_LOSS_RTOL relative;
+#: each gradient leaf to *_GRAD_RTOL relative L2; each leaf's update (new -
+#: old) to *_UPDATE_RTOL relative L2 (Adam's first step is ~lr · sign(g):
+#: an element near 0 whose sign differs moves by 2 lr).
+#: bf16: gradients computed in two libraries' orders sit apart by the
+#: rounding of bf16 sums, amplified by cancellation: 4.8% median and 5.7%
+#: at most at full width (on the H100), while each side sits 10-11% (median
+#: leaf; 12-13% the largest) from a float32 step: a bf16 step held to a
+#: float32 one would fail 0.08. Updates: 0.224 in every run on the H100
+#: (the card's runs bit-equal to each other; PERF.md).
+#: float32: the same products with float32 sums: gradients 3.7e-6 and
+#: updates 2.7e-4 apart on the H100 (the CPU against the reference at 24
+#: layers: 1.4e-5, ``tests/test_torch_train_depth.py``); a wrong tile,
+#: expert or layer shows at once.
+TWIN_LAYERS = 2
+TWIN_BATCH = 4
+TWIN_CARD_RUNS = 3
+TWIN_LOSS_RTOL = 1e-3
+TWIN_GRAD_RTOL = 0.08
+TWIN_UPDATE_RTOL = 0.25
+TWIN_F32_LOSS_RTOL = 1e-5
+TWIN_F32_GRAD_RTOL = 1e-4
+TWIN_F32_UPDATE_RTOL = 5e-3
+#: Held-out perplexity on the ragged kernels against the padded layout on
+#: the card, relative (the same products summed in other orders; the CPU
+#: tests hold both layouts to the reference within 2e-3).
+TRAIN_PPL_RTOL = 2e-3
+#: ... and the logits of every held-out position, max |ragged - padded|
+#: (bit-equal on the H100). The trained model sits near the uniform
+#: perplexity, where a wrong tile moves the perplexity little but its
+#: rows' logits by the FFN's share of them: the int4 bank moves them 3.6
+#: from no bank's (the line logs it, for scale).
+TRAIN_LOGIT_ATOL = 1e-3
+#: The rows the train phase's evaluations launch, by perplexity run.
+TRAIN_EVAL_KERNELS = {
+    "no bank": (DENSE_FFN_KERNELS, ("grouped_lo_matmul", "ragged_gateup",
+                                    "ragged_down")),
+    "static int4": (("ragged_gateup", "ragged_down"),
+                    ("grouped_lo_matmul",) + DENSE_FFN_KERNELS),
+    "int2 + hot bf16": (("ragged_gateup", "ragged_down"),
+                        ("grouped_lo_matmul",) + DENSE_FFN_KERNELS),
+}
+#: The checkpoint needs this much more free space than its bytes.
+TRAIN_CKPT_SLACK = 1.2
+
+
+def _train_launcher(card) -> dict:
+    """(a) ``launch.train.main`` at ``--full``: 20 steps, every loss
+    finite, the held-out perplexity (the all-hi kernels, row 7: one launch
+    per layer and batch each, and nothing else of the port: no training
+    step reached a kernel), its cross-entropy TRAIN_DROP below the seeded
+    weights' on the same batches; the median step time of the last
+    TRAIN_TIMED steps (CUDA events), tokens/s, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+    from repro_torch.training import SyntheticLMTask
+    from repro_torch.training.train import eval_perplexity
+    full = get_config(TRAIN_ARCH)
+    seeded = init_params(full, seed=0, device=torch.device("cuda"))
+    ppl0 = eval_perplexity(full, seeded, SyntheticLMTask(
+        full.vocab_size, seed=0).batches(TRAIN_BATCH, TRAIN_SEQ, 3,
+                                         seed=9999))
+    del seeded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                     # the main path starts here
+    t0 = time.perf_counter()
+    out = train.main(list(TRAIN_ARGV))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)            # ... and ends here
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cfg, steps = out["cfg"], out["steps"]
+    losses = [s["loss"] for s in steps]
+    ces = [s["ce"] for s in steps]
+    if len(steps) != TRAIN_STEPS or \
+            not all(map(math.isfinite, losses + ces)) or \
+            not math.isfinite(out["ppl"]):
+        raise AssertionError(f"train: losses {losses}, ppl {out['ppl']}")
+    drop = math.log(ppl0) - math.log(out["ppl"])
+    if not drop >= TRAIN_DROP:
+        raise AssertionError(f"train: held-out cross-entropy "
+                             f"{math.log(ppl0):.4f} -> "
+                             f"{math.log(out['ppl']):.4f}, not {TRAIN_DROP} "
+                             f"lower")
+    evals = 3 * cfg.n_layers
+    want = {k: evals if k in DENSE_FFN_KERNELS else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, want {want} (the "
+                             f"held-out evaluation's row 7 alone)")
+    ms = sorted(s["ms"] for s in steps[-TRAIN_TIMED:])
+    med = float(np.median(ms))
+    tokens = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    log("train", f"(a) launcher {TRAIN_ARCH} {' '.join(TRAIN_ARGV)}: "
+                 f"{out['n_params'] / 1e9:.3f} B parameters, {secs:.1f} s in "
+                 f"process (weights drawn, {TRAIN_STEPS} steps, held-out "
+                 f"perplexity {out['ppl']:.2f}) | held-out cross-entropy "
+                 f"{math.log(ppl0):.4f} (seeded) -> "
+                 f"{math.log(out['ppl']):.4f} (trained), drop {drop:.4f} "
+                 f"(min {TRAIN_DROP}) | loss by step "
+                 f"{[round(x, 4) for x in losses]}, ce "
+                 f"{[round(x, 4) for x in ces]} | step ms (events) "
+                 f"median of the last {TRAIN_TIMED} {med:.2f} (min "
+                 f"{ms[0]:.2f}, max {ms[-1]:.2f}; first step "
+                 f"{steps[0]['ms']:.2f}) = {tokens / med * 1e3:.0f} tokens/s "
+                 f"| max allocated {peak / 1e9:.2f} GB | launches "
+                 f"{launches} | {card}")
+    out.update(launches=launches, step_ms=med, peak=peak)
+    return out
+
+
+def _twin_grads(cfg, params, batch):
+    """(loss, gradients, the parameters after one AdamW step) of
+    ``params``' step on ``batch``, in float32 on the step's device."""
+    from repro_torch.training import AdamWConfig, TrainConfig, adamw_init
+    from repro_torch.training import adamw_update
+    from repro_torch.core import tree as T
+    from repro_torch.training.train import _grads
+    loss, _, grads = _grads(params, cfg, batch, TrainConfig())
+    new, _, m = adamw_update(AdamWConfig(), params,
+                             T.unflatten(params, grads), adamw_init(params))
+    return float(loss), [g.float() for g in grads], \
+        [p.float() for p in T.leaves(new)], float(m["gnorm"])
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _to_card(step, dev):
+    """A ``_twin_grads`` result with its tensors on ``dev``."""
+    loss, grads, new, gnorm = step
+    return loss, [g.to(dev) for g in grads], [p.to(dev) for p in new], gnorm
+
+
+def _twin_errors(got, want, old, paths):
+    """The loss's relative error, and each leaf's relative L2 error of the
+    gradient and of the update, of step ``got`` against step ``want``."""
+    g_err = {p: _rel(a, b) for p, a, b in zip(paths, got[1], want[1])}
+    u_err = {p: _rel(a - o, b - o)
+             for p, a, b, o in zip(paths, got[2], want[2], old)}
+    return abs(got[0] - want[0]) / abs(want[0]), g_err, u_err
+
+
+def _train_twin(card):
+    """(b) One step at full width, 2 of 24 layers, on the card and on the
+    CPU's plain path, same weights and batch, in bf16 (the card's step
+    TWIN_CARD_RUNS times) and in float32: loss, each gradient leaf and each
+    leaf's update against the CPU's. Runs the card's steps and starts the
+    CPU's in a thread; returns the function that joins them and holds the
+    two."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.training import SyntheticLMTask
+    from repro_torch.core import tree as T
+    from repro_torch.training.train import to_batch
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TWIN_LAYERS)
+    cpu_params = init_params(cfg, seed=1, device="cpu")
+    cpu32 = T.tree_map(lambda t: t.float(), cpu_params)
+    batch = next(SyntheticLMTask(cfg.vocab_size, seed=0).batches(
+        TWIN_BATCH, TRAIN_SEQ, 1, seed=4321))
+    dev = torch.device("cuda")
+    runs = [_twin_grads(cfg, _to(cpu_params, dev), to_batch(batch, dev))
+            for _ in range(TWIN_CARD_RUNS)]
+    got32 = _twin_grads(cfg, _to(cpu32, dev), to_batch(batch, dev))
+    t1 = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+    job = pool.submit(lambda: (
+        _twin_grads(cfg, cpu_params, to_batch(batch, "cpu")),
+        _twin_grads(cfg, cpu32, to_batch(batch, "cpu")),
+        time.perf_counter()))
+    pool.shutdown(wait=False)
+
+    def join() -> None:
+        tj = time.perf_counter()
+        want, want32, t_done = job.result()
+        # Compared on the card: the host's passes over 2 x 0.2 B elements
+        # per step took seconds.
+        want, want32 = (_to_card(w, dev) for w in (want, want32))
+        paths = T.flatten(cpu_params)[0]
+        old = [p.to(dev).float() for p in T.leaves(cpu_params)]
+        errs = [_twin_errors(r, want, old, paths) for r in runs]
+        l_err = max(e[0] for e in errs)
+        g_err = {p: max(e[1][p] for e in errs) for p in paths}
+        u_err = {p: max(e[2][p] for e in errs) for p in paths}
+        spread = max(_rel(a, b) for r in runs[1:]
+                     for a, b in zip(r[1], runs[0][1]))
+        l32, g32, u32 = _twin_errors(got32, want32, old, paths)
+        noise = [sorted(_rel(a, f) for a, f in zip(side[1], got32[1]))
+                 for side in (runs[0], want)]
+        worst_g, worst_u = max(g_err, key=g_err.get), max(u_err,
+                                                          key=u_err.get)
+        w32_g, w32_u = max(g32, key=g32.get), max(u32, key=u32.get)
+        log("train", f"(b) twin: {cfg.name} full width, {TWIN_LAYERS} of "
+                     f"24 layers, one step on {TWIN_BATCH} x 64 tokens, card "
+                     f"vs CPU. bf16, worst of {TWIN_CARD_RUNS} card runs: "
+                     f"loss {runs[0][0]:.5f} vs {want[0]:.5f} (rel "
+                     f"{l_err:.2e}, tol {TWIN_LOSS_RTOL}); gnorm "
+                     f"{runs[0][3]:.4f} vs {want[3]:.4f}; gradients' rel L2 "
+                     f"max {g_err[worst_g]:.4f} ({worst_g}; tol "
+                     f"{TWIN_GRAD_RTOL}), median "
+                     f"{float(np.median(list(g_err.values()))):.4f}; card "
+                     f"runs apart by at most {spread:.4f}; each side's "
+                     f"distance to the card's float32 step, median / max "
+                     f"leaf: card {np.median(noise[0]):.4f} / "
+                     f"{noise[0][-1]:.4f}, CPU {np.median(noise[1]):.4f} / "
+                     f"{noise[1][-1]:.4f}; updates' rel L2 max "
+                     f"{u_err[worst_u]:.4f} ({worst_u}; tol "
+                     f"{TWIN_UPDATE_RTOL}), by run "
+                     f"{[round(max(e[2].values()), 4) for e in errs]}. "
+                     f"float32: loss rel {l32:.2e} (tol "
+                     f"{TWIN_F32_LOSS_RTOL}); gradients' rel L2 max "
+                     f"{g32[w32_g]:.2e} ({w32_g}; tol {TWIN_F32_GRAD_RTOL}), "
+                     f"median {float(np.median(list(g32.values()))):.2e}; "
+                     f"updates' rel L2 max {u32[w32_u]:.2e} ({w32_u}; tol "
+                     f"{TWIN_F32_UPDATE_RTOL}) | card {t1 - t0:.1f} s "
+                     f"(weights drawn on the CPU included), CPU "
+                     f"{t_done - t1:.1f} s beside (c) and (d), waited "
+                     f"{time.perf_counter() - tj:.1f} s | {card}")
+        if l_err > TWIN_LOSS_RTOL or g_err[worst_g] > TWIN_GRAD_RTOL or \
+                u_err[worst_u] > TWIN_UPDATE_RTOL or \
+                l32 > TWIN_F32_LOSS_RTOL or g32[w32_g] > TWIN_F32_GRAD_RTOL \
+                or u32[w32_u] > TWIN_F32_UPDATE_RTOL:
+            raise AssertionError("train: the card's step disagrees with the "
+                                 "CPU's")
+    return join
+
+
+def _train_perplexity(card, out) -> list:
+    """(c) Held-out perplexity of (a)'s trained weights on the launcher's
+    held-out batches, on the ragged kernels (no bank: row 7; a static int4
+    bank: rows 1-2, every tile lo; int2 lo with a hot bf16 quarter of each
+    layer's experts from router counts: rows 1-2, both tiers), each held
+    against the same evaluation on the padded layout on the card (row 4
+    with a bank), and then its logits on every held-out position. Returns
+    the launches of each evaluation."""
+    from repro_torch.kernels import ops
+    from repro_torch.training.quality import (bank_with_hotset, hot_sets,
+                                              hotness_from_counts)
+    from repro_torch.training.train import (_forward_with_bank,
+                                            eval_perplexity, to_batch)
+    cfg, params, task = out["cfg"], out["params"], out["task"]
+    L, E = cfg.n_layers, cfg.moe.num_experts
+    t0 = time.perf_counter()
+    hot = hotness_from_counts(cfg, params,
+                              task.batches(TRAIN_BATCH, TRAIN_SEQ, 3,
+                                           seed=777))
+    banks = {"no bank": None,
+             "static int4": {"0": bank_with_hotset(params, 4,
+                                                   [[]] * L)},
+             "int2 + hot bf16": {"0": bank_with_hotset(
+                 params, 2, hot_sets(hot, E // 4))}}
+    held_out = [to_batch(b, torch.device("cuda")) for b in task.batches(
+        TRAIN_BATCH, TRAIN_SEQ, 3, seed=9999)]
+    t1 = time.perf_counter()
+    runs, parts, first = [], [], None
+    for name, bank in banks.items():
+        ppl, logits = {}, {}
+        for dispatch in ("ragged", "padded"):
+            ops.reset_launches()             # the evaluation starts here
+            ppl[dispatch] = eval_perplexity(
+                cfg, params, task.batches(TRAIN_BATCH, TRAIN_SEQ, 3,
+                                          seed=9999),
+                bank=bank, dispatch=dispatch)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)    # ... and ends here
+            runs.append({"launches": launches})
+            used, unused = TRAIN_EVAL_KERNELS[name]
+            if dispatch == "padded":
+                used = ("grouped_lo_matmul",) if bank is not None else ()
+                unused = ("ragged_gateup", "ragged_down") + DENSE_FFN_KERNELS
+            if not all(launches[k] == 3 * L * (1 + (k == "grouped_lo_matmul")
+                                               * 2) for k in used) or \
+                    any(launches[k] for k in unused):
+                raise AssertionError(f"train (c) {name} {dispatch}: "
+                                     f"launches {launches}")
+            with torch.no_grad():
+                logits[dispatch] = [_forward_with_bank(
+                    params, cfg, {"tokens": b["tokens"]}, bank, 4.0,
+                    dispatch) for b in held_out]
+        rel = abs(ppl["ragged"] - ppl["padded"]) / ppl["padded"]
+        dl = _max_abs(logits["ragged"], logits["padded"])
+        moved = "" if first is None else \
+            f", {_max_abs(logits['ragged'], first):.4f} from no bank's"
+        first = logits["ragged"] if first is None else first
+        parts.append(f"{name}: ragged {ppl['ragged']:.4f}, padded "
+                     f"{ppl['padded']:.4f} (rel {rel:.2e}), logits max "
+                     f"|ragged - padded| {dl:.2e}{moved}")
+        if not all(map(math.isfinite, ppl.values())) or \
+                rel > TRAIN_PPL_RTOL or not dl <= TRAIN_LOGIT_ATOL:
+            log("train", f"(c) {parts[-1]}")
+            raise AssertionError(f"train (c) {name}: perplexity {ppl}, "
+                                 f"logits apart by {dl}")
+        del logits
+    log("train", f"(c) held-out perplexity of the trained {cfg.name} (3 x "
+                 f"16 x 64 tokens), ragged kernels vs the padded layout "
+                 f"(tol {TRAIN_PPL_RTOL} rel; logits tol {TRAIN_LOGIT_ATOL} "
+                 f"abs; largest |logit| "
+                 f"{max(float(x.abs().max()) for x in first):.3f}): "
+                 f"{'; '.join(parts)} | hot "
+                 f"sets of {E // 4} per layer from {int(hot.sum())} router "
+                 f"selections; banks built in {t1 - t0:.1f} s, evaluations "
+                 f"{time.perf_counter() - t1:.1f} s | {card}")
+    return runs
+
+
+def _max_abs(xs, ys) -> float:
+    return max(float((a - b).abs().max()) for a, b in zip(xs, ys))
+
+
+def _train_checkpoint(card, out) -> None:
+    """(d) (a)'s parameters and optimizer state to a temporary directory
+    in the reference's layout and back: every leaf bit-equal."""
+    import shutil
+    import tempfile
+    from repro_torch.training import load_checkpoint, save_checkpoint
+    from repro_torch.core import tree as T
+    tree = {"params": out["params"], "opt": out["opt_state"]}
+    nbytes = sum(t.numel() * max(4, t.element_size())
+                 for t in T.leaves(tree))
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    if free < TRAIN_CKPT_SLACK * nbytes:
+        raise AssertionError(f"train (d): {free / 1e9:.1f} GB free under "
+                             f"{tmp}, the checkpoint needs "
+                             f"{nbytes / 1e9:.1f} GB")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_checkpoint(d, tree, step=TRAIN_STEPS)
+        t1 = time.perf_counter()
+        back, step = load_checkpoint(d, tree)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        bad = [p for p, a, b in zip(T.flatten(tree)[0], T.leaves(tree),
+                                    T.leaves(back))
+               if a.dtype != b.dtype or a.device != b.device
+               or not torch.equal(a, b)]
+        n = len(T.leaves(tree))
+    log("train", f"(d) checkpoint of the trained parameters and optimizer "
+                 f"state: {n} leaves, {nbytes / 1e9:.2f} GB on disk (bf16 as "
+                 f"float32), saved in {t1 - t0:.1f} s, loaded back to the "
+                 f"card in {t2 - t1:.1f} s; step {step}; "
+                 f"{n - len(bad)} of {n} leaves bit-equal | {card}")
+    if bad or step != TRAIN_STEPS:
+        raise AssertionError(f"train (d): leaves {bad[:5]} differ")
+
+
+def phase_train(card: str) -> None:
+    """Training on the card: (a) the launcher at full width and depth, (b)
+    the twin of one step on the CPU, (c) perplexity of (a)'s weights under
+    three banks on the ragged kernels against the padded layout, (d) a
+    checkpoint round trip. The launches of (a) and (c) go to the kernels'
+    line."""
+    t0 = time.perf_counter()
+    out = _train_launcher(card)
+    t1 = time.perf_counter()
+    twin = _train_twin(card)
+    t2 = time.perf_counter()
+    runs = [{"launches": out["launches"]}] + _train_perplexity(card, out)
+    t3 = time.perf_counter()
+    _train_checkpoint(card, out)
+    t4 = time.perf_counter()
+    del out
+    twin()
+    for name in RESULTS:
+        RESULTS[name]["launches"] = RESULTS[name].get("launches", 0) + sum(
+            r["launches"].get(name, 0) for r in runs)
+    log("train", f"phase done in {time.perf_counter() - t0:.1f} s "
+                 f"(launcher {t1 - t0:.1f} s, twin's card half "
+                 f"{t2 - t1:.1f} s, perplexity {t3 - t2:.1f} s, checkpoint "
+                 f"{t4 - t3:.1f} s, the twin's CPU half joined "
+                 f"{time.perf_counter() - t4:.1f} s after) | {card}")
+
+
+# ---------------------------------------------------------------------------
 # 6. trace: where a decode step's device time goes
 # ---------------------------------------------------------------------------
 
@@ -6271,6 +6715,60 @@ def phase_trace(card: str) -> None:
                 _trace_one(cfg, params, prompts, f"{cfg.name} {path}", paged,
                            dispatch, mode, lo_bits, card)
         del params
+    _trace_train_step(card)
+
+
+def _trace_train_step(card) -> None:
+    """The train phase's step (granite at full width and depth, seeded
+    weights, 16 x 64 tokens) once warm, then once under ``torch.profiler``
+    (device activity): the device's busy ms and kernels per step against
+    the step's ms by CUDA events, and the five kernels with the most
+    device time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.training import (AdamWConfig, SyntheticLMTask,
+                                      TrainConfig, adamw_init,
+                                      make_train_step)
+    from repro_torch.training.train import to_batch
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    step = make_train_step(cfg, TrainConfig(optimizer=AdamWConfig(
+        total_steps=TRAIN_STEPS)))
+    batch = to_batch(next(SyntheticLMTask(cfg.vocab_size, seed=0).batches(
+        TRAIN_BATCH, TRAIN_SEQ, 1, seed=TRAIN_STEPS)), dev)
+    params = init_params(cfg, seed=0, device=dev)
+    opt = adamw_init(params)
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        prof.step()
+        ev[0].record()
+        params, opt, _ = step(params, opt, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        prof.step()
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels[e.key] = (us / 1e3, e.count)
+    busy = sum(v[0] for v in kernels.values())
+    n = sum(v[1] for v in kernels.values())
+    ms = ev[0].elapsed_time(ev[1])
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+    log("trace", f"train step, traced ({cfg.name}, {TRAIN_BATCH} x "
+                 f"{TRAIN_SEQ - 1} tokens): {ms:.2f} ms by events, device "
+                 f"busy {busy:.2f} ms over {n} kernels (idle share "
+                 f"{1 - busy / ms:.3f}); most device time: "
+                 + "; ".join(f"{k[:60]} {v[0]:.2f} ms x{v[1]}"
+                             for k, v in top) + f" | {card}")
+    del params, opt
 
 
 def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
@@ -6365,7 +6863,7 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "serving",
           "requests", "spec", "ladder", "obs", "hybrid", "model",
-          "families", "multimodal", "trace")
+          "families", "multimodal", "train", "trace")
 #: The phases that time nothing on the host: they run beside the CPU part
 #: of the hybrid model check, which any other phase waits for.
 BESIDE_CPU_CHECK = ("model",)
@@ -6404,6 +6902,7 @@ def main() -> int:
                       ("model", phase_model),
                       ("families", lambda: phase_families(card)),
                       ("multimodal", lambda: phase_multimodal(card)),
+                      ("train", lambda: phase_train(card)),
                       ("trace", lambda: phase_trace(card))):
         if name in only:
             if check is not None and name not in BESIDE_CPU_CHECK:

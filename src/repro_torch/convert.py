@@ -7,6 +7,9 @@ which torch cannot take directly: they travel as their raw 16-bit patterns
 bit. Block leaves keep their leading ``nsb`` (layer) axis. Quantized banks
 convert leaf by leaf (``bank_from_reference``), duck-typed on the
 reference's ``ExpertBankQ`` fields, so no reference module is imported.
+The way back (``params_to_reference``) hands the port's tensors to the
+reference as numpy, bf16 leaves as their raw 16-bit patterns (uint16:
+``.view(ml_dtypes.bfloat16)`` on the reference's side).
 """
 from __future__ import annotations
 
@@ -55,3 +58,22 @@ def bank_from_reference(bank, device="cpu") -> ExpertBankQ:
         lo=lo, hi={n: to_torch(h, device) for n, h in bank.hi.items()},
         slot_owner=to_torch(bank.slot_owner, device).to(torch.int32),
         slot_map=to_torch(bank.slot_map, device).to(torch.int32))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor → numpy on the host; bfloat16 as its raw 16-bit patterns
+    (uint16), bit for bit."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def params_to_reference(tree: Any) -> Any:
+    """Nested dicts of tensors → the same nesting of numpy arrays (None
+    leaves stay None): the reverse of ``params_from_reference``."""
+    if isinstance(tree, dict):
+        return {k: params_to_reference(v) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return to_numpy(tree)

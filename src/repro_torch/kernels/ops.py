@@ -8,10 +8,12 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 
 and counts its launches in ``LAUNCHES`` (one per call that launched,
 nowhere else), so a run can show that the main path went through the
-kernels. The two decode-attention wrappers count one per call whether one
-or two device launches ran: they are split-KV (``decode_splits`` cuts each
-row's tiles across CTAs, and a second small kernel merges the splits when
-there is more than one).
+kernels. No kernel has a backward: every wrapper raises while autograd
+records and an input requires a gradient (``_no_grad_inputs``). The two
+decode-attention wrappers count one per call whether one or two device
+launches ran: they are split-KV (``decode_splits`` cuts each row's tiles
+across CTAs, and a second small kernel merges the splits when there is
+more than one).
 
 The padded MoE dispatch's grouped GEMM (``grouped_lo_matmul``), the dense
 decode attention (``flash_decode``) and the plain quantized GEMM
@@ -333,6 +335,19 @@ def _need(t: torch.Tensor, name: str, dtype, device, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _no_grad_inputs(name: str, *tensors) -> None:
+    """The kernels have no backward (neither has the reference's Pallas
+    path): a call that autograd would record raises, where its output
+    would otherwise carry no ``grad_fn`` and leave its inputs without a
+    gradient, silently. The plain versions on the CPU obey the same rule."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires a gradient, and the "
+                           f"kernel has no backward; run it under "
+                           f"torch.no_grad() (training differentiates the "
+                           f"padded dispatch's plain products)")
+
+
 def _check_codes(packed, scales, K: int, bits: int, group: int, dev,
                  ndim: int):
     """The lo codes (..., K//epb, N) uint8 and scales (..., K//g, N) bf16
@@ -423,6 +438,8 @@ def ragged_gateup(xs, tile_eid, tile_slot, n_tiles, gate_packed, gate_scales,
     tier (hi slot when ``tile_slot >= 0`` and a hi pool is given, else the
     packed lo codes). Rows of tiles ``t >= n_tiles`` are not written on the
     card."""
+    _no_grad_inputs("ragged_gateup", xs, gate_scales, up_scales, hi_gate,
+                    hi_up)
     n_hi = 0 if hi_gate is None else hi_gate.shape[0]
     if n_hi == 0:
         hi_gate = hi_up = None
@@ -454,6 +471,7 @@ def ragged_down(h, tile_eid, tile_slot, n_tiles, down_packed, down_scales,
                 hi_down=None, *, bits: int, group: int,
                 bm: int) -> torch.Tensor:
     """y (R, D) = h · W_down per row tile on its tier."""
+    _no_grad_inputs("ragged_down", h, down_scales, hi_down)
     n_hi = 0 if hi_down is None else hi_down.shape[0]
     if n_hi == 0:
         hi_down = None
@@ -616,8 +634,11 @@ def tensor_map_geometry(t: torch.Tensor):
     return dims, strides
 
 
-def _tensor_map(t: torch.Tensor, box) -> int:
-    """The address of a cached tensor map over ``t`` with ``box``."""
+def _tensor_map(t: torch.Tensor, box) -> ctypes.Array:
+    """A cached tensor map over ``t`` with ``box`` (its 128-byte buffer).
+    The caller holds it until its launch has copied it: a later call may
+    clear the cache, and the buffer of a map dropped from it is freed (and
+    its memory soon reused by the next map)."""
     key = tensor_map_key(t, box)
     m = _TMAPS.get(key)
     if m is None:
@@ -636,7 +657,7 @@ def _tensor_map(t: torch.Tensor, box) -> int:
             ctypes.addressof(c_box))
         build.check(err, "ragged_dense_tensor_map")
         _TMAPS[key] = m
-    return ctypes.addressof(m)
+    return m
 
 
 def ragged_dense_launch(name: str, x, tile_eid, n_tiles, weights, *,
@@ -662,11 +683,14 @@ def ragged_dense_launch(name: str, x, tile_eid, n_tiles, weights, *,
                                   dev.index)
         grid = dense_grid(_sm_count(dev.index), per_sm, Tt,
                           -(-N // (16 * warps)))
+    # Held here until the launch returns: a map the cache drops while the
+    # others are built would otherwise reach the kernel as freed memory.
     maps = [_tensor_map(x, DENSE_X_BOX)] + \
         [_tensor_map(w, DENSE_W_BOX) for w in weights]
     err = getattr(build.library("ragged_dense_ffn"), name)(
-        *maps, tile_eid.data_ptr(), n_tiles.data_ptr(), out.data_ptr(), Tt,
-        K, N, E, grid, cap, stages, warps, _stream(dev.index))
+        *map(ctypes.addressof, maps), tile_eid.data_ptr(), n_tiles.data_ptr(),
+        out.data_ptr(), Tt, K, N, E, grid, cap, stages, warps,
+        _stream(dev.index))
     build.check(err, name)
     LAUNCHES[name] += 1
     return out
@@ -679,6 +703,7 @@ def ragged_dense_gateup(xs, tile_eid, n_tiles, w_gate, w_up, *,
     banks. Rows of tiles ``t >= n_tiles`` are not written on the card;
     ``tile_eid`` may hold the live tiles' experts in any order (an
     expert's tiles need not be adjacent), each id in ``[0, E)``."""
+    _no_grad_inputs("ragged_dense_gateup", xs, w_gate, w_up)
     _check_dense(xs, tile_eid, n_tiles, (w_gate, w_up), bm, "xs")
     if xs.device.type == "cpu":
         return ref.ragged_dense_gateup_ref(xs, tile_eid, w_gate, w_up, bm=bm)
@@ -690,6 +715,7 @@ def ragged_dense_down(h, tile_eid, n_tiles, w_down, *,
                       bm: int) -> torch.Tensor:
     """The all-hi mode's down: y (R, D) = h · W_down[e] per row tile from
     an (E, F, D) bf16 bank."""
+    _no_grad_inputs("ragged_dense_down", h, w_down)
     _check_dense(h, tile_eid, n_tiles, (w_down,), bm, "h")
     if h.device.type == "cpu":
         return ref.ragged_dense_down_ref(h, tile_eid, w_down, bm=bm)
@@ -711,6 +737,7 @@ def flash_decode_paged(q, k, v, table, valid) -> torch.Tensor:
     """q (B, H, hd); k/v (N, Hkv, bt, hd) block pools; table (B, nb) int32
     (-1 = unallocated, masked by ``valid``); valid (B, nb·bt) bool →
     (B, H, hd) bf16."""
+    _no_grad_inputs("flash_decode_paged", q, k, v)
     dev = q.device
     _need(q, "q", torch.bfloat16, dev, 3)
     _need(k, "k", torch.bfloat16, dev, 4)
@@ -771,6 +798,7 @@ def grouped_lo_matmul(xg, packed, scales, bits: int,
     the group-blocked rule (float32 partial dot per scale group, the scale
     applied after). Any C. The CUDA branch takes group a multiple of 16,
     N a multiple of 64 and 16-byte aligned tensors (``_gemm_shape_rules``)."""
+    _no_grad_inputs("grouped_lo_matmul", xg, scales)
     dev = xg.device
     _need(xg, "xg", torch.bfloat16, dev, 3)
     E, C, K = xg.shape
@@ -792,6 +820,7 @@ def quant_matmul_op(x, qt) -> torch.Tensor:
     kernel at E = 1 with the group-blocked rule (Σ_g s_g · (x_g · q_g),
     exact products, float32 sums): the two differ only at float32
     rounding. The CUDA branch has the grouped GEMM's limits."""
+    _no_grad_inputs("quant_matmul", x, qt.scales)
     dev = x.device
     _need(x, "x", torch.bfloat16, dev, 2)
     M, K = x.shape
@@ -807,6 +836,7 @@ def flash_decode(q, k, v, valid) -> torch.Tensor:
     """q (B, H, hd) contiguous; k/v (B, S, Hkv, hd) views with a contiguous
     last axis and equal strides (the dense cache's ``k.transpose(1, 2)``:
     no copy); valid (B, S) bool → (B, H, hd) bf16. Any S."""
+    _no_grad_inputs("flash_decode", q, k, v)
     dev = q.device
     _need(q, "q", torch.bfloat16, dev, 3)
     _need(k, "k", torch.bfloat16, dev, 4, contiguous=False)

@@ -31,7 +31,10 @@ Entry points:
 * ``spec_draft`` / ``spec_verify`` — S chained decode steps (paged or
                            dense): the draft and verify of self-speculative
                            decoding (the verify also returns each step's
-                           Mamba rows).
+                           Mamba rows);
+* ``forward_train``      — the full causal forward of training and quality
+                           evaluation (no cache), differentiable on the
+                           padded MoE dispatch.
 
 Every MoE layer runs through its mixed-precision bank (``bank``: MoE
 position → stacked ``ExpertBankQ``), or with ``bank=None`` through the
@@ -48,8 +51,10 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.core import tree as T
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import moe as X
@@ -418,6 +423,124 @@ def _lm_logits(params: Dict, cfg: ArchConfig, x: torch.Tensor):
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (x @ head).float()
+
+
+# --------------------------------------------------------------------------
+# Full-sequence causal forward (training and quality evaluation)
+# --------------------------------------------------------------------------
+
+
+def _unbind(tree, n: int) -> list:
+    """Per-layer views of a stacked parameter subtree, one ``torch.unbind``
+    per leaf: autograd then stacks the layers' gradients into the leaf in
+    one pass, where a ``select`` per layer would add a zero-padded
+    full-size gradient per layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items() if v is not None}
+        return [{k: v[l] for k, v in parts.items()} for l in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _block_train(bp: Dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
+                 capacity: int, bank, enc_out: Optional[torch.Tensor],
+                 dispatch: str):
+    """One layer over a whole sequence, no cache (the reference's
+    ``_block_train``): causal attention or the chunked SSD, on an
+    encoder-decoder stack cross-attention over ``enc_out``, then the FFN
+    (MoE on ``bank``, or on the layer's dense experts when ``bank`` is
+    None; a dense SwiGLU; or none). Returns (x, counts (E,) or None,
+    the load-balance loss (float32 scalar, 0 without MoE))."""
+    B, S, d = x.shape
+    h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    if kind == "attn":
+        mix = L.attention_full(bp["attn"], cfg.attn, h)
+        if enc_out is not None:
+            x = x + mix
+            hc = L.rmsnorm(bp["norm_cross"], x, cfg.norm_eps)
+            ek, ev = L.encode_cross_kv(bp["cross"], cfg.attn, enc_out)
+            mix = L.cross_attention(bp["cross"], cfg.attn, hc, ek, ev)
+    else:
+        mix, _ = SSM.ssd_forward(bp["mamba"], cfg.ssm, d, h)
+    x = x + mix
+    h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "moe" not in bp:
+        return (x + M.swiglu(bp["mlp"], h) if "mlp" in bp else x), None, zero
+    experts = bp["moe"]["experts"] if bank is None else bank
+    y, aux = X.moe_apply(bp["moe"], experts, h.reshape(B * S, d), cfg.moe,
+                         capacity, dispatch=dispatch)
+    return x + y.reshape(B, S, d), aux.counts, aux.aux_loss
+
+
+def _refuse_kernels_under_grad(params: Dict, what: str) -> None:
+    """The kernels have no backward: a forward that reaches one while
+    autograd records would leave its weights without a gradient."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in T.leaves(params)):
+        raise RuntimeError(f"{what} runs the ragged kernels, which have no "
+                           f"backward: differentiate on the padded dispatch "
+                           f"(dispatch='padded'), or run under "
+                           f"torch.no_grad()")
+
+
+def forward_train(params: Dict, cfg: ArchConfig, batch: Dict,
+                  capacity_factor: Optional[float] = None,
+                  remat: bool = True, dispatch: str = "padded", bank=None):
+    """Full causal forward (the reference's ``forward_train``). ``batch``:
+    "tokens" (B, S); on a VLM stack optionally "image_embeds" (B, n, d)
+    ahead of the tokens; on an encoder-decoder stack "audio_embeds" (B,
+    Senc, d), encoded once. ``dispatch``: the MoE token layout, "padded"
+    (the default, the one autograd can differentiate: batched einsums over
+    (E, C, d)) or "ragged" (the kernels; refused while autograd records
+    parameter gradients). ``bank``: MoE position → stacked
+    ``ExpertBankQ`` in place of the dense experts (the reference's
+    ``_forward_with_bank``). ``remat`` recomputes each super-block in the
+    backward pass (``torch.utils.checkpoint``, as ``jax.checkpoint``).
+    Returns (logits (B, S_total, V) float32, {"aux_loss": float32 scalar,
+    "counts": {MoE position: (nsb, E) int32}})."""
+    _check_family(cfg)
+    if dispatch not in X.DISPATCHES:
+        raise ValueError(f"dispatch={dispatch!r}; one of {X.DISPATCHES}")
+    if dispatch == "ragged":
+        _refuse_kernels_under_grad(params, "forward_train(dispatch='ragged')")
+    image = batch.get("image_embeds") if cfg.family == "vlm" else None
+    x = _embed_inputs(params, cfg, batch["tokens"], image)
+    B, S, _ = x.shape
+    cap = X.moe_capacity(B * S, cfg.moe, capacity_factor)
+    enc_out = encode(params, cfg, batch["audio_embeds"].to(torch.bfloat16)) \
+        if cfg.is_encoder_decoder else None
+    sb = cfg.superblock_or_default()
+    nsb = cfg.n_superblocks()
+    layers = {str(p): _unbind(params["blocks"][str(p)], nsb)
+              for p in range(len(sb))}
+
+    def sb_body(x, aux_sum, l):
+        counts = []
+        for pos, kind in enumerate(sb):
+            key = str(pos)
+            b = bank[key].layer(l) if bank is not None and key in bank \
+                else None
+            x, c, a = _block_train(layers[key][l], cfg, kind, x, cap, b,
+                                   enc_out, dispatch)
+            aux_sum = aux_sum + a
+            counts.append(c)
+        return x, aux_sum, counts
+
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    counts = {str(p): [] for p in range(len(sb))
+              if "moe" in params["blocks"][str(p)]}
+    for l in range(nsb):
+        if remat:
+            x, aux_sum, cs = torch.utils.checkpoint.checkpoint(
+                sb_body, x, aux_sum, l, use_reentrant=False)
+        else:
+            x, aux_sum, cs = sb_body(x, aux_sum, l)
+        for pos, c in enumerate(cs):
+            if c is not None:
+                counts[str(pos)].append(c)
+    logits = _lm_logits(params, cfg, x)
+    return logits, {"aux_loss": aux_sum,
+                    "counts": {p: torch.stack(v) for p, v in counts.items()}}
 
 
 def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,

@@ -210,6 +210,31 @@ def test_ragged_dense_kernels_match_plain(cuda, width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 2])
+def test_ragged_dense_kernels_survive_a_map_cache_clear(cuda, cap,
+                                                        monkeypatch):
+    """A tensor-map cache of one or two maps clears while a launch builds
+    its maps: each launch still hands its kernel its own operands' maps
+    (a map freed by the clear once reached the kernel as another map's
+    memory: an illegal memory access), so the results equal the plain
+    version's, call after call on fresh operands."""
+    monkeypatch.setattr(ops, "_TMAP_CAP", cap)
+    monkeypatch.setattr(ops, "_TMAPS", {})
+    K, F, D = 2048, 768, 2048
+    te, n = _dense_map(DENSE_ROWS)
+    rows = int(n) * BM
+    for seed in range(3):
+        bank, gen = _dense_bank(len(DENSE_ROWS), K, F, D, seed)
+        xs = torch.randn((te.shape[0] * BM, K), generator=gen) \
+            .to(torch.bfloat16)
+        want = ops.ragged_dense_ffn(xs, te, n, bank, bm=BM)
+        got = ops.ragged_dense_ffn(xs.to(cuda), te.to(cuda), n.to(cuda),
+                                   _to(bank, cuda), bm=BM).cpu()
+        torch.cuda.synchronize()
+        _assert_ffn_close(got, want, rows)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("order", ["shuffled", "split", "sorted"])
 def test_ragged_dense_kernels_take_any_tile_order(cuda, order):
     """Tile maps in no sorted order: the dispatch's map of ``DENSE_ROWS``
@@ -1448,3 +1473,64 @@ def test_lo_staging_publishes_after_its_copy(cuda):
     assert [t.data_ptr() for q in bank.lo.values()
             for t in (q.packed, q.scales)] == ptrs
     store.check_invariants()
+
+
+def _train_inputs(device, B=4, S=33, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.models.model import init_params
+    from repro_torch.training import SyntheticLMTask
+    from repro_torch.training.train import to_batch
+    cfg = get_config("granite-moe-1b-a400m", reduced=True)
+    params = init_params(cfg, seed=seed, device="cpu")
+    batch = next(SyntheticLMTask(cfg.vocab_size, seed=seed).batches(
+        B, S, 1, seed=seed))
+    return cfg, params, T.tree_map(lambda t: t.to(device), params), \
+        to_batch(batch, "cpu"), to_batch(batch, device)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One training step (padded dispatch, remat) of the reduced granite on
+    the card and on the CPU, same weights and batch: the loss to 1e-3
+    relative, every gradient leaf finite and within 0.1 relative L2 (bf16
+    sums in two libraries' orders), and no kernel launched (none has a
+    backward)."""
+    from repro_torch.training import TrainConfig
+    from repro_torch.training.train import _grads
+    cfg, p_cpu, p_dev, b_cpu, b_dev = _train_inputs(cuda)
+    before = dict(ops.LAUNCHES)
+    l_dev, _, g_dev = _grads(p_dev, cfg, b_dev, TrainConfig())
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before
+    l_cpu, _, g_cpu = _grads(p_cpu, cfg, b_cpu, TrainConfig())
+    assert abs(float(l_dev) - float(l_cpu)) <= 1e-3 * abs(float(l_cpu))
+    for a, b in zip(g_dev, g_cpu):
+        a, b = a.float().cpu(), b.float()
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 0.1
+
+
+@pytest.mark.cuda
+def test_forward_train_on_the_ragged_kernels(cuda):
+    """``forward_train`` on the card: the ragged layout (the all-hi
+    kernels, one launch of each per layer) equals the padded one under
+    ``torch.no_grad()``, and raises while parameters require gradients."""
+    from repro_torch.core import tree as T
+    from repro_torch.models.model import forward_train
+    cfg, _, p_dev, _, b_dev = _train_inputs(cuda)
+    tokens = {"tokens": b_dev["tokens"]}
+    before = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        rag, ra = forward_train(p_dev, cfg, tokens, dispatch="ragged",
+                                capacity_factor=8.0)
+        pad, pa = forward_train(p_dev, cfg, tokens, dispatch="padded",
+                                capacity_factor=8.0)
+    torch.cuda.synchronize()
+    for k in ("ragged_dense_gateup", "ragged_dense_down"):
+        assert ops.LAUNCHES[k] == before[k] + cfg.n_layers
+    assert torch.equal(ra["counts"]["0"], pa["counts"]["0"])
+    assert float((rag - pad).abs().max()) <= 0.05
+    T.tree_map(lambda t: t.requires_grad_(True), p_dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        forward_train(p_dev, cfg, tokens, dispatch="ragged")

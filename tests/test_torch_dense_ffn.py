@@ -6,6 +6,8 @@ the plain versions, the wrapper's checks, and dense dict banks through
 both MoE dispatches against each other and the reference's ``moe_apply``.
 The kernels themselves are held against the plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -372,6 +374,58 @@ def test_tensor_map_key_and_geometry():
     assert key != ops.tensor_map_key(w[:2], ops.DENSE_W_BOX)
     assert key != ops.tensor_map_key(w.view(4, 128, 256), ops.DENSE_W_BOX)
     assert key != ops.tensor_map_key(w, ops.DENSE_X_BOX)
+
+
+class _FakeDenseLibrary:
+    """Stands in for ``libragged_dense_ffn``: the map encoder writes the
+    tensor's address into the map's first 8 bytes, and the kernels'
+    entries read back the address each map they are handed holds."""
+
+    def __init__(self):
+        self.seen = []
+
+    def ragged_dense_tensor_map(self, out, base, rank, dims, strides, box):
+        ctypes.memmove(out, ctypes.byref(ctypes.c_uint64(base)), 8)
+        return 0
+
+    def _launch(self, *maps):
+        self.seen.append([ctypes.c_uint64.from_address(m).value
+                          for m in maps])
+        return 0
+
+    def ragged_dense_gateup(self, tx, tw0, tw1, *rest):
+        return self._launch(tx, tw0, tw1)
+
+    def ragged_dense_down(self, tx, tw0, *rest):
+        return self._launch(tx, tw0)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 256])
+def test_dense_launch_holds_its_maps_through_a_cache_clear(monkeypatch, cap):
+    """Each launch hands the kernel the maps of its own operands, even when
+    building one of them clears the map cache (at most ``_TMAP_CAP`` maps):
+    the maps built before the clear stay alive until the launch returns,
+    where a freed one's memory went to the next map (a kernel then read
+    the activations through a weight's map: an illegal memory access on
+    the card). The library is a stand-in that records what it is given."""
+    from repro_torch.kernels import build
+    lib = _FakeDenseLibrary()
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(ops, "_stream", lambda index=None: 0)
+    monkeypatch.setattr(ops, "_TMAP_CAP", cap)
+    monkeypatch.setattr(ops, "_TMAPS", {})
+    te = torch.zeros(2, dtype=torch.int32)
+    n = torch.ones(1, dtype=torch.int32)
+    want = []
+    for i in range(6):
+        x = torch.zeros((16, 64), dtype=torch.bfloat16)
+        ws = [torch.zeros((3, 64, 128), dtype=torch.bfloat16)
+              for _ in range(2 if i % 2 == 0 else 1)]
+        name = "ragged_dense_gateup" if len(ws) == 2 else "ragged_dense_down"
+        ops.ragged_dense_launch(name, x, te, n, ws, grid=1, warps=4,
+                                stages=2)
+        want.append([t.data_ptr() for t in [x] + ws])
+    assert lib.seen == want
 
 
 def test_dense_plans_fit_in_shared_memory():

@@ -47,7 +47,8 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.fault.retry, repro_torch.quant.ptq, "
             "repro_torch.quant.sensitivity, repro_torch.obs, "
             "repro_torch.obs.costmodel, repro_torch.launch.roofline, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.training, "
+            "repro_torch.training.quality, repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -62,7 +63,7 @@ def _entry_points():
     from repro_torch.models.model import (init_caches, init_paged_caches,
                                           init_params)
     from repro_torch.serving.backends import make_backend
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.obs import Observability
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
     cfg = get_config("granite-moe-1b-a400m", reduced=True)
@@ -72,6 +73,10 @@ def _entry_points():
         return InferenceEngine(cfg, params,
                                make_backend("static", device="cpu"),
                                EngineConfig(**kw), device=device, obs=obs)
+
+    def launch_train(device):
+        return train.main(["--steps", "1", "--batch", "2", "--seq", "9"] +
+                          ([] if device is None else ["--device", device]))
 
     def launch(device):
         argv = ["--backend", "static", "--batch", "1", "--prompt-len", "8",
@@ -99,6 +104,7 @@ def _entry_points():
         "InferenceEngine_observed":
             lambda device: engine(device, obs=Observability()),
         "launch_serve": launch,
+        "launch_train": launch_train,
     }
 
 
@@ -109,7 +115,7 @@ def _entry_points():
                                   "init_caches",
                                   "InferenceEngine_dense_padded",
                                   "InferenceEngine_observed",
-                                  "launch_serve"])
+                                  "launch_serve", "launch_train"])
 def test_entry_points_need_cuda_unless_cpu_is_asked(name):
     fn = _entry_points()[name]
     fn("cpu")                                  # the CPU on request works
