@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only card,build,families
     python3 chip_smoke.py --only card,build,multimodal
     python3 chip_smoke.py --only card,build,train
+    python3 chip_smoke.py --only card,build,ep
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -263,6 +264,24 @@ Phases (each prints one line; any failure exits non-zero):
               the padded layout (row 4), perplexity and every position's
               logits; (d) (a)'s parameters and optimizer state saved in
               the reference's checkpoint layout and loaded back bit-equal;
+   ep       — expert parallelism over torch.distributed: 4 ranks (gloo,
+              host-staged collectives) on the one card, each holding E/N
+              of the 30B's experts at full width, 1 of 48 layers, started
+              by ``repro_torch.launch.mesh.spawn`` while one eager process
+              here serves the same weights: (a) ``dynaexq`` at N = 4 and
+              2, ``static`` and ``fp16`` at N = 2 (8 requests x 16 tokens,
+              8 slots, frozen timers, drop-free): tokens and the last
+              step's logits bit-equal to the one process, every MoE call
+              in the all-to-all regime, rows 1-3 (7 for fp16) launched by
+              every rank; (b) at N = 4 a forced promotion window
+              (shard-correct slots, rows landed, invariants on every
+              rank), a rebalance after a skew (migrations, the layer's
+              output held to before, counts permuted) and ``ep_mig``
+              faults rolled back bit for bit; (c) the padded regime at
+              T = 63 (row 4 on each rank) held to one process; (d) each
+              rank's bytes per decode layer against the reference's model
+              2(N-1)·S·d, its expert bytes, device memory and host RSS,
+              the eager TPOT;
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -6535,6 +6554,470 @@ def phase_train(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 5l. ep: expert parallelism over torch.distributed, ranks on the one card
+# ---------------------------------------------------------------------------
+
+#: Layers of the ep phase's Qwen3-30B-A3B (of 48, full width): each rank
+#: draws every dense weight and its bf16 host masters (1.2 GB per layer
+#: per rank), and the phase has ~20 s of the default run (on an H100 80GB
+#: HBM3 at 700 W, 2 layers took 20.7 s and the whole run 601.0 s, over
+#: its 600 s target).
+EP_LAYERS = 1
+EP_WORLD = 4                   # ranks on the card; N = 2 is ranks 0 and 1
+EP_SLOTS = 8
+EP_REQUESTS = 8
+EP_NEW = 16
+EP_PROMPTS = (32, 96)
+EP_N_HI = 16                   # hi slots per layer: 4 per shard at N = 4
+EP_SEED = 29
+#: (c): T divisible by no N, so the padded regime runs; each rank adds its
+#: experts' share of a token's top-8 contributions in bf16 and the ranks'
+#: partial outputs sum in float32, rounded once, where the single process
+#: adds all 8 in bf16: up to 7 roundings apart, 2^-6 of the largest
+#: magnitude (the CPU test, at top-2, holds 2^-7).
+EP_PADDED_T = 63
+EP_PADDED_TOL = 2.0 ** -6
+#: (b): a relabel leaves the layer's function unchanged in exact
+#: arithmetic, and the routing exactly (the counts permute). In bf16 the
+#: combine adds a token's top-8 contributions in the order of their expert
+#: positions, so a row routed to a moved expert is summed in another order:
+#: up to 7 roundings of the partial sums, 2^-6 of the largest magnitude.
+#: (At the reference test's top-2 the two orders give the same bits: the
+#: CPU test holds its relabel bit-equal.)
+EP_RELABEL_TOL = 2.0 ** -6
+#: The kernels of the EP runs: the quantized ragged FFN (rows 1-2) and the
+#: paged decode attention (row 3), the all-hi pair (row 7) for fp16; the
+#: padded case (c) runs the grouped GEMM (row 4).
+EP_KERNELS = {"dynaexq": ("ragged_gateup", "ragged_down",
+                          "flash_decode_paged"),
+              "static": ("ragged_gateup", "ragged_down",
+                         "flash_decode_paged"),
+              "fp16": DENSE_FFN_KERNELS + ("flash_decode_paged",)}
+EP_RUNS = {4: ("dynaexq",), 2: ("dynaexq", "static", "fp16")}
+
+
+def _ep_model(dev):
+    """The phase's model on ``dev``: (cfg, seeded params, prompts), the
+    same bits in every process."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=EP_LAYERS)
+    return cfg, init_params(cfg, seed=EP_SEED, device=dev), \
+        serving_prompts(cfg.vocab_size, EP_REQUESTS, EP_PROMPTS, EP_SEED)
+
+
+def _ep_serve(cfg, params, prompts, name, dev, ctx=None):
+    """One drop-free run of ``name`` over fresh routers (the coordinator
+    swaps a router in place), op by op (``eager()``; under ``ctx`` the
+    engine runs so anyway): the main path's launches, sharded regimes and
+    bytes sent counted from zero over the run. Returns (engine,
+    summary)."""
+    import repro_torch.models.moe as moe_mod
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.core.controller import ControllerConfig, RebalanceConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dist as D
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.requests import Request
+    n = 1 if ctx is None else ctx.model_size
+    kw = {"dynaexq": dict(lo_bits=4, group_size=64, n_hi_per_layer=EP_N_HI,
+                          ep_shards=n,
+                          controller=ControllerConfig(update_interval_s=1e9),
+                          rebalance=RebalanceConfig(interval_s=1e9)
+                          if n > 1 else None),
+          "static": dict(lo_bits=4, group_size=64), "fp16": {}}[name]
+    p = _fresh(params)
+    for blk in p["blocks"].values():
+        if "moe" in blk:
+            blk["moe"]["router"] = blk["moe"]["router"].clone()
+    # Capacity factor E/k: a forward's capacity covers all of its tokens,
+    # so no assignment drops. Under drops the all-to-all regime keeps per
+    # (expert, sender) slices of the capacity (the reference's rule), and
+    # its drops need not be the single process's.
+    engine = eng_mod.InferenceEngine(
+        cfg, p, make_backend(name, device=dev, **kw),
+        eng_mod.EngineConfig(
+            max_slots=EP_SLOTS, max_len=-(-(EP_PROMPTS[1] + EP_NEW) // 16) *
+            16, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k),
+        device=dev, dist=ctx)
+    ops.reset_launches()                 # the main path starts here
+    moe_mod.reset_regimes()
+    D.reset_sent()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [engine.submit(Request(tokens=q, max_new_tokens=EP_NEW))
+               for q in prompts]
+    with eng_mod.eager():
+        engine.drain()
+    engine.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)        # ... and ends here
+    st = engine.stats()
+    assert all(len(h.tokens) == EP_NEW for h in handles)
+    assert bool(torch.isfinite(engine.last_logits).all())
+    return engine, {
+        "tokens": [list(h.tokens) for h in handles],
+        "logits": engine.last_logits.float().cpu(), "launches": launches,
+        "regimes": dict(moe_mod.REGIMES), "sent": dict(D.SENT_BYTES),
+        "tpot_s": st["tpot_s"], "ttft_s": st["ttft_s"], "wall_s": wall,
+        "steps": int(st["steps"]), "expert_bytes": engine.device_bytes(),
+        "graphed": engine.graphed}
+
+
+def _rss_gb() -> float:
+    with open("/proc/self/status") as f:
+        kb = next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS"))
+    return kb / 1e6
+
+
+def _ep_layer(engine, ctx, x, l=0):
+    """MoE position 0's layer ``l`` on ``x`` (the served bank) under
+    ``ctx``: (y, counts)."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.launch.dist import dist_ctx
+    cfg = engine.cfg
+    pos = str(engine.backend.moe_positions[0])
+    moe = engine.params["blocks"][pos]["moe"]
+    bank = engine.banks[pos].layer(l) if engine.banks else \
+        {k: v[l] for k, v in moe["experts"].items()}
+    with dist_ctx(ctx):
+        y, aux = moe_mod.moe_apply(
+            {"router": moe["router"][l]}, bank, x, cfg.moe,
+            moe_mod.moe_capacity(x.shape[0], cfg.moe))
+    return y, aux.counts
+
+
+def _ep_bytes(engine, ctx, gen) -> dict:
+    """(d) one decode-shaped layer call (EP_SLOTS tokens): the bytes this
+    rank sent by collective, and the reference's model of the payload,
+    2·(N−1)·S·d elements out and back, plus the (N, E/N) counts."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.launch import dist as D
+    cfg = engine.cfg
+    x = torch.randn((EP_SLOTS, cfg.d_model), generator=gen,
+                    device=ctx.device).to(torch.bfloat16)
+    D.reset_sent()
+    _ep_layer(engine, ctx, x)
+    n, E = ctx.model_size, cfg.moe.num_experts
+    S = moe_mod.ep_payload_rows(EP_SLOTS, cfg.moe.top_k, E // n,
+                                moe_mod.moe_capacity(EP_SLOTS, cfg.moe), n)
+    return {"sent": dict(D.SENT_BYTES), "S": S,
+            "model_rows": 2 * (n - 1) * S * cfg.d_model * 2,
+            "counts": (n - 1) * (E // n) * 8}
+
+
+def _ep_state(engine) -> list:
+    """Copies of what a migration touches, per MoE position: this rank's
+    lo leaves, the router, the placement."""
+    return [({k: (q.packed.clone(), q.scales.clone())
+              for k, q in ctl.bank.lo.items()}, moe["router"].clone(),
+             placement.copy())
+            for ctl, moe, placement in engine.backend.coordinator._entries]
+
+
+def _ep_same(a, b) -> bool:
+    return all(torch.equal(ra, rb) and np.array_equal(pa, pb) and
+               all(torch.equal(x, y) for k in la for x, y in zip(la[k],
+                                                                  lb[k]))
+               for (la, ra, pa), (lb, rb, pb) in zip(a, b))
+
+
+def _ep_promote_rebalance(engine, ctx, gen) -> dict:
+    """(b) at N = 4: a forced promotion window (every published expert on
+    a slot of its own shard, its rows landed on the owner's device,
+    ``check_invariants`` on every rank), a forced rebalance after a skew
+    on two lo experts of shard 0 per layer (the layer's output bit-equal
+    before and after, its counts permuted with the placement, no
+    demotion), then ``ep_mig`` faults mid-swap and before it (rolled back
+    bit for bit, the window's bytes refunded)."""
+    from repro_torch.fault.inject import FaultPlan, FaultRule
+    from repro_torch.obs.trace import FlightRecorder
+    be = engine.backend
+    be.force_update()
+    be.flush()
+    out = {"promoted": 0, "shard_correct": True, "landed": True}
+    for ctl in be.controllers.values():
+        tm = ctl.tm
+        tm.check_invariants()
+        out["promoted"] += tm.stats["promoted"]
+        per = tm.pools[0].per_shard
+        for l, s in zip(*np.nonzero(tm.slot_owner_h >= 0)):
+            e = int(tm.slot_owner_h[l, s])
+            out["shard_correct"] &= tm.pools[l].shard_of(int(s)) == \
+                tm.shard_of_expert(e)
+            if tm.pools[l].shard_of(int(s)) == ctx.rank:
+                out["landed"] &= all(
+                    torch.equal(leaf[l, int(s) - ctx.rank * per],
+                                tm.host_hi[n][l, e].to(leaf.device))
+                    for n, leaf in ctl.bank.hi.items())
+    ctl = be.controllers[str(be.moe_positions[0])]
+    tm, coord = ctl.tm, be.coordinator
+    L, E = tm.state.shape
+    e_per = E // ctx.model_size
+    hot = ctl.hotness.scores + ctl.hotness.counts
+    bump = 10.0 * float(coord.shard_loads(hot[0]).mean()) + 100.0
+    for l in range(L):
+        cold = [e for e in range(e_per) if e not in tm.hi_set(l)][:2]
+        ctl.hotness.counts[l, cold] += int(bump)
+    import repro_torch.models.moe as moe_mod
+    x = torch.randn((EP_SLOTS, engine.cfg.d_model), generator=gen,
+                    device=ctx.device).to(torch.bfloat16)
+    y0, c0 = _ep_layer(engine, ctx, x)
+    moe = coord._entries[0][1]
+    _, idx, _ = moe_mod.route(moe["router"][0], x, engine.cfg.moe)
+    placement = coord._entries[0][2]
+    before, demoted = placement.copy(), tm.stats["demoted"]
+    out["migrated"] = coord.maybe_rebalance(force=True)
+    y1, c1 = _ep_layer(engine, ctx, x)
+    tm.check_invariants()
+    perm = np.argsort(before[0])[placement[0]]
+    moved = torch.as_tensor(np.nonzero(placement[0] != before[0])[0],
+                            device=idx.device)
+    touched = torch.isin(idx, moved).any(dim=1)
+    same = (y0 == y1).all(dim=1)
+    out["forward_same"] = bool(torch.equal(y0, y1))
+    out["forward_diff"] = float((y0.float() - y1.float()).abs().max())
+    out["forward_tol"] = EP_RELABEL_TOL * float(y0.float().abs().max())
+    out["rows_same"] = int(same.sum())
+    out["rows_touched"] = int(touched.sum())
+    out["untouched_same"] = int((same & ~touched).sum())
+    out["counts_permuted"] = bool(np.array_equal(
+        c1.cpu().numpy(), c0.cpu().numpy()[perm]))
+    out["demoted_in_rebalance"] = tm.stats["demoted"] - demoted
+    out["y"] = y1.float().cpu()
+    # ep_mig: a pair of lo experts across the first and last shard.
+    tracer = FlightRecorder()
+    coord.tracer = tracer
+    moe = coord._entries[0][1]
+    e = next(i for i in range(e_per) if i not in tm.hi_set(0))
+    f = next(i for i in range(E - 1, E - e_per - 1, -1)
+             if i not in tm.hi_set(0))
+    tm.rate_limit = 1 << 40            # metered, never binding
+    for kind in ("corrupt", "fail"):
+        coord.injector = FaultPlan(seed=EP_SEED, rules=(
+            FaultRule(site="ep_mig", kind=kind, every=1),)).injector()
+        state, aborted = _ep_state(engine), coord.stats["aborted_migrations"]
+        tm._window_used = 0
+        ok = coord._migrate(ctl, moe, placement, 0, e, f)
+        out[f"fault {kind}"] = (
+            not ok and _ep_same(state, _ep_state(engine)) and
+            coord.stats["aborted_migrations"] - aborted == 1 and
+            tm._window_used == 0)
+    out["fault_cancel_events"] = len(tracer.instants("fault_cancel"))
+    coord.injector = coord.tracer = None
+    tm.rate_limit = 0
+    return out
+
+
+def _ep_padded(cfg, params, ctx=None) -> dict:
+    """(c) layer 0 of a static int4 bank on EP_PADDED_T tokens: under
+    ``ctx`` the padded regime (row 4 on this rank's experts), else the
+    single process's padded dispatch."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.core.ver import build_bank
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dist import dist_ctx
+    moe = params["blocks"]["0"]["moe"]
+    bank = build_bank({k: v[:1] for k, v in moe["experts"].items()}, n_hi=0,
+                      lo_bits=4, shard=None if ctx is None
+                      else (ctx.rank, ctx.model_size)).layer(0)
+    dev = bank.slot_map.device
+    gen = torch.Generator(device=dev).manual_seed(EP_SEED + 2)
+    x = torch.randn((EP_PADDED_T, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    ops.reset_launches()
+    moe_mod.reset_regimes()
+    with dist_ctx(ctx):
+        y, aux = moe_mod.moe_apply(
+            {"router": moe["router"][0]}, bank, x, cfg.moe,
+            moe_mod.moe_capacity(EP_PADDED_T, cfg.moe),
+            dispatch="padded" if ctx is None else "ragged")
+    torch.cuda.synchronize()
+    return {"y": y.float().cpu(), "counts": aux.counts.cpu(),
+            "launches": dict(ops.LAUNCHES),
+            "regimes": dict(moe_mod.REGIMES)}
+
+
+def _ep_rank(ctx) -> dict:
+    """One rank of the phase's world: (a) and (b) at N = 4 over every rank,
+    then (a) and (c) at N = 2 over ranks 0 and 1 (a group of the world);
+    every run on this rank's experts only. Loads the kernels the build
+    phase built and builds none."""
+    import torch.distributed as tdist
+    from repro_torch.kernels import build
+    from repro_torch.launch.dist import ep_context
+    missing = [n for n in build.SOURCES if not build._target(n).exists()]
+    if missing:
+        raise RuntimeError(f"rank {ctx.rank}: kernels {missing} not built")
+    dev = ctx.device
+    gen = torch.Generator(device=dev).manual_seed(EP_SEED + 1)
+    t0 = time.perf_counter()
+    out = {"rank": ctx.rank, "entered": time.time()}
+    cfg, params, prompts = _ep_model(dev)
+    out["build_s"] = time.perf_counter() - t0
+    n2 = tdist.new_group([0, 1])
+    for n in (4, 2):
+        sub = ctx if n == ctx.model_size else \
+            ep_context(n2, tdist.get_rank(n2), n, dev) if ctx.rank < n \
+            else None
+        if sub is None:
+            continue
+        for name in EP_RUNS[n]:
+            torch.cuda.reset_peak_memory_stats()
+            engine, s = _ep_serve(cfg, params, prompts, name, dev, sub)
+            s["max_mem"] = torch.cuda.max_memory_allocated()
+            s["rss_gb"] = _rss_gb()
+            if name == "dynaexq":
+                s["bytes"] = _ep_bytes(engine, sub, gen)
+            if n == 4:
+                out["b"] = _ep_promote_rebalance(engine, sub, gen)
+            out[(n, name)] = s
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        if n == 2:
+            out["c"] = _ep_padded(cfg, params, sub)
+    tdist.barrier()
+    out["left"] = time.time()
+    return out
+
+
+def phase_ep(card: str) -> None:
+    """Expert parallelism on the one card: EP_WORLD ranks over gloo
+    (``repro_torch.launch.mesh.spawn``), each holding E/N of the 30B's
+    experts at full width; their tokens and last logits held bit-equal to
+    one eager process on the same weights, which runs here while the
+    ranks start."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    log("ep", f"{ARCH} at full width, {EP_LAYERS} of 48 layers, seed "
+              f"{EP_SEED}; {EP_WORLD} ranks on {card}, gloo (host-staged "
+              f"collectives, the ranks sharing one device: not an EP "
+              f"deployment); {EP_REQUESTS} requests x {EP_NEW} tokens, "
+              f"{EP_SLOTS} slots, op by op, frozen policy timers")
+    box: dict = {"spawned": time.time()}
+
+    def world():
+        try:
+            box["ranks"] = spawn(_ep_rank, EP_WORLD, "cuda", threads=2)
+        except BaseException as e:          # re-raised below, in order
+            box["error"] = e
+
+    th = threading.Thread(target=world)
+    th.start()
+    cfg, params, prompts = _ep_model(dev)
+    single = {}
+    for name in EP_RUNS[2]:
+        engine, single[name] = _ep_serve(cfg, params, prompts, name, dev)
+        del engine
+    padded = _ep_padded(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    th.join()
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    fails, runs = [], []
+    for n, names in EP_RUNS.items():
+        for name in names:
+            want = single[name]
+            got = [r[(n, name)] for r in ranks[:n]]
+            runs += [{"launches": g["launches"]} for g in got]
+            same = all(g["tokens"] == want["tokens"] for g in got)
+            dl = max(float((g["logits"] - want["logits"]).abs().max())
+                     for g in got)
+            k_ok = all(g["launches"][k] > 0 for g in got
+                       for k in EP_KERNELS[name])
+            steps = got[0]["steps"]
+            rg = got[0]["regimes"]
+            regimes_ok = all(g["regimes"]["padded"] == 0 for g in got) and \
+                rg["all_to_all"] > steps * EP_LAYERS
+            log("ep", f"(a) N={n} {name}: tokens {'=' if same else '!='} "
+                      f"one process, max |logit diff| last step {dl:.3g}; "
+                      f"MoE calls by regime {rg} ({steps} decode steps x "
+                      f"{EP_LAYERS} layers + prefills); launches per rank "
+                      + "; ".join(
+                          ", ".join(f"{k} {g['launches'][k]}"
+                                    for k in EP_KERNELS[name])
+                          for g in got)
+                      + f" | TPOT rank 0 {got[0]['tpot_s'] * 1e3:.2f} ms, "
+                        f"one process eager {want['tpot_s'] * 1e3:.2f} ms; "
+                        f"expert bytes per rank "
+                        f"{[g['expert_bytes'] for g in got]}, one process "
+                        f"{want['expert_bytes']}; device max "
+                        f"{[round(g['max_mem'] / 1e9, 2) for g in got]} GB; "
+                        f"host RSS {[round(g['rss_gb'], 2) for g in got]} GB;"
+                        f" graphed {got[0]['graphed']} | {card}")
+            if not (same and dl == 0.0 and k_ok and regimes_ok):
+                fails.append(f"(a) N={n} {name}")
+            if name == "dynaexq":
+                for i, g in enumerate(got):
+                    b = g["bytes"]
+                    a2a = b["sent"]["all_to_all"]
+                    log("ep", f"(d) N={n} rank {i}: one decode "
+                              f"layer ({EP_SLOTS} tokens, S={b['S']}) sent "
+                              f"{b['sent']} bytes; all_to_all {a2a} = the "
+                              f"reference's 2(N-1)·S·d bf16 "
+                              f"{b['model_rows']} + the counts "
+                              f"{b['counts']} | {card}")
+                    if a2a != b["model_rows"] + b["counts"]:
+                        fails.append(f"(d) N={n} bytes")
+    for r in ranks:
+        b = r["b"]
+        ok = (b["promoted"] > 0 and b["shard_correct"] and b["landed"] and
+              b["migrated"] >= 1 and b["forward_diff"] <= b["forward_tol"]
+              and
+              b["counts_permuted"] and b["demoted_in_rebalance"] == 0 and
+              b["fault corrupt"] and b["fault fail"] and
+              b["fault_cancel_events"] == 1 and
+              torch.equal(b["y"], ranks[0]["b"]["y"]))
+        log("ep", f"(b) N=4 rank {r['rank']}: {b['promoted']} promotions on "
+                  f"shard-correct slots {b['shard_correct']}, rows landed "
+                  f"{b['landed']}; {b['migrated']} migrations, layer output "
+                  f"bit-equal {b['forward_same']} ({b['rows_same']} of "
+                  f"{EP_SLOTS} rows; {b['untouched_same']} of the "
+                  f"{EP_SLOTS - b['rows_touched']} rows routed to no moved "
+                  f"expert), max |diff| {b['forward_diff']:.3g} (bound "
+                  f"{b['forward_tol']:.3g}), counts permuted "
+                  f"{b['counts_permuted']}; ep_mig mid-swap rolled back "
+                  f"{b['fault corrupt']}, before the swap refunded "
+                  f"{b['fault fail']} | {card}")
+        if not ok:
+            fails.append(f"(b) rank {r['rank']}")
+    err = [float((r["c"]["y"] - padded["y"]).abs().max()) for r in ranks[:2]]
+    tol = EP_PADDED_TOL * float(padded["y"].abs().max())
+    c_ok = all(r["c"]["regimes"] == {"all_to_all": 0, "padded": 1} and
+               r["c"]["launches"]["grouped_lo_matmul"] > 0 and
+               torch.equal(r["c"]["counts"], padded["counts"]) and
+               torch.equal(r["c"]["y"], ranks[0]["c"]["y"])
+               for r in ranks[:2]) and max(err) <= tol
+    runs += [{"launches": r["c"]["launches"]} for r in ranks[:2]]
+    log("ep", f"(c) N=2, T={EP_PADDED_T}: the padded regime on each rank "
+              f"(grouped_lo_matmul "
+              f"{[r['c']['launches']['grouped_lo_matmul'] for r in ranks[:2]]}"
+              f"), max |y - one process's padded layer| {max(err):.4g} "
+              f"(tolerance {tol:.4g}) | {card}")
+    if not c_ok:
+        fails.append("(c)")
+    for k in RESULTS:
+        RESULTS[k]["launches"] = RESULTS[k].get("launches", 0) + sum(
+            r["launches"][k] for r in runs)
+    started = max(r["entered"] for r in ranks) - box["spawned"]
+    ran = max(r["left"] for r in ranks) - max(r["entered"] for r in ranks)
+    log("ep", f"phase done in {time.perf_counter() - t0:.1f} s (one "
+              f"process's runs beside the ranks' start {t1 - t0:.1f} s; "
+              f"the ranks in their function {started:.1f} s after the "
+              f"spawn, there {ran:.1f} s, rank 0's model built in "
+              f"{ranks[0]['build_s']:.1f} s) | {card}")
+    if fails:
+        raise AssertionError(f"ep: {fails}")
+
+
+# ---------------------------------------------------------------------------
 # 6. trace: where a decode step's device time goes
 # ---------------------------------------------------------------------------
 
@@ -6863,7 +7346,7 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "serving",
           "requests", "spec", "ladder", "obs", "hybrid", "model",
-          "families", "multimodal", "train", "trace")
+          "families", "multimodal", "train", "ep", "trace")
 #: The phases that time nothing on the host: they run beside the CPU part
 #: of the hybrid model check, which any other phase waits for.
 BESIDE_CPU_CHECK = ("model",)
@@ -6903,6 +7386,7 @@ def main() -> int:
                       ("families", lambda: phase_families(card)),
                       ("multimodal", lambda: phase_multimodal(card)),
                       ("train", lambda: phase_train(card)),
+                      ("ep", lambda: phase_ep(card)),
                       ("trace", lambda: phase_trace(card))):
         if name in only:
             if check is not None and name not in BESIDE_CPU_CHECK:

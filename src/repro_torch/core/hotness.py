@@ -54,6 +54,13 @@ class HotnessEstimator:
         self.intervals += 1
         return self.scores
 
+    def swap(self, layer: int, e: int, f: int) -> None:
+        """Relabel two experts at ``layer``: an expert-parallel ownership
+        migration swaps their positions everywhere, and the EMA history
+        follows its expert."""
+        self.scores[layer, [e, f]] = self.scores[layer, [f, e]]
+        self.counts[layer, [e, f]] = self.counts[layer, [f, e]]
+
     # -- persistence (cold-start priors) ---------------------------------
     def state_dict(self) -> dict:
         """EMA + unfolded counters, serializable with ``np.savez`` (the

@@ -65,7 +65,7 @@ class ExpertBankQ:
 
 def build_bank(expert_weights: Dict[str, torch.Tensor], n_hi: int,
                lo_bits: int, group_size: int = 64,
-               hi_bits: int = 16) -> ExpertBankQ:
+               hi_bits: int = 16, shard=None) -> ExpertBankQ:
     """Both tiers from dense bf16 experts (name → (L, E, K, N)), on their
     device. The lo tier is quantized one layer at a time (bounded float32
     scratch at full width); the hi pool starts empty and bf16.
@@ -73,20 +73,33 @@ def build_bank(expert_weights: Dict[str, torch.Tensor], n_hi: int,
     ``hi_bits`` < 16 (the paper's Int4-hi tier) changes nothing here, as in
     the reference, whose int-hi values are computed and then dropped:
     promotions copy the bf16 masters, and only the byte accounting
-    (``expert_hi_nbytes``) prices the hi tier at ``hi_bits``."""
+    (``expert_hi_nbytes``) prices the hi tier at ``hi_bits``.
+
+    ``shard=(j, n)`` (expert parallelism): the bank of shard j of n, which
+    holds only experts ``[j·E/n, (j+1)·E/n)`` (lo leaves (L, E/n, ...))
+    and hi slots ``[j·n_hi/n, (j+1)·n_hi/n)``; ``slot_owner`` (L, n_hi)
+    and ``slot_map`` (L, E) stay global."""
     names = sorted(expert_weights)
     first = expert_weights[names[0]]
     L, E = first.shape[:2]
     dev = first.device
+    e_sl, n_hold = slice(0, E), n_hi
+    if shard is not None:
+        j, n_shards = shard
+        if E % n_shards or n_hi % n_shards:
+            raise ValueError(f"num_experts={E} and n_hi={n_hi} must divide "
+                             f"over {n_shards} shards")
+        e_sl = slice(j * E // n_shards, (j + 1) * E // n_shards)
+        n_hold = n_hi // n_shards
     lo, hi = {}, {}
     for n in names:
-        w = expert_weights[n]
+        w = expert_weights[n][:, e_sl]
         layers = [quantize(w[l], lo_bits, group_size) for l in range(L)]
         lo[n] = QuantizedTensor(
             packed=torch.stack([q.packed for q in layers]),
             scales=torch.stack([q.scales for q in layers]),
             bits=lo_bits, group_size=group_size, shape=tuple(w.shape))
-        hi[n] = torch.zeros((L, n_hi) + tuple(w.shape[2:]),
+        hi[n] = torch.zeros((L, n_hold) + tuple(w.shape[2:]),
                             dtype=torch.bfloat16, device=dev)
     return ExpertBankQ(
         lo=lo, hi=hi,
@@ -180,6 +193,31 @@ def write_lo_rows(leaf: torch.Tensor, layer: int, idx,
         a, b = int(idx[start]), int(idx[i - 1]) + 1
         leaf[layer, a:b].copy_(rows[a:b], non_blocking=True)
         start = i
+
+
+def swap_expert_rows(leaf: torch.Tensor, layer: int, e: int,
+                     f: int) -> None:
+    """Swap experts ``e`` and ``f`` at one layer of an (L, E, ...) leaf, in
+    place: the device half of an ownership migration under expert
+    parallelism. The expert id IS the position in every bank and router
+    tensor, so moving an expert to another shard relabels the pair: swap
+    the lo rows (this), the router columns (``swap_router_cols``) and the
+    host mirrors; the forward is invariant under it. Where the two rows
+    live on different ranks, the coordinator exchanges them instead
+    (``core.controller.EPCoordinator``)."""
+    row = leaf[layer, e].clone()
+    leaf[layer, e] = leaf[layer, f]
+    leaf[layer, f] = row
+
+
+def swap_router_cols(router: torch.Tensor, layer: int, e: int,
+                     f: int) -> None:
+    """Swap two expert columns of an (L, d_model, E) router at ``layer``, in
+    place: the compensating half of a relabel (tokens that routed to
+    position ``e`` now route to ``f``, which holds the same weights)."""
+    col = router[layer, :, e].clone()
+    router[layer, :, e] = router[layer, :, f]
+    router[layer, :, f] = col
 
 
 def publish(slot_map: np.ndarray, slot_owner: np.ndarray, layer: int,

@@ -16,7 +16,7 @@ host_lo    ``HostExpertStore._lo_rows`` — host-tier quantized row load
 stage_lo   ``HostExpertStore.stage_lo[_batch]`` — host→device lo staging
 shard_lo   ``ShardSource.lo_layer`` — streaming lo shard read (npz)
 shard_hi   ``ShardSource.hi_expert`` — streaming hi shard read (npz)
-ep_mig     expert-parallel ownership swap (no site in the port yet)
+ep_mig     ``EPCoordinator._migrate`` — expert-parallel ownership swap
 host_fetch demand host fetch in ``_observe_residency`` (modeled stall path)
 ========== ==================================================================
 

@@ -8,7 +8,8 @@ cost model (``obs.costmodel``) holds the measured traffic to. The card's
 peaks are the H100 SXM's data-sheet figures (dense bf16 on the tensor
 cores, HBM3), not measurements. The reference's HLO parsers
 (``convert_bytes``, ``collective_bytes``, ``analyze``) read XLA's compiled
-artifacts and wait for the dry run (ROADMAP Queue 1, item 7).
+artifacts and wait for the dry run (ROADMAP Queue 1, item 7: the rest
+after expert-parallel serving, steps 1–2).
 """
 from __future__ import annotations
 

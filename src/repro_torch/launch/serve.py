@@ -21,8 +21,15 @@ in the same process.
 hybrid, dense and pure Mamba-2 stacks, and the VLM backbone
 (``llava-next-34b``, token-only requests); ``whisper-tiny`` fails as the
 reference's launcher does, in ``InferenceEngine`` (the engine serves
-decoder-only stacks). Not ported: expert parallelism (``--ep-shards`` > 1
-exits naming ROADMAP Queue 1, item 7).
+decoder-only stacks).
+
+``--ep-shards N`` serves expert-parallel: N processes (``launch.mesh
+.spawn``), one gloo group, each holding E/N experts (and n_hi/N hi slots)
+on its device (``cuda:0`` shared by every rank on a machine with fewer than
+N cards, else ``cuda:rank``) and running the same requests; rank 0 prints
+the lines, and ``main`` returns rank 0's dict. E and ``--n-hi`` must
+divide by N. The decode step runs op by op under expert parallelism (the
+collectives cannot be captured in a CUDA graph).
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.controller import ControllerConfig
+from repro_torch.launch.mesh import spawn
 from repro_torch.models.model import init_params
 from repro_torch.serving.backends import BACKENDS, OffloadConfig, make_backend
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
@@ -43,10 +51,6 @@ from repro_torch.serving.sampler import SamplingParams
 from repro_torch.serving.scheduler import SchedulerConfig
 from repro_torch.serving.streaming import (load_streaming_params,
                                            save_expert_shards)
-
-EP_NOT_PORTED = ("expert parallelism (--ep-shards > 1) is not ported yet: "
-                 "ROADMAP.md Queue 1, item 7")
-
 
 def build_backend(args, device):
     """CLI name → residency backend (the engine itself is
@@ -57,6 +61,7 @@ def build_backend(args, device):
             n_hi_per_layer=None if args.hbm_gb else args.n_hi,
             hbm_gb=args.hbm_gb,
             controller=ControllerConfig(update_interval_s=0.25),
+            ep_shards=args.ep_shards,
             global_alloc=False if args.per_layer_alloc else None,
             sensitivity=args.sensitivity,
             lo_resident_total=args.lo_resident_total,
@@ -195,8 +200,13 @@ def parser() -> argparse.ArgumentParser:
                          "after this many seconds (refund + keep serving "
                          "lo)")
     ap.add_argument("--ep-shards", type=int, default=1,
-                    help="expert-parallel serving over this many devices "
-                         "(not ported: only 1)")
+                    help="expert-parallel serving over this many ranks: "
+                         "tokens and experts shard over them, MoE layers "
+                         "run the ragged all-to-all pipeline, and the "
+                         "dynaexq hi pool splits into per-shard slot "
+                         "ranges with per-shard budgets (requires "
+                         "num_experts and --n-hi divisible by the shard "
+                         "count; 1 = single-device)")
     return ap
 
 
@@ -207,13 +217,45 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     observability summary or None}; ``{"lines", "shards"}`` after
     ``--save-shards``."""
     args = parser().parse_args(argv)
+    if args.ep_shards < 1:
+        raise SystemExit("--ep-shards must be >= 1")
     if args.ep_shards > 1:
-        raise SystemExit(f"--ep-shards {args.ep_shards}: {EP_NOT_PORTED}")
+        _check_ep(args)
+        resolve_device(args.device)
+        # The ranks share the host's cores: an even split of this
+        # process's intra-op threads (oversubscribed pools spin each
+        # other out).
+        threads = max(1, torch.get_num_threads() // args.ep_shards)
+        return spawn(_main, args.ep_shards, args.device, args,
+                     threads=threads)[0]
+    return _main(None, args)
+
+
+def _check_ep(args) -> None:
+    """The reference backend's refusals, before any rank starts."""
+    n = args.ep_shards
+    if args.save_shards:
+        raise SystemExit("--save-shards writes one checkpoint: run it "
+                         "without --ep-shards")
+    cfg = get_config(args.arch, reduced=not args.full)
+    E = cfg.moe.num_experts if cfg.is_moe else 0
+    if E % n:
+        raise SystemExit(f"num_experts={E} not divisible by ep_shards={n}")
+    if args.backend == "dynaexq" and not args.hbm_gb and args.n_hi % n:
+        raise SystemExit(f"n_hi_per_layer={args.n_hi} not divisible by "
+                         f"ep_shards={n} (each shard owns n_hi/ep slots)")
+
+
+def _main(dist, args) -> Dict:
+    """Serve ``args`` in this process: one device (``dist`` None), or one
+    rank of ``--ep-shards`` (rank 0 prints)."""
     device = resolve_device(args.device)
     lines: List[str] = []
+    quiet = dist is not None and dist.rank != 0
 
     def say(msg: str) -> None:
-        print(msg, flush=True)
+        if not quiet:
+            print(msg, flush=True)
         lines.append(msg)
 
     cfg = get_config(args.arch, reduced=not args.full)
@@ -236,15 +278,19 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     obs = None
     if not args.no_obs:
         from repro_torch.obs import ObsConfig, Observability
-        obs = Observability(ObsConfig(metrics_jsonl=args.metrics_jsonl))
+        # Under --ep-shards only rank 0 writes the files.
+        obs = Observability(ObsConfig(
+            metrics_jsonl=None if quiet else args.metrics_jsonl))
     try:
-        return _serve(args, cfg, params, device, spec_k, obs, say, lines)
+        return _serve(args, cfg, params, device, spec_k, obs, say, lines,
+                      dist, quiet)
     finally:
         if obs is not None:
             obs.close()
 
 
-def _serve(args, cfg, params, device, spec_k, obs, say, lines) -> Dict:
+def _serve(args, cfg, params, device, spec_k, obs, say, lines,
+           dist=None, quiet=False) -> Dict:
     engine = InferenceEngine(
         cfg, params, build_backend(args, device),
         EngineConfig(max_slots=args.batch,
@@ -262,7 +308,12 @@ def _serve(args, cfg, params, device, spec_k, obs, say, lines) -> Dict:
                          qos_default=args.qos_default,
                          shed_policy=args.shed_policy,
                          prefill_chunk=args.prefill_chunk)),
-        device=device, obs=obs)
+        device=device, obs=obs, dist=dist)
+    if dist is not None:
+        say(f"[serve] expert parallel: {dist.model_size} ranks over gloo "
+            f"(rank 0 reports), {cfg.moe.num_experts // dist.model_size} "
+            f"experts per rank; decode op by op (graphed="
+            f"{engine.graphed})")
     toks = make_prompts(args.workload, cfg.vocab_size, args.batch,
                         args.prompt_len)
     use_sampling = (args.temperature > 0 or args.top_k is not None or
@@ -315,10 +366,11 @@ def _serve(args, cfg, params, device, spec_k, obs, say, lines) -> Dict:
             f"over {roof['n_steps']} decode steps  "
             f"stall exposure {stall*1e3:.1f} ms  "
             f"shed {st.get('shed_requests', 0.0):.0f}")
-        if args.trace_out:
+        if args.trace_out and not quiet:
             obs.save_trace(args.trace_out)
             say(f"[serve] trace -> {args.trace_out}")
-    if args.hotness_path and hasattr(engine.backend, "save_hotness"):
+    if args.hotness_path and hasattr(engine.backend, "save_hotness") and \
+            not quiet:
         engine.backend.save_hotness()
         say(f"[serve] hotness snapshot -> {args.hotness_path}_p*.npz")
     return {"lines": lines, "stats": st,

@@ -28,6 +28,8 @@ import torch
 
 from repro_torch.core.ver import ExpertBankQ
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import dist as D
+from repro_torch.launch.dist import get_dist
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.mlp import swiglu
 
@@ -153,18 +155,23 @@ def _combine(contrib: torch.Tensor, order: torch.Tensor, T: int,
     return y
 
 
-def _tile_slots(bank: ExpertBankQ, tile_eid: torch.Tensor,
-                e_local: int) -> torch.Tensor:
+def _tile_slots(bank: ExpertBankQ, tile_eid: torch.Tensor, e_local: int,
+                e_offset: int = 0, slot_lo: int = 0) -> torch.Tensor:
     """Hi slot per tile from ``slot_owner`` (not ``slot_map``): the stable
-    handles the forward reads, so a slot is used only once published."""
-    owner = bank.slot_owner.long()
-    n_hi = owner.shape[0]
-    if n_hi == 0:
+    handles the forward reads, so a slot is used only once published.
+    Under expert parallelism the bank holds this rank's slots
+    ``[slot_lo, slot_lo + n)`` (``n`` its hi leaves' rows) and experts
+    ``[e_offset, e_offset + e_local)``; ``slot_owner`` stays global, so the
+    local slice's owners shift by ``e_offset`` and a slot index is local."""
+    n_slot = bank.hi["w_gate"].shape[0] if bank.hi else 0
+    if n_slot == 0:
         return torch.full_like(tile_eid, -1)
+    owner = bank.slot_owner[slot_lo:slot_lo + n_slot].long() - e_offset
     eff = torch.full((e_local + 1,), -1, dtype=torch.int32,
                      device=tile_eid.device)
-    tgt = torch.where(owner >= 0, owner, torch.full_like(owner, e_local))
-    eff[tgt] = torch.arange(n_hi, dtype=torch.int32, device=tile_eid.device)
+    valid = (owner >= 0) & (owner < e_local)
+    tgt = torch.where(valid, owner, torch.full_like(owner, e_local))
+    eff[tgt] = torch.arange(n_slot, dtype=torch.int32, device=tile_eid.device)
     return eff[:e_local][tile_eid.long()]
 
 
@@ -217,12 +224,15 @@ def _dispatch_ragged(bank, x: torch.Tensor, idx: torch.Tensor,
     return y, counts.to(torch.int32), dropped, pad_ratio
 
 
-def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor) -> torch.Tensor:
+def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor,
+                      e_offset: int = 0, slot_lo: int = 0) -> torch.Tensor:
     """SwiGLU over the padded (E, C, d) buffer: three grouped lo GEMMs for
     every expert, then the published hi experts (``slot_owner``) recompute
     in bf16 and replace their owners' outputs — the same result as swapping
     the weights, without dense per-expert weights (bf16 products with one
-    rounding each, as the reference's einsums)."""
+    rounding each, as the reference's einsums). Under expert parallelism
+    the bank holds this rank's experts from ``e_offset`` and its hi slots
+    from ``slot_lo`` (``_tile_slots``' rule)."""
     E, C, d = xg.shape
     lo = bank.lo
     bits, group = lo["w_gate"].bits, lo["w_gate"].group_size
@@ -234,10 +244,11 @@ def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor) -> torch.Tensor:
     g = gemm(xg, "w_gate")
     h = torch.nn.functional.silu(g.float()).to(xg.dtype) * gemm(xg, "w_up")
     y = gemm(h, "w_down")
-    owner = bank.slot_owner.long()
-    if owner.shape[0] == 0:
-        return y
     hi = bank.hi
+    n_slot = hi["w_gate"].shape[0]
+    if n_slot == 0:
+        return y
+    owner = bank.slot_owner[slot_lo:slot_lo + n_slot].long() - e_offset
     valid = (owner >= 0) & (owner < E)
     xh = xg[torch.where(valid, owner, torch.zeros_like(owner))]
     yh = swiglu(hi, xh)
@@ -250,7 +261,8 @@ def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor) -> torch.Tensor:
 def dispatch_compute(bank, x: torch.Tensor, idx: torch.Tensor,
                      gates: torch.Tensor, e_local: int, capacity: int,
                      row_capacity: Optional[int] = None,
-                     n_rows: Optional[int] = None):
+                     n_rows: Optional[int] = None, e_offset: int = 0,
+                     slot_lo: int = 0):
     """Padded sort-scatter dispatch + the grouped expert FFN + the gated
     combine. x (T, d); idx (T, k) expert ids with ``e_local`` as the
     out-of-range sentinel; gates (T, k), zero on sentinel entries.
@@ -259,7 +271,8 @@ def dispatch_compute(bank, x: torch.Tensor, idx: torch.Tensor,
     caller derived (``n_rows · row_capacity``), and the kept assignments
     of an expert fill its rows in order. Returns (y (T, d), counts (E,)
     int32, dropped). A dense dict bank runs the reference's three einsums
-    over (E, C, d) as one batched SwiGLU."""
+    over (E, C, d) as one batched SwiGLU. ``e_offset``/``slot_lo``: where
+    this rank's experts and hi slots start under expert parallelism."""
     T, d = x.shape
     k = idx.shape[1]
     order, sorted_eid, counts, pos_in_e, tok = _sort_routing(idx, e_local)
@@ -286,8 +299,8 @@ def dispatch_compute(bank, x: torch.Tensor, idx: torch.Tensor,
     xg = torch.zeros((EC + 1, d), dtype=x.dtype, device=x.device)
     xg[flat] = x[tok]
     xg = xg[:EC].view(e_local, capacity, d)
-    yg = _quant_expert_ffn(bank, xg) if isinstance(bank, ExpertBankQ) \
-        else swiglu(bank, xg)
+    yg = _quant_expert_ffn(bank, xg, e_offset, slot_lo) \
+        if isinstance(bank, ExpertBankQ) else swiglu(bank, xg)
     y_sorted = yg.reshape(EC, -1)[torch.clamp(flat, max=EC - 1)]
     gate_sorted = gates.reshape(-1)[order].to(x.dtype)
     contrib = torch.where(kept[:, None], y_sorted * gate_sorted[:, None],
@@ -302,7 +315,7 @@ def moe_apply(params, bank, x: torch.Tensor, cfg: MoEConfig,
               capacity: int, token_valid: Optional[torch.Tensor] = None,
               n_rows: Optional[int] = None, dispatch: Optional[str] = None,
               row_capacity: Optional[int] = None):
-    """Single-device MoE. ``params``: {'router', ['shared']}; x (T, d).
+    """MoE forward. ``params``: {'router', ['shared']}; x (T, d).
     ``token_valid`` masks tokens out of dispatch and every count;
     ``n_rows`` adds per-row (R, E) counts; ``dispatch`` ∈ {"ragged",
     "padded"} picks the token layout (None = ragged); ``row_capacity``
@@ -310,23 +323,30 @@ def moe_apply(params, bank, x: torch.Tensor, cfg: MoEConfig,
     assignment drops no longer depends on the other rows of the batch. A
     ``params["shared"]`` SwiGLU (the shared expert) is added to every row
     after the combine, masked rows too, as the reference does. Returns
-    (y (T, d), MoEAux)."""
+    (y (T, d), MoEAux).
+
+    Under a distribution context (``launch.dist.get_dist()``, as the
+    reference's ``moe_apply`` branches at trace time) ``bank`` holds this
+    rank's experts only, and the layer runs one of the two sharded regimes
+    (``_moe_apply_sharded``); every rank returns the same y and aux."""
     dispatch = "ragged" if dispatch is None else dispatch
     if dispatch not in DISPATCHES:
         raise ValueError(f"dispatch={dispatch!r}; one of {DISPATCHES}")
+    if row_capacity is not None and n_rows is None:
+        raise ValueError("row_capacity needs n_rows")
+    dist = get_dist()
+    if dist is not None:
+        return _moe_apply_sharded(params, bank, x, cfg, capacity, dist,
+                                  token_valid, n_rows, row_capacity,
+                                  dispatch)
     if row_capacity is not None:
-        if n_rows is None:
-            raise ValueError("row_capacity needs n_rows")
         # The physical capacity that covers the per-row rule's worst case
         # (every surviving assignment on one expert): drops come from the
         # row rule alone.
         capacity = n_rows * row_capacity
-    E, k = cfg.num_experts, cfg.top_k
-    T = x.shape[0]
+    E = cfg.num_experts
     gates, idx, probs = route(params["router"], x, cfg)
-    sel = (idx >= 0) & (idx < E)
-    if token_valid is not None:
-        sel = sel & token_valid[:, None]
+    sel = _selected(idx, token_valid, 0, E)
     idx_l = torch.where(sel, idx, torch.full_like(idx, E))
     gates_l = torch.where(sel, gates, torch.zeros_like(gates))
     if dispatch == "ragged":
@@ -341,11 +361,35 @@ def moe_apply(params, bank, x: torch.Tensor, cfg: MoEConfig,
         pad_ratio = 1.0 - kept_rows / max(E * capacity, 1)
     if "shared" in params:
         y = y + swiglu(params["shared"], x)
-    active = (counts > 0).sum().to(torch.int32)
+    row_counts = None if n_rows is None else \
+        _row_counts(idx_l, E, n_rows, x.shape[0])
+    return y, MoEAux(counts=counts,
+                     aux_loss=_aux_loss(idx, probs, token_valid, cfg),
+                     dropped=dropped, row_counts=row_counts,
+                     active_experts=(counts > 0).sum().to(torch.int32),
+                     dispatch_pad_ratio=pad_ratio)
 
+
+def _selected(idx: torch.Tensor, token_valid: Optional[torch.Tensor],
+              e_offset: int, e_local: int) -> torch.Tensor:
+    """(T, k) mask of the assignments to experts ``[e_offset, e_offset +
+    e_local)`` from valid tokens."""
+    sel = (idx >= e_offset) & (idx < e_offset + e_local)
+    if token_valid is not None:
+        sel = sel & token_valid[:, None]
+    return sel
+
+
+def _aux_loss(idx: torch.Tensor, probs: torch.Tensor,
+              token_valid: Optional[torch.Tensor],
+              cfg: MoEConfig) -> torch.Tensor:
+    """The load-balance loss over the full router distribution of valid
+    tokens (the reference's formula)."""
+    E, k = cfg.num_experts, cfg.top_k
+    T = idx.shape[0]
     if token_valid is None:
         full_idx = torch.clamp(idx.reshape(-1), 0, E)
-        n_assign = torch.full((), float(T * k), device=x.device)
+        n_assign = torch.full((), float(T * k), device=idx.device)
         mean_prob = probs.mean(dim=0)
     else:
         full_idx = torch.where(token_valid[:, None], torch.clamp(idx, 0, E),
@@ -356,19 +400,261 @@ def moe_apply(params, bank, x: torch.Tensor, cfg: MoEConfig,
         mean_prob = (probs * tv).sum(dim=0) / torch.clamp(tv.sum(), min=1.0)
     full_counts = count_ids(full_idx, E + 1)[:E]
     frac = full_counts.float() / torch.clamp(n_assign, min=1.0)
-    aux_loss = cfg.router_aux_coef * E * (frac * mean_prob).sum()
+    return cfg.router_aux_coef * E * (frac * mean_prob).sum()
 
+
+def _row_counts(eid: torch.Tensor, E: int, n_rows: int,
+                T: int) -> torch.Tensor:
+    """(n_rows, E) int32 selections per row of T/n_rows tokens; ``eid``
+    (T, k) global expert ids with E for the assignments not counted."""
+    k = eid.shape[1]
+    rid = (torch.arange(T, device=eid.device) // (T // n_rows))[:, None] \
+        .expand(T, k)
+    flat = (rid * (E + 1) + eid).reshape(-1)
+    return count_ids(flat, n_rows * (E + 1)).view(n_rows, E + 1)[:, :E] \
+        .to(torch.int32)
+
+
+#: Which sharded regime each MoE call under a distribution context ran,
+#: counted as ``kernels.ops.LAUNCHES`` counts launches: "all_to_all" (the
+#: expert-parallel ragged pipeline) or "padded".
+REGIMES = {"all_to_all": 0, "padded": 0}
+
+
+def reset_regimes() -> None:
+    for k in REGIMES:
+        REGIMES[k] = 0
+
+
+def _moe_apply_sharded(params, bank, x: torch.Tensor, cfg: MoEConfig,
+                       capacity: int, dist, token_valid, n_rows,
+                       row_capacity, dispatch):
+    """Expert parallelism over the ranks of ``dist``: rank j holds experts
+    ``[j·E/N, (j+1)·E/N)`` (the lo leaves, or a dense bank's rows) and hi
+    slots ``[j·n_hi/N, (j+1)·n_hi/N)``; ``slot_owner`` and ``slot_map``
+    stay global. Two regimes, chosen from shapes as the reference chooses
+    (its ``_moe_apply_sharded``):
+
+    * **all_to_all** (``dist.tokens_ep_sharded`` and ragged dispatch, T
+      divisible by N, rows that tile over the ranks): ``_moe_local_ep``.
+    * **padded** (everything else): every rank routes every token,
+      computes its local experts into the (E/N, C, d) buffer, and the
+      partial outputs are summed over the ranks (the psum).
+
+    The reference also leaves the all-to-all regime for a hi pool that
+    does not divide over the shards (it replicates that pool); the port's
+    ranks hold only their own slots, and its backends refuse such an
+    n_hi, so the case raises here."""
+    mn = dist.model_size
+    E = cfg.num_experts
+    T = x.shape[0]
+    if E % mn:
+        raise ValueError(f"num_experts={E} not divisible by {mn} shards")
+    e_local = E // mn
+    is_q = isinstance(bank, ExpertBankQ)
+    held = (bank.lo["w_gate"].packed if is_q else bank["w_gate"]).shape[0]
+    if held != e_local:
+        raise ValueError(f"rank {dist.rank} holds {held} experts; under "
+                         f"{mn} shards it holds its own {e_local}")
+    nh_local = bank.hi["w_gate"].shape[0] if is_q and bank.hi else 0
+    if is_q and bank.slot_owner.shape[0] != nh_local * mn:
+        raise ValueError(f"hi pool of {bank.slot_owner.shape[0]} slots, "
+                         f"{nh_local} held by this rank: it must divide "
+                         f"over the {mn} shards")
+    n_tok = dist.n_token_shards
+    use_ep = dist.tokens_ep_sharded and dispatch == "ragged" and \
+        T % n_tok == 0 and T // n_tok > 0
+    if use_ep and n_rows is not None:
+        # Rows must tile over the ranks, so that the per-row drop rule and
+        # row_counts stay on one rank.
+        use_ep = T % n_rows == 0 and n_rows % n_tok == 0 and \
+            (T // n_tok) % (T // n_rows) == 0
+    if use_ep:
+        REGIMES["all_to_all"] += 1
+        return _moe_local_ep(params, bank, x, cfg, capacity, dist,
+                             token_valid, n_rows, row_capacity, e_local,
+                             nh_local)
+    REGIMES["padded"] += 1
+    return _moe_padded_ep(params, bank, x, cfg, capacity, dist, token_valid,
+                          n_rows, row_capacity, e_local, nh_local)
+
+
+def _moe_padded_ep(params, bank, x, cfg, capacity, dist, token_valid, n_rows,
+                   row_capacity, e_local, nh_local):
+    """The padded regime: every rank routes every token, dispatches the
+    assignments to its own experts into the (E/N, C, d) buffer, and the
+    partial outputs are summed over the ranks in float32 (one rounding to
+    bf16 after the sum; the single device adds each token's k
+    contributions in bf16, so the two agree to a tolerance, as the
+    reference's psum does). counts and row_counts are exact; aux is the
+    single device's, from the full routing every rank holds."""
+    E = cfg.num_experts
+    j = dist.rank
+    e_off, slot_lo = j * e_local, j * nh_local
+    if row_capacity is not None:
+        capacity = n_rows * row_capacity
+    gates, idx, probs = route(params["router"], x, cfg)
+    sel = _selected(idx, token_valid, e_off, e_local)
+    idx_l = torch.where(sel, idx - e_off, torch.full_like(idx, e_local))
+    gates_l = torch.where(sel, gates, torch.zeros_like(gates))
+    y, counts_l, dropped = dispatch_compute(
+        bank, x, idx_l, gates_l, e_local, capacity,
+        row_capacity=row_capacity, n_rows=n_rows, e_offset=e_off,
+        slot_lo=slot_lo)
+    y = D.all_reduce(y.float(), dist).to(x.dtype)
+    if "shared" in params:
+        y = y + swiglu(params["shared"], x)
+    counts = D.all_gather(counts_l, dist)
+    kept_rows = torch.clamp(counts_l, 0, capacity).sum().float()
+    pad = 1.0 - kept_rows / max(e_local * capacity, 1)
+    means = D.all_reduce(torch.stack([dropped.double(), pad.double()]),
+                         dist) / dist.model_size
     row_counts = None
     if n_rows is not None:
-        tpr = T // n_rows
-        rid = (torch.arange(T, device=x.device) // tpr)[:, None].expand(T, k)
         eid = torch.where(sel, idx, torch.full_like(idx, E))
-        flat = (rid * (E + 1) + eid).reshape(-1)
-        row_counts = count_ids(flat, n_rows * (E + 1)) \
-            .view(n_rows, E + 1)[:, :E].to(torch.int32)
-    return y, MoEAux(counts=counts, aux_loss=aux_loss, dropped=dropped,
-                     row_counts=row_counts, active_experts=active,
-                     dispatch_pad_ratio=pad_ratio)
+        row_counts = D.all_reduce(
+            _row_counts(eid, E, n_rows, x.shape[0]).long(), dist) \
+            .to(torch.int32)
+    return y, MoEAux(counts=counts,
+                     aux_loss=_aux_loss(idx, probs, token_valid, cfg),
+                     dropped=means[0].float(), row_counts=row_counts,
+                     active_experts=(counts > 0).sum().to(torch.int32),
+                     dispatch_pad_ratio=means[1].float())
+
+
+def _moe_local_ep(params, bank, x, cfg, capacity, dist, token_valid, n_rows,
+                  row_capacity, e_local, nh_local):
+    """The expert-parallel ragged pipeline (the reference's
+    ``_moe_local_ep``). Rank j owns tokens ``[j·T/N, (j+1)·T/N)``.
+
+    * **Sender**: sort its assignments by global expert id (grouped by
+      destination rank, experts ascending within each), keep them under
+      the drop rule (per (expert, sender) at ``ep_cap_shard``, or the
+      per-row rule), and compact the kept rows into an (N·S, d) payload
+      whose block s holds the rows for rank s (S = ``ep_payload_rows``).
+      One ``all_to_all`` moves the rows, a second the (N, E/N) counts.
+    * **Receiver**: rebuild per-expert segments with the same
+      ``_sort_routing`` (stable by (expert, source, send order): each
+      expert's rows in global token order, as on one device), lay them out
+      with ``ragged_tile_map`` over the local ids, take each tile's slot
+      from this rank's slice of ``slot_owner``, and run the ragged FFN
+      kernels (the all-hi pair for a dense bank).
+    * **Home**: a third ``all_to_all`` brings the result rows back, and
+      the sender combines each token's assignments with its gates in the
+      sorted order (``_combine``): the same sum, in the same order, as the
+      single device, so drop-free calls are bit-equal to it.
+
+    Then an ``all_gather`` rebuilds y (T, d) on every rank, the counts and
+    the routed/kept totals are summed over the ranks, and the row counts
+    gathered. The router runs on all T tokens on every rank and each rank
+    takes its slice: its (T, d)·(d, E) product is small, and the full
+    product gives every rank the single device's gates bit for bit (a
+    GEMM over fewer rows may reduce in another order, on the card and on
+    the CPU), and the single device's aux loss."""
+    E, k = cfg.num_experts, cfg.top_k
+    T, d = x.shape
+    mn, j = dist.model_size, dist.rank
+    n_tok = dist.n_token_shards
+    bm = RAGGED_BM
+    T_l = T // n_tok
+    tok_sl = slice(j * T_l, (j + 1) * T_l)
+    n_rows_l = None if n_rows is None else n_rows // n_tok
+    cap_shard = 0 if row_capacity is not None else \
+        ep_cap_shard(capacity, n_tok)
+    S = ep_payload_rows(T, k, e_local, capacity, n_tok, bm=bm,
+                        n_rows=n_rows, row_capacity=row_capacity)
+    gates_all, idx_all, probs = route(params["router"], x, cfg)
+    x_l, gates, idx = x[tok_sl], gates_all[tok_sl], idx_all[tok_sl]
+    tv_l = None if token_valid is None else token_valid[tok_sl]
+    sel = _selected(idx, tv_l, 0, E)
+    idx_v = torch.where(sel, idx, torch.full_like(idx, E))
+    gates_v = torch.where(sel, gates, torch.zeros_like(gates))
+
+    # -- sender: the kept assignments, compacted per destination rank.
+    order, sorted_eid, counts_l, pos_in_e, tok = _sort_routing(idx_v, E)
+    kept = _keep_mask(sorted_eid, pos_in_e, tok, E, cap_shard, row_capacity,
+                      n_rows_l, T_l)
+    dest = torch.where(sorted_eid < E, sorted_eid // e_local,
+                       torch.full_like(sorted_eid, mn))
+    kept_i = kept.long()
+    kept_d = torch.zeros(mn + 1, dtype=torch.int64, device=x.device) \
+        .scatter_add_(0, dest, kept_i)
+    dstart = torch.cumsum(kept_d, 0) - kept_d
+    offs = torch.cumsum(kept_i, 0) - 1 - dstart[dest]
+    send_row = torch.where(kept, dest * S + offs,
+                           torch.full_like(offs, mn * S))
+    # One spare row takes the dropped assignments' writes.
+    send = torch.zeros((mn * S + 1, d), dtype=x.dtype, device=x.device)
+    send[send_row] = x_l[tok]
+    cnt_send = count_ids(torch.where(kept, sorted_eid,
+                                     torch.full_like(sorted_eid, E)),
+                         E + 1)[:E].view(mn, e_local)
+    recv = D.all_to_all(send[:mn * S], dist)
+    cnt_recv = D.all_to_all(cnt_send, dist)
+
+    # -- receiver: each payload row's local expert from the count
+    # boundaries (rows past a block's total → the e_local sentinel), then
+    # the ragged layout over the local experts.
+    r = torch.arange(mn * S, device=x.device)
+    cum = torch.cumsum(cnt_recv, 1)
+    eid_r = ((r % S)[:, None] >= cum[r // S]).sum(1)
+    _, sorted_re, cnt_e, pos_re, rrow = _sort_routing(eid_r[:, None], e_local)
+    astart, tile_eid, n_tiles = ragged_tile_map(cnt_e, bm, mn * S)
+    R = tile_eid.shape[0] * bm
+    live = sorted_re < e_local
+    safe_e = torch.clamp(sorted_re, max=e_local - 1)
+    rowpos = torch.where(live, astart[safe_e] + pos_re,
+                         torch.full_like(pos_re, R))
+    xs = torch.zeros((R + 1, d), dtype=x.dtype, device=x.device)
+    xs[rowpos] = recv[rrow]
+    xs = xs[:R]
+    if isinstance(bank, ExpertBankQ):
+        tile_slot = _tile_slots(bank, tile_eid, e_local, e_offset=j * e_local,
+                                slot_lo=j * nh_local)
+        lo = bank.lo
+        y_rows = kops.ragged_quant_ffn(
+            xs, tile_eid, tile_slot, n_tiles, lo,
+            bank.hi if nh_local else None, bits=lo["w_gate"].bits,
+            group=lo["w_gate"].group_size, bm=bm)
+    else:
+        y_rows = kops.ragged_dense_ffn(xs, tile_eid, n_tiles, bank, bm=bm)
+    D_out = y_rows.shape[-1]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    # torch.where, never a multiply: tail tiles' rows are unwritten.
+    back = torch.where(live[:, None], y_rows[torch.clamp(rowpos, max=R - 1)],
+                       zero)
+    y_recv = torch.zeros((mn * S, D_out), dtype=x.dtype, device=x.device)
+    y_recv[rrow] = back
+
+    # -- home: block s of the return holds my rows' results from rank s, at
+    # the offsets I sent them at.
+    y_ret = D.all_to_all(y_recv, dist)
+    y_asn = y_ret[torch.clamp(send_row, max=mn * S - 1)]
+    gate_sorted = gates_v.reshape(-1)[order].to(x.dtype)
+    contrib = torch.where(kept[:, None], y_asn * gate_sorted[:, None], zero)
+    y = D.all_gather(_combine(contrib, order, T_l, k), dist)
+    if "shared" in params:
+        y = y + swiglu(params["shared"], x)
+
+    # -- exact global telemetry: counts and totals summed over the ranks
+    # (integers, exact in float64), the pad ratio averaged.
+    routed = (sorted_eid < E).sum()
+    pad = 1.0 - cnt_e.sum().double() / \
+        torch.clamp(n_tiles[0] * bm, min=1).double()
+    stats = D.all_reduce(torch.cat([
+        counts_l.double(), torch.stack([routed.double(),
+                                        kept.sum().double(), pad])]), dist)
+    counts = stats[:E].to(torch.int32)
+    routed_g, kept_g = stats[E].float(), stats[E + 1].float()
+    dropped = 1.0 - kept_g / torch.clamp(routed_g, min=1.0)
+    row_counts = None
+    if n_rows is not None:
+        row_counts = D.all_gather(_row_counts(idx_v, E, n_rows_l, T_l), dist)
+    return y, MoEAux(counts=counts,
+                     aux_loss=_aux_loss(idx_all, probs, token_valid, cfg),
+                     dropped=dropped, row_counts=row_counts,
+                     active_experts=(counts > 0).sum().to(torch.int32),
+                     dispatch_pad_ratio=(stats[E + 2] / mn).float())
 
 
 def moe_capacity(n_tokens: int, cfg: Optional[MoEConfig],
@@ -380,3 +666,29 @@ def moe_capacity(n_tokens: int, cfg: Optional[MoEConfig],
     f = factor if factor is not None else cfg.capacity_factor
     cap = int(n_tokens * cfg.top_k * f / cfg.num_experts) + 1
     return max(8, (cap + 7) // 8 * 8)
+
+
+def ep_cap_shard(capacity: int, n_token_shards: int) -> int:
+    """Per-(expert, sender) capacity under expert-parallel token sharding:
+    the global per-expert ``capacity`` split evenly over the senders,
+    floored at 8 so that small decode batches are always drop-free."""
+    return max(8, (-(-capacity // n_token_shards) + 7) // 8 * 8)
+
+
+def ep_payload_rows(n_tokens: int, top_k: int, e_local: int, capacity: int,
+                    n_token_shards: int, bm: int = RAGGED_BM,
+                    n_rows: Optional[int] = None,
+                    row_capacity: Optional[int] = None) -> int:
+    """Rows ``S`` per destination block of the all-to-all payload: a sender
+    forwards at most min(its ``T_l·k`` assignments, what one destination
+    keeps from it: ``e_local`` experts × ``ep_cap_shard``, or
+    ``rows_l·row_capacity`` under the per-row rule), rounded up to whole
+    row tiles. Each rank moves ``2·(N−1)·S·d`` payload elements per MoE
+    layer, out and back (the reference's bytes-moved model)."""
+    t_l = n_tokens // n_token_shards
+    if row_capacity is not None:
+        per_dest = e_local * (n_rows // n_token_shards) * row_capacity
+    else:
+        per_dest = e_local * ep_cap_shard(capacity, n_token_shards)
+    s = min(t_l * top_k, per_dest)
+    return max(bm, -(-s // bm) * bm)

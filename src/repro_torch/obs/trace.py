@@ -45,8 +45,8 @@ name                      cat         args
 ``promotion``             residency   async span: begin at copy issue
                                       (layer/expert/slot/bytes), end at
                                       publish (published=1) or cancellation
-``ep_migration``          residency   layer, e, f, bytes (no site in the
-                                      port: expert parallelism)
+``ep_migration``          ep          layer, expert, peer, bytes (an
+                                      expert-parallel ownership swap)
 ``host_fetch``            host        pos, n, bytes, stall_s
 ``host_stage``/           host        layer(s), n, bytes
 ``lo_publish``

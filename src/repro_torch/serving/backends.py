@@ -11,7 +11,9 @@
   ``global_alloc=False``: the per-layer top-n rule) → promotion copies
   from pinned host rows → publish; a streaming cold start from expert
   shards (``serving.streaming``) and fault injection with retries and
-  quarantine (``fault``). (No expert parallelism in this port yet.)
+  quarantine (``fault``); expert parallelism (``ep_shards``): per-shard
+  hi pools and budgets, and the ``EPCoordinator`` that rebalances expert
+  ownership across shards.
 * ``OffloadBackend`` — the offloading/prefetch baseline: an LRU cache of
   experts per layer in front of host memory, its misses and prefetches
   priced by ``FetchModel`` as a modeled stall (it computes dense on the
@@ -24,6 +26,17 @@ one forward's router counts (row-resolved counts are scrubbed by
 ``row_valid`` first) and returns the forward's modeled stall in seconds;
 ``tick`` runs the policy window; ``stats`` returns exactly ``STAT_KEYS +
 STAT_EXTRAS``; ``flush`` waits for in-flight transitions.
+
+Expert parallelism: ``materialize_banks`` reads the distribution context
+(``launch.dist.get_dist()``, which the engine makes ambient). Under one,
+every backend keeps only this rank's experts on the device: the lo leaves
+(static, dynaexq) or the dense experts in ``params`` (fp16, offload) hold
+experts ``[j·E/N, (j+1)·E/N)``, and dynaexq's hi slots ``[j·n_hi/N,
+(j+1)·n_hi/N)``. Everything on the host (hotness, controllers, slot maps,
+host masters, the coordinator) is replicated: every rank takes the same
+decisions on the same all-reduced counts, and the policy windows read
+rank 0's clock (``launch.dist.agree``). ``device_bytes()`` counts this
+rank's expert bytes.
 
 Observability, as the reference's: ``attach_obs(tracer, metrics)`` binds
 the engine's flight recorder and metrics registry (``None``: every site is
@@ -48,12 +61,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.allocator import AllocatorConfig, GlobalAllocator
 from repro_torch.core.budget import BudgetTracker, plan_budget
-from repro_torch.core.controller import ControllerConfig, DynaExqController
+from repro_torch.core.controller import (ControllerConfig, DynaExqController,
+                                         EPCoordinator, RebalanceConfig)
 from repro_torch.core.hotness import mask_row_counts
 from repro_torch.core.ver import (build_bank, build_bank_empty,
                                   expert_hi_nbytes, expert_lo_nbytes)
 from repro_torch.fault.inject import FaultInjector, FaultPlan
 from repro_torch.fault.retry import RetryExhausted, RetryPolicy
+from repro_torch.launch import dist as D
 from repro_torch.models.config import ArchConfig
 from repro_torch.quant.sensitivity import load_sensitivity, normalize
 from repro_torch.serving.hoststore import FetchModel, HostExpertStore
@@ -91,6 +106,7 @@ class _BackendBase:
         self.moe_positions: list = []
         self.tracer = None              # obs.FlightRecorder | None
         self.metrics = None             # obs.MetricsRegistry | None
+        self.dist = None                # launch.dist.DistContext | None
 
     # -- observability -----------------------------------------------------
     def attach_obs(self, tracer=None, metrics=None) -> None:
@@ -120,6 +136,7 @@ class _BackendBase:
                           kv_bytes: int, budget=None) -> Dict:
         self.cfg = cfg
         self.budget = budget
+        self.dist = D.get_dist()
         self.moe_positions = [p for p, _ in enumerate(
             cfg.superblock_or_default()) if cfg.ffn_kind(p) == "moe"]
         return self._materialize(cfg, params, kv_bytes)
@@ -190,12 +207,29 @@ def _param_bytes(tree) -> int:
     return 0 if tree is None else tree.numel() * tree.element_size()
 
 
-def _device_experts(params: Dict, pos, device) -> Dict[str, torch.Tensor]:
+def _shard_of(dist) -> Optional[Tuple[int, int]]:
+    """``build_bank``'s ``shard``: (rank, ranks) under a context."""
+    return None if dist is None else (dist.rank, dist.model_size)
+
+
+def _device_experts(params: Dict, pos, device,
+                    dist=None) -> Dict[str, torch.Tensor]:
     """Position ``pos``'s dense (L, E, K, N) experts, moved onto ``device``
-    in ``params`` (a no-op where they already are)."""
+    in ``params`` (a no-op where they already are); under a distribution
+    context only this rank's (L, E/N, K, N), copied into storage of their
+    own (a view would keep every rank's experts alive on the device)."""
     moe = params["blocks"][str(pos)]["moe"]
-    moe["experts"] = {k: v.to(device) for k, v in moe["experts"].items()}
-    return moe["experts"]
+    out = {}
+    for k, v in moe["experts"].items():
+        if dist is None:
+            out[k] = v.to(device)
+            continue
+        sl = D.shard_range(v.shape[1], dist)
+        part = v[:, sl]
+        out[k] = torch.empty(part.shape, dtype=v.dtype,
+                             device=device).copy_(part)
+    moe["experts"] = out
+    return out
 
 
 def envelope_fixed_bytes(params: Dict, kv_bytes: int,
@@ -233,7 +267,7 @@ class Fp16Backend(_BackendBase):
         self._cell_bytes = 0
 
     def _materialize(self, cfg, params, kv_bytes):
-        experts = [_device_experts(params, p, self.device)
+        experts = [_device_experts(params, p, self.device, self.dist)
                    for p in self.moe_positions]
         self._dense_bytes = sum(_param_bytes(x) for x in experts)
         self._cells = sum(int(np.prod(x["w_gate"].shape[:2]))
@@ -275,11 +309,13 @@ class StaticPTQBackend(_BackendBase):
             L, E = experts["w_gate"].shape[:2]
             self._lo_per = expert_lo_nbytes(
                 _shapes(experts), self.lo_bits, self.group_size)
-            self._lo_bytes += self._lo_per * L * E
+            held = E if self.dist is None else E // self.dist.model_size
+            self._lo_bytes += self._lo_per * L * held
             self._cells += L * E
             self.banks[str(pos)] = build_bank(
                 {k: v.to(self.device) for k, v in experts.items()}, n_hi=0,
-                lo_bits=self.lo_bits, group_size=self.group_size)
+                lo_bits=self.lo_bits, group_size=self.group_size,
+                shard=_shard_of(self.dist))
             moe["experts"] = None       # the bank is the only residency now
         return self.banks
 
@@ -333,8 +369,19 @@ class DynaExqBackend(_BackendBase):
 
     ``fault`` (a ``FaultPlan``, a ``FaultInjector``, or a JSON string or
     path) injects faults at the transfer sites; ``retry`` is the shared
-    ``RetryPolicy``. Expert parallelism (``ep_shards > 1``, ``rebalance``)
-    is not ported."""
+    ``RetryPolicy``.
+
+    Expert parallelism (``ep_shards > 1``): every MoE position's hi pool
+    splits into per-shard slot ranges with per-shard budget accounts
+    (shard j's promotions bill shard j's device, never a neighbour's), and
+    an ``EPCoordinator`` (``rebalance``: its ``RebalanceConfig``)
+    rebalances expert ownership across shards from the summed hotness;
+    ``tick`` runs its window beside the per-layer controllers. It needs the
+    per-layer rule (``global_alloc`` is refused: hi slots are one shard's
+    device memory and cannot move across layers), and so the host tier and
+    the streaming cold start are refused too. Under a distribution context
+    of ``ep_shards`` ranks each rank holds its own experts and slots; with
+    none, one process holds every shard's (the reference's accounting)."""
 
     name = "dynaexq"
     STAT_EXTRAS = ("deferred", "lo_resident_frac", "hi_loads",
@@ -347,7 +394,7 @@ class DynaExqBackend(_BackendBase):
                  activation_slack_bytes: int = ACTIVATION_SLACK_BYTES,
                  controller: Optional[ControllerConfig] = None,
                  ep_shards: int = 1,
-                 rebalance=None,
+                 rebalance: Optional[RebalanceConfig] = None,
                  global_alloc: Optional[bool] = None,
                  slots_slack: float = SLOTS_SLACK,
                  sensitivity=None,
@@ -362,12 +409,13 @@ class DynaExqBackend(_BackendBase):
         super().__init__(device)
         if ep_shards < 1:
             raise ValueError("ep_shards must be >= 1")
-        if ep_shards > 1 or rebalance is not None:
-            raise NotImplementedError(
-                "expert parallelism (ep_shards > 1, rebalance) is not "
-                "ported yet: ROADMAP.md Queue 1, item 7")
         if global_alloc is None:
-            global_alloc = True
+            global_alloc = ep_shards == 1
+        if global_alloc and ep_shards > 1:
+            raise ValueError(
+                "global_alloc requires ep_shards == 1: hi slots are "
+                "shard-local HBM under expert parallelism and cannot be "
+                "reassigned across layers by a global knapsack")
         if (stream is not None or lo_resident_total) and not global_alloc:
             raise ValueError(
                 "the host tier and streaming cold start require the "
@@ -383,6 +431,10 @@ class DynaExqBackend(_BackendBase):
         self.hbm_gb = hbm_gb
         self.activation_slack_bytes = activation_slack_bytes
         self.controller_cfg = controller
+        self.ep_shards = int(ep_shards)
+        self.coordinator: Optional[EPCoordinator] = \
+            EPCoordinator(self.ep_shards, rebalance) if ep_shards > 1 \
+            else None
         self.global_alloc = bool(global_alloc)
         self.slots_slack = float(slots_slack)
         self.sensitivity = sensitivity      # dict pos → (L, E) | .npz path
@@ -425,16 +477,26 @@ class DynaExqBackend(_BackendBase):
 
     # -- materialization ---------------------------------------------------
     def _derive_n_hi(self, params, kv_bytes, L, E, hi_b, lo_b) -> int:
+        ep = self.ep_shards
         if self.n_hi_per_layer is not None:
-            return self.n_hi_per_layer
+            n_hi = self.n_hi_per_layer
+            if ep > 1 and n_hi % ep:
+                raise ValueError(
+                    f"n_hi_per_layer={n_hi} not divisible by "
+                    f"ep_shards={ep} (each shard owns n_hi/ep slots)")
+            return n_hi
         if self.hbm_gb is not None:
             return plan_budget(
                 m_total=int(self.hbm_gb * GiB),
                 m_fixed=envelope_fixed_bytes(params, kv_bytes,
                                              self.activation_slack_bytes),
                 lo_bytes_total=lo_b * L * E, hi_bytes_per_expert_layer=hi_b,
-                n_layers=L, num_experts=E).n_hi_per_layer
-        return max(1, E // 8)
+                n_layers=L, num_experts=E, align=ep).n_hi_per_layer
+        n_hi = max(1, E // 8)
+        if ep > 1:
+            # A shard-divisible count, at least one slot per shard.
+            n_hi = max(ep, n_hi // ep * ep)
+        return n_hi
 
     def _materialize(self, cfg, params, kv_bytes):
         src = None
@@ -464,8 +526,17 @@ class DynaExqBackend(_BackendBase):
                                     group_size=self.group_size)
             lo_b = expert_lo_nbytes(shapes, self.lo_bits, self.group_size)
             L, E = next(iter(shapes.values()))[:2]
+            if self.ep_shards > 1 and E % self.ep_shards:
+                raise ValueError(f"num_experts={E} not divisible by "
+                                 f"ep_shards={self.ep_shards}")
             n_hi = self._derive_n_hi(params, kv_bytes, L, E, hi_b, lo_b)
             metas.append((pos, experts, shapes, L, E, hi_b, lo_b, n_hi))
+        dist = self.dist
+        if dist is not None and dist.model_size != self.ep_shards:
+            raise ValueError(f"ep_shards={self.ep_shards} under a group of "
+                             f"{dist.model_size} ranks")
+        if self.coordinator is not None:
+            self.coordinator.dist = dist
         self._build_global_structures(metas, sens)
         pin = self.device.type == "cuda"
         for pos, experts, shapes, L, E, hi_b, lo_b, n_hi in metas:
@@ -498,7 +569,8 @@ class DynaExqBackend(_BackendBase):
                                   n_hi=self._slots(n_hi, E),
                                   lo_bits=self.lo_bits,
                                   group_size=self.group_size,
-                                  hi_bits=self.hi_bits)
+                                  hi_bits=self.hi_bits,
+                                  shard=_shard_of(dist))
                 store = HostExpertStore(shapes, hi=host, device=self.device)
             self.banks[pos] = bank
             self.stores[pos] = store
@@ -506,10 +578,19 @@ class DynaExqBackend(_BackendBase):
                 ctl = DynaExqController(
                     bank, store, n_hi_per_layer=n_hi,
                     hi_bytes_per_expert=hi_b, cfg=self.controller_cfg,
-                    tracker=self._tracker_for(pos, n_hi, L, hi_b))
+                    tracker=self._tracker_for(pos, n_hi, L, hi_b),
+                    ep_shards=self.ep_shards,
+                    shard_trackers=self._shard_trackers_for(pos, n_hi, L,
+                                                            hi_b),
+                    dist=dist)
                 self.controllers[pos] = ctl
                 store.side = ctl.tm._side   # staging beside promotions
                 self._restore_hotness(pos, ctl)
+                if self.coordinator is not None:
+                    # The moe params dict outlives the experts=None below:
+                    # the coordinator swaps its router leaf in place.
+                    self.coordinator.register(ctl,
+                                              params["blocks"][pos]["moe"])
             if streaming:
                 self._serving_ready = False
             params["blocks"][pos]["moe"]["experts"] = None
@@ -589,6 +670,19 @@ class DynaExqBackend(_BackendBase):
             return self.budget.view(f"hi:{pos}", cap=n_hi * L * hi_b)
         return None
 
+    def _shard_trackers_for(self, pos, n_hi, L, hi_b):
+        """One account per shard: a shard's promotions reserve against its
+        slice of the pool (its device's bytes), so a hot shard that fills
+        its slots can neither starve nor borrow from a neighbour."""
+        ep = self.ep_shards
+        if ep <= 1:
+            return None
+        per_cap = (n_hi // ep) * L * hi_b
+        if self.budget is not None:
+            return [self.budget.view(f"hi:{pos}:s{j}", cap=per_cap)
+                    for j in range(ep)]
+        return [BudgetTracker(per_cap) for _ in range(ep)]
+
     def _restore_hotness(self, pos, ctl) -> None:
         if not self.hotness_path:
             return
@@ -616,13 +710,16 @@ class DynaExqBackend(_BackendBase):
 
     def _propagate_faults(self) -> None:
         """Push the injector and retry policy into every transfer-plane
-        component (transition managers, host stores, the shard source)."""
+        component (transition managers, host stores, the EP coordinator,
+        the shard source)."""
         for ctl in self.controllers.values():
             ctl.tm.injector = self.injector
             ctl.tm.retry = self.retry
         for store in self.stores.values():
             store.injector = self.injector
             store.retry = self.retry
+        if self.coordinator is not None:
+            self.coordinator.injector = self.injector
         if self.stream is not None and hasattr(self.stream, "lo_layer"):
             self.stream.injector = self.injector
 
@@ -644,6 +741,8 @@ class DynaExqBackend(_BackendBase):
             ctl.tm.publish_hist = hist
         for store in self.stores.values():
             store.tracer = self.tracer
+        if self.coordinator is not None:
+            self.coordinator.tracer = self.tracer
         if self.injector is not None:
             self.injector.tracer = self.tracer
         if self.tracer is not None:
@@ -731,8 +830,14 @@ class DynaExqBackend(_BackendBase):
         if self.allocator is not None:
             self._global_tick()
         else:
+            # Under a distribution context every rank opens its windows on
+            # rank 0's clock, so they open on the same step everywhere.
+            now = None if self.dist is None else \
+                D.agree(time.monotonic(), self.dist)
             for ctl in self.controllers.values():
-                ctl.maybe_update()
+                ctl.maybe_update(now)
+            if self.coordinator is not None:
+                self.coordinator.maybe_rebalance(now)
         self._heal_quarantined()
         for store in self.stores.values():
             store.publish_lo()
@@ -963,15 +1068,21 @@ class DynaExqBackend(_BackendBase):
 
     def device_bytes(self) -> int:
         """Expert bytes on the device: the lo-resident cells (all cells
-        without a host tier) and the hi residents priced at ``hi_bits``."""
+        without a host tier) and the hi residents priced at ``hi_bits``;
+        under a distribution context, this rank's experts and slots."""
         total = 0
         for pos, bank in self.banks.items():
             L, E = bank.slot_map.shape
             store = self.stores.get(pos)
             n_lo = int(store.lo_resident.sum()) \
                 if store is not None and self.lo_resident_total else L * E
-            ctl = self.controllers.get(pos)
-            n_hi_res = int((ctl.tm.slot_owner_h >= 0).sum()) if ctl else 0
+            owners = self.controllers[pos].tm.slot_owner_h \
+                if pos in self.controllers else np.zeros((L, 0))
+            if self.dist is not None:
+                n_lo = L * (E // self.dist.model_size)
+                owners = owners[:, D.shard_range(owners.shape[1],
+                                                  self.dist)]
+            n_hi_res = int((owners >= 0).sum())
             total += self._lo_b[pos] * n_lo + n_hi_res * self._hi_b[pos]
         return total
 
@@ -1005,6 +1116,11 @@ class DynaExqBackend(_BackendBase):
             agg["quarantined"] = float(sum(
                 int(s.quarantined.sum()) for s in self.stores.values()))
         agg["residency_ready_frac"] = self.ready_frac()
+        if self.coordinator is not None:
+            agg["migrations"] = float(self.coordinator.stats["migrations"])
+            agg["bytes_moved"] += self.coordinator.stats["bytes_moved"]
+            agg["fault_cancels"] += \
+                self.coordinator.stats["aborted_migrations"]
         return agg
 
 
@@ -1096,7 +1212,7 @@ class OffloadBackend(_BackendBase):
                 f"{cfg.name}: the offload baseline prices expert transfers, "
                 f"and this stack has no MoE position (cfg.moe is None)")
         for p in self.moe_positions:
-            _device_experts(params, p, self.device)
+            _device_experts(params, p, self.device, self.dist)
         # bf16 bytes of one expert (w_gate + w_up + w_down).
         self.expert_bytes = 3 * cfg.d_model * cfg.moe.d_ff_expert * 2
         self.n_moe_layers = len(self.moe_positions) * cfg.n_superblocks()

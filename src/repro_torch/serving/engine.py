@@ -100,6 +100,17 @@ own ``SamplingParams`` (``serving.sampler``; greedy by default).
   0 KV bytes.
 * **Dense stacks** (no MoE position): every FFN is the dense SwiGLU, the
   router counts are empty, and the backends hold no expert bytes.
+* **Expert parallelism** (``dist=``, a ``launch.dist.DistContext``; one
+  engine per rank, every rank serving the same requests in the same
+  order): the backend materializes this rank's experts only, and every
+  forward (prefill, decode, the speculative decoder's) runs inside
+  ``dist_ctx``, where the MoE layers take their sharded regimes. The
+  collectives (gloo, host-staged) cannot be captured in a CUDA graph, so
+  under a context the decode steps run op by op on the card too
+  (``engine.graphed`` is False; the launcher's line says so). Every clock reading a decision
+  is taken on is rank 0's: ``_now()`` steps on one ``agree``d reading per
+  step (and per submit), as ``replay`` steps on its virtual clock, and
+  the measured latencies are rank 0's.
 * **Sliding windows**: KV capacity is ``min(max_len, window)`` (a ring,
   slot = position % C) on either layout; chunked prefill takes a windowed
   prompt only while it fits the window, and only prompts that fit it are
@@ -119,6 +130,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.budget import UNBOUNDED, BudgetTracker
+from repro_torch.launch.dist import agree, dist_ctx
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import (attn_capacity, attn_logical_capacity,
                                       attn_positions,
@@ -262,11 +274,13 @@ class RequestHandle:
 class InferenceEngine:
     """Continuous-batching serving loop over a residency backend, on
     ``device`` (``cuda`` unless ``device="cpu"`` is passed), observed by
-    ``obs`` (an ``obs.Observability``; None: no recorder, no registry)."""
+    ``obs`` (an ``obs.Observability``; None: no recorder, no registry),
+    one rank of an expert-parallel group under ``dist`` (a
+    ``launch.dist.DistContext``; None: one device)."""
 
     def __init__(self, cfg: ArchConfig, params: Dict, backend,
                  ecfg: Optional[EngineConfig] = None, device=None,
-                 obs=None):
+                 obs=None, dist=None):
         if cfg.is_encoder_decoder:
             raise NotImplementedError(
                 "InferenceEngine serves decoder-only stacks; encoder-decoder "
@@ -279,6 +293,10 @@ class InferenceEngine:
         self.ecfg = ecfg if ecfg is not None else EngineConfig()
         e = self.ecfg
         self._clock: Optional[float] = None     # replay's virtual clock
+        self.dist = dist
+        # Under a context: rank 0's clock, agreed once per step.
+        self._step_clock = agree(time.perf_counter(), dist) \
+            if dist is not None else 0.0
         if backend.device != self.device:
             raise ValueError(f"backend on {backend.device}, engine on "
                              f"{self.device}")
@@ -331,14 +349,16 @@ class InferenceEngine:
             # stacks run the pool without the trie.
             if e.prefix_sharing and not self._mamba_pos:
                 self.trie = PrefixTrie(self.pool)
-            self.banks = backend.materialize_banks(
-                cfg, params, self.pool.capacity_bytes, budget=self.budget)
+            with dist_ctx(dist):
+                self.banks = backend.materialize_banks(
+                    cfg, params, self.pool.capacity_bytes, budget=self.budget)
             self.caches = init_paged_caches(cfg, n_blocks, self._bt,
                                             self.device, batch=n)
         else:
-            self.banks = backend.materialize_banks(
-                cfg, params, pos_bytes * n * self._C_attn,
-                budget=self.budget)
+            with dist_ctx(dist):
+                self.banks = backend.materialize_banks(
+                    cfg, params, pos_bytes * n * self._C_attn,
+                    budget=self.budget)
             self.caches = init_caches(cfg, n, e.max_len, self.device)
         if self.tracer is not None:
             # What the cost model (``obs.costmodel``) replays against:
@@ -431,12 +451,15 @@ class InferenceEngine:
         # the engine's device memory until the collector ran.
         engine = weakref.ref(self)
         state = [t for c in self.caches.values() for t in c]
+        # A step under a distribution context calls collectives that a
+        # CUDA graph cannot capture: it runs op by op, on the card too.
+        self.graphed = dist is None
         self.decode_graph = DecodeGraph(
             lambda: engine()._decode_fn(lo=False), inputs, self.device, pool,
-            state=state)
+            state=state, graphed=self.graphed)
         self.lo_graph = DecodeGraph(
             lambda: engine()._decode_fn(lo=True), inputs, self.device, pool,
-            state=state)
+            state=state, graphed=self.graphed)
         self._count_shapes: Dict[str, tuple] = {}
         self._out_host: Optional[torch.Tensor] = None
         self.capture_s = 0.0           # set-up: warm-up and capture
@@ -449,8 +472,28 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def _now(self) -> float:
         """The engine's accounting clock: wall time, or the virtual clock
-        ``replay(realtime=False)`` installs."""
-        return time.perf_counter() if self._clock is None else self._clock
+        ``replay(realtime=False)`` installs; under a distribution context
+        rank 0's wall time as agreed at the start of the step (or the
+        submit)."""
+        if self._clock is not None:
+            return self._clock
+        if self.dist is not None:
+            return self._step_clock
+        return time.perf_counter()
+
+    def _agree_clock(self) -> None:
+        """Under a distribution context, take rank 0's wall time as the
+        clock of what follows (a collective: every rank calls it at the
+        same point)."""
+        if self.dist is not None:
+            self._step_clock = agree(time.perf_counter(), self.dist)
+
+    def _elapsed(self, t0: float) -> float:
+        """perf_counter seconds since ``t0``; rank 0's under a distribution
+        context, so that every rank's latencies, stats and load snapshot
+        (the shed policy's input) are the same."""
+        dt = time.perf_counter() - t0
+        return dt if self.dist is None else agree(dt, self.dist)
 
     def submit(self, request: Request) -> RequestHandle:
         """Queue a request; returns its handle at once. The QoS class is
@@ -478,6 +521,7 @@ class InferenceEngine:
                                  f"{self.budget.cap}")
         h = RequestHandle(next(self._ids), request)
         h.qos = h.exec_qos = qos
+        self._agree_clock()
         h.submit_s = h.enqueue_s = self._now()
         h.stall_at_submit = self._stall_clock
         if self.tracer is not None:
@@ -776,7 +820,7 @@ class InferenceEngine:
             for dst, src in zip(self.caches[pos], c):
                 dst[:, slots] = src[:, :G]
         amax, counts_np = self._fetch(torch.argmax(logits, -1), counts)
-        dt = time.perf_counter() - t0
+        dt = self._elapsed(t0)
         self.prefill_shapes.add((R, bucket))
         self._note_degraded(counts_np, [(r, h) for r, (h, _, _)
                                         in enumerate(group)])
@@ -806,7 +850,10 @@ class InferenceEngine:
 
     def _observe_prefill(self, counts_np, dt: float, G: int) -> float:
         """A prefill's counts (its first ``G`` rows real) to the backend;
-        its modeled stall onto the stall clock. Returns the stall."""
+        its modeled stall onto the stall clock. Returns the stall. Under a
+        distribution context the clock is agreed again here, so that the
+        first tokens' time stamps count the prefill."""
+        self._agree_clock()
         self.last_row_counts = counts_np
         row_valid = np.zeros(self._prefill_rows, bool)
         row_valid[:G] = True
@@ -1084,7 +1131,7 @@ class InferenceEngine:
             has_prefix=True, moe_dispatch=self.moe_dispatch,
             row_capacity=self._row_cap_prefill(bucket))
         amax, counts_np = self._fetch(torch.argmax(logits, -1), counts)
-        dt = time.perf_counter() - t0
+        dt = self._elapsed(t0)
         self.prefill_shapes.add((R, bucket))
         stall = self._observe_prefill(counts_np, dt, len(group))
         for _, h in group:
@@ -1119,7 +1166,16 @@ class InferenceEngine:
         advance every running request, one decode per tier group (with
         ``spec_k`` the premium and standard rows by a speculative round,
         else by one token on the served banks; then the batch tier on the
-        all-lo view). Returns the handles that finished."""
+        all-lo view). Returns the handles that finished. Under a
+        distribution context the whole step runs inside it, on one agreed
+        clock reading."""
+        if self.dist is None:
+            return self._step()
+        self._agree_clock()
+        with dist_ctx(self.dist):
+            return self._step()
+
+    def _step(self) -> List[RequestHandle]:
         finished: List[RequestHandle] = []
         if self._watchdog is not None:
             # Before this step makes progress: a request wedged in earlier
@@ -1265,7 +1321,7 @@ class InferenceEngine:
         self._out_host.copy_(packed)
         amax, counts_np = _unpack(self._out_host.numpy().copy(),
                                   self.ecfg.max_slots, self._count_shapes)
-        dt = time.perf_counter() - t0
+        dt = self._elapsed(t0)
         samp = self._gather_sampling_rows(
             logits, [i for i, h in active if not h.sampler.greedy])
         self.last_logits = logits
@@ -1414,6 +1470,8 @@ class InferenceEngine:
                     any(h is not None for h in self.slots):
                 if realtime:
                     now = time.perf_counter() - t0
+                    if self.dist is not None:
+                        now = agree(now, self.dist)
                 while i < len(requests) and requests[i].arrival_s <= now:
                     handles.append(self.submit(requests[i]))
                     i += 1

@@ -15,7 +15,9 @@ in its engine), which runs the whole step as one compiled executable.
   CPU, and on the card inside ``eager()``, the same function runs op by op.
   The engine keeps two over one set of inputs and one memory pool: the
   step on the served banks and the batch tier's step on the all-lo view
-  (``serving.lobanks``).
+  (``serving.lobanks``). With ``graphed=False`` (an engine under a
+  distribution context, whose step calls collectives no CUDA graph can
+  capture) it always runs op by op.
 
 A replay calls no kernel wrapper, so the launch counts each wrapper added
 during capture (``kernels.ops.LAUNCHES``) are added again on every replay;
@@ -100,15 +102,17 @@ class DecodeGraph:
 
     def __init__(self, fn: Callable[[], tuple], inputs: StaticInputs,
                  device: torch.device, pool=None,
-                 state: Sequence[torch.Tensor] = ()):
+                 state: Sequence[torch.Tensor] = (), graphed: bool = True):
         """``pool``: a ``torch.cuda.graph_pool_handle()`` shared with other
         graphs over the same inputs. Graphs that share a pool must run one
         after the other on one stream, and each one's outputs are read
         before another replays (a later capture may place its outputs in
         memory an earlier graph uses for its temporaries). ``state``: the
         tensors ``fn`` updates in place; a replay raises if one of them
-        has been reallocated since the capture."""
+        has been reallocated since the capture. ``graphed=False``: never
+        captured, ``fn`` runs op by op on the card too."""
         self.fn = fn
+        self.graphed = graphed
         self.inputs = inputs
         self.device = device
         self.pool = pool
@@ -123,8 +127,8 @@ class DecodeGraph:
 
     @property
     def needs_capture(self) -> bool:
-        return self.device.type == "cuda" and not _EAGER and \
-            self.graph is None
+        return self.graphed and self.device.type == "cuda" and \
+            not _EAGER and self.graph is None
 
     def capture(self) -> None:
         """Warm up and capture ``fn`` over the inputs as they are now. The
@@ -173,7 +177,7 @@ class DecodeGraph:
         """One step: push the inputs, then replay (or run ``fn`` op by op
         on the CPU and inside ``eager()``)."""
         self.inputs.push()
-        if self.device.type != "cuda" or _EAGER:
+        if self.device.type != "cuda" or _EAGER or not self.graphed:
             return self.fn()
         if self.graph is None:
             raise RuntimeError("the decode step has not been captured yet "

@@ -144,7 +144,7 @@ class HostExpertStore:
         self.tracer = None      # obs.FlightRecorder, bound by the backend
         self.quarantined = np.zeros((self.L, self.E), bool)
 
-    # -- host_hi mapping interface (TransitionManager) --------------------
+    # -- host_hi mapping interface (TransitionManager, EPCoordinator) -----
     def items(self):
         return self.hi.items()
 
@@ -153,6 +153,14 @@ class HostExpertStore:
 
     def __setitem__(self, name: str, arr) -> None:
         self.hi[name] = arr
+
+    def swap_experts(self, layer: int, e: int, f: int) -> None:
+        """An expert-parallel relabel: the residency and presence masks
+        follow their expert (the hi rows swap through the mapping
+        interface)."""
+        for m in (self.hi_present, self.lo_valid, self.lo_resident,
+                  self.quarantined):
+            m[layer, [e, f]] = m[layer, [f, e]]
 
     # -- fault plumbing ---------------------------------------------------
     def _seed(self) -> int:

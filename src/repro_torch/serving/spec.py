@@ -187,9 +187,9 @@ class SpecDecoder:
         me = weakref.ref(self)
         self.graphs: Dict[int, Tuple[DecodeGraph, DecodeGraph]] = {
             k: (DecodeGraph(lambda k=k: me()._draft_fn(k), self.inputs, dev,
-                            engine._graph_pool),
+                            engine._graph_pool, graphed=engine.graphed),
                 DecodeGraph(lambda k=k: me()._verify_fn(k), self.inputs, dev,
-                            engine._graph_pool))
+                            engine._graph_pool, graphed=engine.graphed))
             for k in ladder}
 
     # ------------------------------------------------------------------
@@ -448,7 +448,7 @@ class SpecDecoder:
                 .to(logits.device)
             sub = logits[:, idx].float().cpu().numpy()
             samp_logits = {i: sub[:, j] for j, i in enumerate(samp_rows)}
-        dt = time.perf_counter() - t0
+        dt = eng._elapsed(t0)
 
         # ---- rejection sampling per row ---------------------------------
         # -1 for rows outside this round: the restore mask (lane j restored

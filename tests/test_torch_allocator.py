@@ -227,11 +227,14 @@ def test_global_tick_honours_a_frozen_cadence():
         ctl.cfg = dataclasses.replace(ctl.cfg, update_interval_s=1e9)
     assert be._global_tick() is False
     # The ladder's options are accepted (None is each one's default);
-    # expert parallelism is not ported.
+    # expert parallelism takes the per-layer rule, and refuses the global
+    # allocator in the reference's words.
     for option in ("sensitivity", "lo_resident_total", "stream", "fault"):
         make_backend("dynaexq", device="cpu", **{option: None})
-    with pytest.raises(NotImplementedError):
-        make_backend("dynaexq", device="cpu", ep_shards=2)
+    assert make_backend("dynaexq", device="cpu",
+                        ep_shards=2).global_alloc is False
+    with pytest.raises(ValueError, match="global_alloc requires ep_shards"):
+        make_backend("dynaexq", device="cpu", ep_shards=2, global_alloc=True)
 
 
 @pytest.mark.parametrize("extra_gb", [0.0005, 0.002, 1.0])

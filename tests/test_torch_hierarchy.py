@@ -128,8 +128,14 @@ def test_option_validation_matches_reference(kw):
 
 @pytest.mark.parametrize("kw", [dict(ep_shards=2), dict(rebalance=object())])
 def test_expert_parallel_options_are_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_backend("dynaexq", device="cpu", **kw)
+    """Ported since expert parallelism came to the port: each option builds
+    the backend the reference's builds (``ep_shards=2``: the per-layer rule
+    and a coordinator; ``rebalance`` alone, one shard: neither)."""
+    tb = make_backend("dynaexq", device="cpu", **kw)
+    jb = jmake_backend("dynaexq", **kw)
+    assert tb.global_alloc is jb.global_alloc
+    assert (tb.coordinator is None) is (jb.coordinator is None)
+    assert tb.ep_shards == jb.ep_shards
 
 
 def test_global_allocation_is_the_default(model):

@@ -48,7 +48,8 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.quant.sensitivity, repro_torch.obs, "
             "repro_torch.obs.costmodel, repro_torch.launch.roofline, "
             "repro_torch.launch.serve, repro_torch.training, "
-            "repro_torch.training.quality, repro_torch.launch.train; "
+            "repro_torch.training.quality, repro_torch.launch.train, "
+            "repro_torch.launch.dist, repro_torch.launch.mesh; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
