@@ -6659,7 +6659,7 @@ def _ep_serve(cfg, params, prompts, name, dev, ctx=None):
     return engine, {
         "tokens": [list(h.tokens) for h in handles],
         "logits": engine.last_logits.float().cpu(), "launches": launches,
-        "regimes": dict(moe_mod.REGIMES), "sent": dict(D.SENT_BYTES),
+        "regimes": dict(moe_mod.REGIMES), "sent": {k: dict(v) for k, v in D.SENT_BYTES.items()},
         "tpot_s": st["tpot_s"], "ttft_s": st["ttft_s"], "wall_s": wall,
         "steps": int(st["steps"]), "expert_bytes": engine.device_bytes(),
         "graphed": engine.graphed}
@@ -6702,7 +6702,7 @@ def _ep_bytes(engine, ctx, gen) -> dict:
     n, E = ctx.model_size, cfg.moe.num_experts
     S = moe_mod.ep_payload_rows(EP_SLOTS, cfg.moe.top_k, E // n,
                                 moe_mod.moe_capacity(EP_SLOTS, cfg.moe), n)
-    return {"sent": dict(D.SENT_BYTES), "S": S,
+    return {"sent": {k: dict(v) for k, v in D.SENT_BYTES.items()}, "S": S,
             "model_rows": 2 * (n - 1) * S * cfg.d_model * 2,
             "counts": (n - 1) * (E // n) * 8}
 
@@ -6839,6 +6839,261 @@ def _ep_padded(cfg, params, ctx=None) -> dict:
             "regimes": dict(moe_mod.REGIMES)}
 
 
+#: (e) the mesh's data axis: the 30B at the phase's depth on a 2 x 2
+#: (data x model) grid of the phase's ranks; EP_GRID_ROWS dense rows of
+#: EP_GRID_PROMPT tokens prefilled, then EP_GRID_STEPS decode steps fed
+#: seeded tokens (teacher-forced, so that every regime sees the same
+#: inputs), drop-free (capacity factor E/k). The bank holds EP_GRID_N_HI
+#: published hi experts per layer (slot s: expert s·E/EP_GRID_N_HI, on
+#: the model shard of its slot).
+EP_GRID_ROWS, EP_GRID_PROMPT, EP_GRID_STEPS = 8, 32, 8
+EP_GRID_N_HI = 4
+#: (e)'s regimes: name → (the MoE call's regime, the tokens split over
+#: data, the experts' FF dims sliced over data, tokens over data x model,
+#: the dense bf16 experts in place of the int4 bank (fp16 serving), the
+#: single process's run it is held to).
+EP_GRID_REGIMES = {
+    "a": ("padded_dp", True, False, False, False, "padded"),
+    "b": ("padded_ff", False, True, False, False, "padded"),
+    "c": ("all_to_all_dp", True, False, True, False, "ragged"),
+    "c fp16": ("all_to_all_dp", True, False, True, True, "ragged fp16")}
+#: The kernels each regime of (e) must launch on every rank: the grouped
+#: GEMM (row 4) in the padded regimes, the ragged FFN (rows 1-2) in the
+#: all-to-all, its all-hi mode (row 7) on the dense experts; the dense
+#: decode attention (row 5) in each.
+EP_GRID_KERNELS = {"a": ("grouped_lo_matmul", "flash_decode"),
+                   "b": ("grouped_lo_matmul", "flash_decode"),
+                   "c": ("ragged_gateup", "ragged_down", "flash_decode"),
+                   "c fp16": DENSE_FFN_KERNELS + ("flash_decode",)}
+#: (f): forward_train's loss of the 30B at the phase's depth on a 1 x 3
+#: grid of ranks 0-2 (32 heads % 3: sequence-parallel attention; 128
+#: experts % 3: every rank's whole bank), float32, EP_SP_B rows of
+#: EP_SP_S tokens (a multiple of 3), against one process; the reference's
+#: bar for its sharded forward, 1e-4 of the largest |logit|.
+EP_SP_B, EP_SP_S = 2, 48
+EP_SP_TOL = 1e-4
+
+
+def _grid_bank(cfg, params):
+    """(e)'s stacked int4 bank of MoE position 0 ({position: bank}), with
+    EP_GRID_N_HI hi experts published."""
+    from repro_torch.core.ver import build_bank
+    experts = params["blocks"]["0"]["moe"]["experts"]
+    E = cfg.moe.num_experts
+    bank = build_bank(experts, n_hi=EP_GRID_N_HI, lo_bits=4, group_size=64)
+    for s in range(EP_GRID_N_HI):
+        e = s * E // EP_GRID_N_HI
+        for n in bank.hi:
+            bank.hi[n][:, s] = experts[n][:, e]
+        bank.slot_owner[:, s] = e
+        bank.slot_map[:, e] = s
+    return {"0": bank}
+
+
+def _bank_bytes(banks) -> int:
+    """Device bytes of the int4 banks' leaves (codes, scales, hi pool), or
+    of a dense experts dict's {position: {name: (L, E, K, N)}}."""
+    return sum(t.numel() * t.element_size() for b in banks.values()
+               for t in (list(b.values()) if isinstance(b, dict) else
+                         [x for q in b.lo.values() for x in (q.packed,
+                                                             q.scales)]
+                         + list(b.hi.values())))
+
+
+def _with_experts(params, experts_of):
+    """``params`` with MoE position 0's dense experts replaced by
+    ``experts_of(experts)``."""
+    blk = params["blocks"]["0"]
+    moe = dict(blk["moe"], experts=experts_of(blk["moe"]["experts"]))
+    return dict(params, blocks=dict(params["blocks"], **{"0": dict(
+        blk, moe=moe)}))
+
+
+def _grid_run(cfg, params, banks, ctx, dispatch) -> dict:
+    """(e) one run on the batch entry points under ``ctx`` (None: one
+    process) with ``banks`` (None: the dense experts in ``params``):
+    prefill, then the decode steps, launches and regimes counted from
+    zero over it (the main path of this run). Returns the logits of every
+    step (prefill first), their argmax tokens, the prefill's counts,
+    launches, regimes and seconds."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dist import dist_ctx
+    from repro_torch.models.model import decode_step, init_caches, prefill
+    dev = params["embed"].device
+    B, P = EP_GRID_ROWS, EP_GRID_PROMPT
+    gen = torch.Generator().manual_seed(EP_SEED + 3)
+    tok = torch.randint(1, cfg.vocab_size, (B, P + EP_GRID_STEPS),
+                        generator=gen).to(dev)
+    cf = cfg.moe.num_experts / cfg.moe.top_k
+    caches = init_caches(cfg, B, P + EP_GRID_STEPS, device=dev)
+    ops.reset_launches()                 # the main path starts here
+    moe_mod.reset_regimes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), dist_ctx(ctx):
+        lg, counts = prefill(params, cfg, tok[:, :P], caches,
+                             torch.full((B,), P, device=dev), bank=banks,
+                             capacity_factor=cf, moe_dispatch=dispatch)
+        steps = [lg]
+        for i in range(EP_GRID_STEPS):
+            lg, _ = decode_step(params, cfg, tok[:, P + i],
+                                torch.full((B,), P + i, device=dev), caches,
+                                bank=banks, capacity_factor=cf,
+                                moe_dispatch=dispatch)
+            steps.append(lg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)        # ... and ends here
+    logits = torch.stack(steps).float().cpu()
+    assert bool(torch.isfinite(logits).all())
+    return {"logits": logits, "tokens": logits.argmax(-1),
+            "counts": counts["0"].cpu(), "launches": launches,
+            "regimes": dict(moe_mod.REGIMES), "s": wall}
+
+
+def _grid_sent_expected(cfg, regime: str, T: int, n_slot: int) -> dict:
+    """The bytes one rank of the 2 x 2 grid sends in one MoE layer call of
+    ``regime`` on T tokens (derived in PERF.md): by collective and
+    axis, as ``launch.dist.SENT_BYTES`` prices them (an all-reduce a
+    ring's 2(n-1)/n of its buffer, an all-gather (n-1) copies of this
+    rank's part, an all-to-all the (n-1)/n of its buffer bound elsewhere;
+    n = 2 on either axis, 4 on the token axes)."""
+    import repro_torch.models.moe as moe_mod
+    d, E, k, F = cfg.d_model, cfg.moe.num_experts, cfg.moe.top_k, \
+        cfg.moe.d_ff_expert
+    mn = dp = 2
+    e_l = E // mn
+    zero = {"model": 0, "data": 0, "tokens": 0}
+    out = {c: dict(zero) for c in ("all_to_all", "exchange", "all_gather",
+                                   "all_reduce", "broadcast")}
+    if regime == "c":
+        n_tok = dp * mn
+        S = moe_mod.ep_payload_rows(T, k, e_l, moe_mod.moe_capacity(T, cfg.moe),
+                                    n_tok)
+        out["all_to_all"]["model"] = 2 * (mn - 1) * S * d * 2 + \
+            (mn - 1) * e_l * 8
+        out["all_gather"]["tokens"] = T // n_tok * d * 2 * (n_tok - 1)
+        out["all_reduce"]["tokens"] = (E + 3) * 8 * 2 * (n_tok - 1) // n_tok
+        return out
+    ring = 2 * (mn - 1) // mn            # = 1 at n = 2, on either axis
+    out["all_gather"]["model"] = e_l * 4 * (mn - 1)          # counts
+    out["all_reduce"]["model"] = 2 * 8 * ring                # dropped, pad
+    if regime == "a":
+        t = T // dp
+        out["all_reduce"]["model"] += t * d * 4 * ring       # y, float32
+        out["all_gather"]["data"] = t * d * 2 * (dp - 1)     # y rows
+        out["all_reduce"]["data"] = (E * 8 + 3 * 8) * ring   # counts, means
+        return out
+    C = moe_mod.moe_capacity(T, cfg.moe)
+    out["all_reduce"]["model"] += T * (d // dp) * 4 * ring   # y's columns
+    out["all_gather"]["data"] = ((e_l + n_slot) * C * (F // dp) * 2 +
+                                 T * (d // dp) * 2) * (dp - 1)   # h, y
+    return out
+
+
+def _grid_rank(cfg, params, ctx) -> dict:
+    """(e) on this rank of the 2 x 2 grid ``ctx``: each regime's run on
+    this rank's slice of the bank, the bytes it holds, one decode-shaped
+    layer call's bytes sent by collective and axis; then a slice the
+    grouped GEMM's kernel cannot take (an 8-way FF slice of gate/up: 96
+    columns) raises on the card rather than running a plain version."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dist as D
+    from repro_torch.launch.dist import dist_ctx
+    from repro_torch.launch.sharding import bank_shard
+    full = _grid_bank(cfg, params)
+    out = {"coords": (ctx.data_rank, ctx.rank),
+           "full_bytes": _bank_bytes(full)}
+    gen = torch.Generator(device=ctx.device).manual_seed(EP_SEED + 5)
+    x = torch.randn((EP_SLOTS, cfg.d_model), generator=gen,
+                    device=ctx.device).to(torch.bfloat16)
+    router = params["blocks"]["0"]["moe"]["router"][0]
+    for name, (_, dp_split, ff, ep, dense, _) in EP_GRID_REGIMES.items():
+        c = dataclasses.replace(ctx, tokens_dp_sharded=dp_split,
+                                tokens_ep_sharded=ep)
+        if dense:
+            p = _with_experts(params, lambda e: bank_shard(e, c))
+            banks, layer = None, {k: v[0] for k, v in
+                                  p["blocks"]["0"]["moe"]["experts"].items()}
+            held = {"0": p["blocks"]["0"]["moe"]["experts"]}
+        else:
+            p = params
+            banks = {k: bank_shard(b, c, ff=ff) for k, b in full.items()}
+            layer, held = banks["0"].layer(0), banks
+        r = _grid_run(cfg, p, banks, c, "ragged" if ep else "padded")
+        r["bytes"] = _bank_bytes(held)
+        D.reset_sent()
+        with torch.no_grad(), dist_ctx(c):
+            moe_mod.moe_apply({"router": router}, layer, x, cfg.moe,
+                              moe_mod.moe_capacity(EP_SLOTS, cfg.moe))
+        r["sent"] = {k: dict(v) for k, v in D.SENT_BYTES.items()}
+        r["n_slot"] = 0 if dense else banks["0"].hi["w_gate"].shape[1]
+        out[name] = r
+        del banks, held, p
+    q = full["0"].lo["w_gate"]
+    try:
+        ops.grouped_lo_matmul(
+            torch.zeros((2, 8, cfg.d_model), dtype=torch.bfloat16,
+                        device=ctx.device),
+            q.packed[0, :2, :, :96].contiguous(),
+            q.scales[0, :2, :, :96].contiguous(), q.bits, q.group_size)
+        out["narrow_slice"] = None
+    except ValueError as e:
+        out["narrow_slice"] = str(e)
+    return out
+
+
+def _grid_sp(cfg, params, ctx) -> dict:
+    """(f) forward_train and its loss in float32 under ``ctx`` (None: one
+    process): logits, loss, regimes and the sequence-parallel attention
+    calls."""
+    import repro_torch.models.layers as layers_mod
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.launch.dist import dist_ctx
+    from repro_torch.models.model import forward_train
+    from repro_torch.training.train import TrainConfig, loss_fn
+
+    def f32(t):
+        if isinstance(t, dict):
+            return {k: f32(v) for k, v in t.items()}
+        return t.float() if t.is_floating_point() else t
+    p32 = f32(params)
+    dev = params["embed"].device
+    gen = torch.Generator().manual_seed(EP_SEED + 4)
+    tok = torch.randint(1, cfg.vocab_size, (EP_SP_B, EP_SP_S + 1),
+                        generator=gen).to(dev)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    cf = cfg.moe.num_experts / cfg.moe.top_k
+    moe_mod.reset_regimes()
+    layers_mod.SEQ_PARALLEL["attention_full"] = 0
+    with torch.no_grad(), dist_ctx(ctx):
+        logits, _ = forward_train(p32, cfg, batch, capacity_factor=cf,
+                                  remat=False)
+        loss, _ = loss_fn(p32, cfg, batch, TrainConfig(capacity_factor=cf,
+                                                      remat=False))
+    torch.cuda.synchronize()
+    return {"logits": logits.cpu(), "loss": float(loss),
+            "regimes": dict(moe_mod.REGIMES),
+            "seq_parallel": layers_mod.SEQ_PARALLEL["attention_full"]}
+
+
+def _grid_single(cfg, params) -> dict:
+    """The one-process runs (e) and (f) are held to: the full bank on the
+    padded and the ragged dispatch, and (f)'s float32 forward."""
+    full = _grid_bank(cfg, params)
+    out = {"bytes": _bank_bytes(full),
+           "padded": _grid_run(cfg, params, full, None, "padded"),
+           "ragged": _grid_run(cfg, params, full, None, "ragged"),
+           "ragged fp16": _grid_run(cfg, params, None, None, "ragged"),
+           "bytes fp16": _bank_bytes(
+               {"0": params["blocks"]["0"]["moe"]["experts"]})}
+    del full
+    out["f"] = _grid_sp(cfg, params, None)
+    return out
+
+
 def _ep_rank(ctx) -> dict:
     """One rank of the phase's world: (a) and (b) at N = 4 over every rank,
     then (a) and (c) at N = 2 over ranks 0 and 1 (a group of the world);
@@ -6878,9 +7133,98 @@ def _ep_rank(ctx) -> dict:
             torch.cuda.empty_cache()
         if n == 2:
             out["c"] = _ep_padded(cfg, params, sub)
+    # (e) and (f): every rank makes the grids' groups, in this order.
+    from repro_torch.launch.mesh import grid_context
+    grid = grid_context(2, 2, device=dev)
+    row3 = grid_context(1, 3, ranks=[0, 1, 2], device=dev)
+    t1 = time.perf_counter()
+    out["e"] = _grid_rank(cfg, params, grid)
+    out["e_s"] = time.perf_counter() - t1
+    if row3 is not None:
+        t1 = time.perf_counter()
+        out["f"] = _grid_sp(cfg, params, row3)
+        out["f_s"] = time.perf_counter() - t1
     tdist.barrier()
     out["left"] = time.time()
     return out
+
+
+def _grid_check(ranks, single, cfg, fails, card) -> list:
+    """Hold (e) and (f) to the one process and log them; returns (e)'s
+    runs' launches (the main path's of each regime)."""
+    runs = []
+    for name, (regime, *_, dense, against) in EP_GRID_REGIMES.items():
+        want = single[against]
+        got = [r["e"][name] for r in ranks]
+        runs += [{"launches": g["launches"]} for g in got]
+        diff = max(float((g["logits"] - want["logits"]).abs().max())
+                   for g in got)
+        scale = float(want["logits"].abs().max())
+        same = all(torch.equal(g["tokens"], want["tokens"]) for g in got)
+        counts = all(torch.equal(g["counts"], want["counts"]) for g in got)
+        calls = (1 + EP_GRID_STEPS) * EP_LAYERS
+        reg_ok = all(g["regimes"] == {"all_to_all": 0, "padded": 0,
+                                      regime: calls} for g in got)
+        k_ok = all(g["launches"].get(k, 0) > 0 for g in got
+                   for k in EP_GRID_KERNELS[name])
+        quarter = 4 if name == "b" else 2
+        whole = single["bytes fp16" if dense else "bytes"]
+        bytes_ok = all(quarter * g["bytes"] == whole for g in got)
+        sent_ok = all(g["sent"] == _grid_sent_expected(
+            cfg, name[0], EP_SLOTS, g["n_slot"]) for g in got)
+        exact = regime == "all_to_all_dp"
+        ok = reg_ok and k_ok and bytes_ok and sent_ok and counts and (
+            diff == 0.0 and same if exact
+            else diff <= EP_PADDED_TOL * scale)
+        log("ep", f"(e) 2x2 {name}, {regime}: prefill {EP_GRID_ROWS}x"
+                  f"{EP_GRID_PROMPT} + {EP_GRID_STEPS} decode steps against "
+                  f"one process's {against} run: max |logit diff| "
+                  f"{diff:.4g} (largest |logit| {scale:.4g}; bar "
+                  + ("0" if exact else f"{EP_PADDED_TOL * scale:.4g}")
+                  + f"), tokens {'=' if same else '!='}, counts "
+                  f"{'=' if counts else '!='}; regimes rank 0 "
+                  f"{got[0]['regimes']}; launches per rank "
+                  + "; ".join(", ".join(f"{k} {g['launches'].get(k, 0)}"
+                                        for k in EP_GRID_KERNELS[name])
+                              for g in got)
+                  + f"; expert bytes per rank {[g['bytes'] for g in got]} "
+                    f"of one process's {whole} (1/{quarter}: "
+                    f"{bytes_ok}); run {got[0]['s']:.2f} s, one process "
+                    f"{want['s']:.2f} s | {card}")
+        log("ep", f"(e) {name}: one {EP_SLOTS}-token layer call sent, "
+                  f"rank 0: " + ", ".join(
+                      f"{c} {v}" for c, v in got[0]["sent"].items()
+                      if any(v.values()))
+                  + f" bytes; every rank's = the formulas {sent_ok} | {card}")
+        if not ok:
+            fails.append(f"(e) {name}")
+    narrow = [r["e"]["narrow_slice"] for r in ranks]
+    log("ep", f"(e) an 8-way FF slice (96 columns) on the grouped GEMM: "
+              f"{narrow[0]!r} on every rank "
+              f"{all(n and 'multiple of 64' in n for n in narrow)}")
+    if not all(n and "multiple of 64" in n for n in narrow):
+        fails.append("(e) narrow slice")
+    want = single["f"]
+    scale = float(want["logits"].abs().max())
+    for r in ranks[:3]:
+        f = r["f"]
+        diff = float((f["logits"] - want["logits"]).abs().max())
+        ok = (f["seq_parallel"] == 2 * EP_LAYERS and
+              f["regimes"].get("replicated", 0) == 2 * EP_LAYERS and
+              diff <= EP_SP_TOL * scale and
+              abs(f["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]))
+        log("ep", f"(f) 1x3 rank {r['rank']}: forward_train float32 "
+                  f"{EP_SP_B}x{EP_SP_S} with sequence-parallel attention "
+                  f"({f['seq_parallel']} calls), regimes {f['regimes']}; "
+                  f"loss {f['loss']:.6f} vs one process {want['loss']:.6f},"
+                  f" max |logit diff| {diff:.3g} (bar "
+                  f"{EP_SP_TOL * scale:.3g}); {r['f_s']:.2f} s | {card}")
+        if not ok:
+            fails.append(f"(f) rank {r['rank']}")
+    log("ep", f"(e) took {max(r['e_s'] for r in ranks):.1f} s, (f) "
+              f"{max(r['f_s'] for r in ranks[:3]):.1f} s on the ranks | "
+              f"{card}")
+    return runs
 
 
 def phase_ep(card: str) -> None:
@@ -6913,6 +7257,7 @@ def phase_ep(card: str) -> None:
         engine, single[name] = _ep_serve(cfg, params, prompts, name, dev)
         del engine
     padded = _ep_padded(cfg, params)
+    grid_single = _grid_single(cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -6957,7 +7302,9 @@ def phase_ep(card: str) -> None:
             if name == "dynaexq":
                 for i, g in enumerate(got):
                     b = g["bytes"]
-                    a2a = b["sent"]["all_to_all"]
+                    # A model-only group: every collective on the model
+                    # axis, or on the token axes, which are the same ranks.
+                    a2a = sum(b["sent"]["all_to_all"].values())
                     log("ep", f"(d) N={n} rank {i}: one decode "
                               f"layer ({EP_SLOTS} tokens, S={b['S']}) sent "
                               f"{b['sent']} bytes; all_to_all {a2a} = the "
@@ -7003,6 +7350,7 @@ def phase_ep(card: str) -> None:
               f"(tolerance {tol:.4g}) | {card}")
     if not c_ok:
         fails.append("(c)")
+    runs += _grid_check(ranks, grid_single, cfg, fails, card)
     for k in RESULTS:
         RESULTS[k]["launches"] = RESULTS[k].get("launches", 0) + sum(
             r["launches"][k] for r in runs)

@@ -4,13 +4,15 @@ single-device otherwise. The counterpart of the reference's
 ``launch/dist.py``.
 
 The reference runs one controller over a device mesh (``shard_map``); the
-port runs one process per shard of the model axis (process-per-rank SPMD,
-the PyTorch idiom): every rank holds the dense weights, the KV pool, the
-scheduler and the host control plane, runs the same requests in the same
-order, and holds only its own E/N experts and n_hi/N hi slots on the
-device. ``DistContext`` carries the process group and this rank's place in
-it; ``dist_ctx`` makes it ambient for ``models.moe.moe_apply``, which reads
-it with ``get_dist()`` as the reference's does at trace time.
+port runs one process per rank of a (data × model) grid (process-per-rank
+SPMD, the PyTorch idiom): every rank holds the dense weights, the KV pool,
+the scheduler and the host control plane, runs the same calls in the same
+order, and holds only its own slice of the experts on the device (E/N of
+them and n_hi/N hi slots; in the FF-sliced regime also 1/dp of their FF
+columns). ``DistContext`` carries the process groups of both axes and
+this rank's place on them; ``dist_ctx`` makes it ambient for
+``models.moe.moe_apply`` and ``models.layers.attention_full``, which read
+it with ``get_dist()`` as the reference's do at trace time.
 
 The collectives here run over gloo and stage every tensor through host
 memory as bytes (``_bytes``): NCCL will not put two ranks on one device,
@@ -28,51 +30,102 @@ from typing import List, Optional, Sequence
 import torch
 import torch.distributed as tdist
 
+from repro_torch import resolve_device
+
 _STATE = threading.local()
 
-#: Bytes this rank handed to other ranks, by collective: a rank's own block
-#: is not counted, an all-gather sends this rank's part to every other
-#: rank, an all-reduce is priced as a ring's 2·(N−1)/N of the buffer and a
-#: broadcast as N−1 copies from rank 0 (what each must deliver, whatever
-#: algorithm gloo picks).
-SENT_BYTES = {"all_to_all": 0, "exchange": 0, "all_gather": 0,
-              "all_reduce": 0, "broadcast": 0}
+#: The axes a collective runs over: "model" (the ranks that share this
+#: rank's data index: its model group), "data" (the ranks that share its
+#: model index: its data group) and "tokens" (every rank of the grid, data
+#: index major: the axes the tokens split over under expert parallelism).
+AXES = ("model", "data", "tokens")
+
+#: Bytes this rank handed to other ranks, by collective and by the axis it
+#: ran over (``SENT_BYTES[collective][axis]``): a rank's own block is not
+#: counted, an all-gather sends this rank's part to every other rank of
+#: the axis, an all-reduce is priced as a ring's 2·(N−1)/N of the buffer
+#: and a broadcast as N−1 copies from the axis's first rank (what each
+#: must deliver, whatever algorithm gloo picks).
+SENT_BYTES = {c: {a: 0 for a in AXES} for c in
+              ("all_to_all", "exchange", "all_gather", "all_reduce",
+               "broadcast")}
 
 
 def reset_sent() -> None:
-    for k in SENT_BYTES:
-        SENT_BYTES[k] = 0
+    for per_axis in SENT_BYTES.values():
+        for a in per_axis:
+            per_axis[a] = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class DistContext:
-    """One rank's view of an expert-parallel group: ``group`` (None: the
-    default group), this rank's index ``rank`` in it, ``model_size``
-    ranks, and the ``device`` its tensors live on."""
+    """One rank's view of a (data × model) process grid (the reference's
+    mesh): ``group`` is its model group (None: the default group), ``rank``
+    its model index in it, ``model_size`` ranks; ``data_group``,
+    ``data_rank`` and ``data_size`` the same along the data axis (size 1:
+    a model-only context, as ``ep_context`` builds); ``token_group``
+    every rank of the grid (None: the default group; with ``data_size``
+    1 the model group serves); ``device`` where its tensors live (None:
+    the card, through ``repro_torch.resolve_device``, which raises without
+    CUDA)."""
     group: Optional[object]
     rank: int
     model_size: int
-    device: torch.device = torch.device("cpu")
+    device: Optional[torch.device] = None
     # Expert-parallel serving: every rank owns T/n_token_shards tokens plus
     # E/model_size experts, and the MoE layer runs the ragged all-to-all
-    # pipeline (``models.moe._moe_local_ep``). False: tokens replicated,
-    # the padded regime.
+    # pipeline (``models.moe._moe_local_ep``). False: the padded regimes.
     tokens_ep_sharded: bool = True
+    data_group: Optional[object] = None
+    data_rank: int = 0
+    data_size: int = 1
+    token_group: Optional[object] = None
+    # Tokens split over the data axis (False: replicated over it, as the
+    # reference's batch-1 long-context decode; the MoE layer then slices
+    # the experts' FF dims over data when they divide).
+    tokens_dp_sharded: bool = True
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    @property
+    def dp_size(self) -> int:
+        return self.data_size
 
     @property
     def n_token_shards(self) -> int:
-        """Ranks the token dim splits over (EP: every rank; else none)."""
-        return self.model_size if self.tokens_ep_sharded else 1
+        """Shards the token dim splits over (EP: data × model; else data),
+        the reference's ``DistContext.n_token_shards``."""
+        return self.dp_size * (self.model_size if self.tokens_ep_sharded
+                               else 1)
+
+    @property
+    def token_rank(self) -> int:
+        """This rank's index on the token axes (data index major)."""
+        return self.data_rank * self.model_size + self.rank
+
+    def axis(self, name: str):
+        """(process group, this rank's index in it, its size) of axis
+        ``name`` (one of ``AXES``)."""
+        if name == "model":
+            return self.group, self.rank, self.model_size
+        if name == "data":
+            return self.data_group, self.data_rank, self.data_size
+        if name == "tokens":
+            if self.data_size == 1:
+                return self.group, self.rank, self.model_size
+            return self.token_group, self.token_rank, \
+                self.data_size * self.model_size
+        raise ValueError(f"axis {name!r}; one of {AXES}")
 
 
 def ep_context(group, rank: int, model_size: int,
                device=None) -> DistContext:
-    """Expert-parallel serving context: every rank owns a token slice and
-    E/``model_size`` experts."""
+    """Expert-parallel serving context over a model-only group: every rank
+    owns a token slice and E/``model_size`` experts. ``device`` None: the
+    card."""
     return DistContext(group=group, rank=int(rank),
-                       model_size=int(model_size),
-                       device=torch.device("cpu" if device is None
-                                           else device),
+                       model_size=int(model_size), device=device,
                        tokens_ep_sharded=True)
 
 
@@ -90,19 +143,26 @@ def dist_ctx(ctx: Optional[DistContext]):
         _STATE.ctx = prev
 
 
-def shard_range(n: int, ctx: DistContext) -> slice:
-    """This rank's block of ``n`` items split evenly over the group (the
+def shard_range(n: int, ctx: DistContext, axis: str = "model") -> slice:
+    """This rank's block of ``n`` items split evenly over ``axis`` (the
     experts ``[j·E/N, (j+1)·E/N)``, the hi slots ``[j·n/N, (j+1)·n/N)``,
     the tokens ``[j·T/N, (j+1)·T/N)``)."""
-    if n % ctx.model_size:
-        raise ValueError(f"{n} not divisible by {ctx.model_size} shards")
-    per = n // ctx.model_size
-    return slice(ctx.rank * per, (ctx.rank + 1) * per)
+    _, r, size = ctx.axis(axis)
+    if n % size:
+        raise ValueError(f"{n} not divisible by {size} shards")
+    per = n // size
+    return slice(r * per, (r + 1) * per)
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     """``t`` on the host as a flat uint8 view of its bytes (a copy when it
-    is on the card): what gloo moves, whatever the dtype."""
+    is on the card): what gloo moves, whatever the dtype. The collectives
+    have no backward: a tensor autograd would differentiate through one
+    raises."""
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("the port's collectives have no backward: run "
+                           "a forward under a distribution context with "
+                           "torch.no_grad()")
     return t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
 
 
@@ -110,90 +170,101 @@ def _from_bytes(b: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
     return b.view(like.dtype).reshape(shape).to(like.device)
 
 
+def _global_rank(group, rank: int) -> int:
+    if group is None:
+        return rank
+    return tdist.get_global_rank(group, rank)
+
+
 def agree(value: float, ctx: Optional[DistContext] = None) -> float:
-    """Rank 0's ``value`` on every rank (a float64 broadcast): the one
-    clock reading, or any host-side number, that a decision is taken on.
-    Without a context, ``value`` itself."""
+    """The grid's first rank's ``value`` on every rank (a float64
+    broadcast over the token axes): the one clock reading, or any
+    host-side number, that a decision is taken on. Without a context,
+    ``value`` itself."""
     ctx = ctx if ctx is not None else get_dist()
     if ctx is None:
         return value
+    group, r, n = ctx.axis("tokens")
     t = torch.tensor([float(value)], dtype=torch.float64)
-    if ctx.rank == 0:
-        SENT_BYTES["broadcast"] += 8 * (ctx.model_size - 1)
-    tdist.broadcast(t, src=_global_rank(ctx, 0), group=ctx.group)
+    if r == 0:
+        SENT_BYTES["broadcast"]["tokens"] += 8 * (n - 1)
+    tdist.broadcast(t, src=_global_rank(group, 0), group=group)
     return float(t[0])
 
 
-def _global_rank(ctx: DistContext, rank: int) -> int:
-    if ctx.group is None:
-        return rank
-    return tdist.get_global_rank(ctx.group, rank)
-
-
-def all_to_all(t: torch.Tensor, ctx: DistContext) -> torch.Tensor:
-    """Exchange equal blocks of ``t`` (leading dim N·S): block s goes to
-    rank s, and block s of the result came from rank s."""
-    n = ctx.model_size
+def all_to_all(t: torch.Tensor, ctx: DistContext,
+               axis: str = "model") -> torch.Tensor:
+    """Exchange equal blocks of ``t`` (leading dim N·S) over ``axis``:
+    block s goes to its rank s, and block s of the result came from rank
+    s."""
+    group, _, n = ctx.axis(axis)
     if t.shape[0] % n:
         raise ValueError(f"leading dim {t.shape[0]} not divisible by {n}")
     src = _bytes(t)
     out = torch.empty_like(src)
-    SENT_BYTES["all_to_all"] += src.numel() * (n - 1) // n
-    tdist.all_to_all_single(out, src, group=ctx.group)
+    SENT_BYTES["all_to_all"][axis] += src.numel() * (n - 1) // n
+    tdist.all_to_all_single(out, src, group=group)
     return _from_bytes(out, t, t.shape)
 
 
 def exchange(send: Sequence[Optional[torch.Tensor]], recv_like:
-             Sequence[Optional[torch.Tensor]], ctx: DistContext
-             ) -> List[Optional[torch.Tensor]]:
-    """Uneven exchange that every rank enters: ``send[s]`` (or None) goes
-    to rank s; ``recv_like[s]`` (or None) gives the dtype, shape and device
-    of what rank s sends here. Ranks with nothing to move pass all None
-    (empty splits). Returns the received tensors by source rank."""
+             Sequence[Optional[torch.Tensor]], ctx: DistContext,
+             axis: str = "model") -> List[Optional[torch.Tensor]]:
+    """Uneven exchange that every rank of ``axis`` enters: ``send[s]`` (or
+    None) goes to rank s; ``recv_like[s]`` (or None) gives the dtype,
+    shape and device of what rank s sends here. Ranks with nothing to move
+    pass all None (empty splits). Returns the received tensors by source
+    rank."""
+    group, r, _ = ctx.axis(axis)
     ins = [_bytes(s) if s is not None else torch.empty(0, dtype=torch.uint8)
            for s in send]
     sizes_out = [int(b.numel()) for b in ins]
-    sizes_in = [0 if r is None else r.numel() * r.element_size()
-                for r in recv_like]
+    sizes_in = [0 if x is None else x.numel() * x.element_size()
+                for x in recv_like]
     out = torch.empty(sum(sizes_in), dtype=torch.uint8)
-    SENT_BYTES["exchange"] += sum(sizes_out) - sizes_out[ctx.rank]
+    SENT_BYTES["exchange"][axis] += sum(sizes_out) - sizes_out[r]
     tdist.all_to_all_single(out, torch.cat(ins),
                             output_split_sizes=sizes_in,
-                            input_split_sizes=sizes_out, group=ctx.group)
+                            input_split_sizes=sizes_out, group=group)
     res, off = [], 0
-    for r, size in zip(recv_like, sizes_in):
-        res.append(None if r is None else
-                   _from_bytes(out[off:off + size], r, r.shape))
+    for x, size in zip(recv_like, sizes_in):
+        res.append(None if x is None else
+                   _from_bytes(out[off:off + size], x, x.shape))
         off += size
     return res
 
 
-def all_gather(t: torch.Tensor, ctx: DistContext) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along dim 0, in rank order."""
+def all_gather(t: torch.Tensor, ctx: DistContext, axis: str = "model",
+               dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` of ``axis`` concatenated along ``dim``, in rank
+    order."""
+    group, _, n = ctx.axis(axis)
     src = _bytes(t)
-    parts = [torch.empty_like(src) for _ in range(ctx.model_size)]
-    SENT_BYTES["all_gather"] += src.numel() * (ctx.model_size - 1)
-    tdist.all_gather(parts, src, group=ctx.group)
-    return torch.cat([_from_bytes(p, t, t.shape) for p in parts])
+    parts = [torch.empty_like(src) for _ in range(n)]
+    SENT_BYTES["all_gather"][axis] += src.numel() * (n - 1)
+    tdist.all_gather(parts, src, group=group)
+    return torch.cat([_from_bytes(p, t, t.shape) for p in parts], dim=dim)
 
 
 def all_reduce(t: torch.Tensor, ctx: DistContext,
-               op=tdist.ReduceOp.SUM) -> torch.Tensor:
-    """``t`` reduced over the group (a float32/float64/int64 tensor;
-    gloo's reduction leaves the same bits on every rank)."""
+               op=tdist.ReduceOp.SUM, axis: str = "model") -> torch.Tensor:
+    """``t`` reduced over ``axis`` (a float32/float64/int64 tensor; gloo's
+    reduction leaves the same bits on every rank)."""
+    group, _, n = ctx.axis(axis)
     h = t.detach().contiguous().cpu().clone()
-    n = ctx.model_size
-    SENT_BYTES["all_reduce"] += h.numel() * h.element_size() * 2 * (n - 1) \
-        // n
-    tdist.all_reduce(h, op=op, group=ctx.group)
+    SENT_BYTES["all_reduce"][axis] += h.numel() * h.element_size() * \
+        2 * (n - 1) // n
+    tdist.all_reduce(h, op=op, group=group)
     return h.to(t.device)
 
 
-def all_true(flags: Sequence[bool], ctx: DistContext) -> List[bool]:
-    """Elementwise AND of ``flags`` over the group (an all_reduce MIN): a
+def all_true(flags: Sequence[bool], ctx: DistContext,
+             axis: str = "tokens") -> List[bool]:
+    """Elementwise AND of ``flags`` over ``axis`` (an all_reduce MIN): a
     flag stays True only where every rank holds it True."""
     if not flags:
         return []
+    group, _, _ = ctx.axis(axis)
     t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int64)
-    tdist.all_reduce(t, op=tdist.ReduceOp.MIN, group=ctx.group)
+    tdist.all_reduce(t, op=tdist.ReduceOp.MIN, group=group)
     return [bool(v) for v in t.tolist()]

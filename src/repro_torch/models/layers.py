@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import dist as D
 from repro_torch.models.config import AttnConfig
 
 
@@ -155,6 +156,62 @@ PREFILL_CHUNK_THRESHOLD = 2048
 PREFILL_CHUNK = 256
 
 
+#: Calls of ``attention_full`` that ran sequence-parallel
+#: (``_seq_parallel_constraint``), counted as ``moe.REGIMES`` counts the
+#: MoE layer's regimes.
+SEQ_PARALLEL = {"attention_full": 0}
+
+
+def _seq_parallel_constraint(q: torch.Tensor, n_heads: int):
+    """Sequence parallelism for stacks whose head count does not divide
+    the model axis (24, 56 or 6 heads against 16; the reference's
+    ``_seq_parallel_constraint``): the attention weights stay replicated
+    and model rank j computes every head for query positions ``[j·S/N,
+    (j+1)·S/N)`` against the whole K/V; under ``tokens_dp_sharded`` data
+    rank i also takes rows ``[i·B/dp, (i+1)·B/dp)`` when they divide.
+    Returns (context, row slice, query slice, whether the rows split), or
+    None where it does not apply: no context, heads that divide, or S not
+    divisible by the model axis."""
+    ctx = D.get_dist()
+    if ctx is None or n_heads % ctx.model_size == 0:
+        return None
+    B, S = q.shape[:2]
+    if S % ctx.model_size:
+        return None
+    rows = ctx.tokens_dp_sharded and ctx.data_size > 1 and \
+        B % ctx.data_size == 0
+    bsl = D.shard_range(B, ctx, "data") if rows else slice(0, B)
+    return ctx, bsl, D.shard_range(S, ctx, "model"), rows
+
+
+def _attention_seq_parallel(p: dict, cfg: AttnConfig, q, k, v, positions,
+                            causal: bool, plan) -> torch.Tensor:
+    """``attention_full``'s output computed on this rank's rows and query
+    positions (``plan`` from ``_seq_parallel_constraint``), then gathered
+    over the model axis along S and over the data axis along B: the whole
+    (B, S, d) on every rank. Every length runs the masked attention (a
+    rank's queries against every key), which gives each query row what
+    the single device's masked or chunked attention gives it."""
+    ctx, bsl, ssl, rows = plan
+    S = q.shape[1]
+    q, k, v = q[bsl, ssl], k[bsl], v[bsl]
+    if positions.shape[0] != 1:
+        positions = positions[bsl]
+    if causal:
+        qpos, kpos = positions[..., ssl, None], positions[..., None, :]
+        mask = kpos <= qpos
+        if cfg.sliding_window is not None:
+            mask = mask & (kpos > qpos - cfg.sliding_window)
+    else:
+        mask = torch.ones((1, q.shape[1], S), dtype=torch.bool,
+                          device=q.device)
+    out = _sdpa(q, k, v, mask.expand(q.shape[0], q.shape[1], S),
+                cfg.n_heads) @ p["wo"]
+    SEQ_PARALLEL["attention_full"] += 1
+    out = D.all_gather(out, ctx, axis="model", dim=1)
+    return D.all_gather(out, ctx, axis="data") if rows else out
+
+
 def attention_full(p: dict, cfg: AttnConfig, x: torch.Tensor,
                    causal: bool = True,
                    positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -163,11 +220,16 @@ def attention_full(p: dict, cfg: AttnConfig, x: torch.Tensor,
     S-1). ``causal``: each query sees the keys at or before it (and within
     the window); past ``PREFILL_CHUNK_THRESHOLD`` tokens, at a multiple of
     ``PREFILL_CHUNK``, chunk by chunk. ``causal=False`` (an encoder): every
-    key."""
+    key. Under a distribution context whose model axis does not divide
+    the heads, sequence-parallel (``_seq_parallel_constraint``)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
+    plan = _seq_parallel_constraint(q, cfg.n_heads)
+    if plan is not None:
+        return _attention_seq_parallel(p, cfg, q, k, v, positions, causal,
+                                       plan)
     if causal and S > PREFILL_CHUNK_THRESHOLD and S % PREFILL_CHUNK == 0:
         return _sdpa_chunked(q, k, v, cfg.n_heads, cfg.sliding_window,
                              PREFILL_CHUNK) @ p["wo"]

@@ -29,9 +29,9 @@ import torch
 from repro_torch.core.ver import ExpertBankQ
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import dist as D
-from repro_torch.launch.dist import get_dist
+from repro_torch.launch.dist import dist_ctx, get_dist, shard_range
 from repro_torch.models.config import MoEConfig
-from repro_torch.models.mlp import swiglu
+from repro_torch.models.mlp import bf16_matmul, swiglu
 
 #: Row-tile height of the ragged layout (the kernels are built for 8).
 RAGGED_BM = 8
@@ -225,14 +225,19 @@ def _dispatch_ragged(bank, x: torch.Tensor, idx: torch.Tensor,
 
 
 def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor,
-                      e_offset: int = 0, slot_lo: int = 0) -> torch.Tensor:
+                      e_offset: int = 0, slot_lo: int = 0,
+                      ff=None) -> torch.Tensor:
     """SwiGLU over the padded (E, C, d) buffer: three grouped lo GEMMs for
     every expert, then the published hi experts (``slot_owner``) recompute
     in bf16 and replace their owners' outputs — the same result as swapping
     the weights, without dense per-expert weights (bf16 products with one
     rounding each, as the reference's einsums). Under expert parallelism
     the bank holds this rank's experts from ``e_offset`` and its hi slots
-    from ``slot_lo`` (``_tile_slots``' rule)."""
+    from ``slot_lo`` (``_tile_slots``' rule). ``ff`` (a ``DistContext``:
+    the FF-sliced regime) means the bank holds F/dp of gate/up's columns
+    and D/dp of down's: h, lo and hi alike, is gathered over the data axis
+    along F before down (the reference's ``ff_axis``), and the output is
+    this rank's D/dp columns."""
     E, C, d = xg.shape
     lo = bank.lo
     bits, group = lo["w_gate"].bits, lo["w_gate"].group_size
@@ -241,9 +246,12 @@ def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor,
         return kops.grouped_lo_matmul(x, lo[name].packed, lo[name].scales,
                                       bits, group)
 
+    def gather_f(h):
+        return h if ff is None else D.all_gather(h, ff, axis="data", dim=2)
+
     g = gemm(xg, "w_gate")
     h = torch.nn.functional.silu(g.float()).to(xg.dtype) * gemm(xg, "w_up")
-    y = gemm(h, "w_down")
+    y = gemm(gather_f(h), "w_down")
     hi = bank.hi
     n_slot = hi["w_gate"].shape[0]
     if n_slot == 0:
@@ -251,7 +259,10 @@ def _quant_expert_ffn(bank: ExpertBankQ, xg: torch.Tensor,
     owner = bank.slot_owner[slot_lo:slot_lo + n_slot].long() - e_offset
     valid = (owner >= 0) & (owner < E)
     xh = xg[torch.where(valid, owner, torch.zeros_like(owner))]
-    yh = swiglu(hi, xh)
+    hh = torch.nn.functional.silu(          # swiglu's casts
+        bf16_matmul(xh, hi["w_gate"]).float()).to(xh.dtype) * \
+        bf16_matmul(xh, hi["w_up"])
+    yh = bf16_matmul(gather_f(hh), hi["w_down"])
     # Free and stale slots write to a spare expert row that is cut off.
     out = torch.cat([y, y.new_empty((1, C, y.shape[-1]))])
     out[torch.where(valid, owner, torch.full_like(owner, E))] = yh
@@ -262,7 +273,7 @@ def dispatch_compute(bank, x: torch.Tensor, idx: torch.Tensor,
                      gates: torch.Tensor, e_local: int, capacity: int,
                      row_capacity: Optional[int] = None,
                      n_rows: Optional[int] = None, e_offset: int = 0,
-                     slot_lo: int = 0):
+                     slot_lo: int = 0, ff=None):
     """Padded sort-scatter dispatch + the grouped expert FFN + the gated
     combine. x (T, d); idx (T, k) expert ids with ``e_local`` as the
     out-of-range sentinel; gates (T, k), zero on sentinel entries.
@@ -272,7 +283,9 @@ def dispatch_compute(bank, x: torch.Tensor, idx: torch.Tensor,
     of an expert fill its rows in order. Returns (y (T, d), counts (E,)
     int32, dropped). A dense dict bank runs the reference's three einsums
     over (E, C, d) as one batched SwiGLU. ``e_offset``/``slot_lo``: where
-    this rank's experts and hi slots start under expert parallelism."""
+    this rank's experts and hi slots start under expert parallelism;
+    ``ff``: the FF-sliced regime (``_quant_expert_ffn``), whose y holds
+    this rank's D/dp columns."""
     T, d = x.shape
     k = idx.shape[1]
     order, sorted_eid, counts, pos_in_e, tok = _sort_routing(idx, e_local)
@@ -299,7 +312,7 @@ def dispatch_compute(bank, x: torch.Tensor, idx: torch.Tensor,
     xg = torch.zeros((EC + 1, d), dtype=x.dtype, device=x.device)
     xg[flat] = x[tok]
     xg = xg[:EC].view(e_local, capacity, d)
-    yg = _quant_expert_ffn(bank, xg, e_offset, slot_lo) \
+    yg = _quant_expert_ffn(bank, xg, e_offset, slot_lo, ff) \
         if isinstance(bank, ExpertBankQ) else swiglu(bank, xg)
     y_sorted = yg.reshape(EC, -1)[torch.clamp(flat, max=EC - 1)]
     gate_sorted = gates.reshape(-1)[order].to(x.dtype)
@@ -327,8 +340,9 @@ def moe_apply(params, bank, x: torch.Tensor, cfg: MoEConfig,
 
     Under a distribution context (``launch.dist.get_dist()``, as the
     reference's ``moe_apply`` branches at trace time) ``bank`` holds this
-    rank's experts only, and the layer runs one of the two sharded regimes
-    (``_moe_apply_sharded``); every rank returns the same y and aux."""
+    rank's slice of the experts (``launch.sharding.bank_shard``), and the
+    layer runs one of the sharded regimes (``_moe_apply_sharded``); every
+    rank returns the same y and aux."""
     dispatch = "ragged" if dispatch is None else dispatch
     if dispatch not in DISPATCHES:
         raise ValueError(f"dispatch={dispatch!r}; one of {DISPATCHES}")
@@ -417,42 +431,67 @@ def _row_counts(eid: torch.Tensor, E: int, n_rows: int,
 
 #: Which sharded regime each MoE call under a distribution context ran,
 #: counted as ``kernels.ops.LAUNCHES`` counts launches: "all_to_all" (the
-#: expert-parallel ragged pipeline) or "padded".
+#: expert-parallel ragged pipeline over the model axis) and "padded" (the
+#: partial outputs summed over the model axis, tokens replicated) always;
+#: the first call of a regime of the data axis adds its key —
+#: "padded_dp" (tokens split over data), "padded_ff" (tokens replicated,
+#: the experts' FF dims sliced over data), "all_to_all_dp" (tokens split
+#: over data × model) — and "replicated" the whole-bank fallback for
+#: experts that do not divide over the model axis.
 REGIMES = {"all_to_all": 0, "padded": 0}
 
 
 def reset_regimes() -> None:
-    for k in REGIMES:
-        REGIMES[k] = 0
+    REGIMES.clear()
+    REGIMES.update(all_to_all=0, padded=0)
+
+
+def _ran(regime: str) -> None:
+    REGIMES[regime] = REGIMES.get(regime, 0) + 1
 
 
 def _moe_apply_sharded(params, bank, x: torch.Tensor, cfg: MoEConfig,
                        capacity: int, dist, token_valid, n_rows,
                        row_capacity, dispatch):
-    """Expert parallelism over the ranks of ``dist``: rank j holds experts
-    ``[j·E/N, (j+1)·E/N)`` (the lo leaves, or a dense bank's rows) and hi
-    slots ``[j·n_hi/N, (j+1)·n_hi/N)``; ``slot_owner`` and ``slot_map``
-    stay global. Two regimes, chosen from shapes as the reference chooses
-    (its ``_moe_apply_sharded``):
+    """Expert parallelism over the (data × model) grid of ``dist``: model
+    rank j holds experts ``[j·E/N, (j+1)·E/N)`` (the lo leaves, or a dense
+    bank's rows) and hi slots ``[j·n_hi/N, (j+1)·n_hi/N)``, the same on
+    every data rank; ``slot_owner`` and ``slot_map`` stay global
+    (``launch.sharding.bank_shard`` cuts a bank so). The regime is chosen
+    from shapes as the reference chooses (its ``_moe_apply_sharded``):
 
+    * **replicated** (E not divisible by N): every rank holds the whole
+      bank and runs the single-device layer (a rank holding a shard of
+      such a bank raises).
     * **all_to_all** (``dist.tokens_ep_sharded`` and ragged dispatch, T
-      divisible by N, rows that tile over the ranks): ``_moe_local_ep``.
-    * **padded** (everything else): every rank routes every token,
-      computes its local experts into the (E/N, C, d) buffer, and the
-      partial outputs are summed over the ranks (the psum).
+      divisible by the dp·N token shards, rows that tile over them):
+      ``_moe_local_ep``; "all_to_all_dp" when the data axis has more than
+      one rank.
+    * **padded** (everything else): ``_moe_padded_ep`` — the tokens split
+      over data when ``dist.tokens_dp_sharded`` ("padded_dp"), or stay
+      replicated with the experts' FF dims sliced over data when the bank
+      is quantized and F and d divide ("padded_ff"; the rank's bank then
+      holds F/dp of gate/up's columns and D/dp of down's).
 
     The reference also leaves the all-to-all regime for a hi pool that
     does not divide over the shards (it replicates that pool); the port's
     ranks hold only their own slots, and its backends refuse such an
     n_hi, so the case raises here."""
-    mn = dist.model_size
+    mn, dp = dist.model_size, dist.data_size
     E = cfg.num_experts
-    T = x.shape[0]
-    if E % mn:
-        raise ValueError(f"num_experts={E} not divisible by {mn} shards")
-    e_local = E // mn
+    T, d = x.shape
     is_q = isinstance(bank, ExpertBankQ)
     held = (bank.lo["w_gate"].packed if is_q else bank["w_gate"]).shape[0]
+    if E % mn:
+        if held != E:
+            raise ValueError(f"num_experts={E} not divisible by {mn} shards: "
+                             f"every rank holds the whole bank, rank "
+                             f"{dist.rank} holds {held} experts")
+        _ran("replicated")
+        with dist_ctx(None):
+            return moe_apply(params, bank, x, cfg, capacity, token_valid,
+                             n_rows, dispatch, row_capacity)
+    e_local = E // mn
     if held != e_local:
         raise ValueError(f"rank {dist.rank} holds {held} experts; under "
                          f"{mn} shards it holds its own {e_local}")
@@ -470,54 +509,106 @@ def _moe_apply_sharded(params, bank, x: torch.Tensor, cfg: MoEConfig,
         use_ep = T % n_rows == 0 and n_rows % n_tok == 0 and \
             (T // n_tok) % (T // n_rows) == 0
     if use_ep:
-        REGIMES["all_to_all"] += 1
+        _ran("all_to_all" if dp == 1 else "all_to_all_dp")
         return _moe_local_ep(params, bank, x, cfg, capacity, dist,
                              token_valid, n_rows, row_capacity, e_local,
                              nh_local)
-    REGIMES["padded"] += 1
+    F = cfg.d_ff_expert
+    ff = is_q and not dist.tokens_dp_sharded and dp > 1 and \
+        F % dp == 0 and d % dp == 0
+    if is_q:
+        want = (F // dp, d // dp) if ff else (F, d)
+        got = (bank.lo["w_gate"].packed.shape[-1],
+               bank.lo["w_down"].packed.shape[-1])
+        if got != want:
+            raise ValueError(f"rank {dist.rank} holds gate/down columns "
+                             f"{got}; this regime takes {want}")
+    split = dist.tokens_dp_sharded and dp > 1
+    _ran("padded_ff" if ff else "padded_dp" if split else "padded")
     return _moe_padded_ep(params, bank, x, cfg, capacity, dist, token_valid,
-                          n_rows, row_capacity, e_local, nh_local)
+                          n_rows, row_capacity, e_local, nh_local, ff, split)
 
 
 def _moe_padded_ep(params, bank, x, cfg, capacity, dist, token_valid, n_rows,
-                   row_capacity, e_local, nh_local):
-    """The padded regime: every rank routes every token, dispatches the
+                   row_capacity, e_local, nh_local, ff, split):
+    """The padded regimes (the reference's shard_map body). Every rank
+    routes every token (the single device's gates bit for bit, as in
+    ``_moe_local_ep``); under ``split`` data rank i keeps tokens
+    ``[i·T/dp, (i+1)·T/dp)`` and dispatches them at the per-shard capacity
+    ``max(8, ceil8(capacity // dp))``. Each rank dispatches the
     assignments to its own experts into the (E/N, C, d) buffer, and the
-    partial outputs are summed over the ranks in float32 (one rounding to
-    bf16 after the sum; the single device adds each token's k
+    partial outputs are summed over the model axis in float32 (one
+    rounding to bf16 after the sum; the single device adds each token's k
     contributions in bf16, so the two agree to a tolerance, as the
-    reference's psum does). counts and row_counts are exact; aux is the
-    single device's, from the full routing every rank holds."""
+    reference's psum does). Under ``ff`` the sum is of this rank's D/dp
+    columns, gathered over data after it; under ``split`` y is gathered
+    over data back to (T, d). counts are summed over model and data; aux,
+    dropped and the pad ratio are averaged over data, then dropped and the
+    pad ratio over model (the reference's order); per-row counts split
+    over data where the rows tile (else None; a ``row_capacity`` then
+    raises)."""
     E = cfg.num_experts
+    T = x.shape[0]
+    dp = dist.data_size
     j = dist.rank
     e_off, slot_lo = j * e_local, j * nh_local
-    if row_capacity is not None:
-        capacity = n_rows * row_capacity
     gates, idx, probs = route(params["router"], x, cfg)
+    n_rows_l = n_rows
+    if split:
+        if T % dp:
+            raise ValueError(f"{T} tokens do not split over the {dp} data "
+                             f"shards")
+        sl = shard_range(T, dist, "data")
+        x, gates, idx, probs = x[sl], gates[sl], idx[sl], probs[sl]
+        token_valid = None if token_valid is None else token_valid[sl]
+        capacity = max(8, (capacity // dp + 7) // 8 * 8)
+        if n_rows is not None:
+            if T % n_rows == 0 and n_rows % dp == 0 and \
+                    (T // dp) % (T // n_rows) == 0:
+                n_rows_l = n_rows // dp
+            elif row_capacity is not None:
+                raise ValueError(f"row_capacity requires rows to tile over "
+                                 f"the {dp} data shards (T={T}, "
+                                 f"n_rows={n_rows})")
+            else:
+                n_rows_l = None
+    if row_capacity is not None:
+        capacity = n_rows_l * row_capacity
     sel = _selected(idx, token_valid, e_off, e_local)
     idx_l = torch.where(sel, idx - e_off, torch.full_like(idx, e_local))
     gates_l = torch.where(sel, gates, torch.zeros_like(gates))
     y, counts_l, dropped = dispatch_compute(
         bank, x, idx_l, gates_l, e_local, capacity,
-        row_capacity=row_capacity, n_rows=n_rows, e_offset=e_off,
-        slot_lo=slot_lo)
+        row_capacity=row_capacity, n_rows=n_rows_l, e_offset=e_off,
+        slot_lo=slot_lo, ff=dist if ff else None)
     y = D.all_reduce(y.float(), dist).to(x.dtype)
+    if ff:
+        y = D.all_gather(y, dist, axis="data", dim=1)
     if "shared" in params:
         y = y + swiglu(params["shared"], x)
     counts = D.all_gather(counts_l, dist)
     kept_rows = torch.clamp(counts_l, 0, capacity).sum().float()
     pad = 1.0 - kept_rows / max(e_local * capacity, 1)
+    aux = _aux_loss(idx, probs, token_valid, cfg)
+    if split:
+        y = D.all_gather(y, dist, axis="data")
+        counts = D.all_reduce(counts.long(), dist, axis="data") \
+            .to(torch.int32)
+        m = D.all_reduce(torch.stack([aux.double(), dropped.double(),
+                                      pad.double()]), dist, axis="data") / dp
+        aux, dropped, pad = m[0].float(), m[1], m[2]
     means = D.all_reduce(torch.stack([dropped.double(), pad.double()]),
                          dist) / dist.model_size
     row_counts = None
-    if n_rows is not None:
+    if n_rows_l is not None:
         eid = torch.where(sel, idx, torch.full_like(idx, E))
         row_counts = D.all_reduce(
-            _row_counts(eid, E, n_rows, x.shape[0]).long(), dist) \
-            .to(torch.int32)
-    return y, MoEAux(counts=counts,
-                     aux_loss=_aux_loss(idx, probs, token_valid, cfg),
-                     dropped=means[0].float(), row_counts=row_counts,
+            _row_counts(eid, E, n_rows_l, x.shape[0]).long(), dist)
+        if split:
+            row_counts = D.all_gather(row_counts, dist, axis="data")
+        row_counts = row_counts.to(torch.int32)
+    return y, MoEAux(counts=counts, aux_loss=aux, dropped=means[0].float(),
+                     row_counts=row_counts,
                      active_experts=(counts > 0).sum().to(torch.int32),
                      dispatch_pad_ratio=means[1].float())
 
@@ -525,7 +616,10 @@ def _moe_padded_ep(params, bank, x, cfg, capacity, dist, token_valid, n_rows,
 def _moe_local_ep(params, bank, x, cfg, capacity, dist, token_valid, n_rows,
                   row_capacity, e_local, nh_local):
     """The expert-parallel ragged pipeline (the reference's
-    ``_moe_local_ep``). Rank j owns tokens ``[j·T/N, (j+1)·T/N)``.
+    ``_moe_local_ep``). Rank (i, j) of a dp × N grid owns tokens
+    ``[t·T/(dp·N), (t+1)·T/(dp·N))``, t = i·N + j (its index on the token
+    axes, data major); its rows go only to the ranks of its model group,
+    since the experts replicate over data.
 
     * **Sender**: sort its assignments by global expert id (grouped by
       destination rank, experts ascending within each), keep them under
@@ -544,20 +638,21 @@ def _moe_local_ep(params, bank, x, cfg, capacity, dist, token_valid, n_rows,
       sorted order (``_combine``): the same sum, in the same order, as the
       single device, so drop-free calls are bit-equal to it.
 
-    Then an ``all_gather`` rebuilds y (T, d) on every rank, the counts and
-    the routed/kept totals are summed over the ranks, and the row counts
-    gathered. The router runs on all T tokens on every rank and each rank
-    takes its slice: its (T, d)·(d, E) product is small, and the full
-    product gives every rank the single device's gates bit for bit (a
-    GEMM over fewer rows may reduce in another order, on the card and on
-    the CPU), and the single device's aux loss."""
+    Then an ``all_gather`` over the token axes rebuilds y (T, d) on every
+    rank, the counts and the routed/kept totals are summed over them, and
+    the row counts gathered. The router runs on all T tokens on every
+    rank and each rank takes its slice: its (T, d)·(d, E) product is
+    small, and the full product gives every rank the single device's
+    gates bit for bit (a GEMM over fewer rows may reduce in another order,
+    on the card and on the CPU), and the single device's aux loss."""
     E, k = cfg.num_experts, cfg.top_k
     T, d = x.shape
-    mn, j = dist.model_size, dist.rank
+    mn = dist.model_size
     n_tok = dist.n_token_shards
     bm = RAGGED_BM
     T_l = T // n_tok
-    tok_sl = slice(j * T_l, (j + 1) * T_l)
+    j = dist.rank
+    tok_sl = shard_range(T, dist, "tokens")
     n_rows_l = None if n_rows is None else n_rows // n_tok
     cap_shard = 0 if row_capacity is not None else \
         ep_cap_shard(capacity, n_tok)
@@ -632,29 +727,31 @@ def _moe_local_ep(params, bank, x, cfg, capacity, dist, token_valid, n_rows,
     y_asn = y_ret[torch.clamp(send_row, max=mn * S - 1)]
     gate_sorted = gates_v.reshape(-1)[order].to(x.dtype)
     contrib = torch.where(kept[:, None], y_asn * gate_sorted[:, None], zero)
-    y = D.all_gather(_combine(contrib, order, T_l, k), dist)
+    y = D.all_gather(_combine(contrib, order, T_l, k), dist, axis="tokens")
     if "shared" in params:
         y = y + swiglu(params["shared"], x)
 
-    # -- exact global telemetry: counts and totals summed over the ranks
-    # (integers, exact in float64), the pad ratio averaged.
+    # -- exact global telemetry: counts and totals summed over the token
+    # axes (integers, exact in float64), the pad ratio averaged.
     routed = (sorted_eid < E).sum()
     pad = 1.0 - cnt_e.sum().double() / \
         torch.clamp(n_tiles[0] * bm, min=1).double()
     stats = D.all_reduce(torch.cat([
         counts_l.double(), torch.stack([routed.double(),
-                                        kept.sum().double(), pad])]), dist)
+                                        kept.sum().double(), pad])]), dist,
+                         axis="tokens")
     counts = stats[:E].to(torch.int32)
     routed_g, kept_g = stats[E].float(), stats[E + 1].float()
     dropped = 1.0 - kept_g / torch.clamp(routed_g, min=1.0)
     row_counts = None
     if n_rows is not None:
-        row_counts = D.all_gather(_row_counts(idx_v, E, n_rows_l, T_l), dist)
+        row_counts = D.all_gather(_row_counts(idx_v, E, n_rows_l, T_l), dist,
+                                  axis="tokens")
     return y, MoEAux(counts=counts,
                      aux_loss=_aux_loss(idx_all, probs, token_valid, cfg),
                      dropped=dropped, row_counts=row_counts,
                      active_experts=(counts > 0).sum().to(torch.int32),
-                     dispatch_pad_ratio=(stats[E + 2] / mn).float())
+                     dispatch_pad_ratio=(stats[E + 2] / n_tok).float())
 
 
 def moe_capacity(n_tokens: int, cfg: Optional[MoEConfig],

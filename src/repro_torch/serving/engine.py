@@ -286,6 +286,11 @@ class InferenceEngine:
                 "InferenceEngine serves decoder-only stacks; encoder-decoder "
                 "architectures go through the batch prefill/decode entry "
                 "points in repro_torch.models.model directly.")
+        if dist is not None and dist.data_size > 1:
+            raise NotImplementedError(
+                "InferenceEngine serves over a model-only expert-parallel "
+                "group; a grid with a data axis runs through the batch "
+                "prefill/decode entry points in repro_torch.models.model.")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
