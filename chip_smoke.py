@@ -71,9 +71,10 @@ Phases (each prints one line; any failure exits non-zero):
               row and the logits against the CPU and split against whole
               on the card, and a 768-token prompt whole against three
               256-token chunks on the card, wherever every expert they
-              depend on agrees (in a whole run after the hybrid phase:
-              it times nothing on the host, so its CPU forwards run
-              beside the CPU part of the hybrid model check);
+              depend on agrees. The CPU halves of these checks, of the
+              hybrid phase's and the multimodal twins run in one process
+              started before the build (``_CpuRefs``: nice 19, it draws
+              their weights on the card first), beside the phases;
 5. serving  — the 8-layer full-width model served by ``static`` and
               ``dynaexq`` (8 requests, 64–256-token prompts, 32 new tokens)
               on each path: paged KV with ragged dispatch, and dense KV rows
@@ -191,10 +192,9 @@ Phases (each prints one line; any failure exits non-zero):
               cut to 128: a 192-token prompt that wraps the ring and a
               48-token one, 4 decode steps, the card on paged/ragged and
               on dense rows/padded, each held to the one CPU run by
-              routing first (the CPU's forwards in a thread beside the
-              rest of the phase and the model phase, joined before the
-              next phase that times anything on the host; its prefill on
-              the padded layout); (c)
+              routing first (the CPU's forwards from the CPU process,
+              held at the run's end; its prefill on the padded
+              layout); (c)
               8 requests
               (64-256 tokens, 32 new, 8 slots)
               on paged/ragged, graphed: ``static`` (graph = eager),
@@ -242,7 +242,8 @@ Phases (each prints one line; any failure exits non-zero):
               image prefix, 4 steps); Whisper and the 2-layer LLaVA held
               to CPU twins fed the card's tokens (every position's logits
               within ``MODEL_TOL``, tokens under the families' margin
-              rule), run after the timed runs; encoder ms,
+              rule), run by the CPU process and held at the run's end;
+              encoder ms,
               TTFT, TPOT, replay ms, the step's bytes and bound, peak
               device memory;
    train    — training on the card: (a) ``repro_torch.launch.train.main``
@@ -281,7 +282,15 @@ Phases (each prints one line; any failure exits non-zero):
               T = 63 (row 4 on each rank) held to one process; (d) each
               rank's bytes per decode layer against the reference's model
               2(N-1)·S·d, its expert bytes, device memory and host RSS,
-              the eager TPOT;
+              the eager TPOT; (e), (f) the data axis's 2 x 2 and 1 x 3 grids; and
+              under the planner's specs on the 2 x 2 grid, each rank
+              holding only its shards: (g) the 30B at 2 layers with a
+              static int4 bank, 8 rows (over data x model) and 2 rows
+              (the caches' sequence over model, row 5 with its
+              log-sum-exp), prefill and 8 decode steps against one
+              process; (h) granite's FSDP train step at 2 layers in
+              float32 against one process; held bytes against
+              ``rank_bytes``, sent bytes against formulas;
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -829,6 +838,7 @@ def _kernels_dense_decode(cfg, gen, dev) -> None:
     # versions of this script (the same inputs); the others from a
     # generator of their own.
     extra = torch.Generator(device=dev).manual_seed(31)
+    lse_checks = []
     for case, B, S in (("B=8 S=288", 8, 288), ("B=1 S=288", 1, 288),
                        ("B=1 S=4096", 1, 4096),
                        ("B=3 S=4096 holes", 3, 4096)):
@@ -847,10 +857,55 @@ def _kernels_dense_decode(cfg, gen, dev) -> None:
             cases[-1]["host_steps_us"] = _log_host_steps(
                 "flash_decode", case, host_steps("flash_decode", q, k, v,
                                                  valid))
+        if B == 8 or "holes" in case:
+            lse_checks.append(_lse_case(case, q, k, v, valid))
     cases += _family_attn_cases("flash_decode", dev)
     _attn_result("flash_decode",
                  "src/repro_torch/kernels/csrc/flash_decode.cu",
                  "src/repro/kernels/flash_decode.py:31", cases)
+    RESULTS["flash_decode"]["lse"] = lse_checks
+    bad = [c["case"] for c in lse_checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"flash_decode's lse output disagrees with "
+                             f"its plain version: {bad}")
+
+
+#: Row 5's log-sum-exp output against its plain version's (float32, in
+#: natural-log units of logits of magnitude ~10): the kernel's exp2/log2
+#: of bf16 products summed in float32 in another order; -inf on exactly
+#: the plain version's all-masked rows.
+LSE_TOL = 1e-4
+
+
+def _lse_case(case, q, k, v, valid) -> dict:
+    """Row 5 with its log-sum-exp output (``ops.flash_decode(...,
+    lse=True)``, the cache whose sequence is cut over model): o the same
+    bits as without it, lse within LSE_TOL of the plain version's; the
+    two launches' device times in turns (off, on, on, off)."""
+    from repro_torch.kernels import ops, ref
+    off = ops.flash_decode(q, k, v, valid)
+    on, lse = ops.flash_decode(q, k, v, valid, lse=True)
+    _, want = ref.flash_decode_ref(q, k, v, valid, lse=True)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    err = float((lse - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+    same_inf = torch.equal(torch.isinf(lse), ~fin) and \
+        bool((lse[~fin] < 0).all())
+    turns = interleaved(lambda: ops.flash_decode(q, k, v, valid),
+                        lambda: ops.flash_decode(q, k, v, valid, lse=True))
+    ok = torch.equal(off, on) and err <= LSE_TOL and same_inf
+    out = {"case": case, "ok": ok, "o_bit_equal": torch.equal(off, on),
+           "lse_err": err, "tol": LSE_TOL, "inf_rows_match": same_inf,
+           "graph_ms_off": turns["graph_ms"],
+           "graph_ms_on": turns["library_graph_ms"],
+           "graph_runs": turns["graph_runs"]}
+    log("kernels", f"flash_decode lse {case}: o bit-equal with lse off "
+                   f"{out['o_bit_equal']}, max |lse - plain| {err:.3g} (tol "
+                   f"{LSE_TOL}), -inf rows alike {same_inf} | graph ms in "
+                   f"turns off/on/on/off "
+                   f"{[round(x, 5) for x in turns['graph_runs']]} | "
+                   f"{'ok' if ok else 'FAIL'}")
+    return out
 
 
 def _paged_decode_inputs(cfg, gen, dev, B, nb, holes=False, bt=16,
@@ -1787,7 +1842,8 @@ def _parent_library(parent: pathlib.Path,
     commit), built at once with this tree's flags into
     ``build/kernels/parent/`` and loaded with this tree's C signatures
     (the same entries; the parent's all-hi occupancy takes E where this
-    tree's takes the tile count). Returns ({name: library}, {name:
+    tree's takes the tile count; an entry this tree added, as row 5's
+    ``flash_decode_lse``, is not there). Returns ({name: library}, {name:
     path})."""
     import ctypes
     from repro_torch.kernels import build
@@ -1805,8 +1861,9 @@ def _parent_library(parent: pathlib.Path,
     for n in names:
         lib = ctypes.CDLL(str(paths[n]))
         for fn, argtypes in build.SIGNATURES[n].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
         libs[n] = lib
     return libs, paths
 
@@ -2058,7 +2115,7 @@ def _bank_with_hi(experts, n_hi, gen, lo_bits=4):
 def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
                     seed=7, paged=True, dispatch="ragged", dispatch_ref=None,
                     lo_bits=4, n_hi=None, prefill_dispatch_ref=None,
-                    background=False, lengths=None, card_dense=False):
+                    lengths=None, card_dense=False, part=None):
     """Same seeded weights on ``dev_ref`` and ``dev``: one S-token prefill
     and ``steps`` teacher-forced decode steps, on the paged pool or dense
     rows, with MoE dispatch ``dispatch`` (``dispatch_ref`` on ``dev_ref``,
@@ -2071,13 +2128,13 @@ def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
     identically). ``lengths``: the rows' prompt lengths (else random in
     6..S, row 0 S). A sliding window shorter than S + steps makes the KV a
     ring of ``ceil(window / bt)`` blocks (dense rows: ``window`` slots),
-    as the engine's. With ``background`` the forwards on ``dev`` run first,
-    its tensors are freed, and the forwards on ``dev_ref`` (the CPU) run
-    in a thread of their own: it returns a function that waits for them
-    and returns the report. ``card_dense``: ``dev`` also runs the forwards
+    as the engine's. ``card_dense``: ``dev`` also runs the forwards
     on dense rows with padded dispatch (the same ring: ``window`` slots),
     held to the same reference; the report is then a pair (``paged``'s,
-    dense rows')."""
+    dense rows'). ``part``: one half only (the halves run in two
+    processes, ``_CpuRefs``): "card" returns the card's forwards, "ref"
+    copies the weights to ``dev_ref``, frees them on ``dev`` and returns
+    the function that runs the reference's forwards."""
     from repro_torch.models.model import (decode_step, decode_step_paged,
                                           init_caches, init_paged_caches,
                                           init_params, prefill,
@@ -2091,12 +2148,13 @@ def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
         experts = params["blocks"][p]["moe"].pop("experts")
         banks[p] = _bank_with_hi(experts, n_hi, gen, lo_bits=lo_bits)
         del experts
+    halves = [(dev_ref, dispatch_ref or dispatch,
+               prefill_dispatch_ref or dispatch_ref or dispatch),
+              (dev, dispatch, dispatch)]
+    if part is not None:
+        halves = halves[:1] if part == "ref" else halves[1:]
     runs = [(d, _to(params, d), {p: b.to(d) for p, b in banks.items()},
-             disp, pdisp)
-            for d, disp, pdisp in (
-                (dev_ref, dispatch_ref or dispatch,
-                 prefill_dispatch_ref or dispatch_ref or dispatch),
-                (dev, dispatch, dispatch))]
+             disp, pdisp) for d, disp, pdisp in halves]
     nb = (S + steps + bt - 1) // bt + 1
     window = cfg.attn.sliding_window
     if window is not None and window < S + steps:
@@ -2145,39 +2203,40 @@ def run_model_check(cfg, dev_ref, dev, B=12, S=32, steps=4, bt=16,
 
     def on_card():
         """The card's forwards: [paged's] (+ [dense rows']); frees them."""
+        t0 = time.perf_counter()
         run = runs.pop()
         seqs = [forward(*run)]
         if card_dense:
             seqs.append(forward(*run[:3], "padded", "padded", paged=False))
+        log("model", f"{cfg.name}: the card's forwards "
+                     f"{time.perf_counter() - t0:.1f} s")
         return seqs
 
+    def on_ref(run):
+        t0 = time.perf_counter()
+        seq = forward(*run)
+        log("model", f"{cfg.name}: the {run[0]} reference's forwards "
+                     f"{time.perf_counter() - t0:.1f} s")
+        return seq
+
     def reports(ref_seq, cards):
-        out = [_model_report([ref_seq, c], B) for c in cards]
-        return tuple(out) if card_dense else out[0]
+        return _reports(ref_seq, cards, B, card_dense)
 
-    if background:
-        card = on_card()
+    if part == "card":
+        return on_card()
+    if part == "ref":
         del params, banks
-        ref, done = [runs.pop()], {}
-
-        def run_ref():
-            try:         # the CPU copies are freed as the forwards end
-                done["seq"] = forward(*ref.pop())
-            except BaseException as e:          # re-raised by finish()
-                done["error"] = e
-
-        thread = threading.Thread(target=run_ref, daemon=True)
-        thread.start()
-
-        def finish():
-            thread.join()
-            if "error" in done:
-                raise done["error"]
-            return reports(done["seq"], card)
-
-        return finish
+        ref = runs.pop()
+        return lambda: on_ref(ref)
     card = on_card()
-    return reports(forward(*runs.pop()), card)
+    return reports(on_ref(runs.pop()), card)
+
+
+def _reports(ref_seq, cards, B, card_dense):
+    """``run_model_check``'s report of the card's forwards against the
+    reference's: one, or a pair with ``card_dense``."""
+    out = [_model_report([ref_seq, c], B) for c in cards]
+    return tuple(out) if card_dense else out[0]
 
 
 def _model_report(out, B) -> list:
@@ -2203,7 +2262,7 @@ PREFIX_CASES = ((96, (64,), True), (768, (256, 512), False))
 
 
 def run_prefix_check(cfg, dev_ref, dev, cases=PREFIX_CASES, bt=16, seed=9,
-                     lo_bits=4, n_hi=None):
+                     lo_bits=4, n_hi=None, part=None):
     """Same seeded weights and bank on ``dev_ref`` and ``dev``: for each
     of ``cases`` an S-token prompt prefilled whole into blocks 1.., and
     separately in pieces cut at ``cuts`` into other blocks, each piece
@@ -2214,7 +2273,9 @@ def run_prefix_check(cfg, dev_ref, dev, cases=PREFIX_CASES, bt=16, seed=9,
     token), so the routes differ only by rounding. Returns per device and
     S {"whole", "split"}: (logits (1, V), K and V of the S positions (nsb,
     S, Hkv, hd), each position's experts per layer, sorted (nsb, S,
-    top_k)) on the CPU."""
+    top_k)) on the CPU. ``part``: "card" runs ``dev``'s cases alone; "ref"
+    returns the function that runs ``dev_ref``'s (``run_model_check``'s
+    halves)."""
     import repro_torch.models.moe as moe_mod
     from repro_torch.models.model import (init_paged_caches, init_params,
                                           prefill_paged)
@@ -2241,47 +2302,59 @@ def run_prefix_check(cfg, dev_ref, dev, cases=PREFIX_CASES, bt=16, seed=9,
         return torch.cat([torch.stack(got[c * L:(c + 1) * L])
                           for c in range(n_calls)], dim=1)
 
+    def run(d, prm, bk):
+        """The cases on ``d`` (the reference skips the card-only ones)."""
+        key = d.type if isinstance(d, torch.device) else str(d)
+        kw = dict(bank=bk, per_row_counts=True, moe_dispatch="ragged",
+                  capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+        t = lambda x: torch.as_tensor(x).to(d)
+        out = {}
+        for S, cuts, both in cases:
+            if d is dev_ref and not both:
+                continue
+            toks, nb = prompts[S], -(-S // bt)
+            whole = torch.arange(1, 1 + nb, dtype=torch.int32)[None]
+            split = whole + nb
+            caches = init_paged_caches(cfg, 1 + 2 * nb, bt, device=d)
+
+            def kv(table, S=S, caches=caches):
+                blk = table[0].long().to(d)
+                c = caches["0"]
+                k = c.k[:, blk].permute(0, 1, 3, 2, 4).reshape(
+                    c.k.shape[0], -1, c.k.shape[2], c.k.shape[4])[:, :S]
+                v = c.v[:, blk].permute(0, 1, 3, 2, 4).reshape(
+                    c.v.shape[0], -1, c.v.shape[2], c.v.shape[4])[:, :S]
+                return k.float().cpu(), v.float().cpu()
+
+            lw, _ = prefill_paged(prm, cfg, t(toks), caches, t(whole),
+                                  t([0]), t([S]), **kw)
+            ew = experts_of(1)
+            edges = (0,) + tuple(cuts) + (S,)
+            for c0, c1 in zip(edges, edges[1:]):
+                ls, _ = prefill_paged(prm, cfg, t(toks[:, c0:c1]),
+                                      caches, t(split), t([c0]),
+                                      t([c1]), has_prefix=c0 > 0, **kw)
+            es = experts_of(len(edges) - 1)
+            out.setdefault(key, {})[S] = {
+                "whole": (lw.float().cpu(),) + kv(whole) + (ew,),
+                "split": (ls.float().cpu(),) + kv(split) + (es,)}
+            del caches
+        return out
+
+    def routed(d, prm, bk):
+        moe_mod.route = route_seen
+        try:
+            return run(d, prm, bk)
+        finally:
+            moe_mod.route = route
+
+    if part == "ref":       # the reference's half alone, later
+        prm, bk = _to(params, dev_ref), {"0": bank.to(dev_ref)}
+        del params, bank
+        return lambda: routed(dev_ref, prm, bk)
     out = {}
-    moe_mod.route = route_seen
-    try:
-        for d in (dev_ref, dev):
-            key = d.type if isinstance(d, torch.device) else str(d)
-            prm, bk = _to(params, d), {"0": bank.to(d)}
-            kw = dict(bank=bk, per_row_counts=True, moe_dispatch="ragged",
-                      capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
-            t = lambda x, d=d: torch.as_tensor(x).to(d)
-            for S, cuts, both in cases:
-                if d is dev_ref and not both:
-                    continue
-                toks, nb = prompts[S], -(-S // bt)
-                whole = torch.arange(1, 1 + nb, dtype=torch.int32)[None]
-                split = whole + nb
-                caches = init_paged_caches(cfg, 1 + 2 * nb, bt, device=d)
-
-                def kv(table, S=S, caches=caches):
-                    blk = table[0].long().to(d)
-                    c = caches["0"]
-                    k = c.k[:, blk].permute(0, 1, 3, 2, 4).reshape(
-                        c.k.shape[0], -1, c.k.shape[2], c.k.shape[4])[:, :S]
-                    v = c.v[:, blk].permute(0, 1, 3, 2, 4).reshape(
-                        c.v.shape[0], -1, c.v.shape[2], c.v.shape[4])[:, :S]
-                    return k.float().cpu(), v.float().cpu()
-
-                lw, _ = prefill_paged(prm, cfg, t(toks), caches, t(whole),
-                                      t([0]), t([S]), **kw)
-                ew = experts_of(1)
-                edges = (0,) + tuple(cuts) + (S,)
-                for c0, c1 in zip(edges, edges[1:]):
-                    ls, _ = prefill_paged(prm, cfg, t(toks[:, c0:c1]),
-                                          caches, t(split), t([c0]),
-                                          t([c1]), has_prefix=c0 > 0, **kw)
-                es = experts_of(len(edges) - 1)
-                out.setdefault(key, {})[S] = {
-                    "whole": (lw.float().cpu(),) + kv(whole) + (ew,),
-                    "split": (ls.float().cpu(),) + kv(split) + (es,)}
-                del caches
-    finally:
-        moe_mod.route = route
+    for d in (dev,) if part == "card" else (dev_ref, dev):
+        out.update(routed(d, _to(params, d), {"0": bank.to(d)}))
     return out
 
 
@@ -2301,14 +2374,16 @@ MODEL_TOL = 0.25
 MODEL_TOL_SWAP = 4.0
 
 
-def check_model(phase, cfg, what, dev_ref, card, background=False, **kw):
+def check_model(phase, cfg, what, dev_ref, card, later=False, key=None,
+                **kw):
     """``run_model_check`` of ``cfg`` on ``dev_ref`` against ``card``, its
-    line logged under ``phase``; raises when the logits disagree. With
-    ``background`` (``dev_ref`` the CPU): the card's forwards now, the
-    CPU's in a thread; returns the function that waits, logs and
-    checks. With ``card_dense``: also the card's forwards on dense rows
-    with padded dispatch against the same reference, on a line of their
-    own."""
+    line logged under ``phase``; raises when the logits disagree. ``key``:
+    the check's name among the CPU process's jobs (``_CpuRefs``): while
+    that process runs, only the card's forwards run here, and the
+    reference's come from it. ``later``: returns the function that logs
+    and checks (it waits for the CPU process's result). With
+    ``card_dense``: also the card's forwards on dense rows with padded
+    dispatch against the same reference, on a line of their own."""
     t0 = time.perf_counter()
 
     def report(out):
@@ -2318,10 +2393,18 @@ def check_model(phase, cfg, what, dev_ref, card, background=False, **kw):
         _check_report(phase, cfg, f"{what}; the card on dense rows, padded "
                                   f"dispatch", out[1], t0, kw)
 
-    if background:
-        pending = run_model_check(cfg, dev_ref, card, background=True, **kw)
-        return lambda: report(pending())
-    report(run_model_check(cfg, dev_ref, card, **kw))
+    if key is not None and _CPU_REFS is not None:
+        cards = run_model_check(cfg, dev_ref, card, part="card", **kw)
+
+        def finish():
+            report(_reports(_CPU_REFS.get(key), cards, kw.get("B", 12),
+                            kw.get("card_dense", False)))
+    else:
+        out = run_model_check(cfg, dev_ref, card, **kw)
+
+        def finish():
+            report(out)
+    return finish if later else finish()
 
 
 def _check_report(phase, cfg, what, report, t0, kw) -> None:
@@ -2350,36 +2433,205 @@ def _check_report(phase, cfg, what, report, t0, kw) -> None:
         raise AssertionError(f"logits disagree: {cfg.name} {what}")
 
 
+#: The CPU halves of the hybrid and model phases' checks (the plain
+#: versions' forwards at full width: PERF.md §6 has their seconds) run in one process of their own, started after the build at the lowest CPU
+#: priority (``os.nice(19)``: the run's own host work comes first) with
+#: CPU_REF_THREADS threads: it draws every check's weights on the card
+#: before any phase starts (the same seeds as the card's halves, so the
+#: same bits), copies them to the host and frees the card, then runs the
+#: references one by one beside the phases that come before its checks,
+#: and leaves each result in a file its check reads.
+CPU_REF_THREADS = 6
+#: Seconds the run waits for that process to draw its weights.
+CPU_REF_READY_S = 300
+
+
+def _cpu_jobs(only) -> list:
+    """The CPU process's jobs for the phases in ``only``: (key, cfg, kwargs
+    of ``run_model_check``; kwargs None for the suffix prefill's check;
+    cfg None for a multimodal twin, ``MM_TWINS``)."""
+    from repro_torch.configs import get_config
+    jobs = []
+    if "hybrid" in only:
+        key, cfg, _, _, kw = _hybrid_check()
+        jobs.append((key, cfg, kw))
+    if "model" in only:
+        jobs += [(key, cfg, kw) for key, cfg, _, _, kw in _model_checks()]
+        jobs.append(("model prefix", dataclasses.replace(
+            get_config(ARCH), n_layers=CHECK_LAYERS), None))
+    if "multimodal" in only:
+        jobs += [(key, None, None) for key in MM_TWINS]
+    return jobs
+
+
+def _cpu_file(key: str) -> str:
+    """A job's result file's name (a check's key may hold a slash)."""
+    return key.replace("/", "_").replace(" ", "_")
+
+
+def _cpu_input(out: pathlib.Path, key: str):
+    """A job's input from the run (the card run's tokens a twin is fed),
+    waited for."""
+    import pickle
+    path = out / f"{_cpu_file(key)}.in.pkl"
+    while not path.exists():
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _cpu_child(jobs, out_dir: str, threads: int) -> None:
+    """The CPU process: every job's weights drawn on the card and moved to
+    the host (then "ready"), each reference's forwards run in turn into
+    its ``.pkl`` file (``_cpu_file``); a failure into ``error``."""
+    import pickle
+    import traceback
+    out = pathlib.Path(out_dir)
+    try:
+        os.nice(19)
+        torch.set_num_threads(threads)
+        cpu, card = torch.device("cpu"), torch.device("cuda")
+        todo = []
+        for key, cfg, kw in jobs:
+            if cfg is None:         # a twin: fed the card run's tokens
+                todo.append((key, MM_TWINS[key]()))
+            elif kw is None:
+                todo.append((key, run_prefix_check(cfg, cpu, card,
+                                                   part="ref")))
+            else:
+                todo.append((key, run_model_check(cfg, cpu, card,
+                                                  part="ref", **kw)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        (out / "ready").touch()
+        while todo:                 # each job's weights freed once it ran
+            key, run = todo.pop(0)
+            kw = {"force": _cpu_input(out, key)} if key in MM_TWINS else {}
+            t0 = time.perf_counter()
+            res = run(**kw)
+            del run
+            name = _cpu_file(key)
+            with open(out / f"{name}.tmp", "wb") as f:
+                pickle.dump(res, f)
+            os.replace(out / f"{name}.tmp", out / f"{name}.pkl")
+            log("cpu", f"{key}: the reference's forwards "
+                       f"{time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        (out / "error").write_text(traceback.format_exc())
+        raise
+
+
+class _CpuRefs:
+    """The CPU process (see CPU_REF_THREADS) and its results."""
+
+    def __init__(self, jobs):
+        import multiprocessing
+        import tempfile
+        self.keys = {key for key, _, _ in jobs}
+        self._tmp = tempfile.TemporaryDirectory(prefix="cpu_refs_")
+        self.dir = pathlib.Path(self._tmp.name)
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=_cpu_child, args=(jobs, str(self.dir), CPU_REF_THREADS),
+            daemon=True)
+        self.t0 = time.perf_counter()
+        self.proc.start()
+
+    def ready(self) -> None:
+        """Wait until the process has drawn every job's weights (the card
+        is the run's from then on)."""
+        t = time.perf_counter()
+        self._wait("ready", CPU_REF_READY_S)
+        log("cpu", f"the CPU references' weights drawn for {sorted(self.keys)}"
+                   f" {time.perf_counter() - self.t0:.1f} s after the "
+                   f"process started ({time.perf_counter() - t:.1f} s of it "
+                   f"waited for after the build); their forwards go on in "
+                   f"process {self.proc.pid} at nice 19, {CPU_REF_THREADS} "
+                   f"threads")
+
+    def _wait(self, name: str, timeout=None):
+        t0 = time.perf_counter()
+        while not (self.dir / name).exists():
+            if (self.dir / "error").exists() or not self.proc.is_alive():
+                time.sleep(0.5)         # the file may land just after
+                err = (self.dir / "error").read_text() \
+                    if (self.dir / "error").exists() else \
+                    f"exit code {self.proc.exitcode}"
+                if not (self.dir / name).exists():
+                    raise RuntimeError(f"the CPU process failed: {err}")
+            if timeout is not None and time.perf_counter() - t0 > timeout:
+                raise TimeoutError(f"the CPU process: no {name} in "
+                                   f"{timeout} s")
+            time.sleep(0.2)
+
+    def put(self, key: str, value) -> None:
+        """Job ``key``'s input (``_cpu_input``)."""
+        import pickle
+        name = _cpu_file(key)
+        with open(self.dir / f"{name}.in.tmp", "wb") as f:
+            pickle.dump(value, f)
+        os.replace(self.dir / f"{name}.in.tmp", self.dir / f"{name}.in.pkl")
+
+    def get(self, key: str):
+        """The result of job ``key`` (waits for it)."""
+        import pickle
+        t0 = time.perf_counter()
+        self._wait(f"{_cpu_file(key)}.pkl")
+        with open(self.dir / f"{_cpu_file(key)}.pkl", "rb") as f:
+            res = pickle.load(f)
+        log("cpu", f"{key}: its result read after "
+                   f"{time.perf_counter() - t0:.1f} s of waiting")
+        return res
+
+    def close(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join(timeout=60)
+        self._tmp.cleanup()
+
+
+_CPU_REFS = None
+
+
 def phase_model() -> None:
     import dataclasses
     from repro_torch.configs import get_config
     card = torch.device("cuda")
     cfg = dataclasses.replace(get_config(ARCH), n_layers=CHECK_LAYERS)
+    checks = _model_checks()
+    # The two dispatch layouts against each other on the card, same
+    # weights, same fresh dense caches.
+    checks.insert(2, (None, cfg, "dense, padded vs ragged dispatch on the "
+                      "card", card, dict(paged=False, dispatch="padded",
+                                         dispatch_ref="ragged")))
+    for key, cfg, what, dev_ref, kw in checks:
+        check_model("model", cfg, what, dev_ref, card, key=key, **kw)
+    _model_prefix(dataclasses.replace(get_config(ARCH),
+                                      n_layers=CHECK_LAYERS), card)
+
+
+def _model_checks() -> list:
+    """The model phase's checks of the card against the CPU: (key, cfg,
+    what, "cpu", kwargs)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=CHECK_LAYERS)
     # The CPU's prefill of the ragged path runs on the padded layout (its
     # plain ragged version dequantizes an expert per row tile: ~4x the
     # work at 384 tokens); the same routing, drops and products, held
     # equal on the card below. Its decode steps stay ragged.
-    checks = [(cfg, f"{p}, CPU vs card" + (" (CPU prefill padded)"
-                                           if disp == "ragged" else ""),
+    checks = [(f"model {p}", cfg, f"{p}, CPU vs card"
+               + (" (CPU prefill padded)" if disp == "ragged" else ""),
                "cpu", dict(paged=pg, dispatch=disp,
                            prefill_dispatch_ref="padded"))
               for p, (pg, disp, _, _) in PATHS.items()]
-    # The two dispatch layouts against each other on the card, same
-    # weights, same fresh dense caches.
-    checks.append((cfg, "dense, padded vs ragged dispatch on the card", card,
-                   dict(paged=False, dispatch="padded",
-                        dispatch_ref="ragged")))
     # The flagship on its main path: the shared expert, 512 experts top-10,
     # int2 lo with 64 of a 128-slot pool published, 8 rows.
     cfg80 = dataclasses.replace(get_config(FLAGSHIP),
                                 n_layers=FLAGSHIP_CHECK_LAYERS)
-    checks.append((cfg80, "paged/ragged, CPU vs card (CPU prefill padded)",
-                   "cpu", dict(paged=True, dispatch="ragged", B=8, lo_bits=2,
-                               n_hi=128, prefill_dispatch_ref="padded")))
-    for cfg, what, dev_ref, kw in checks:
-        check_model("model", cfg, what, dev_ref, card, **kw)
-    _model_prefix(dataclasses.replace(get_config(ARCH),
-                                      n_layers=CHECK_LAYERS), card)
+    checks.append(("model flagship", cfg80, "paged/ragged, CPU vs card (CPU "
+                   "prefill padded)", "cpu",
+                   dict(paged=True, dispatch="ragged", B=8, lo_bits=2,
+                        n_hi=128, prefill_dispatch_ref="padded")))
+    return checks
 
 
 def routed_alike(ea, eb):
@@ -2412,7 +2664,13 @@ def _model_prefix(cfg, card) -> None:
     (``routed_alike``); at least half the rows of the deepest layer, and
     half of those past the first cut, must be held so."""
     t0 = time.perf_counter()
-    res = run_prefix_check(cfg, torch.device("cpu"), card)
+    if _CPU_REFS is not None and "model prefix" in _CPU_REFS.keys:
+        res = run_prefix_check(cfg, torch.device("cpu"), card, part="card")
+        res.update(_CPU_REFS.get("model prefix"))
+    else:
+        res = run_prefix_check(cfg, torch.device("cpu"), card)
+    log("model", f"the suffix prefill's forwards "
+                 f"{time.perf_counter() - t0:.1f} s")
     cpu, dev = res["cpu"], res["cuda"]
     pairs = []
     for S, cuts, both in PREFIX_CASES:
@@ -5324,6 +5582,18 @@ def _hybrid_spec(card, cfg, params) -> list:
     return [off, on]
 
 
+def _hybrid_check():
+    """The hybrid phase's check of the card against the CPU (key, cfg,
+    what, "cpu", kwargs): Jamba at full width, a 128-slot window."""
+    _, ring_cfg = _jamba(window=HYBRID_CHECK_RING)
+    return ("hybrid", ring_cfg, f"window {HYBRID_CHECK_RING}, paged/ragged, "
+            "CPU vs card (CPU prefill padded)", "cpu",
+            dict(paged=True, dispatch="ragged", B=2,
+                 S=HYBRID_CHECK_PROMPTS[0], steps=4,
+                 lengths=HYBRID_CHECK_PROMPTS, prefill_dispatch_ref="padded",
+                 card_dense=True))
+
+
 def phase_hybrid(card: str, parent=None):
     """Jamba at full width through (a)-(e) of the module's docstring.
     Returns the function that waits for the model check's CPU part, logs
@@ -5352,46 +5622,34 @@ def phase_hybrid(card: str, parent=None):
     # 128 window: row 0 a 192-token prompt that wraps its 8-block ring, row
     # 1 a 48-token one (below the window it computes what the model's 8192
     # window would), 4 decode steps; the card also runs them on dense rows
-    # (a 128-slot ring row), held to the same CPU forwards. The
-    # CPU's plain forwards
-    # take minutes at full width: the check runs its card forwards first,
-    # then its CPU forwards in a thread (two cores left to the rest of
-    # the phase; a thread's count is fixed at its first parallel op)
-    # beside the rest of the phase and the model phase, whose CPU checks
-    # take every core again: on the card's 8-core host the two finish
-    # sooner so than in turn or at half the cores each (PERF.md).
-    threads = torch.get_num_threads()
-    torch.set_num_threads(max(1, threads - 2))
-    try:
-        _, ring_cfg = _jamba(window=HYBRID_CHECK_RING)
-        model_check = check_model(
-            "hybrid", ring_cfg, f"window {HYBRID_CHECK_RING}, paged/ragged, "
-            "CPU vs card (CPU prefill padded)", "cpu", torch.device("cuda"),
-            background=True, paged=True, dispatch="ragged", B=2,
-            S=HYBRID_CHECK_PROMPTS[0], steps=4, lengths=HYBRID_CHECK_PROMPTS,
-            prefill_dispatch_ref="padded", card_dense=True)
-        t1 = time.perf_counter()
-        k = _hybrid_kernels()
-        _hybrid_results(k)
-        if parent is not None:
-            _hybrid_ab(parent)
-        t2 = time.perf_counter()
-        pcie = pinned_h2d_gbps()
-        params = init_params(cfg, seed=0, device=torch.device("cuda"))
-        main_runs = _hybrid_serving(card, cfg, params, pcie)
-        main_runs += _hybrid_ring(card, params)
-        main_runs += _hybrid_spec(card, cfg, params)
-        del params
-        t3 = time.perf_counter()
-    finally:
-        torch.set_num_threads(threads)
+    # (a 128-slot ring row), held to the same CPU forwards. The CPU's
+    # plain forwards take minutes at full width: in a whole run they come
+    # from the CPU process (``_CpuRefs``), which ran them from the run's
+    # start; the check is held at the run's end.
+    key, ring_cfg, what, dev_ref, kw = _hybrid_check()
+    model_check = check_model("hybrid", ring_cfg, what, dev_ref,
+                              torch.device("cuda"), later=True, key=key,
+                              **kw)
+    t1 = time.perf_counter()
+    k = _hybrid_kernels()
+    _hybrid_results(k)
+    if parent is not None:
+        _hybrid_ab(parent)
+    t2 = time.perf_counter()
+    pcie = pinned_h2d_gbps()
+    params = init_params(cfg, seed=0, device=torch.device("cuda"))
+    main_runs = _hybrid_serving(card, cfg, params, pcie)
+    main_runs += _hybrid_ring(card, params)
+    main_runs += _hybrid_spec(card, cfg, params)
+    del params
+    t3 = time.perf_counter()
     for name in RESULTS:
         RESULTS[name]["launches"] = RESULTS[name].get("launches", 0) + sum(
             r["launches"].get(name, 0) for r in main_runs)
     log("hybrid", f"phase done in {time.perf_counter() - t0:.1f} s (the "
                   f"model check's card part {t1 - t0:.1f} s, kernels and "
                   f"A/B {t2 - t1:.1f} s, serving and ring {t3 - t2:.1f} s); "
-                  f"the check's CPU part goes on in its thread | {card}")
+                  f"the check's CPU part is the CPU process's | {card}")
 
     def join():
         t = time.perf_counter()
@@ -5925,6 +6183,51 @@ def _mm_inputs(cfg, gen, dev, text, n_rows):
             (lens + n_img).to(dev))
 
 
+def _mm_twin(key, what, cfg, params, tokens, lengths, steps, extra,
+             card_run):
+    """The twin of ``card_run``: from the CPU process where it runs (it
+    drew the same weights and inputs at the run's start, ``MM_TWINS``; it
+    is sent the card's tokens now), else ``_twin_job``."""
+    if _CPU_REFS is not None and key in _CPU_REFS.keys:
+        _CPU_REFS.put(key, card_run["forced"])
+        return (what, card_run, lambda: _CPU_REFS.get(key))
+    return _twin_job(what, cfg, params, tokens, lengths, steps, extra,
+                     card_run)
+
+
+def _twin_whisper():
+    """Whisper's twin on the host (``_mm_whisper``'s weights and inputs),
+    still to be fed the card's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg, cpu = get_config(WHISPER), torch.device("cpu")
+    params = _to(init_params(cfg, seed=0, device=torch.device("cuda")), cpu)
+    tokens, extra, lengths = _mm_inputs(
+        cfg, torch.Generator().manual_seed(81), cpu, WHISPER_PROMPTS, MM_ROWS)
+    return functools.partial(_batch_run, cfg, params, tokens, lengths,
+                             WHISPER_NEW - 1, extra=extra)
+
+
+def _twin_llava():
+    """The 2-layer LLaVA's twin on the host (``_mm_llava_check``'s)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(get_config(LLAVA), n_layers=LLAVA_CHECK_LAYERS)
+    cpu = torch.device("cpu")
+    params = _to(init_params(cfg, seed=1, device=torch.device("cuda")), cpu)
+    tokens, extra, lengths = _mm_inputs(
+        cfg, torch.Generator().manual_seed(83), cpu, LLAVA_CHECK_TEXT,
+        len(LLAVA_CHECK_TEXT))
+    return functools.partial(_batch_run, cfg, params, tokens, lengths,
+                             LLAVA_CHECK_STEPS, extra=extra)
+
+
+#: The multimodal phase's CPU twins the CPU process runs: key → the
+#: function that draws the twin's weights and inputs.
+MM_TWINS = {"multimodal whisper": _twin_whisper,
+            "multimodal llava": _twin_llava}
+
+
 def _twin_job(what, cfg, params, tokens, lengths, steps, extra, card_run):
     """(what, the card's run, its CPU twin): ``_batch_run`` on host copies
     of the card's weights and inputs (made now: the job holds nothing on
@@ -5972,8 +6275,9 @@ def _mm_whisper(card, dev, cfg, jobs) -> list:
                       f"and prefill), TPOT {run['tpot_s'] * 1e3:.2f} ms | "
                       f"launches {got} ({2 * cfg.n_layers} per decode step: "
                       f"self- and cross-attention) | {card}")
-    jobs.append(_twin_job(f"{cfg.name} CPU vs card", cfg, params, tokens,
-                          lengths, WHISPER_NEW - 1, extra, run))
+    jobs.append(_mm_twin("multimodal whisper", f"{cfg.name} CPU vs card",
+                         cfg, params, tokens, lengths, WHISPER_NEW - 1,
+                         extra, run))
     return [run]
 
 
@@ -5990,9 +6294,10 @@ def _mm_llava_check(dev, full, jobs) -> None:
                                         len(LLAVA_CHECK_TEXT))
     run = _batch_run(cfg, params, tokens, lengths, LLAVA_CHECK_STEPS,
                      extra=extra)
-    jobs.append(_twin_job(f"{full.name} {cfg.n_layers} of {full.n_layers} "
-                          f"layers, image prefix, CPU vs card", cfg, params,
-                          tokens, lengths, LLAVA_CHECK_STEPS, extra, run))
+    jobs.append(_mm_twin("multimodal llava", f"{full.name} {cfg.n_layers} "
+                         f"of {full.n_layers} layers, image prefix, CPU vs "
+                         f"card", cfg, params, tokens, lengths,
+                         LLAVA_CHECK_STEPS, extra, run))
 
 
 def _products_ms(cfg, params, B=FAMILY_SLOTS) -> tuple:
@@ -6120,15 +6425,15 @@ def _mm_twins(card, jobs) -> None:
                       f"| {card}")
 
 
-def phase_multimodal(card: str) -> None:
+def phase_multimodal(card: str):
     """The encoder-decoder and VLM families at full width, seeded random
     weights drawn on the card: Whisper-tiny (full depth) through its batch
     entry points; LLaVA-NeXT-34B at all 60 layers (68.8 GB of bf16)
     through the engine on both layouts and its multimodal batch on dense
     rows; then LLaVA at 2 of 60 layers (image prefix). Whisper and the
-    2-layer LLaVA are held to CPU twins, which run after every timed run
-    of the phase (beside the eager multimodal run they slowed its TPOT
-    1.8x)."""
+    2-layer LLaVA are held to CPU twins, which the CPU process runs
+    (``MM_TWINS``; a thread of this process beside the eager multimodal
+    run slowed its TPOT 1.8x): returns the function that holds them."""
     from repro_torch.configs import get_config
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -6144,7 +6449,7 @@ def phase_multimodal(card: str) -> None:
                       f"(Whisper and LLaVA at 60 layers {t1 - t0:.1f} s, the "
                       f"LLaVA check's card part "
                       f"{time.perf_counter() - t1:.1f} s) | {card}")
-    _mm_twins(card, jobs)
+    return lambda: _mm_twins(card, jobs)
 
 
 # ---------------------------------------------------------------------------
@@ -6966,7 +7271,8 @@ def _grid_sent_expected(cfg, regime: str, T: int, n_slot: int) -> dict:
     e_l = E // mn
     zero = {"model": 0, "data": 0, "tokens": 0}
     out = {c: dict(zero) for c in ("all_to_all", "exchange", "all_gather",
-                                   "all_reduce", "broadcast")}
+                                   "all_reduce", "broadcast",
+                                   "reduce_scatter")}
     if regime == "c":
         n_tok = dp * mn
         S = moe_mod.ep_payload_rows(T, k, e_l, moe_mod.moe_capacity(T, cfg.moe),
@@ -7094,6 +7400,520 @@ def _grid_single(cfg, params) -> dict:
     return out
 
 
+#: (g) the planner's specs executed, serving: the 30B at full width,
+#: PLAN_LAYERS of 48 layers, a static int4 bank (no hi slot), on the phase's
+#: 2 x 2 grid, each rank holding only its shards (``launch.sharding.
+#: shard_tree``); dense rows of PLAN_PROMPT tokens prefilled, then
+#: PLAN_STEPS teacher-forced decode steps, drop-free (capacity factor E/k),
+#: the MoE layers in the all-to-all regime over the model axis on each
+#: model group's rows. PLAN_ROWS: 8 rows (over data x model: case h) and 2
+#: (over data, the caches' sequence over model: case g, row 5 with its
+#: log-sum-exp); held to one process on the ragged dispatch by the model
+#: phase's rule: at 128 experts top-8 the ulps a tensor-parallel sum
+#: moves tip near ties between the 8th and 9th expert, and a swapped
+#: expert moves its row by O(1). Logits of rows whose every token so far
+#: took the same experts in both runs within PLAN_TOL of the largest
+#: |logit| ((e)'s bar), and at least PLAN_HELD_SHARE of the (rank, row,
+#: forward) logits so held (never none); rows routed alike in their own
+#: forward within MODEL_TOL, at least half of them; every row within
+#: MODEL_TOL_SWAP. Counts exact where they cannot turn on a tie: every
+#: row's counts sum to top-k times its tokens in each layer and forward
+#: (drop-free), and the ranks of a model group count alike.
+PLAN_LAYERS, PLAN_ROWS, PLAN_PROMPT, PLAN_STEPS = 2, (8, 2), 32, 8
+PLAN_TOL = 2.0 ** -6
+PLAN_HELD_SHARE = 1 / 8
+#: (h) training under the FSDP specs: granite at full width, PLAN_LAYERS
+#: layers, float32, one train step of PLAN_TRAIN_B rows of PLAN_TRAIN_S
+#: tokens on the 2 x 2 grid against one process: the loss within
+#: PLAN_LOSS_RTOL, every gathered gradient (AdamW's first moment) and
+#: updated parameter within PLAN_GRAD_TOL of its leaf's largest magnitude.
+PLAN_TRAIN_B, PLAN_TRAIN_S = 4, 64
+PLAN_LOSS_RTOL, PLAN_GRAD_TOL = 1e-5, 1e-4
+#: AdamW's first update of an element is g / (|g| + eps) · lr (eps 1e-8):
+#: where |g| is within a hundred eps of 0 it swings with the gradient's
+#: last bits (one process's float32 sums against the grid's), so the
+#: updated parameters are held where the clipped gradient is at least
+#: this; the gradients themselves (the first moment m) everywhere.
+PLAN_G_FLOOR = 1e-6
+#: The kernels (g) may launch, printed per run: rows 1-2 (the all-to-all
+#: regime), 4 (the padded regime where a decode step's rows do not split
+#: over the model axis), 5 (dense decode attention) and 7 (dense experts).
+PLAN_KERNELS = ("ragged_gateup", "ragged_down", "grouped_lo_matmul",
+                "flash_decode", "ragged_dense_gateup", "ragged_dense_down")
+
+
+def _plan_model(dev):
+    """(g)'s model on ``dev``: (cfg, params without the dense experts, the
+    static int4 bank {position: bank}), the same bits in every process."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ver import build_bank
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=PLAN_LAYERS)
+    params = init_params(cfg, seed=EP_SEED + 7, device=dev)
+    banks = {}
+    for p, bp in params["blocks"].items():
+        if "moe" in bp:
+            banks[p] = build_bank(bp["moe"].pop("experts"), n_hi=0,
+                                  lo_bits=4, group_size=64)
+            bp["moe"]["experts"] = None
+    return cfg, params, banks
+
+
+def _plan_tokens(cfg, B, dev):
+    gen = torch.Generator().manual_seed(EP_SEED + 11 + B)
+    return torch.randint(1, cfg.vocab_size, (B, PLAN_PROMPT + PLAN_STEPS),
+                         generator=gen).to(dev)
+
+
+def _plan_serve(cfg, params, banks, B, ctx=None) -> dict:
+    """(g) one run of B rows: prefill, then the decode steps, under ``ctx``
+    with the planner (None: one process, ragged dispatch); launches and
+    regimes counted from zero over it (the run's main path), the bytes
+    each collective sent in the first decode step, and on the grid the
+    bytes this rank holds against ``rank_bytes`` by kind."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dist as D
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.dist import dist_ctx
+    from repro_torch.models.model import decode_step, init_caches, prefill
+    from repro_torch.models.specs import layout
+    dev = params["embed"].device
+    tok = _plan_tokens(cfg, B, dev)
+    P = PLAN_PROMPT
+    caches = init_caches(cfg, B, P + PLAN_STEPS, device=dev)
+    inputs = {"tokens": tok[:, :P], "lengths": torch.full((B,), P,
+                                                          device=dev)}
+    steps = [{"token": tok[:, P + i], "pos": torch.full((B,), P + i,
+                                                        device=dev)}
+             for i in range(PLAN_STEPS)]
+    out = {"held": {}, "rows": slice(0, B)}
+    if ctx is not None:
+        pl = SH.ShardingPlanner(cfg, SH.grid_of(ctx))
+        ctx = dataclasses.replace(ctx, planner=pl, batch=B,
+                                  tokens_ep_sharded=True)
+        grid = SH.grid_of(ctx)
+        for kind, name, tree in (("param", "params", params),
+                                 ("param", "bank", banks),
+                                 ("cache", "caches", caches),
+                                 ("input", "inputs", inputs)):
+            local = SH.shard_tree(tree, kind, pl, ctx)
+            out["held"][name] = (SH.held_bytes(local, kind == "cache"),
+                                 SH.rank_bytes(tree, kind, pl, grid))
+            if name == "params":
+                params = local
+            elif name == "bank":
+                banks = local
+            elif name == "caches":
+                caches = local
+            else:
+                inputs = local
+        steps = [SH.shard_tree(st, "input", pl, ctx) for st in steps]
+        out["rows"] = layout(ctx).group
+    cf = cfg.moe.num_experts / cfg.moe.top_k
+    ops.reset_launches()                 # the main path starts here
+    moe_mod.reset_regimes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), dist_ctx(ctx):
+        lg, counts = prefill(params, cfg, inputs["tokens"], caches,
+                             inputs["lengths"], bank=banks,
+                             capacity_factor=cf, moe_dispatch="ragged",
+                             per_row_counts=True)
+        logits, all_counts = [lg], [counts]
+        for i, st in enumerate(steps):
+            if i == 0:
+                torch.cuda.synchronize()
+                D.reset_sent()
+            lg, counts = decode_step(params, cfg, st["token"], st["pos"],
+                                     caches, bank=banks, capacity_factor=cf,
+                                     moe_dispatch="ragged",
+                                     per_row_counts=True)
+            if i == 0:
+                out["sent"] = {k: dict(v) for k, v in D.SENT_BYTES.items()}
+            logits.append(lg)
+            all_counts.append(counts)
+    torch.cuda.synchronize()
+    out["s"] = time.perf_counter() - t0
+    out["launches"] = dict(ops.LAUNCHES)          # ... and ends here
+    out["regimes"] = dict(moe_mod.REGIMES)
+    out["logits"] = torch.stack(logits).float().cpu()
+    out["counts"] = [{k: v.cpu() for k, v in c.items()} for c in all_counts]
+    assert bool(torch.isfinite(out["logits"]).all())
+    return out
+
+
+def _plan_sent_expected(cfg, B: int) -> dict:
+    """The bytes one rank of the 2 x 2 grid sends in one (g) decode step of
+    B rows, by collective and axis, from the shapes (``launch.dist.
+    SENT_BYTES``' pricing; n = 2 on either axis, so a ring's 2(n-1)/n is
+    1): rows over data x model (B = 8): the token and position ids
+    gathered over model, q/k/v from the group's rows' local heads to the
+    rank's own rows' every head and the attention output back by
+    all-to-alls; rows over data (B = 2): q/k/v gathered over model, each
+    rank's (o, lse) over its half of the cache gathered and combined. Then
+    per layer wo's all-reduce, the MoE layer on the group's tokens (the
+    all-to-all regime where they split over model, else the padded one)
+    with its group rows' per-row counts, its load-balance statistics
+    summed over data; the embedding's all-reduce and the logits' gather
+    over model."""
+    import repro_torch.models.moe as moe_mod
+    a, m = cfg.attn, cfg.moe
+    d, hd, V, E = cfg.d_model, a.head_dim, cfg.vocab_size, m.num_experts
+    dp = mn = 2
+    over = B % (dp * mn) == 0
+    Bg = B // dp
+    Bo = Bg // mn if over else Bg
+    hq, hk = a.n_heads // mn, a.n_kv_heads // mn
+    out = {c: {x: 0 for x in ("model", "data", "tokens")}
+           for c in ("all_to_all", "exchange", "all_gather", "all_reduce",
+                     "broadcast", "reduce_scatter")}
+    mdl, tok, dat = {}, {}, {}
+
+    def add(where, c, n):
+        where[c] = where.get(c, 0) + n
+    if over:
+        add(mdl, "all_gather", 2 * Bo * 8)                  # ids, positions
+    add(mdl, "all_reduce", Bg * d * 4)                      # embedding
+    per_m, per_t, per_d = {}, {}, {}
+    qkv = (Bg * hq * hd + 2 * Bg * hk * hd) * 2
+    if over:
+        add(per_m, "all_to_all", qkv // 2 + Bg * hq * hd * 2 // 2)
+    else:
+        add(per_m, "all_gather", qkv + Bg * a.n_heads * (hd * 2 + 4))
+    add(per_m, "all_reduce", Bg * d * 4)                    # wo
+    cap = moe_mod.moe_capacity(B, m, E / m.top_k)
+    cap_l = max(8, (cap // dp + 7) // 8 * 8)
+    if Bg % mn == 0:
+        rows = moe_mod.ep_payload_rows(Bg, m.top_k, E // mn, cap_l, mn,
+                                       n_rows=Bg)
+        add(per_m, "all_to_all", 2 * rows * d * 2 + (E // mn) * 8)
+        add(per_t, "all_gather", Bg // mn * d * 2            # y
+            + Bg // mn * E * 4)                              # row counts
+        add(per_t, "all_reduce", (E + 3) * 8)
+    else:
+        add(per_m, "all_reduce", Bg * d * 4 + 2 * 8          # y, means
+            + Bg * E * 8)                                    # row counts
+        add(per_m, "all_gather", (E // mn) * 4)             # counts
+    add(per_d, "all_reduce", (E + 1) * 8 + E * 4)           # aux
+    for where, axis in ((mdl, "model"), (tok, "tokens"), (dat, "data")):
+        for c, n in where.items():
+            out[c][axis] += n
+    for where, axis in ((per_m, "model"), (per_t, "tokens"),
+                        (per_d, "data")):
+        for c, n in where.items():
+            out[c][axis] += cfg.n_superblocks() * n
+    out["all_gather"]["model"] += Bg * V // mn * 4          # logits
+    return out
+
+
+def _plan_train_model(dev):
+    """(h)'s model on ``dev``: (cfg, float32 params, the batch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=PLAN_LAYERS)
+    params = T.tree_map(lambda t: t.float(),
+                        init_params(cfg, seed=EP_SEED + 13, device=dev))
+    gen = torch.Generator().manual_seed(EP_SEED + 17)
+    tok = torch.randint(0, cfg.vocab_size, (PLAN_TRAIN_B, PLAN_TRAIN_S + 1),
+                        generator=gen).to(dev)
+    return cfg, params, {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+
+def _plan_train(ctx=None, dev=None) -> dict:
+    """(h) one train step under ``ctx`` with the FSDP planner (None: one
+    process): the loss, gradient norm, learning rate, and the AdamW
+    moments and updated parameters as (path, spec, float32 tensor on the
+    host); on the grid the bytes held against ``rank_bytes`` (params,
+    AdamW state, inputs), and the bytes each collective sent in one
+    forward (no remat, no autograd)."""
+    from repro_torch.core import tree as T
+    from repro_torch.launch import dist as D
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.dist import dist_ctx
+    from repro_torch.models import specs as SP
+    from repro_torch.models.model import forward_train
+    from repro_torch.training.adamw import adamw_init
+    from repro_torch.training.train import TrainConfig, make_train_step
+    dev = dev if ctx is None else ctx.device
+    cfg, params, batch = _plan_train_model(dev)
+    tcfg = TrainConfig(capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+    opt = adamw_init(params)
+    paths = T.flatten(params)[0]
+    out = {"held": {}}
+    specs = [None] * len(paths)
+    if ctx is not None:
+        pl = SH.ShardingPlanner(cfg, SH.grid_of(ctx), fsdp=True)
+        ctx = dataclasses.replace(ctx, planner=pl, batch=PLAN_TRAIN_B,
+                                  tokens_ep_sharded=False)
+        grid = SH.grid_of(ctx)
+        local = {}
+        for kind, name, tree in (("param", "params", params),
+                                 ("param", "adamw", opt),
+                                 ("input", "inputs", batch)):
+            local[name] = SH.shard_tree(tree, kind, pl, ctx)
+            out["held"][name] = (SH.held_bytes(local[name]),
+                                 SH.rank_bytes(tree, kind, pl, grid))
+        params, opt, batch = local["params"], local["adamw"], \
+            local["inputs"]
+        specs = SP._leaf_specs(params, cfg, ctx)
+        D.reset_sent()
+        with torch.no_grad(), dist_ctx(ctx):
+            forward_train(params, cfg, {"tokens": batch["tokens"]},
+                          capacity_factor=tcfg.capacity_factor, remat=False)
+        out["sent"] = {k: dict(v) for k, v in D.SENT_BYTES.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with dist_ctx(ctx):
+        new, state, metrics = make_train_step(cfg, tcfg)(params, opt, batch)
+    torch.cuda.synchronize()
+    out["s"] = time.perf_counter() - t0
+    out["loss"], out["gnorm"] = float(metrics["loss"]), \
+        float(metrics["gnorm"])
+    out["lr"] = float(metrics["lr"])
+    host = lambda ts: [(p, sp, t.detach().float().cpu())
+                       for p, sp, t in zip(paths, specs, ts)]
+    # The first step's moments are the clipped gradient's: m = (1 - b1)·g,
+    # v = (1 - b2)·g², exact in the gradient where the update divides by
+    # sqrt(v) + eps.
+    out["m"], out["v"] = host(T.leaves(state["m"])), \
+        host(T.leaves(state["v"]))
+    out["new"], out["old"] = host(T.leaves(new)), \
+        host(T.leaves(params)) if ctx is None else None
+    return out
+
+
+def _plan_train_sent_expected(cfg, planner) -> dict:
+    """The bytes one rank sends in (h)'s forward (no remat, no autograd)
+    on the 2 x 2 grid, from the specs and shapes: every leaf cut over
+    data (FSDP) gathered at use (the embedding twice: lookup and tied
+    head; each block leaf once per layer), wo's all-reduce over model,
+    the MoE layer's padded regime over model and its counts and
+    load-balance statistics over data; where the vocabulary divides the
+    model axis (not granite's 49155), the embedding's all-reduce."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.model import init_params
+    dp = mn = 2
+    B, S = PLAN_TRAIN_B // dp, PLAN_TRAIN_S
+    d, E = cfg.d_model, cfg.moe.num_experts
+    out = {c: {x: 0 for x in ("model", "data", "tokens")}
+           for c in ("all_to_all", "exchange", "all_gather", "all_reduce",
+                     "broadcast", "reduce_scatter")}
+    abstract = init_params(cfg, device="meta")
+    specs = planner.tree_specs(abstract, "param")
+    grid = SH.GridShape({"data": dp, "model": mn}, ("data", "model"))
+    for path, leaf in SH.leaf_paths(abstract):
+        spec = specs[path]
+        if not any(e is not None and "model" not in
+                   ((e,) if isinstance(e, str) else e) for e in spec):
+            continue
+        local = leaf.numel() * 4
+        for n in SH._split_counts(spec, grid):
+            local //= n
+        uses = 2 if path == "['embed']" else 1
+        out["all_gather"]["data"] += uses * local * (dp - 1)
+    L = cfg.n_superblocks()
+    out["all_reduce"]["model"] += L * (B * S * d * 4          # wo
+                                       + B * S * d * 4 + 2 * 8)  # y, means
+    out["all_gather"]["model"] += L * (E // mn) * 4          # counts
+    out["all_reduce"]["data"] += L * (E * 8 + (E + 1) * 8 + E * 4)
+    if cfg.vocab_size % mn == 0:
+        out["all_reduce"]["model"] += B * S * d * 4          # embedding
+    return out
+
+
+def _plan_rank(ctx) -> dict:
+    """(g) and (h) on this rank of the 2 x 2 grid ``ctx``."""
+    cfg, params, banks = _plan_model(ctx.device)
+    out = {"coords": (ctx.data_rank, ctx.rank)}
+    for B in PLAN_ROWS:
+        out[("g", B)] = _plan_serve(cfg, params, banks, B, ctx)
+    del params, banks
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["h"] = _plan_train(ctx)
+    return out
+
+
+def _plan_single(dev) -> dict:
+    """The one-process runs (g) and (h) are held to, on ``dev``."""
+    cfg, params, banks = _plan_model(dev)
+    out = {("g", B): _plan_serve(cfg, params, banks, B) for B in PLAN_ROWS}
+    del params, banks
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["h"] = _plan_train(dev=dev)
+    return out
+
+
+def _plan_assemble(ranks, key) -> list:
+    """(h)'s whole tensors from every rank's shards of ``key`` ("grads" or
+    "new"): each cut dim placed at its axis index (model: the model
+    index, data: the data index)."""
+    out = []
+    for li, (path, spec, _) in enumerate(ranks[0]["h"][key]):
+        parts = [(r["coords"], r["h"][key][li][2]) for r in ranks]
+        t0 = parts[0][1]
+        shape = list(t0.shape)
+        for d, e in enumerate(spec):
+            if e is not None:
+                shape[d] *= 2
+        full = torch.zeros(shape)
+        for (i, j), t in parts:
+            idx = tuple(slice(0, None) if e is None else slice(
+                (j if e == "model" else i) * t.shape[d],
+                ((j if e == "model" else i) + 1) * t.shape[d])
+                for d, e in enumerate(spec))
+            full[idx] = t
+        out.append((path, full))
+    return out
+
+
+def _plan_check(ranks, single, fails, card) -> list:
+    """Hold (g) and (h) to the one process and log them; returns (g)'s
+    runs' launches (the main path's of each run)."""
+    from repro_torch.configs import get_config
+    runs = []
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=PLAN_LAYERS)
+    for B in PLAN_ROWS:
+        want = single[("g", B)]
+        got = [r[("g", B)] for r in ranks]
+        runs += [{"launches": g["launches"]} for g in got]
+        scale = float(want["logits"].abs().max())
+        # Per (rank, row, forward): routed alike in that forward (its
+        # tokens took the same experts in every layer), and alike so far
+        # (in every forward up to it: the K/V it reads too).
+        strict = now = loose = 0.0
+        held = alike_now = pairs = 0
+        counts = conserved = True
+        for g in got:
+            rows = g["rows"]
+            so_far = torch.ones(rows.stop - rows.start, dtype=torch.bool)
+            for f, (gc_, wc) in enumerate(zip(g["counts"], want["counts"])):
+                same = torch.stack([(gc_[k] == wc[k][:, rows]).all(2).all(0)
+                                    for k in wc]).all(0)
+                counts &= bool(same.all())
+                per_row = cfg.moe.top_k * (PLAN_PROMPT if f == 0 else 1)
+                conserved &= all(bool((c.sum(-1) == per_row).all())
+                                 for c in gc_.values())
+                so_far &= same
+                d = (g["logits"][f] - want["logits"][f][rows]).abs() \
+                    .amax(-1)
+                loose = max(loose, float(d.max()))
+                if bool(so_far.any()):
+                    strict = max(strict, float(d[so_far].max()))
+                if bool(same.any()):
+                    now = max(now, float(d[same].max()))
+                held += int(so_far.sum())
+                alike_now += int(same.sum())
+                pairs += same.numel()
+        group_same = all(
+            torch.equal(a["logits"], b["logits"]) and
+            all(torch.equal(ca[k], cb[k]) for ca, cb in
+                zip(a["counts"], b["counts"]) for k in ca)
+            for a in got for b in got if a["rows"] == b["rows"])
+        held_ok = all(h == w for g in got for h, w in g["held"].values())
+        sent_ok = all(g["sent"] == _plan_sent_expected(cfg, B) for g in got)
+        # A group's rows split over the model axis (8 rows: 4 per group)
+        # take the all-to-all regime (rows 1-2); one row does not (the
+        # padded regime, row 4). Row 5 in every decode layer.
+        k_need = ("ragged_gateup", "ragged_down") if B % 4 == 0 else \
+            ("grouped_lo_matmul",)
+        k_ok = all(g["launches"].get(k, 0) > 0 for g in got
+                   for k in k_need + ("flash_decode",))
+        ok = held_ok and sent_ok and k_ok and group_same and conserved \
+            and held >= max(1, PLAN_HELD_SHARE * pairs) and \
+            strict <= PLAN_TOL * scale and now <= MODEL_TOL and \
+            loose <= MODEL_TOL_SWAP and 2 * alike_now >= pairs and \
+            bool(torch.isfinite(torch.stack([g["logits"]
+                                             for g in got])).all())
+        case = "h: rows over data x model" if B % 4 == 0 else \
+            "g: rows over data, the caches' sequence over model (row 5 " \
+            "with lse)"
+        log("ep", f"(g) 2x2 under specs, {B} rows ({case}): prefill "
+                  f"{B}x{PLAN_PROMPT} + {PLAN_STEPS} decode steps against "
+                  f"one process's ragged run, of {pairs} (rank, row, "
+                  f"forward) logits: {held} (at least "
+                  f"{max(1, PLAN_HELD_SHARE * pairs):g}) from rows whose "
+                  f"every token "
+                  f"took the same experts in both runs so far, max |logit "
+                  f"diff| on them {strict:.4g} (largest |logit| "
+                  f"{scale:.4g}; bar {PLAN_TOL * scale:.4g}); {alike_now} "
+                  f"routed alike in their forward (at least half), "
+                  f"{now:.4g} (bar MODEL_TOL {MODEL_TOL}); every row "
+                  f"{loose:.4g} (bar MODEL_TOL_SWAP {MODEL_TOL_SWAP}); "
+                  f"per-row counts "
+                  f"{'=' if counts else '!='}, each row's summing to top-k "
+                  f"times its tokens {conserved}; a model group's ranks' "
+                  f"logits and counts bit-equal {group_same}; regimes rank 0 "
+                  f"{got[0]['regimes']}; launches per rank "
+                  + "; ".join(", ".join(f"{k} {g['launches'].get(k, 0)}"
+                                        for k in PLAN_KERNELS) for g in got)
+                  + f"; held bytes rank 0 {got[0]['held']} (= rank_bytes on "
+                    f"every rank: {held_ok}); run {got[0]['s']:.2f} s, one "
+                    f"process {want['s']:.2f} s | {card}")
+        log("ep", f"(g) {B} rows: one decode step sent, rank 0: " + ", ".join(
+            f"{c} {v}" for c, v in got[0]["sent"].items() if any(v.values()))
+            + f" bytes; every rank's = the formulas {sent_ok} | {card}")
+        if not ok:
+            fails.append(f"(g) {B} rows")
+    want = single["h"]
+    from repro_torch.launch.sharding import ShardingPlanner, GridShape
+    tcfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=PLAN_LAYERS)
+    sent_want = _plan_train_sent_expected(tcfg, ShardingPlanner(
+        tcfg, GridShape({"data": 2, "model": 2}, ("data", "model")),
+        fsdp=True))
+    loss_ok = all(abs(r["h"]["loss"] - want["loss"]) <=
+                  PLAN_LOSS_RTOL * abs(want["loss"]) for r in ranks)
+    worst, where, floored = {}, {}, 0
+    for key in ("m", "v", "new"):
+        err = 0.0
+        for li, (path, g) in enumerate(_plan_assemble(ranks, key)):
+            w = want[key][li][2]
+            d = (g - w).abs()
+            if key == "new":
+                # Where the clipped gradient (m = 0.1·g) is under
+                # PLAN_G_FLOOR, AdamW's first update g / (|g| + eps) turns
+                # on rounding: those elements are held by m alone.
+                small = want["m"][li][2].abs() < 0.1 * PLAN_G_FLOOR
+                floored += int(small.sum())
+                d = torch.where(small, torch.zeros_like(d), d)
+            e = float(d.max()) / max(float(w.abs().max()), 1e-30)
+            if e >= err:
+                err, at = e, (path, li, int(d.argmax()))
+        worst[key], where[key] = err, at
+    path, li, flat = where["new"]
+    g_at = float(want["m"][li][2].reshape(-1)[flat]) / 0.1
+    moments_ok = max(worst["m"], worst["v"]) <= PLAN_GRAD_TOL
+    held_ok = all(h == w for r in ranks for h, w in r["h"]["held"].values())
+    sent_ok = all(r["h"]["sent"] == sent_want for r in ranks)
+    ok = loss_ok and held_ok and sent_ok and moments_ok and \
+        worst["new"] <= PLAN_GRAD_TOL
+    log("ep", f"(h) 2x2 under FSDP specs: {TRAIN_ARCH} at full width, "
+              f"{PLAN_LAYERS} layers, float32, one train step of "
+              f"{PLAN_TRAIN_B}x{PLAN_TRAIN_S}: loss "
+              f"{[round(r['h']['loss'], 7) for r in ranks]} vs one process "
+              f"{want['loss']:.7f}; gnorm {ranks[0]['h']['gnorm']:.6g} vs "
+              f"{want['gnorm']:.6g}; worst leaf |diff| / its largest "
+              f"|value|: the gradients (AdamW's m) {worst['m']:.3g}, their "
+              f"squares (v) {worst['v']:.3g}, updated params "
+              f"{worst['new']:.3g} (bar {PLAN_GRAD_TOL}; at {path}, element "
+              f"{flat}, clipped gradient {g_at:.3g}; {floored} elements "
+              f"whose clipped gradient is under {PLAN_G_FLOOR} held by m "
+              f"alone; lr {want['lr']:.3g}); held bytes rank 0 "
+              f"{ranks[0]['h']['held']} (= rank_bytes on every rank: "
+              f"{held_ok}); one forward sent, rank 0: "
+              + ", ".join(f"{c} {v}" for c, v in ranks[0]["h"]["sent"].items()
+                          if any(v.values()))
+              + f" (= the formulas on every rank: {sent_ok}); step "
+                f"{ranks[0]['h']['s']:.2f} s, one process {want['s']:.2f} s"
+                f" | {card}")
+    if not ok:
+        fails.append("(h)")
+    return runs
+
+
 def _ep_rank(ctx) -> dict:
     """One rank of the phase's world: (a) and (b) at N = 4 over every rank,
     then (a) and (c) at N = 2 over ranks 0 and 1 (a group of the world);
@@ -7144,6 +7964,12 @@ def _ep_rank(ctx) -> dict:
         t1 = time.perf_counter()
         out["f"] = _grid_sp(cfg, params, row3)
         out["f_s"] = time.perf_counter() - t1
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["gh"] = _plan_rank(grid)
+    out["gh_s"] = time.perf_counter() - t1
     tdist.barrier()
     out["left"] = time.time()
     return out
@@ -7261,6 +8087,9 @@ def phase_ep(card: str) -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    spec_single = _plan_single(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     t1 = time.perf_counter()
     th.join()
     if "error" in box:
@@ -7351,6 +8180,9 @@ def phase_ep(card: str) -> None:
     if not c_ok:
         fails.append("(c)")
     runs += _grid_check(ranks, grid_single, cfg, fails, card)
+    runs += _plan_check([r["gh"] for r in ranks], spec_single, fails, card)
+    log("ep", f"(g) and (h) took {max(r['gh_s'] for r in ranks):.1f} s on "
+              f"the ranks | {card}")
     for k in RESULTS:
         RESULTS[k]["launches"] = RESULTS[k].get("launches", 0) + sum(
             r["launches"][k] for r in runs)
@@ -7695,9 +8527,6 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
 PHASES = ("card", "build", "kernels", "splits", "gemms", "serving",
           "requests", "spec", "ladder", "obs", "hybrid", "model",
           "families", "multimodal", "train", "ep", "trace")
-#: The phases that time nothing on the host: they run beside the CPU part
-#: of the hybrid model check, which any other phase waits for.
-BESIDE_CPU_CHECK = ("model",)
 #: Phases that run only when named in ``--only``.
 EXTRA_PHASES = ("dense",)
 
@@ -7717,9 +8546,27 @@ def main() -> int:
     only = args.only.split(",")
     t0 = time.perf_counter()
     card = phase_card()
-    phase_build()
+    global _CPU_REFS
+    jobs = _cpu_jobs(only)
+    if jobs:                # it draws on the card while nvcc builds
+        _CPU_REFS = _CpuRefs(jobs)
+    try:
+        phase_build()
+        if _CPU_REFS is not None:
+            _CPU_REFS.ready()
+        return _run_phases(args, only, card, t0)
+    finally:
+        if _CPU_REFS is not None:
+            _CPU_REFS.close()
+
+
+def _run_phases(args, only, card, t0) -> int:
+    """Every phase in ``only`` in order, then the contract's last lines."""
     took = {}
-    check = None        # the hybrid model check's CPU part, left running
+    # The functions that hold a phase's CPU half (the hybrid model check's,
+    # the multimodal twins'), called at the run's end: they wait for the
+    # CPU process's results.
+    pending = []
     for name, run in (("kernels", lambda: phase_kernels(args.parent)),
                       ("splits", phase_splits),
                       ("gemms", phase_gemms),
@@ -7737,23 +8584,26 @@ def main() -> int:
                       ("ep", lambda: phase_ep(card)),
                       ("trace", lambda: phase_trace(card))):
         if name in only:
-            if check is not None and name not in BESIDE_CPU_CHECK:
-                check()
-                check = None
             t = time.perf_counter()
-            check = run() or check
+            join = run()
+            if join is not None:
+                pending.append(join)
             took[name] = time.perf_counter() - t
             # What the phase built (engines, weights, their graphs) goes
             # before the next phase: reference cycles collected, the
             # allocator's cache returned.
             gc.collect()
             torch.cuda.empty_cache()
-            log("mem", f"after {name}: device memory allocated "
+            log("mem", f"after {name} ({took[name]:.1f} s): device "
+                       f"memory allocated "
                        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, "
                        f"reserved {torch.cuda.memory_reserved() / 1e9:.2f} "
                        f"GB")
-    if check is not None:
-        check()
+    t = time.perf_counter()
+    while pending:
+        pending.pop(0)()
+    log("done", f"the CPU halves held {time.perf_counter() - t:.1f} s after "
+                f"the last phase")
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s ("
                 + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
                 + ")")

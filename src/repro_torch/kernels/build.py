@@ -48,6 +48,7 @@ SIGNATURES = {
     },
     "flash_decode": {
         "flash_decode": [_P] * 7 + [_F, _P],
+        "flash_decode_lse": [_P] * 8 + [_F, _P],
     },
     "quant_matmul": {
         "quant_matmul": [_P] * 5 + [_I] * 9 + [_P],

@@ -10,6 +10,11 @@
 // axis contiguous, the others multiples of 8 elements for 16-byte copies).
 // Any S: the last tile reads zeros past S and masks them. A row with no
 // valid slot writes zeros (denominator floor 1e-30, as the reference).
+// `flash_decode_lse` also writes each head's natural log-sum-exp of its
+// scaled logits, (B, H) float32 (-inf for a row with no valid slot), from
+// the same online softmax state: what a caller needs to combine the
+// outputs of several disjoint sets of slots (a cache whose sequence is
+// split over ranks) by their log-sum-exp.
 //
 // What bounds it on this card. Each K/V element is used by the rep = H/Hkv
 // query heads of its group only, about 2·rep operations per 2-byte element,
@@ -68,13 +73,14 @@ struct DenseSrc {
   }
 };
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(fd::THREADS)
     fd_split_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     const bool* __restrict__ valid,
                     __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse,
                     float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int H, int Hkv, int S,
                     long long st_b, long long st_s, long long st_h,
@@ -89,22 +95,26 @@ __global__ void __launch_bounds__(fd::THREADS)
   const int t0 = s * tps, t1 = min(n_tiles, t0 + tps);
   const size_t head = ((size_t)b * H + (size_t)g * rep) * hd;
   const size_t part = ((size_t)bg * n_split + s) * rep;
-  fd::split_attend<HD>(
+  fd::split_attend<HD, LSE>(
       src, q + head, k, v, rep, t0, t1, stages, scale_log2,
       n_split == 1 ? out + head : nullptr,
       n_split == 1 ? nullptr : part_acc + part * hd,
-      n_split == 1 ? nullptr : part_ml + part * 2, smem, hd);
+      n_split == 1 ? nullptr : part_ml + part * 2, smem, hd,
+      LSE ? lse + (size_t)b * H + g * rep : nullptr);
 }
 
-template <int HD>
+// LSE: whether `lse` is written (a compile-time flag, so that the kernel
+// without the output is the one it was before the output existed).
+template <int HD, bool LSE>
 int launch(const void* q, const void* k, const void* v, const void* valid,
-           void* out, void* part_acc, void* part_ml, int B, int H, int Hkv,
+           void* out, float* lse, void* part_acc, void* part_ml, int B,
+           int H, int Hkv,
            int S, int n_split, int tps, long long st_b, long long st_s,
            long long st_h, float scale, int hd, cudaStream_t stream) {
   static bool attr_set = false;           // once per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        fd_split_kernel<HD>,
+        fd_split_kernel<HD, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fd::SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
@@ -113,11 +123,11 @@ int launch(const void* q, const void* k, const void* v, const void* valid,
   if (stages < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = fd::WARPS * stages * fd::stage_bytes(TILE, HD);
   dim3 grid(B * Hkv, n_split);
-  fd_split_kernel<HD><<<grid, fd::THREADS, smem, stream>>>(
+  fd_split_kernel<HD, LSE><<<grid, fd::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const bool*>(valid),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_acc),
+      static_cast<__nv_bfloat16*>(out), lse, static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), H, Hkv, S, st_b, st_s, st_h, n_split,
       tps, stages, scale * fd::LOG2E, hd);
   cudaError_t err = cudaGetLastError();
@@ -125,7 +135,7 @@ int launch(const void* q, const void* k, const void* v, const void* valid,
   return (int)fd::launch_merge(static_cast<const float*>(part_acc),
                                static_cast<const float*>(part_ml),
                                static_cast<__nv_bfloat16*>(out), B, H, Hkv,
-                               hd, n_split, stream);
+                               hd, n_split, stream, LSE ? lse : nullptr);
 }
 
 }  // namespace
@@ -135,14 +145,15 @@ extern "C" {
 // out (B, H, hd) = softmax(q·kᵀ/√hd masked by valid) · v; q (B, H, hd)
 // contiguous, k/v (B, S, Hkv, hd) bf16 with element strides st_b, st_s,
 // st_h (shared by k and v; the last axis contiguous), valid (B, S) bool;
-// scale = hd^-1/2 as the caller rounds it; hd a multiple of 8 up to 256. dims = {B, H, Hkv, S, hd, st_b,
+// scale = hd^-1/2 as the caller rounds it; hd a multiple of 8 up to 256;
+// lse (B, H) float32 or null. dims = {B, H, Hkv, S, hd, st_b,
 // st_s, st_h, n_split, tps}: n_split CTAs per (row, KV head) of tps
 // 32-position tiles each (the last may hold fewer). With n_split > 1,
 // scratch holds the float32 partials, acc (B·Hkv, n_split, rep, hd) then
 // (m, l) (B·Hkv, n_split, rep, 2), and a second kernel merges them.
-int flash_decode(const void* q, const void* k, const void* v,
-                 const void* valid, void* out, void* scratch,
-                 const long long* dims, float scale, void* stream) {
+int flash_decode_lse(const void* q, const void* k, const void* v,
+                     const void* valid, void* out, void* lse, void* scratch,
+                     const long long* dims, float scale, void* stream) {
   const int B = (int)dims[0], H = (int)dims[1], Hkv = (int)dims[2],
             S = (int)dims[3], hd = (int)dims[4], n_split = (int)dims[8],
             tps = (int)dims[9];
@@ -158,10 +169,16 @@ int flash_decode(const void* q, const void* k, const void* v,
   float* part_ml = n_split > 1
       ? part_acc + (size_t)B * Hkv * n_split * (H / Hkv) * hd : nullptr;
   auto s = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
 #define FD_CASE(HD)                                                        \
   case HD:                                                                 \
-    return launch<HD>(q, k, v, valid, out, part_acc, part_ml, B, H, Hkv,   \
-                      S, n_split, tps, st_b, st_s, st_h, scale, hd, s);
+    return ls != nullptr                                                   \
+        ? launch<HD, true>(q, k, v, valid, out, ls, part_acc, part_ml, B,  \
+                           H, Hkv, S, n_split, tps, st_b, st_s, st_h,      \
+                           scale, hd, s)                                   \
+        : launch<HD, false>(q, k, v, valid, out, nullptr, part_acc,        \
+                            part_ml, B, H, Hkv, S, n_split, tps, st_b,     \
+                            st_s, st_h, scale, hd, s);
   switch (hdp) {
     FD_CASE(64)
     FD_CASE(128)
@@ -169,6 +186,14 @@ int flash_decode(const void* q, const void* k, const void* v,
       FD_CASE(256)
   }
 #undef FD_CASE
+}
+
+// The same without the log-sum-exp output.
+int flash_decode(const void* q, const void* k, const void* v,
+                 const void* valid, void* out, void* scratch,
+                 const long long* dims, float scale, void* stream) {
+  return flash_decode_lse(q, k, v, valid, out, nullptr, scratch, dims, scale,
+                          stream);
 }
 
 }  // extern "C"

@@ -141,17 +141,28 @@ inline int ring_stages(int rows, int hd, int tiles_per_split) {
   return stages;
 }
 
+// The natural log-sum-exp of a head's scaled logits from its online
+// softmax state: M the largest logit in log2 units, L = Σ 2^{s−M}; -inf
+// where no slot was valid (L = 0).
+__device__ __forceinline__ float log_sum_exp(float M, float L) {
+  return L > 0.f ? (M + log2f(L)) * 0.69314718055994531f : -INFINITY;
+}
+
 // The split kernels' body for one CTA. q: the rep query heads of (b, g),
 // (rep, hd) bf16. Tiles [t_begin, t_end) of `src`. With `out` set (one
-// split) writes the normalized bf16 rows; else the split's partials:
-// part_acc (rep, hd) and part_ml (rep, 2) = (m, l), float32; hd ≤ HD.
-template <int HD, class Src>
+// split) writes the normalized bf16 rows, and with LSE each head's
+// natural log-sum-exp of its scaled logits into `lse` (float32, -inf for
+// a row with no valid slot); else the split's partials: part_acc (rep,
+// hd) and part_ml (rep, 2) = (m, l), float32; hd ≤ HD. LSE is a
+// compile-time flag: without it the body is the one without the output.
+template <int HD, bool LSE = false, class Src>
 __device__ __forceinline__ void split_attend(
     const Src& src, const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
     int rep, int t_begin, int t_end, int stages, float scale_log2,
     __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, unsigned char* smem, int hd) {
+    float* __restrict__ part_ml, unsigned char* smem, int hd,
+    float* __restrict__ lse = nullptr) {
   constexpr int LD = HD + PAD;
   constexpr int KSTEPS = HD / 16;         // k16 steps of Q·Kᵀ
   constexpr int NCH = HD / 8;             // n8 column blocks of P·V
@@ -350,6 +361,9 @@ __device__ __forceinline__ void split_attend(
     }
     if (out != nullptr) {
       out[r * hd + d] = __float2bfloat16(a / fmaxf(L, 1e-30f));
+      if constexpr (LSE) {
+        if (d == 0) lse[r] = log_sum_exp(M, L);
+      }
     } else {
       part_acc[r * hd + d] = a;
       if (d == 0) {
@@ -362,12 +376,14 @@ __device__ __forceinline__ void split_attend(
 
 // Second pass over n_split > 1 splits: one CTA of hd threads per output
 // head (b, g·rep + r). out = Σ 2^{m_s−M} acc_s / max(Σ 2^{m_s−M} l_s,
-// 1e-30), M = max_s m_s; a split with m = -inf weighs 0.
+// 1e-30), M = max_s m_s; a split with m = -inf weighs 0. With LSE, also
+// the head's log-sum-exp into `lse` (B, H) float32.
+template <bool LSE>
 __global__ void merge_splits_kernel(const float* __restrict__ part_acc,
                                     const float* __restrict__ part_ml,
                                     __nv_bfloat16* __restrict__ out,
                                     int n_split, int rep, int H, int Hkv,
-                                    int hd) {
+                                    int hd, float* __restrict__ lse) {
   extern __shared__ float w_s[];          // n_split weights
   const int bg = blockIdx.x / rep, r = blockIdx.x % rep;
   const float* ml = part_ml + (size_t)bg * n_split * rep * 2;
@@ -388,16 +404,26 @@ __global__ void merge_splits_kernel(const float* __restrict__ part_acc,
   const int b = bg / Hkv, g = bg % Hkv;
   out[((size_t)b * H + g * rep + r) * hd + d] =
       __float2bfloat16(a / fmaxf(L, 1e-30f));
+  if constexpr (LSE) {
+    if (d == 0) lse[(size_t)b * H + g * rep + r] = log_sum_exp(M, L);
+  }
 }
 
-// Launch the merge when there is more than one split.
+// Launch the merge when there is more than one split; with `lse` set, the
+// merge that also writes the log-sum-exp.
 inline cudaError_t launch_merge(const float* part_acc, const float* part_ml,
                                 __nv_bfloat16* out, int B, int H, int Hkv,
-                                int hd, int n_split, cudaStream_t stream) {
+                                int hd, int n_split, cudaStream_t stream,
+                                float* lse = nullptr) {
   if (n_split <= 1) return cudaSuccess;
   const int rep = H / Hkv;
-  merge_splits_kernel<<<B * H, hd, n_split * sizeof(float), stream>>>(
-      part_acc, part_ml, out, n_split, rep, H, Hkv, hd);
+  const size_t smem = n_split * sizeof(float);
+  if (lse != nullptr)
+    merge_splits_kernel<true><<<B * H, hd, smem, stream>>>(
+        part_acc, part_ml, out, n_split, rep, H, Hkv, hd, lse);
+  else
+    merge_splits_kernel<false><<<B * H, hd, smem, stream>>>(
+        part_acc, part_ml, out, n_split, rep, H, Hkv, hd, nullptr);
   return cudaGetLastError();
 }
 

@@ -269,7 +269,9 @@ class _DecodePlan:
         self.dims = (ctypes.c_longlong * (len(dims) + 2))(
             *dims, self.n_split, self.tps)
         self.dims_ptr = ctypes.addressof(self.dims)
-        self.fn = getattr(build.library(library), library)
+        lib = build.library(library)
+        self.fn = getattr(lib, library)
+        self.fn_lse = getattr(lib, f"{library}_lse", None)
 
 
 #: Launch plans by (library, shapes, strides, device): built on a shape's
@@ -290,9 +292,11 @@ def _new_plan(key: tuple, q, Hkv: int, n_tiles: int, dims) -> _DecodePlan:
     return plan
 
 
-def _decode_launch(plan: _DecodePlan, name: str, q, k, v, *rest):
+def _decode_launch(plan: _DecodePlan, name: str, q, k, v, *rest,
+                   lse: bool = False):
     """Allocate the output (and the partials when there are several
-    splits), launch, count."""
+    splits), launch, count. ``lse``: the dense kernel's entry that also
+    writes each head's log-sum-exp; returns (out, lse (B, H) float32)."""
     pk, pv = k.data_ptr(), v.data_ptr()
     if pk % 16 or pv % 16 or q.data_ptr() % 4:
         raise ValueError("the CUDA kernel copies K/V in 16-byte chunks: k "
@@ -300,14 +304,21 @@ def _decode_launch(plan: _DecodePlan, name: str, q, k, v, *rest):
     out = torch.empty(plan.shape, dtype=torch.bfloat16, device=q.device)
     scratch = None if not plan.scratch else torch.empty(
         plan.scratch, dtype=torch.float32, device=q.device)
-    err = plan.fn(q.data_ptr(), pk, pv, *[t.data_ptr() for t in rest],
-                  out.data_ptr(), _ptr(scratch), plan.dims_ptr, plan.scale,
-                  _stream(q.device.index))
+    ptrs = [q.data_ptr(), pk, pv, *[t.data_ptr() for t in rest],
+            out.data_ptr()]
+    if lse:
+        lse_t = torch.empty(plan.shape[:2], dtype=torch.float32,
+                            device=q.device)
+        err = plan.fn_lse(*ptrs, lse_t.data_ptr(), _ptr(scratch),
+                          plan.dims_ptr, plan.scale, _stream(q.device.index))
+    else:
+        err = plan.fn(*ptrs, _ptr(scratch), plan.dims_ptr, plan.scale,
+                      _stream(q.device.index))
     if err:
         from repro_torch.kernels import build
         build.check(err, name)
     LAUNCHES[name] += 1
-    return out
+    return (out, lse_t) if lse else out
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -832,10 +843,14 @@ def quant_matmul_op(x, qt) -> torch.Tensor:
                         qt.scales, 1, M, K, N, bits, group).view(M, N)
 
 
-def flash_decode(q, k, v, valid) -> torch.Tensor:
+def flash_decode(q, k, v, valid, lse: bool = False):
     """q (B, H, hd) contiguous; k/v (B, S, Hkv, hd) views with a contiguous
     last axis and equal strides (the dense cache's ``k.transpose(1, 2)``:
-    no copy); valid (B, S) bool → (B, H, hd) bf16. Any S."""
+    no copy); valid (B, S) bool → (B, H, hd) bf16. Any S. ``lse``: also
+    each head's natural log-sum-exp of its scaled, masked logits, (B, H)
+    float32 (-inf for a row with no valid slot): returns (out, lse), out
+    the same bits as without it. A cache whose slots are split over ranks
+    combines the ranks' outputs by it."""
     _no_grad_inputs("flash_decode", q, k, v)
     dev = q.device
     _need(q, "q", torch.bfloat16, dev, 3)
@@ -855,7 +870,7 @@ def flash_decode(q, k, v, valid) -> torch.Tensor:
         raise ValueError(f"k/v strides {stride}/{v.stride()}: the last "
                          f"axis must be contiguous and both views alike")
     if dev.type == "cpu":
-        return ref.flash_decode_ref(q, k, v, valid)
+        return ref.flash_decode_ref(q, k, v, valid, lse=lse)
     key = ("flash_decode", q.shape, k.shape, stride, dev.index)
     plan = _PLANS.get(key)
     if plan is None:
@@ -867,4 +882,4 @@ def flash_decode(q, k, v, valid) -> torch.Tensor:
                              f"of 8")
         plan = _new_plan(key, q, Hkv, -(-S // DECODE_TILE),
                          (B, H, Hkv, S, hd, st_b, st_s, st_h))
-    return _decode_launch(plan, "flash_decode", q, k, v, valid)
+    return _decode_launch(plan, "flash_decode", q, k, v, valid, lse=lse)

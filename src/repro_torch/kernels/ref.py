@@ -420,10 +420,12 @@ def quant_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            valid: torch.Tensor) -> torch.Tensor:
+            valid: torch.Tensor, lse: bool = False):
     """q (B, H, hd); k/v (B, Hkv, S, hd) views; valid (B, S) → (B, H, hd)
     in q's dtype. A row with no valid slot returns zeros (the kernels'
-    guarded online softmax does the same)."""
+    guarded online softmax does the same). ``lse``: also each head's
+    log-sum-exp of its masked logits, (B, H) float32, -inf for a row with
+    no valid slot: returns (out, lse)."""
     B, H, hd = q.shape
     Hkv = k.shape[1]
     qg = q.float().reshape(B, Hkv, H // Hkv, hd)
@@ -431,7 +433,10 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
     p = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
     out = torch.matmul(p, v.float())              # (B, Hkv, rep, hd)
-    return out.reshape(B, H, hd).to(q.dtype)
+    out = out.reshape(B, H, hd).to(q.dtype)
+    if not lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(B, H)
 
 
 def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -495,10 +500,11 @@ def flash_decode_paged_split_ref(q, k, v, table, valid, n_split: int,
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+                     valid: torch.Tensor, lse: bool = False):
     """q (B, H, hd); k/v (B, S, Hkv, hd), strided views allowed; valid
-    (B, S) bool → (B, H, hd)."""
-    return _attend(q, k.transpose(1, 2), v.transpose(1, 2), valid)
+    (B, S) bool → (B, H, hd); with ``lse`` also the (B, H) float32
+    log-sum-exp (``_attend``)."""
+    return _attend(q, k.transpose(1, 2), v.transpose(1, 2), valid, lse)
 
 
 def flash_decode_paged_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,11 +14,24 @@ this rank's place on them; ``dist_ctx`` makes it ambient for
 ``models.moe.moe_apply`` and ``models.layers.attention_full``, which read
 it with ``get_dist()`` as the reference's do at trace time.
 
+Under a context that carries a ``planner`` (``launch.sharding.
+ShardingPlanner``) the batch entry points run the reference's GSPMD step
+instead (``models.specs``): each rank holds only its shards of the
+weights, caches, inputs and AdamW state, as the planner's specs cut them,
+and computes only its share; ``batch`` is then the global row count of the
+call's inputs (what a rank's local shapes cannot tell).
+
 The collectives here run over gloo and stage every tensor through host
 memory as bytes (``_bytes``): NCCL will not put two ranks on one device,
 and the port's ranks share the one card of the machine it is measured on.
 Each returns a tensor on the device it was given. None of them can be
 captured in a CUDA graph, so an engine under a context decodes op by op.
+Each has a backward, its adjoint over the same axis (all_gather ↔
+reduce_scatter, all_reduce ↔ all_reduce of the gradient, all_to_all and
+exchange ↔ the reverse exchange): a rank's backward enters the same
+collectives as every other rank's, in the same order, as the forwards
+did. With autograd off they move the same bytes in the same order as
+before they had one.
 """
 from __future__ import annotations
 
@@ -48,7 +61,7 @@ AXES = ("model", "data", "tokens")
 #: must deliver, whatever algorithm gloo picks).
 SENT_BYTES = {c: {a: 0 for a in AXES} for c in
               ("all_to_all", "exchange", "all_gather", "all_reduce",
-               "broadcast")}
+               "broadcast", "reduce_scatter")}
 
 
 def reset_sent() -> None:
@@ -84,6 +97,13 @@ class DistContext:
     # reference's batch-1 long-context decode; the MoE layer then slices
     # the experts' FF dims over data when they divide).
     tokens_dp_sharded: bool = True
+    # The planner's specs executed (``models.specs``): None keeps the
+    # expert-parallel and data-axis grids (every rank holds every dense
+    # weight); else the ``ShardingPlanner`` whose specs cut this rank's
+    # params, caches and inputs, and ``batch`` the global rows of the
+    # call's inputs.
+    planner: Optional[object] = None
+    batch: Optional[int] = None
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
@@ -156,14 +176,17 @@ def shard_range(n: int, ctx: DistContext, axis: str = "model") -> slice:
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     """``t`` on the host as a flat uint8 view of its bytes (a copy when it
-    is on the card): what gloo moves, whatever the dtype. The collectives
-    have no backward: a tensor autograd would differentiate through one
-    raises."""
-    if t.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("the port's collectives have no backward: run "
-                           "a forward under a distribution context with "
-                           "torch.no_grad()")
-    return t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+    is on the card): what gloo moves, whatever the dtype."""
+    h = t.detach().contiguous().cpu().reshape(-1)
+    if h.numel() == 1 and h.stride(0) != 1:     # a one-element slice's view
+        h = torch.empty(1, dtype=h.dtype).copy_(h)
+    return h.view(torch.uint8)
+
+
+def _recorded(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def _from_bytes(b: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
@@ -192,12 +215,11 @@ def agree(value: float, ctx: Optional[DistContext] = None) -> float:
     return float(t[0])
 
 
-def all_to_all(t: torch.Tensor, ctx: DistContext,
-               axis: str = "model") -> torch.Tensor:
-    """Exchange equal blocks of ``t`` (leading dim N·S) over ``axis``:
-    block s goes to its rank s, and block s of the result came from rank
-    s."""
+def _all_to_all(t: torch.Tensor, ctx: DistContext, axis: str
+                ) -> torch.Tensor:
     group, _, n = ctx.axis(axis)
+    if n == 1:
+        return t
     if t.shape[0] % n:
         raise ValueError(f"leading dim {t.shape[0]} not divisible by {n}")
     src = _bytes(t)
@@ -207,15 +229,32 @@ def all_to_all(t: torch.Tensor, ctx: DistContext,
     return _from_bytes(out, t, t.shape)
 
 
-def exchange(send: Sequence[Optional[torch.Tensor]], recv_like:
-             Sequence[Optional[torch.Tensor]], ctx: DistContext,
-             axis: str = "model") -> List[Optional[torch.Tensor]]:
-    """Uneven exchange that every rank of ``axis`` enters: ``send[s]`` (or
-    None) goes to rank s; ``recv_like[s]`` (or None) gives the dtype,
-    shape and device of what rank s sends here. Ranks with nothing to move
-    pass all None (empty splits). Returns the received tensors by source
-    rank."""
-    group, r, _ = ctx.axis(axis)
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, ctx, axis):
+        fctx.dist, fctx.axis = ctx, axis
+        return _all_to_all(t, ctx, axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        # Block s of the output came from rank s: its gradient goes back.
+        return _all_to_all(g, fctx.dist, fctx.axis), None, None
+
+
+def all_to_all(t: torch.Tensor, ctx: DistContext,
+               axis: str = "model") -> torch.Tensor:
+    """Exchange equal blocks of ``t`` (leading dim N·S) over ``axis``:
+    block s goes to its rank s, and block s of the result came from rank
+    s. Backward: the same exchange of the gradient."""
+    if _recorded(t):
+        return _AllToAll.apply(t, ctx, axis)
+    return _all_to_all(t, ctx, axis)
+
+
+def _exchange(send, recv_like, ctx: DistContext, axis: str):
+    group, r, n = ctx.axis(axis)
+    if n == 1:
+        return list(send)
     ins = [_bytes(s) if s is not None else torch.empty(0, dtype=torch.uint8)
            for s in send]
     sizes_out = [int(b.numel()) for b in ins]
@@ -234,11 +273,51 @@ def exchange(send: Sequence[Optional[torch.Tensor]], recv_like:
     return res
 
 
-def all_gather(t: torch.Tensor, ctx: DistContext, axis: str = "model",
-               dim: int = 0) -> torch.Tensor:
-    """Every rank's ``t`` of ``axis`` concatenated along ``dim``, in rank
-    order."""
+class _Exchange(torch.autograd.Function):
+    """``exchange`` over the non-None sends (autograd takes tensors
+    only); returns the non-None receives."""
+
+    @staticmethod
+    def forward(fctx, ctx, axis, send_mask, recv_like, *sends):
+        it = iter(sends)
+        send = [next(it) if m else None for m in send_mask]
+        fctx.meta = (ctx, axis, send)
+        fctx.recv_mask = [x is not None for x in recv_like]
+        return tuple(x for x in _exchange(send, recv_like, ctx, axis)
+                     if x is not None)
+
+    @staticmethod
+    def backward(fctx, *grads):
+        ctx, axis, send = fctx.meta
+        it = iter(grads)
+        back = [next(it) if m else None for m in fctx.recv_mask]
+        got = _exchange(back, send, ctx, axis)
+        return (None, None, None, None) + tuple(g for g in got
+                                                if g is not None)
+
+
+def exchange(send: Sequence[Optional[torch.Tensor]], recv_like:
+             Sequence[Optional[torch.Tensor]], ctx: DistContext,
+             axis: str = "model") -> List[Optional[torch.Tensor]]:
+    """Uneven exchange that every rank of ``axis`` enters: ``send[s]`` (or
+    None) goes to rank s; ``recv_like[s]`` (or None) gives the dtype,
+    shape and device of what rank s sends here. Ranks with nothing to move
+    pass all None (empty splits). Returns the received tensors by source
+    rank. Backward: the reverse exchange (each received tensor's gradient
+    back to its source)."""
+    if not _recorded(*send):
+        return _exchange(send, recv_like, ctx, axis)
+    got = iter(_Exchange.apply(ctx, axis, [s is not None for s in send],
+                               list(recv_like),
+                               *[s for s in send if s is not None]))
+    return [None if x is None else next(got) for x in recv_like]
+
+
+def _all_gather(t: torch.Tensor, ctx: DistContext, axis: str,
+                dim: int) -> torch.Tensor:
     group, _, n = ctx.axis(axis)
+    if n == 1:
+        return t
     src = _bytes(t)
     parts = [torch.empty_like(src) for _ in range(n)]
     SENT_BYTES["all_gather"][axis] += src.numel() * (n - 1)
@@ -246,16 +325,111 @@ def all_gather(t: torch.Tensor, ctx: DistContext, axis: str = "model",
     return torch.cat([_from_bytes(p, t, t.shape) for p in parts], dim=dim)
 
 
-def all_reduce(t: torch.Tensor, ctx: DistContext,
-               op=tdist.ReduceOp.SUM, axis: str = "model") -> torch.Tensor:
-    """``t`` reduced over ``axis`` (a float32/float64/int64 tensor; gloo's
-    reduction leaves the same bits on every rank)."""
+def _reduce_scatter(t: torch.Tensor, ctx: DistContext, axis: str,
+                    dim: int) -> torch.Tensor:
+    """Block r (along ``dim``) of every rank's ``t`` summed on rank r: one
+    exchange of the blocks (gloo has no reduce-scatter), then the sum in
+    rank order, in float32 for a narrower float (the same bits on every
+    run)."""
+    group, r, n = ctx.axis(axis)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} not divisible by "
+                         f"{n}")
+    if n == 1:
+        return t
+    blocks = torch.stack(torch.chunk(t, n, dim=dim))
+    src = _bytes(blocks)
+    out = torch.empty_like(src)
+    SENT_BYTES["reduce_scatter"][axis] += src.numel() * (n - 1) // n
+    tdist.all_to_all_single(out, src, group=group)
+    got = _from_bytes(out, blocks, blocks.shape)
+    acc = got.float() if got.dtype in (torch.bfloat16, torch.float16) \
+        else got
+    total = acc[0]
+    for i in range(1, n):
+        total = total + acc[i]
+    return total.to(t.dtype)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, ctx, axis, dim):
+        fctx.meta = (ctx, axis, dim)
+        return _all_gather(t, ctx, axis, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx, axis, dim = fctx.meta
+        return _reduce_scatter(g, ctx, axis, dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, ctx, axis, dim):
+        fctx.meta = (ctx, axis, dim)
+        return _reduce_scatter(t, ctx, axis, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx, axis, dim = fctx.meta
+        return _all_gather(g, ctx, axis, dim), None, None, None
+
+
+def all_gather(t: torch.Tensor, ctx: DistContext, axis: str = "model",
+               dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` of ``axis`` concatenated along ``dim``, in rank
+    order. Backward: ``reduce_scatter`` of the gradient."""
+    if _recorded(t):
+        return _AllGather.apply(t, ctx, axis, dim)
+    return _all_gather(t, ctx, axis, dim)
+
+
+def reduce_scatter(t: torch.Tensor, ctx: DistContext, axis: str = "model",
+                   dim: int = 0) -> torch.Tensor:
+    """The sum over ``axis`` of every rank's ``t``, of which this rank
+    keeps block r along ``dim`` (``t.shape[dim]`` divisible by the axis's
+    N ranks; the sum in rank order). Backward: ``all_gather`` of the
+    gradient."""
+    if _recorded(t):
+        return _ReduceScatter.apply(t, ctx, axis, dim)
+    return _reduce_scatter(t, ctx, axis, dim)
+
+
+def _all_reduce(t: torch.Tensor, ctx: DistContext, op, axis: str
+                ) -> torch.Tensor:
     group, _, n = ctx.axis(axis)
+    if n == 1:
+        return t.detach().clone()
     h = t.detach().contiguous().cpu().clone()
     SENT_BYTES["all_reduce"][axis] += h.numel() * h.element_size() * \
         2 * (n - 1) // n
     tdist.all_reduce(h, op=op, group=group)
     return h.to(t.device)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, ctx, axis):
+        fctx.meta = (ctx, axis)
+        return _all_reduce(t, ctx, tdist.ReduceOp.SUM, axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx, axis = fctx.meta
+        return _all_reduce(g, ctx, tdist.ReduceOp.SUM, axis), None, None
+
+
+def all_reduce(t: torch.Tensor, ctx: DistContext,
+               op=tdist.ReduceOp.SUM, axis: str = "model") -> torch.Tensor:
+    """``t`` reduced over ``axis`` (a float32/float64/int64 tensor; gloo's
+    reduction leaves the same bits on every rank). Backward (a sum only):
+    the gradient summed over ``axis``; another op under autograd raises
+    (its caller detaches what it reduces, as a softmax's max)."""
+    if _recorded(t):
+        if op != tdist.ReduceOp.SUM:
+            raise RuntimeError("all_reduce has a backward for a sum only")
+        return _AllReduce.apply(t, ctx, axis)
+    return _all_reduce(t, ctx, op, axis)
 
 
 def all_true(flags: Sequence[bool], ctx: DistContext,

@@ -25,10 +25,16 @@ this to find sharding-limited architectures):
   zxBCdt output axis cannot be split without segment-aware reshards)
 * batch dims of activations/caches → ('pod','data'); KV cache sequence axis
   → model (flash-decode style) so 32k-context decode fits HBM
+
+``shard_tree`` cuts a whole tree (params, an expert bank, caches, inputs,
+AdamW state) into one rank's shards by these specs, and ``rank_bytes``
+prices a rank's shards from the specs alone: what the batch entry points
+under a planner (``models.specs``) hold on each rank.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -336,3 +342,191 @@ def bank_shard(bank, ctx: DistContext, ff: bool = False):
     if bank["w_gate"].shape[e_dim] % ctx.model_size:
         return bank
     return {n: cut(w, e_dim) for n, w in bank.items()}
+
+
+# ---- a whole tree's shards ----------------------------------------------
+def grid_of(ctx: DistContext) -> GridShape:
+    """The mesh a planner reads for ``ctx``'s (data × model) grid."""
+    return GridShape({"data": ctx.data_size, "model": ctx.model_size},
+                     ("data", "model"))
+
+
+def _spec_fn(planner: ShardingPlanner, kind: str):
+    if kind not in ("param", "cache", "input"):
+        raise ValueError(f"kind={kind!r}; one of param, cache, input "
+                         f"(AdamW state is cut as params, the reference's "
+                         f"rule)")
+    return {"param": planner.spec_for_param, "cache": planner.spec_for_cache,
+            "input": planner.spec_for_input}[kind]
+
+
+def _bank_whole(bank: ExpertBankQ, n_model: int) -> bool:
+    """``bank_shard``'s fallback: experts that do not divide over the model
+    axis stay whole on every rank (hi pool included)."""
+    return bank.slot_map.shape[-1] % n_model != 0
+
+
+def _split_counts(spec: tuple, grid: GridShape) -> list:
+    """How many ways each named dim of ``spec`` is cut on ``grid``."""
+    out = []
+    for entry in spec:
+        n = 1
+        for a in _flat(entry):
+            n *= grid.shape[a] if a in grid.shape else \
+                grid.shape["data"]           # ("pod", "data") → data
+        out.append(n)
+    return out
+
+
+def shard_tree(tree: Any, kind: str, planner: ShardingPlanner,
+               ctx: DistContext, microbatches: int = 1) -> Any:
+    """This rank's shards of every leaf of ``tree`` under the planner's
+    specs for ``kind`` ("param": params, an expert bank, or AdamW state
+    {"m", "v", "step"}, as the reference cuts ``adamw_init``'s tree;
+    "cache": the dense caches; "input": a dict of inputs, or one input
+    tensor): the same structure, each leaf cut by ``local_shard`` (a data
+    entry of ("pod", "data") is the context's one data axis). An
+    ``ExpertBankQ`` is cut leaf by leaf by its specs, its ``QuantizedTensor``
+    shapes updated; where its experts do not divide over the model axis it
+    stays whole (``bank_shard``'s rule). Contiguous copies where a leaf is
+    cut, the leaf itself where it is not. ``microbatches`` (inputs of a
+    train step that accumulates over microbatches): the rows are that
+    many global chunks in order, each cut by its own spec, and the rank's
+    pieces stacked in order, so that the step's m-th cut of the rank's
+    rows is its shard of global microbatch m (the reference reshapes the
+    batch to (microbatches, B/microbatches) before it scans)."""
+    fn = _spec_fn(planner, kind)
+    if kind == "cache":
+        from repro_torch.models.model import CROSS
+        out = {}
+        for key, c in tree.items():
+            pre = ".cross" if key == CROSS else f".blocks['{key}']"
+            fields = []
+            for f in c._fields:
+                t = getattr(c, f)
+                path = f"{pre}['{f}']" if key == CROSS else f"{pre}.{f}"
+                spec = fn(path, tuple(t.shape))
+                _seq_cut(path, spec, t, planner)
+                fields.append(local_shard(t, spec, ctx))
+            out[key] = type(c)(*fields)
+        return out
+    return _shard(tree, "", fn, ctx,
+                  microbatches if kind == "input" else 1)
+
+
+def _seq_cut(path: str, spec: tuple, t: torch.Tensor,
+             planner: ShardingPlanner) -> None:
+    """A dense K/V cache whose rows split over data alone has its sequence
+    cut over model (the planner's flash-decode rule); the planner keeps it
+    whole where the capacity does not divide the model axis, and then a
+    rank's local shapes no longer say which it got: refused here."""
+    if (".k" in path or ".v" in path) and t.dim() == 5 and \
+            planner.seq_shard_cache and planner.model_n > 1 and \
+            spec[1] is not None and "model" not in _flat(spec[1]) and \
+            spec[3] is None:
+        raise ValueError(f"{path}: capacity {t.shape[3]} does not divide "
+                         f"the model axis ({planner.model_n}); under the "
+                         f"planner's specs the cache's sequence cuts over "
+                         f"it")
+
+
+def _rows_of_chunk(shape: tuple, nmb: int, path: str) -> tuple:
+    """The shape of one of ``nmb`` chunks of an input's rows."""
+    if not shape or nmb == 1:
+        return shape
+    if shape[0] % nmb:
+        raise ValueError(f"input {path}: {shape[0]} rows do not cut into "
+                         f"{nmb} microbatches")
+    return (shape[0] // nmb,) + shape[1:]
+
+
+def _shard(node, prefix: str, fn, ctx: DistContext, nmb: int = 1):
+    if node is None:
+        return None
+    if isinstance(node, torch.Tensor):
+        spec = fn(prefix, _rows_of_chunk(tuple(node.shape), nmb, prefix))
+        if nmb == 1 or node.dim() == 0:
+            return local_shard(node, spec, ctx)
+        return torch.cat([local_shard(c, spec, ctx)
+                          for c in node.chunk(nmb)])
+    if isinstance(node, ExpertBankQ):
+        if _bank_whole(node, ctx.model_size):
+            return node
+        lo = {}
+        for name, q in node.lo.items():
+            pre = f"{prefix}.lo.{name}"
+            packed = local_shard(q.packed, fn(f"{pre}.packed",
+                                              tuple(q.packed.shape)), ctx)
+            scales = local_shard(q.scales, fn(f"{pre}.scales",
+                                              tuple(q.scales.shape)), ctx)
+            shape = tuple(q.shape[:-3]) + (packed.shape[-3],) + \
+                tuple(q.shape[-2:-1]) + (packed.shape[-1],)
+            lo[name] = QuantizedTensor(packed, scales, q.bits, q.group_size,
+                                       shape)
+        return ExpertBankQ(
+            lo=lo, hi={n: _shard(h, f"{prefix}.hi.{n}", fn, ctx)
+                       for n, h in node.hi.items()},
+            slot_owner=_shard(node.slot_owner, f"{prefix}.slot_owner", fn,
+                              ctx),
+            slot_map=_shard(node.slot_map, f"{prefix}.slot_map", fn, ctx))
+    if isinstance(node, dict):
+        return {k: _shard(v, f"{prefix}['{k}']", fn, ctx, nmb)
+                for k, v in node.items()}
+    raise TypeError(f"{prefix}: no shard rule for {type(node).__name__}")
+
+
+def rank_bytes(tree: Any, kind: str, planner: ShardingPlanner,
+               grid: GridShape, microbatches: int = 1) -> int:
+    """The bytes one rank's shards of ``tree`` (global shapes; abstract
+    ``meta`` tensors will do) hold under the planner's specs for ``kind``
+    (``shard_tree``'s kinds, rules and ``microbatches``), from the specs
+    alone: each leaf's bytes over the product of the splits of its dims.
+    Every rank of the grid holds the same (the cuts are even)."""
+    fn = _spec_fn(planner, kind)
+    total = 0
+    whole = set()
+    if kind != "cache":
+        for path, bank in _banks(tree, ""):
+            if _bank_whole(bank, grid.shape["model"]):
+                whole.add(path)
+    nmb = microbatches if kind == "input" else 1
+    for path, leaf in leaf_paths(tree, kind == "cache"):
+        size = leaf.numel() * leaf.element_size()
+        if not any(path.startswith(w + ".") for w in whole):
+            shape = _rows_of_chunk(tuple(leaf.shape), nmb, path)
+            for n in _split_counts(fn(path, shape), grid):
+                size //= n
+        total += size
+    return total
+
+
+def _banks(node, prefix: str):
+    if isinstance(node, ExpertBankQ):
+        yield prefix, node
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            yield from _banks(v, f"{prefix}['{k}']")
+
+
+def held_bytes(tree: Any, caches: bool = False) -> int:
+    """The bytes of every tensor leaf of ``tree`` (a rank's shards;
+    ``caches``: a dense caches dict, as ``leaf_paths`` takes it)."""
+    return sum(t.numel() * t.element_size()
+               for _, t in leaf_paths(tree, caches))
+
+
+_KEY = re.compile(r"\['([^']*)'\]")
+
+
+def param_specs(tree: Any, planner: ShardingPlanner) -> Dict:
+    """The planner's param specs of ``tree`` (global shapes; ``meta``
+    tensors will do) as a nested dict of the tree's own keys, a spec tuple
+    at each leaf: what the model code reads beside a rank's params."""
+    out: Dict = {}
+    for path, spec in planner.tree_specs(tree, "param").items():
+        keys = _KEY.findall(path)
+        node = out
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = spec
+    return out

@@ -212,6 +212,25 @@ def _attention_seq_parallel(p: dict, cfg: AttnConfig, q, k, v, positions,
     return D.all_gather(out, ctx, axis="data") if rows else out
 
 
+def _causal_attention(q, k, v, cfg: AttnConfig, positions
+                      ) -> torch.Tensor:
+    """Causal attention of q (B, S, H, hd) over k/v (B, S, Hkv, hd) at
+    ``positions`` (the reference's arithmetic): past
+    ``PREFILL_CHUNK_THRESHOLD`` tokens, at a multiple of ``PREFILL_CHUNK``,
+    chunk by chunk; else the whole masked attention. A window masks keys
+    more than ``window - 1`` positions back. ``cfg.n_heads`` is q's heads
+    (a rank's, under tensor parallelism)."""
+    B, S = q.shape[:2]
+    if S > PREFILL_CHUNK_THRESHOLD and S % PREFILL_CHUNK == 0:
+        return _sdpa_chunked(q, k, v, cfg.n_heads, cfg.sliding_window,
+                             PREFILL_CHUNK)
+    qpos, kpos = positions[..., :, None], positions[..., None, :]
+    mask = kpos <= qpos
+    if cfg.sliding_window is not None:
+        mask = mask & (kpos > qpos - cfg.sliding_window)
+    return _sdpa(q, k, v, mask.expand(B, S, S), cfg.n_heads)
+
+
 def attention_full(p: dict, cfg: AttnConfig, x: torch.Tensor,
                    causal: bool = True,
                    positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -230,17 +249,30 @@ def attention_full(p: dict, cfg: AttnConfig, x: torch.Tensor,
     if plan is not None:
         return _attention_seq_parallel(p, cfg, q, k, v, positions, causal,
                                        plan)
-    if causal and S > PREFILL_CHUNK_THRESHOLD and S % PREFILL_CHUNK == 0:
-        return _sdpa_chunked(q, k, v, cfg.n_heads, cfg.sliding_window,
-                             PREFILL_CHUNK) @ p["wo"]
     if causal:
-        qpos, kpos = positions[..., :, None], positions[..., None, :]
-        mask = kpos <= qpos
-        if cfg.sliding_window is not None:
-            mask = mask & (kpos > qpos - cfg.sliding_window)
-    else:
-        mask = torch.ones((1, S, S), dtype=torch.bool, device=x.device)
+        return _causal_attention(q, k, v, cfg, positions) @ p["wo"]
+    mask = torch.ones((1, S, S), dtype=torch.bool, device=x.device)
     return _sdpa(q, k, v, mask.expand(B, S, S), cfg.n_heads) @ p["wo"]
+
+
+def _write_prefill(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                   lengths: torch.Tensor, C: int, lo: int = 0) -> None:
+    """A prefill's masked write of k/v (B, S, Hkv, hd) into ``cache``,
+    whose slots are ``[lo, lo + cache.capacity)`` of capacity-``C`` rows
+    (a rank's cut of the sequence; the whole row where ``lo`` = 0 and C is
+    the cache's own): slot i of row b takes the row's largest real
+    position p < length with p % C == i; slots no real position maps to
+    keep their contents."""
+    S = k.shape[1]
+    idx = torch.arange(lo, lo + cache.capacity, device=k.device)[None, :]
+    last = lengths[:, None] - 1 - torch.remainder(lengths[:, None] - 1 - idx,
+                                                  C)                 # (B, C)
+    keep = ((last >= 0) & (lengths[:, None] > 0))[:, None, :, None]
+    src = torch.clamp(last, 0, S - 1)[:, None, :, None]
+    for dst, new in ((cache.k, k), (cache.v, v)):
+        hm = new.transpose(1, 2)                              # (B, Hkv, S, hd)
+        g = torch.gather(hm, 2, src.expand(-1, hm.shape[1], -1, hm.shape[3]))
+        dst.copy_(torch.where(keep, g, dst))
 
 
 def attention_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
@@ -258,29 +290,11 @@ def attention_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
     ``PREFILL_CHUNK_THRESHOLD`` tokens, at a multiple of ``PREFILL_CHUNK``,
     the attention runs chunk by chunk (``_sdpa_chunked``). Outputs at
     padded positions are garbage."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
-    if S > PREFILL_CHUNK_THRESHOLD and S % PREFILL_CHUNK == 0:
-        out = _sdpa_chunked(q, k, v, cfg.n_heads, cfg.sliding_window,
-                            PREFILL_CHUNK)
-    else:
-        qpos, kpos = positions[:, :, None], positions[:, None, :]
-        mask = kpos <= qpos
-        if cfg.sliding_window is not None:
-            mask = mask & (kpos > qpos - cfg.sliding_window)
-        out = _sdpa(q, k, v, mask.expand(B, S, S), cfg.n_heads)
-
-    C = cache.capacity
-    idx = torch.arange(C, device=x.device)[None, :]
-    last = lengths[:, None] - 1 - torch.remainder(lengths[:, None] - 1 - idx,
-                                                  C)                 # (B, C)
-    keep = ((last >= 0) & (lengths[:, None] > 0))[:, None, :, None]
-    src = torch.clamp(last, 0, S - 1)[:, None, :, None]
-    for dst, new in ((cache.k, k), (cache.v, v)):
-        hm = new.transpose(1, 2)                              # (B, Hkv, S, hd)
-        g = torch.gather(hm, 2, src.expand(-1, hm.shape[1], -1, hm.shape[3]))
-        dst.copy_(torch.where(keep, g, dst))
+    out = _causal_attention(q, k, v, cfg, positions)
+    _write_prefill(cache, k, v, lengths, cache.capacity)
     return out @ p["wo"]
 
 

@@ -58,6 +58,7 @@ from repro_torch.core import tree as T
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import moe as X
+from repro_torch.models import specs as SP
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig
 
@@ -83,6 +84,14 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: an encoder-decoder stack is one of attention "
             f"layers, not of super-block {sb}")
+
+
+def _no_specs(what: str) -> None:
+    """The paged pool has no spec in the planner: its entry points run
+    without one."""
+    if SP.active() is not None:
+        raise NotImplementedError(f"{what} under the planner's specs: the "
+                                  f"paged pool is not planned ({SP.LATER})")
 
 
 def _decoder_only(cfg: ArchConfig, what: str) -> None:
@@ -129,15 +138,19 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     from ``generator`` or a generator seeded with ``seed`` on the target
     device, position by position (an encoder-decoder stack's encoder
     last). Large leaves are drawn one layer at a time so the float32
-    scratch stays one layer's worth at full width."""
+    scratch stays one layer's worth at full width. ``device="meta"``: the
+    tree's shapes and dtypes only, no memory and no draw (the reference's
+    ``jax.eval_shape`` of it, what the sharding planner reads)."""
     _check_family(cfg)
-    dev = resolve_device(device)
-    gen = generator if generator is not None else \
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    gen = None if meta else generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(seed)
-    gdev = gen.device
 
     def normal(shape, scale, dtype=torch.bfloat16):
-        return (torch.randn(shape, generator=gen, device=gdev) * scale
+        if meta:
+            return torch.empty(shape, dtype=dtype, device=dev)
+        return (torch.randn(shape, generator=gen, device=gen.device) * scale
                 ).to(dtype).to(dev)
 
     def stacked(shape, scale, dtype=torch.bfloat16, n=None):
@@ -497,8 +510,15 @@ def forward_train(params: Dict, cfg: ArchConfig, batch: Dict,
     ``_forward_with_bank``). ``remat`` recomputes each super-block in the
     backward pass (``torch.utils.checkpoint``, as ``jax.checkpoint``).
     Returns (logits (B, S_total, V) float32, {"aux_loss": float32 scalar,
-    "counts": {MoE position: (nsb, E) int32}})."""
+    "counts": {MoE position: (nsb, E) int32}}). Under a context with a
+    planner, this rank's share (``specs.forward_train``)."""
     _check_family(cfg)
+    if SP.active() is not None:
+        if dispatch == "ragged":
+            _refuse_kernels_under_grad(params,
+                                       "forward_train(dispatch='ragged')")
+        return SP.forward_train(params, cfg, batch, capacity_factor, remat,
+                                dispatch, bank)
     if dispatch not in X.DISPATCHES:
         raise ValueError(f"dispatch={dispatch!r}; one of {X.DISPATCHES}")
     if dispatch == "ragged":
@@ -563,6 +583,7 @@ def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     stack raises. Returns (suffix-last-token logits (R, V) float32, counts
     {pos: (nsb, R, E) or (nsb, E)})."""
     _decoder_only(cfg, "paged prefill")
+    _no_specs("prefill_paged")
     x = _embed_inputs(params, cfg, tokens, image_embeds)
     R, S, _ = x.shape
     start = start.to(torch.int64)
@@ -598,6 +619,7 @@ def decode_step_paged(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     ``row_valid`` (B,) masks vacant rows out of dispatch and counts.
     Decoder-only. Returns (logits (B, V) float32, counts)."""
     _decoder_only(cfg, "paged decode")
+    _no_specs("decode_step_paged")
     x = params["embed"][token][:, None, :]
     B = x.shape[0]
     cap = X.moe_capacity(B, cfg.moe, capacity_factor)
@@ -626,8 +648,13 @@ def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     the tokens and ``lengths`` count them. On an encoder-decoder stack
     ``audio_embeds`` (B, Senc, d) are encoded and every layer's cross K/V
     written into ``caches[CROSS]``. Returns (last-token logits (B, V)
-    float32, counts {pos: (nsb, B, E) or (nsb, E)})."""
+    float32, counts {pos: (nsb, B, E) or (nsb, E)}). Under a context with
+    a planner, this rank's share (``specs.prefill``)."""
     _check_family(cfg)
+    if SP.active() is not None:
+        return SP.prefill(params, cfg, tokens, caches, lengths, bank,
+                          capacity_factor, per_row_counts, moe_dispatch,
+                          row_capacity, image_embeds, audio_embeds)
     if cfg.is_encoder_decoder:
         _fill_cross(params, cfg, caches, audio_embeds)
     x = _embed_inputs(params, cfg, tokens, image_embeds)
@@ -658,8 +685,13 @@ def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     ``pos % C``. ``token``/``pos_idx`` (B,); ``row_valid`` (B,) masks
     vacant rows out of dispatch and counts. An encoder-decoder stack reads
     the cross K/V its prefill wrote. Returns (logits (B, V) float32,
-    counts)."""
+    counts). Under a context with a planner, this rank's share
+    (``specs.decode_step``)."""
     _check_family(cfg)
+    if SP.active() is not None:
+        return SP.decode_step(params, cfg, token, pos_idx, caches, bank,
+                              capacity_factor, row_valid, per_row_counts,
+                              moe_dispatch, row_capacity)
     x = params["embed"][token][:, None, :]
     B = x.shape[0]
     cap = X.moe_capacity(B, cfg.moe, capacity_factor)

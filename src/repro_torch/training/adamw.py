@@ -61,14 +61,18 @@ def _slices(p: torch.Tensor):
     return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state):
+def adamw_update(cfg: AdamWConfig, params, grads, state, gnorm=None):
     """One step: returns (new params, state, {"gnorm", "lr"} float32
     scalars). ``state``'s moments are updated in place (and returned with
-    the next step); the parameters are new tensors of their own dtype."""
+    the next step); the parameters are new tensors of their own dtype.
+    ``gnorm``: the global gradient norm, where the leaves given are one
+    rank's shards (computed from them otherwise)."""
     step = state["step"] + 1
     lr = _schedule(cfg, state["step"])
     gs = T.leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in gs))
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     sf = step.float()
     c1 = 1 - torch.pow(torch.full_like(sf, cfg.b1), sf)

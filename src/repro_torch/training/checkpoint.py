@@ -4,17 +4,23 @@ in the reference's flatten order (``training.tree``), bf16 leaves stored
 as float32 (a lossless superset), and ``manifest.json`` with
 ``n_leaves``, ``step`` and ``dtypes``. Where the reference writes its
 treedef, the port writes the leaves' key paths (``paths``). A checkpoint
-written by either package loads into the other.
+written by either package loads into the other. Leaves are written
+and read by a few threads at once (the device copies of one overlap the
+file writes of others); the files are the same.
 """
 from __future__ import annotations
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from repro_torch.core import tree as T
+
+#: Leaves in flight at once while saving or loading.
+IO_THREADS = 4
 
 
 def _to_numpy(leaf):
@@ -32,11 +38,14 @@ def _to_numpy(leaf):
 def save_checkpoint(path: str, tree, step: int | None = None) -> None:
     os.makedirs(path, exist_ok=True)
     paths, flat = T.flatten(tree)
-    dtypes = []
-    for i, leaf in enumerate(flat):
-        arr, name = _to_numpy(leaf)
-        dtypes.append(name)
+
+    def save(i):
+        arr, name = _to_numpy(flat[i])
         np.save(os.path.join(path, f"leaf_{i:05d}.npy"), arr)
+        return name
+
+    with ThreadPoolExecutor(IO_THREADS) as pool:
+        dtypes = list(pool.map(save, range(len(flat))))
     manifest = {"n_leaves": len(flat), "paths": paths, "step": step,
                 "dtypes": dtypes}
     with open(os.path.join(path, "manifest.json"), "w") as f:
@@ -53,13 +62,16 @@ def load_checkpoint(path: str, like_tree):
     if manifest["n_leaves"] != len(flat_like):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"expected {len(flat_like)}")
-    out = []
-    for i, like in enumerate(flat_like):
+    def load(i):
+        like = flat_like[i]
         arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
         if isinstance(like, torch.Tensor):
             if tuple(arr.shape) != tuple(like.shape):
                 raise ValueError(f"leaf {i}: shape {arr.shape} != "
                                  f"{tuple(like.shape)}")
             arr = torch.from_numpy(arr).to(like.device).to(like.dtype)
-        out.append(arr)
+        return arr
+
+    with ThreadPoolExecutor(IO_THREADS) as pool:
+        out = list(pool.map(load, range(len(flat_like))))
     return T.unflatten(like_tree, out), manifest.get("step")

@@ -6,12 +6,17 @@ microbatches, the loop, and held-out perplexity under a given expert bank
 The step differentiates ``forward_train`` on the padded MoE dispatch (the
 reference trains on the padded dispatch's einsums too: its Pallas path
 has no gradient), with ``torch.autograd``; the kernels have no backward
-and refuse to run under it. Evaluation runs without autograd on the
+and refuse to run under it. Under a distribution context with a planner
+(``models.specs``) each rank differentiates its share of the loss over
+its shards (params and AdamW state cut by the planner's FSDP specs), sums
+each leaf's gradient over the ranks that hold a copy, and updates its own
+shard with the global gradient norm. Evaluation runs without autograd on the
 ragged dispatch by default: the quantized ragged FFN kernels with a bank,
 their all-hi mode without one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -21,6 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree as T
+from repro_torch.launch.dist import dist_ctx
+from repro_torch.models import specs as SP
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import forward_train
 from repro_torch.training.adamw import AdamWConfig, adamw_init, adamw_update
@@ -53,7 +60,13 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict, tcfg: TrainConfig):
     """(total loss, {"ce", "aux", "z", "counts"}): token cross-entropy
     through logsumexp less the label's logit over positions whose label is
     >= 0 (a VLM's image positions carry none), plus the MoE load-balance
-    loss, plus ``z_loss`` · mean(logsumexp²)."""
+    loss, plus ``z_loss`` · mean(logsumexp²). Under a context with a
+    planner: the whole batch's loss and parts (detached), from this rank's
+    share (``specs.loss_share``, what the train step differentiates)."""
+    if SP.active() is not None:
+        _, parts = SP.loss_share(params, cfg, batch, tcfg)
+        return parts["loss"], {k: v for k, v in parts.items()
+                               if k != "loss"}
     logits, aux = forward_train(params, cfg, batch,
                                 capacity_factor=tcfg.capacity_factor,
                                 remat=tcfg.remat)
@@ -79,13 +92,16 @@ def _grads(params, cfg, batch, tcfg):
     leaf is differentiated, through views that share its storage."""
     live = T.tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = T.leaves(live)
-    loss, metrics = loss_fn(live, cfg, batch, tcfg)
+    if SP.active() is None:
+        loss, metrics = loss_fn(live, cfg, batch, tcfg)
+    else:       # this rank's share; the metrics hold the whole batch's
+        loss, metrics = SP.loss_share(live, cfg, batch, tcfg)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     metrics = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
                for k, v in metrics.items()}
-    return loss.detach(), metrics, grads
+    return metrics.pop("loss", loss).detach(), metrics, grads
 
 
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig()):
@@ -93,7 +109,12 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig()):
     metrics)``. With ``microbatches`` > 1 the batch's rows are cut into
     that many equal microbatches in order, their gradients summed in
     float32, divided and cast to each parameter's dtype; the metrics then
-    hold the mean loss as "ce" (the reference's)."""
+    hold the mean loss as "ce" (the reference's). Under a context with a
+    planner, ``params``, ``opt_state`` and ``batch`` are this rank's shards
+    (``launch.sharding.shard_tree``; the batch with ``microbatches=``, so
+    that the m-th cut of the rank's rows is its shard of the global
+    microbatch m, the rows ``[m·B/nmb, (m+1)·B/nmb)``), and the step
+    returns its shards."""
     nmb = tcfg.microbatches
 
     def train_step(params, opt_state, batch):
@@ -106,9 +127,15 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig()):
                    for p in T.leaves(params)]
             loss = torch.zeros((), dtype=torch.float32,
                                device=T.first_device(params))
+            ctx = SP.active()
+            # Under specs a microbatch is 1/nmb of the global batch.
+            mb_ctx = None if ctx is None else \
+                dataclasses.replace(ctx, batch=ctx.batch // nmb)
             for i in range(nmb):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l_i, _, grads = _grads(params, cfg, mb, tcfg)
+                with dist_ctx(mb_ctx) if mb_ctx is not None else \
+                        contextlib.nullcontext():
+                    l_i, _, grads = _grads(params, cfg, mb, tcfg)
                 for a, g in zip(g32, grads):
                     a.add_(g.float())
                 loss = loss + l_i
@@ -116,8 +143,13 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig()):
                      for a, p in zip(g32, T.leaves(params))]
             loss = loss / nmb
             metrics = {"ce": loss}
+        gnorm = None
+        ctx = SP.active()
+        if ctx is not None:
+            grads, gnorm = SP.sum_grads(params, grads, cfg, ctx)
         params, opt_state, opt_metrics = adamw_update(
-            tcfg.optimizer, params, T.unflatten(params, grads), opt_state)
+            tcfg.optimizer, params, T.unflatten(params, grads), opt_state,
+            gnorm)
         metrics = dict(metrics)
         metrics.pop("counts", None)
         metrics.update(opt_metrics)
