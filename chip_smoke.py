@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only card,build,multimodal
     python3 chip_smoke.py --only card,build,train
     python3 chip_smoke.py --only card,build,ep
+    python3 chip_smoke.py --only card,build,ep,dryrun
 
 Phases (each prints one line; any failure exits non-zero):
 
@@ -291,6 +292,17 @@ Phases (each prints one line; any failure exits non-zero):
               process; (h) granite's FSDP train step at 2 layers in
               float32 against one process; held bytes against
               ``rank_bytes``, sent bytes against formulas;
+   dryrun   — the dry run (``repro_torch.launch.dryrun``), no card: (1)
+              the 30B's four shapes on the 16 x 16 production grid at
+              full width and depth, each rank's share priced over meta
+              tensors in a process started after the build (one thread,
+              nice 19, beside the phases): per-rank GB, sent MB by axis,
+              roofline terms on H100 data-sheet figures, the bottleneck;
+              (2) (g)'s and (h)'s own calls on meta copies of their trees
+              under the recording mode, every rank of their 2 x 2 grid:
+              the bytes each collective sent and each rank held, equal to
+              what the ep phase measured on the card, and the dry run's
+              arguments plus peak beside each rank's device peak;
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -7465,18 +7477,14 @@ def _plan_tokens(cfg, B, dev):
                          generator=gen).to(dev)
 
 
-def _plan_serve(cfg, params, banks, B, ctx=None) -> dict:
-    """(g) one run of B rows: prefill, then the decode steps, under ``ctx``
-    with the planner (None: one process, ragged dispatch); launches and
-    regimes counted from zero over it (the run's main path), the bytes
-    each collective sent in the first decode step, and on the grid the
-    bytes this rank holds against ``rank_bytes`` by kind."""
-    import repro_torch.models.moe as moe_mod
-    from repro_torch.kernels import ops
-    from repro_torch.launch import dist as D
+def _plan_args(cfg, params, banks, B, ctx=None):
+    """(g)'s arguments for a run of B rows on the device of ``params``:
+    under ``ctx`` (None: one process) the context with the planner and
+    each tree cut to this rank's shards, the bytes it holds against
+    ``rank_bytes`` by kind, and its group's rows. Returns (ctx, params,
+    banks, caches, inputs, steps, held, rows)."""
     from repro_torch.launch import sharding as SH
-    from repro_torch.launch.dist import dist_ctx
-    from repro_torch.models.model import decode_step, init_caches, prefill
+    from repro_torch.models.model import init_caches
     from repro_torch.models.specs import layout
     dev = params["embed"].device
     tok = _plan_tokens(cfg, B, dev)
@@ -7487,34 +7495,37 @@ def _plan_serve(cfg, params, banks, B, ctx=None) -> dict:
     steps = [{"token": tok[:, P + i], "pos": torch.full((B,), P + i,
                                                         device=dev)}
              for i in range(PLAN_STEPS)]
-    out = {"held": {}, "rows": slice(0, B)}
+    held, rows = {}, slice(0, B)
     if ctx is not None:
         pl = SH.ShardingPlanner(cfg, SH.grid_of(ctx))
         ctx = dataclasses.replace(ctx, planner=pl, batch=B,
                                   tokens_ep_sharded=True)
         grid = SH.grid_of(ctx)
+        local = {}
         for kind, name, tree in (("param", "params", params),
                                  ("param", "bank", banks),
                                  ("cache", "caches", caches),
                                  ("input", "inputs", inputs)):
-            local = SH.shard_tree(tree, kind, pl, ctx)
-            out["held"][name] = (SH.held_bytes(local, kind == "cache"),
-                                 SH.rank_bytes(tree, kind, pl, grid))
-            if name == "params":
-                params = local
-            elif name == "bank":
-                banks = local
-            elif name == "caches":
-                caches = local
-            else:
-                inputs = local
+            local[name] = SH.shard_tree(tree, kind, pl, ctx)
+            held[name] = (SH.held_bytes(local[name], kind == "cache"),
+                          SH.rank_bytes(tree, kind, pl, grid))
+        params, banks, caches, inputs = (local[k] for k in (
+            "params", "bank", "caches", "inputs"))
         steps = [SH.shard_tree(st, "input", pl, ctx) for st in steps]
-        out["rows"] = layout(ctx).group
+        rows = layout(ctx).group
+    return ctx, params, banks, caches, inputs, steps, held, rows
+
+
+def _plan_steps(cfg, params, banks, caches, inputs, steps, ctx):
+    """(g)'s calls: the prefill, then the decode steps, under ``ctx``
+    (ragged dispatch, per-row counts, capacity factor E/k: drop-free).
+    Returns (logits, counts, the bytes each collective sent in the first
+    decode step)."""
+    from repro_torch.launch import dist as D
+    from repro_torch.launch.dist import dist_ctx
+    from repro_torch.models.model import decode_step, prefill
     cf = cfg.moe.num_experts / cfg.moe.top_k
-    ops.reset_launches()                 # the main path starts here
-    moe_mod.reset_regimes()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    sent = None
     with torch.no_grad(), dist_ctx(ctx):
         lg, counts = prefill(params, cfg, inputs["tokens"], caches,
                              inputs["lengths"], bank=banks,
@@ -7530,11 +7541,38 @@ def _plan_serve(cfg, params, banks, B, ctx=None) -> dict:
                                      moe_dispatch="ragged",
                                      per_row_counts=True)
             if i == 0:
-                out["sent"] = {k: dict(v) for k, v in D.SENT_BYTES.items()}
+                sent = {k: dict(v) for k, v in D.SENT_BYTES.items()}
             logits.append(lg)
             all_counts.append(counts)
+    return logits, all_counts, sent
+
+
+def _plan_serve(cfg, params, banks, B, ctx=None) -> dict:
+    """(g) one run of B rows: prefill, then the decode steps, under ``ctx``
+    with the planner (None: one process, ragged dispatch); launches and
+    regimes counted from zero over it (the run's main path), the bytes
+    each collective sent in the first decode step, the device's memory at
+    the run's start and its peak over it (``mem_start``, ``max_mem``: the
+    process's whole tree too, which the rank cut its shards from), and on
+    the grid the bytes this rank holds against
+    ``rank_bytes`` by kind."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.kernels import ops
+    ctx, params, banks, caches, inputs, steps, held, rows = _plan_args(
+        cfg, params, banks, B, ctx)
+    out = {"held": held, "rows": rows}
+    dev = params["embed"].device
+    ops.reset_launches()                 # the main path starts here
+    moe_mod.reset_regimes()
+    torch.cuda.synchronize()
+    out["mem_start"] = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logits, all_counts, out["sent"] = _plan_steps(
+        cfg, params, banks, caches, inputs, steps, ctx)
     torch.cuda.synchronize()
     out["s"] = time.perf_counter() - t0
+    out["max_mem"] = torch.cuda.max_memory_allocated(dev)
     out["launches"] = dict(ops.LAUNCHES)          # ... and ends here
     out["regimes"] = dict(moe_mod.REGIMES)
     out["logits"] = torch.stack(logits).float().cpu()
@@ -7621,28 +7659,19 @@ def _plan_train_model(dev):
     return cfg, params, {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
 
 
-def _plan_train(ctx=None, dev=None) -> dict:
-    """(h) one train step under ``ctx`` with the FSDP planner (None: one
-    process): the loss, gradient norm, learning rate, and the AdamW
-    moments and updated parameters as (path, spec, float32 tensor on the
-    host); on the grid the bytes held against ``rank_bytes`` (params,
-    AdamW state, inputs), and the bytes each collective sent in one
-    forward (no remat, no autograd)."""
-    from repro_torch.core import tree as T
-    from repro_torch.launch import dist as D
+def _plan_train_args(ctx=None, dev=None):
+    """(h)'s arguments: under ``ctx`` the context with the FSDP planner and
+    the params, AdamW state and batch cut to this rank's shards, with the
+    bytes held against ``rank_bytes``. Returns (cfg, tcfg, ctx, params,
+    opt, batch, held)."""
     from repro_torch.launch import sharding as SH
-    from repro_torch.launch.dist import dist_ctx
-    from repro_torch.models import specs as SP
-    from repro_torch.models.model import forward_train
     from repro_torch.training.adamw import adamw_init
-    from repro_torch.training.train import TrainConfig, make_train_step
+    from repro_torch.training.train import TrainConfig
     dev = dev if ctx is None else ctx.device
     cfg, params, batch = _plan_train_model(dev)
     tcfg = TrainConfig(capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
     opt = adamw_init(params)
-    paths = T.flatten(params)[0]
-    out = {"held": {}}
-    specs = [None] * len(paths)
+    held = {}
     if ctx is not None:
         pl = SH.ShardingPlanner(cfg, SH.grid_of(ctx), fsdp=True)
         ctx = dataclasses.replace(ctx, planner=pl, batch=PLAN_TRAIN_B,
@@ -7653,22 +7682,55 @@ def _plan_train(ctx=None, dev=None) -> dict:
                                  ("param", "adamw", opt),
                                  ("input", "inputs", batch)):
             local[name] = SH.shard_tree(tree, kind, pl, ctx)
-            out["held"][name] = (SH.held_bytes(local[name]),
-                                 SH.rank_bytes(tree, kind, pl, grid))
+            held[name] = (SH.held_bytes(local[name]),
+                          SH.rank_bytes(tree, kind, pl, grid))
         params, opt, batch = local["params"], local["adamw"], \
             local["inputs"]
+    return cfg, tcfg, ctx, params, opt, batch, held
+
+
+def _plan_train_forward(cfg, tcfg, ctx, params, batch) -> dict:
+    """(h)'s forward on the rank's shards (no remat, no autograd): the
+    bytes each collective sent."""
+    from repro_torch.launch import dist as D
+    from repro_torch.launch.dist import dist_ctx
+    from repro_torch.models.model import forward_train
+    D.reset_sent()
+    with torch.no_grad(), dist_ctx(ctx):
+        forward_train(params, cfg, {"tokens": batch["tokens"]},
+                      capacity_factor=tcfg.capacity_factor, remat=False)
+    return {k: dict(v) for k, v in D.SENT_BYTES.items()}
+
+
+def _plan_train(ctx=None, dev=None) -> dict:
+    """(h) one train step under ``ctx`` with the FSDP planner (None: one
+    process): the loss, gradient norm, learning rate, and the AdamW
+    moments and updated parameters as (path, spec, float32 tensor on the
+    host); on the grid the bytes held against ``rank_bytes`` (params,
+    AdamW state, inputs), the bytes each collective sent in one forward
+    (no remat, no autograd) and the device's memory at the step's start
+    and its peak over it (``mem_start``, ``max_mem``)."""
+    from repro_torch.core import tree as T
+    from repro_torch.launch.dist import dist_ctx
+    from repro_torch.models import specs as SP
+    from repro_torch.training.train import make_train_step
+    cfg, tcfg, ctx, params, opt, batch, held = _plan_train_args(ctx, dev)
+    paths = T.flatten(params)[0]
+    out = {"held": held}
+    specs = [None] * len(paths)
+    if ctx is not None:
         specs = SP._leaf_specs(params, cfg, ctx)
-        D.reset_sent()
-        with torch.no_grad(), dist_ctx(ctx):
-            forward_train(params, cfg, {"tokens": batch["tokens"]},
-                          capacity_factor=tcfg.capacity_factor, remat=False)
-        out["sent"] = {k: dict(v) for k, v in D.SENT_BYTES.items()}
+        out["sent"] = _plan_train_forward(cfg, tcfg, ctx, params, batch)
+    dev = params["embed"].device
     torch.cuda.synchronize()
+    out["mem_start"] = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     with dist_ctx(ctx):
         new, state, metrics = make_train_step(cfg, tcfg)(params, opt, batch)
     torch.cuda.synchronize()
     out["s"] = time.perf_counter() - t0
+    out["max_mem"] = torch.cuda.max_memory_allocated(dev)
     out["loss"], out["gnorm"] = float(metrics["loss"]), \
         float(metrics["gnorm"])
     out["lr"] = float(metrics["lr"])
@@ -8181,6 +8243,10 @@ def phase_ep(card: str) -> None:
         fails.append("(c)")
     runs += _grid_check(ranks, grid_single, cfg, fails, card)
     runs += _plan_check([r["gh"] for r in ranks], spec_single, fails, card)
+    EP_PLAN[:] = [{k: (v if k == "coords" else
+                       {f: v[f] for f in ("sent", "held", "mem_start",
+                                          "max_mem")})
+                   for k, v in r["gh"].items()} for r in ranks]
     log("ep", f"(g) and (h) took {max(r['gh_s'] for r in ranks):.1f} s on "
               f"the ranks | {card}")
     for k in RESULTS:
@@ -8195,6 +8261,228 @@ def phase_ep(card: str) -> None:
               f"{ranks[0]['build_s']:.1f} s) | {card}")
     if fails:
         raise AssertionError(f"ep: {fails}")
+
+
+# ---------------------------------------------------------------------------
+# 5b. dryrun: every (arch × shape) priced per rank over meta tensors
+# ---------------------------------------------------------------------------
+
+#: The 30B's shapes the phase prices on the 16 x 16 grid, at full width
+#: and depth (``repro_torch.launch.dryrun.run_one``).
+DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+#: Most seconds the dry-run process may take past the phase's start.
+DRY_WAIT_S = 600
+#: (g) and (h) as the ep phase measured them on each rank: the bytes each
+#: collective sent, the bytes each rank held and its device peak
+#: (``phase_ep`` fills it; the dryrun phase holds its recorded runs to it).
+EP_PLAN: list = []
+_DRY_BESIDE = None
+
+#: The dry-run process's program: the 30B's four shapes on 16 x 16, one
+#: thread, no card (CUDA_VISIBLE_DEVICES is empty), the records to argv[1].
+_DRY_CODE = """
+import json, os, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun
+out = []
+for shape in sys.argv[3:]:
+    t = time.perf_counter()
+    recs = dryrun.run_one(sys.argv[2], shape, False, verbose=False)
+    out.append({"shape": shape, "s": time.perf_counter() - t,
+                "records": recs})
+with open(sys.argv[1] + ".tmp", "w") as f:
+    json.dump(out, f)
+os.replace(sys.argv[1] + ".tmp", sys.argv[1])
+"""
+
+
+class _DryBeside:
+    """The dry run of the 30B's four shapes in a process of its own,
+    started after the build at nice 19 on one thread: it needs no card,
+    and its minute or two of host work runs beside the card's phases."""
+
+    def __init__(self):
+        import tempfile
+        self._tmp = tempfile.TemporaryDirectory(prefix="dryrun_")
+        self.path = pathlib.Path(self._tmp.name) / "records.json"
+        self.err = open(pathlib.Path(self._tmp.name) / "stderr", "w+")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _DRY_CODE, str(self.path), ARCH,
+             *DRY_SHAPES], env=env, stdout=subprocess.DEVNULL,
+            stderr=self.err, preexec_fn=lambda: os.nice(19))
+
+    def result(self):
+        """(the records by shape, the process's seconds, the seconds waited
+        for it here)."""
+        t = time.perf_counter()
+        rc = self.proc.wait(timeout=DRY_WAIT_S)
+        waited = time.perf_counter() - t
+        if rc != 0:
+            self.err.seek(0)
+            raise RuntimeError(f"the dry-run process exited {rc}: "
+                               f"{self.err.read()[-4000:]}")
+        with open(self.path) as f:
+            return json.load(f), time.perf_counter() - self.t0, waited
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.err.close()
+        self._tmp.cleanup()
+
+
+def _dry_plan(rank: int) -> dict:
+    """(g) and (h) of ``_plan_rank`` for rank ``rank`` of the 2 x 2 grid,
+    on meta copies of their trees under the recording mode: the same
+    arguments (``_plan_args``, ``_plan_train_args``) and calls
+    (``_plan_steps``, ``_plan_train_forward``); the bytes each rank holds,
+    each collective sent, and the dry run's peak of live intermediates
+    (over (h)'s whole train step)."""
+    from repro_torch.launch import dist as D
+    from repro_torch.launch.dist import dist_ctx
+    from repro_torch.launch.dryrun import StepRecorder
+    from repro_torch.launch.mesh import dry_context
+    from repro_torch.launch.sharding import GridShape
+    from repro_torch.models import specs as SP
+    from repro_torch.training.train import make_train_step
+    meta = torch.device("meta")
+    grid = GridShape({"data": 2, "model": 2}, ("data", "model"))
+    out = {}
+    with D.dry_run():
+        ctx0 = dry_context(grid, rank)
+        out["coords"] = (ctx0.data_rank, ctx0.rank)
+        cfg, params, banks = _plan_model(meta)
+        for B in PLAN_ROWS:
+            ctx, p, b, caches, inputs, steps, held, _ = _plan_args(
+                cfg, params, banks, B, ctx0)
+            # The specs' cache filled outside the recorder: it draws the
+            # whole tree on meta once, which no step holds.
+            SP.param_specs(cfg, ctx.planner)
+            with StepRecorder() as rec:
+                _, _, sent = _plan_steps(cfg, p, b, caches, inputs, steps,
+                                         ctx)
+            out[("g", B)] = {"sent": sent, "held": held, "peak": rec.peak}
+        hcfg, tcfg, ctx, p, opt, batch, held = _plan_train_args(ctx0)
+        sent = _plan_train_forward(hcfg, tcfg, ctx, p, batch)
+        with StepRecorder() as rec, dist_ctx(ctx):
+            make_train_step(hcfg, tcfg)(p, opt, batch)
+        out["h"] = {"sent": sent, "held": held, "peak": rec.peak}
+    return out
+
+
+def _dry_plan_check(fails, card) -> None:
+    """(g) and (h) recorded on every rank of the 2 x 2 grid, held to the
+    ep phase's runs on the card: the bytes each collective sent, by
+    collective and axis, and the bytes each rank held, to the byte (to the
+    formulas and ``rank_bytes`` where the ep phase did not run); the dry
+    run's arguments plus peak beside each rank's device peak, and its peak
+    of intermediates beside the device peak's rise over the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import GridShape, ShardingPlanner
+    dry = [_dry_plan(r) for r in range(4)]
+    measured = bool(EP_PLAN)
+    tcfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=PLAN_LAYERS)
+    gcfg = dataclasses.replace(get_config(ARCH), n_layers=PLAN_LAYERS)
+    for key in [("g", B) for B in PLAN_ROWS] + ["h"]:
+        sent_ok = held_ok = True
+        ratios, rises = [], []
+        for r, d in enumerate(dry):
+            got = d[key]
+            if measured:
+                want = next(e for e in EP_PLAN if e["coords"] ==
+                            d["coords"])[key]
+                sent_ok &= got["sent"] == want["sent"]
+                held_ok &= all(got["held"][n][0] == want["held"][n][0]
+                               for n in want["held"])
+                args = sum(h[0] for h in got["held"].values())
+                ratios.append(round((args + got["peak"]) / want["max_mem"],
+                                    3))
+                rises.append(want["max_mem"] - want["mem_start"])
+            else:
+                want_sent = _plan_sent_expected(gcfg, key[1]) \
+                    if key != "h" else _plan_train_sent_expected(
+                        tcfg, ShardingPlanner(tcfg, GridShape(
+                            {"data": 2, "model": 2}, ("data", "model")),
+                            fsdp=True))
+                sent_ok &= got["sent"] == want_sent
+                held_ok &= all(h == w for h, w in got["held"].values())
+        what = "(h) forward" if key == "h" else \
+            f"(g) {key[1]} rows, first decode step"
+        against = "the ep phase's runs on the card" if measured else \
+            "the formulas and rank_bytes (the ep phase did not run)"
+        log("dryrun", f"{what} recorded on the 2 x 2 grid's 4 ranks, rank "
+                      f"0 sent " + ", ".join(
+                          f"{c} {v}" for c, v in dry[0][key]["sent"].items()
+                          if any(v.values()))
+                      + f" bytes; every rank's sent bytes = {against}: "
+                        f"{sent_ok}; held bytes rank 0 "
+                        f"{ {n: h[0] for n, h in dry[0][key]['held'].items()} }"
+                        f" = theirs {held_ok}; dry run's arguments + peak / "
+                        f"device peak per rank "
+                      + (f"{ratios} (no bound; each rank's process also "
+                         f"holds the whole tree it cut its shards from); the "
+                         f"dry run's peak of intermediates rank 0 "
+                         f"{dry[0][key]['peak']} B, the device peak's rise "
+                         f"over the run per rank {rises} B"
+                         if measured else "not measured") + f" | {card}")
+        if not (sent_ok and held_ok):
+            fails.append(f"dryrun {what}")
+
+
+def phase_dryrun(card: str) -> None:
+    """The dry run: (1) the 30B's four shapes on 16 x 16 at full width and
+    depth, priced per rank over meta tensors (from the process
+    ``_DryBeside`` started after the build, or here); (2) (g) and (h) on
+    meta copies of their trees, held to what the ep phase measured."""
+    t0 = time.perf_counter()
+    fails: list = []
+    _dry_plan_check(fails, card)
+    t_plan = time.perf_counter() - t0
+    beside = _DRY_BESIDE if _DRY_BESIDE is not None else _DryBeside()
+    try:
+        recs, proc_s, waited = beside.result()
+    finally:
+        if beside is not _DRY_BESIDE:
+            beside.close()
+    for item in recs:
+        r = item["records"][0]
+        rl = r["roofline"]
+        axes: dict = {}
+        for per in r["sent_bytes"].values():
+            for a, b in per.items():
+                axes[a] = axes.get(a, 0) + b
+        ok = len(item["records"]) == 1 and r["ranks"] == [0, 255] and \
+            r["largest_off_meta_bytes"] <= 1 << 20 and \
+            rl["t_compute_s"] > 0 and rl["t_memory_s"] > 0
+        log("dryrun", f"{ARCH} x {item['shape']} on 16x16 (ranks "
+                      f"{r.get('ranks')} agree: {len(item['records']) == 1}"
+                      f"): per rank {r['per_device_hbm_gb']} GB (arguments "
+                      f"{r['argument_size_in_bytes'] / 1e9:.3f} GB + peak "
+                      f"{r['temp_size_in_bytes'] / 1e9:.3f} GB; fits 80 GB "
+                      f"{r['fits_80gb_hbm']}), sent MB by axis "
+                      + str({a: round(b / 1e6, 3) for a, b in axes.items()})
+                      + f", roofline compute {rl['t_compute_s']} s, memory "
+                        f"{rl['t_memory_s']} s, collective "
+                        f"{rl['t_collective_s']} s (H100 SXM data-sheet "
+                        f"figures) -> {rl['bottleneck']}; regimes "
+                        f"{r['regimes']}; kernels priced "
+                      + str({k: v["calls"] for k, v in r["kernels"].items()})
+                      + f"; largest tensor off meta "
+                        f"{r['largest_off_meta_bytes']} B; recorded in "
+                        f"{item['s']:.1f} s | {card}")
+        if not ok:
+            fails.append(f"dryrun {item['shape']}")
+    log("dryrun", f"phase done in {time.perf_counter() - t0:.1f} s ((g) and "
+                  f"(h) {t_plan:.1f} s; the 30B's records waited for "
+                  f"{waited:.1f} s, their process {proc_s:.1f} s since its "
+                  f"start, beside the phases) | {card}")
+    if fails:
+        raise AssertionError(f"dryrun: {fails}")
 
 
 # ---------------------------------------------------------------------------
@@ -8526,7 +8814,7 @@ def _trace_one(cfg, params, prompts, what, paged, dispatch, mode, lo_bits,
 
 PHASES = ("card", "build", "kernels", "splits", "gemms", "serving",
           "requests", "spec", "ladder", "obs", "hybrid", "model",
-          "families", "multimodal", "train", "ep", "trace")
+          "families", "multimodal", "train", "ep", "dryrun", "trace")
 #: Phases that run only when named in ``--only``.
 EXTRA_PHASES = ("dense",)
 
@@ -8550,14 +8838,19 @@ def main() -> int:
     jobs = _cpu_jobs(only)
     if jobs:                # it draws on the card while nvcc builds
         _CPU_REFS = _CpuRefs(jobs)
+    global _DRY_BESIDE
     try:
         phase_build()
+        if "dryrun" in only:        # host work only: beside the phases
+            _DRY_BESIDE = _DryBeside()
         if _CPU_REFS is not None:
             _CPU_REFS.ready()
         return _run_phases(args, only, card, t0)
     finally:
         if _CPU_REFS is not None:
             _CPU_REFS.close()
+        if _DRY_BESIDE is not None:
+            _DRY_BESIDE.close()
 
 
 def _run_phases(args, only, card, t0) -> int:
@@ -8582,6 +8875,7 @@ def _run_phases(args, only, card, t0) -> int:
                       ("multimodal", lambda: phase_multimodal(card)),
                       ("train", lambda: phase_train(card)),
                       ("ep", lambda: phase_ep(card)),
+                      ("dryrun", lambda: phase_dryrun(card)),
                       ("trace", lambda: phase_trace(card))):
         if name in only:
             t = time.perf_counter()

@@ -12,6 +12,8 @@ are hand-written CUDA C++ in ``kernels/csrc`` (see ``kernels.ops``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that request they raise (``resolve_device``).
+The dry run (``launch.dryrun``) runs them on ``meta`` tensors, inside
+``launch.dist.dry_run()`` only.
 """
 from __future__ import annotations
 
@@ -23,8 +25,15 @@ __all__ = ["resolve_device"]
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` by default, the CPU only
     when asked for explicitly. Raises when CUDA is requested (or defaulted
-    to) but absent — an entry point never falls back quietly."""
+    to) but absent — an entry point never falls back quietly. ``"meta"``
+    (shapes only) inside ``launch.dist.dry_run()`` only."""
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "meta":
+        from repro_torch.launch.dist import dry_running
+        if not dry_running():
+            raise ValueError("the meta device is the dry run's: run under "
+                             "repro_torch.launch.dist.dry_run()")
+        return dev
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "

@@ -8,12 +8,17 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 
 and counts its launches in ``LAUNCHES`` (one per call that launched,
 nowhere else), so a run can show that the main path went through the
-kernels. No kernel has a backward: every wrapper raises while autograd
-records and an input requires a gradient (``_no_grad_inputs``). The two
-decode-attention wrappers count one per call whether one or two device
-launches ran: they are split-KV (``decode_splits`` cuts each row's tiles
-across CTAs, and a second small kernel merges the splits when there is
-more than one).
+kernels. The wrappers on the dry run's path (``launch.dryrun``: the
+ragged FFN's pair, the grouped GEMM and the dense decode attention) take
+``meta`` tensors inside ``launch.dist.dry_run()`` (``_priced``): an empty
+output of the kernel's shape, its own FLOPs and bytes priced as it
+computes them, no launch counted; the other wrappers refuse ``meta``
+(``_card_only``). No kernel has a backward: every wrapper raises while
+autograd records and an input requires a gradient (``_no_grad_inputs``).
+The two decode-attention wrappers count one per call whether one or two
+device launches ran: they are split-KV (``decode_splits`` cuts each row's
+tiles across CTAs, and a second small kernel merges the splits when there
+is more than one).
 
 The padded MoE dispatch's grouped GEMM (``grouped_lo_matmul``), the dense
 decode attention (``flash_decode``) and the plain quantized GEMM
@@ -346,6 +351,37 @@ def _need(t: torch.Tensor, name: str, dtype, device, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _nb(*tensors) -> int:
+    """The bytes of ``tensors`` (None counts 0)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _priced(name: str, shape, device, flops: int, nbytes: int,
+            dtype=torch.bfloat16) -> torch.Tensor:
+    """The ``meta`` branch of a kernel on the dry run's path: its FLOPs and
+    the bytes it moves (each operand read and each output written as the
+    kernel's grid reads and writes them) added to the active
+    ``launch.dist.dry_run()``, which raises outside one, and an empty
+    ``meta`` output of the kernel's shape. Nothing launches, so
+    ``LAUNCHES`` is not counted."""
+    from repro_torch.launch import dist
+    dist.record_kernel(name, flops, nbytes)
+    return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def _card_only(dev: torch.device, name: str) -> None:
+    """A kernel on no path of the dry run takes no ``meta`` tensor."""
+    if dev.type == "meta":
+        raise ValueError(f"{name}: no meta branch (the kernel is on no path "
+                         f"of the dry run)")
+
+
+def _lo_per_expert(packed, scales) -> int:
+    """The lo-tier bytes (codes and scales) of one expert of a bank."""
+    return _nb(packed, scales) // packed.shape[0]
+
+
 def _no_grad_inputs(name: str, *tensors) -> None:
     """The kernels have no backward (neither has the reference's Pallas
     path): a call that autograd would record raises, where its output
@@ -458,6 +494,15 @@ def ragged_gateup(xs, tile_eid, tile_slot, n_tiles, gate_packed, gate_scales,
                              (gate_packed, up_packed),
                              (gate_scales, up_scales), (hi_gate, hi_up),
                              bits, group, bm, ("xs",))
+    if xs.device.type == "meta":
+        # Every one of the Tt tiles the grid launches, on its expert's lo
+        # codes (a meta run sees no routing, and the dry run's bank
+        # publishes no hi slot): an upper bound on the tiles.
+        R = Tt * bm
+        w = Tt * (_lo_per_expert(gate_packed, gate_scales) +
+                  _lo_per_expert(up_packed, up_scales))
+        return _priced("ragged_gateup", (R, F), xs.device, 4 * R * K * F,
+                       _nb(xs, tile_eid, tile_slot, n_tiles) + 2 * R * F + w)
     if xs.device.type == "cpu":
         return ref.ragged_gateup_ref(xs, tile_eid, tile_slot, gate_packed,
                                      gate_scales, up_packed, up_scales,
@@ -489,6 +534,11 @@ def ragged_down(h, tile_eid, tile_slot, n_tiles, down_packed, down_scales,
     Tt, F, D = _check_ragged(h, tile_eid, tile_slot, n_tiles,
                              (down_packed,), (down_scales,), (hi_down,),
                              bits, group, bm, ("h",))
+    if h.device.type == "meta":
+        R = Tt * bm                         # as ragged_gateup's branch
+        return _priced("ragged_down", (R, D), h.device, 2 * R * F * D,
+                       _nb(h, tile_eid, tile_slot, n_tiles) + 2 * R * D +
+                       Tt * _lo_per_expert(down_packed, down_scales))
     if h.device.type == "cpu":
         return ref.ragged_down_ref(h, tile_eid, tile_slot, down_packed,
                                    down_scales, hi_down, bits=bits,
@@ -718,6 +768,7 @@ def ragged_dense_gateup(xs, tile_eid, n_tiles, w_gate, w_up, *,
     _check_dense(xs, tile_eid, n_tiles, (w_gate, w_up), bm, "xs")
     if xs.device.type == "cpu":
         return ref.ragged_dense_gateup_ref(xs, tile_eid, w_gate, w_up, bm=bm)
+    _card_only(xs.device, "ragged_dense_gateup")
     return _dense_call("ragged_dense_gateup", bm, xs, tile_eid, n_tiles,
                        (w_gate, w_up))
 
@@ -730,6 +781,7 @@ def ragged_dense_down(h, tile_eid, n_tiles, w_down, *,
     _check_dense(h, tile_eid, n_tiles, (w_down,), bm, "h")
     if h.device.type == "cpu":
         return ref.ragged_dense_down_ref(h, tile_eid, w_down, bm=bm)
+    _card_only(h.device, "ragged_dense_down")
     return _dense_call("ragged_dense_down", bm, h, tile_eid, n_tiles,
                        (w_down,))
 
@@ -766,6 +818,7 @@ def flash_decode_paged(q, k, v, table, valid) -> torch.Tensor:
                          f"{tuple(valid.shape)} != (B, nb) / (B, nb·bt)")
     if dev.type == "cpu":
         return ref.flash_decode_paged_ref(q, k, v, table, valid)
+    _card_only(dev, "flash_decode_paged")
     key = ("flash_decode_paged", q.shape, k.shape, nb, dev.index)
     plan = _PLANS.get(key)
     if plan is None:
@@ -817,6 +870,9 @@ def grouped_lo_matmul(xg, packed, scales, bits: int,
     if packed.shape[0] != E:
         raise ValueError(f"packed {tuple(packed.shape)} holds another "
                          f"number of experts than xg (E={E})")
+    if dev.type == "meta":
+        return _priced("grouped_lo_matmul", (E, C, N), dev, 2 * E * C * K * N,
+                       _nb(xg, packed, scales) + 2 * E * C * N)
     if dev.type == "cpu":
         return ref.grouped_lo_gemm(xg, packed, scales, bits, group)
     return _gemm_launch("grouped_quant_matmul", "grouped_lo_matmul", xg,
@@ -839,6 +895,7 @@ def quant_matmul_op(x, qt) -> torch.Tensor:
     N = _check_codes(qt.packed, qt.scales, K, bits, group, dev, 2)
     if dev.type == "cpu":
         return ref.quant_matmul_ref(x, qt.packed, qt.scales, bits, group)
+    _card_only(dev, "quant_matmul")
     return _gemm_launch("quant_matmul", "quant_matmul", x, qt.packed,
                         qt.scales, 1, M, K, N, bits, group).view(M, N)
 
@@ -869,6 +926,14 @@ def flash_decode(q, k, v, valid, lse: bool = False):
     if stride[-1] != 1 or v.stride() != stride:
         raise ValueError(f"k/v strides {stride}/{v.stride()}: the last "
                          f"axis must be contiguous and both views alike")
+    if dev.type == "meta":
+        # QK and PV over every slot of every row: the rows' K/V read once.
+        nbytes = _nb(q, valid) + 2 * B * S * Hkv * hd * k.element_size() + \
+            2 * B * H * hd + (4 * B * H if lse else 0)
+        flops = 4 * B * H * S * hd
+        out = _priced("flash_decode", (B, H, hd), dev, flops, nbytes)
+        return (out, torch.empty((B, H), dtype=torch.float32, device=dev)) \
+            if lse else out
     if dev.type == "cpu":
         return ref.flash_decode_ref(q, k, v, valid, lse=lse)
     key = ("flash_decode", q.shape, k.shape, stride, dev.index)

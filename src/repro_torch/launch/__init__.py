@@ -3,5 +3,8 @@
 parallelism), the training launcher (``launch.train``, ``python -m
 repro_torch.launch.train``), the distribution context the MoE layer reads
 (``launch.dist``), the process groups of expert-parallel serving
-(``launch.mesh``: ``make_ep_mesh``, ``spawn``) and the analytic roofline
-model of the expert traffic (``launch.roofline``)."""
+(``launch.mesh``: ``make_ep_mesh``, ``spawn``, the production grids),
+the sharding planner (``launch.sharding``), the dry run (``launch.
+dryrun``, run as ``python -m repro_torch.launch.dryrun``, over
+``launch.shapes``) and the roofline (``launch.roofline``: the analytic
+model of the expert traffic and the dry run's terms)."""

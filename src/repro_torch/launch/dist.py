@@ -32,13 +32,22 @@ exchange ↔ the reverse exchange): a rank's backward enters the same
 collectives as every other rank's, in the same order, as the forwards
 did. With autograd off they move the same bytes in the same order as
 before they had one.
+
+Under ``dry_run()`` (the dry run of ``launch.dryrun``) every collective
+records instead of moving: it takes ``meta`` tensors, adds to
+``SENT_BYTES`` what the real call would add (both paths price a call
+through ``sent_bytes``) and returns an empty ``meta`` tensor of the
+result's shape, without calling ``torch.distributed``; its context then
+carries sizes and coordinates and no process groups
+(``launch.mesh.dry_context``). Outside it a ``meta`` tensor reaching a
+collective raises.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import threading
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as tdist
@@ -68,6 +77,101 @@ def reset_sent() -> None:
     for per_axis in SENT_BYTES.values():
         for a in per_axis:
             per_axis[a] = 0
+
+
+def sent_bytes(collective: str, nbytes, n: int, r: int = 0) -> int:
+    """The bytes rank ``r`` of an axis of ``n`` hands to other ranks in one
+    call of ``collective`` over a buffer of ``nbytes`` (for "exchange",
+    the list of its per-destination byte counts): the pricing of
+    ``SENT_BYTES``, shared by the real and the recorded calls."""
+    if n == 1:
+        return 0
+    if collective in ("all_to_all", "reduce_scatter"):
+        return nbytes * (n - 1) // n
+    if collective == "exchange":
+        return sum(nbytes) - nbytes[r]
+    if collective == "all_gather":
+        return nbytes * (n - 1)
+    if collective == "all_reduce":
+        return nbytes * 2 * (n - 1) // n
+    if collective == "broadcast":
+        return nbytes * (n - 1) if r == 0 else 0
+    raise ValueError(f"collective {collective!r}; one of {tuple(SENT_BYTES)}")
+
+
+def _count(collective: str, axis: str, nbytes, n: int, r: int = 0) -> None:
+    SENT_BYTES[collective][axis] += sent_bytes(collective, nbytes, n, r)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+@dataclasses.dataclass
+class DryRun:
+    """What a dry run records besides ``SENT_BYTES``: the kernels' own
+    work by wrapper name, {"calls", "flops", "bytes"} (``record_kernel``,
+    from the wrappers' ``meta`` branches in ``kernels.ops``)."""
+    kernels: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
+
+
+_DRY: Optional[DryRun] = None
+
+
+def dry_running() -> bool:
+    """Whether a ``dry_run()`` is active."""
+    return _DRY is not None
+
+
+@contextlib.contextmanager
+def dry_run():
+    """The recording mode: while it is active the collectives take
+    ``meta`` tensors and move nothing (see the module docstring),
+    ``repro_torch.resolve_device`` accepts ``"meta"`` and the kernel
+    wrappers on the dry run's path price their work into the ``DryRun``
+    it yields."""
+    global _DRY
+    prev, _DRY = _DRY, DryRun()
+    try:
+        yield _DRY
+    finally:
+        _DRY = prev
+
+
+def record_kernel(name: str, flops: int, nbytes: int) -> None:
+    """Add one call of kernel ``name`` with its ``flops`` and the ``nbytes``
+    it moves to the active dry run; raises outside one (a ``meta`` tensor
+    reached a kernel wrapper)."""
+    if _DRY is None:
+        raise RuntimeError(f"{name}: a meta tensor outside launch.dist."
+                           f"dry_run(); the kernels run on the card or "
+                           f"the CPU")
+    k = _DRY.kernels.setdefault(name, {"calls": 0, "flops": 0, "bytes": 0})
+    k["calls"] += 1
+    k["flops"] += int(flops)
+    k["bytes"] += int(nbytes)
+
+
+def _dry(*tensors) -> bool:
+    """Whether this collective call is recorded (a dry run is active):
+    then every tensor it takes must be ``meta``; outside a dry run none
+    may be."""
+    metas = [t.device.type == "meta" for t in tensors if t is not None]
+    if _DRY is None:
+        if any(metas):
+            raise RuntimeError("a meta tensor reached a collective outside "
+                               "launch.dist.dry_run()")
+        return False
+    if not all(metas):
+        raise RuntimeError("under launch.dist.dry_run() the collectives "
+                           "take meta tensors only")
+    return True
+
+
+def _empty(shape, like: torch.Tensor) -> torch.Tensor:
+    """The recorded call's result: an empty ``meta`` tensor."""
+    return torch.empty(tuple(shape), dtype=like.dtype, device="meta")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,9 +312,10 @@ def agree(value: float, ctx: Optional[DistContext] = None) -> float:
     if ctx is None:
         return value
     group, r, n = ctx.axis("tokens")
+    _count("broadcast", "tokens", 8, n, r)
+    if _dry():
+        return value
     t = torch.tensor([float(value)], dtype=torch.float64)
-    if r == 0:
-        SENT_BYTES["broadcast"]["tokens"] += 8 * (n - 1)
     tdist.broadcast(t, src=_global_rank(group, 0), group=group)
     return float(t[0])
 
@@ -222,9 +327,12 @@ def _all_to_all(t: torch.Tensor, ctx: DistContext, axis: str
         return t
     if t.shape[0] % n:
         raise ValueError(f"leading dim {t.shape[0]} not divisible by {n}")
+    dry = _dry(t)
+    _count("all_to_all", axis, _nbytes(t), n)
+    if dry:
+        return _empty(t.shape, t)
     src = _bytes(t)
     out = torch.empty_like(src)
-    SENT_BYTES["all_to_all"][axis] += src.numel() * (n - 1) // n
     tdist.all_to_all_single(out, src, group=group)
     return _from_bytes(out, t, t.shape)
 
@@ -255,13 +363,15 @@ def _exchange(send, recv_like, ctx: DistContext, axis: str):
     group, r, n = ctx.axis(axis)
     if n == 1:
         return list(send)
+    dry = _dry(*send, *recv_like)
+    sizes_out = [0 if s is None else _nbytes(s) for s in send]
+    _count("exchange", axis, sizes_out, n, r)
+    if dry:
+        return [None if x is None else _empty(x.shape, x) for x in recv_like]
     ins = [_bytes(s) if s is not None else torch.empty(0, dtype=torch.uint8)
            for s in send]
-    sizes_out = [int(b.numel()) for b in ins]
-    sizes_in = [0 if x is None else x.numel() * x.element_size()
-                for x in recv_like]
+    sizes_in = [0 if x is None else _nbytes(x) for x in recv_like]
     out = torch.empty(sum(sizes_in), dtype=torch.uint8)
-    SENT_BYTES["exchange"][axis] += sum(sizes_out) - sizes_out[r]
     tdist.all_to_all_single(out, torch.cat(ins),
                             output_split_sizes=sizes_in,
                             input_split_sizes=sizes_out, group=group)
@@ -318,9 +428,14 @@ def _all_gather(t: torch.Tensor, ctx: DistContext, axis: str,
     group, _, n = ctx.axis(axis)
     if n == 1:
         return t
+    dry = _dry(t)
+    _count("all_gather", axis, _nbytes(t), n)
+    if dry:
+        shape = list(t.shape)
+        shape[dim] *= n
+        return _empty(shape, t)
     src = _bytes(t)
     parts = [torch.empty_like(src) for _ in range(n)]
-    SENT_BYTES["all_gather"][axis] += src.numel() * (n - 1)
     tdist.all_gather(parts, src, group=group)
     return torch.cat([_from_bytes(p, t, t.shape) for p in parts], dim=dim)
 
@@ -337,10 +452,15 @@ def _reduce_scatter(t: torch.Tensor, ctx: DistContext, axis: str,
                          f"{n}")
     if n == 1:
         return t
+    dry = _dry(t)
+    _count("reduce_scatter", axis, _nbytes(t), n)
+    if dry:
+        shape = list(t.shape)
+        shape[dim] //= n
+        return _empty(shape, t)
     blocks = torch.stack(torch.chunk(t, n, dim=dim))
     src = _bytes(blocks)
     out = torch.empty_like(src)
-    SENT_BYTES["reduce_scatter"][axis] += src.numel() * (n - 1) // n
     tdist.all_to_all_single(out, src, group=group)
     got = _from_bytes(out, blocks, blocks.shape)
     acc = got.float() if got.dtype in (torch.bfloat16, torch.float16) \
@@ -400,9 +520,11 @@ def _all_reduce(t: torch.Tensor, ctx: DistContext, op, axis: str
     group, _, n = ctx.axis(axis)
     if n == 1:
         return t.detach().clone()
+    dry = _dry(t)
+    _count("all_reduce", axis, _nbytes(t), n)
+    if dry:
+        return _empty(t.shape, t)
     h = t.detach().contiguous().cpu().clone()
-    SENT_BYTES["all_reduce"][axis] += h.numel() * h.element_size() * \
-        2 * (n - 1) // n
     tdist.all_reduce(h, op=op, group=group)
     return h.to(t.device)
 
@@ -435,9 +557,13 @@ def all_reduce(t: torch.Tensor, ctx: DistContext,
 def all_true(flags: Sequence[bool], ctx: DistContext,
              axis: str = "tokens") -> List[bool]:
     """Elementwise AND of ``flags`` over ``axis`` (an all_reduce MIN): a
-    flag stays True only where every rank holds it True."""
+    flag stays True only where every rank holds it True. Not counted in
+    ``SENT_BYTES`` (host flags of the control plane, not the step's
+    traffic); recorded, each rank's own flags."""
     if not flags:
         return []
+    if _dry():
+        return [bool(f) for f in flags]
     group, _, _ = ctx.axis(axis)
     t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int64)
     tdist.all_reduce(t, op=tdist.ReduceOp.MIN, group=group)

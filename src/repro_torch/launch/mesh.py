@@ -15,9 +15,10 @@ the world enters in the same order). The rendezvous is a ``FileStore`` in a
 temporary directory, never a fixed TCP port, so concurrent worlds on one
 host (test workers, a launcher beside a test) cannot collide.
 
-The reference's ``make_production_mesh`` (16 × 16 chips, or 2 × 16 × 16)
-lowers full configurations without allocating; the port's counterpart
-needs a fake process group and comes with the dry run.
+``make_production_mesh`` gives the reference's production grids (16 × 16,
+or 2 × 16 × 16) as the shapes the planner reads, and ``dry_context`` one
+rank's context on such a grid for the dry run (``launch.dryrun``): sizes
+and coordinates, no process group and no device.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import torch
 import torch.distributed as tdist
 
 from repro_torch.launch.dist import DistContext, ep_context
+from repro_torch.launch.sharding import GridShape
 
 
 def _join(world: int, rank: Optional[int], init_file: Optional[str]) -> None:
@@ -99,6 +101,42 @@ def grid_context(n_data: int, n_model: int, *,
                        device=device, tokens_ep_sharded=tokens_ep_sharded,
                        data_group=data_groups[j], data_rank=i,
                        data_size=n_data, token_group=token_group)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> GridShape:
+    """The reference's production mesh as the shape its planner reads:
+    {"data": 16, "model": 16}, or ("pod", "data", "model") = (2, 16, 16)
+    with ``multi_pod`` (the leading axis a second data axis). These are the
+    reference's shapes, kept so that the dry run's records line up with
+    its records; the port prices them on H100 SXM 80 GB cards
+    (``launch.roofline``), not on the TPU v5e chips the reference assumed.
+    Makes no devices and no process group."""
+    if multi_pod:
+        return GridShape({"pod": 2, "data": 16, "model": 16},
+                         ("pod", "data", "model"))
+    return GridShape({"data": 16, "model": 16}, ("data", "model"))
+
+
+def dry_context(grid: GridShape, rank: int, **kw) -> DistContext:
+    """Rank ``rank``'s context on ``grid`` for the dry run, inside
+    ``launch.dist.dry_run()``: its model index ``rank % n_model`` and data
+    index ``rank // n_model`` (the data-major layout of ``spawn``'s
+    grids), every non-model axis of ``grid`` one data axis (("pod",
+    "data") of 2 × 16 is one of 32), no process groups (the recorded
+    collectives call no ``torch.distributed``) and the ``meta`` device.
+    ``kw``: further ``DistContext`` fields (``tokens_dp_sharded``,
+    ``planner``, ``batch``, ...)."""
+    n_model = grid.shape["model"]
+    n_data = 1
+    for a in grid.axis_names:
+        if a != "model":
+            n_data *= grid.shape[a]
+    if not 0 <= rank < n_data * n_model:
+        raise ValueError(f"rank {rank} outside a grid of "
+                         f"{n_data * n_model}")
+    i, j = divmod(rank, n_model)
+    return DistContext(group=None, rank=j, model_size=n_model,
+                       device="meta", data_rank=i, data_size=n_data, **kw)
 
 
 def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,

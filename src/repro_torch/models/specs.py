@@ -50,8 +50,9 @@ inputs by ``spec_for_input``. It computes only its share of the step:
   which) sums its copies' gradients over those axes (``sum_grads``).
 
 Families: decoder-only attention stacks (MoE and dense). Mamba, Jamba,
-Whisper and LLaVA raise ``NotImplementedError`` (ROADMAP Queue 1 item 7,
-the dry-run slice); so do the paged entry points and the per-row drop
+Whisper and LLaVA raise ``NotImplementedError`` (``LATER``: the
+families under specs come after the dry run, ``launch.dryrun``, whose
+error lines they are); so do the paged entry points and the per-row drop
 rule (``row_capacity``).
 """
 from __future__ import annotations
