@@ -76,7 +76,7 @@ Phases (each prints one line; any failure exits non-zero):
               hybrid phase's and the multimodal twins run in one process
               started before the build (``_CpuRefs``: nice 19, it draws
               their weights on the card first), beside the phases;
-5. serving  — the 8-layer full-width model served by ``static`` and
+5. serving  — the SERVE_LAYERS full-width model served by ``static`` and
               ``dynaexq`` (8 requests, 64–256-token prompts, 32 new tokens)
               on each path: paged KV with ragged dispatch, and dense KV rows
               with padded dispatch; each backend four times on fresh
@@ -103,7 +103,7 @@ Phases (each prints one line; any failure exits non-zero):
               dynaexq's device bytes) in turns, graphed: tokens/s (the
               modeled stall counted), TPOT, TTFT, stall, hits and misses,
               ``device_bytes()``;
-   requests — the request front on the main path (8 full-width layers,
+   requests — the request front on the main path (SERVE_LAYERS layers,
               8 slots, max_len 1024): 24 requests x 32 tokens through
               ``replay(realtime=False)`` — 12 standard sharing a
               160-token prefix, 8 batch of 64-256 tokens, 4 premium of 768
@@ -149,7 +149,7 @@ Phases (each prints one line; any failure exits non-zero):
               before serving against full materialization, the staging
               rate, TTFT, hi shards read by promotions — then a cold
               start with one lo shard unreadable (quarantine, degraded
-              requests, healed); (b) at 8 layers, ``model_sensitivity``
+              requests, healed); (b) at SERVE_LAYERS, ``model_sensitivity``
               on the card and ``dynaexq`` with the host tier
               (``lo_resident_total`` = L·E/2, priced at the card's
               pinned rate) and sensitivity weights: host fetches, the
@@ -170,7 +170,7 @@ Phases (each prints one line; any failure exits non-zero):
               and paged attention kernels ran, the saved trace loads and
               the cost model folds it, its published promotion spans are
               the backend's promotions, one metrics row per step; (b) the
-              30B main path at 8 layers, ``static`` graphed with the
+              30B main path at SERVE_LAYERS, ``static`` graphed with the
               recorder and registry off, on, on, off on fresh engines:
               identical tokens and launches, TPOT, replay ms and host ms
               per step; (c) ``dynaexq`` observed on the wall clock, a
@@ -291,18 +291,28 @@ Phases (each prints one line; any failure exits non-zero):
               log-sum-exp), prefill and 8 decode steps against one
               process; (h) granite's FSDP train step at 2 layers in
               float32 against one process; held bytes against
-              ``rank_bytes``, sent bytes against formulas;
+              ``rank_bytes``, sent bytes against formulas; (i) the
+              families under specs at full width: Mamba2 at 24 layers (in
+              bf16 and float32), Jamba at 8 (its int4 bank drawn expert
+              by expert; rows 1-2 at 8 rows, row 4 at 2), Whisper at 4 +
+              4 (1500 frames, cross-attention on row 5), LLaVA at 2 of 60
+              (its 576-token prefix), 8 and 2 rows, prefill and 8 decode
+              steps, and the float32 FSDP train steps of Mamba2 and
+              Whisper, each against one process, held bytes against
+              ``rank_bytes``;
    dryrun   — the dry run (``repro_torch.launch.dryrun``), no card: (1)
               the 30B's four shapes on the 16 x 16 production grid at
               full width and depth, each rank's share priced over meta
               tensors in a process started after the build (one thread,
               nice 19, beside the phases): per-rank GB, sent MB by axis,
               roofline terms on H100 data-sheet figures, the bottleneck;
-              (2) (g)'s and (h)'s own calls on meta copies of their trees
-              under the recording mode, every rank of their 2 x 2 grid:
-              the bytes each collective sent and each rank held, equal to
-              what the ep phase measured on the card, and the dry run's
-              arguments plus peak beside each rank's device peak;
+              and each family's decode_32k at full depth; (2) (g)'s,
+              (h)'s and (i)'s own calls on meta copies of their trees
+              under the recording mode, every rank of their 2 x 2 grid
+              ((i) in that process too): the bytes each collective sent
+              and each rank held, equal to what the ep phase measured on
+              the card, and for (g), (h) the dry run's arguments plus peak
+              beside each rank's device peak;
 6. trace    — on each path, 10 decode steps of the static backend traced
               by ``torch.profiler``, graphed and eager: device time per
               step by kernel group, the port's kernels counted by the
@@ -342,7 +352,11 @@ import repro_torch  # noqa: E402,F401  (fails at once outside a checkout)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (data sheet)
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor rate
 ARCH = "qwen3-moe-30b-a3b"
-SERVE_LAYERS = 8               # of 48: bf16 host masters 9.7 GB, not 58 GB
+#: The 30B's served depth (serving, requests, spec, the ladder's host tier,
+#: obs, trace), of 48: bf16 host masters 4.8 GB, not 58 GB. Four layers
+#: (eight before the families under specs joined the ep phase) keep the
+#: default run under 600 s.
+SERVE_LAYERS = 4
 CHECK_LAYERS = 2
 #: The paper's flagship (512 experts top-10, a shared expert, int2 lo and
 #: int4-priced hi), checked on 1 layer and served on 4 of 48.
@@ -4649,7 +4663,8 @@ def _ladder_quarantine(card, cfg, root, prompts, clean, clean_be,
 
 
 def _ladder_host_tier(card, full, prompts, warm, pcie, runs) -> None:
-    """(b) the host tier and sensitivity on 8 full-width layers, then (c)
+    """(b) the host tier and sensitivity on SERVE_LAYERS full-width
+    layers, then (c)
     faults on the same configuration."""
     import dataclasses
     from repro_torch.models.model import init_params
@@ -6536,6 +6551,9 @@ TRAIN_EVAL_KERNELS = {
 }
 #: The checkpoint needs this much more free space than its bytes.
 TRAIN_CKPT_SLACK = 1.2
+#: (d) saves and loads the first TRAIN_CKPT_LAYERS of (a)'s 24 layers
+#: (every leaf outside the blocks whole): ~5 GB on disk, not 16.
+TRAIN_CKPT_LAYERS = 6
 
 
 def _train_launcher(card) -> dict:
@@ -6806,14 +6824,31 @@ def _max_abs(xs, ys) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(xs, ys))
 
 
+def _first_layers(tree, n: int):
+    """``tree`` with every leaf under a "blocks" key (stacked over layers)
+    cut to its first ``n`` layers: a shallower model's tree."""
+    if isinstance(tree, dict):
+        return {k: (_first_layers(v, n) if k != "blocks" else
+                    _stacked_head(v, n)) for k, v in tree.items()}
+    return tree
+
+
+def _stacked_head(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _stacked_head(v, n) for k, v in tree.items()}
+    return tree if tree is None else tree[:n]
+
+
 def _train_checkpoint(card, out) -> None:
-    """(d) (a)'s parameters and optimizer state to a temporary directory
-    in the reference's layout and back: every leaf bit-equal."""
+    """(d) (a)'s parameters and optimizer state, cut to its first
+    TRAIN_CKPT_LAYERS layers, to a temporary directory in the reference's
+    layout and back: every leaf bit-equal."""
     import shutil
     import tempfile
     from repro_torch.training import load_checkpoint, save_checkpoint
     from repro_torch.core import tree as T
-    tree = {"params": out["params"], "opt": out["opt_state"]}
+    tree = _first_layers({"params": out["params"], "opt": out["opt_state"]},
+                         TRAIN_CKPT_LAYERS)
     nbytes = sum(t.numel() * max(4, t.element_size())
                  for t in T.leaves(tree))
     tmp = tempfile.gettempdir()
@@ -6835,7 +6870,7 @@ def _train_checkpoint(card, out) -> None:
                or not torch.equal(a, b)]
         n = len(T.leaves(tree))
     log("train", f"(d) checkpoint of the trained parameters and optimizer "
-                 f"state: {n} leaves, {nbytes / 1e9:.2f} GB on disk (bf16 as "
+                 f"state, the first {TRAIN_CKPT_LAYERS} layers: {n} leaves, {nbytes / 1e9:.2f} GB on disk (bf16 as "
                  f"float32), saved in {t1 - t0:.1f} s, loaded back to the "
                  f"card in {t2 - t1:.1f} s; step {step}; "
                  f"{n - len(bad)} of {n} leaves bit-equal | {card}")
@@ -7517,20 +7552,26 @@ def _plan_args(cfg, params, banks, B, ctx=None):
 
 
 def _plan_steps(cfg, params, banks, caches, inputs, steps, ctx):
-    """(g)'s calls: the prefill, then the decode steps, under ``ctx``
-    (ragged dispatch, per-row counts, capacity factor E/k: drop-free).
-    Returns (logits, counts, the bytes each collective sent in the first
-    decode step)."""
+    """(g)'s and (i)'s calls: the prefill (a VLM's ``image_embeds``, an
+    encoder-decoder's ``audio_embeds`` from ``inputs``), then the decode
+    steps, under ``ctx`` (ragged dispatch, per-row counts, capacity factor
+    E/k: drop-free). Returns (logits, counts, the bytes each collective
+    sent in the first decode step, and in the prefill)."""
     from repro_torch.launch import dist as D
     from repro_torch.launch.dist import dist_ctx
     from repro_torch.models.model import decode_step, prefill
-    cf = cfg.moe.num_experts / cfg.moe.top_k
+    cf = cfg.moe.num_experts / cfg.moe.top_k if cfg.is_moe else 2.0
     sent = None
     with torch.no_grad(), dist_ctx(ctx):
+        torch.cuda.synchronize()
+        D.reset_sent()
         lg, counts = prefill(params, cfg, inputs["tokens"], caches,
                              inputs["lengths"], bank=banks,
                              capacity_factor=cf, moe_dispatch="ragged",
-                             per_row_counts=True)
+                             per_row_counts=True,
+                             image_embeds=inputs.get("image_embeds"),
+                             audio_embeds=inputs.get("audio_embeds"))
+        sent_prefill = {k: dict(v) for k, v in D.SENT_BYTES.items()}
         logits, all_counts = [lg], [counts]
         for i, st in enumerate(steps):
             if i == 0:
@@ -7544,10 +7585,10 @@ def _plan_steps(cfg, params, banks, caches, inputs, steps, ctx):
                 sent = {k: dict(v) for k, v in D.SENT_BYTES.items()}
             logits.append(lg)
             all_counts.append(counts)
-    return logits, all_counts, sent
+    return logits, all_counts, sent, sent_prefill
 
 
-def _plan_serve(cfg, params, banks, B, ctx=None) -> dict:
+def _plan_serve(cfg, params, banks, B, ctx=None, args=None) -> dict:
     """(g) one run of B rows: prefill, then the decode steps, under ``ctx``
     with the planner (None: one process, ragged dispatch); launches and
     regimes counted from zero over it (the run's main path), the bytes
@@ -7555,11 +7596,12 @@ def _plan_serve(cfg, params, banks, B, ctx=None) -> dict:
     the run's start and its peak over it (``mem_start``, ``max_mem``: the
     process's whole tree too, which the rank cut its shards from), and on
     the grid the bytes this rank holds against
-    ``rank_bytes`` by kind."""
+    ``rank_bytes`` by kind. ``args``: ``_plan_args``' result (another
+    run's: (i)'s), else (g)'s."""
     import repro_torch.models.moe as moe_mod
     from repro_torch.kernels import ops
-    ctx, params, banks, caches, inputs, steps, held, rows = _plan_args(
-        cfg, params, banks, B, ctx)
+    ctx, params, banks, caches, inputs, steps, held, rows = \
+        args if args is not None else _plan_args(cfg, params, banks, B, ctx)
     out = {"held": held, "rows": rows}
     dev = params["embed"].device
     ops.reset_launches()                 # the main path starts here
@@ -7568,7 +7610,7 @@ def _plan_serve(cfg, params, banks, B, ctx=None) -> dict:
     out["mem_start"] = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    logits, all_counts, out["sent"] = _plan_steps(
+    logits, all_counts, out["sent"], out["sent_prefill"] = _plan_steps(
         cfg, params, banks, caches, inputs, steps, ctx)
     torch.cuda.synchronize()
     out["s"] = time.perf_counter() - t0
@@ -7659,22 +7701,25 @@ def _plan_train_model(dev):
     return cfg, params, {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
 
 
-def _plan_train_args(ctx=None, dev=None):
-    """(h)'s arguments: under ``ctx`` the context with the FSDP planner and
-    the params, AdamW state and batch cut to this rank's shards, with the
-    bytes held against ``rank_bytes``. Returns (cfg, tcfg, ctx, params,
-    opt, batch, held)."""
+def _plan_train_args(ctx=None, dev=None, model=None):
+    """(h)'s arguments (``model(dev)``: another model's (cfg, float32
+    params, batch), (i)'s): under ``ctx`` the context with the FSDP
+    planner and the params, AdamW state and batch cut to this rank's
+    shards, with the bytes held against ``rank_bytes``. Returns (cfg,
+    tcfg, ctx, params, opt, batch, held)."""
     from repro_torch.launch import sharding as SH
     from repro_torch.training.adamw import adamw_init
     from repro_torch.training.train import TrainConfig
     dev = dev if ctx is None else ctx.device
-    cfg, params, batch = _plan_train_model(dev)
-    tcfg = TrainConfig(capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+    cfg, params, batch = (model or _plan_train_model)(dev)
+    tcfg = TrainConfig(capacity_factor=cfg.moe.num_experts / cfg.moe.top_k
+                       if cfg.is_moe else 2.0)
     opt = adamw_init(params)
     held = {}
     if ctx is not None:
         pl = SH.ShardingPlanner(cfg, SH.grid_of(ctx), fsdp=True)
-        ctx = dataclasses.replace(ctx, planner=pl, batch=PLAN_TRAIN_B,
+        ctx = dataclasses.replace(ctx, planner=pl,
+                                  batch=batch["tokens"].shape[0],
                                   tokens_ep_sharded=False)
         grid = SH.grid_of(ctx)
         local = {}
@@ -7697,12 +7742,13 @@ def _plan_train_forward(cfg, tcfg, ctx, params, batch) -> dict:
     from repro_torch.models.model import forward_train
     D.reset_sent()
     with torch.no_grad(), dist_ctx(ctx):
-        forward_train(params, cfg, {"tokens": batch["tokens"]},
+        forward_train(params, cfg, {k: v for k, v in batch.items()
+                                    if k != "labels"},
                       capacity_factor=tcfg.capacity_factor, remat=False)
     return {k: dict(v) for k, v in D.SENT_BYTES.items()}
 
 
-def _plan_train(ctx=None, dev=None) -> dict:
+def _plan_train(ctx=None, dev=None, model=None) -> dict:
     """(h) one train step under ``ctx`` with the FSDP planner (None: one
     process): the loss, gradient norm, learning rate, and the AdamW
     moments and updated parameters as (path, spec, float32 tensor on the
@@ -7714,7 +7760,8 @@ def _plan_train(ctx=None, dev=None) -> dict:
     from repro_torch.launch.dist import dist_ctx
     from repro_torch.models import specs as SP
     from repro_torch.training.train import make_train_step
-    cfg, tcfg, ctx, params, opt, batch, held = _plan_train_args(ctx, dev)
+    cfg, tcfg, ctx, params, opt, batch, held = _plan_train_args(ctx, dev,
+                                                                model)
     paths = T.flatten(params)[0]
     out = {"held": held}
     specs = [None] * len(paths)
@@ -7842,40 +7889,9 @@ def _plan_check(ranks, single, fails, card) -> list:
         want = single[("g", B)]
         got = [r[("g", B)] for r in ranks]
         runs += [{"launches": g["launches"]} for g in got]
-        scale = float(want["logits"].abs().max())
-        # Per (rank, row, forward): routed alike in that forward (its
-        # tokens took the same experts in every layer), and alike so far
-        # (in every forward up to it: the K/V it reads too).
-        strict = now = loose = 0.0
-        held = alike_now = pairs = 0
-        counts = conserved = True
-        for g in got:
-            rows = g["rows"]
-            so_far = torch.ones(rows.stop - rows.start, dtype=torch.bool)
-            for f, (gc_, wc) in enumerate(zip(g["counts"], want["counts"])):
-                same = torch.stack([(gc_[k] == wc[k][:, rows]).all(2).all(0)
-                                    for k in wc]).all(0)
-                counts &= bool(same.all())
-                per_row = cfg.moe.top_k * (PLAN_PROMPT if f == 0 else 1)
-                conserved &= all(bool((c.sum(-1) == per_row).all())
-                                 for c in gc_.values())
-                so_far &= same
-                d = (g["logits"][f] - want["logits"][f][rows]).abs() \
-                    .amax(-1)
-                loose = max(loose, float(d.max()))
-                if bool(so_far.any()):
-                    strict = max(strict, float(d[so_far].max()))
-                if bool(same.any()):
-                    now = max(now, float(d[same].max()))
-                held += int(so_far.sum())
-                alike_now += int(same.sum())
-                pairs += same.numel()
-        group_same = all(
-            torch.equal(a["logits"], b["logits"]) and
-            all(torch.equal(ca[k], cb[k]) for ca, cb in
-                zip(a["counts"], b["counts"]) for k in ca)
-            for a in got for b in got if a["rows"] == b["rows"])
-        held_ok = all(h == w for g in got for h, w in g["held"].values())
+        a = _hold_serve(got, want, cfg.moe.top_k, PLAN_PROMPT)
+        strict, now, loose, held, alike_now, pairs, counts, conserved, \
+            group_same, held_ok, scale = (a[k] for k in _HOLD_KEYS)
         sent_ok = all(g["sent"] == _plan_sent_expected(cfg, B) for g in got)
         # A group's rows split over the model axis (8 rows: 4 per group)
         # take the all-to-all regime (rows 1-2); one row does not (the
@@ -7926,6 +7942,94 @@ def _plan_check(ranks, single, fails, card) -> list:
     sent_want = _plan_train_sent_expected(tcfg, ShardingPlanner(
         tcfg, GridShape({"data": 2, "model": 2}, ("data", "model")),
         fsdp=True))
+    t = _hold_train(ranks, want)
+    worst, path, flat, g_at, floored = (t[k] for k in (
+        "worst", "path", "flat", "g_at", "floored"))
+    sent_ok = all(r["h"]["sent"] == sent_want for r in ranks)
+    ok = t["ok"] and sent_ok
+    log("ep", f"(h) 2x2 under FSDP specs: {TRAIN_ARCH} at full width, "
+              f"{PLAN_LAYERS} layers, float32, one train step of "
+              f"{PLAN_TRAIN_B}x{PLAN_TRAIN_S}: loss "
+              f"{[round(r['h']['loss'], 7) for r in ranks]} vs one process "
+              f"{want['loss']:.7f}; gnorm {ranks[0]['h']['gnorm']:.6g} vs "
+              f"{want['gnorm']:.6g}; worst leaf |diff| / its largest "
+              f"|value|: the gradients (AdamW's m) {worst['m']:.3g}, their "
+              f"squares (v) {worst['v']:.3g}, updated params "
+              f"{worst['new']:.3g} (bar {PLAN_GRAD_TOL}; at {path}, element "
+              f"{flat}, clipped gradient {g_at:.3g}; {floored} elements "
+              f"whose clipped gradient is under {PLAN_G_FLOOR} held by m "
+              f"alone; lr {want['lr']:.3g}); held bytes rank 0 "
+              f"{ranks[0]['h']['held']} (= rank_bytes on every rank: "
+              f"{t['held_ok']}); one forward sent, rank 0: "
+              + ", ".join(f"{c} {v}" for c, v in ranks[0]["h"]["sent"].items()
+                          if any(v.values()))
+              + f" (= the formulas on every rank: {sent_ok}); step "
+                f"{ranks[0]['h']['s']:.2f} s, one process {want['s']:.2f} s"
+                f" | {card}")
+    if not ok:
+        fails.append("(h)")
+    return runs
+
+
+_HOLD_KEYS = ("strict", "now", "loose", "held", "alike_now", "pairs",
+              "counts", "conserved", "group_same", "held_ok", "scale")
+
+
+def _hold_serve(got, want, top_k, prompt) -> dict:
+    """A served run's ranks ``got`` (each with its group ``rows``) held to
+    one process's run ``want``. Per (rank, row, forward): routed alike in
+    that forward (its tokens took the same experts in every layer; every
+    row on a stack without MoE), and alike so far (in every forward up to
+    it: the K/V and state it reads too); the largest |logit diff| on the
+    rows alike so far (``strict``), alike in their forward (``now``) and
+    on every row (``loose``), their numbers (``held``, ``alike_now`` of
+    ``pairs``); per-row counts equal, each row's summing to top-k times
+    its tokens (``prompt`` in the prefill); a model group's ranks'
+    logits and counts bit-equal; held bytes = ``rank_bytes``; the
+    largest |logit| of one process (``scale``)."""
+    out = dict(strict=0.0, now=0.0, loose=0.0, held=0, alike_now=0,
+               pairs=0, counts=True, conserved=True,
+               scale=float(want["logits"].abs().max()))
+    for g in got:
+        rows = g["rows"]
+        n = rows.stop - rows.start
+        so_far = torch.ones(n, dtype=torch.bool)
+        for f, (gc_, wc) in enumerate(zip(g["counts"], want["counts"])):
+            same = torch.ones(n, dtype=torch.bool)
+            for k in wc:
+                same &= (gc_[k] == wc[k][:, rows]).all(2).all(0)
+            out["counts"] &= bool(same.all())
+            per_row = top_k * (prompt if f == 0 else 1)
+            out["conserved"] &= all(bool((c.sum(-1) == per_row).all())
+                                    for c in gc_.values())
+            so_far &= same
+            d = (g["logits"][f] - want["logits"][f][rows]).abs().amax(-1)
+            out["loose"] = max(out["loose"], float(d.max()))
+            if bool(so_far.any()):
+                out["strict"] = max(out["strict"], float(d[so_far].max()))
+            if bool(same.any()):
+                out["now"] = max(out["now"], float(d[same].max()))
+            out["held"] += int(so_far.sum())
+            out["alike_now"] += int(same.sum())
+            out["pairs"] += n
+    out["group_same"] = all(
+        torch.equal(a["logits"], b["logits"]) and
+        all(torch.equal(ca[k], cb[k]) for ca, cb in
+            zip(a["counts"], b["counts"]) for k in ca)
+        for a in got for b in got if a["rows"] == b["rows"])
+    out["held_ok"] = all(h == w for g in got for h, w in g["held"].values())
+    return out
+
+
+def _hold_train(ranks, want, tol=PLAN_GRAD_TOL) -> dict:
+    """A train step's ranks (each ``{"coords", "h": its run}``) held to one
+    process's run ``want``: the loss within PLAN_LOSS_RTOL; the gathered
+    gradients (AdamW's m), their squares (v) and the updated parameters
+    within ``tol`` of each leaf's largest magnitude, the parameters
+    where the clipped gradient is at least PLAN_G_FLOOR; held bytes =
+    ``rank_bytes``. Returns {"ok", "worst" by key, the worst updated
+    parameter's "path", "flat" index and clipped gradient "g_at",
+    "floored" elements, "held_ok"}."""
     loss_ok = all(abs(r["h"]["loss"] - want["loss"]) <=
                   PLAN_LOSS_RTOL * abs(want["loss"]) for r in ranks)
     worst, where, floored = {}, {}, 0
@@ -7947,33 +8051,359 @@ def _plan_check(ranks, single, fails, card) -> list:
         worst[key], where[key] = err, at
     path, li, flat = where["new"]
     g_at = float(want["m"][li][2].reshape(-1)[flat]) / 0.1
-    moments_ok = max(worst["m"], worst["v"]) <= PLAN_GRAD_TOL
+    moments_ok = max(worst["m"], worst["v"]) <= tol
     held_ok = all(h == w for r in ranks for h, w in r["h"]["held"].values())
-    sent_ok = all(r["h"]["sent"] == sent_want for r in ranks)
-    ok = loss_ok and held_ok and sent_ok and moments_ok and \
-        worst["new"] <= PLAN_GRAD_TOL
-    log("ep", f"(h) 2x2 under FSDP specs: {TRAIN_ARCH} at full width, "
-              f"{PLAN_LAYERS} layers, float32, one train step of "
-              f"{PLAN_TRAIN_B}x{PLAN_TRAIN_S}: loss "
-              f"{[round(r['h']['loss'], 7) for r in ranks]} vs one process "
-              f"{want['loss']:.7f}; gnorm {ranks[0]['h']['gnorm']:.6g} vs "
-              f"{want['gnorm']:.6g}; worst leaf |diff| / its largest "
-              f"|value|: the gradients (AdamW's m) {worst['m']:.3g}, their "
-              f"squares (v) {worst['v']:.3g}, updated params "
-              f"{worst['new']:.3g} (bar {PLAN_GRAD_TOL}; at {path}, element "
-              f"{flat}, clipped gradient {g_at:.3g}; {floored} elements "
-              f"whose clipped gradient is under {PLAN_G_FLOOR} held by m "
-              f"alone; lr {want['lr']:.3g}); held bytes rank 0 "
-              f"{ranks[0]['h']['held']} (= rank_bytes on every rank: "
-              f"{held_ok}); one forward sent, rank 0: "
-              + ", ".join(f"{c} {v}" for c, v in ranks[0]["h"]["sent"].items()
-                          if any(v.values()))
-              + f" (= the formulas on every rank: {sent_ok}); step "
-                f"{ranks[0]['h']['s']:.2f} s, one process {want['s']:.2f} s"
-                f" | {card}")
-    if not ok:
-        fails.append("(h)")
+    return {"ok": loss_ok and held_ok and moments_ok and
+            worst["new"] <= tol, "worst": worst, "path": path,
+            "flat": flat, "g_at": g_at, "floored": floored,
+            "held_ok": held_ok}
+
+
+# (i) the families under the planner's specs on the 2 x 2 grid, at full
+# width: family → (arch, layers (None: full depth), prompt tokens). Mamba2
+# at its 24 layers, Jamba at one super-block (JAMBA_LAYERS), Whisper at
+# its 4 + 4, LLaVA at LLAVA_CHECK_LAYERS of 60 with its 576-token prefix.
+FAM_SERVE = {"mamba": ("mamba2-130m", None, 64),
+             "jamba": (JAMBA, JAMBA_LAYERS, 64),
+             "whisper": (WHISPER, None, 16),
+             "llava": (LLAVA, LLAVA_CHECK_LAYERS, 64)}
+#: (i)'s rows: 8 (case h: over data x model) and 2 (case g: over data,
+#: the attention caches' sequence over model); decode steps after each
+#: prefill.
+FAM_ROWS, FAM_STEPS = (8, 2), 8
+#: (i)'s serving runs: (name, family, float32). Mamba2 (no attention:
+#: row 5 takes bf16 only) also in float32.
+FAM_RUNS = (("mamba", "mamba", False), ("mamba32", "mamba", True),
+            ("jamba", "jamba", False), ("whisper", "whisper", False),
+            ("llava", "llava", False))
+#: (i)'s float32 FSDP train steps: family → (rows, tokens, the bar on
+#: the gradients and updated parameters, of each leaf's largest
+#: magnitude). Mamba2's 24 SSD layers: exp(cumsum(dt·A)) turns a
+#: last-bit difference of dt (the contraction-split in_proj's sum order)
+#: into a relative one of |sum dt·A| · 2^-24, and depth compounds it: the
+#: same step on the CPU at full width holds 2.9e-5 at 2 layers, 4.7e-5
+#: at 8, 2.6e-4 at 24; at reduced width the tests hold 1e-4.
+FAM_TRAIN = {"mamba": (4, 64, 1e-2), "whisper": (4, 64, PLAN_GRAD_TOL)}
+#: (i)'s float32 serving against one process: the prefill's logits within
+#: PLAN_GRAD_TOL of the largest |logit|; the decode steps' within one
+#: bf16 step of it (the conv window a prefill writes is bf16 in the
+#: model, and a float32 difference can move one of its inputs by an
+#: ulp, which 24 SSD layers amplify: 8e-4 of it at full size on the CPU).
+FAM_F32_DECODE = 2.0 ** -8
+FAM_SEED = EP_SEED + 23
+#: (i)'s kernels: rows 1-2 (Jamba's MoE in the all-to-all regime), 4 (in
+#: the padded regime, where a decode step's group rows do not split over
+#: model) and 5 (decode attention and Whisper's cross-attention).
+FAM_KERNELS = ("ragged_gateup", "ragged_down", "grouped_lo_matmul",
+               "flash_decode")
+
+
+def _fam_cfg(fam):
+    from repro_torch.configs import get_config
+    arch, layers, _ = FAM_SERVE[fam]
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _fam_model(fam, dev):
+    """(i)'s model of ``fam`` on ``dev`` ("meta": shapes only): (cfg,
+    params, banks or None), the same bits in every process. Jamba's
+    experts are a static int4 bank (group 64, no hi slot), each expert
+    drawn in bf16 and quantized into it in turn (its 22.5 GB of bf16
+    experts are never whole), and params hold none."""
+    from repro_torch.core.ver import build_bank_empty
+    from repro_torch.models.model import init_params
+    from repro_torch.quant.qtensor import quantize
+    cfg = _fam_cfg(fam)
+    seed = FAM_SEED + list(FAM_SERVE).index(fam)
+    meta = torch.device(dev).type == "meta"
+    params = init_params(cfg, seed=seed, device=dev,
+                         experts=not cfg.is_moe)
+    if not cfg.is_moe:
+        return cfg, params, None
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    nsb = cfg.n_superblocks()
+    shapes = {"w_gate": (nsb, E, d, f), "w_up": (nsb, E, d, f),
+              "w_down": (nsb, E, f, d)}
+    gen = None if meta else \
+        torch.Generator(device=dev).manual_seed(seed + 1000)
+    banks = {}
+    for p in range(len(cfg.superblock_or_default())):
+        if cfg.ffn_kind(p) != "moe":
+            continue
+        bank = build_bank_empty(shapes, n_hi=0, lo_bits=4, group_size=64,
+                                device=dev)
+        for name, shape in ([] if meta else shapes.items()):
+            lo = bank.lo[name]
+            for l in range(nsb):
+                for e in range(E):
+                    q = quantize((torch.randn(shape[2:], generator=gen,
+                                              device=dev) * E ** -0.5
+                                  ).to(torch.bfloat16), 4, 64)
+                    lo.packed[l, e].copy_(q.packed)
+                    lo.scales[l, e].copy_(q.scales)
+        banks[str(p)] = bank
+    return cfg, params, banks
+
+
+def _fam_data(cfg, B, S, dev, seed):
+    """Tokens (B, S), and a VLM's patches or an encoder-decoder's frames
+    from the stub frontends, drawn on the host from ``seed`` (empty on
+    ``meta``)."""
+    from repro_torch.models.frontend import (audio_frame_embeddings,
+                                             image_patch_embeddings)
+    meta = torch.device(dev).type == "meta"
+    gen = torch.Generator().manual_seed(seed)
+    out = {"tokens": torch.empty((B, S), dtype=torch.long, device=dev)
+           if meta else torch.randint(1, cfg.vocab_size, (B, S),
+                                      generator=gen).to(dev)}
+    for key, on, n, fn in (("image_embeds", cfg.family == "vlm",
+                            cfg.num_image_tokens, image_patch_embeddings),
+                           ("audio_embeds", cfg.is_encoder_decoder,
+                            cfg.encoder_seq, audio_frame_embeddings)):
+        if on:
+            out[key] = torch.empty((B, n, cfg.d_model), dtype=torch.bfloat16,
+                                   device=dev) if meta else \
+                fn(gen, cfg, B, dev)
+    return out
+
+
+def _fam_shard(cfg, params, banks, ctx):
+    """This rank's shards of (i)'s params and banks under the planner of
+    ``ctx``'s grid, and the bytes each holds against ``rank_bytes``:
+    (planner, params, banks, held)."""
+    from repro_torch.launch import sharding as SH
+    pl = SH.ShardingPlanner(cfg, SH.grid_of(ctx))
+    held = {}
+    out = []
+    for name, tree in (("params", params), ("bank", banks)):
+        if tree is None:
+            out.append(None)
+            continue
+        out.append(SH.shard_tree(tree, "param", pl, ctx))
+        held[name] = (SH.held_bytes(out[-1]),
+                      SH.rank_bytes(tree, "param", pl, SH.grid_of(ctx)))
+    return pl, out[0], out[1], held
+
+
+def _fam_args(fam, cfg, params, banks, B, ctx=None, pl=None, held=None):
+    """(i)'s arguments of a run of B rows, as ``_plan_args`` returns them
+    (params and banks already this rank's, ``held`` their bytes): the
+    prompt (a VLM's patches ahead of it, counted in ``lengths``; an
+    encoder-decoder's frames) and FAM_STEPS teacher-forced decode steps,
+    into dense rows of the whole length."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.model import init_caches
+    from repro_torch.models.specs import layout
+    dev = params["embed"].device
+    P = FAM_SERVE[fam][2]
+    data = _fam_data(cfg, B, P + FAM_STEPS, dev,
+                     FAM_SEED + 100 * list(FAM_SERVE).index(fam) + B)
+    tok = data.pop("tokens")
+    n = P + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+    caches = init_caches(cfg, B, n + FAM_STEPS, device=dev)
+    if params["embed"].dtype == torch.float32:
+        caches = {k: type(c)(*(t.float() for t in c))
+                  for k, c in caches.items()}
+    inputs = dict(data, tokens=tok[:, :P],
+                  lengths=torch.full((B,), n, device=dev))
+    steps = [{"token": tok[:, P + i], "pos": torch.full((B,), n + i,
+                                                        device=dev)}
+             for i in range(FAM_STEPS)]
+    held, rows = dict(held or {}), slice(0, B)
+    if ctx is not None:
+        ctx = dataclasses.replace(ctx, planner=pl, batch=B,
+                                  tokens_ep_sharded=True)
+        local = {}
+        for kind, name, tree in (("cache", "caches", caches),
+                                 ("input", "inputs", inputs)):
+            local[name] = SH.shard_tree(tree, kind, pl, ctx)
+            held[name] = (SH.held_bytes(local[name], kind == "cache"),
+                          SH.rank_bytes(tree, kind, pl, SH.grid_of(ctx)))
+        caches, inputs = local["caches"], local["inputs"]
+        steps = [SH.shard_tree(st, "input", pl, ctx) for st in steps]
+        rows = layout(ctx).group
+    return ctx, params, banks, caches, inputs, steps, held, rows
+
+
+def _fam_train_model(fam):
+    """(i)'s train step's model: ``model(dev)`` → (cfg, float32 params,
+    the batch: FAM_TRAIN's rows and tokens, a VLM's or an
+    encoder-decoder's embeddings)."""
+    from repro_torch.core import tree as T
+
+    def model(dev):
+        cfg, params, _ = _fam_model(fam, dev)
+        B, S, _ = FAM_TRAIN[fam]
+        data = _fam_data(cfg, B, S + 1, dev, FAM_SEED + 7 + B)
+        tok = data.pop("tokens")
+        return cfg, T.tree_map(lambda t: t.float(), params), \
+            dict(data, tokens=tok[:, :-1], labels=tok[:, 1:])
+    return model
+
+
+def _fam_variant(name, fam, f32, dev, ctx=None):
+    """(i)'s model of run ``name`` (float32 where ``f32``) and, under
+    ``ctx``, this rank's shards of it: (cfg, params, banks, planner,
+    held)."""
+    from repro_torch.core import tree as T
+    cfg, params, banks = _fam_model(fam, dev)
+    if f32:
+        params = T.tree_map(lambda t: t.float(), params)
+    pl = held = None
+    if ctx is not None:
+        pl, params, banks, held = _fam_shard(cfg, params, banks, ctx)
+    return cfg, params, banks, pl, held
+
+
+def _fam_runs(ctx, dev):
+    """(i) on this rank of the 2 x 2 grid ``ctx`` (None: one process on
+    ``dev``): each family's serving runs, then the train steps."""
+    out = {}
+    for name, fam, f32 in FAM_RUNS:
+        cfg, params, banks, pl, held = _fam_variant(name, fam, f32, dev, ctx)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for B in FAM_ROWS:
+            args = _fam_args(fam, cfg, params, banks, B, ctx, pl, held)
+            out[(name, B)] = _plan_serve(cfg, params, banks, B, args=args)
+        del params, banks
+        gc.collect()
+        torch.cuda.empty_cache()
+    for fam in FAM_TRAIN:
+        out[("train", fam)] = _plan_train(ctx, dev,
+                                          model=_fam_train_model(fam))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fam_check(ranks, single, fails, card) -> list:
+    """Hold (i) to the one process and log it; returns its runs' launches
+    (the main path's of each run). bf16: Whisper and LLaVA every row
+    within MODEL_TOL; Jamba, whose tensor-parallel sums tip router near
+    ties, the rows routed alike in their forward within MODEL_TOL (at
+    least half of them) and every row within MODEL_TOL_SWAP; Mamba2, 24
+    SSD layers that amplify an ulp, the grid's logits within twice one
+    process's bf16 distance from its float32 run; float32 as
+    FAM_F32_DECODE says; the train steps as FAM_TRAIN. Every run: held
+    bytes = ``rank_bytes``, a model group's ranks bit-equal, each row's
+    counts summing to top-k times its tokens, its kernels launched."""
+    runs = []
+    for name, fam, f32 in FAM_RUNS:
+        cfg = _fam_cfg(fam)
+        attn = cfg.attn is not None
+        for B in FAM_ROWS:
+            want = single[(name, B)]
+            got = [r["i"][(name, B)] for r in ranks]
+            runs += [{"launches": g["launches"]} for g in got]
+            n = FAM_SERVE[fam][2] + (cfg.num_image_tokens
+                                     if cfg.family == "vlm" else 0)
+            a = _hold_serve(got, want, cfg.moe.top_k if cfg.is_moe else 0, n)
+            # Jamba's 8 rows split over the model axis in every forward
+            # (rows 1-2); a decode step's one group row does not (row 4).
+            k_need = (("flash_decode",) if attn else ()) + (
+                () if not cfg.is_moe else ("ragged_gateup", "ragged_down")
+                if B % 4 == 0 else ("grouped_lo_matmul",))
+            k_ok = all(g["launches"].get(k, 0) > 0 for g in got
+                       for k in k_need)
+            if f32:
+                first = max(float((g["logits"][0] - want["logits"][0][
+                    g["rows"]]).abs().max()) for g in got)
+                bar = f"prefill {first:.4g} (bar " \
+                    f"{PLAN_GRAD_TOL * a['scale']:.4g}), decode bar " \
+                    f"{FAM_F32_DECODE * a['scale']:.4g}"
+                close = first <= PLAN_GRAD_TOL * a["scale"] and \
+                    a["loose"] <= FAM_F32_DECODE * a["scale"]
+            elif fam == "mamba":
+                # Two bf16 runs of 24 SSD layers part by the rounding each
+                # amplifies: held by their distance from one process's
+                # float32 run, the grid's within twice one process's.
+                ref = single[(name + "32", B)]["logits"]
+                band = float((want["logits"] - ref).abs().max())
+                dist = max(float((g["logits"] - ref[:, g["rows"]]).abs()
+                                 .max()) for g in got)
+                bar = f"from one process's float32 run: the grid " \
+                      f"{dist:.4g}, one process {band:.4g}; bar twice " \
+                      f"one process's"
+                close = dist <= 2 * band
+            elif cfg.is_moe:
+                bar = f"bar MODEL_TOL {MODEL_TOL} on the rows routed " \
+                      f"alike, MODEL_TOL_SWAP {MODEL_TOL_SWAP} on every row"
+                close = a["strict"] <= MODEL_TOL and \
+                    a["now"] <= MODEL_TOL and \
+                    2 * a["alike_now"] >= a["pairs"] and \
+                    a["loose"] <= MODEL_TOL_SWAP
+            else:
+                bar = f"bar MODEL_TOL {MODEL_TOL}"
+                close = a["loose"] <= MODEL_TOL
+            ok = close and a["held_ok"] and k_ok and a["group_same"] and \
+                a["conserved"] and \
+                bool(torch.isfinite(torch.stack([g["logits"]
+                                                 for g in got])).all())
+            case = "h: rows over data x model" if B % 4 == 0 else \
+                "g: rows over data" + (", the caches' sequence over model"
+                                       if attn else "")
+            log("ep", f"(i) {cfg.name} at {cfg.n_layers} layers"
+                      + (" in float32" if f32 else "")
+                      + f", 2x2 under specs, {B} rows ({case}): prefill "
+                        f"{B}x{n} + {FAM_STEPS} decode steps against one "
+                        f"process, of {a['pairs']} (rank, row, forward) "
+                        f"logits: every row max |logit diff| "
+                        f"{a['loose']:.4g} (largest |logit| "
+                        f"{a['scale']:.4g}; {bar}); {a['held']} from rows "
+                        f"routed alike so far, {a['strict']:.4g}; "
+                        f"{a['alike_now']} routed alike in their forward, "
+                        f"{a['now']:.4g}; per-row counts "
+                        f"{'=' if a['counts'] else '!='}, each summing to "
+                        f"top-k times its tokens {a['conserved']}; a model "
+                        f"group's ranks bit-equal {a['group_same']}; "
+                        f"regimes rank 0 {got[0]['regimes']}; launches per "
+                        f"rank " + "; ".join(
+                            ", ".join(f"{k} {g['launches'].get(k, 0)}"
+                                      for k in FAM_KERNELS) for g in got)
+                      + "; held bytes per rank "
+                      + str([{k: h for k, (h, _) in g["held"].items()}
+                             for g in got])
+                      + f" (= rank_bytes on every rank: {a['held_ok']}); "
+                        f"sent rank 0: prefill "
+                      + _sent_str(got[0]["sent_prefill"]) + ", first decode "
+                        f"step " + _sent_str(got[0]["sent"])
+                      + f"; run {got[0]['s']:.2f} s, one process "
+                        f"{want['s']:.2f} s | {card}")
+            if not ok:
+                fails.append(f"(i) {name} {B} rows")
+    for fam in FAM_TRAIN:
+        key = ("train", fam)
+        want = single[key]
+        got = [{"coords": r["gh"]["coords"], "h": r["i"][key]}
+               for r in ranks]
+        B, S, tol = FAM_TRAIN[fam]
+        t = _hold_train(got, want, tol)
+        log("ep", f"(i) {_fam_cfg(fam).name} 2x2 under FSDP specs, float32, "
+                  f"one train step of {B}x{S}: loss "
+                  f"{[round(g['h']['loss'], 7) for g in got]} vs one process "
+                  f"{want['loss']:.7f}; worst leaf |diff| / its largest "
+                  f"|value|: gradients (m) {t['worst']['m']:.3g}, squares "
+                  f"(v) {t['worst']['v']:.3g}, updated params "
+                  f"{t['worst']['new']:.3g} (bar {tol}; "
+                  f"{t['floored']} elements under {PLAN_G_FLOOR} held by m "
+                  f"alone); held bytes rank 0 {got[0]['h']['held']} (= "
+                  f"rank_bytes on every rank: {t['held_ok']}); one forward "
+                  f"sent, rank 0: " + _sent_str(got[0]["h"]["sent"])
+                  + f"; step {got[0]['h']['s']:.2f} s, one process "
+                    f"{want['s']:.2f} s | {card}")
+        if not t["ok"]:
+            fails.append(f"(i) {fam} train")
     return runs
+
+
+def _sent_str(sent) -> str:
+    """The bytes each collective sent, by axis, without the zeros."""
+    return "{" + ", ".join(f"{c} {dict((a, b) for a, b in v.items() if b)}"
+                           for c, v in sent.items() if any(v.values())) + \
+        "} B"
 
 
 def _ep_rank(ctx) -> dict:
@@ -8032,6 +8462,9 @@ def _ep_rank(ctx) -> dict:
     t1 = time.perf_counter()
     out["gh"] = _plan_rank(grid)
     out["gh_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["i"] = _fam_runs(grid, dev)
+    out["i_s"] = time.perf_counter() - t1
     tdist.barrier()
     out["left"] = time.time()
     return out
@@ -8152,6 +8585,7 @@ def phase_ep(card: str) -> None:
     spec_single = _plan_single(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    fam_single = _fam_runs(None, dev)
     t1 = time.perf_counter()
     th.join()
     if "error" in box:
@@ -8243,12 +8677,17 @@ def phase_ep(card: str) -> None:
         fails.append("(c)")
     runs += _grid_check(ranks, grid_single, cfg, fails, card)
     runs += _plan_check([r["gh"] for r in ranks], spec_single, fails, card)
+    runs += _fam_check(ranks, fam_single, fails, card)
     EP_PLAN[:] = [{k: (v if k == "coords" else
                        {f: v[f] for f in ("sent", "held", "mem_start",
                                           "max_mem")})
                    for k, v in r["gh"].items()} for r in ranks]
-    log("ep", f"(g) and (h) took {max(r['gh_s'] for r in ranks):.1f} s on "
-              f"the ranks | {card}")
+    EP_FAM[:] = [dict({k: {f: v.get(f) for f in ("sent", "sent_prefill",
+                                                 "held")}
+                       for k, v in r["i"].items()},
+                      coords=r["gh"]["coords"]) for r in ranks]
+    log("ep", f"(g) and (h) took {max(r['gh_s'] for r in ranks):.1f} s, (i) "
+              f"{max(r['i_s'] for r in ranks):.1f} s on the ranks | {card}")
     for k in RESULTS:
         RESULTS[k]["launches"] = RESULTS[k].get("launches", 0) + sum(
             r["launches"][k] for r in runs)
@@ -8268,37 +8707,56 @@ def phase_ep(card: str) -> None:
 # ---------------------------------------------------------------------------
 
 #: The 30B's shapes the phase prices on the 16 x 16 grid, at full width
-#: and depth (``repro_torch.launch.dryrun.run_one``).
+#: and depth (``repro_torch.launch.dryrun.run_one``), and the families'
+#: decode_32k, each at full depth.
 DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRY_FAMILIES = ("mamba2-130m", "jamba-v0_1-52b", "whisper-tiny",
+                "llava-next-34b")
+DRY_CELLS = tuple((ARCH, s) for s in DRY_SHAPES) + \
+    tuple((a, "decode_32k") for a in DRY_FAMILIES)
 #: Most seconds the dry-run process may take past the phase's start.
 DRY_WAIT_S = 600
 #: (g) and (h) as the ep phase measured them on each rank: the bytes each
 #: collective sent, the bytes each rank held and its device peak
 #: (``phase_ep`` fills it; the dryrun phase holds its recorded runs to it).
 EP_PLAN: list = []
+#: (i) as the ep phase measured it on each rank: the bytes each collective
+#: sent and each rank held, by run.
+EP_FAM: list = []
 _DRY_BESIDE = None
 
-#: The dry-run process's program: the 30B's four shapes on 16 x 16, one
-#: thread, no card (CUDA_VISIBLE_DEVICES is empty), the records to argv[1].
+#: The dry-run process's program: the cells ("arch:shape" in argv[3:]) on
+#: 16 x 16, then (i) recorded on each rank of its 2 x 2 grid (this
+#: script's ``_dry_fam``, the script's directory argv[2]); one thread, no
+#: card (CUDA_VISIBLE_DEVICES is empty), the records to argv[1].
 _DRY_CODE = """
 import json, os, sys, time
 import torch
 torch.set_num_threads(1)
 from repro_torch.launch import dryrun
 out = []
-for shape in sys.argv[3:]:
+for cell in sys.argv[3:]:
+    arch, shape = cell.split(":")
     t = time.perf_counter()
-    recs = dryrun.run_one(sys.argv[2], shape, False, verbose=False)
-    out.append({"shape": shape, "s": time.perf_counter() - t,
+    recs = dryrun.run_one(arch, shape, False, verbose=False)
+    out.append({"arch": arch, "shape": shape, "s": time.perf_counter() - t,
                 "records": recs})
+sys.path.insert(0, sys.argv[2])
+import chip_smoke
+torch.cuda.synchronize = lambda *a, **k: None
+t = time.perf_counter()
+fam = [chip_smoke._dry_fam(r) for r in range(4)]
+fam = {"s": time.perf_counter() - t, "ranks": [
+    {"coords": d.pop("coords"), "runs": [[list(k), v] for k, v in d.items()]}
+    for d in fam]}
 with open(sys.argv[1] + ".tmp", "w") as f:
-    json.dump(out, f)
+    json.dump({"cells": out, "fam": fam}, f)
 os.replace(sys.argv[1] + ".tmp", sys.argv[1])
 """
 
 
 class _DryBeside:
-    """The dry run of the 30B's four shapes in a process of its own,
+    """The dry run of DRY_CELLS and (i)'s recording in a process of its own,
     started after the build at nice 19 on one thread: it needs no card,
     and its minute or two of host work runs beside the card's phases."""
 
@@ -8311,13 +8769,14 @@ class _DryBeside:
                    CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-c", _DRY_CODE, str(self.path), ARCH,
-             *DRY_SHAPES], env=env, stdout=subprocess.DEVNULL,
+            [sys.executable, "-c", _DRY_CODE, str(self.path), str(ROOT),
+             *(f"{a}:{s}" for a, s in DRY_CELLS)], env=env,
+            stdout=subprocess.DEVNULL,
             stderr=self.err, preexec_fn=lambda: os.nice(19))
 
     def result(self):
-        """(the records by shape, the process's seconds, the seconds waited
-        for it here)."""
+        """(the records: {"cells": by cell, "fam": (i)'s}, the process's
+        seconds, the seconds waited for it here)."""
         t = time.perf_counter()
         rc = self.proc.wait(timeout=DRY_WAIT_S)
         waited = time.perf_counter() - t
@@ -8364,8 +8823,8 @@ def _dry_plan(rank: int) -> dict:
             # whole tree on meta once, which no step holds.
             SP.param_specs(cfg, ctx.planner)
             with StepRecorder() as rec:
-                _, _, sent = _plan_steps(cfg, p, b, caches, inputs, steps,
-                                         ctx)
+                _, _, sent, _ = _plan_steps(cfg, p, b, caches, inputs,
+                                            steps, ctx)
             out[("g", B)] = {"sent": sent, "held": held, "peak": rec.peak}
         hcfg, tcfg, ctx, p, opt, batch, held = _plan_train_args(ctx0)
         sent = _plan_train_forward(hcfg, tcfg, ctx, p, batch)
@@ -8434,11 +8893,93 @@ def _dry_plan_check(fails, card) -> None:
             fails.append(f"dryrun {what}")
 
 
+def _dry_fam(rank: int) -> dict:
+    """(i) of ``_fam_runs`` for rank ``rank`` of the 2 x 2 grid on meta
+    trees under the recording mode: the same arguments (``_fam_shard``,
+    ``_fam_args``, ``_plan_train_args``) and calls (``_plan_steps``,
+    ``_plan_train_forward``); the bytes each rank holds and each
+    collective sent."""
+    from repro_torch.launch import dist as D
+    from repro_torch.launch.mesh import dry_context
+    from repro_torch.launch.sharding import GridShape
+    from repro_torch.models import specs as SP
+    meta = torch.device("meta")
+    grid = GridShape({"data": 2, "model": 2}, ("data", "model"))
+    out = {}
+    with D.dry_run():
+        ctx0 = dry_context(grid, rank)
+        out["coords"] = (ctx0.data_rank, ctx0.rank)
+        for name, fam, f32 in FAM_RUNS:
+            cfg, p, b, pl, held = _fam_variant(name, fam, f32, meta, ctx0)
+            SP.param_specs(cfg, pl)
+            for B in FAM_ROWS:
+                ctx, p, b, caches, inputs, steps, h, _ = _fam_args(
+                    fam, cfg, p, b, B, ctx0, pl, held)
+                _, _, sent, sent_prefill = _plan_steps(
+                    cfg, p, b, caches, inputs, steps, ctx)
+                out[(name, B)] = {"sent": sent,
+                                  "sent_prefill": sent_prefill, "held": h}
+        for fam in FAM_TRAIN:
+            cfg, tcfg, ctx, p, opt, batch, h = _plan_train_args(
+                ctx0, model=_fam_train_model(fam))
+            out[("train", fam)] = {"sent": _plan_train_forward(
+                cfg, tcfg, ctx, p, batch), "sent_prefill": None, "held": h}
+    return out
+
+
+def _dry_fam_check(fam, fails, card) -> None:
+    """(i) recorded on every rank of the 2 x 2 grid (``fam``: the dry-run
+    process's JSON of ``_dry_fam``), held to the ep phase's runs on the
+    card: the bytes each collective sent in each run's prefill and first
+    decode step (a train step's forward), by collective and axis, and the
+    bytes each rank held, to the byte (to ``rank_bytes`` alone where the
+    ep phase did not run)."""
+    dry = [dict({tuple(k): v for k, v in r["runs"]},
+                coords=tuple(r["coords"])) for r in fam["ranks"]]
+    measured = bool(EP_FAM)
+    ep = json.loads(json.dumps([[list(e["coords"]),
+                                 [[list(k), v] for k, v in e.items()
+                                  if k != "coords"]] for e in EP_FAM]))
+    ep = [dict({tuple(k): v for k, v in runs}, coords=tuple(c))
+          for c, runs in ep]
+    keys = [(r[0], B) for r in FAM_RUNS for B in FAM_ROWS] + \
+        [("train", f) for f in FAM_TRAIN]
+    for key in keys:
+        sent_ok = held_ok = True
+        for d in dry:
+            got = d[key]
+            if measured:
+                want = next(e for e in ep
+                            if e["coords"] == d["coords"])[key]
+                sent_ok &= got["sent"] == want["sent"] and \
+                    got["sent_prefill"] == want["sent_prefill"]
+                held_ok &= all(got["held"][n][0] == want["held"][n][0]
+                               for n in want["held"])
+            else:
+                held_ok &= all(h == w for h, w in got["held"].values())
+        what = f"(i) {key[1]} train step's forward" if key[0] == "train" \
+            else f"(i) {key[0]} {key[1]} rows, prefill and first decode step"
+        against = "the ep phase's runs on the card" if measured else \
+            "rank_bytes (the ep phase did not run; sent not held)"
+        log("dryrun", f"{what} recorded on the 2 x 2 grid's 4 ranks, rank 0 "
+                      f"sent " + _sent_str(dry[0][key]["sent"])
+                      + f"; every rank's sent bytes = {against}: "
+                        f"{sent_ok if measured else 'not measured'}; held "
+                        f"bytes rank 0 "
+                      + str({n: h[0] for n, h in dry[0][key]["held"].items()})
+                      + f" = theirs {held_ok} | {card}")
+        if not (sent_ok and held_ok):
+            fails.append(f"dryrun {what}")
+    log("dryrun", f"(i) recorded in {fam['s']:.1f} s in the dry-run "
+                  f"process | {card}")
+
+
 def phase_dryrun(card: str) -> None:
-    """The dry run: (1) the 30B's four shapes on 16 x 16 at full width and
-    depth, priced per rank over meta tensors (from the process
-    ``_DryBeside`` started after the build, or here); (2) (g) and (h) on
-    meta copies of their trees, held to what the ep phase measured."""
+    """The dry run: (1) the 30B's four shapes and each family's decode_32k
+    on 16 x 16 at full width and depth, priced per rank over meta tensors
+    (from the process ``_DryBeside`` started after the build, or here);
+    (2) (g), (h) and (i) on meta copies of their trees, held to what the
+    ep phase measured."""
     t0 = time.perf_counter()
     fails: list = []
     _dry_plan_check(fails, card)
@@ -8449,7 +8990,8 @@ def phase_dryrun(card: str) -> None:
     finally:
         if beside is not _DRY_BESIDE:
             beside.close()
-    for item in recs:
+    _dry_fam_check(recs["fam"], fails, card)
+    for item in recs["cells"]:
         r = item["records"][0]
         rl = r["roofline"]
         axes: dict = {}
@@ -8459,7 +9001,7 @@ def phase_dryrun(card: str) -> None:
         ok = len(item["records"]) == 1 and r["ranks"] == [0, 255] and \
             r["largest_off_meta_bytes"] <= 1 << 20 and \
             rl["t_compute_s"] > 0 and rl["t_memory_s"] > 0
-        log("dryrun", f"{ARCH} x {item['shape']} on 16x16 (ranks "
+        log("dryrun", f"{item['arch']} x {item['shape']} on 16x16 (ranks "
                       f"{r.get('ranks')} agree: {len(item['records']) == 1}"
                       f"): per rank {r['per_device_hbm_gb']} GB (arguments "
                       f"{r['argument_size_in_bytes'] / 1e9:.3f} GB + peak "
@@ -8476,11 +9018,11 @@ def phase_dryrun(card: str) -> None:
                         f"{r['largest_off_meta_bytes']} B; recorded in "
                         f"{item['s']:.1f} s | {card}")
         if not ok:
-            fails.append(f"dryrun {item['shape']}")
-    log("dryrun", f"phase done in {time.perf_counter() - t0:.1f} s ((g) and "
-                  f"(h) {t_plan:.1f} s; the 30B's records waited for "
-                  f"{waited:.1f} s, their process {proc_s:.1f} s since its "
-                  f"start, beside the phases) | {card}")
+            fails.append(f"dryrun {item['arch']} {item['shape']}")
+    log("dryrun", f"phase done in {time.perf_counter() - t0:.1f} s ((g) "
+                  f"and (h) {t_plan:.1f} s; the 16 x 16 records and (i)'s "
+                  f"waited for {waited:.1f} s, their process {proc_s:.1f} "
+                  f"s since its start, beside the phases) | {card}")
     if fails:
         raise AssertionError(f"dryrun: {fails}")
 

@@ -147,8 +147,7 @@ def build_dryrun(arch: str, shape: str, grid: SH.GridShape, *,
     ``launch.dist.dry_run()`` (the caches are drawn on ``meta``).
     ``nsb_override``: reduce the stack to N super-blocks (quick checks;
     the dry run counts every op as it runs, so no loop needs
-    extrapolating). Stacks ``models.specs`` does not run raise its
-    ``NotImplementedError``."""
+    extrapolating)."""
     if (arch, shape) in SKIPS:
         raise ValueError(f"skip {arch}×{shape}: {SKIPS[(arch, shape)]}")
     info = SHAPES[shape]
@@ -159,8 +158,6 @@ def build_dryrun(arch: str, shape: str, grid: SH.GridShape, *,
             cfg, n_layers=sb_len * nsb_override,
             n_encoder_layers=min(cfg.n_encoder_layers, nsb_override)
             if cfg.is_encoder_decoder else 0)
-    SP.check_family(cfg, {"train": "the train step", "prefill": "prefill",
-                          "decode": "decode_step"}[info["kind"]])
     notes: list = []
     pkw = dict(planner_kw or {})
     if info["kind"] == "train":
@@ -215,13 +212,16 @@ def build_dryrun(arch: str, shape: str, grid: SH.GridShape, *,
 
     if info["kind"] == "prefill":
         def prefill_step(params, bank, b, caches):
-            # Every row full: the reference's prefill takes no lengths.
+            # Every row full (a VLM's prefix counted): the reference's
+            # prefill takes no lengths.
             lay = SP.layout(SP.active())
             lengths = torch.full((lay.own.stop - lay.own.start,), seq,
                                  dtype=torch.int32, device=META)
             with torch.no_grad():
                 return SP.prefill(params, cfg, b["tokens"], caches, lengths,
-                                  bank=bank, capacity_factor=capacity_factor)
+                                  bank=bank, capacity_factor=capacity_factor,
+                                  image_embeds=b.get("image_embeds"),
+                                  audio_embeds=b.get("audio_embeds"))
 
         return DryrunSpec(step_fn=prefill_step,
                           args=(params, bank, _token_inputs(cfg, batch, seq),

@@ -419,12 +419,17 @@ def attention_decode(p: dict, cfg: AttnConfig, x: torch.Tensor,
 
 
 class CrossKV(NamedTuple):
-    """Every decoder layer's cross K/V, (nsb, B, Senc, Hkv, hd) bf16 (the
-    reference's layout), and the (B, Senc) all-true mask the decode step's
-    kernel reads (every encoder frame is valid)."""
+    """Every decoder layer's cross K/V, (nsb, B, Senc, Hkv, hd) bf16: the
+    reference's ``{"k", "v"}`` (every encoder frame is valid: the decode
+    step's kernel reads an all-true mask, ``cross_valid``)."""
     k: torch.Tensor
     v: torch.Tensor
-    valid: torch.Tensor
+
+
+def cross_valid(enc_k: torch.Tensor) -> torch.Tensor:
+    """The all-true (B, Senc) mask of cross K/V ``enc_k`` (B, Senc, Hkv,
+    hd): a device-side fill, which a CUDA graph can capture."""
+    return torch.ones(enc_k.shape[:2], dtype=torch.bool, device=enc_k.device)
 
 
 def encode_cross_kv(p: dict, cfg: AttnConfig, enc_out: torch.Tensor):

@@ -131,7 +131,8 @@ def attn_capacity(cfg: ArchConfig, max_len: int) -> int:
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None,
-                generator: Optional[torch.Generator] = None) -> Dict:
+                generator: Optional[torch.Generator] = None,
+                experts: bool = True) -> Dict:
     """Random parameters in the reference's layout and scales (normal ·
     fan_in^-1/2 in bf16, router float32, embedding · 0.02, norms ones,
     the Mamba layers' A_log/dt_bias/D as the reference sets them), drawn
@@ -140,7 +141,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     last). Large leaves are drawn one layer at a time so the float32
     scratch stays one layer's worth at full width. ``device="meta"``: the
     tree's shapes and dtypes only, no memory and no draw (the reference's
-    ``jax.eval_shape`` of it, what the sharding planner reads)."""
+    ``jax.eval_shape`` of it, what the sharding planner reads).
+    ``experts=False``: each MoE layer's dense experts are None and not
+    drawn (a quantized bank serves them; the leaves drawn after them take
+    other bits than with them)."""
     _check_family(cfg)
     meta = device is not None and torch.device(device).type == "meta"
     dev = torch.device("meta") if meta else resolve_device(device)
@@ -180,11 +184,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     def moe():
         E, f = m.num_experts, m.d_ff_expert
         # The reference draws expert stacks (E, K, N) with fan_in = E.
-        experts = {"w_gate": stacked((E, d, f), E ** -0.5),
-                   "w_up": stacked((E, d, f), E ** -0.5),
-                   "w_down": stacked((E, f, d), E ** -0.5)}
+        dense = {"w_gate": stacked((E, d, f), E ** -0.5),
+                 "w_up": stacked((E, d, f), E ** -0.5),
+                 "w_down": stacked((E, f, d), E ** -0.5)} if experts \
+            else None
         p = {"router": stacked((d, E), d ** -0.5, torch.float32),
-             "experts": experts}
+             "experts": dense}
         if m.n_shared_experts:
             p["shared"] = M.init_swiglu(stacked, d,
                                         m.d_ff_shared * m.n_shared_experts)
@@ -265,7 +270,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     = ``max_len``, or the sliding window's ring: slot = position % C), the
     Mamba rows per Mamba position, and on an encoder-decoder stack the
     cross K/V under ``CROSS`` (``layers.CrossKV``: zeros until a prefill
-    fills them, and the all-true mask of the decode step's kernel)."""
+    fills them)."""
     _check_family(cfg)
     dev = resolve_device(device)
     C = attn_capacity(cfg, max_len)
@@ -278,9 +283,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
         shape = (nsb, batch, cfg.encoder_seq, a.n_kv_heads, a.head_dim)
         caches[CROSS] = L.CrossKV(
             torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            torch.ones((batch, cfg.encoder_seq), dtype=torch.bool,
-                       device=dev))
+            torch.zeros(shape, dtype=torch.bfloat16, device=dev))
     return caches
 
 
@@ -368,6 +371,7 @@ def _run_layers(params, cfg, x, caches, bank, **kw):
                          "but a backend has dropped them: pass its banks")
     counts = {p: [] for p in moe_pos}
     cross = caches.get(CROSS)
+    valid = None if cross is None else L.cross_valid(cross.k[0])
     for l in range(cfg.n_superblocks()):
         for pos, kind in enumerate(sb):
             key = str(pos)
@@ -379,7 +383,7 @@ def _run_layers(params, cfg, x, caches, bank, **kw):
                     else bank[key].layer(l)
             x, n = _block_step(bp, cfg, kind, x, type(c)(*(t[l] for t in c)),
                                bank=b, cross=None if cross is None else
-                               (cross.k[l], cross.v[l], cross.valid), **kw)
+                               (cross.k[l], cross.v[l], valid), **kw)
             if n is not None:
                 counts[key].append(n)
     return x, {p: torch.stack(v) for p, v in counts.items()}
@@ -582,8 +586,8 @@ def prefill_paged(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     tokens, and counted in ``lengths``. Decoder-only: an encoder-decoder
     stack raises. Returns (suffix-last-token logits (R, V) float32, counts
     {pos: (nsb, R, E) or (nsb, E)})."""
-    _decoder_only(cfg, "paged prefill")
     _no_specs("prefill_paged")
+    _decoder_only(cfg, "paged prefill")
     x = _embed_inputs(params, cfg, tokens, image_embeds)
     R, S, _ = x.shape
     start = start.to(torch.int64)
@@ -618,8 +622,8 @@ def decode_step_paged(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     (B,); ``write_blk``/``write_off`` (B,) pre-resolved write targets;
     ``row_valid`` (B,) masks vacant rows out of dispatch and counts.
     Decoder-only. Returns (logits (B, V) float32, counts)."""
-    _decoder_only(cfg, "paged decode")
     _no_specs("decode_step_paged")
+    _decoder_only(cfg, "paged decode")
     x = params["embed"][token][:, None, :]
     B = x.shape[0]
     cap = X.moe_capacity(B, cfg.moe, capacity_factor)

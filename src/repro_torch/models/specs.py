@@ -49,11 +49,32 @@ inputs by ``spec_for_input``. It computes only its share of the step:
   several ranks (replicated over data, model, or both: the spec says
   which) sums its copies' gradients over those axes (``sum_grads``).
 
-Families: decoder-only attention stacks (MoE and dense). Mamba, Jamba,
-Whisper and LLaVA raise ``NotImplementedError`` (``LATER``: the
-families under specs come after the dry run, ``launch.dryrun``, whose
-error lines they are); so do the paged entry points and the per-row drop
-rule (``row_capacity``).
+* **Mamba-2 mixer** (``in_proj``/``out_proj`` cut on their contraction
+  axis, the reference's rule: the concatenated zxBCdt axis does not
+  split): each rank multiplies its columns of the normed input by its
+  rows of ``in_proj``, an all-reduce over model gives the group the whole
+  zxBCdt; the conv, the SSD scan, ``D`` and the gated norm run whole on
+  every rank (``ssm.ssd_scan`` / ``ssd_decode_scan``); ``out_proj``
+  row-parallel over the d_inner channels, then an all-reduce. Its caches
+  (``state``, ``conv``) are cut over the batch only: rows over data
+  (case g) hold the group rows; rows over data × model (case h) hold the
+  own rows, so the scan runs on the own rows of zxBCdt, and its output
+  comes back to the group rows × this rank's channels by an all-to-all
+  over model (an all-gather of the rows where ``out_proj`` is whole).
+* **Encoder-decoder** (Whisper): the encoder on the group rows (its
+  attention column/row parallel where the heads divide, else every head
+  on every rank, sequence-parallel in ``forward_train``; its GELU MLP
+  column/row parallel); each decoder layer's cross K/V written into the
+  rank's shard of the cross cache (own rows, every head, in case h; the
+  group rows, every head, else), the decode step's cross-attention
+  through ``ops.flash_decode`` over that shard.
+* **VLM** (LLaVA): the image prefix (the group rows of ``image_embeds``)
+  ahead of the vocabulary-parallel embedding of the text; ``lengths``
+  count it, and the train loss takes no terms at its positions.
+
+Every family of the registry runs. The paged entry points and the
+per-row drop rule (``row_capacity``) raise ``NotImplementedError``
+(``LATER``: they come with the engine over a 2-D mesh).
 """
 from __future__ import annotations
 
@@ -69,27 +90,17 @@ from repro_torch.launch.dist import DistContext, dist_ctx, shard_range
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import moe as X
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig
 
-#: Where the families this slice leaves out are taken up.
-LATER = "ROADMAP Queue 1 item 7 (the dry run's families under specs)"
+#: Where the paths that still raise under specs are taken up.
+LATER = "ROADMAP Queue 1 item 7 step 4 (the engine over a 2-D mesh)"
 
 
 def active() -> Optional[DistContext]:
     """The ambient context when it carries a planner, else None."""
     ctx = D.get_dist()
     return ctx if ctx is not None and ctx.planner is not None else None
-
-
-def check_family(cfg: ArchConfig, what: str) -> None:
-    """Decoder-only attention stacks (MoE or dense) only, under specs."""
-    sb = cfg.superblock_or_default()
-    if any(k != "attn" for k in sb) or cfg.is_encoder_decoder or \
-            cfg.family == "vlm" or cfg.attn is None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} under the planner's specs runs decoder-only "
-            f"attention stacks; Mamba's contraction-sharded projections, "
-            f"Jamba, Whisper and LLaVA come with {LATER}")
 
 
 _SPECS: Dict[tuple, Dict] = {}
@@ -284,6 +295,17 @@ def swiglu(p: Dict, ps: Dict, x: torch.Tensor, ctx: DistContext
                         ctx)
 
 
+def gelu_mlp(p: Dict, ps: Dict, x: torch.Tensor, ctx: DistContext
+             ) -> torch.Tensor:
+    """``mlp.gelu_mlp`` (an encoder layer's; no biases) column/row
+    parallel when its F columns are cut over model, else whole."""
+    if not _last_model(ps["w_up"]):
+        return M.gelu_mlp(p, x)
+    h = torch.nn.functional.gelu(M.bf16_matmul(x, p["w_up"]).float(),
+                                 approximate="tanh").to(x.dtype)
+    return row_parallel(h, p["w_down"], True, ctx)
+
+
 # ---- MoE -----------------------------------------------------------------
 def _model_only(ctx: DistContext) -> DistContext:
     """``ctx``'s model group alone: the MoE regimes over the model axis on
@@ -407,14 +429,17 @@ def _to_own(t: torch.Tensor, cut: bool, lay: _Layout, ctx: DistContext
     return torch.cat(list(got.unbind(0)), dim=2)
 
 
-def _from_own(o: torch.Tensor, cut: bool, lay: _Layout, ctx: DistContext
-              ) -> torch.Tensor:
+def _from_own(o: torch.Tensor, cut: bool, lay: _Layout, ctx: DistContext,
+              dim: int = 1) -> torch.Tensor:
     """``_to_own``'s way back for the attention output (own rows, every
-    head, hd) → (group rows, this rank's heads, hd)."""
+    head, hd) → (group rows, this rank's heads, hd), or along ``dim`` for
+    another tensor of own rows (the Mamba mixer's channels): an
+    all-to-all over model of the blocks along ``dim`` where they are cut,
+    an all-gather of the rows where not."""
     if not cut:
         return D.all_gather(o, ctx, "model")
     mn = ctx.model_size
-    parts = torch.chunk(o, mn, dim=1)              # heads of rank s
+    parts = torch.chunk(o, mn, dim=dim)            # heads of rank s
     return D.all_to_all(torch.cat(parts, dim=0).contiguous(), ctx)
 
 
@@ -509,23 +534,198 @@ def combine_lse(o: torch.Tensor, lse: torch.Tensor, ctx: DistContext
     return (num / torch.clamp(w.sum(0), min=1e-30)[..., None]).to(o.dtype)
 
 
-def attention_train(p: Dict, ps: Dict, a, h: torch.Tensor,
-                    ctx: DistContext) -> torch.Tensor:
-    """Causal attention over the group rows' whole sequences, no cache:
-    local heads when they divide; else ``layers._attention_seq_parallel``
-    on these rows (gathered over model only), or every head where S does
-    not divide."""
+def attention_seq(p: Dict, ps: Dict, a, h: torch.Tensor, ctx: DistContext,
+                  causal: bool = True, seq_parallel: bool = True
+                  ) -> torch.Tensor:
+    """Attention over the group rows' whole sequences, no cache (causal,
+    or over every position: an encoder's): local heads when they divide;
+    else, with ``seq_parallel``, ``layers._attention_seq_parallel`` on
+    these rows (gathered over model only), or every head where S does
+    not divide (or without ``seq_parallel``: prefill's encoder)."""
     hs = _heads(ps, a, ctx)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
     q, k, v = L._project_qkv(p, _local(a, hs), h, positions)
-    if not hs.q_cut and ctx.model_size > 1 and S % ctx.model_size == 0:
+    if seq_parallel and not hs.q_cut and ctx.model_size > 1 and \
+            S % ctx.model_size == 0:
         plan = (ctx, slice(0, h.shape[0]), shard_range(S, ctx, "model"),
                 False)
-        return L._attention_seq_parallel(p, a, q, k, v, positions, True,
+        return L._attention_seq_parallel(p, a, q, k, v, positions, causal,
                                          plan)
-    return row_parallel(_causal(q, k, v, a, hs, positions), p["wo"],
-                        hs.q_cut, ctx)
+    if causal:
+        out = _causal(q, k, v, a, hs, positions)
+    else:
+        kq, vq = _kv_for_q(k, v, a, hs)
+        mask = torch.ones((1, S, S), dtype=torch.bool, device=h.device)
+        out = L._sdpa(q, kq, vq, mask.expand(h.shape[0], S, S), hs.hq)
+    return row_parallel(out, p["wo"], hs.q_cut, ctx)
+
+
+# ---- cross-attention and the encoder (Whisper) ---------------------------
+def _cross_q(p: Dict, a, hs: _Heads, x: torch.Tensor) -> torch.Tensor:
+    """This rank's q heads of the cross-attention, (B, Sq, hq, hd)."""
+    B, Sq, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, Sq, hs.hq, a.head_dim)
+    return L.rmsnorm(p["q_norm"], q) if a.qk_norm else q
+
+
+def cross_attend(p: Dict, ps: Dict, a, x: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, ctx: DistContext) -> torch.Tensor:
+    """Cross-attention of the group rows x (B_g, Sq, d) over every frame
+    of ``k``/``v`` (B_g, Senc, this rank's KV heads, hd), the plain masked
+    attention of ``layers.cross_attention``'s prefill; wo row-parallel."""
+    hs = _heads(ps, a, ctx)
+    q = _cross_q(p, a, hs, x)
+    kq, vq = _kv_for_q(k, v, a, hs)
+    mask = torch.ones((x.shape[0], x.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    return row_parallel(L._sdpa(q, kq, vq, mask, hs.hq), p["wo"], hs.q_cut,
+                        ctx)
+
+
+def cross_kv(p: Dict, ps: Dict, a, enc: torch.Tensor, ctx: DistContext):
+    """``layers.encode_cross_kv`` of this rank's KV heads: enc (B_g, Senc,
+    d) → K, V (B_g, Senc, hk, hd)."""
+    return L.encode_cross_kv(p, _local(a, _heads(ps, a, ctx)), enc)
+
+
+def cross_decode(p: Dict, ps: Dict, a, x: torch.Tensor, ck: torch.Tensor,
+                 cv: torch.Tensor, ctx: DistContext, lay: _Layout
+                 ) -> torch.Tensor:
+    """One token per group row over the rank's shard of the layer's cross
+    K/V through ``ops.flash_decode`` (every frame valid): case h (own
+    rows, every head) through all-to-alls; else the group rows' every
+    head (q gathered over model where its heads are cut)."""
+    hs = _heads(ps, a, ctx)
+    Bg = x.shape[0]
+    q = _cross_q(p, a, hs, x)
+    if lay.over_model:
+        qo = _to_own(q, hs.q_cut, lay, ctx)[:, 0]
+        o = L.kops.flash_decode(qo.contiguous(), ck, cv, L.cross_valid(ck))
+        o = _from_own(o, hs.q_cut, lay, ctx)
+    else:
+        qa = D.all_gather(q, ctx, "model", dim=2) if hs.q_cut else q
+        o = L.kops.flash_decode(qa[:, 0].contiguous(), ck, cv,
+                                L.cross_valid(ck))
+        if hs.q_cut:
+            o = o[:, hs.qo:hs.qo + hs.hq]
+    return row_parallel(o.reshape(Bg, 1, -1), p["wo"], hs.q_cut, ctx)
+
+
+def encode(params: Dict, specs: Dict, cfg: ArchConfig, frames: torch.Tensor,
+           ctx: DistContext, train: bool = False) -> torch.Tensor:
+    """``model.encode`` on the group rows' frames (B_g, Senc, d): per layer
+    the attention over every frame (``attention_seq``, non-causal;
+    sequence-parallel under ``train`` where the heads do not divide the
+    model axis), the GELU MLP, each after its norm and each layer's
+    leaves gathered over data where FSDP cut them; the final norm."""
+    es = specs["encoder"]
+    from repro_torch.models.model import _unbind
+    layers = _unbind(_lead_gathered(params["encoder"], es, ctx),
+                     cfg.n_encoder_layers)
+    x = frames
+    for l in range(cfg.n_encoder_layers):
+        bp = gather_tree(layers[l], es, ctx, lead=1)
+        h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+        x = x + attention_seq(bp["attn"], es["attn"], cfg.attn, h, ctx,
+                              causal=False, seq_parallel=train)
+        h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
+        x = x + gelu_mlp(bp["mlp"], es["mlp"], h, ctx)
+    return L.rmsnorm(gather_tree(params["enc_final_norm"],
+                                 specs["enc_final_norm"], ctx), x,
+                     cfg.norm_eps)
+
+
+def fill_cross(params: Dict, specs: Dict, cfg: ArchConfig, caches: Dict,
+               audio: torch.Tensor, ctx: DistContext, lay: _Layout) -> list:
+    """``model._fill_cross`` on the rank's shards: encode the group rows'
+    frames, and write each decoder layer's cross K/V into the rank's
+    shard of ``caches[CROSS]`` (own rows every head in case h, else the
+    group rows every head); position "0"'s cross weights, as the single
+    process's. Returns each layer's (K, V) of the group rows and this
+    rank's KV heads, which prefill's cross-attention reads."""
+    from repro_torch.models.model import CROSS
+    enc = encode(params, specs, cfg, audio.to(torch.bfloat16), ctx)
+    cross, ps = caches[CROSS], specs["blocks"]["0"]["cross"]
+    hs = _heads(ps, cfg.attn, ctx)
+    out = []
+    for l in range(cfg.n_superblocks()):
+        p = gather_tree(_layer_of(params["blocks"]["0"]["cross"], l), ps,
+                        ctx, lead=1)
+        k, v = cross_kv(p, ps, cfg.attn, enc, ctx)
+        for dst, t in ((cross.k[l], k), (cross.v[l], v)):
+            dst.copy_(_to_own(t, hs.kv_cut, lay, ctx) if lay.over_model
+                      else _every_kv(t, hs, ctx))
+        out.append((k, v))
+    return out
+
+
+# ---- the Mamba-2 mixer ---------------------------------------------------
+def _cols(t: torch.Tensor, ctx: DistContext) -> torch.Tensor:
+    """This rank's block of ``t``'s last dim, cut evenly over model."""
+    n = t.shape[-1] // ctx.model_size
+    return t[..., ctx.rank * n:(ctx.rank + 1) * n]
+
+
+def mamba_in(p: Dict, ps: Dict, h: torch.Tensor, ctx: DistContext
+             ) -> torch.Tensor:
+    """The whole zxBCdt on every rank of the group: ``in_proj`` cut on
+    d_model (its rows) over model, so this rank's columns of ``h`` times
+    its rows, summed over model in float32 (``row_parallel``); else
+    whole."""
+    cut = _has(_at(ps["in_proj"], -2), "model")
+    return row_parallel(_cols(h, ctx) if cut else h, p["in_proj"], cut, ctx)
+
+
+def mamba_out(p: Dict, ps: Dict, y: torch.Tensor, lay: _Layout,
+              ctx: DistContext, own: bool) -> torch.Tensor:
+    """``out_proj`` of the scan's output y (rows, S, d_inner): the own rows
+    (``own``, case h) first brought to the group rows × this rank's
+    channels by an all-to-all over model (an all-gather of the rows where
+    ``out_proj`` is whole); then row-parallel over the channels."""
+    cut = _has(_at(ps["out_proj"], -2), "model")
+    if own:
+        y = _from_own(y, cut, lay, ctx, dim=-1)
+    elif cut:
+        y = _cols(y, ctx)
+    return row_parallel(y, p["out_proj"], cut, ctx)
+
+
+def mamba_prefill(p: Dict, ps: Dict, cfg: ArchConfig, h: torch.Tensor,
+                  cache, lengths_own: torch.Tensor, ctx: DistContext,
+                  lay: _Layout) -> torch.Tensor:
+    """The chunked SSD over the group rows' prompts: the scan on the rows
+    the rank's cache holds (its own rows in case h), their final conv
+    window and state written into it."""
+    z = mamba_in(p, ps, h, ctx)
+    if lay.over_model:
+        z = z[lay.own_in_group]
+    y, new = SSM.ssd_scan(p, cfg.ssm, cfg.d_model, z, lengths=lengths_own)
+    cache.conv.copy_(new.conv)
+    cache.state.copy_(new.state)
+    return mamba_out(p, ps, y, lay, ctx, lay.over_model)
+
+
+def mamba_decode(p: Dict, ps: Dict, cfg: ArchConfig, h: torch.Tensor, cache,
+                 valid_g: Optional[torch.Tensor], ctx: DistContext,
+                 lay: _Layout) -> torch.Tensor:
+    """One token per group row: the recurrence on the rows the rank's
+    cache holds, in place; rows outside ``valid_g`` (the group's) keep
+    their state."""
+    z = mamba_in(p, ps, h[:, 0], ctx)
+    if lay.over_model:
+        z = z[lay.own_in_group]
+        valid_g = None if valid_g is None else valid_g[lay.own_in_group]
+    y = SSM.ssd_decode_scan(p, cfg.ssm, cfg.d_model, z, cache,
+                            row_valid=valid_g)
+    return mamba_out(p, ps, y[:, None], lay, ctx, lay.over_model)
+
+
+def mamba_train(p: Dict, ps: Dict, cfg: ArchConfig, h: torch.Tensor,
+                ctx: DistContext, lay: _Layout) -> torch.Tensor:
+    """The chunked SSD over the group rows' whole sequences, no cache."""
+    y, _ = SSM.ssd_scan(p, cfg.ssm, cfg.d_model, mamba_in(p, ps, h, ctx))
+    return mamba_out(p, ps, y, lay, ctx, False)
 
 
 # ---- the entry points ----------------------------------------------------
@@ -568,16 +768,23 @@ def _ffn(bp: Dict, ps: Dict, cfg: ArchConfig, x, experts, capacity, ctx,
 
 
 def _serve(params, cfg: ArchConfig, x, caches, bank, ctx, lay, *, capacity,
-           token_valid, dispatch, per_row, lengths_own=None, pos_g=None):
-    """The layer loop of ``prefill`` (``lengths_own`` given) or
-    ``decode_step`` (``pos_g``) on the group rows; ``per_row``: counts per
-    group row."""
+           token_valid, dispatch, per_row, lengths_own=None, pos_g=None,
+           cross_kv=None):
+    """The layer loop of ``prefill`` (``lengths_own`` given; ``cross_kv``:
+    each layer's cross K/V from ``fill_cross``) or ``decode_step``
+    (``pos_g``; an encoder-decoder stack reads the cross cache) on the
+    group rows, each position by its kind (attention or Mamba), then the
+    cross-attention where the block has one, then its FFN; ``per_row``:
+    counts per group row."""
+    from repro_torch.models.model import CROSS
     specs = param_specs(cfg, ctx.planner)
     sb = cfg.superblock_or_default()
+    prefill = lengths_own is not None
     counts = {str(p): [] for p in range(len(sb))
               if "moe" in params["blocks"][str(p)]}
+    cross = caches.get(CROSS)
     for l in range(cfg.n_superblocks()):
-        for pos in range(len(sb)):
+        for pos, kind in enumerate(sb):
             key = str(pos)
             ps = specs["blocks"][key]
             bp = gather_tree(_layer_of(params["blocks"][key], l), ps, ctx,
@@ -585,12 +792,27 @@ def _serve(params, cfg: ArchConfig, x, caches, bank, ctx, lay, *, capacity,
             c = caches[key]
             c = type(c)(*(t[l] for t in c))
             h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-            if lengths_own is not None:
+            if kind == "mamba" and prefill:
+                mix = mamba_prefill(bp["mamba"], ps["mamba"], cfg, h, c,
+                                    lengths_own, ctx, lay)
+            elif kind == "mamba":
+                mix = mamba_decode(bp["mamba"], ps["mamba"], cfg, h, c,
+                                   token_valid, ctx, lay)
+            elif prefill:
                 mix = attention_prefill(bp["attn"], ps["attn"], cfg.attn, h,
                                         c, lengths_own, ctx, lay)
             else:
                 mix = attention_decode(bp["attn"], ps["attn"], cfg.attn, h,
                                        pos_g, c, ctx, lay)
+            if "cross" in bp:
+                x = x + mix
+                hc = L.rmsnorm(bp["norm_cross"], x, cfg.norm_eps)
+                if prefill:
+                    mix = cross_attend(bp["cross"], ps["cross"], cfg.attn,
+                                       hc, *cross_kv[l], ctx)
+                else:
+                    mix = cross_decode(bp["cross"], ps["cross"], cfg.attn,
+                                       hc, cross.k[l], cross.v[l], ctx, lay)
             x, n, _ = _ffn(bp, ps, cfg, x + mix, _experts(bp, key, bank, l),
                            capacity, ctx, lay, token_valid, dispatch,
                            x.shape[0] if per_row else None)
@@ -606,6 +828,22 @@ def _refuse(what: str, row_capacity) -> None:
                                   f"({LATER})")
 
 
+def embed_inputs(params: Dict, specs: Dict, cfg: ArchConfig,
+                 tokens: torch.Tensor, image: Optional[torch.Tensor],
+                 ctx: DistContext, lay: _Layout) -> torch.Tensor:
+    """``model._embed_inputs`` on the group rows: the vocabulary-parallel
+    embedding of the tokens, and on a VLM stack the group rows of
+    ``image`` (B_g, n, d) ahead of them."""
+    x = embed(params, specs, tokens, ctx)
+    if image is None:
+        return x
+    if cfg.family != "vlm":
+        raise ValueError(f"{cfg.name}: image_embeds on a {cfg.family!r} "
+                         f"stack (only a VLM takes them)")
+    _rows_in(image, lay.group.stop - lay.group.start, "image_embeds")
+    return torch.cat([image.to(x.dtype), x], dim=1)
+
+
 def _last_logits(params, specs, cfg, x, ctx) -> torch.Tensor:
     logits, cut = head_logits(params, specs, cfg, x, ctx)
     return D.all_gather(logits, ctx, "model", dim=-1) if cut else logits
@@ -619,19 +857,29 @@ def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
             audio_embeds=None):
     """``model.prefill`` on this rank's shards: ``tokens`` (B_g, S) its
     group rows (``spec_for_input`` of a 2-D grid), ``lengths`` its rows of
-    the 1-D input, ``caches`` its cache shards (written in place). The
-    MoE capacity is the global batch's (``ctx.batch`` · S), cut per data
+    the 1-D input, ``caches`` its cache shards (written in place);
+    ``image_embeds`` / ``audio_embeds`` (a VLM's prefix, an
+    encoder-decoder's frames) the group rows, as ``tokens``. The MoE
+    capacity is the global batch's (``ctx.batch`` · S), cut per data
     shard. Returns (the group rows' last-token logits (B_g, V) float32,
     gathered over model; counts {pos: (nsb, E)} of the whole batch, or
     with ``per_row_counts`` (nsb, B_g, E) of the group rows)."""
     ctx = active()
-    check_family(cfg, "prefill")
     _refuse("prefill", row_capacity)
     lay = layout(ctx)
     _rows_in(tokens, lay.group.stop - lay.group.start, "tokens")
     _rows_in(lengths, lay.own.stop - lay.own.start, "lengths")
     specs = param_specs(cfg, ctx.planner)
-    x = embed(params, specs, tokens, ctx)
+    cross_kv = None
+    if cfg.is_encoder_decoder:
+        if audio_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs "
+                             f"audio_embeds (the group's rows)")
+        _rows_in(audio_embeds, lay.group.stop - lay.group.start,
+                 "audio_embeds")
+        cross_kv = fill_cross(params, specs, cfg, caches, audio_embeds, ctx,
+                              lay)
+    x = embed_inputs(params, specs, cfg, tokens, image_embeds, ctx, lay)
     Bg, S, _ = x.shape
     lengths = lengths.to(torch.int64)
     lengths_g = to_group(lengths, lay, ctx)
@@ -641,7 +889,7 @@ def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     x, counts, specs = _serve(params, cfg, x, caches, bank, ctx, lay,
                               capacity=cap, token_valid=token_valid,
                               dispatch=moe_dispatch, per_row=per_row_counts,
-                              lengths_own=lengths)
+                              lengths_own=lengths, cross_kv=cross_kv)
     last = torch.clamp(lengths_g - 1, 0, S - 1)
     x_last = x[torch.arange(Bg, device=x.device), last][:, None, :]
     return _last_logits(params, specs, cfg, x_last, ctx)[:, 0], counts
@@ -659,7 +907,6 @@ def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     data × model when the batch divides both), ``caches`` its cache
     shards. Returns (the group rows' logits (B_g, V) float32, counts)."""
     ctx = active()
-    check_family(cfg, "decode_step")
     _refuse("decode_step", row_capacity)
     lay = layout(ctx)
     _rows_in(token, lay.own.stop - lay.own.start, "token")
@@ -689,19 +936,27 @@ def forward_train(params: Dict, cfg: ArchConfig, batch: Dict,
                   capacity_factor: Optional[float] = None,
                   remat: bool = True, dispatch: str = "padded", bank=None):
     """``model.forward_train`` on this rank's shards: ``batch["tokens"]``
-    its group rows; leaves cut over data (FSDP) gathered per super-block
-    inside the checkpoint. Returns (this rank's logits (B_g, S, V_l)
+    (and "image_embeds" / "audio_embeds") its group rows; leaves cut over
+    data (FSDP) gathered per super-block inside the checkpoint (the
+    encoder's per layer, before it). Returns (this rank's logits (B_g, S, V_l)
     float32: its rows, its vocabulary columns when they are cut over
     model, see ``vocab_cut``; {"aux_loss": the whole batch's, summed over
     layers, "counts": {pos: (nsb, E)} of the whole batch})."""
     ctx = active()
-    check_family(cfg, "forward_train")
     lay = layout(ctx)
     tokens = batch["tokens"]
     _rows_in(tokens, lay.group.stop - lay.group.start, "tokens")
     specs = param_specs(cfg, ctx.planner)
-    x = embed(params, specs, tokens, ctx)
+    x = embed_inputs(params, specs, cfg, tokens,
+                     batch.get("image_embeds") if cfg.family == "vlm"
+                     else None, ctx, lay)
     Bg, S, _ = x.shape
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        audio = batch["audio_embeds"]
+        _rows_in(audio, Bg, "audio_embeds")
+        enc_out = encode(params, specs, cfg, audio.to(torch.bfloat16), ctx,
+                         train=True)
     cap = X.moe_capacity(lay.B * S, cfg.moe, capacity_factor)
     sb = cfg.superblock_or_default()
     nsb = cfg.n_superblocks()
@@ -713,12 +968,23 @@ def forward_train(params: Dict, cfg: ArchConfig, batch: Dict,
 
     def sb_body(x, aux_sum, l):
         counts = []
-        for pos in range(len(sb)):
+        for pos, kind in enumerate(sb):
             key = str(pos)
             ps = specs["blocks"][key]
             bp = gather_tree(layers[key][l], ps, ctx, lead=1)
             h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-            x = x + attention_train(bp["attn"], ps["attn"], cfg.attn, h, ctx)
+            if kind == "mamba":
+                mix = mamba_train(bp["mamba"], ps["mamba"], cfg, h, ctx, lay)
+            else:
+                mix = attention_seq(bp["attn"], ps["attn"], cfg.attn, h, ctx)
+            if enc_out is not None and kind == "attn":
+                x = x + mix
+                hc = L.rmsnorm(bp["norm_cross"], x, cfg.norm_eps)
+                k, v = cross_kv(bp["cross"], ps["cross"], cfg.attn, enc_out,
+                                ctx)
+                mix = cross_attend(bp["cross"], ps["cross"], cfg.attn, hc, k,
+                                   v, ctx)
+            x = x + mix
             x, c, a = _ffn(bp, ps, cfg, x, _experts(bp, key, bank, l), cap,
                            ctx, lay, None, dispatch)
             aux_sum = aux_sum + a
@@ -762,6 +1028,8 @@ def loss_share(params, cfg: ArchConfig, batch: Dict, tcfg):
                                 remat=tcfg.remat)
     specs = param_specs(cfg, ctx.planner)
     labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:      # a VLM's image positions
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
     lse, lab = vocab_parallel_ce(logits, vocab_cut(cfg, specs), labels, ctx)
     valid = labels >= 0
     nll = lse - torch.where(valid, lab, torch.zeros_like(lse))

@@ -120,7 +120,7 @@ def ssd_forward(params: Dict, cfg: SSMConfig, d_model: int, x: torch.Tensor,
                 init_state: Optional[torch.Tensor] = None,
                 lengths: Optional[torch.Tensor] = None):
     """Full-sequence SSD. x (B, S, d_model) → (y (B, S, d_model), the final
-    ``MambaCache``).
+    ``MambaCache``): ``in_proj``, ``ssd_scan``, ``out_proj``.
 
     ``lengths`` ((B,) integers) marks each row's true length in a
     right-padded bucket: positions at or past it get ``dt = 0``, so they
@@ -128,15 +128,28 @@ def ssd_forward(params: Dict, cfg: SSMConfig, d_model: int, x: torch.Tensor,
     after the last real token), and the conv window is gathered around
     each row's own last real input; a ``lengths == 0`` row keeps a zero
     conv window. Outputs at padded positions are garbage."""
-    B, S, _ = x.shape
+    y, cache = ssd_scan(params, cfg, d_model,
+                        bf16_matmul(x, params["in_proj"]), init_state,
+                        lengths)
+    return bf16_matmul(y, params["out_proj"]), cache
+
+
+def ssd_scan(params: Dict, cfg: SSMConfig, d_model: int,
+             zxbcdt: torch.Tensor, init_state: Optional[torch.Tensor] = None,
+             lengths: Optional[torch.Tensor] = None):
+    """``ssd_forward`` between its two projections: the in-projection's
+    output zxbcdt (B, S, in_proj_dim) → (the gated-norm output y (B, S,
+    d_inner) in zxbcdt's dtype, the final ``MambaCache``): the conv, the
+    chunked scan, ``D`` and the gated norm, which read no projection
+    weight (what a rank of a tensor-parallel group runs whole)."""
+    B, S, _ = zxbcdt.shape
     di, nh = cfg.d_inner(d_model), cfg.n_heads(d_model)
     P, N = cfg.head_dim, cfg.d_state
     Q = cfg.chunk
     if S % Q:
         raise ValueError(f"seq {S} not divisible by SSD chunk {Q}")
-    dev = x.device
-
-    zxbcdt = bf16_matmul(x, params["in_proj"])
+    dev = zxbcdt.device
+    dtype = zxbcdt.dtype
     z, xBC, dt_raw = _split_proj(zxbcdt, d_model, cfg)
 
     # Causal depthwise conv over the sequence; its cache is the last K raw
@@ -158,7 +171,7 @@ def ssd_forward(params: Dict, cfg: SSMConfig, d_model: int, x: torch.Tensor,
     # The reference's einsum over the K taps: a bf16 dot, float32 sums.
     xBC = torch.einsum("bskc,kc->bsc", windows.float(),
                        params["conv_w"].float()).to(xBC.dtype)
-    xBC = F.silu(xBC.float()).to(x.dtype)
+    xBC = F.silu(xBC.float()).to(dtype)
 
     xh, Bm, Cm = _heads(xBC, di, cfg, nh)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])            # (B,S,H)
@@ -197,24 +210,33 @@ def ssd_forward(params: Dict, cfg: SSMConfig, d_model: int, x: torch.Tensor,
                          torch.exp(Acum))
     y = (y_diag + y_off).reshape(B, S, nh, P)
     y = y + params["D"][None, None, :, None] * xh.float()
-    y = y.reshape(B, S, di).to(x.dtype)
+    y = y.reshape(B, S, di).to(dtype)
     y = _gated_rmsnorm(params["gate_norm"], y, z)
-    out = bf16_matmul(y, params["out_proj"])
-    return out, MambaCache(conv=conv_tail.to(torch.bfloat16), state=carry)
+    return y, MambaCache(conv=conv_tail.to(torch.bfloat16), state=carry)
 
 
 def ssd_decode_step(params: Dict, cfg: SSMConfig, d_model: int,
                     x: torch.Tensor, cache: MambaCache,
                     row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-token recurrence. x (B, 1, d_model) → y (B, 1, d_model); the
-    cache's ``conv`` and ``state`` are updated in place. ``row_valid``
-    (B,) bool: rows outside it keep their state (vacant rows, and rows of
-    another decode group of the same step: the reference's ``guard_ssm``
-    merge)."""
-    B = x.shape[0]
-    di, nh = cfg.d_inner(d_model), cfg.n_heads(d_model)
+    """One-token recurrence. x (B, 1, d_model) → y (B, 1, d_model):
+    ``in_proj``, ``ssd_decode_scan``, ``out_proj``; the cache's ``conv``
+    and ``state`` are updated in place. ``row_valid`` (B,) bool: rows
+    outside it keep their state (vacant rows, and rows of another decode
+    group of the same step: the reference's ``guard_ssm`` merge)."""
+    y = ssd_decode_scan(params, cfg, d_model,
+                        bf16_matmul(x[:, 0], params["in_proj"]), cache,
+                        row_valid)
+    return bf16_matmul(y, params["out_proj"])[:, None, :]
 
-    zxbcdt = bf16_matmul(x[:, 0], params["in_proj"])
+
+def ssd_decode_scan(params: Dict, cfg: SSMConfig, d_model: int,
+                    zxbcdt: torch.Tensor, cache: MambaCache,
+                    row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``ssd_decode_step`` between its two projections: zxbcdt (B,
+    in_proj_dim) → the gated-norm output y (B, d_inner); updates the
+    cache in place where ``row_valid`` holds."""
+    B = zxbcdt.shape[0]
+    di, nh = cfg.d_inner(d_model), cfg.n_heads(d_model)
     z, xBC, dt_raw = _split_proj(zxbcdt, d_model, cfg)
     conv = torch.cat([cache.conv[:, 1:], xBC[:, None, :].to(cache.conv.dtype)],
                      dim=1)
@@ -229,13 +251,12 @@ def ssd_decode_step(params: Dict, cfg: SSMConfig, d_model: int,
     state = cache.state * dA[..., None, None] + dBx
     y = torch.einsum("bhn,bhpn->bhp", Cm, state)
     y = y + params["D"][None, :, None] * xh
-    y = y.reshape(B, di).to(x.dtype)
+    y = y.reshape(B, di).to(zxbcdt.dtype)
     y = _gated_rmsnorm(params["gate_norm"], y, z)
-    out = bf16_matmul(y, params["out_proj"])[:, None, :]
     if row_valid is not None:
         keep = row_valid.reshape(B)
         conv = torch.where(keep[:, None, None], conv, cache.conv)
         state = torch.where(keep[:, None, None, None], state, cache.state)
     cache.conv.copy_(conv)
     cache.state.copy_(state)
-    return out
+    return y

@@ -11,9 +11,9 @@ the production grids and the recording mode of ``launch.dist``):
   grid, for every collective and for prefill, decode and the FSDP train
   step; a ``meta`` tensor outside the dry run raises;
 * a full-depth record allocates nothing off ``meta``;
-* the command line's lines: OK for the decoder-only attention stacks,
-  SKIP for Whisper's 500k decode, the ``NotImplementedError`` of
-  ``models.specs`` for the rest.
+* the command line's lines: OK for every family (the decoder-only
+  attention stacks, Mamba-2, Jamba, Whisper, LLaVA), SKIP for Whisper's
+  500k decode, exit code 1 on a failed cell.
 
 The reference's own dry-run test (``tests/test_distributed.py::
 test_dryrun_machinery_small_multipod_mesh``) stops before its records on
@@ -47,16 +47,19 @@ from repro_torch.launch import dryrun, shapes
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.dist import DistContext
 from repro_torch.launch.mesh import dry_context, make_production_mesh, spawn
-from repro_torch.models import specs as SP
 from repro_torch.models.model import init_params
 from torch_threads import _one_thread  # noqa: F401
 
 import torch_dryrun_worker as DW
 import torch_specs_worker as W
 
-#: The decoder-only attention stacks ``models.specs`` runs.
+#: The decoder-only attention stacks, then the families (Mamba-2's
+#: contraction-sharded mixer, the hybrid stack, the encoder-decoder and
+#: the VLM): every assigned arch.
 DECODERS = ("qwen3-moe-30b-a3b", "granite-moe-1b-a400m", "llama3_2-3b",
             "deepseek-7b", "phi4-mini-3.8b", "h2o-danube-3-4b")
+FAMILIES = ("mamba2-130m", "jamba-v0_1-52b", "whisper-tiny",
+            "llava-next-34b")
 GRIDS = ((False, (16, 16), ("data", "model")),
          (True, (2, 16, 16), ("pod", "data", "model")))
 
@@ -144,9 +147,11 @@ def _reference_bytes(arch, shape, mesh, nsb):
     rank, from its planner's specs over its ``jax.eval_shape`` trees."""
     info = jshapes.SHAPES[shape]
     cfg = jshapes.arch_for_shape(arch, shape)
-    if nsb is not None:
+    if nsb is not None:            # the reference's ``nsb_override``
         cfg = dataclasses.replace(
-            cfg, n_layers=len(cfg.superblock_or_default()) * nsb)
+            cfg, n_layers=len(cfg.superblock_or_default()) * nsb,
+            n_encoder_layers=min(cfg.n_encoder_layers, nsb)
+            if cfg.is_encoder_decoder else 0)
     train = info["kind"] == "train"
     pl = JPlanner(cfg, mesh, fsdp=train)
     B, S = info["batch"], info["seq"]
@@ -196,12 +201,14 @@ def _port_bytes(arch, shape, multi, nsb):
         return [spec.rank(r)[2] for r in (0, spec.chips - 1)]
 
 
-@pytest.mark.parametrize("arch", DECODERS)
+@pytest.mark.parametrize("arch", DECODERS + FAMILIES)
 def test_rank_bytes_match_reference_planner(arch):
-    """At 2 super-blocks, the four shapes on both grids: rank 0's and the
-    last rank's bytes of each argument equal the reference's, to the
-    byte."""
+    """At 2 super-blocks (2 encoder layers), the four shapes (Whisper's
+    three) on both grids: rank 0's and the last rank's bytes of each
+    argument equal the reference's, to the byte."""
     for shape in jshapes.SHAPES:
+        if (arch, shape) in jshapes.SKIPS:
+            continue
         for multi, shp, names in GRIDS:
             want = _reference_bytes(arch, shape, StandInMesh(shp, names), 2)
             for got in _port_bytes(arch, shape, multi, 2):
@@ -372,10 +379,10 @@ SUBSET = ("granite-moe-1b-a400m", "jamba-v0_1-52b", "mamba2-130m",
 
 
 def test_main_lines(tmp_path, monkeypatch, capsys):
-    """``--all --mesh both`` over a subset of the assigned archs at one
-    super-block: OK lines for the decoder-only stack's 4 shapes × 2 grids,
-    SKIP for Whisper × long_500k on each grid, and for every other cell
-    an error line naming ``NotImplementedError`` and ``specs.LATER``."""
+    """``--all --mesh both`` over a subset of the assigned archs (granite
+    and the four families) at one super-block: an OK line for every cell
+    but Whisper × long_500k, SKIP for it on each grid, no error line; each
+    record's rank 0 and last rank agree."""
     monkeypatch.setattr(dryrun, "ASSIGNED", SUBSET)
     monkeypatch.setattr(dryrun, "run_one",
                         functools.partial(dryrun.run_one, nsb=1))
@@ -387,28 +394,27 @@ def test_main_lines(tmp_path, monkeypatch, capsys):
     printed = capsys.readouterr().out.splitlines()
     for rec in lines:
         tag = (rec["arch"], rec["shape"])
-        if rec["arch"] == "granite-moe-1b-a400m":
-            assert "roofline" in rec and rec["ranks"] == \
-                ([0, 255] if rec["mesh"] == "16x16" else [0, 511]), tag
-        elif tag == ("whisper-tiny", "long_500k"):
+        if tag == ("whisper-tiny", "long_500k"):
             assert rec["skipped"] == shapes.SKIPS[tag]
         else:
-            assert rec["error"].startswith("NotImplementedError") and \
-                SP.LATER in rec["error"], tag
-    assert sum(x.startswith("OK ") for x in printed) == 8
+            assert "error" not in rec, (tag, rec.get("error"))
+            assert "roofline" in rec and rec["ranks"] == \
+                ([0, 255] if rec["mesh"] == "16x16" else [0, 511]), tag
+            assert rec["largest_off_meta_bytes"] <= 1 << 20, tag
+    assert sum(x.startswith("OK ") for x in printed) == 38
     assert sum(x.startswith("SKIP ") for x in printed) == 2
-    assert sum(x.startswith("FAIL ") for x in printed) == 30
-    assert printed[-1].startswith("done: 8 ok, 30 failed, 2 skipped")
+    assert sum(x.startswith("FAIL ") for x in printed) == 0
+    assert printed[-1].startswith("done: 38 ok, 0 failed, 2 skipped")
 
 
 def test_module_exits_1_on_a_failure():
     """``python -m repro_torch.launch.dryrun`` exits 1 when a cell failed
-    (as the reference's), and prints its error line."""
+    (as the reference's), and prints its error line: here an arch the
+    registry lacks."""
     src = pathlib.Path(__file__).resolve().parents[1] / "src"
     env = dict(os.environ, PYTHONPATH=str(src))
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                        "--arch", "mamba2-130m", "--shape", "decode_32k"],
+                        "--arch", "no-such-arch", "--shape", "decode_32k"],
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 1, r.stdout + r.stderr
-    assert "FAIL mamba2-130m×decode_32k×16x16: NotImplementedError" in \
-        r.stdout
+    assert "FAIL no-such-arch×decode_32k×16x16: KeyError" in r.stdout

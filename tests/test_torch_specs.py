@@ -609,20 +609,33 @@ def test_planned_context_defaults_to_the_card():
 @pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0_1-52b",
                                   "whisper-tiny", "llava-next-34b"])
 def test_families_outside_the_slice_raise(arch):
-    """Under a planner, the stacks this slice does not take raise
-    ``NotImplementedError`` naming the ROADMAP item, before any
-    collective; none runs replicated."""
+    """Under a planner every family runs the batch entry points
+    (``test_torch_specs_families``); what still raises
+    ``NotImplementedError`` naming ``specs.LATER`` (the engine over a 2-D
+    mesh), before any collective, on these four stacks as on the
+    others: the paged entry points (Whisper's too, ahead of its
+    decoder-only refusal) and the per-row drop rule (``row_capacity``)."""
+    from repro_torch.models import specs as SP
     cfg = get_config(arch, reduced=True)
     ctx = DistContext(None, 0, 2, device="cpu", planner=SH.ShardingPlanner(
         cfg, SH.GridShape({"data": 1, "model": 2}, ("data", "model"))),
         batch=2)
     toks = torch.zeros((2, 4), dtype=torch.long)
-    with dist_ctx(ctx), pytest.raises(NotImplementedError,
-                                      match="ROADMAP Queue 1 item 7"):
-        MD.forward_train({}, cfg, {"tokens": toks})
-    with dist_ctx(ctx), pytest.raises(NotImplementedError,
-                                      match="ROADMAP Queue 1 item 7"):
-        MD.prefill({}, cfg, toks, {}, torch.full((2,), 4))
+    n = torch.full((2,), 4)
+    table = torch.zeros((2, 1), dtype=torch.int32)
+    calls = {
+        "prefill_paged": lambda: MD.prefill_paged(
+            {}, cfg, toks, {}, table, torch.zeros(2, dtype=torch.long), n),
+        "decode_step_paged": lambda: MD.decode_step_paged(
+            {}, cfg, toks[:, 0], n, {}, table, n, n),
+        "prefill": lambda: MD.prefill({}, cfg, toks, {}, n, row_capacity=4),
+        "decode_step": lambda: MD.decode_step({}, cfg, toks[:, 0], n, {},
+                                              row_capacity=4)}
+    for what, call in calls.items():
+        with dist_ctx(ctx), pytest.raises(NotImplementedError) as err:
+            call()
+        assert SP.LATER in str(err.value), what
+        assert "step 4" in SP.LATER
 
 
 def test_flash_decode_lse_plain_version():
