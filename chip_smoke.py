@@ -212,7 +212,18 @@ Phases (each prints one line; any failure exits non-zero):
               with spec off and ``spec_k`` 3 on paged/ragged, graphed:
               tokens identical (or each difference explained by
               routing), each row's Mamba state rolled back to its last
-              accepted step;
+              accepted step; (d') the residency ladder's options on a
+              ring run at 2 layers (Mamba; attention with the MoE;
+              window 64): expert shards written to a temporary
+              directory (~15.5 GB), ``dynaexq`` streamed from them
+              (cold start, 10 of 16 cells lo-resident, the rest on the
+              host tier, every third lo staging and the first 4
+              promotion copies failing), one forced window, 2 requests
+              of 72-96 tokens, 8 new, on paged/ragged: promotions
+              landed and cancelled, hi served, host fetches; the same
+              from the same shards in the CPU process, fed the card's
+              tokens, with the same reads, hi sets, residency and
+              stats, held position by position (the families' rule);
    families — the dense and pure-SSM families at full width and depth
               (Llama-3.2-3B, DeepSeek-7B, Phi-4-mini, H2O-Danube3-4B,
               Mamba2-130m; seeded weights drawn on the card): 8 greedy
@@ -299,7 +310,14 @@ Phases (each prints one line; any failure exits non-zero):
               (its 576-token prefix), 8 and 2 rows, prefill and 8 decode
               steps, and the float32 FSDP train steps of Mamba2 and
               Whisper, each against one process, held bytes against
-              ``rank_bytes``;
+              ``rank_bytes``; (j) one ``InferenceEngine`` per rank of the
+              2 x 2 grid (the 30B's experts replicated over data, each
+              rank pinning only its own experts' host masters):
+              ``dynaexq`` and ``fp16`` as (a), bit-equal to one process
+              with every MoE call all-to-all over data x model, then
+              (b)'s promotions, rebalance and faults with the same bank
+              digests on both data rows; every rank's launches, expert
+              device bytes, pinned host-master bytes and host RSS;
    dryrun   — the dry run (``repro_torch.launch.dryrun``), no card: (1)
               the 30B's four shapes on the 16 x 16 production grid at
               full width and depth, each rank's share priced over meta
@@ -2475,7 +2493,7 @@ CPU_REF_READY_S = 300
 def _cpu_jobs(only) -> list:
     """The CPU process's jobs for the phases in ``only``: (key, cfg, kwargs
     of ``run_model_check``; kwargs None for the suffix prefill's check;
-    cfg None for a multimodal twin, ``MM_TWINS``)."""
+    cfg None for a twin, ``HYBRID_TWINS`` and ``MM_TWINS``)."""
     from repro_torch.configs import get_config
     jobs = []
     if "hybrid" in only:
@@ -2485,6 +2503,8 @@ def _cpu_jobs(only) -> list:
         jobs += [(key, cfg, kw) for key, cfg, _, _, kw in _model_checks()]
         jobs.append(("model prefix", dataclasses.replace(
             get_config(ARCH), n_layers=CHECK_LAYERS), None))
+    if "hybrid" in only:
+        jobs += [(key, None, None) for key in HYBRID_TWINS]
     if "multimodal" in only:
         jobs += [(key, None, None) for key in MM_TWINS]
     return jobs
@@ -2517,10 +2537,11 @@ def _cpu_child(jobs, out_dir: str, threads: int) -> None:
         os.nice(19)
         torch.set_num_threads(threads)
         cpu, card = torch.device("cpu"), torch.device("cuda")
+        twins = {**HYBRID_TWINS, **MM_TWINS}
         todo = []
         for key, cfg, kw in jobs:
-            if cfg is None:         # a twin: fed the card run's tokens
-                todo.append((key, MM_TWINS[key]()))
+            if cfg is None:         # a twin: fed the card run's inputs
+                todo.append((key, twins[key]()))
             elif kw is None:
                 todo.append((key, run_prefix_check(cfg, cpu, card,
                                                    part="ref")))
@@ -2532,7 +2553,7 @@ def _cpu_child(jobs, out_dir: str, threads: int) -> None:
         (out / "ready").touch()
         while todo:                 # each job's weights freed once it ran
             key, run = todo.pop(0)
-            kw = {"force": _cpu_input(out, key)} if key in MM_TWINS else {}
+            kw = {"force": _cpu_input(out, key)} if key in twins else {}
             t0 = time.perf_counter()
             res = run(**kw)
             del run
@@ -2929,6 +2950,8 @@ def _serve_once(cfg, device, params, prompts, name, mode, *, new_tokens,
         raise AssertionError(f"{name}: {summary['steps']} decode steps but "
                              f"{summary['replays']} graph replays")
     if name == "dynaexq":
+        summary.update({k: st[k] for k in ("host_fetches", "fault_cancels",
+                                           "retries", "lo_resident_frac")})
         summary["hi_routed"] = engine.backend.hi_routed
         summary["n_hi"] = next(iter(engine.backend.controllers.values())) \
             .policy.n_hi
@@ -5525,14 +5548,194 @@ def _hybrid_serving(card, cfg, params, pcie) -> list:
             runs["offload"], pre]
 
 
+#: (d') The residency ladder's options on a ring run of Jamba, on the card
+#: and in the CPU process from the same expert shards: the full width, its
+#: depth cut to one super-block of 2 layers (Mamba; attention with the
+#: MoE: the shards of 1 MoE layer, ~15.5 GB on disk in the reference's
+#: float32, where 8 layers' would be ~53 GB), the window to
+#: ``HYBRID_LADDER_RING``.
+HYBRID_LADDER_RING = 64
+#: 2 requests of 72-96 tokens (each wraps the ring), 8 new, 2 slots.
+HYBRID_LADDER_PROMPTS = (72, 96)
+HYBRID_LADDER_ROWS = 2
+HYBRID_LADDER_NEW = 8
+HYBRID_LADDER_MAX_LEN = 128     # 96 + 8 tokens, whole SSD chunks
+#: Hi slots, lo-resident cells of the 16 (the rest on the host tier) and
+#: experts staged per cold-start window.
+HYBRID_LADDER_N_HI = 4
+HYBRID_LADDER_LO_RESIDENT = 10
+HYBRID_LADDER_PER_TICK = 4
+#: The forced window's counts: (1 layer, 16 experts).
+HYBRID_LADDER_WARM = np.array([[40.0, 5.0, 30.0, 10.0, 25.0, 1.0, 2.0, 3.0,
+                                20.0, 4.0, 6.0, 7.0, 8.0, 9.0, 11.0, 12.0]])
+#: The ladder's stats that routing does not move.
+HYBRID_LADDER_STATS = ("retries", "fault_cancels", "quarantined",
+                       "promotions", "hi_loads", "lo_resident_frac")
+
+
+def _hybrid_ladder_plan():
+    """Every third lo staging of the cold start fails once (retried); the
+    first 4 promotion copies fail: the first promotion's 3 attempts (it
+    is cancelled and serves lo) and the second's first (retried), so that
+    the other promotions land and serve hi."""
+    from repro_torch.fault.inject import FaultPlan, FaultRule
+    return FaultPlan(seed=5, rules=(
+        FaultRule(site="stage_lo", kind="fail", every=3),
+        FaultRule(site="promo_copy", kind="fail", every=1, max_fires=4)))
+
+
+def _hybrid_ladder_cfg():
+    import dataclasses
+    full, _ = _jamba()
+    return full, dataclasses.replace(
+        full, n_layers=2, superblock=("mamba", "attn"), moe_positions=(1,),
+        attn=dataclasses.replace(full.attn,
+                                 sliding_window=HYBRID_LADDER_RING))
+
+
+def _hybrid_ladder_run(cfg, root, dev, prompts, gbps, force=None) -> dict:
+    """``dynaexq`` from the expert shards at ``root`` on ``dev``, paged/
+    ragged: the streaming cold start (``HYBRID_LADDER_PER_TICK`` experts
+    per window) to ``serving_ready``, the host tier
+    (``HYBRID_LADDER_LO_RESIDENT`` lo-resident cells, fetches priced at
+    ``gbps``) and ``_hybrid_ladder_plan``; one forced window on
+    ``HYBRID_LADDER_WARM``, flushed; then the policy frozen and
+    ``prompts`` served greedy, each position's top ``FAMILY_TOP_K`` logits
+    recorded (the prefill's too), fed ``force`` (tokens per prompt) where
+    given (``_family_margin``'s teacher forcing). On the card the counts
+    are zeroed just before the requests and read after them."""
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backends import make_backend
+    from repro_torch.serving.hoststore import FetchModel
+    from repro_torch.serving.requests import Request
+    from repro_torch.serving.streaming import load_streaming_params
+    be = make_backend(
+        "dynaexq", device=dev, lo_bits=4, group_size=64,
+        n_hi_per_layer=HYBRID_LADDER_N_HI,
+        lo_resident_total=HYBRID_LADDER_LO_RESIDENT,
+        fetch=FetchModel(gbps=gbps), fault=_hybrid_ladder_plan(),
+        stream=root, stream_experts_per_tick=HYBRID_LADDER_PER_TICK,
+        controller=ControllerConfig(update_interval_s=1e9))
+    eng = eng_mod.InferenceEngine(
+        cfg, load_streaming_params(root, device=dev), be,
+        eng_mod.EngineConfig(max_slots=HYBRID_LADDER_ROWS,
+                             max_len=HYBRID_LADDER_MAX_LEN, paged=True,
+                             moe_dispatch="ragged"), device=dev)
+    if be.serving_ready():
+        raise AssertionError("hybrid ladder: serving ready before any "
+                             "window")
+    be.flush()
+    if not be.serving_ready():
+        raise AssertionError("hybrid ladder: not ready after the flush")
+    out = {"read": dict(be.stream.stats),
+           "ready_retries": be.stats()["retries"]}
+    for ctl in be.controllers.values():
+        ctl.observe(HYBRID_LADDER_WARM)
+    be.force_update()
+    be.flush()
+    st = be.stats()
+    out.update(
+        hi_sets=be.hi_sets(),
+        lo_resident={p: s.lo_resident.copy() for p, s in be.stores.items()},
+        quarantined={p: s.quarantined.copy() for p, s in be.stores.items()},
+        window={k: st[k] for k in HYBRID_LADDER_STATS},
+        host_master_bytes=be.host_master_bytes())
+    entry, first, decode = eng_mod.prefill_paged, eng._first_token, \
+        eng._decode_one
+    forced, recs, own, pre = {}, [], {}, {}
+
+    def prefill_seen(*a, **k):
+        res = entry(*a, **k)
+        pre["logits"] = res[0]
+        return res
+
+    def emit(h, slot):
+        own[(h.id, len(h.tokens) - 1)] = h.tokens[-1]
+        if h.id in forced:
+            h.tokens[-1] = forced[h.id][len(h.tokens) - 1]
+            if eng.slots[slot] is h:
+                eng.tokens[slot] = h.tokens[-1]
+
+    def first_seen(h, slot, plen, r, *a):
+        top = pre["logits"][r].float().topk(FAMILY_TOP_K)
+        recs.append((top.values[None], top.indices[None], [(h.id, 0, 0)]))
+        first(h, slot, plen, r, *a)
+        emit(h, slot)
+
+    def decode_seen(active, finished, lo=False):
+        decode(active, finished, lo)
+        top = eng.last_logits.float().topk(FAMILY_TOP_K, dim=-1)
+        recs.append((top.values, top.indices,
+                     [(h.id, len(h.tokens) - 1, i) for i, h in active]))
+        for i, h in active:
+            emit(h, i)
+
+    eng_mod.prefill_paged = prefill_seen
+    eng._first_token, eng._decode_one = first_seen, decode_seen
+    card = dev.type == "cuda"
+    try:
+        if card:
+            torch.cuda.synchronize()
+            ops.reset_launches()                 # the path starts here
+        hs = [eng.submit(Request(tokens=p, max_new_tokens=HYBRID_LADDER_NEW))
+              for p in prompts]
+        if force is not None:
+            forced = {h.id: f for h, f in zip(hs, force)}
+        eng.drain()
+        if card:
+            torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES) if card else {}    # ... and ends here
+    finally:
+        eng_mod.prefill_paged = entry
+    if not all(len(h.tokens) == HYBRID_LADDER_NEW for h in hs):
+        raise AssertionError(f"hybrid ladder: {[len(h.tokens) for h in hs]}"
+                             f" tokens")
+    top = {}
+    for v, ids, rows in recs:
+        v, ids = v.cpu(), ids.cpu()
+        for rid, t, i in rows:
+            top[(rid, t)] = {"v": v[i].tolist(), "ids": ids[i].tolist()}
+    if not all(np.isfinite(r["v"]).all() for r in top.values()):
+        raise AssertionError("hybrid ladder: non-finite logits")
+    st = be.stats()
+    out.update(tokens=[list(h.tokens) for h in hs], ids=[h.id for h in hs],
+               own=own, top=top, launches=launches,
+               served={k: st[k] for k in HYBRID_LADDER_STATS},
+               host_fetches=st["host_fetches"], hi_routed=be.hi_routed)
+    return out
+
+
+def _hybrid_ladder_cpu(force) -> dict:
+    """The CPU half of (d'): ``_hybrid_ladder_run`` on the host from the
+    card's shards, fed the card's tokens (``force``: the shard directory,
+    the prompts, the fetch rate and the card's tokens)."""
+    _, cfg = _hybrid_ladder_cfg()
+    return _hybrid_ladder_run(cfg, force["root"], torch.device("cpu"),
+                              [torch.tensor(p) for p in force["prompts"]],
+                              force["gbps"], force=force["tokens"])
+
+
+def _twin_hybrid_ladder():
+    """The CPU process's twin of (d'): nothing to draw (its weights are
+    the shards the card writes), fed the card run's inputs."""
+    return _hybrid_ladder_cpu
+
+
+#: The hybrid phase's CPU twin the CPU process runs (``MM_TWINS``' form).
+HYBRID_TWINS = {"hybrid ladder": _twin_hybrid_ladder}
+
+
 def _hybrid_ring(card, params) -> list:
     """(d) The same 8 layers and weights with the window cut to
     ``JAMBA_RING``: 8 requests of 300-380 tokens, 32 new, served graphed by
     ``static`` on paged/ragged (a 256-slot ring of blocks) and on dense
     rows/padded (a 256-slot ring row), held to each other by routing first
-    (at least half the requests route alike, and those have equal tokens).
-    The ring against the CPU, on both layouts, is the phase's model
-    check."""
+    (at least half the requests route alike, and those have equal tokens);
+    the ring against the CPU, on both layouts, is the phase's model
+    check.
+    Returns the paged run."""
     _, cfg = _jamba(window=JAMBA_RING)
     dev = torch.device("cuda")
     prompts = serving_prompts(cfg.vocab_size, HYBRID_SLOTS,
@@ -5555,6 +5758,112 @@ def _hybrid_ring(card, params) -> list:
                   f"{same} of {len(prompts)} requests routed alike, "
                   f"their tokens equal | {card}")
     return [pg]
+
+
+def _hybrid_ladder(card, pcie):
+    """(d') The residency ladder's options on a ring run of Jamba
+    (``_hybrid_ladder_cfg``): seeded weights drawn on the card, their
+    expert shards written to a temporary directory, then
+    ``_hybrid_ladder_run`` on the card, and the same from the same shards
+    on the host (the CPU process's twin), fed the card's tokens. Returns
+    (the card's run, the function that holds the CPU's against it)."""
+    import shutil
+    import tempfile
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.streaming import save_expert_shards
+    full, cfg = _hybrid_ladder_cfg()
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=0, device=dev)
+    positions = _moe_positions(cfg)
+    need = sum(v.numel() * 4 for v in _leaves(params)) + sum(
+        v.numel() // 2 + v.numel() // 64 * 4 for p in positions
+        for v in params["blocks"][str(p)]["moe"]["experts"].values())
+    twin = _CPU_REFS is not None and "hybrid ladder" in _CPU_REFS.keys
+    root = str(_CPU_REFS.dir / "jamba_shards") if twin else \
+        tempfile.mkdtemp(prefix="jamba_shards_")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < need * LADDER_DISK_SLACK:
+        raise AssertionError(f"hybrid ladder: {root} has {free / 1e9:.1f} "
+                             f"GB free, the shards need "
+                             f"{need * LADDER_DISK_SLACK / 1e9:.1f} GB")
+    t = time.perf_counter()
+    save_expert_shards(root, _fresh(params), positions, lo_bits=4)
+    t_save = time.perf_counter() - t
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = serving_prompts(cfg.vocab_size, HYBRID_LADDER_ROWS,
+                              HYBRID_LADDER_PROMPTS, seed=7)
+    t = time.perf_counter()
+    run = _hybrid_ladder_run(cfg, root, dev, prompts, pcie)
+    t_card = time.perf_counter() - t
+    w = run["window"]
+    log("hybrid", f"ladder: {cfg.name} at full width, {cfg.n_layers} of "
+                  f"{full.n_layers} layers (Mamba; attention with the MoE), "
+                  f"window {HYBRID_LADDER_RING}; shards written in "
+                  f"{t_save:.1f} s, {_dir_bytes(root) / 1e9:.2f} GB; the "
+                  f"streaming cold start read {run['read']['bytes_read'] / 1e9:.3f} "
+                  f"GB ({run['read']['lo_reads']} lo, "
+                  f"{run['read']['hi_reads']} hi shards) before serving "
+                  f"opened; the forced window: hi sets {run['hi_sets']}, "
+                  f"{w['promotions']:.0f} promotions landed, "
+                  f"{w['fault_cancels']:.0f} cancelled after "
+                  f"{w['retries']:.0f} retries, {w['hi_loads']:.0f} hi shards "
+                  f"read, lo_resident_frac {w['lo_resident_frac']:.3f}, "
+                  f"pinned host masters {run['host_master_bytes'] / 1e9:.3f} "
+                  f"GB; {len(prompts)} requests "
+                  f"({HYBRID_LADDER_PROMPTS[0]}-{HYBRID_LADDER_PROMPTS[1]} "
+                  f"tokens, {HYBRID_LADDER_NEW} new): {run['hi_routed']} "
+                  f"routed cells served from hi, "
+                  f"{run['host_fetches']:.0f} host fetches; engine and "
+                  f"requests {t_card:.1f} s | {card}")
+    used = PATHS["paged/ragged"][2]
+    if not (w["promotions"] >= 1 and w["fault_cancels"] >= 1 and
+            w["retries"] >= 1 and w["hi_loads"] >= 1 and
+            run["read"]["hi_reads"] == 0 and run["read"]["bytes_read"] > 0
+            and run["ready_retries"] >= 1 and run["hi_routed"] >= 1 and
+            run["host_fetches"] > 0 and w["lo_resident_frac"] < 1.0 and
+            all(run["launches"][k] > 0 for k in used)):
+        raise AssertionError(f"hybrid ladder: window {w}, read "
+                             f"{run['read']}, hi_routed {run['hi_routed']}, "
+                             f"host fetches {run['host_fetches']}, launches "
+                             f"{run['launches']}")
+    inputs = {"root": root, "prompts": [p.tolist() for p in prompts],
+              "gbps": pcie, "tokens": run["tokens"]}
+    if twin:
+        _CPU_REFS.put("hybrid ladder", inputs)
+        get = functools.partial(_CPU_REFS.get, "hybrid ladder")
+    else:
+        def get():
+            return _hybrid_ladder_cpu(inputs)
+
+    def hold():
+        cpu = get()
+        shutil.rmtree(root, ignore_errors=True)
+        for k in ("read", "ready_retries", "hi_sets", "window", "served"):
+            if cpu[k] != run[k]:
+                raise AssertionError(f"hybrid ladder: {k} on the card "
+                                     f"{run[k]}, on the host {cpu[k]}")
+        for k in ("lo_resident", "quarantined"):
+            for p, v in run[k].items():
+                if not np.array_equal(v, cpu[k][p]):
+                    raise AssertionError(f"hybrid ladder: {k} of {p} "
+                                         f"differs")
+        held = _family_margin(run, cpu, "hybrid ladder, the host engine "
+                                        "fed the card's tokens")
+        log("hybrid", f"ladder: the host engine from the same shards read "
+                      f"the same bytes, published the same hi sets, "
+                      f"lo-resident and quarantined cells, with the same "
+                      f"stats; fed the card's tokens: {held['held']} of "
+                      f"{held['positions']} positions held, flips "
+                      f"{held['flips']}, median |dlogit| per request "
+                      f"{[round(m, 4) for m in held['median_dlogit']]}, "
+                      f"{held['near']} near ties | {card}")
+
+    return run, hold
 
 
 #: Draft depth of the hybrid phase's speculative decoding.
@@ -5666,9 +5975,12 @@ def phase_hybrid(card: str, parent=None):
     pcie = pinned_h2d_gbps()
     params = init_params(cfg, seed=0, device=torch.device("cuda"))
     main_runs = _hybrid_serving(card, cfg, params, pcie)
-    main_runs += _hybrid_ring(card, params)
+    ring = _hybrid_ring(card, params)
+    main_runs += ring
     main_runs += _hybrid_spec(card, cfg, params)
     del params
+    ladder, ladder_hold = _hybrid_ladder(card, pcie)
+    main_runs.append(ladder)
     t3 = time.perf_counter()
     for name in RESULTS:
         RESULTS[name]["launches"] = RESULTS[name].get("launches", 0) + sum(
@@ -5681,7 +5993,8 @@ def phase_hybrid(card: str, parent=None):
     def join():
         t = time.perf_counter()
         model_check()
-        log("hybrid", f"the model check's CPU part joined "
+        ladder_hold()
+        log("hybrid", f"the model check's and the ladder's CPU parts joined "
                       f"{time.perf_counter() - t3:.1f} s after the card part "
                       f"ended, {time.perf_counter() - t:.1f} s of it waited "
                       f"for | {card}")
@@ -7014,6 +7327,7 @@ def _ep_serve(cfg, params, prompts, name, dev, ctx=None):
         "regimes": dict(moe_mod.REGIMES), "sent": {k: dict(v) for k, v in D.SENT_BYTES.items()},
         "tpot_s": st["tpot_s"], "ttft_s": st["ttft_s"], "wall_s": wall,
         "steps": int(st["steps"]), "expert_bytes": engine.device_bytes(),
+        "host_master_bytes": engine.backend.host_master_bytes(),
         "graphed": engine.graphed}
 
 
@@ -8409,8 +8723,9 @@ def _sent_str(sent) -> str:
 def _ep_rank(ctx) -> dict:
     """One rank of the phase's world: (a) and (b) at N = 4 over every rank,
     then (a) and (c) at N = 2 over ranks 0 and 1 (a group of the world);
-    every run on this rank's experts only. Loads the kernels the build
-    phase built and builds none."""
+    then the 2 x 2 grid's (e), (f) and (j), (g), (h) and (i); every run
+    on this rank's experts only. Loads the kernels the build phase built
+    and builds none."""
     import torch.distributed as tdist
     from repro_torch.kernels import build
     from repro_torch.launch.dist import ep_context
@@ -8456,6 +8771,10 @@ def _ep_rank(ctx) -> dict:
         t1 = time.perf_counter()
         out["f"] = _grid_sp(cfg, params, row3)
         out["f_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["j"] = _grid_engine_rank(cfg, params, prompts, dataclasses.replace(
+        grid, tokens_ep_sharded=True), gen)
+    out["j_s"] = time.perf_counter() - t1
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -8548,6 +8867,138 @@ def _grid_check(ranks, single, cfg, fails, card) -> list:
     return runs
 
 
+#: (j) the engine over the 2 x 2 grid of the phase's ranks (two data rows
+#: of a 2-rank model group, the 30B's experts replicated over data): the
+#: backends it serves, each held to the one process's run.
+EP_ENGINE_RUNS = ("dynaexq", "fp16")
+
+
+def _digest(t: torch.Tensor) -> str:
+    """A digest of ``t``'s bytes (equal digests: equal bits)."""
+    import hashlib
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+    return hashlib.blake2b(b.numpy().tobytes(), digest_size=16).hexdigest()
+
+
+def _engine_state(engine) -> list:
+    """Digests of what every data row must hold alike: per MoE position
+    this rank's lo and hi leaves, slot map and owners, and the router;
+    the coordinator's placements."""
+    be = engine.backend
+    out = []
+    for pos, bank in sorted(be.banks.items()):
+        leaves = [x for q in bank.lo.values() for x in (q.packed, q.scales)]
+        leaves += list(bank.hi.values()) + [
+            bank.slot_map, bank.slot_owner,
+            engine.params["blocks"][pos]["moe"]["router"]]
+        out.append([_digest(t) for t in leaves])
+    out.append([_digest(torch.from_numpy(p.copy()))
+                for _, _, p in be.coordinator._entries])
+    return out
+
+
+def _grid_engine_rank(cfg, params, prompts, ctx, gen) -> dict:
+    """(j) on this rank of the 2 x 2 grid ``ctx`` (the all-to-all regime
+    over data x model): one ``InferenceEngine`` per backend of
+    EP_ENGINE_RUNS over the phase's requests (``_ep_serve``), this rank's
+    device and host memory after each; then on dynaexq's engine (b)'s
+    forced promotions, rebalance and ``ep_mig`` faults, and the digests
+    of the state both data rows must hold alike."""
+    out = {"coords": (ctx.data_rank, ctx.rank)}
+    for name in EP_ENGINE_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        engine, s = _ep_serve(cfg, params, prompts, name, ctx.device, ctx)
+        s["max_mem"] = torch.cuda.max_memory_allocated()
+        s["rss_gb"] = _rss_gb()
+        if name == "dynaexq":
+            b = _ep_promote_rebalance(engine, ctx, gen)
+            b["state"] = _engine_state(engine)
+            out["b"] = b
+        out[name] = s
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _grid_engine_check(ranks, single, fails, card) -> list:
+    """Hold (j) to the one process and log it: per backend every rank's
+    tokens and last logits bit-equal to it where every MoE call took the
+    all-to-all regime, the kernels of its path launched on every rank,
+    the expert device bytes alike on both data rows, each rank's pinned
+    host masters half of one process's; after dynaexq's forced
+    promotions, rebalance and ``ep_mig`` faults (b)'s checks on every
+    rank, and the same banks, routers and placements on both data rows.
+    Returns the runs' launches."""
+    runs = []
+    by = {r["j"]["coords"]: r["j"] for r in ranks}
+    for name in EP_ENGINE_RUNS:
+        want = single[name]
+        got = [by[c][name] for c in sorted(by)]
+        runs += [{"launches": g["launches"]} for g in got]
+        exact = all({k for k, v in g["regimes"].items() if v} ==
+                    {"all_to_all_dp"} for g in got)
+        same = all(g["tokens"] == want["tokens"] for g in got)
+        dl = max(float((g["logits"] - want["logits"]).abs().max())
+                 for g in got)
+        k_ok = all(g["launches"][k] > 0 for g in got
+                   for k in EP_KERNELS[name])
+        rows_ok = all(by[(1, j)][name]["expert_bytes"] ==
+                      by[(0, j)][name]["expert_bytes"] for j in (0, 1))
+        host_ok = all(2 * g["host_master_bytes"] ==
+                      want["host_master_bytes"] for g in got)
+        log("ep", f"(j) 2x2 engine {name}: {EP_REQUESTS} requests x "
+                  f"{EP_NEW} tokens on every rank (data, model) "
+                  f"{sorted(by)}; tokens {'=' if same else '!='} one "
+                  f"process, max |logit diff| last step {dl:.3g}; MoE "
+                  f"calls by regime rank 0 {got[0]['regimes']} (all "
+                  f"all_to_all_dp: {exact}); launches per rank "
+                  + "; ".join(", ".join(f"{k} {g['launches'][k]}"
+                                        for k in EP_KERNELS[name])
+                              for g in got)
+                  + f" | TPOT rank 0 {got[0]['tpot_s'] * 1e3:.2f} ms, one "
+                    f"process eager {want['tpot_s'] * 1e3:.2f} ms; expert "
+                    f"device bytes per rank "
+                    f"{[g['expert_bytes'] for g in got]}, one process "
+                    f"{want['expert_bytes']}; pinned host masters per rank "
+                    f"{[g['host_master_bytes'] for g in got]}, one process "
+                    f"{want['host_master_bytes']}; device max "
+                    f"{[round(g['max_mem'] / 1e9, 2) for g in got]} GB; "
+                    f"host RSS {[round(g['rss_gb'], 2) for g in got]} GB; "
+                    f"graphed {got[0]['graphed']} | {card}")
+        if not (exact and same and dl == 0.0 and k_ok and rows_ok and
+                host_ok):
+            fails.append(f"(j) {name}")
+    y0 = by[(0, 0)]["b"]["y"]
+    for c in sorted(by):
+        b = by[c]["b"]
+        ok = (b["promoted"] > 0 and b["shard_correct"] and b["landed"] and
+              b["migrated"] >= 1 and b["forward_diff"] <= b["forward_tol"]
+              and b["counts_permuted"] and b["fault corrupt"] and
+              b["fault fail"] and b["fault_cancel_events"] == 1 and
+              torch.equal(b["y"], y0))
+        log("ep", f"(j) rank {c}: {b['promoted']} promotions on "
+                  f"shard-correct slots {b['shard_correct']}, hi rows "
+                  f"landed {b['landed']}; {b['migrated']} migrations, the "
+                  f"layer's output max |diff| {b['forward_diff']:.3g} "
+                  f"(bound {b['forward_tol']:.3g}), bit-equal "
+                  f"{b['forward_same']}, counts permuted "
+                  f"{b['counts_permuted']}; ep_mig rolled back "
+                  f"{b['fault corrupt']} / refunded {b['fault fail']} | "
+                  f"{card}")
+        if not ok:
+            fails.append(f"(j) rank {c}")
+    alike = all(by[(1, j)]["b"]["state"] == by[(0, j)]["b"]["state"]
+                for j in (0, 1))
+    log("ep", f"(j) after promotions, rebalance and faults both data rows "
+              f"hold the same banks, slot maps, routers and placements: "
+              f"{alike}; (j) took "
+              f"{max(r['j_s'] for r in ranks):.1f} s on the ranks | {card}")
+    if not alike:
+        fails.append("(j) data rows")
+    return runs
+
+
 def phase_ep(card: str) -> None:
     """Expert parallelism on the one card: EP_WORLD ranks over gloo
     (``repro_torch.launch.mesh.spawn``), each holding E/N of the 30B's
@@ -8618,11 +9069,18 @@ def phase_ep(card: str) -> None:
                         f"one process eager {want['tpot_s'] * 1e3:.2f} ms; "
                         f"expert bytes per rank "
                         f"{[g['expert_bytes'] for g in got]}, one process "
-                        f"{want['expert_bytes']}; device max "
+                        f"{want['expert_bytes']}; pinned host masters "
+                        f"per rank {[g['host_master_bytes'] for g in got]},"
+                        f" one process {want['host_master_bytes']}; "
+                        f"device max "
                         f"{[round(g['max_mem'] / 1e9, 2) for g in got]} GB; "
                         f"host RSS {[round(g['rss_gb'], 2) for g in got]} GB;"
                         f" graphed {got[0]['graphed']} | {card}")
-            if not (same and dl == 0.0 and k_ok and regimes_ok):
+            # Each rank pins its own experts' bf16 masters: 1/N of one
+            # process's (none without dynaexq).
+            host_ok = all(n * g["host_master_bytes"] ==
+                          want["host_master_bytes"] for g in got)
+            if not (same and dl == 0.0 and k_ok and regimes_ok and host_ok):
                 fails.append(f"(a) N={n} {name}")
             if name == "dynaexq":
                 for i, g in enumerate(got):
@@ -8676,6 +9134,7 @@ def phase_ep(card: str) -> None:
     if not c_ok:
         fails.append("(c)")
     runs += _grid_check(ranks, grid_single, cfg, fails, card)
+    runs += _grid_engine_check(ranks, single, fails, card)
     runs += _plan_check([r["gh"] for r in ranks], spec_single, fails, card)
     runs += _fam_check(ranks, fam_single, fails, card)
     EP_PLAN[:] = [{k: (v if k == "coords" else

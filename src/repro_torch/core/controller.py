@@ -6,8 +6,10 @@ transition pipeline. Host-side and O(L·E), off the token critical path.
 experts across shards when traffic skews onto one shard. Under a
 distribution context every rank runs the same coordinator on the same
 (all-reduced) counts, and the one relabel step that moves data, the lo
-rows of the swapped pair, is a pairwise exchange that every rank enters
-(``launch.dist.exchange``)."""
+rows and the host masters of the swapped pair, is a pairwise exchange
+over the model axis that every rank enters (``launch.dist.exchange``;
+on a (data × model) grid each data row exchanges within its own model
+group)."""
 from __future__ import annotations
 
 import dataclasses
@@ -246,42 +248,50 @@ class EPCoordinator:
         return total
 
     # -- mechanism -------------------------------------------------------
-    def _swap_lo(self, bank: ExpertBankQ, name: str, l: int, e: int,
-                 f: int) -> int:
-        """Swap the lo rows (codes and scales) of experts ``e`` and ``f`` at
-        layer ``l`` of leaf ``name``; returns the bytes of one expert's
-        rows. Without a context both rows are here. Under one, the ranks
-        holding them exchange them pairwise in one collective that every
-        rank enters (the others with nothing to send)."""
-        qt = bank.lo[name]
-        L, n_held = qt.packed.shape[:2]
-        nbytes = (qt.packed.nbytes + qt.scales.nbytes) // (L * n_held)
+    def _swap_rows(self, leaf: torch.Tensor, E: int, l: int, e: int,
+                   f: int) -> None:
+        """Swap the rows of experts ``e`` and ``f`` at layer ``l`` of
+        ``leaf``, (L, held experts, ...): every expert's without a context,
+        both rows here. Under one, rank j holds experts ``[j·E/N,
+        (j+1)·E/N)``, and the ranks holding the two exchange them pairwise
+        in one collective over the model axis that every rank enters (the
+        others with nothing to send)."""
         if self.dist is None:
-            for leaf in (qt.packed, qt.scales):
-                swap_expert_rows(leaf, l, e, f)
-            return nbytes
-        e_per = bank.num_experts // self.n_shards
+            swap_expert_rows(leaf, l, e, f)
+            return
+        e_per = E // self.n_shards
         se, sf = e // e_per, f // e_per
         j = self.dist.rank
-        for leaf in (qt.packed, qt.scales):
-            if se == sf:                # both rows on one rank: no exchange
-                if j == se:
-                    swap_expert_rows(leaf, l, e - se * e_per, f - sf * e_per)
-                continue
-            send = [None] * self.n_shards
-            like = [None] * self.n_shards
+        if se == sf:                    # both rows on one rank: no exchange
             if j == se:
-                send[sf] = leaf[l, e - se * e_per]
-                like[sf] = send[sf]
-            elif j == sf:
-                send[se] = leaf[l, f - sf * e_per]
-                like[se] = send[se]
-            got = D.exchange(send, like, self.dist)
-            if j == se:
-                leaf[l, e - se * e_per] = got[sf]
-            elif j == sf:
-                leaf[l, f - sf * e_per] = got[se]
-        return nbytes
+                swap_expert_rows(leaf, l, e - se * e_per, f - sf * e_per)
+            return
+        send = [None] * self.n_shards
+        like = [None] * self.n_shards
+        if j == se:
+            send[sf] = leaf[l, e - se * e_per]
+            like[sf] = send[sf]
+        elif j == sf:
+            send[se] = leaf[l, f - sf * e_per]
+            like[se] = send[se]
+        got = D.exchange(send, like, self.dist)
+        if j == se:
+            leaf[l, e - se * e_per] = got[sf]
+        elif j == sf:
+            leaf[l, f - sf * e_per] = got[se]
+
+    def _swap_expert(self, bank: ExpertBankQ, host: Dict, name: str, l: int,
+                     e: int, f: int) -> int:
+        """Swap weight ``name``'s lo rows (codes and scales) and host
+        masters (``host``: name → the held (L, n, K, N) rows; empty: none)
+        of experts ``e`` and ``f`` at layer ``l``; returns the bytes of one
+        expert's lo rows (what the relabel is priced at)."""
+        qt = bank.lo[name]
+        L, n_held = qt.packed.shape[:2]
+        for leaf in (qt.packed, qt.scales) + \
+                ((host[name],) if name in host else ()):
+            self._swap_rows(leaf, bank.num_experts, l, e, f)
+        return (qt.packed.nbytes + qt.scales.nbytes) // (L * n_held)
 
     def _migrate(self, ctl: DynaExqController, moe_params: Dict,
                  placement: np.ndarray, l: int, e: int, f: int) -> bool:
@@ -319,9 +329,10 @@ class EPCoordinator:
             return False
         moved = 0
         applied = []
+        host = _held_rows(tm.host_hi)
         try:
             for i_leaf, name in enumerate(list(bank.lo)):
-                moved += self._swap_lo(bank, name, l, e, f)
+                moved += self._swap_expert(bank, host, name, l, e, f)
                 applied.append(name)
                 if fault is not None and i_leaf == 0:
                     # An injected mid-swap failure: some leaves relabeled,
@@ -334,7 +345,7 @@ class EPCoordinator:
             # for bit; the router swap comes only after every leaf landed,
             # so the forward stayed invariant throughout.
             for name in applied:
-                self._swap_lo(bank, name, l, e, f)
+                self._swap_expert(bank, host, name, l, e, f)
             tm.refund_window(relabel_bytes)
             self.stats["aborted_migrations"] += 1
             if self.tracer is not None:
@@ -343,8 +354,6 @@ class EPCoordinator:
                                     peer=f)
             return False
         swap_router_cols(moe_params["router"], l, e, f)
-        for name, arr in tm.host_hi.items():
-            arr[l, [e, f]] = arr[l, [f, e]]
         swap_masks = getattr(tm.host_hi, "swap_experts", None)
         if swap_masks is not None:      # HostExpertStore: its presence and
             swap_masks(l, e, f)         # residency masks follow too
@@ -356,3 +365,10 @@ class EPCoordinator:
             self.tracer.instant("ep_migration", cat="ep", layer=l, expert=e,
                                 peer=f, bytes=2 * moved)
         return True
+
+
+def _held_rows(host_hi) -> Dict[str, torch.Tensor]:
+    """name → the host masters a relabel swaps: a ``HostExpertStore``'s
+    held rows, or a plain mapping of (L, E, K, N) tensors."""
+    held = getattr(host_hi, "held_rows", None)
+    return held() if held is not None else dict(host_hi.items())

@@ -88,10 +88,14 @@ def _check_family(cfg: ArchConfig) -> None:
 
 def _no_specs(what: str) -> None:
     """The paged pool has no spec in the planner: its entry points run
-    without one."""
+    without one (the engine over a grid holds the pool whole on every
+    rank)."""
     if SP.active() is not None:
-        raise NotImplementedError(f"{what} under the planner's specs: the "
-                                  f"paged pool is not planned ({SP.LATER})")
+        raise NotImplementedError(
+            f"{what} under the planner's specs: the reference's planner "
+            f"has no rule for a block pool (its spec_for_cache cuts "
+            f"(nsb, B, Hkv, C, hd) caches only) and its engine never runs "
+            f"under a planner")
 
 
 def _decoder_only(cfg: ArchConfig, what: str) -> None:
@@ -351,7 +355,10 @@ def _block_step(bp: Dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
                          n_rows=n_rows if n_rows is not None or
                          row_capacity is None else B,
                          dispatch=moe_dispatch, row_capacity=row_capacity)
-    counts = aux.row_counts if n_rows is not None else aux.counts
+    # Per-row counts unavailable (a padded regime whose rows do not tile
+    # over data): the aggregated (E,) counts, as the reference's block.
+    counts = aux.row_counts if n_rows is not None and \
+        aux.row_counts is not None else aux.counts
     return x + y.reshape(B, S, d), counts
 
 

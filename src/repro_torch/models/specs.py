@@ -72,9 +72,14 @@ inputs by ``spec_for_input``. It computes only its share of the step:
   ahead of the vocabulary-parallel embedding of the text; ``lengths``
   count it, and the train loss takes no terms at its positions.
 
-Every family of the registry runs. The paged entry points and the
-per-row drop rule (``row_capacity``) raise ``NotImplementedError``
-(``LATER``: they come with the engine over a 2-D mesh).
+Every family of the registry runs, and so does the per-row drop rule
+(``row_capacity``): the MoE layers keep each group row's assignments by
+``moe._row_capacity_keep`` on the rank's group rows (the whole batch's
+rows where it does not split over data, as the reference's padded regime
+runs the rule on every row when its tokens are replicated). The paged entry
+points raise ``NotImplementedError`` (``model._no_specs``): the
+reference's planner has no rule for a block pool and its engine never
+runs under a planner.
 """
 from __future__ import annotations
 
@@ -92,9 +97,6 @@ from repro_torch.models import mlp as M
 from repro_torch.models import moe as X
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ArchConfig
-
-#: Where the paths that still raise under specs are taken up.
-LATER = "ROADMAP Queue 1 item 7 step 4 (the engine over a 2-D mesh)"
 
 
 def active() -> Optional[DistContext]:
@@ -351,22 +353,24 @@ def global_aux(router: torch.Tensor, x: torch.Tensor, cfg,
 
 def moe(p: Dict, ps: Dict, bank, x: torch.Tensor, cfg, capacity: int,
         ctx: DistContext, lay: _Layout, token_valid=None, dispatch=None,
-        n_rows: Optional[int] = None):
-    """The MoE layer on the group's tokens x (T_g, d): the model-axis
-    regimes at the per-shard capacity (``bank`` the rank's experts), the
-    shared expert tensor-parallel, counts summed over data (``n_rows``:
-    per row of the group's, (n_rows, E)), the global load-balance loss.
-    Returns (y, counts, aux_loss)."""
+        n_rows: Optional[int] = None, row_capacity: Optional[int] = None,
+        per_row: bool = False):
+    """The MoE layer on the group's tokens x (T_g, d) in ``n_rows`` group
+    rows: the model-axis regimes at the per-shard capacity (``bank`` the
+    rank's experts; ``row_capacity``: the per-row drop rule on those
+    rows), the shared expert tensor-parallel, counts summed over data
+    (``per_row``: per group row, (n_rows, E)), the global load-balance
+    loss. Returns (y, counts, aux_loss)."""
     inner = {k: v for k, v in p.items() if k != "shared"}
     with dist_ctx(_model_only(ctx)):
         y, aux = X.moe_apply(inner, bank, x, cfg, cap_local(capacity, ctx,
                                                              lay),
                              token_valid=token_valid, n_rows=n_rows,
-                             dispatch=dispatch)
+                             dispatch=dispatch, row_capacity=row_capacity)
     if "shared" in p:
         y = y + swiglu(p["shared"], ps["shared"], x, ctx)
-    counts = aux.counts.long() if n_rows is None else aux.row_counts.long()
-    if lay.split and n_rows is None:
+    counts = aux.row_counts.long() if per_row else aux.counts.long()
+    if lay.split and not per_row:
         counts = D.all_reduce(counts, ctx, axis="data")
     return y, counts.to(torch.int32), global_aux(p["router"], x, cfg,
                                                  token_valid, ctx, lay.split)
@@ -752,7 +756,7 @@ def _experts(bp: Dict, key: str, bank, l: int):
 
 
 def _ffn(bp: Dict, ps: Dict, cfg: ArchConfig, x, experts, capacity, ctx,
-         lay, token_valid, dispatch, n_rows=None):
+         lay, token_valid, dispatch, per_row=False, row_capacity=None):
     """The block's FFN after its norm: (x, counts or None, aux loss)."""
     B, S, d = x.shape
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
@@ -763,19 +767,20 @@ def _ffn(bp: Dict, ps: Dict, cfg: ArchConfig, x, experts, capacity, ctx,
         return x + swiglu(bp["mlp"], ps["mlp"], h, ctx), None, zero
     y, counts, aux = moe(bp["moe"], ps["moe"], experts, h.reshape(B * S, d),
                          cfg.moe, capacity, ctx, lay, token_valid, dispatch,
-                         n_rows)
+                         B if per_row or row_capacity is not None else None,
+                         row_capacity, per_row)
     return x + y.reshape(B, S, d), counts, aux
 
 
 def _serve(params, cfg: ArchConfig, x, caches, bank, ctx, lay, *, capacity,
-           token_valid, dispatch, per_row, lengths_own=None, pos_g=None,
-           cross_kv=None):
+           token_valid, dispatch, per_row, row_capacity=None,
+           lengths_own=None, pos_g=None, cross_kv=None):
     """The layer loop of ``prefill`` (``lengths_own`` given; ``cross_kv``:
     each layer's cross K/V from ``fill_cross``) or ``decode_step``
     (``pos_g``; an encoder-decoder stack reads the cross cache) on the
     group rows, each position by its kind (attention or Mamba), then the
     cross-attention where the block has one, then its FFN; ``per_row``:
-    counts per group row."""
+    counts per group row; ``row_capacity``: the per-row drop rule."""
     from repro_torch.models.model import CROSS
     specs = param_specs(cfg, ctx.planner)
     sb = cfg.superblock_or_default()
@@ -815,17 +820,10 @@ def _serve(params, cfg: ArchConfig, x, caches, bank, ctx, lay, *, capacity,
                                        hc, cross.k[l], cross.v[l], ctx, lay)
             x, n, _ = _ffn(bp, ps, cfg, x + mix, _experts(bp, key, bank, l),
                            capacity, ctx, lay, token_valid, dispatch,
-                           x.shape[0] if per_row else None)
+                           per_row, row_capacity)
             if n is not None:
                 counts[key].append(n)
     return x, {p: torch.stack(v) for p, v in counts.items()}, specs
-
-
-def _refuse(what: str, row_capacity) -> None:
-    if row_capacity is not None:
-        raise NotImplementedError(f"{what} under the planner's specs: the "
-                                  f"per-row drop rule is not ported "
-                                  f"({LATER})")
 
 
 def embed_inputs(params: Dict, specs: Dict, cfg: ArchConfig,
@@ -865,7 +863,6 @@ def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     gathered over model; counts {pos: (nsb, E)} of the whole batch, or
     with ``per_row_counts`` (nsb, B_g, E) of the group rows)."""
     ctx = active()
-    _refuse("prefill", row_capacity)
     lay = layout(ctx)
     _rows_in(tokens, lay.group.stop - lay.group.start, "tokens")
     _rows_in(lengths, lay.own.stop - lay.own.start, "lengths")
@@ -889,7 +886,8 @@ def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     x, counts, specs = _serve(params, cfg, x, caches, bank, ctx, lay,
                               capacity=cap, token_valid=token_valid,
                               dispatch=moe_dispatch, per_row=per_row_counts,
-                              lengths_own=lengths, cross_kv=cross_kv)
+                              row_capacity=row_capacity, lengths_own=lengths,
+                              cross_kv=cross_kv)
     last = torch.clamp(lengths_g - 1, 0, S - 1)
     x_last = x[torch.arange(Bg, device=x.device), last][:, None, :]
     return _last_logits(params, specs, cfg, x_last, ctx)[:, 0], counts
@@ -907,7 +905,6 @@ def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     data × model when the batch divides both), ``caches`` its cache
     shards. Returns (the group rows' logits (B_g, V) float32, counts)."""
     ctx = active()
-    _refuse("decode_step", row_capacity)
     lay = layout(ctx)
     _rows_in(token, lay.own.stop - lay.own.start, "token")
     specs = param_specs(cfg, ctx.planner)
@@ -921,7 +918,7 @@ def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     x, counts, specs = _serve(params, cfg, x, caches, bank, ctx, lay,
                               capacity=cap, token_valid=valid,
                               dispatch=moe_dispatch, per_row=per_row_counts,
-                              pos_g=pos)
+                              row_capacity=row_capacity, pos_g=pos)
     return _last_logits(params, specs, cfg, x, ctx)[:, 0], counts
 
 

@@ -32,11 +32,15 @@ Expert parallelism: ``materialize_banks`` reads the distribution context
 every backend keeps only this rank's experts on the device: the lo leaves
 (static, dynaexq) or the dense experts in ``params`` (fp16, offload) hold
 experts ``[j·E/N, (j+1)·E/N)``, and dynaexq's hi slots ``[j·n_hi/N,
-(j+1)·n_hi/N)``. Everything on the host (hotness, controllers, slot maps,
-host masters, the coordinator) is replicated: every rank takes the same
+(j+1)·n_hi/N)``, the same on every data rank of a (data × model) grid.
+dynaexq's pinned bf16 host masters follow the same cut: rank j holds
+only its own experts' (the union over a model group is the one copy of
+one process). Everything else on the host (hotness, controllers, slot
+maps, the coordinator) is replicated: every rank takes the same
 decisions on the same all-reduced counts, and the policy windows read
-rank 0's clock (``launch.dist.agree``). ``device_bytes()`` counts this
-rank's expert bytes.
+the grid's first rank's clock (``launch.dist.agree``).
+``device_bytes()`` counts this rank's expert bytes, ``host_master_bytes()``
+its pinned host masters.
 
 Observability, as the reference's: ``attach_obs(tracer, metrics)`` binds
 the engine's flight recorder and metrics registry (``None``: every site is
@@ -183,6 +187,11 @@ class _BackendBase:
 
     def device_bytes(self) -> int:
         raise NotImplementedError
+
+    def host_master_bytes(self) -> int:
+        """Bytes of the pinned bf16 expert masters this rank holds on the
+        host for promotions (dynaexq's; 0 for the other backends)."""
+        return 0
 
     def stats(self) -> Dict[str, float]:
         out = {k: 0.0 for k in STAT_KEYS + self.STAT_EXTRAS}
@@ -543,6 +552,8 @@ class DynaExqBackend(_BackendBase):
             self._lo_b[pos] = lo_b
             self._hi_b[pos] = hi_b
             streaming = experts is None
+            # The experts whose host masters this rank holds: its own.
+            owned = slice(0, E) if dist is None else D.shard_range(E, dist)
             if streaming:
                 bank = build_bank_empty(shapes, n_hi=self._slots(n_hi, E),
                                         lo_bits=self.lo_bits,
@@ -556,6 +567,7 @@ class DynaExqBackend(_BackendBase):
             else:
                 host = {}
                 for k, v in experts.items():
+                    v = v[:, owned]
                     if pin:
                         # One copy, straight into pinned memory (a pageable
                         # copy pinned afterwards copies twice).
@@ -563,7 +575,8 @@ class DynaExqBackend(_BackendBase):
                             v.shape, dtype=v.dtype,
                             pin_memory=True).copy_(v)
                     else:
-                        host[k] = v.to("cpu").clone()
+                        host[k] = v.to("cpu").clone(
+                            memory_format=torch.contiguous_format)
                 bank = build_bank({k: v.to(self.device)
                                    for k, v in experts.items()},
                                   n_hi=self._slots(n_hi, E),
@@ -571,7 +584,8 @@ class DynaExqBackend(_BackendBase):
                                   group_size=self.group_size,
                                   hi_bits=self.hi_bits,
                                   shard=_shard_of(dist))
-                store = HostExpertStore(shapes, hi=host, device=self.device)
+                store = HostExpertStore(shapes, hi=host, device=self.device,
+                                        owned=owned)
             self.banks[pos] = bank
             self.stores[pos] = store
             if n_hi > 0:
@@ -596,6 +610,18 @@ class DynaExqBackend(_BackendBase):
             params["blocks"][pos]["moe"]["experts"] = None
         if not self._serving_ready:
             self._build_pump_queue()
+        if dist is not None:
+            # Every rank's policy windows count from one agreed start, so
+            # that the first opens on the same step everywhere, and a
+            # staging publishes only where it completed on every rank.
+            t0 = D.agree(time.monotonic(), dist)
+            self._last_global = t0
+            for ctl in self.controllers.values():
+                ctl._last_update = t0
+            if self.coordinator is not None:
+                self.coordinator._last = t0
+            for store in self.stores.values():
+                store.dist = dist
         self._propagate_faults()
         self._propagate_obs()           # components built after attach_obs
         return self.banks
@@ -881,7 +907,8 @@ class DynaExqBackend(_BackendBase):
                 self._serving_ready = True
 
     def _global_tick(self) -> bool:
-        now = time.monotonic()
+        now = time.monotonic() if self.dist is None else \
+            D.agree(time.monotonic(), self.dist)
         # The cadence is read live from the controllers: callers freeze or
         # retune the policy by replacing ``ctl.cfg``, as the per-layer
         # ``maybe_update`` honours it.
@@ -1085,6 +1112,12 @@ class DynaExqBackend(_BackendBase):
             n_hi_res = int((owners >= 0).sum())
             total += self._lo_b[pos] * n_lo + n_hi_res * self._hi_b[pos]
         return total
+
+    def host_master_bytes(self) -> int:
+        """The bf16 hi rows this rank's host stores hold (pinned on a card):
+        every expert's in one process, its own experts' under a context;
+        a streaming store's, those loaded so far."""
+        return sum(s.pinned_bytes() for s in self.stores.values())
 
     def _residency_stats(self):
         # Every STAT_EXTRAS key gets a value, whatever the configuration.

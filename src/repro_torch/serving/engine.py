@@ -100,15 +100,17 @@ own ``SamplingParams`` (``serving.sampler``; greedy by default).
   0 KV bytes.
 * **Dense stacks** (no MoE position): every FFN is the dense SwiGLU, the
   router counts are empty, and the backends hold no expert bytes.
-* **Expert parallelism** (``dist=``, a ``launch.dist.DistContext``; one
-  engine per rank, every rank serving the same requests in the same
-  order): the backend materializes this rank's experts only, and every
-  forward (prefill, decode, the speculative decoder's) runs inside
-  ``dist_ctx``, where the MoE layers take their sharded regimes. The
-  collectives (gloo, host-staged) cannot be captured in a CUDA graph, so
-  under a context the decode steps run op by op on the card too
-  (``engine.graphed`` is False; the launcher's line says so). Every clock reading a decision
-  is taken on is rank 0's: ``_now()`` steps on one ``agree``d reading per
+* **Expert parallelism** (``dist=``, a ``launch.dist.DistContext`` of a
+  model-only group or of a (data × model) grid; one engine per rank,
+  every rank of the grid serving the same requests in the same order):
+  the backend materializes this rank's experts only (the same on every
+  data row), and every forward (prefill, decode, the speculative
+  decoder's) runs inside ``dist_ctx``, where the MoE layers take their
+  sharded regimes. The collectives (gloo, host-staged) cannot be
+  captured in a CUDA graph, so under a context the decode steps run op
+  by op on the card too (``engine.graphed`` is False; the launcher's
+  line says so). Every clock reading a decision is taken on is the
+  grid's first rank's: ``_now()`` steps on one ``agree``d reading per
   step (and per submit), as ``replay`` steps on its virtual clock, and
   the measured latencies are rank 0's.
 * **Sliding windows**: KV capacity is ``min(max_len, window)`` (a ring,
@@ -275,8 +277,8 @@ class InferenceEngine:
     """Continuous-batching serving loop over a residency backend, on
     ``device`` (``cuda`` unless ``device="cpu"`` is passed), observed by
     ``obs`` (an ``obs.Observability``; None: no recorder, no registry),
-    one rank of an expert-parallel group under ``dist`` (a
-    ``launch.dist.DistContext``; None: one device)."""
+    one rank of an expert-parallel group or (data × model) grid under
+    ``dist`` (a ``launch.dist.DistContext``; None: one device)."""
 
     def __init__(self, cfg: ArchConfig, params: Dict, backend,
                  ecfg: Optional[EngineConfig] = None, device=None,
@@ -286,11 +288,6 @@ class InferenceEngine:
                 "InferenceEngine serves decoder-only stacks; encoder-decoder "
                 "architectures go through the batch prefill/decode entry "
                 "points in repro_torch.models.model directly.")
-        if dist is not None and dist.data_size > 1:
-            raise NotImplementedError(
-                "InferenceEngine serves over a model-only expert-parallel "
-                "group; a grid with a data axis runs through the batch "
-                "prefill/decode entry points in repro_torch.models.model.")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -843,8 +840,10 @@ class InferenceEngine:
                 self.tracer.instant("admit", cat="sched", rid=h.id, slot=slot,
                                     qos=h.exec_qos)
             h.slot = slot
+            # Per-request attribution needs row-resolved counts: a padded
+            # regime whose rows do not tile over data gives only (nsb, E).
             h.expert_counts = {k: v[:, r].astype(np.int64)
-                               for k, v in counts_np.items()}
+                               for k, v in counts_np.items() if v.ndim == 3}
             self.slots[slot] = h
             self.counters["admitted"] += 1
             self.counters["prefill_tokens"] += int(lengths[r]) - start
@@ -1150,12 +1149,14 @@ class InferenceEngine:
         for r, (i, h) in enumerate(group):
             h._chunk_pos = int(lengths[r])
             self.counters["prefill_tokens"] += int(lengths[r] - starts[r])
-            sub = {k: v[:, r].astype(np.int64) for k, v in counts_np.items()}
+            sub = {k: v[:, r].astype(np.int64)
+                   for k, v in counts_np.items() if v.ndim == 3}
             if h.expert_counts is None:
                 h.expert_counts = sub
             else:
                 for k, v in sub.items():
-                    h.expert_counts[k] += v
+                    if k in h.expert_counts:
+                        h.expert_counts[k] += v
             plen = len(h.prompt())
             if h._chunk_pos < plen:
                 continue                     # more chunks to go
@@ -1353,7 +1354,8 @@ class InferenceEngine:
             h.step_times.append(latency)
             h.last_progress_s = now
             for k, v in counts_np.items():
-                h.expert_counts[k] += v[:, i]
+                if v.ndim == 3 and k in h.expert_counts:
+                    h.expert_counts[k] += v[:, i]
             self.tokens[i] = tok
             self.pos[i] += 1
             if self._done(h):
@@ -1391,7 +1393,10 @@ class InferenceEngine:
             C = moe_capacity(self.ecfg.max_slots, self.cfg.moe,
                              self.ecfg.capacity_factor)
         for v in counts_np.values():
-            per = v.sum(axis=-2).reshape(-1, E).astype(np.float64)
+            # (W, nsb, B, E) and (nsb, B, E) sum their rows; (nsb, E)
+            # aggregated counts (a padded regime's rows not tiling) as is.
+            per = (v.sum(axis=-2) if v.ndim >= 3 else v).reshape(
+                -1, E).astype(np.float64)
             routed = per.sum(axis=1)
             live = routed > 0
             if not live.any():

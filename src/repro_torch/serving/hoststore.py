@@ -10,6 +10,11 @@ allocator (``core.allocator``). This module owns everything host-side:
   classic path) or filled lazily from checkpoint shards through
   ``hi_loader`` (streaming cold start: a promotion's ``ensure_hi`` reads
   its expert's shard, so the hi and host tiers backfill in hotness order).
+  Under expert parallelism a rank's materialized rows are those of the
+  experts it owns (``owned``, its model rank's ``[j·E/N, (j+1)·E/N)``):
+  only it copies them into its slots, and the union over a model group
+  is the one host copy the reference's single controller keeps (a
+  streaming store serves one shard, and holds every expert).
   A lazy store pins each expert's rows when they load (``_LazyHiRows``):
   pinned memory is committed and page-locked when allocated, so an
   (L, E, K, N) buffer up front would hold the whole hi tier in host RAM
@@ -55,6 +60,7 @@ import torch
 from repro_torch.core.ver import ExpertBankQ, write_lo_expert, write_lo_rows
 from repro_torch.fault.inject import TransferFault
 from repro_torch.fault.retry import RetryExhausted, RetryPolicy, retry_call
+from repro_torch.launch.dist import all_true
 
 
 @dataclasses.dataclass
@@ -103,6 +109,24 @@ class _LazyHiRows:
         return self.rows[(int(layer), int(expert))]
 
 
+class _OwnedRows:
+    """One weight's materialized host hi rows: the (L, n, K, N) rows
+    ``held`` of experts ``[lo, lo + n)``, read by global expert id."""
+
+    def __init__(self, held: torch.Tensor, lo: int = 0):
+        self.held = held
+        self.lo = int(lo)
+
+    def __getitem__(self, idx) -> torch.Tensor:
+        layer, expert = idx
+        n = self.held.shape[1]
+        if not self.lo <= expert < self.lo + n:
+            raise KeyError(f"expert {expert}'s host rows are held by its "
+                           f"owner; this store holds [{self.lo}, "
+                           f"{self.lo + n})")
+        return self.held[layer, expert - self.lo]
+
+
 class HostExpertStore:
     def __init__(self, shapes: Dict[str, tuple],
                  hi: Optional[Dict[str, torch.Tensor]] = None,
@@ -110,9 +134,11 @@ class HostExpertStore:
                                               Dict[str, np.ndarray]]] = None,
                  lo_loader: Optional[Callable[[int],
                                               Dict[str, np.ndarray]]] = None,
-                 lo_valid_init: bool = True, device="cpu"):
-        """``shapes``: name → (L, E, K, N) dense shapes. ``hi``: fully
-        materialized bf16 host rows (pinned when ``device`` is a card).
+                 lo_valid_init: bool = True, device="cpu",
+                 owned: Optional[slice] = None):
+        """``shapes``: name → (L, E, K, N) dense shapes. ``hi``: the
+        materialized bf16 host rows, (L, n_owned, K, N), of the experts
+        ``owned`` (None: every expert; pinned when ``device`` is a card).
         ``hi_loader(l, e)``: lazy per-expert source (streaming), float32
         numpy rows, narrowed to bf16 and pinned one expert at a time.
         ``lo_loader(l)``: per-layer packed lo rows, keys
@@ -126,8 +152,19 @@ class HostExpertStore:
         self._cuda = self.device.type == "cuda"
         if hi is None and hi_loader is None:
             raise ValueError("need materialized hi rows or a hi_loader")
-        self.hi = hi if hi is not None else {
-            n: _LazyHiRows(s) for n, s in sorted(shapes.items())}
+        self.owned = owned if owned is not None else slice(0, self.E)
+        if hi is not None:
+            n_owned = self.owned.stop - self.owned.start
+            for n, t in hi.items():
+                if tuple(t.shape[:2]) != (self.L, n_owned):
+                    raise ValueError(f"{n}: host rows {tuple(t.shape)} for "
+                                     f"the {n_owned} owned experts of "
+                                     f"{self.L} layers")
+        self.hi = {n: _OwnedRows(t, self.owned.start) for n, t in hi.items()} \
+            if hi is not None else {
+                n: _LazyHiRows(s) for n, s in sorted(shapes.items())}
+        # The grid's book, the same on every rank: an expert's rows are
+        # present once its owner holds them.
         self.hi_present = np.full((self.L, self.E), hi is not None, bool)
         self._hi_loader = hi_loader
         self._lo_loader = lo_loader
@@ -142,6 +179,9 @@ class HostExpertStore:
         self.injector = None    # fault.inject.FaultInjector
         self.retry = RetryPolicy()
         self.tracer = None      # obs.FlightRecorder, bound by the backend
+        # launch.dist.DistContext, bound by the backend: a staging publishes
+        # once it completed on every rank of the grid.
+        self.dist = None
         self.quarantined = np.zeros((self.L, self.E), bool)
 
     # -- host_hi mapping interface (TransitionManager, EPCoordinator) -----
@@ -154,10 +194,23 @@ class HostExpertStore:
     def __setitem__(self, name: str, arr) -> None:
         self.hi[name] = arr
 
+    def held_rows(self) -> Dict[str, torch.Tensor]:
+        """name → the (L, n_owned, K, N) materialized rows this store holds
+        (what an expert-parallel relabel exchanges)."""
+        return {n: a.held for n, a in self.hi.items()}
+
+    def pinned_bytes(self) -> int:
+        """Bytes of the bf16 hi rows this store holds on the host."""
+        total = 0
+        for a in self.hi.values():
+            rows = [a.held] if isinstance(a, _OwnedRows) else a.rows.values()
+            total += sum(t.numel() * t.element_size() for t in rows)
+        return total
+
     def swap_experts(self, layer: int, e: int, f: int) -> None:
         """An expert-parallel relabel: the residency and presence masks
-        follow their expert (the hi rows swap through the mapping
-        interface)."""
+        follow their expert (the coordinator moves the hi rows between
+        their owners, ``held_rows``)."""
         for m in (self.hi_present, self.lo_valid, self.lo_resident,
                   self.quarantined):
             m[layer, [e, f]] = m[layer, [f, e]]
@@ -322,18 +375,23 @@ class HostExpertStore:
     def publish_lo(self, wait: bool = False) -> int:
         """Flip the residency masks of completed stagings (window
         boundary); ``wait`` blocks on every pending copy first. Each entry
-        is probed on ITS OWN event."""
+        is probed on ITS OWN event (under a distribution context, on every
+        rank's: an AND over the grid)."""
         if not self._staging:
             return 0
+        done = []
+        for p in self._staging:
+            if p.event is not None and wait:
+                p.event.synchronize()
+            done.append(p.event is None or wait or p.event.query())
+        if self.dist is not None:
+            done = all_true(done, self.dist)
         still: List[_PendingLo] = []
         published = 0
-        for p in self._staging:
-            if p.event is not None:
-                if wait:
-                    p.event.synchronize()
-                elif not p.event.query():
-                    still.append(p)
-                    continue
+        for p, ok in zip(self._staging, done):
+            if not ok:
+                still.append(p)
+                continue
             self.lo_valid[p.layer, p.experts] = True
             self.lo_resident[p.layer, p.experts[p.resident]] = True
             # Healing: real rows just landed for these cells.

@@ -525,9 +525,10 @@ class SpecDecoder:
             # the tokens it emitted for this row.
             h.step_times.extend([latency / max(1, kept)] * kept)
             for kk, v in counts_np.items():
-                h.expert_counts[kk] += (v[:, :, i].astype(np.int64) *
-                                        accept_mask[:, i][:, None, None]
-                                        ).sum(axis=0)
+                if v.ndim == 4 and kk in h.expert_counts:
+                    h.expert_counts[kk] += (v[:, :, i].astype(np.int64) *
+                                            accept_mask[:, i][:, None, None]
+                                            ).sum(axis=0)
             d = int(depth[i])
             if d:
                 # Row-local acceptance EMA → row-local draft depth.

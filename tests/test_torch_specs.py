@@ -606,17 +606,73 @@ def test_planned_context_defaults_to_the_card():
         MD.init_params(cfg, device="meta"), "param", pl, SH.grid_of(ctx))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0_1-52b",
-                                  "whisper-tiny", "llava-next-34b"])
-def test_families_outside_the_slice_raise(arch):
-    """Under a planner every family runs the batch entry points
-    (``test_torch_specs_families``); what still raises
-    ``NotImplementedError`` naming ``specs.LATER`` (the engine over a 2-D
-    mesh), before any collective, on these four stacks as on the
-    others: the paged entry points (Whisper's too, ahead of its
-    decoder-only refusal) and the per-row drop rule (``row_capacity``)."""
-    from repro_torch.models import specs as SP
-    cfg = get_config(arch, reduced=True)
+RULE_ARCHS = ["mamba2-130m", "jamba-v0_1-52b", "whisper-tiny",
+              "llava-next-34b"]
+
+
+@pytest.fixture(scope="module")
+def rule_grid(tmp_path_factory):
+    """A 2 × 1 grid serving each of ``RULE_ARCHS`` with ``row_capacity``
+    on 3 rows, which do not split over data."""
+    import torch_families_worker as FW
+    return spawn(FW.rule_world, 1, "cpu", RULE_ARCHS, n_data=2, threads=1,
+                 tmpdir=str(tmp_path_factory.mktemp("rule_grid")))
+
+
+class _ReachedShardMap(Exception):
+    """The reference's sharded layer got past its row rule."""
+
+
+def _reference_row_rule(monkeypatch, arch, B, S, dp):
+    """The reference's decision for ``row_capacity`` on ``B`` rows of ``S``
+    tokens on a ``dp`` × 1 grid under the planner's context (tokens split
+    over data where the batch divides, ``launch/shapes.py``): its
+    ``_moe_apply_sharded`` raises its row rule's ``ValueError`` (returned
+    here), or goes on to its ``shard_map`` (None)."""
+    import types
+    from repro.launch.dist import DistContext as JDistContext
+    from repro.models import moe as jmoe
+
+    def shard_map(f, mesh=None, in_specs=None, out_specs=None,
+                  check_vma=True):
+        raise _ReachedShardMap
+
+    jcfg = jget_config(arch, reduced=True)
+    E, d = jcfg.moe.num_experts, jcfg.d_model
+    stub = types.SimpleNamespace(shape={"data": dp, "model": 1})
+    jctx = JDistContext(mesh=stub, dp_axes=("data",),
+                        tokens_dp_sharded=B % dp == 0)
+    monkeypatch.setattr(jax, "shard_map", shard_map, raising=False)
+    try:
+        jmoe._moe_apply_sharded(
+            {"router": jnp.zeros((d, E), jnp.float32)}, {},
+            jnp.zeros((B * S, d), jnp.bfloat16), jcfg.moe,
+            jmoe.moe_capacity(B * S, jcfg.moe), jctx, n_rows=B,
+            row_capacity=1, dispatch="padded")
+    except _ReachedShardMap:
+        return None
+    except ValueError as err:
+        return str(err)
+    raise AssertionError("the reference's layer neither raised nor reached "
+                         "its shard_map")
+
+
+@pytest.mark.parametrize("arch", RULE_ARCHS)
+def test_families_outside_the_slice_raise(arch, rule_grid, monkeypatch):
+    """Under a planner the paged entry points raise
+    ``NotImplementedError`` before any collective, naming the reason (the
+    reference's planner has no rule for a block pool, and its engine
+    never runs under a planner), on these four stacks as on the others
+    (Whisper's ahead of its decoder-only refusal). The per-row drop rule
+    runs: on a 1 × 1 grid ``prefill`` and ``decode_step`` with
+    ``row_capacity`` 1 give one process's counts exactly and its logits
+    within ``SPEC_TOL`` (on Jamba the rule drops: its logits part from a
+    run without it); so do 3 rows on a 2 × 1 grid, which do not split
+    over data, so that every rank runs the rule on every row, as the
+    reference's padded regime does there (its sharded layer goes past
+    its row rule for those rows; on 4 rows, which split, too)."""
+    import torch_families_worker as FW
+    cfg = FW.rule_cfg(arch)
     ctx = DistContext(None, 0, 2, device="cpu", planner=SH.ShardingPlanner(
         cfg, SH.GridShape({"data": 1, "model": 2}, ("data", "model"))),
         batch=2)
@@ -627,15 +683,32 @@ def test_families_outside_the_slice_raise(arch):
         "prefill_paged": lambda: MD.prefill_paged(
             {}, cfg, toks, {}, table, torch.zeros(2, dtype=torch.long), n),
         "decode_step_paged": lambda: MD.decode_step_paged(
-            {}, cfg, toks[:, 0], n, {}, table, n, n),
-        "prefill": lambda: MD.prefill({}, cfg, toks, {}, n, row_capacity=4),
-        "decode_step": lambda: MD.decode_step({}, cfg, toks[:, 0], n, {},
-                                              row_capacity=4)}
+            {}, cfg, toks[:, 0], n, {}, table, n, n)}
     for what, call in calls.items():
         with dist_ctx(ctx), pytest.raises(NotImplementedError) as err:
             call()
-        assert SP.LATER in str(err.value), what
-        assert "step 4" in SP.LATER
+        assert "no rule for a block pool" in str(err.value), what
+        assert "never runs under a planner" in str(err.value), what
+    one_grid = DistContext(None, 0, 1, device="cpu")
+    runs = [(FW.rule_serve(arch, None, 2), [FW.rule_serve(arch, one_grid,
+                                                          2)])]
+    runs.append((FW.rule_serve(arch, None, FW.ODD_B),
+                 [r[arch] for r in rule_grid]))
+    for one, got_all in runs:
+        for got in got_all:
+            assert got["group"] == slice(0, one["prefill"].shape[0])
+            for a, b in zip(got["counts"], one["counts"]):
+                for k in b:
+                    assert torch.equal(a[k], b[k]), k
+            for a, b in zip([got["prefill"]] + got["decode"],
+                            [one["prefill"]] + one["decode"]):
+                assert float((a - b).abs().max()) <= SPEC_TOL * float(
+                    b.abs().max())
+    if cfg.is_moe:
+        free = FW.rule_serve(arch, None, 2, row_capacity=None)
+        assert not torch.equal(free["prefill"], runs[0][0]["prefill"])
+        for B in (FW.ODD_B, 4):
+            assert _reference_row_rule(monkeypatch, arch, B, 16, 2) is None
 
 
 def test_flash_decode_lse_plain_version():

@@ -9,8 +9,11 @@ under pytest. The children import torch and the port only (no JAX).
 The world is a 2 × 2 (data × model) grid; ranks 0-2 also form a 1 × 3
 grid (``grid_context(..., ranks=[0, 1, 2])``, which rank 3 enters too).
 Every function reads its device from its arguments."""
+import dataclasses
+
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import tree as T
 from repro_torch.launch import dist as D
 from repro_torch.launch import sharding as SH
@@ -18,7 +21,8 @@ from repro_torch.launch.dist import dist_ctx
 from repro_torch.launch.mesh import grid_context
 from repro_torch.models import moe as M
 from repro_torch.models import specs as SP
-from repro_torch.models.model import decode_step, init_caches, prefill
+from repro_torch.models.model import (decode_step, init_caches,
+                                      init_params, prefill)
 from repro_torch.training.adamw import adamw_init
 from repro_torch.training.train import TrainConfig, _grads, make_train_step
 
@@ -38,12 +42,13 @@ def _float(caches):
 
 
 def serve(cfg, params, bank, data, ctx, max_len, steps=STEPS,
-          dispatch="padded", ep=False):
+          dispatch="padded", ep=False, row_capacity=None):
     """Prefill ``data["tokens"][:, :-steps]`` (B rows; a VLM's
     ``image_embeds`` ahead of them, an encoder-decoder's
     ``audio_embeds`` encoded) into dense rows of ``max_len``, then
     ``steps`` teacher-forced decode steps, under ``ctx`` with the planner
-    (None: one device), per-row counts. Float32 params run on float32
+    (None: one device), per-row counts (``row_capacity``: the per-row
+    drop rule in every MoE layer). Float32 params run on float32
     caches. Returns the logits (this rank's group rows), counts, the
     prefill's tokens per row, the group rows' slice, bytes held against
     ``rank_bytes`` by kind, the MoE regimes, and the bytes each
@@ -82,7 +87,7 @@ def serve(cfg, params, bank, data, ctx, max_len, steps=STEPS,
         lg, counts = prefill(params, cfg, inputs["tokens"], caches,
                              inputs["lengths"], bank=bank,
                              capacity_factor=CF, moe_dispatch=dispatch,
-                             per_row_counts=True,
+                             per_row_counts=True, row_capacity=row_capacity,
                              image_embeds=inputs.get("image_embeds"),
                              audio_embeds=inputs.get("audio_embeds"))
         out["sent"]["prefill"] = DW.sent()
@@ -92,7 +97,8 @@ def serve(cfg, params, bank, data, ctx, max_len, steps=STEPS,
             lg, counts = decode_step(params, cfg, st["token"], st["pos"],
                                      caches, bank=bank, capacity_factor=CF,
                                      moe_dispatch=dispatch,
-                                     per_row_counts=True)
+                                     per_row_counts=True,
+                                     row_capacity=row_capacity)
             if t == 0:
                 out["sent"]["decode"] = DW.sent()
             out["decode"].append(lg)
@@ -137,6 +143,50 @@ def train(cfg, params, batch, ctx):
 
 
 RUN = {"serve": serve, "train": train}
+
+#: Rows of the per-row rule's batch that does not split over 2 data ranks.
+ODD_B = 3
+
+
+def rule_cfg(arch):
+    """A reduced ``arch`` for the per-row rule's runs (Whisper's encoder
+    at 16 frames)."""
+    cfg = get_config(arch, reduced=True)
+    if cfg.is_encoder_decoder:
+        cfg = dataclasses.replace(cfg, encoder_seq=16)
+    return cfg
+
+
+def rule_data(cfg, B):
+    """``B`` rows of 20 tokens (with a VLM's image prefix, an
+    encoder-decoder's frames), drawn from seed 5."""
+    g = torch.Generator().manual_seed(5)
+    data = {"tokens": torch.randint(1, cfg.vocab_size, (B, 20),
+                                    generator=g)}
+    if cfg.family == "vlm":
+        data["image_embeds"] = torch.randn((B, 4, cfg.d_model),
+                                           generator=g).bfloat16()
+    if cfg.is_encoder_decoder:
+        data["audio_embeds"] = torch.randn((B, 16, cfg.d_model),
+                                           generator=g).bfloat16()
+    return data
+
+
+def rule_serve(arch, ctx, B, row_capacity=1):
+    """``serve`` of ``rule_cfg(arch)`` (params from seed 5) on
+    ``rule_data`` with ``row_capacity`` under ``ctx`` (None: one
+    process)."""
+    cfg = rule_cfg(arch)
+    params = init_params(cfg, seed=5, device="cpu")
+    return serve(cfg, params, None, rule_data(cfg, B), ctx, 48,
+                 row_capacity=row_capacity)
+
+
+def rule_world(ctx, archs):
+    """One rank of a 2 × 1 grid: ``rule_serve`` of each of ``archs`` on
+    ``ODD_B`` rows, which do not split over data."""
+    return {"coords": (ctx.data_rank, ctx.rank),
+            **{a: rule_serve(a, ctx, ODD_B) for a in archs}}
 
 
 def world(ctx, setup):
